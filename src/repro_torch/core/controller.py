@@ -1,0 +1,132 @@
+"""Interval controller — the paper's §III.G loop, host-side.
+
+Step-time telemetry (``runtime.fault_tolerance``) estimates C_j(τ),
+KV-cache growth gives m_i(τ), and the network model gives R_{j,k};
+Algorithm 1's placement becomes one head permutation per layer
+(``placement_bridge``), which the serving engine applies to the cache and
+the weights between decode steps — in the λ-interval slack, exactly where
+the paper schedules migrations.
+
+Copy of the JAX package's ``core/controller.py`` for the dense path: the
+``"rescoring"`` search (Algorithm 1, refine, payback filter).  Plans are
+identical to the reference controller's on the same network and cost
+model.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from repro_torch.core.algorithm import ResourceAwareAssigner
+from repro_torch.core.blocks import Block, CostModel, make_blocks
+from repro_torch.core.delay import (migration_delay, pipelined_inference_delay,
+                                    revert_unpaying_migrations)
+from repro_torch.core.network import DeviceNetwork
+from repro_torch.core.placement_bridge import (migration_pairs_layers,
+                                               placement_to_perms)
+
+SEARCH_MODES = ("rescoring", "bottleneck")
+
+
+@dataclasses.dataclass
+class ControllerConfig:
+    lam: int = 32                 # tokens per interval (λ)
+    deadline: float = 0.2         # per-token latency budget (scoring)
+    min_gain: float = 0.0         # extra migration-filter margin
+    heads_per_slot: int = 2
+    # KV-group size (GQA: Hp // KvE query heads per KV head).  > 1 makes
+    # every emitted permutation group-consistent, so grouped caches/weights
+    # can physically migrate (placement_bridge.kv_group_perms).
+    group_size: int = 1
+    # decode tokens in flight across layer-disjoint stages (the objective
+    # of the migration filter is D_pipe(K) + D_mig; k=1 is total delay)
+    pipeline_k: int = 1
+    search: str = "rescoring"
+
+
+class IntervalController:
+    """Runs Algorithm 1 every λ generated tokens and emits migration plans."""
+
+    def __init__(self, n_heads: int, cost: CostModel, net: DeviceNetwork,
+                 cfg: ControllerConfig = ControllerConfig()):
+        if cfg.search not in SEARCH_MODES:
+            raise ValueError(f"ControllerConfig.search must be one of "
+                             f"{SEARCH_MODES}, got {cfg.search!r}")
+        if cfg.search == "bottleneck":
+            raise NotImplementedError(
+                "search='bottleneck' needs the port of core/baselines.py "
+                "(ROADMAP Queue 1 #8)")
+        if cost.n_experts >= 2:
+            raise NotImplementedError(
+                "per-expert MoE blocks are not ported yet "
+                "(ROADMAP Queue 1 #11)")
+        self.n_layers = cost.n_layers if cost.layer_mode == "graph" else 1
+        self.blocks: List[Block] = make_blocks(n_heads, self.n_layers)
+        self.cost = cost
+        self.net = net
+        self.cfg = cfg
+        # the feasibility budget is the WHOLE interval: λ tokens at the
+        # per-token deadline
+        self.assigner = ResourceAwareAssigner(self.blocks, cost,
+                                              deadline=cfg.deadline * cfg.lam)
+        self.place: Optional[np.ndarray] = None
+        self.perms: Optional[np.ndarray] = None   # (n_layers, slots·hps)
+        self.tau = 0
+
+    def head_counts(self) -> np.ndarray:
+        """Heads per device in the current placement, summed over
+        layers."""
+        heads = [b.index for b in self.blocks if b.kind == "head"]
+        return np.bincount(np.asarray(self.place)[heads],
+                           minlength=self.net.n_devices)
+
+    # ------------------------------------------------------------ observe
+    def observe_monitor(self, monitor, peak_flops):
+        """Per-slot step-time EWMAs from a ``HeartbeatMonitor`` become the
+        C_j(τ) estimates Algorithm 1 reads (slot j is device j); an
+        inactive device observes zero whatever its telemetry says."""
+        obs = np.asarray(monitor.availability(peak_flops), float)
+        self.net.compute_avail = np.where(self.net.active, obs, 0.0)
+
+    # ------------------------------------------------------------- decide
+    def step_interval(self, tau: Optional[int] = None,
+                      arrival_rate: Optional[float] = None,
+                      queue_depth: Optional[int] = None) -> dict:
+        """One controller interval: assign, diff, plan migrations.
+
+        ``tau`` anchors the cost model to the actual decode stream (the
+        engine passes the mean slot occupancy); ``arrival_rate`` and
+        ``queue_depth`` are the engine's observed load, recorded into the
+        plan."""
+        self.tau = max(1, int(tau)) if tau is not None else self.tau + 1
+        prev = self.place
+        k = self.cfg.pipeline_k
+        place, stats = self.assigner.assign(self.net, self.tau, prev)
+        if place is None:
+            place = prev if prev is not None else \
+                np.zeros(len(self.blocks), dtype=int)
+        # objective filter: keep migrations only if they pay (§III.G)
+        place = revert_unpaying_migrations(prev, place, self.blocks,
+                                           self.cost, self.net, self.tau,
+                                           k=k, min_gain=self.cfg.min_gain)
+        new_perms = placement_to_perms(place, self.blocks, self.net.n_devices,
+                                       self.cfg.heads_per_slot,
+                                       self.cfg.group_size)
+        pairs = [] if self.perms is None else \
+            migration_pairs_layers(self.perms, new_perms,
+                                   self.cfg.heads_per_slot)
+        d_mig = migration_delay(prev, place, self.blocks, self.cost,
+                                self.net, self.tau)
+        plan = {"tau": self.tau, "place": place,
+                "perms": new_perms, "prev_perms": self.perms,
+                "migrations": pairs,
+                "d_mig_est": d_mig,
+                "d_pipe_est": pipelined_inference_delay(
+                    place, self.blocks, self.cost, self.net, self.tau, k=k),
+                "arrival_rate": arrival_rate,
+                "queue_depth": queue_depth,
+                "infeasible": stats.infeasible}
+        self.place, self.perms = place, new_perms
+        return plan

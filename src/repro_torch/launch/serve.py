@@ -1,0 +1,113 @@
+"""Serving CLI: batched requests through the port's ServingEngine with
+the paper's interval controller (Algorithm 1 + migrations) in the loop —
+counterpart of the JAX package's ``launch/serve.py``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --layers 4 --requests 8 --tokens 24 --use-kernel [--straggler 0]
+
+Runs on the GPU unless ``--device cpu`` is given (``--reduced`` shrinks
+the widths to a CPU-sized model).  The reference's ``--engine``,
+``--kv-quant``, ``--pipeline-k``, ``--search`` and ``--paged`` are not
+ported yet and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.serving.engine import ServingEngine
+
+# reference flags this slice does not serve yet, with their ROADMAP items
+_NOT_PORTED = {"--engine": 12, "--kv-quant": 7, "--pipeline-k": 8,
+               "--search": 8, "--paged": 6, "--page-size": 6}
+
+
+def reduced_for_cpu(cfg, d_model: int = 256):
+    """CPU-sized widths of the dense family (the reference's
+    ``launch.train.reduced_for_cpu``)."""
+    return cfg.with_overrides(
+        d_model=d_model, d_ff=d_model * 4, vocab_size=4096, n_heads=8,
+        n_kv_heads=min(8, cfg.n_kv_heads or 8), d_head=d_model // 8,
+        dtype="float32", param_dtype="float32")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="CPU-sized widths (d_model 256, 8 heads, f32)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (widths unchanged)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=24)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--lam", type=int, default=8,
+                    help="controller interval (decode steps)")
+    ap.add_argument("--straggler", type=int, default=-1,
+                    help="inject a 20x slowdown on this simulated device")
+    ap.add_argument("--mixed-lengths", action="store_true",
+                    help="vary prompt lengths per request")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="decode through the placement-driven flash-decode "
+                         "kernel (its plain version on the CPU); greedy "
+                         "streams must match the plain path")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args, rest = ap.parse_known_args(argv)
+    for flag in rest:
+        name = flag.split("=", 1)[0]
+        if name in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{name} is not ported to repro_torch yet (ROADMAP Queue 1 "
+                f"#{_NOT_PORTED[name]})")
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_for_cpu(cfg)
+    if args.layers:
+        cfg = cfg.with_overrides(n_layers=args.layers)
+    eng = ServingEngine(cfg, n_slots=args.slots,
+                        max_seq=args.prompt_len + args.tokens + 8,
+                        lam=args.lam, use_kernel=args.use_kernel,
+                        device=args.device)
+    print(f"[serve] engine: {type(eng).__name__} on {eng.device}, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}")
+    if args.straggler >= 0:
+        eng.net.inject_straggler(args.straggler, slowdown=20.0)
+        print(f"[serve] injected straggler on device {args.straggler}")
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    for _ in range(args.requests):
+        if args.mixed_lengths:
+            plen = int(rng.integers(max(2, args.prompt_len // 2),
+                                    args.prompt_len + 1))
+        else:
+            plen = args.prompt_len
+        eng.submit(rng.integers(0, cfg.vocab_size, size=plen),
+                   max_new_tokens=args.tokens)
+    done = eng.run()
+    wall = time.time() - t0
+    total_toks = sum(len(r.out_tokens) for r in done)
+    print(f"[serve] {len(done)} requests, {total_toks} tokens in "
+          f"{wall:.1f}s ({total_toks / wall:.1f} tok/s)")
+    migr = sum(m["n_migrations"] for m in eng.migration_log)
+    print(f"[serve] controller intervals={len(eng.migration_log)} "
+          f"head-migrations={migr}")
+    if eng.decode_steps:
+        util = eng.slot_busy_steps / (eng.decode_steps * eng.n_slots)
+        print(f"[serve] slot utilization {util:.0%}, prefill buckets "
+              f"{sorted(eng.prefill_buckets_used)}")
+    for r in done[:3]:
+        print(f"  req {r.rid}: ttft={r.t_first - r.t_submit:.2f}s "
+              f"total={r.t_done - r.t_submit:.2f}s "
+              f"tokens={r.out_tokens[:8]}...")
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,35 @@
+"""Model API: ``build_model(cfg, use_kernel=..., device=...)`` — counterpart
+of the JAX package's ``models/api.py`` for the dense family.
+
+The returned model exposes ``init(generator)``, ``forward``, and the
+continuous-batching slot API: ``init_decode_state(..., per_slot=True)``,
+``prefill_bucketed``, ``insert_slot`` and ``decode_step``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import unsupported
+from repro_torch.models.transformer import TransformerLM
+
+_FAMILY_ITEMS = {"moe": 11, "vlm": 13, "ssm": 14, "hybrid": 14, "audio": 17}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the GPU, and raises where none is present; pass
+    ``"cpu"`` to run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is present; pass "
+                               "device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None):
+    if cfg.family != "dense":
+        unsupported(f"the {cfg.family!r} family",
+                    _FAMILY_ITEMS.get(cfg.family, 17))
+    return TransformerLM(cfg, use_kernel=use_kernel,
+                         device=resolve_device(device))

@@ -1,0 +1,266 @@
+"""Dense-decoder layers: RMSNorm, RoPE, GQA attention with a per-slot KV
+cache, SwiGLU MLP, embeddings — counterpart of the JAX package's
+``models/layers.py``, for the branches the dense llama family takes.
+
+Functions take plain tensors and nested dicts of parameters in the
+reference's layouts (``wq`` (D,Hp,dh), ``wk``/``wv`` (D,Kp,dh), ``wo``
+(Hp,dh,D)).  Caches are updated in place.  Branches of other families
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+
+def unsupported(what: str, item: int):
+    raise NotImplementedError(f"{what} is not ported to repro_torch yet "
+                              f"(ROADMAP Queue 1 #{item})")
+
+
+# ---------------------------------------------------------------------------
+# Derived head dims
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadDims:
+    H: int      # logical query heads
+    K: int      # logical kv heads
+    Hp: int     # padded query heads
+    Kp: int     # zero-padded kv heads (before repeat)
+    rep: int    # activation repeat factor
+    KvE: int    # expanded kv heads stored in the cache = Kp * rep
+    dh: int
+
+
+def head_dims(cfg: ModelConfig, tp: int = 1) -> HeadDims:
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if H == 0:
+        return HeadDims(0, 0, 0, 0, 1, 0, dh)
+    Hp = -(-H // tp) * tp
+    if K >= tp:
+        Kp = -(-K // tp) * tp
+        rep = 1
+    else:
+        Kp = K
+        rep = tp // K if tp % K == 0 else tp
+    KvE = Kp * rep
+    if Hp % KvE:
+        raise ValueError(f"GQA layout mismatch H={H} K={K} tp={tp}")
+    return HeadDims(H, K, Hp, Kp, rep, KvE, dh)
+
+
+# ---------------------------------------------------------------------------
+# Initializers (the reference's scales; random bits come from torch)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, shape, dtype,
+               device) -> torch.Tensor:
+    return normal_init(gen, shape, 1.0 / math.sqrt(d_in), dtype, device)
+
+
+def normal_init(gen: torch.Generator, shape, scale: float, dtype,
+                device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms and RoPE
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps: float):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, p: dict, name: str, x):
+    if cfg.norm_type != "rmsnorm":
+        unsupported(f"norm_type={cfg.norm_type!r}", 17)
+    return rms_norm(x, p[name], cfg.norm_eps)
+
+
+def apply_rope(x, positions, theta: float, fraction: float = 1.0):
+    """x: (B, S, n_heads, dh); positions: (B, S) int. Rotates the whole
+    head dim (llama's ``rope_fraction == 1``)."""
+    dh = x.shape[-1]
+    if int(dh * fraction) != dh:
+        unsupported("partial RoPE (rope_fraction < 1)", 17)
+    freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                          device=x.device) / dh))
+    ang = positions[..., None].float() * freqs              # (B, S, dh/2)
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    xr = x.float()
+    x1, x2 = xr[..., : dh // 2], xr[..., dh // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, causal, per-slot linear cache)
+# ---------------------------------------------------------------------------
+
+
+def qkv_project(cfg: ModelConfig, p: dict, hd: HeadDims, x, positions):
+    """Returns q (B,S,Hp,dh) and k, v (B,S,KvE,dh)."""
+    if cfg.qkv_bias:
+        unsupported("qkv_bias", 17)
+    if hd.rep > 1:
+        unsupported("replicated KV heads (rep > 1)", 17)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, v
+
+
+def attention_scores(q, k, v, mask):
+    """q: (B,S,Hp,dh), k/v: (B,T,KvE,dh), mask: broadcastable to
+    (B,1,1,S,T) or None. Returns (B,S,Hp,dh). Scores and softmax in f32."""
+    B, S, Hp, dh = q.shape
+    KvE = k.shape[2]
+    qg = q.reshape(B, S, KvE, Hp // KvE, dh)
+    scores = torch.einsum("bsegd,bted->begst", qg.float(), k.float())
+    scores = scores / math.sqrt(dh)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("begst,bted->bsegd", probs.to(v.dtype), v)
+    return out.reshape(B, S, Hp, dh)
+
+
+def causal_mask(q_positions, kv_positions):
+    """(B,1,1,S,T) boolean; True = attend."""
+    m = kv_positions[:, None, :] <= q_positions[:, :, None]
+    return m[:, None, None, :, :]
+
+
+def _decode_lengths(cache_pos, B: int, device):
+    """Valid-cache-length vector for the flash-decode kernel: the current
+    token writes at ``cache_pos`` and attends positions <= its own, so the
+    kernel's per-row length is ``pos + 1`` (a scalar start broadcasts)."""
+    if isinstance(cache_pos, torch.Tensor):
+        return cache_pos.to(torch.int32) + 1
+    return torch.full((B,), cache_pos + 1, dtype=torch.int32, device=device)
+
+
+def _head_rows_or_identity(head_rows, head_inv, n_rows: int, device):
+    """Gather/scatter maps for the resident-slice kernel; identity (dense
+    grid over all rows, no scatter) when no placement maps are given."""
+    if head_rows is None:
+        return torch.arange(n_rows, dtype=torch.int32, device=device), None
+    return head_rows, head_inv
+
+
+def _project_out(p: dict, out):
+    """Attention output tail: the wo projection."""
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+
+
+def _write_cache(cache: dict, k, v, cache_pos):
+    """Store this call's K/V in place.  A (B,) ``cache_pos`` (continuous
+    batching, S == 1) writes row b at its own position; a retired slot's
+    position sits clamped at T, and its write is dropped (the reference's
+    ``mode="drop"`` scatter).  An int ``cache_pos`` writes S positions
+    from there for every row (prefill)."""
+    ck, cv = cache["k"], cache["v"]
+    B, S, T = k.shape[0], k.shape[1], ck.shape[1]
+    if isinstance(cache_pos, torch.Tensor):
+        if cache_pos.shape != (B,) or S != 1:
+            raise ValueError("per-slot cache writes take a (B,) position "
+                             "vector and one token per row")
+        rows = torch.arange(B, device=ck.device)
+        keep = (cache_pos < T)[:, None, None]
+        cp = cache_pos.clamp(max=T - 1).long()
+        ck[rows, cp] = torch.where(keep, k[:, 0], ck[rows, cp])
+        cv[rows, cp] = torch.where(keep, v[:, 0], cv[rows, cp])
+        return
+    if not 0 <= cache_pos <= T - S:
+        raise ValueError(f"cache write [{cache_pos}, {cache_pos + S}) "
+                         f"outside a cache of {T} positions")
+    ck[:, cache_pos:cache_pos + S] = k
+    cv[:, cache_pos:cache_pos + S] = v
+
+
+def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
+                         positions, *, cache=None, cache_pos=None,
+                         window: int = 0, use_kernel: bool = False,
+                         head_rows=None, head_inv=None, page_map=None):
+    """Causal self-attention with an optional linear KV cache.
+
+    cache: dict {"k","v"} of (B, T, KvE, dh) buffers, written in place.
+    cache_pos: an int start position (prefill: S tokens land at
+      [cache_pos, cache_pos + S)), or a (B,) int32 tensor for slot-level
+      continuous batching (S == 1): row b writes its new K/V at its own
+      position and the causal mask is taken per row.
+    use_kernel: S == 1 decode runs the hand-written flash-decode kernel
+      (``ops.decode_attention_resident_bshd``) over ``head_rows`` — the
+      physical q-head rows in slot-grouped placement order — and scatters
+      back with ``head_inv``; None runs the identity grid.  The CUDA kernel
+      has no tiling constraint, so every cache length dispatches to it.
+    Returns (out, cache).
+    """
+    if window:
+        unsupported("sliding-window ring caches", 12)
+    if page_map is not None:
+        unsupported("paged KV caches", 6)
+    B, S = x.shape[0], x.shape[1]
+    q, k, v = qkv_project(cfg, p, hd, x, positions)
+    if cache is None:
+        out = attention_scores(q, k, v, causal_mask(positions, positions))
+        return _project_out(p, out), None
+    if "k_sc" in cache:
+        unsupported("int8 KV caches (kv_quant)", 7)
+    _write_cache(cache, k, v, cache_pos)
+    ck, cv = cache["k"], cache["v"]
+    if use_kernel and S == 1:
+        rows, inv = _head_rows_or_identity(head_rows, head_inv, q.shape[2],
+                                           x.device)
+        out = ops.decode_attention_resident_bshd(
+            q, ck, cv, _decode_lengths(cache_pos, B, x.device), rows,
+            inv_rows=inv)
+        return _project_out(p, out), cache
+    T = ck.shape[1]
+    kv_pos = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    out = attention_scores(q, ck, cv, causal_mask(positions, kv_pos))
+    return _project_out(p, out), cache
+
+
+# ---------------------------------------------------------------------------
+# MLP, embedding, head
+# ---------------------------------------------------------------------------
+
+
+def mlp_block(cfg: ModelConfig, p: dict, x):
+    if cfg.mlp_type != "swiglu":
+        unsupported(f"mlp_type={cfg.mlp_type!r}", 17)
+    h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+    return h @ p["w_down"].to(x.dtype)
+
+
+def embed(cfg: ModelConfig, p: dict, tokens):
+    if isinstance(p["tok_embed"], dict):
+        unsupported("int8 weights", 1)
+    return F.embedding(tokens.long(), p["tok_embed"])
+
+
+def unembed(cfg: ModelConfig, p: dict, x):
+    """Logits in float32."""
+    if cfg.tie_embeddings:
+        unsupported("tied embeddings", 17)
+    return torch.einsum("bsd,dv->bsv", x, p["lm_head"].to(x.dtype)).float()

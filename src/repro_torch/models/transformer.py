@@ -1,0 +1,183 @@
+"""Decoder-only transformer LM, dense family — counterpart of the JAX
+package's ``models/transformer.py``.
+
+Parameters are a nested dict in the reference's names and stacked
+``(L, ...)`` layouts, so a head migration is the same row permutation in
+both packages.  The reference's ``lax.scan`` over layers becomes a Python
+loop over per-layer views of the stacked params and cache, and the KV
+cache is updated in place (the reference donates its state instead).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def _layer_view(tree, l: int):
+    if isinstance(tree, dict):
+        return {k: _layer_view(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+class TransformerLM:
+    """Config-driven dense decoder-only LM on one device."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device,
+                 use_kernel: bool = False):
+        if cfg.family != "dense":
+            raise ValueError(f"TransformerLM serves the dense family, not "
+                             f"{cfg.family!r}")
+        if cfg.sliding_window:
+            L.unsupported("sliding-window ring caches", 12)
+        if cfg.kv_quant:
+            L.unsupported("int8 KV caches (kv_quant)", 7)
+        if cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu" \
+                or cfg.qkv_bias or cfg.rope_fraction != 1.0 \
+                or cfg.tie_embeddings:
+            L.unsupported("layernorm / gelu / qkv_bias / partial RoPE / "
+                          "tied-embedding dense variants", 17)
+        self.cfg = cfg
+        self.hd = L.head_dims(cfg)
+        self.device = torch.device(device)
+        # decode attention through the hand-written flash-decode kernel;
+        # the decode state may carry per-layer "head_rows"/"head_inv"
+        # gather maps (placement_bridge.head_row_maps)
+        self.use_kernel = use_kernel
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+        """Random weights at the reference's init scales (normal draws
+        from ``generator``, which must live on this model's device)."""
+        cfg, hd = self.cfg, self.hd
+        D, F, V, n = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+        dt, dev, g = torch_dtype(cfg.param_dtype), self.device, generator
+
+        def dense(d_in, shape):
+            return L.dense_init(g, d_in, (n,) + shape, dt, dev)
+
+        ones = torch.ones((n, D), dtype=dt, device=dev)
+        layers = {
+            "attn": {"wq": dense(D, (D, hd.Hp, hd.dh)),
+                     "wk": dense(D, (D, hd.Kp, hd.dh)),
+                     "wv": dense(D, (D, hd.Kp, hd.dh)),
+                     "wo": dense(hd.H * hd.dh, (hd.Hp, hd.dh, D))},
+            "ln1": ones, "ln2": ones.clone(),
+            "mlp": {"w_gate": dense(D, (D, F)), "w_up": dense(D, (D, F)),
+                    "w_down": dense(F, (F, D))},
+        }
+        return {"layers": layers,
+                "tok_embed": L.normal_init(g, (V, D), 0.02, dt, dev),
+                "lm_head": L.dense_init(g, D, (D, V), dt, dev),
+                "ln_f": torch.ones((D,), dtype=dt, device=dev)}
+
+    # ----------------------------------------------------------------- layer
+    def _layer(self, p: dict, x, positions, cache, cache_pos,
+               head_rows=None, head_inv=None):
+        cfg = self.cfg
+        h = L.apply_norm(cfg, p, "ln1", x)
+        attn_out, _ = L.self_attention_block(
+            cfg, p["attn"], self.hd, h, positions, cache=cache,
+            cache_pos=cache_pos, use_kernel=self.use_kernel,
+            head_rows=head_rows, head_inv=head_inv)
+        x = x + attn_out
+        h = L.apply_norm(cfg, p, "ln2", x)
+        return x + L.mlp_block(cfg, p["mlp"], h)
+
+    def _run_layers(self, params, x, positions, cache, cache_pos,
+                    head_rows=None, head_inv=None):
+        """Loop over layers; layer l reads its slice of the stacked params,
+        cache and (n_layers, Hp) kernel row maps."""
+        for l in range(self.cfg.n_layers):
+            layer_cache = None if cache is None else \
+                {"k": cache["k"][l], "v": cache["v"][l]}
+            x = self._layer(_layer_view(params["layers"], l), x, positions,
+                            layer_cache, cache_pos,
+                            None if head_rows is None else head_rows[l],
+                            None if head_inv is None else head_inv[l])
+        return x
+
+    def _positions(self, B: int, S: int):
+        return torch.arange(S, dtype=torch.int32,
+                            device=self.device)[None].expand(B, S)
+
+    def forward(self, params, tokens):
+        """Full-sequence forward without a cache. Returns logits (B,S,V)."""
+        B, S = tokens.shape
+        x = L.embed(self.cfg, params, tokens)
+        x = self._run_layers(params, x, self._positions(B, S), None, None)
+        x = L.apply_norm(self.cfg, params, "ln_f", x)
+        return L.unembed(self.cfg, params, x)
+
+    # ----------------------------------------------------------------- cache
+    def init_cache(self, batch: int, max_seq: int, dtype=None) -> dict:
+        dtype = dtype or torch_dtype(self.cfg.dtype)
+        shape = (self.cfg.n_layers, batch, max_seq, self.hd.KvE, self.hd.dh)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    def init_decode_state(self, params, batch: int, max_seq: int, *,
+                          dtype=None, per_slot: bool = False
+                          ) -> Dict[str, Any]:
+        """Per-slot decode state: one position per batch row (continuous
+        batching) — decode advances each slot independently and prefills
+        land rows at different depths via :meth:`insert_slot`."""
+        if not per_slot:
+            L.unsupported("the lock-step (scalar-position) decode state", 17)
+        return {"cache": self.init_cache(batch, max_seq, dtype),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device)}
+
+    # ----------------------------------------------- continuous batching
+    def prefill_bucketed(self, params, state, tokens, length):
+        """Prefill right-padded prompts: ``tokens`` (B, Lb) padded to a
+        bucket length, ``length`` (B,) true prompt lengths.  Returns the
+        logits of each row's LAST REAL token and the state with ``pos ==
+        length``.  Padding writes garbage K/V at indices >= length, which
+        the causal mask hides until decode overwrites it."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = L.embed(cfg, params, tokens)
+        x = self._run_layers(params, x, self._positions(B, S),
+                             state["cache"], 0)
+        x = L.apply_norm(cfg, params, "ln_f", x)
+        idx = (length.long() - 1).clamp(min=0)[:, None, None]
+        last = x.gather(1, idx.expand(B, 1, x.shape[-1]))    # (B, 1, D)
+        logits = L.unembed(cfg, params, last)
+        state["pos"] = length.to(torch.int32).clone()
+        return logits[:, 0], state
+
+    def insert_slot(self, state, sub, slot: int):
+        """Copy a batch-1 prefilled ``sub`` state (cache length Lb <= T)
+        into batch row ``slot`` of the per-slot decode state, in place."""
+        for name in ("k", "v"):
+            src = sub["cache"][name]
+            state["cache"][name][:, slot, :src.shape[2]].copy_(src[:, 0])
+        state["pos"][slot] = sub["pos"][0]
+        return state
+
+    def decode_step(self, params, state, tokens):
+        """One autoregressive step for every slot. tokens: (B,) int.
+        Returns (logits (B, V) float32, state).  Each row embeds, attends
+        and writes at its own position; positions advance in place and
+        clamp at the cache edge, where a retired slot's writes drop."""
+        cfg = self.cfg
+        pos = state["pos"]
+        if pos.dim() != 1:
+            L.unsupported("the lock-step (scalar-position) decode state", 17)
+        x = L.embed(cfg, params, tokens[:, None])
+        x = self._run_layers(params, x, pos[:, None], state["cache"], pos,
+                             state.get("head_rows"), state.get("head_inv"))
+        x = L.apply_norm(cfg, params, "ln_f", x)
+        logits = L.unembed(cfg, params, x)
+        pos.add_(1).clamp_(max=state["cache"]["k"].shape[-3])
+        return logits[:, 0], state

@@ -1,0 +1,448 @@
+"""Continuous-batching serving engine with the paper's controller in the
+loop — counterpart of the JAX package's ``serving/engine.py``
+(``ServingEngine``, dense family, one in-flight group).
+
+A persistent ``(n_slots, max_seq)`` KV cache with per-slot positions.  Any
+queued request is admitted into any free slot the moment one frees: the
+prompt is right-padded to a power-of-two bucket, prefilled at batch 1, and
+copied into the slot's cache row (``insert_slot``).  Decode runs one step
+for the whole batch with per-slot attention masking.
+
+Every λ decode steps the ``IntervalController`` observes step-time
+telemetry and the per-slot cache occupancy, re-runs Algorithm 1 on the
+per-(layer, head) block graph, and the engine applies the resulting
+per-layer head permutations to the live KV cache AND the weights between
+steps (``_migrate_state``), then rebuilds the decode kernel's gather maps
+from the plan (``_refresh_head_rows``).  With ``use_kernel=True`` decode
+attention runs the hand-written flash-decode kernel over those maps.
+
+The controller drives a simulated device network, as in the reference: the
+model runs on one GPU (or the CPU), and the placement decides which
+(layer, head) rows each simulated device's kernel dispatch covers.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.blocks import CostModel
+from repro_torch.core.controller import ControllerConfig, IntervalController
+from repro_torch.core.network import DeviceNetwork
+from repro_torch.core.placement_bridge import (apply_layer_head_perms,
+                                               head_row_maps,
+                                               identity_head_rows,
+                                               permute_model_heads_layers,
+                                               relative_perms)
+from repro_torch.models.api import build_model, resolve_device
+from repro_torch.models.transformer import torch_dtype
+from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
+
+
+class UnsupportedArchError(NotImplementedError):
+    """Raised at engine construction for configurations the slot-level
+    scheduler of this port cannot serve — never mid-serve."""
+
+
+def _not_ported(what: str, item: int):
+    raise UnsupportedArchError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP Queue 1 #{item})")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (L0,) int32
+    max_new_tokens: int
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+
+
+def default_buckets(max_seq: int, lo: int = 8) -> List[int]:
+    """Power-of-two prompt buckets up to ``max_seq``."""
+    out, b = [], lo
+    while b < max_seq:
+        out.append(b)
+        b *= 2
+    out.append(max_seq)
+    return sorted(set(out))
+
+
+class ServingEngine:
+    """Continuous-batching scheduler: persistent per-slot KV cache, admit-
+    on-free-slot, bucketed prefill, per-slot decode masking, and Algorithm
+    1's placements applied as live head migrations.
+
+    ``device`` is where the model runs (``None``: the GPU, raising when
+    none is present).  ``params`` injects weights in the model's layout
+    (for example ``weights.params_from_jax`` of the reference's); without
+    it the model draws random weights from ``seed``."""
+
+    def __init__(self, cfg: ModelConfig, *, n_slots: int = 4,
+                 max_seq: int = 512, lam: int = 16, seed: int = 0,
+                 net: Optional[DeviceNetwork] = None, greedy: bool = True,
+                 use_kernel: bool = False, search: str = "rescoring",
+                 params: Optional[Dict[str, Any]] = None, device=None,
+                 pipeline_k: int = 1, paged: bool = False):
+        if cfg.family == "vlm":
+            _not_ported("VLM serving", 13)
+        if cfg.is_moe:
+            _not_ported("MoE serving", 11)
+        if cfg.family in ("ssm", "hybrid"):
+            _not_ported(f"{cfg.family} serving", 14)
+        if cfg.kv_quant:
+            _not_ported("int8-KV serving (kv_quant)", 7)
+        if paged:
+            _not_ported("paged KV serving", 6)
+        if pipeline_k != 1:
+            _not_ported("pipeline_k > 1 slot groups", 8)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.greedy = greedy
+        self.use_kernel = use_kernel
+        self.model = build_model(cfg, use_kernel=use_kernel,
+                                 device=self.device)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.model.init(gen)
+        self.params = params
+        # non-greedy sampling draws from its own seeded generator
+        self._sample_gen = torch.Generator(
+            device=self.device).manual_seed(seed + 0x5EED)
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self._rid = 0
+        # per-token stream hook: ``token_sink(req, tok, done)`` fires on
+        # every generated token (done=False) and once at retire
+        # (tok=None, done=True).  None changes nothing.
+        self.token_sink: Optional[Callable[[Request, Optional[int], bool],
+                                           None]] = None
+        self._load_mark_step = 0
+        self._load_mark_rid = 0
+        # controller wiring: the per-layer block graph of the model's
+        # depth, priced at its widths (Table I, incremental decode)
+        self.net = net or DeviceNetwork.sample(4, seed=seed + 1)
+        hd = self.model.hd
+        heads_per_slot = max(1, hd.Hp // self.net.n_devices)
+        self.cost = CostModel(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                              L0=8, n_layers=cfg.n_layers, lam=lam,
+                              compute_mode="incremental",
+                              layer_mode="graph")
+        # GQA stacks migrate whole KV groups: group-consistent perms
+        group = hd.Hp // hd.Kp
+        if group > 1 and ((self.net.n_devices * heads_per_slot) % group
+                          or cfg.n_heads % group):
+            raise UnsupportedArchError(
+                f"{cfg.name}: KV group size {group} does not tile the "
+                f"{self.net.n_devices}x{heads_per_slot} head-slot geometry "
+                f"— pick a device count whose head positions are a "
+                f"multiple of the group size")
+        self.controller = IntervalController(
+            cfg.n_heads, self.cost, self.net,
+            ControllerConfig(lam=lam, heads_per_slot=heads_per_slot,
+                             group_size=group, search=search))
+        self.monitor = HeartbeatMonitor(self.net.n_devices)
+        self.lam = lam
+        self.decode_steps = 0
+        self.migration_log: List[dict] = []
+        self.buckets = default_buckets(self.max_seq)
+        # kernelized decode: per-layer gather maps (physical q-head rows in
+        # slot-grouped placement order) carried in the decode state
+        self._rows_layers = 0
+        if self.use_kernel:
+            width = self.net.n_devices * heads_per_slot
+            if width != hd.Hp:
+                raise UnsupportedArchError(
+                    f"use_kernel: the bridge's {self.net.n_devices}x"
+                    f"{heads_per_slot} head-position space must equal the "
+                    f"model's {hd.Hp} padded heads for placement-derived "
+                    f"kernel grids")
+            self._rows_layers = cfg.n_layers
+            self._head_rows, self._head_inv = identity_head_rows(
+                self._rows_layers, hd.Hp)
+            self._phys_perms = None   # layout actually applied to weights
+        self.state = self._attach_head_rows(self._fresh_state(self.n_slots))
+        self.slots: List[Optional[Request]] = [None] * self.n_slots
+        self._next = np.zeros(self.n_slots, np.int32)
+        self.prefill_buckets_used: set = set()
+        self.slot_busy_steps = 0              # sum of active slots per step
+        # host-clock telemetry: seconds per decode step (ends in a device
+        # sync) and per controller interval (Algorithm 1 + migration)
+        self.step_times: List[float] = []
+        self.interval_times: List[float] = []
+
+    def _fresh_state(self, batch: int, max_seq: Optional[int] = None):
+        return self.model.init_decode_state(
+            self.params, batch, max_seq or self.max_seq, per_slot=True)
+
+    # ---------------------------------------------------------------- intake
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
+        self._bucket(len(np.asarray(prompt)))   # reject over-long at intake
+        req = Request(self._rid, np.asarray(prompt, np.int32),
+                      max_new_tokens, t_submit=time.monotonic())
+        self._rid += 1
+        self.queue.append(req)
+        return req.rid
+
+    # --------------------------------------------------------------- sampler
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        """Next tokens, on the device: greedy argmax, else a draw from
+        the softmax with the engine's seeded generator."""
+        if self.greedy:
+            return logits.argmax(dim=-1).cpu().numpy()
+        probs = torch.softmax(logits.float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=self._sample_gen
+                                 )[:, 0].cpu().numpy()
+
+    # -------------------------------------------------------------- streaming
+    def _emit_token(self, req: Request, tok: int):
+        """Append one generated token and fire the stream hook — the one
+        place tokens enter a request."""
+        req.out_tokens.append(tok)
+        if self.token_sink is not None:
+            self.token_sink(req, tok, False)
+
+    def _emit_done(self, req: Request):
+        if self.token_sink is not None:
+            self.token_sink(req, None, True)
+
+    # ------------------------------------------------------------- telemetry
+    def _record_step(self, dt: float):
+        for j in self.net.active_ids:
+            self.monitor.record_step(j, dt)
+
+    def _load_signal(self) -> tuple:
+        """(arrivals per scheduler step, queue depth) since the last
+        interval; resets the marks."""
+        steps = self.decode_steps - self._load_mark_step
+        arrived = self._rid - self._load_mark_rid
+        self._load_mark_step = self.decode_steps
+        self._load_mark_rid = self._rid
+        return arrived / max(steps, 1), len(self.queue)
+
+    # --------------------------------------------------------------- interval
+    def _interval_plan(self, tau_tokens: float) -> dict:
+        """Observe -> Algorithm 1: one migration plan per interval."""
+        self.net.step_background_load()
+        self.controller.observe_monitor(self.monitor,
+                                        peak_flops=self.net.compute_avail)
+        rate, depth = self._load_signal()
+        return self.controller.step_interval(tau=self._tau_of(tau_tokens),
+                                             arrival_rate=rate,
+                                             queue_depth=depth)
+
+    def _tau_of(self, tau_tokens: float) -> int:
+        """Occupancy (tokens) -> interval index τ of the cost model."""
+        return max(1, round((tau_tokens - self.cost.L0)
+                            / max(self.cost.lam, 1)))
+
+    def _migrate_state(self, plan):
+        """Execute ``plan`` physically: permute the weights AND the cache
+        by the same group-consistent per-layer head permutations (row l
+        of the plan's perms is layer l; the cache's leading axis is the
+        layer stack).  Attention is permutation-equivariant over heads
+        (GQA: over whole KV groups) within each layer, so the model
+        function is unchanged while the placement moves."""
+        hd = self.model.hd
+        G = hd.Hp // hd.Kp
+        rel = relative_perms(plan["prev_perms"], plan["perms"])
+        cache = self.state["cache"]
+        self.params = permute_model_heads_layers(self.params, rel,
+                                                 group_size=G)
+        cache["k"], cache["v"] = apply_layer_head_perms(
+            cache["k"], cache["v"], rel, head_axis=-2, group_size=G)
+
+    def _migration_bytes(self, pairs) -> int:
+        """Bytes the plan's head migrations move through the cache: one
+        k+v row over the reserved ``n_slots × max_seq`` extent per distinct
+        migrated (layer, kv group)."""
+        hd = self.model.hd
+        if not pairs:
+            return 0
+        G = hd.Hp // hd.Kp
+        kv_moves = {(l, h // G) for (l, h, _s, _d) in pairs}
+        per_row = self.n_slots * self.max_seq * 2 * hd.dh * \
+            torch_dtype(self.cfg.dtype).itemsize
+        return int(len(kv_moves) * per_row)
+
+    def _log_interval(self, plan, applied: bool):
+        self.migration_log.append({
+            "step": self.decode_steps,
+            "arrival_rate": plan["arrival_rate"],
+            "queue_depth": plan["queue_depth"],
+            "n_migrations": len(plan["migrations"]),
+            "mig_bytes": self._migration_bytes(plan["migrations"]),
+            "d_mig_est": plan["d_mig_est"],
+            "d_pipe_est": plan["d_pipe_est"],
+            "applied": applied})
+
+    def _apply_plan(self, plan: dict):
+        """Execute a controller plan: cache/weight permutations, kernel
+        gather maps, interval log."""
+        applied = bool(plan["migrations"])
+        if applied:
+            self._migrate_state(plan)
+            # weights/caches now sit in the plan's layout; the kernel
+            # gather maps must follow the same source of truth
+            self._phys_perms = plan["perms"]
+        self._refresh_head_rows(plan)
+        self._log_interval(plan, applied)
+
+    # ----------------------------------------------------- kernel row maps
+    def _attach_head_rows(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        if not self._rows_layers:
+            return state
+        state["head_rows"] = torch.as_tensor(self._head_rows,
+                                             device=self.device)
+        state["head_inv"] = torch.as_tensor(self._head_inv,
+                                            device=self.device)
+        return state
+
+    def _refresh_head_rows(self, plan: dict):
+        """Rebuild the kernel gather maps from the controller's plan: the
+        resident slices of the BlockGraph placement, mapped through the
+        physical layout actually applied to weights and caches.  After a
+        migration the maps MUST be rebuilt or the kernel would read stale
+        rows."""
+        if not self._rows_layers:
+            return
+        self._head_rows, self._head_inv = head_row_maps(
+            plan["place"], self.controller.blocks, self.net.n_devices,
+            self.model.hd.Hp, perms=self._phys_perms)
+        self.state = self._attach_head_rows(self.state)
+
+    # ------------------------------------------------------------- scheduler
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        raise ValueError(f"prompt length {n} exceeds max bucket "
+                         f"{self.buckets[-1]}")
+
+    def _retire(self, slot: int):
+        r = self.slots[slot]
+        r.done = True
+        r.t_done = time.monotonic()
+        self.finished.append(r)
+        self.slots[slot] = None
+        self._next[slot] = 0
+        self._emit_done(r)
+
+    def _finish_check(self, slot: int):
+        r = self.slots[slot]
+        if (len(r.out_tokens) >= r.max_new_tokens
+                or len(r.prompt) + len(r.out_tokens) >= self.max_seq - 1):
+            self._retire(slot)
+
+    def _admit(self):
+        """Fill every free slot from the queue (FIFO, any prompt length)."""
+        while self.queue:
+            s = next((i for i in range(self.n_slots)
+                      if self.slots[i] is None), None)
+            if s is None:
+                return
+            r = self.queue.pop(0)
+            L0 = len(r.prompt)
+            Lb = self._bucket(L0)
+            toks = np.zeros((1, Lb), np.int32)
+            toks[0, :L0] = r.prompt
+            sub = self._fresh_state(1, Lb)
+            logits, sub = self.model.prefill_bucketed(
+                self.params, sub, torch.as_tensor(toks, device=self.device),
+                torch.tensor([L0], dtype=torch.int32, device=self.device))
+            self.prefill_buckets_used.add(Lb)
+            self.state = self.model.insert_slot(self.state, sub, s)
+            r.t_first = time.monotonic()
+            self.slots[s] = r
+            # the admission-time sample is the scheduler's sync point: the
+            # first token must reach the host before the slot can decode
+            tok = int(self._sample(logits)[0])
+            self._next[s] = tok
+            self._emit_token(r, tok)
+            self._finish_check(s)
+
+    def _active(self) -> List[int]:
+        return [s for s in range(self.n_slots) if self.slots[s] is not None]
+
+    def _occupancy(self) -> float:
+        """Mean tokens resident per active slot (prompt + generated)."""
+        act = self._active()
+        if not act:
+            return 0.0
+        return float(np.mean([len(self.slots[s].prompt)
+                              + len(self.slots[s].out_tokens) for s in act]))
+
+    def step(self) -> bool:
+        """One scheduler iteration: admit into free slots, then one decode
+        step for every slot, then — every λ steps — the controller
+        interval.  Returns False when idle."""
+        self._admit()
+        active = self._active()
+        if not active:
+            return False
+        t0 = time.monotonic()
+        logits, self.state = self.model.decode_step(
+            self.params, self.state,
+            torch.as_tensor(self._next, device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.monotonic() - t0
+        toks = self._sample(logits)
+        self.decode_steps += 1
+        self.slot_busy_steps += len(active)
+        self.step_times.append(dt)
+        for s in active:
+            tok = int(toks[s])
+            self._emit_token(self.slots[s], tok)
+            self._next[s] = tok
+            self._finish_check(s)
+        self._record_step(dt)
+        if self.decode_steps % self.lam == 0:
+            t0 = time.monotonic()
+            plan = self._interval_plan(tau_tokens=self._occupancy())
+            self._apply_plan(plan)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.interval_times.append(time.monotonic() - t0)
+        return True
+
+    def run(self, max_steps: int = 10_000):
+        while self.decode_steps < max_steps:
+            if not self.step():
+                break
+        return self.finished
+
+    # ------------------------------------------------------------- churn
+    def request_replan(self):
+        _not_ported("forced re-planning", 10)
+
+    def slow_device(self, device: int, factor: float):
+        _not_ported("elastic churn (slow_device)", 10)
+
+    def fail_device(self, device: int) -> dict:
+        _not_ported("elastic churn (fail_device)", 10)
+
+    def rejoin_device(self, device: int) -> dict:
+        _not_ported("elastic churn (rejoin_device)", 10)
+
+
+class WaveServingEngine:
+    """The reference's wave scheduler baseline — not ported yet."""
+
+    def __init__(self, *args, **kw):
+        _not_ported("WaveServingEngine", 12)
+
+
+def make_engine(cfg: ModelConfig, *, mode: str = "auto", **kw):
+    """The reference picks continuous or wave by architecture; this port
+    has only the continuous engine — build ``ServingEngine`` directly."""
+    _not_ported("make_engine (continuous/wave selection)", 12)

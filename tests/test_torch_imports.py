@@ -1,0 +1,85 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
+JAX and nothing of the JAX package, its entry points want the GPU unless
+the caller asks for the CPU, and its serving CLI answers requests."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+_BLOCKED_IMPORTS = r"""
+import importlib.abc, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"repro_torch imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    __import__(name)
+import chip_smoke
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+print(len(names), "modules")
+"""
+
+
+def _env():
+    return {**os.environ,
+            "PYTHONPATH": os.pathsep.join([str(REPO / "src"), str(REPO)])}
+
+
+def test_every_module_imports_with_jax_and_repro_refused():
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS],
+                         env=_env(), cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 20
+
+
+def test_no_source_line_imports_jax_or_repro():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b",
+                         re.M)
+    hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+            for p in SOURCES for m in pattern.finditer(p.read_text())]
+    assert not hits
+
+
+def test_engine_without_device_wants_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None serves on it")
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("llama3-8b").with_overrides(
+        n_layers=1, d_model=32, n_heads=4, n_kv_heads=2, d_head=8, d_ff=64,
+        vocab_size=50)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, n_slots=2, max_seq=16)
+
+
+def test_serve_cli_answers_requests_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--reduced", "--layers", "2", "--requests", "3", "--tokens", "4",
+         "--slots", "2", "--lam", "2", "--use-kernel", "--straggler", "0"],
+        env=_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "3 requests, 12 tokens" in out.stdout
+
+
+def test_serve_cli_refuses_unported_flags():
+    from repro_torch.launch.serve import main
+    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+        main(["--device", "cpu", "--paged"])
