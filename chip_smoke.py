@@ -5,12 +5,13 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version at the main path's shapes,
-drives the main path — ``ServingEngine(use_kernel=True)`` serving
+drives the main paths — ``ServingEngine(use_kernel=True)`` serving
 llama3-8b at full width (depth cut to 4 layers, random weights from a
 seed) under continuous batching with Algorithm 1 placements applied as
-live head migrations — and checks that its decode went through the
-kernels.  Then it checks greedy streams with and without the kernel are
-equal in float32.
+live head migrations, from a dense, a paged, an int8 and an int8 paged KV
+cache — and checks that each path's decode went through its kernel.  Then
+it checks in float32 that greedy streams with and without each kernel,
+and from paged and dense caches, are equal.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -122,15 +123,16 @@ def decode_inputs(dtype, *, B=MAIN_B, H=MAIN_H, KvE=MAIN_KVE, dh=MAIN_DH,
             torch.as_tensor(r, dtype=torch.int32, device=dev))
 
 
-def decode_bound_ms(q, k, lengths, rows):
+def decode_bound_ms(q, lengths, rows, KvE, T, row_bytes=None):
     """Least time for the function on these inputs: each valid K/V row
-    read once, q read, output written; ~4 flop per K/V element per row."""
+    (``row_bytes`` each, default dh in q's dtype) read once, q read, output
+    written; ~4 flop per K/V element per row."""
     B, H, dh = q.shape
-    KvE, T = k.shape[1], k.shape[2]
     R = rows.shape[0]
     item = q.element_size()
     valid = int(lengths.clamp(0, T).sum())
-    nbytes = (valid * KvE * dh * 2 + B * H * dh + B * R * dh) * item \
+    row_bytes = dh * item if row_bytes is None else row_bytes
+    nbytes = valid * KvE * row_bytes * 2 + (B * H * dh + B * R * dh) * item \
         + 4 * (B + 2 * R)
     flops = valid * R * dh * 4
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -190,7 +192,7 @@ def phase_kernel_vs_plain():
                 qs, k, v, attn_mask=mask, enable_gqa=True))
         lib = cuda_ms(lib_calls)
         q, k, _, lens, r = sets[0]
-        return (kern, plain, lib) + decode_bound_ms(q, k, lens, r)
+        return (kern, plain, lib) + decode_bound_ms(q, lens, r, *k.shape[1:3])
 
     kern, plain, lib, bound, bound_by = timed(lambda lens: lens)
     log(f"decode_attention_resident bf16 B={MAIN_B} H={MAIN_H} "
@@ -206,6 +208,129 @@ def phase_kernel_vs_plain():
             "replaces": "src/repro/kernels/decode_attention.py:152",
             "max_abs_err": worst, "ms": kern, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib}
+
+
+def _pool(caches, rng, P, lengths):
+    """The model-layout (B, T, KvE, dh) ``caches`` as page stores
+    (n_pages, P, KvE, dh) whose pages sit at one random permutation of the
+    pool, and the (B, np) page map with -1 -> 0 entries past each row's
+    live pages (as the model passes it)."""
+    B, T = caches[0].shape[:2]
+    dev = caches[0].device
+    n_log = T // P
+    perm = torch.as_tensor(rng.permutation(B * n_log).reshape(B, n_log),
+                           device=dev)
+    pools = []
+    for c in caches:
+        pool = torch.empty((B * n_log, P) + c.shape[2:], dtype=c.dtype,
+                           device=dev)
+        pool[perm.reshape(-1)] = c.reshape((B * n_log, P) + c.shape[2:])
+        pools.append(pool)
+    live = (lengths.clamp(0, T) + P - 1) // P
+    live_page = torch.arange(n_log, device=dev)[None] < live[:, None]
+    return pools, torch.where(live_page, perm, 0).to(torch.int32)
+
+
+def kv_inputs(kind, dtype, *, rows="identity", lengths=None, seed=0, P=64):
+    """Kernel-layout arguments of the ``kind`` kernel ("int8", "paged",
+    "int8_paged") at the main path's shapes: K/V and scales are transposed
+    views of the model's (B, T, KvE, dh) cache or (n_pages, P, KvE, dh)
+    page store; int8 values and scales come from the port's ``_q8``."""
+    from repro_torch.models.layers import _q8
+    q, k, v, lens, r = decode_inputs(dtype, rows=rows, lengths=lengths,
+                                     seed=seed)
+    kc, vc = k.transpose(1, 2), v.transpose(1, 2)       # (B, T, KvE, dh)
+    if "paged" in kind:
+        (kc, vc), pmap = _pool((kc, vc), np.random.default_rng(seed), P,
+                               lens)
+    if "int8" in kind:
+        (kc, ks), (vc, vs) = _q8(kc), _q8(vc)
+        ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+        if "paged" in kind:
+            ks, vs = ks[..., None], vs[..., None]
+        kv = (kc.transpose(1, 2), ks, vc.transpose(1, 2), vs)
+    else:
+        kv = (kc.transpose(1, 2), vc.transpose(1, 2))
+    return (q,) + kv + (lens,) + ((pmap,) if "paged" in kind else ()) + (r,)
+
+
+NEW_KERNELS = {   # kind -> (wrapper name, TPU kernel it replaces)
+    "int8": ("decode_attention_int8_resident",
+             "src/repro/kernels/decode_attention.py:213"),
+    "paged": ("decode_attention_paged_resident",
+              "src/repro/kernels/decode_attention.py:286"),
+    "int8_paged": ("decode_attention_int8_paged_resident",
+                   "src/repro/kernels/decode_attention.py:354"),
+}
+
+
+def kv_bound_ms(kind, args):
+    """:func:`decode_bound_ms` of the ``kind`` kernel's arguments: int8
+    reads dh bytes plus a float32 scale per (token, head); a paged cache
+    reads the same bytes as the linear one."""
+    q, lens, rows = args[0], args[-3 if "paged" in kind else -2], args[-1]
+    KvE = args[1].shape[1]
+    T = args[-2].shape[1] * args[1].shape[2] if "paged" in kind \
+        else args[1].shape[2]
+    return decode_bound_ms(q, lens, rows, KvE, T,
+                           q.shape[2] + 4 if "int8" in kind else None)
+
+
+def phase_new_kernels_vs_plain():
+    """The int8, paged and int8-paged kernels against their plain versions
+    at the main path's shapes (bf16 and f32; identity, group-permuted and
+    partial rows; lengths 0, 1, T-1, T, T+1; paged at P = 64 and 8 over a
+    scrambled pool), then their times at the main path's bf16 shapes."""
+    from repro_torch.kernels import decode_attention as da
+    tols = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
+            # bf16 output keeps ~3 significant digits of values <~ 1
+            torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
+    lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
+    records = []
+    for kind, (name, replaces) in NEW_KERNELS.items():
+        kern = getattr(da, name)
+        plain = getattr(da, name + "_plain")
+        worst = 0.0
+        for i, (dt, rows, P) in enumerate(
+                (dt, rows, P) for dt in (torch.float32, torch.bfloat16)
+                for rows in ("identity", "group_perm", "partial")
+                for P in ((64, 8) if "paged" in kind else (None,))):
+            args = kv_inputs(kind, dt, rows=rows, lengths=lengths, seed=i,
+                             P=P or 64)
+            out = kern(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            err = (out.float() - want.float()).abs().max().item()
+            ok = torch.allclose(out.float(), want.float(), **tols[dt])
+            log(f"{name} vs plain {str(dt)[6:]:8s} rows={rows:10s}"
+                f"{f' P={P}' if P else ''} max_abs_err={err:.3e}")
+            check(ok and torch.isfinite(out).all().item()
+                  and not out[0].any().item(),
+                  f"{name} disagrees with its plain version ({dt}, {rows}, "
+                  f"P={P})")
+            worst = max(worst, err)
+        # timing at the main path's bf16 shapes (P = 64), on input copies
+        # together larger than the 50 MB L2 so every call reads cold
+        sets = [kv_inputs(kind, torch.bfloat16, lengths=lengths, seed=s)
+                for s in range(8)]
+        ms = cuda_ms([lambda a=a: kern(*a) for a in sets])
+        plain_ms = cuda_ms([lambda a=a: plain(*a) for a in sets])
+        bound, bound_by = kv_bound_ms(kind, sets[0])
+        log(f"{name} bf16 B={MAIN_B} H={MAIN_H} KvE={MAIN_KVE} "
+            f"dh={MAIN_DH} T={MAIN_T}{' P=64' if 'paged' in kind else ''} "
+            f"lengths={lengths}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bound:.4f} ms ({bound_by})")
+        log(f"  library_ms null: no single PyTorch call reads "
+            f"{'a page table' if 'paged' in kind else ''}"
+            f"{' and ' if kind == 'int8_paged' else ''}"
+            f"{'int8 K/V with scales' if 'int8' in kind else ''}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": replaces, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None})
+    return records
 
 
 # ---------------------------------------------------------------- phase 3
@@ -231,14 +356,16 @@ def watch_logits(eng):
     return seen
 
 
-def serve(cfg, *, use_kernel, n_requests, max_new, params=None):
+def serve(cfg, *, use_kernel, n_requests, max_new, params=None, **kw):
     """The main path's engine with every request submitted: 8 slots, a
-    1024-token cache, λ = 8, four simulated devices."""
+    1024-token cache, λ = 8, four simulated devices; ``kw`` are the
+    engine's paged-cache arguments."""
     from repro_torch.core.network import DeviceNetwork
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(cfg, n_slots=MAIN_B, max_seq=MAIN_T, lam=8,
                         seed=0, net=DeviceNetwork.sample(4, seed=1),
-                        use_kernel=use_kernel, device="cuda", params=params)
+                        use_kernel=use_kernel, device="cuda", params=params,
+                        **kw)
     for p in traffic(n_requests, cfg.vocab_size):
         eng.submit(p, max_new_tokens=max_new)
     return eng
@@ -253,24 +380,44 @@ def drive(eng, straggle_at=16):
     return eng.step()
 
 
-def phase_main_path():
+# The main paths: each cache kind with the kernel that carries its decode.
+# The paged pool of 48 pages (64 tokens each) is below the 128 a dense
+# 8 x 1024 cache reserves, so admission waits for pages (63 scheduler
+# steps on this traffic: the retire times are fixed by max_new_tokens).
+PATHS = {
+    "dense": ("decode_attention_resident", {}, {}),
+    "paged": ("decode_attention_paged_resident", {},
+              dict(paged=True, page_size=64, kv_pages=48)),
+    "int8": ("decode_attention_int8_resident", {"kv_quant": True}, {}),
+    "int8_paged": ("decode_attention_int8_paged_resident",
+                   {"kv_quant": True},
+                   dict(paged=True, page_size=64, kv_pages=48)),
+}
+
+
+def phase_main_path(path="dense"):
+    """Serve 16 requests x 64 tokens on the ``path`` cache through its
+    kernel; returns that kernel's launches in the run."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import decode_attention_resident
-    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
-    eng = serve(cfg, use_kernel=True, n_requests=16, max_new=64)
+    from repro_torch.kernels import decode_attention as da
+    name, over, kw = PATHS[path]
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS, **over)
+    eng = serve(cfg, use_kernel=True, n_requests=16, max_new=64, **kw)
     seen = watch_logits(eng)
     torch.cuda.synchronize()
-    decode_attention_resident.launches = 0
+    for kernel, _, _ in PATHS.values():
+        getattr(da, kernel).launches = 0
     t0 = time.monotonic()
     while drive(eng):
         pass
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = decode_attention_resident.launches
+    launches = {kernel: getattr(da, kernel).launches
+                for kernel, _, _ in PATHS.values()}
     tokens = sum(len(r.out_tokens) for r in eng.finished)
     applied = [e for e in eng.migration_log
                if e["applied"] and e["n_migrations"]]
-    log(f"main path bf16 llama3-8b x{N_LAYERS} layers: "
+    log(f"main path {path} bf16 llama3-8b x{N_LAYERS} layers: "
         f"{len(eng.finished)} requests, {tokens} tokens, "
         f"{eng.decode_steps} decode steps in {wall:.2f} s "
         f"({tokens / wall:.1f} tok/s); decode step median "
@@ -286,46 +433,91 @@ def phase_main_path():
         f"{wall - decode_s - interval_s:.2f} s")
     check(len(eng.finished) == 16 and all(len(r.out_tokens) == 64
                                           for r in eng.finished),
-          "not every request finished with its 64 tokens")
-    check(bool(applied), "no interval applied a migration")
-    check(launches == eng.decode_steps * cfg.n_layers,
-          f"kernel launches {launches} != decode steps "
+          f"{path}: not every request finished with its 64 tokens")
+    check(bool(applied), f"{path}: no interval applied a migration")
+    check(launches[name] == eng.decode_steps * cfg.n_layers,
+          f"{path}: kernel launches {launches[name]} != decode steps "
           f"{eng.decode_steps} x {cfg.n_layers} layers")
-    check(bool(seen["finite"].item()), "non-finite logits on the main path")
-    return launches
+    check(not any(n for k, n in launches.items() if k != name),
+          f"{path}: another path's kernel launched: {launches}")
+    check(bool(seen["finite"].item()),
+          f"{path}: non-finite logits on the main path")
+    if eng.paged:
+        eng.allocator.check_invariants()
+        log(f"  paged pool {eng.kv_pages} pages of {eng.page_size}: "
+            f"admission waited {eng.page_waits} scheduler steps; "
+            f"{eng.allocator.live_pages} pages live after drain")
+        check(eng.allocator.live_pages == 0, f"{path}: pages live after "
+              f"drain")
+        check(eng.page_waits > 0, f"{path}: admission never waited for "
+              f"pages")
+    return launches[name]
 
 
 # ---------------------------------------------------------------- phase 4
+# f32 stream checks: (label, engine A, engine B, whether the migration logs
+# must be equal).  Each engine is (config overrides, use_kernel, engine
+# kwargs).  Paged runs use the default pool (the full dense reservation),
+# so their admission — and so every decode batch — is the dense engine's.
+# A paged engine's controller sees page-rounded occupancy and prices
+# migrations from live pages (the reference's design), so its plans may
+# differ from a dense engine's; that pair holds the streams only, as the
+# reference's own paged-vs-dense test does.
+PAIRS = [
+    ("dense kernel vs plain", ({}, True, {}), ({}, False, {}), True),
+    ("paged kernel vs plain", ({}, True, {"paged": True}),
+     ({}, False, {"paged": True}), True),
+    ("paged kernel vs dense kernel", ({}, True, {"paged": True}),
+     ({}, True, {}), False),
+    ("int8 kernel vs plain", ({"kv_quant": True}, True, {}),
+     ({"kv_quant": True}, False, {}), True),
+    ("int8 paged kernel vs plain", ({"kv_quant": True}, True, {"paged": True}),
+     ({"kv_quant": True}, False, {"paged": True}), True),
+]
+
+
 def phase_stream_equality():
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
-    cfg = get_config("llama3-8b").with_overrides(
+    base = get_config("llama3-8b").with_overrides(
         n_layers=N_LAYERS, dtype="float32", param_dtype="float32")
-    params = build_model(cfg, device="cuda").init(
+    params = build_model(base, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
-    engines = [serve(cfg, use_kernel=uk, n_requests=8, max_new=32,
-                     params=params) for uk in (True, False)]
-    seen = [watch_logits(e) for e in engines]
-    worst = 0.0
-    while True:
-        more = [drive(e) for e in engines]
-        check(more[0] == more[1], "the two engines stopped at different "
-              "steps")
-        if not more[0]:
-            break
-        diff = (seen[0]["last"] - seen[1]["last"]).abs().max().item()
-        worst = max(worst, diff)
-    streams = [{r.rid: r.out_tokens for r in e.finished} for e in engines]
     keys = ("step", "n_migrations", "mig_bytes", "applied")
-    logs = [[tuple(m[k] for k in keys) for m in e.migration_log]
-            for e in engines]
-    log(f"f32 streams kernel vs plain: {len(streams[0])} requests, max "
-        f"per-step logit difference {worst:.3e}, migrations "
-        f"{sum(m[1] for m in logs[0])}")
-    check(len(streams[0]) == 8 and streams[0] == streams[1],
-          "greedy streams differ with and without the kernel")
-    check(logs[0] == logs[1], "migration logs differ")
-    check(all(bool(s["finite"].item()) for s in seen), "non-finite logits")
+    for label, *sides, same_plans in PAIRS:
+        engines = [serve(base.with_overrides(**over), use_kernel=uk,
+                         n_requests=8, max_new=32, params=params, **kw)
+                   for over, uk, kw in sides]
+        seen = [watch_logits(e) for e in engines]
+        worst = 0.0
+        while True:
+            more = [drive(e) for e in engines]
+            check(more[0] == more[1], f"{label}: the two engines stopped "
+                  f"at different steps")
+            if not more[0]:
+                break
+            active = engines[0]._active()
+            diff = (seen[0]["last"][active]
+                    - seen[1]["last"][active]).abs().max().item() \
+                if active else 0.0
+            worst = max(worst, diff)
+        streams = [{r.rid: r.out_tokens for r in e.finished} for e in engines]
+        logs = [[tuple(m[k] for k in keys) for m in e.migration_log]
+                for e in engines]
+        migrations = [sum(m[1] for m in lg if m[3]) for lg in logs]
+        log(f"f32 streams {label}: {len(streams[0])} requests, max "
+            f"per-step logit difference {worst:.3e}, applied migrations "
+            f"{migrations[0]} and {migrations[1]}, logs "
+            f"{'equal' if logs[0] == logs[1] else 'differ'}")
+        check(len(streams[0]) == 8 and streams[0] == streams[1],
+              f"{label}: greedy streams differ")
+        check(logs[0] == logs[1] or not same_plans,
+              f"{label}: migration logs differ")
+        check(min(migrations) > 0, f"{label}: no migration was applied")
+        check(all(bool(s["finite"].item()) for s in seen),
+              f"{label}: non-finite logits")
+        del engines, seen
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -347,14 +539,18 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
-    record = phase_kernel_vs_plain()
-    record["launches"] = phase_main_path()
+    records = [phase_kernel_vs_plain()] + phase_new_kernels_vs_plain()
     torch.cuda.empty_cache()
+    for path, (name, _, _) in PATHS.items():
+        record = next(r for r in records if r["name"] == name)
+        record["launches"] = phase_main_path(path)
+        torch.cuda.empty_cache()
     phase_stream_equality()
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,12 +3,23 @@ cache, over only the q-head rows one device hosts — the paper's dominant
 inference object, dispatched per (layer, device) from Algorithm 1's
 placement.
 
-Counterpart of the JAX package's ``kernels/decode_attention.py``
-(``decode_attention_resident``, a Pallas TPU kernel).  Here the kernel is
-hand-written CUDA C++ for Hopper (``csrc/decode_attention.cu``, built by
-``kernels.build``).  ``decode_attention_resident`` launches it for CUDA
-tensors and runs ``decode_attention_resident_plain`` — the same function
-in plain PyTorch — only for tensors on the CPU.  There is no fallback: a
+Counterpart of the JAX package's ``kernels/decode_attention.py``: its four
+Pallas TPU kernels over a linear or paged cache, in the working dtype or
+int8 with per-(token, head) scales, are here one hand-written CUDA C++
+body for Hopper (``csrc/decode_attention.cu``, built by ``kernels.build``)
+behind four entry points:
+
+- ``decode_attention_resident``: K/V (B, KvE, T, dh);
+- ``decode_attention_int8_resident``: int8 K/V (B, KvE, T, dh) with f32
+  scales (B, KvE, T);
+- ``decode_attention_paged_resident``: K/V pages (n_pages, KvE, P, dh)
+  read through ``page_map`` (B, np);
+- ``decode_attention_int8_paged_resident``: int8 K/V pages with f32
+  scale pages (n_pages, KvE, P, 1).
+
+Each launches the kernel for CUDA tensors, counts the launch in its
+``.launches``, and runs its ``*_plain`` version — the same function in
+plain PyTorch — only for tensors on the CPU.  There is no fallback: a
 CUDA tensor the kernel does not take raises.
 """
 from __future__ import annotations
@@ -23,6 +34,11 @@ from repro_torch.kernels import build
 
 SUPPORTED_DH = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the same functions in plain PyTorch
+# ---------------------------------------------------------------------------
 
 
 def decode_attention_resident_plain(q, k, v, lengths, rows, kv_rows=None):
@@ -49,32 +65,153 @@ def decode_attention_resident_plain(q, k, v, lengths, rows, kv_rows=None):
     return out.to(q.dtype)
 
 
+def _gather_pages(pages, page_map):
+    """(n_pages, KvE, P, ...) pages through a (B, np) page map -> the
+    position-ordered (B, KvE, np * P, ...) cache they hold."""
+    g = pages[page_map.long()]                         # (B, np, KvE, P, ...)
+    B, n, KvE, P = g.shape[:4]
+    return g.transpose(1, 2).reshape((B, KvE, n * P) + g.shape[4:])
+
+
+def decode_attention_int8_resident_plain(q, k_q8, k_sc, v_q8, v_sc, lengths,
+                                         rows, kv_rows=None):
+    """Plain version of :func:`decode_attention_int8_resident`: dequantize
+    (``q8 · scale`` in float32), then the fp plain version."""
+    return decode_attention_resident_plain(
+        q, k_q8.float() * k_sc[..., None], v_q8.float() * v_sc[..., None],
+        lengths, rows, kv_rows)
+
+
+def decode_attention_paged_resident_plain(q, k_pages, v_pages, lengths,
+                                          page_map, rows, kv_rows=None):
+    """Plain version of :func:`decode_attention_paged_resident`: gather
+    the pages in logical order, then the fp plain version."""
+    return decode_attention_resident_plain(
+        q, _gather_pages(k_pages, page_map), _gather_pages(v_pages, page_map),
+        lengths, rows, kv_rows)
+
+
+def decode_attention_int8_paged_resident_plain(q, k_q8, k_sc, v_q8, v_sc,
+                                               lengths, page_map, rows,
+                                               kv_rows=None):
+    """Plain version of :func:`decode_attention_int8_paged_resident`:
+    gather value and scale pages, dequantize, then the fp plain version."""
+    def deq(x, sc):
+        return _gather_pages(x, page_map).float() * _gather_pages(sc,
+                                                                  page_map)
+    return decode_attention_resident_plain(q, deq(k_q8, k_sc),
+                                           deq(v_q8, v_sc), lengths, rows,
+                                           kv_rows)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# argument types of each entry point of csrc/decode_attention.cu
+_SIGNATURES = {
+    "decode_attention_resident_launch":
+        [_PTR] * 7 + [_INT] * 7 + [_I64] * 8 + [_PTR],
+    "decode_attention_int8_resident_launch":
+        [_PTR] * 9 + [_INT] * 7 + [_I64] * 14 + [_PTR],
+    "decode_attention_paged_resident_launch":
+        [_PTR] * 8 + [_INT] * 9 + [_I64] * 8 + [_PTR],
+    "decode_attention_int8_paged_resident_launch":
+        [_PTR] * 10 + [_INT] * 9 + [_I64] * 14 + [_PTR],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = build.load("decode_attention").decode_attention_resident_launch
-    i, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-    fn.argtypes = [ptr] * 7 + [i] * 7 + [i64] * 8 + [ptr]
-    fn.restype = i
+def _launcher(entry: str):
+    fn = getattr(build.load("decode_attention"), entry)
+    fn.argtypes = _SIGNATURES[entry]
+    fn.restype = _INT
     return fn
 
 
-def _check(q, k, v, lengths, rows, kv_rows):
+def _check(q, k, v, lengths, rows, kv_rows, *, batch_axis: bool):
+    """Shapes and devices every variant shares: q (B, H, dh); k, v
+    (B or n_pages, KvE, T or P, dh); lengths (B,); rows, kv_rows (R,)."""
     B, H, dh = q.shape
-    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != dh \
-            or v.shape != k.shape:
-        raise ValueError(f"k/v must be (B, KvE, T, dh) = ({B}, KvE, T, "
-                         f"{dh}); got {tuple(k.shape)} and {tuple(v.shape)}")
+    lead = f"{B}" if batch_axis else "n_pages"
+    if k.dim() != 4 or k.shape[3] != dh or v.shape != k.shape \
+            or (batch_axis and k.shape[0] != B):
+        raise ValueError(f"k/v must be ({lead}, KvE, T, dh) = ({lead}, KvE, "
+                         f"T, {dh}); got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
     if H % k.shape[1]:
         raise ValueError(f"{H} q heads do not group over {k.shape[1]} "
                          f"KV heads")
     if lengths.shape != (B,) or rows.dim() != 1 \
             or kv_rows.shape != rows.shape:
         raise ValueError("lengths must be (B,), rows and kv_rows (R,)")
-    for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths),
-                    ("rows", rows), ("kv_rows", kv_rows)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     return B, H, dh
+
+
+def _check_scales(k, k_sc, v_sc, shape):
+    if k_sc.shape != shape or v_sc.shape != shape:
+        raise ValueError(f"scales must be {shape} for values "
+                         f"{tuple(k.shape)}; got {tuple(k_sc.shape)} and "
+                         f"{tuple(v_sc.shape)}")
+
+
+def _check_page_map(page_map, B):
+    if page_map.dim() != 2 or page_map.shape[0] != B:
+        raise ValueError(f"page_map must be ({B}, np); got "
+                         f"{tuple(page_map.shape)}")
+
+
+def _on_cpu(q, *tensors) -> bool:
+    """True for CPU tensors (the plain version runs); False for CUDA
+    tensors (the kernel launches); raises for a mix or another device."""
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"a tensor is on {t.device}, q on {q.device}")
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return False
+
+
+def _check_kernel_inputs(q, k, v, dh, *, quant: bool):
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel takes float32 or bfloat16 q; got {q.dtype}")
+    want = torch.int8 if quant else q.dtype
+    if k.dtype != want or v.dtype != want:
+        raise ValueError(f"kernel takes {want} k/v with {q.dtype} q; got "
+                         f"{k.dtype}, {v.dtype}")
+    if dh not in SUPPORTED_DH:
+        raise ValueError(f"kernel supports dh in {SUPPORTED_DH}, got {dh}")
+    if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("q, k and v need a unit stride on dh")
+
+
+def _launch(entry: str, q, R: int, pointers, ints, strides, name: str):
+    """Allocate the (B, R, dh) output and launch ``entry`` on the current
+    stream; raises if the launch fails."""
+    B, _, dh = q.shape
+    out = torch.empty((B, R, dh), dtype=q.dtype, device=q.device)
+    if B == 0 or R == 0:
+        return out, False
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _launcher(entry)(
+            *[t.data_ptr() for t in pointers], out.data_ptr(), *ints,
+            dh, _DTYPE_CODES[q.dtype], q.stride(0), q.stride(1), *strides,
+            stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out, True
+
+
+def _i32(*tensors):
+    return [t.to(torch.int32).contiguous() for t in tensors]
+
+
+def _kv_rows(q, k, rows, kv_rows):
+    return rows // (q.shape[1] // k.shape[1]) if kv_rows is None else kv_rows
 
 
 def decode_attention_resident(q, k, v, lengths, rows, kv_rows=None):
@@ -87,43 +224,122 @@ def decode_attention_resident(q, k, v, lengths, rows, kv_rows=None):
     q-head rows; kv_rows: (R,) KV rows, default ``rows // (H // KvE)``.
     Returns the compacted (B, R, dh) slice in ``rows`` order, in q's dtype.
     """
-    if kv_rows is None:
-        kv_rows = rows // (q.shape[1] // k.shape[1])
-    B, H, dh = _check(q, k, v, lengths, rows, kv_rows)
-    if q.device.type == "cpu":
+    kv_rows = _kv_rows(q, k, rows, kv_rows)
+    B, H, dh = _check(q, k, v, lengths, rows, kv_rows, batch_axis=True)
+    if _on_cpu(q, k, v, lengths, rows, kv_rows):
         return decode_attention_resident_plain(q, k, v, lengths, rows,
                                                kv_rows)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"kernel takes float32 or bfloat16 q/k/v of one "
-                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if dh not in SUPPORTED_DH:
-        raise ValueError(f"kernel supports dh in {SUPPORTED_DH}, got {dh}")
-    if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("q, k and v need a unit stride on dh")
-    lengths = lengths.to(torch.int32).contiguous()
-    rows = rows.to(torch.int32).contiguous()
-    kv_rows = kv_rows.to(torch.int32).contiguous()
+    _check_kernel_inputs(q, k, v, dh, quant=False)
+    lengths, rows, kv_rows = _i32(lengths, rows, kv_rows)
     KvE, T = k.shape[1], k.shape[2]
-    R = rows.shape[0]
-    out = torch.empty((B, R, dh), dtype=q.dtype, device=q.device)
-    if B == 0 or R == 0:
-        return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _launcher()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            rows.data_ptr(), kv_rows.data_ptr(), out.data_ptr(),
-            B, H, KvE, T, R, dh, _DTYPE_CODES[q.dtype],
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), stream)
-    if err:
-        raise RuntimeError(f"decode_attention_resident launch failed: "
-                           f"cudaError {err}")
-    decode_attention_resident.launches += 1
+    out, launched = _launch(
+        "decode_attention_resident_launch", q, rows.shape[0],
+        (q, k, v, lengths, rows, kv_rows), (B, H, KvE, T, rows.shape[0]),
+        (k.stride(0), k.stride(1), k.stride(2),
+         v.stride(0), v.stride(1), v.stride(2)),
+        "decode_attention_resident")
+    decode_attention_resident.launches += launched
     return out
 
 
-decode_attention_resident.launches = 0
+def decode_attention_int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths, rows,
+                                   kv_rows=None):
+    """int8-KV twin of :func:`decode_attention_resident`: k_q8, v_q8
+    (B, KvE, T, dh) int8 and k_sc, v_sc (B, KvE, T) float32
+    per-(token, head) scales, any strides (a unit one on dh), dequantized
+    in the kernel.  Returns the compacted (B, R, dh) slice in q's dtype."""
+    kv_rows = _kv_rows(q, k_q8, rows, kv_rows)
+    B, H, dh = _check(q, k_q8, v_q8, lengths, rows, kv_rows,
+                      batch_axis=True)
+    _check_scales(k_q8, k_sc, v_sc, k_q8.shape[:3])
+    if _on_cpu(q, k_q8, k_sc, v_q8, v_sc, lengths, rows, kv_rows):
+        return decode_attention_int8_resident_plain(
+            q, k_q8, k_sc, v_q8, v_sc, lengths, rows, kv_rows)
+    _check_kernel_inputs(q, k_q8, v_q8, dh, quant=True)
+    if k_sc.dtype != torch.float32 or v_sc.dtype != torch.float32:
+        raise ValueError("kernel takes float32 scales")
+    lengths, rows, kv_rows = _i32(lengths, rows, kv_rows)
+    KvE, T = k_q8.shape[1], k_q8.shape[2]
+    out, launched = _launch(
+        "decode_attention_int8_resident_launch", q, rows.shape[0],
+        (q, k_q8, k_sc, v_q8, v_sc, lengths, rows, kv_rows),
+        (B, H, KvE, T, rows.shape[0]),
+        (k_q8.stride(0), k_q8.stride(1), k_q8.stride(2),
+         v_q8.stride(0), v_q8.stride(1), v_q8.stride(2),
+         k_sc.stride(0), k_sc.stride(1), k_sc.stride(2),
+         v_sc.stride(0), v_sc.stride(1), v_sc.stride(2)),
+        "decode_attention_int8_resident")
+    decode_attention_int8_resident.launches += launched
+    return out
+
+
+def decode_attention_paged_resident(q, k_pages, v_pages, lengths, page_map,
+                                    rows, kv_rows=None):
+    """Flash-decode over a paged cache: resident head rows × live pages.
+
+    k_pages, v_pages: (n_pages, KvE, P, dh) — the pooled page store, any
+    strides with a unit last one (the model passes a view of its
+    (n_pages, P, KvE, dh) store); page_map: (B, np) physical page ids in
+    logical order, position t of row b at page ``page_map[b, t // P]``,
+    offset ``t % P``; lengths are read as ``clamp(lengths, 0, np * P)``.
+    Entries at or past a row's length are never read (callers clamp
+    their -1 sentinels to 0); a page id it reads outside ``[0, n_pages)``
+    gives NaN in the kernel.  rows/kv_rows as in
+    :func:`decode_attention_resident`."""
+    kv_rows = _kv_rows(q, k_pages, rows, kv_rows)
+    B, H, dh = _check(q, k_pages, v_pages, lengths, rows, kv_rows,
+                      batch_axis=False)
+    _check_page_map(page_map, B)
+    if _on_cpu(q, k_pages, v_pages, lengths, page_map, rows, kv_rows):
+        return decode_attention_paged_resident_plain(
+            q, k_pages, v_pages, lengths, page_map, rows, kv_rows)
+    _check_kernel_inputs(q, k_pages, v_pages, dh, quant=False)
+    lengths, page_map, rows, kv_rows = _i32(lengths, page_map, rows, kv_rows)
+    n_pages, KvE, P = k_pages.shape[:3]
+    out, launched = _launch(
+        "decode_attention_paged_resident_launch", q, rows.shape[0],
+        (q, k_pages, v_pages, lengths, page_map, rows, kv_rows),
+        (B, H, KvE, P, n_pages, page_map.shape[1], rows.shape[0]),
+        (k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2)),
+        "decode_attention_paged_resident")
+    decode_attention_paged_resident.launches += launched
+    return out
+
+
+def decode_attention_int8_paged_resident(q, k_q8, k_sc, v_q8, v_sc, lengths,
+                                         page_map, rows, kv_rows=None):
+    """Paged + int8 twin: k_q8, v_q8 (n_pages, KvE, P, dh) int8 pages and
+    k_sc, v_sc (n_pages, KvE, P, 1) float32 scale pages — scales page
+    exactly like values.  Otherwise as
+    :func:`decode_attention_paged_resident`."""
+    kv_rows = _kv_rows(q, k_q8, rows, kv_rows)
+    B, H, dh = _check(q, k_q8, v_q8, lengths, rows, kv_rows,
+                      batch_axis=False)
+    _check_scales(k_q8, k_sc, v_sc, k_q8.shape[:3] + (1,))
+    _check_page_map(page_map, B)
+    if _on_cpu(q, k_q8, k_sc, v_q8, v_sc, lengths, page_map, rows, kv_rows):
+        return decode_attention_int8_paged_resident_plain(
+            q, k_q8, k_sc, v_q8, v_sc, lengths, page_map, rows, kv_rows)
+    _check_kernel_inputs(q, k_q8, v_q8, dh, quant=True)
+    if k_sc.dtype != torch.float32 or v_sc.dtype != torch.float32:
+        raise ValueError("kernel takes float32 scales")
+    lengths, page_map, rows, kv_rows = _i32(lengths, page_map, rows, kv_rows)
+    n_pages, KvE, P = k_q8.shape[:3]
+    out, launched = _launch(
+        "decode_attention_int8_paged_resident_launch", q, rows.shape[0],
+        (q, k_q8, k_sc, v_q8, v_sc, lengths, page_map, rows, kv_rows),
+        (B, H, KvE, P, n_pages, page_map.shape[1], rows.shape[0]),
+        (k_q8.stride(0), k_q8.stride(1), k_q8.stride(2),
+         v_q8.stride(0), v_q8.stride(1), v_q8.stride(2),
+         k_sc.stride(0), k_sc.stride(1), k_sc.stride(2),
+         v_sc.stride(0), v_sc.stride(1), v_sc.stride(2)),
+        "decode_attention_int8_paged_resident")
+    decode_attention_int8_paged_resident.launches += launched
+    return out
+
+
+for _fn in (decode_attention_resident, decode_attention_int8_resident,
+            decode_attention_paged_resident,
+            decode_attention_int8_paged_resident):
+    _fn.launches = 0

@@ -1,14 +1,24 @@
 """Model-layout wrappers of the kernels ((B, S, H, dh) activations,
-(B, T, KvE, dh) caches) — counterpart of the JAX package's
-``kernels/ops.py``.
+(B, T, KvE, dh) caches, (n_pages, P, KvE, dh) page stores) — counterpart
+of the JAX package's ``kernels/ops.py``.
 
-The JAX wrapper transposes the whole per-layer cache into the kernel
-layout; here the kernel reads the cache through its strides, so the
-wrapper passes a transposed *view* and nothing is copied.
+The JAX wrappers transpose the whole per-layer cache (or page store) into
+the kernel layout; here the kernels read the cache through its strides,
+so the wrappers pass transposed *views* and nothing is copied.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.decode_attention import decode_attention_resident
+from repro_torch.kernels.decode_attention import (
+    decode_attention_int8_paged_resident, decode_attention_int8_resident,
+    decode_attention_paged_resident, decode_attention_resident)
+
+
+def _scatter(o, inv_rows):
+    """(B, R, dh) kernel output -> (B, 1, R, dh), or the full (B, 1, H, dh)
+    in physical q order when the scatter map ``inv_rows`` is given."""
+    if inv_rows is not None:
+        o = o.index_select(1, inv_rows)
+    return o[:, None]
 
 
 def decode_attention_resident_bshd(q, k, v, lengths, rows, kv_rows=None, *,
@@ -20,6 +30,41 @@ def decode_attention_resident_bshd(q, k, v, lengths, rows, kv_rows=None, *,
     (B,1,H,dh) tensor in physical q order, ready for the wo projection."""
     o = decode_attention_resident(q[:, 0], k.transpose(1, 2),
                                   v.transpose(1, 2), lengths, rows, kv_rows)
-    if inv_rows is not None:
-        o = o.index_select(1, inv_rows)
-    return o[:, None]
+    return _scatter(o, inv_rows)
+
+
+def decode_attention_int8_resident_bshd(q, k_q8, k_sc, v_q8, v_sc, lengths,
+                                        rows, kv_rows=None, *, inv_rows=None):
+    """int8-KV twin of :func:`decode_attention_resident_bshd`: cache
+    k_q8/v_q8 (B,T,KvE,dh) int8 with per-(token, head) scales k_sc/v_sc
+    (B,T,KvE), dequantized in the kernel."""
+    o = decode_attention_int8_resident(
+        q[:, 0], k_q8.transpose(1, 2), k_sc.transpose(1, 2),
+        v_q8.transpose(1, 2), v_sc.transpose(1, 2), lengths, rows, kv_rows)
+    return _scatter(o, inv_rows)
+
+
+def decode_attention_paged_bshd(q, k_pages, v_pages, lengths, page_map,
+                                rows, kv_rows=None, *, inv_rows=None):
+    """Paged decode in model layout: q (B,1,H,dh), page store k/v
+    (n_pages, P, KvE, dh), ``page_map`` (B, np) int32 physical page ids
+    in logical order (callers clamp unmapped -1 entries to 0 — the
+    length mask hides them).  ``rows``/``inv_rows`` as in
+    :func:`decode_attention_resident_bshd`."""
+    o = decode_attention_paged_resident(
+        q[:, 0], k_pages.transpose(1, 2), v_pages.transpose(1, 2), lengths,
+        page_map, rows, kv_rows)
+    return _scatter(o, inv_rows)
+
+
+def decode_attention_int8_paged_bshd(q, k_q8, k_sc, v_q8, v_sc, lengths,
+                                     page_map, rows, kv_rows=None, *,
+                                     inv_rows=None):
+    """int8-KV twin of :func:`decode_attention_paged_bshd`: page store
+    k_q8/v_q8 (n_pages, P, KvE, dh) int8 with per-(token, head) scale
+    pages k_sc/v_sc (n_pages, P, KvE)."""
+    o = decode_attention_int8_paged_resident(
+        q[:, 0], k_q8.transpose(1, 2), k_sc.transpose(1, 2)[..., None],
+        v_q8.transpose(1, 2), v_sc.transpose(1, 2)[..., None], lengths,
+        page_map, rows, kv_rows)
+    return _scatter(o, inv_rows)

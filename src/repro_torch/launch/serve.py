@@ -6,8 +6,9 @@ counterpart of the JAX package's ``launch/serve.py``.
       --layers 4 --requests 8 --tokens 24 --use-kernel [--straggler 0]
 
 Runs on the GPU unless ``--device cpu`` is given (``--reduced`` shrinks
-the widths to a CPU-sized model).  The reference's ``--engine``,
-``--kv-quant``, ``--pipeline-k``, ``--search`` and ``--paged`` are not
+the widths to a CPU-sized model).  ``--paged [--page-size P]`` serves from
+a paged KV cache and ``--kv-quant`` from an int8 one, alone or together.
+The reference's ``--engine``, ``--pipeline-k`` and ``--search`` are not
 ported yet and raise.
 """
 from __future__ import annotations
@@ -21,8 +22,7 @@ from repro_torch.configs import get_config
 from repro_torch.serving.engine import ServingEngine
 
 # reference flags this slice does not serve yet, with their ROADMAP items
-_NOT_PORTED = {"--engine": 12, "--kv-quant": 7, "--pipeline-k": 8,
-               "--search": 8, "--paged": 6, "--page-size": 6}
+_NOT_PORTED = {"--engine": 12, "--pipeline-k": 8, "--search": 8}
 
 
 def reduced_for_cpu(cfg, d_model: int = 256):
@@ -55,6 +55,14 @@ def main(argv=None):
                     help="decode through the placement-driven flash-decode "
                          "kernel (its plain version on the CPU); greedy "
                          "streams must match the plain path")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache with per-(token, head) scales")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: pooled page store + per-slot "
+                         "page tables, chunked prefill; streams must match "
+                         "the dense engine at the same seed")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="tokens per KV page (--paged)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args, rest = ap.parse_known_args(argv)
     for flag in rest:
@@ -71,10 +79,17 @@ def main(argv=None):
         cfg = reduced_for_cpu(cfg)
     if args.layers:
         cfg = cfg.with_overrides(n_layers=args.layers)
-    eng = ServingEngine(cfg, n_slots=args.slots,
-                        max_seq=args.prompt_len + args.tokens + 8,
+    if args.kv_quant:
+        cfg = cfg.with_overrides(kv_quant=True)
+    kw = {}
+    max_seq = args.prompt_len + args.tokens + 8
+    if args.paged:
+        # pages divide max_seq
+        kw.update(paged=True, page_size=args.page_size)
+        max_seq += -max_seq % args.page_size
+    eng = ServingEngine(cfg, n_slots=args.slots, max_seq=max_seq,
                         lam=args.lam, use_kernel=args.use_kernel,
-                        device=args.device)
+                        device=args.device, **kw)
     print(f"[serve] engine: {type(eng).__name__} on {eng.device}, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}")
     if args.straggler >= 0:

@@ -1,6 +1,7 @@
-"""Dense-decoder layers: RMSNorm, RoPE, GQA attention with a per-slot KV
-cache, SwiGLU MLP, embeddings — counterpart of the JAX package's
-``models/layers.py``, for the branches the dense llama family takes.
+"""Dense-decoder layers: RMSNorm, RoPE, GQA attention with a per-slot or
+paged KV cache (in the working dtype or int8), SwiGLU MLP, embeddings —
+counterpart of the JAX package's ``models/layers.py``, for the branches
+the dense llama family takes.
 
 Functions take plain tensors and nested dicts of parameters in the
 reference's layouts (``wq`` (D,Hp,dh), ``wk``/``wv`` (D,Kp,dh), ``wo``
@@ -111,7 +112,7 @@ def apply_rope(x, positions, theta: float, fraction: float = 1.0):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal, per-slot linear cache)
+# Attention (GQA, causal, per-slot linear or paged cache, fp or int8)
 # ---------------------------------------------------------------------------
 
 
@@ -139,7 +140,14 @@ def attention_scores(q, k, v, mask):
     scores = scores / math.sqrt(dh)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    # torch's CPU softmax sums a row shorter than its vector width (16
+    # floats with AVX-512) in another order than a longer one.  Rows padded
+    # with masked scores to a multiple of 16 give a valid prefix the same
+    # probabilities at any extent, so a dense cache and the paged cache
+    # (which attends over the page table's whole span) agree bit for bit.
+    T = scores.shape[-1]
+    probs = torch.softmax(F.pad(scores, (0, -T % 16), value=NEG_INF),
+                          dim=-1)[..., :T]
     out = torch.einsum("begst,bted->bsegd", probs.to(v.dtype), v)
     return out.reshape(B, S, Hp, dh)
 
@@ -172,69 +180,177 @@ def _project_out(p: dict, out):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
 
 
-def _write_cache(cache: dict, k, v, cache_pos):
-    """Store this call's K/V in place.  A (B,) ``cache_pos`` (continuous
-    batching, S == 1) writes row b at its own position; a retired slot's
-    position sits clamped at T, and its write is dropped (the reference's
-    ``mode="drop"`` scatter).  An int ``cache_pos`` writes S positions
-    from there for every row (prefill)."""
-    ck, cv = cache["k"], cache["v"]
-    B, S, T = k.shape[0], k.shape[1], ck.shape[1]
+# XLA rewrites the reference's ``amax / 127.0`` into a multiply by
+# float32(1/127) under ``jit`` (it keeps ``x / sc`` a true division), and a
+# literal division gives another scale in ~4 % of rows (1 ulp).  So the
+# scale multiplies by the float32 reciprocal, which reproduces the jitted
+# reference bit for bit.
+_INV_127 = 1.0 / 127.0
+
+
+def _q8(t):
+    """Per-(token, head) int8 quantization over dh: (values int8, scales
+    float32) — one definition shared by the dense and paged int8 cache
+    branches so their stored values cannot diverge.  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    x = t.float()
+    sc = x.abs().amax(dim=-1).clamp_min(1e-8) * _INV_127
+    qq = torch.round(x / sc[..., None]).clamp(-127, 127).to(torch.int8)
+    return qq, sc
+
+
+def _write_cache(cache: dict, new: dict, cache_pos):
+    """Store this call's K/V (and, for int8 caches, their scales: ``new``
+    maps each cache buffer's name to its (B, S, ...) values) in place.  A
+    (B,) ``cache_pos`` (continuous batching, S == 1) writes row b at its
+    own position; a retired slot's position sits clamped at T, and its
+    write is dropped (the reference's ``mode="drop"`` scatter: each row
+    writes only its own cache row, so writing the old value back at a
+    clamped index collides with no live write).  An int ``cache_pos``
+    writes S positions from there for every row (prefill)."""
+    B, S = new["k"].shape[0], new["k"].shape[1]
+    T = cache["k"].shape[1]
     if isinstance(cache_pos, torch.Tensor):
         if cache_pos.shape != (B,) or S != 1:
             raise ValueError("per-slot cache writes take a (B,) position "
                              "vector and one token per row")
-        rows = torch.arange(B, device=ck.device)
-        keep = (cache_pos < T)[:, None, None]
+        rows = torch.arange(B, device=cache_pos.device)
         cp = cache_pos.clamp(max=T - 1).long()
-        ck[rows, cp] = torch.where(keep, k[:, 0], ck[rows, cp])
-        cv[rows, cp] = torch.where(keep, v[:, 0], cv[rows, cp])
+        for name, t in new.items():
+            buf = cache[name]
+            keep = (cache_pos < T).view((B,) + (1,) * (buf.dim() - 2))
+            buf[rows, cp] = torch.where(keep, t[:, 0], buf[rows, cp])
         return
     if not 0 <= cache_pos <= T - S:
         raise ValueError(f"cache write [{cache_pos}, {cache_pos + S}) "
                          f"outside a cache of {T} positions")
-    ck[:, cache_pos:cache_pos + S] = k
-    cv[:, cache_pos:cache_pos + S] = v
+    for name, t in new.items():
+        cache[name][:, cache_pos:cache_pos + S] = t
+
+
+def _dequant(cache: dict, dtype):
+    """The cache as attention reads it: int8 values times their scales
+    (the reference attends the dequantized cache, prefill included)."""
+    if "k_sc" not in cache:
+        return cache["k"], cache["v"]
+    return tuple((cache[n].float() * cache[n + "_sc"][..., None]).to(dtype)
+                 for n in ("k", "v"))
+
+
+def _paged_write(cache: dict, new: dict, positions, page_map, write_valid):
+    """Scatter this call's K/V (and scales) into the page store through the
+    page map, in place.  The store ``(n_pages + 1, P, ...)`` holds one
+    sink page past the pool that the allocator never hands out and no
+    page map names: writes the reference drops — an unmapped (-1) page,
+    or a ``write_valid == False`` chunk tail — go there instead.  Torch has
+    no ``mode="drop"`` scatter, and writing an old value back at a clamped
+    index could collide with a live write of the same call, whose order
+    ``index_put_`` leaves undefined; writes that collide in the sink are
+    never read.  All on the device: no host sync."""
+    n_store, P = cache["k"].shape[0], cache["k"].shape[1]
+    sink = (n_store - 1) * P
+    pos = positions.long()                                     # (B, S)
+    lpage = (pos // P).clamp(0, page_map.shape[1] - 1)
+    phys = page_map.long().gather(1, lpage)
+    w_idx = torch.where(phys >= 0, phys * P + pos % P, sink)
+    if write_valid is not None:
+        w_idx = torch.where(write_valid, w_idx, sink)
+    w_idx = w_idx.reshape(-1)
+    for name, t in new.items():
+        flat = cache[name].view((n_store * P,) + cache[name].shape[2:])
+        flat[w_idx] = t.reshape((-1,) + t.shape[2:])
+
+
+def _paged_gather(cache: dict, page_map, dtype):
+    """The (B, np * P, KvE, dh) cache each row holds, in logical order
+    (dequantized for int8).  Unmapped pages read page 0; the causal mask
+    hides them."""
+    n_store, P = cache["k"].shape[0], cache["k"].shape[1]
+    B, n_log = page_map.shape
+    idx = (page_map.clamp_min(0).long()[:, :, None] * P
+           + torch.arange(P, device=page_map.device)).reshape(B, n_log * P)
+
+    def gather(name):
+        buf = cache[name]
+        return buf.view((n_store * P,) + buf.shape[2:])[idx]
+
+    return _dequant({n: gather(n) for n in cache}, dtype)
 
 
 def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
                          positions, *, cache=None, cache_pos=None,
                          window: int = 0, use_kernel: bool = False,
-                         head_rows=None, head_inv=None, page_map=None):
-    """Causal self-attention with an optional linear KV cache.
+                         head_rows=None, head_inv=None, page_map=None,
+                         write_valid=None):
+    """Causal self-attention with an optional linear or paged KV cache.
 
-    cache: dict {"k","v"} of (B, T, KvE, dh) buffers, written in place.
+    cache: dict {"k","v"} of (B, T, KvE, dh) buffers, written in place;
+      int8 caches (``kv_quant``) hold int8 values plus float32
+      per-(token, head) scales {"k_sc","v_sc"} (B, T, KvE), and attention
+      reads the dequantized cache.
     cache_pos: an int start position (prefill: S tokens land at
       [cache_pos, cache_pos + S)), or a (B,) int32 tensor for slot-level
       continuous batching (S == 1): row b writes its new K/V at its own
-      position and the causal mask is taken per row.
-    use_kernel: S == 1 decode runs the hand-written flash-decode kernel
-      (``ops.decode_attention_resident_bshd``) over ``head_rows`` — the
-      physical q-head rows in slot-grouped placement order — and scatters
-      back with ``head_inv``; None runs the identity grid.  The CUDA kernel
-      has no tiling constraint, so every cache length dispatches to it.
+      position and the causal mask is taken per row.  None for a paged
+      prefill chunk.
+    page_map: (B, np) int32 — the cache is then a page store
+      (n_pages + 1, P, KvE, dh) (scales (n_pages + 1, P, KvE)) shared by
+      every slot; row b's logical page i is physical page
+      ``page_map[b, i]`` (-1 = unmapped: writes there drop, reads clamp to
+      page 0 and are masked).  ``write_valid`` (B, S) bool marks which of
+      this call's tokens store K/V (chunked prefill tails do not).
+    use_kernel: S == 1 decode runs the hand-written flash-decode kernel of
+      the cache's kind (``ops.decode_attention_*_bshd``) over
+      ``head_rows`` — the physical q-head rows in slot-grouped placement
+      order — and scatters back with ``head_inv``; None runs the identity
+      grid.  The CUDA kernels have no tiling constraint, so every cache
+      length dispatches to them.
     Returns (out, cache).
     """
     if window:
         unsupported("sliding-window ring caches", 12)
-    if page_map is not None:
-        unsupported("paged KV caches", 6)
     B, S = x.shape[0], x.shape[1]
     q, k, v = qkv_project(cfg, p, hd, x, positions)
     if cache is None:
         out = attention_scores(q, k, v, causal_mask(positions, positions))
         return _project_out(p, out), None
-    if "k_sc" in cache:
-        unsupported("int8 KV caches (kv_quant)", 7)
-    _write_cache(cache, k, v, cache_pos)
-    ck, cv = cache["k"], cache["v"]
-    if use_kernel and S == 1:
+    quant = "k_sc" in cache
+    new = {"k": k, "v": v}
+    if quant:
+        (new["k"], new["k_sc"]), (new["v"], new["v_sc"]) = _q8(k), _q8(v)
+    kernel = use_kernel and S == 1 and cache_pos is not None
+    if kernel:
         rows, inv = _head_rows_or_identity(head_rows, head_inv, q.shape[2],
                                            x.device)
-        out = ops.decode_attention_resident_bshd(
-            q, ck, cv, _decode_lengths(cache_pos, B, x.device), rows,
-            inv_rows=inv)
-        return _project_out(p, out), cache
+        lengths = _decode_lengths(cache_pos, B, x.device)
+    if page_map is not None:
+        _paged_write(cache, new, positions, page_map, write_valid)
+        if kernel:
+            # the kernels take the pool proper, without the sink page
+            pool = {n: t[:-1] for n, t in cache.items()}
+            gmap = page_map.clamp_min(0)
+            if quant:
+                out = ops.decode_attention_int8_paged_bshd(
+                    q, pool["k"], pool["k_sc"], pool["v"], pool["v_sc"],
+                    lengths, gmap, rows, inv_rows=inv)
+            else:
+                out = ops.decode_attention_paged_bshd(
+                    q, pool["k"], pool["v"], lengths, gmap, rows,
+                    inv_rows=inv)
+            return _project_out(p, out), cache
+        ck, cv = _paged_gather(cache, page_map, x.dtype)
+    else:
+        _write_cache(cache, new, cache_pos)
+        if kernel:
+            if quant:
+                out = ops.decode_attention_int8_resident_bshd(
+                    q, cache["k"], cache["k_sc"], cache["v"], cache["v_sc"],
+                    lengths, rows, inv_rows=inv)
+            else:
+                out = ops.decode_attention_resident_bshd(
+                    q, cache["k"], cache["v"], lengths, rows, inv_rows=inv)
+            return _project_out(p, out), cache
+        ck, cv = _dequant(cache, x.dtype)
     T = ck.shape[1]
     kv_pos = torch.arange(T, device=x.device)[None, :].expand(B, T)
     out = attention_scores(q, ck, cv, causal_mask(positions, kv_pos))

@@ -5,10 +5,13 @@ Parameters are a nested dict in the reference's names and stacked
 ``(L, ...)`` layouts, so a head migration is the same row permutation in
 both packages.  The reference's ``lax.scan`` over layers becomes a Python
 loop over per-layer views of the stacked params and cache, and the KV
-cache is updated in place (the reference donates its state instead).
+cache — linear or paged, in the working dtype or int8 with per-(token,
+head) scales — is updated in place (the reference donates its state
+instead).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -39,8 +42,6 @@ class TransformerLM:
                              f"{cfg.family!r}")
         if cfg.sliding_window:
             L.unsupported("sliding-window ring caches", 12)
-        if cfg.kv_quant:
-            L.unsupported("int8 KV caches (kv_quant)", 7)
         if cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu" \
                 or cfg.qkv_bias or cfg.rope_fraction != 1.0 \
                 or cfg.tie_embeddings:
@@ -82,28 +83,34 @@ class TransformerLM:
 
     # ----------------------------------------------------------------- layer
     def _layer(self, p: dict, x, positions, cache, cache_pos,
-               head_rows=None, head_inv=None):
+               head_rows=None, head_inv=None, page_map=None,
+               write_valid=None):
         cfg = self.cfg
         h = L.apply_norm(cfg, p, "ln1", x)
         attn_out, _ = L.self_attention_block(
             cfg, p["attn"], self.hd, h, positions, cache=cache,
             cache_pos=cache_pos, use_kernel=self.use_kernel,
-            head_rows=head_rows, head_inv=head_inv)
+            head_rows=head_rows, head_inv=head_inv, page_map=page_map,
+            write_valid=write_valid)
         x = x + attn_out
         h = L.apply_norm(cfg, p, "ln2", x)
         return x + L.mlp_block(cfg, p["mlp"], h)
 
     def _run_layers(self, params, x, positions, cache, cache_pos,
-                    head_rows=None, head_inv=None):
+                    head_rows=None, head_inv=None, page_map=None,
+                    write_valid=None):
         """Loop over layers; layer l reads its slice of the stacked params,
-        cache and (n_layers, Hp) kernel row maps."""
+        cache (values and, for int8, scales) and (n_layers, Hp) kernel row
+        maps.  One page map (and ``write_valid``) serves every layer: the
+        layer axis lives in the page store, not the table."""
         for l in range(self.cfg.n_layers):
             layer_cache = None if cache is None else \
-                {"k": cache["k"][l], "v": cache["v"][l]}
+                {name: buf[l] for name, buf in cache.items()}
             x = self._layer(_layer_view(params["layers"], l), x, positions,
                             layer_cache, cache_pos,
                             None if head_rows is None else head_rows[l],
-                            None if head_inv is None else head_inv[l])
+                            None if head_inv is None else head_inv[l],
+                            page_map, write_valid)
         return x
 
     def _positions(self, B: int, S: int):
@@ -119,11 +126,23 @@ class TransformerLM:
         return L.unembed(self.cfg, params, x)
 
     # ----------------------------------------------------------------- cache
-    def init_cache(self, batch: int, max_seq: int, dtype=None) -> dict:
+    def _kv_buffers(self, lead: tuple, dtype=None) -> dict:
+        """Zeroed K/V buffers of shape ``lead + (KvE, dh)``: int8 values
+        plus float32 per-(token, head) scales ``lead + (KvE,)`` for
+        ``kv_quant`` configs (half the resident cache; dequantized at the
+        attention read), else the working dtype."""
+        z = functools.partial(torch.zeros, device=self.device)
+        shape = lead + (self.hd.KvE, self.hd.dh)
+        if self.cfg.kv_quant:
+            return {"k": z(shape, dtype=torch.int8),
+                    "v": z(shape, dtype=torch.int8),
+                    "k_sc": z(shape[:-1], dtype=torch.float32),
+                    "v_sc": z(shape[:-1], dtype=torch.float32)}
         dtype = dtype or torch_dtype(self.cfg.dtype)
-        shape = (self.cfg.n_layers, batch, max_seq, self.hd.KvE, self.hd.dh)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        return {"k": z(shape, dtype=dtype), "v": z(shape, dtype=dtype)}
+
+    def init_cache(self, batch: int, max_seq: int, dtype=None) -> dict:
+        return self._kv_buffers((self.cfg.n_layers, batch, max_seq), dtype)
 
     def init_decode_state(self, params, batch: int, max_seq: int, *,
                           dtype=None, per_slot: bool = False
@@ -158,9 +177,10 @@ class TransformerLM:
 
     def insert_slot(self, state, sub, slot: int):
         """Copy a batch-1 prefilled ``sub`` state (cache length Lb <= T)
-        into batch row ``slot`` of the per-slot decode state, in place."""
-        for name in ("k", "v"):
-            src = sub["cache"][name]
+        into batch row ``slot`` of the per-slot decode state, in place.
+        int8 caches splice their scales ((L, B, T, KvE)) with the values:
+        values without their scales would dequantize garbage."""
+        for name, src in sub["cache"].items():
             state["cache"][name][:, slot, :src.shape[2]].copy_(src[:, 0])
         state["pos"][slot] = sub["pos"][0]
         return state
@@ -169,15 +189,78 @@ class TransformerLM:
         """One autoregressive step for every slot. tokens: (B,) int.
         Returns (logits (B, V) float32, state).  Each row embeds, attends
         and writes at its own position; positions advance in place and
-        clamp at the cache edge, where a retired slot's writes drop."""
+        clamp at the cache edge — the page table's logical span ``np · P``
+        for a paged state — where a retired slot's writes drop."""
         cfg = self.cfg
         pos = state["pos"]
         if pos.dim() != 1:
             L.unsupported("the lock-step (scalar-position) decode state", 17)
+        page_map = state.get("page_map")
         x = L.embed(cfg, params, tokens[:, None])
         x = self._run_layers(params, x, pos[:, None], state["cache"], pos,
-                             state.get("head_rows"), state.get("head_inv"))
+                             state.get("head_rows"), state.get("head_inv"),
+                             page_map)
         x = L.apply_norm(cfg, params, "ln_f", x)
         logits = L.unembed(cfg, params, x)
-        pos.add_(1).clamp_(max=state["cache"]["k"].shape[-3])
+        if page_map is not None:
+            T = page_map.shape[1] * state["cache"]["k"].shape[2]
+        else:
+            T = state["cache"]["k"].shape[-3]
+        pos.add_(1).clamp_(max=T)
         return logits[:, 0], state
+
+    # ------------------------------------------------------- paged caching
+    def init_paged_cache(self, n_pages: int, page_size: int,
+                         dtype=None) -> dict:
+        """Pooled page store: stacked (L, n_pages + 1, P, KvE, dh) (int8
+        configs page their (L, n_pages + 1, P, KvE) scales alongside).  The
+        batch × seq extent of the dense cache becomes a page axis shared by
+        every slot.  Page ``n_pages`` is a sink the allocator never hands
+        out: writes the reference drops land there
+        (``layers._paged_write``)."""
+        return self._kv_buffers((self.cfg.n_layers, n_pages + 1, page_size),
+                                dtype)
+
+    def init_paged_state(self, params, batch: int, n_pages: int,
+                         page_size: int, pages_per_slot: int,
+                         dtype=None) -> Dict[str, Any]:
+        """Per-slot paged decode state: the page store, per-row positions,
+        and the (batch, pages_per_slot) page table — all -1 (unmapped)
+        until the engine mounts an allocation."""
+        return {"cache": self.init_paged_cache(n_pages, page_size, dtype),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device),
+                "page_map": torch.full((batch, pages_per_slot), -1,
+                                       dtype=torch.int32,
+                                       device=self.device)}
+
+    def prefill_paged(self, params, state, tokens, row: int, start: int,
+                      length: int):
+        """One fixed-shape chunk of a paged prefill: ``tokens`` (1, C) holds
+        the chunk right-padded to the chunk size, ``row`` the slot row,
+        ``start`` the chunk's absolute start position and ``length`` its
+        valid token count.  K/V land in the row's mapped pages (the padded
+        tail's writes drop); returns the logits of the chunk's last valid
+        token (meaningful on the final chunk) and the state with
+        ``pos[row] = start + length``, updated in place."""
+        cfg = self.cfg
+        C = tokens.shape[1]
+        steps = torch.arange(C, dtype=torch.int32, device=self.device)
+        x = L.embed(cfg, params, tokens)
+        x = self._run_layers(params, x, (start + steps)[None],
+                             state["cache"], None,
+                             page_map=state["page_map"][row:row + 1],
+                             write_valid=(steps < length)[None])
+        x = L.apply_norm(cfg, params, "ln_f", x)
+        logits = L.unembed(cfg, params, x[:, max(length - 1, 0)][:, None])
+        state["pos"][row] = start + length
+        return logits[:, 0], state
+
+    def mount_slot_pages(self, state, row: int, pages, pos: int):
+        """Write slot ``row``'s page-table row and position into a paged
+        decode state, in place — the paged analog of :meth:`insert_slot`,
+        used at admission, at page-boundary extension, and at retire (all
+        -1 and pos 0: the row's writes drop and its reads are masked)."""
+        state["page_map"][row] = torch.as_tensor(pages, dtype=torch.int32)
+        state["pos"][row] = pos
+        return state

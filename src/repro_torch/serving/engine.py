@@ -6,7 +6,12 @@ A persistent ``(n_slots, max_seq)`` KV cache with per-slot positions.  Any
 queued request is admitted into any free slot the moment one frees: the
 prompt is right-padded to a power-of-two bucket, prefilled at batch 1, and
 copied into the slot's cache row (``insert_slot``).  Decode runs one step
-for the whole batch with per-slot attention masking.
+for the whole batch with per-slot attention masking.  ``paged=True`` swaps
+the dense cache for a pool of pages shared by all slots (``serving.paging``):
+admission reserves a request's worst-case pages, pages are handed out as
+decode advances and freed at retire, and prefill runs in fixed-size chunks.
+``kv_quant`` configs keep the cache (dense or paged) in int8 with
+per-(token, head) scales.
 
 Every λ decode steps the ``IntervalController`` observes step-time
 telemetry and the per-slot cache occupancy, re-runs Algorithm 1 on the
@@ -41,6 +46,7 @@ from repro_torch.core.placement_bridge import (apply_layer_head_perms,
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
+from repro_torch.serving.paging import PagedKVAllocator
 
 
 class UnsupportedArchError(NotImplementedError):
@@ -90,17 +96,15 @@ class ServingEngine:
                  net: Optional[DeviceNetwork] = None, greedy: bool = True,
                  use_kernel: bool = False, search: str = "rescoring",
                  params: Optional[Dict[str, Any]] = None, device=None,
-                 pipeline_k: int = 1, paged: bool = False):
+                 pipeline_k: int = 1, paged: bool = False,
+                 page_size: int = 64, kv_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None):
         if cfg.family == "vlm":
             _not_ported("VLM serving", 13)
         if cfg.is_moe:
             _not_ported("MoE serving", 11)
         if cfg.family in ("ssm", "hybrid"):
             _not_ported(f"{cfg.family} serving", 14)
-        if cfg.kv_quant:
-            _not_ported("int8-KV serving (kv_quant)", 7)
-        if paged:
-            _not_ported("paged KV serving", 6)
         if pipeline_k != 1:
             _not_ported("pipeline_k > 1 slot groups", 8)
         self.cfg = cfg
@@ -133,10 +137,13 @@ class ServingEngine:
         self.net = net or DeviceNetwork.sample(4, seed=seed + 1)
         hd = self.model.hd
         heads_per_slot = max(1, hd.Hp // self.net.n_devices)
+        # a paged engine prices cache memory (and so migration bytes) at
+        # page granularity — what the allocator actually hands out
         self.cost = CostModel(d_model=cfg.d_model, n_heads=cfg.n_heads,
                               L0=8, n_layers=cfg.n_layers, lam=lam,
                               compute_mode="incremental",
-                              layer_mode="graph")
+                              layer_mode="graph",
+                              page_size=page_size if paged else 0)
         # GQA stacks migrate whole KV groups: group-consistent perms
         group = hd.Hp // hd.Kp
         if group > 1 and ((self.net.n_devices * heads_per_slot) % group
@@ -155,6 +162,26 @@ class ServingEngine:
         self.decode_steps = 0
         self.migration_log: List[dict] = []
         self.buckets = default_buckets(self.max_seq)
+        self.paged = bool(paged)
+        if self.paged:
+            if self.max_seq % page_size:
+                raise ValueError(f"max_seq={self.max_seq} must be a "
+                                 f"multiple of page_size={page_size}")
+            self.page_size = int(page_size)
+            self.pages_per_slot = self.max_seq // self.page_size
+            # pool size: default = the full dense reservation (paged is then
+            # a pure re-layout); a SMALLER pool is the memory-budget knob —
+            # the same bytes admit more slots, which hold only live pages
+            self.kv_pages = int(kv_pages) if kv_pages is not None \
+                else self.n_slots * self.pages_per_slot
+            self.allocator = PagedKVAllocator(
+                self.kv_pages, self.page_size, self.n_slots,
+                self.pages_per_slot)
+            # one fixed chunk shape serves every prompt
+            self.prefill_chunk = int(prefill_chunk or self.page_size)
+        # scheduler steps at which the queue head waited for pages while a
+        # slot was free (head-of-line admission)
+        self.page_waits = 0
         # kernelized decode: per-layer gather maps (physical q-head rows in
         # slot-grouped placement order) carried in the decode state
         self._rows_layers = 0
@@ -181,6 +208,10 @@ class ServingEngine:
         self.interval_times: List[float] = []
 
     def _fresh_state(self, batch: int, max_seq: Optional[int] = None):
+        if self.paged:
+            return self.model.init_paged_state(
+                self.params, batch, self.kv_pages, self.page_size,
+                self.pages_per_slot)
         return self.model.init_decode_state(
             self.params, batch, max_seq or self.max_seq, per_slot=True)
 
@@ -258,20 +289,39 @@ class ServingEngine:
         cache = self.state["cache"]
         self.params = permute_model_heads_layers(self.params, rel,
                                                  group_size=G)
+        # the head axis is -2 of the values of a dense (L, B, T, KvE, dh)
+        # cache and a paged (L, n_pages + 1, P, KvE, dh) store alike, and -1
+        # of int8 scales
         cache["k"], cache["v"] = apply_layer_head_perms(
             cache["k"], cache["v"], rel, head_axis=-2, group_size=G)
+        if "k_sc" in cache:
+            cache["k_sc"], cache["v_sc"] = apply_layer_head_perms(
+                cache["k_sc"], cache["v_sc"], rel, head_axis=-1,
+                group_size=G)
+
+    def _live_cache_tokens(self) -> int:
+        """KV tokens a migration moves, summed over slots: a dense engine
+        holds (and must copy) the full reserved ``n_slots × max_seq``
+        extent per kv row, a paged engine only its allocated pages."""
+        if self.paged:
+            return self.allocator.live_pages * self.page_size
+        return self.n_slots * self.max_seq
 
     def _migration_bytes(self, pairs) -> int:
         """Bytes the plan's head migrations move through the cache: one
-        k+v row over the reserved ``n_slots × max_seq`` extent per distinct
-        migrated (layer, kv group)."""
+        k+v row over the live token extent per distinct migrated
+        (layer, kv group), + f32 scales for int8 KV."""
         hd = self.model.hd
         if not pairs:
             return 0
         G = hd.Hp // hd.Kp
         kv_moves = {(l, h // G) for (l, h, _s, _d) in pairs}
-        per_row = self.n_slots * self.max_seq * 2 * hd.dh * \
-            torch_dtype(self.cfg.dtype).itemsize
+        tokens = self._live_cache_tokens()
+        if self.cfg.kv_quant:
+            per_row = tokens * 2 * (hd.dh + 4)   # int8 k+v + f32 scales
+        else:
+            per_row = tokens * 2 * hd.dh * \
+                torch_dtype(self.cfg.dtype).itemsize
         return int(len(kv_moves) * per_row)
 
     def _log_interval(self, plan, applied: bool):
@@ -335,6 +385,12 @@ class ServingEngine:
         self.finished.append(r)
         self.slots[slot] = None
         self._next[slot] = 0
+        if self.paged:
+            # free the slot's pages and unmount its table row: the row's
+            # future (clamped) writes drop and its reads are masked, so
+            # recycled pages cannot be corrupted by a retired slot
+            self.allocator.release(slot)
+            self._mount(slot, 0)
         self._emit_done(r)
 
     def _finish_check(self, slot: int):
@@ -350,6 +406,11 @@ class ServingEngine:
                       if self.slots[i] is None), None)
             if s is None:
                 return
+            if self.paged:
+                if not self._admit_paged(s):
+                    self.page_waits += 1
+                    return      # head-of-line: wait for pages to free
+                continue
             r = self.queue.pop(0)
             L0 = len(r.prompt)
             Lb = self._bucket(L0)
@@ -361,23 +422,80 @@ class ServingEngine:
                 torch.tensor([L0], dtype=torch.int32, device=self.device))
             self.prefill_buckets_used.add(Lb)
             self.state = self.model.insert_slot(self.state, sub, s)
-            r.t_first = time.monotonic()
-            self.slots[s] = r
-            # the admission-time sample is the scheduler's sync point: the
-            # first token must reach the host before the slot can decode
-            tok = int(self._sample(logits)[0])
-            self._next[s] = tok
-            self._emit_token(r, tok)
-            self._finish_check(s)
+            self._start_stream(s, r, logits)
+
+    def _start_stream(self, s: int, r: Request, logits):
+        """Seat prefilled request ``r`` in slot ``s`` and emit its first
+        token."""
+        r.t_first = time.monotonic()
+        self.slots[s] = r
+        # the admission-time sample is the scheduler's sync point: the
+        # first token must reach the host before the slot can decode
+        tok = int(self._sample(logits)[0])
+        self._next[s] = tok
+        self._emit_token(r, tok)
+        self._finish_check(s)
+
+    def _mount(self, slot: int, pos: int):
+        """Mirror the allocator's page list of ``slot`` (-1 padded) and its
+        position into the decode state."""
+        self.state = self.model.mount_slot_pages(
+            self.state, slot, self.allocator.page_map_row(slot), pos)
+
+    def _admit_paged(self, s: int) -> bool:
+        """Admit the queue head into free slot ``s``: reserve its
+        worst-case page footprint (prompt + its own decode budget, so
+        decode-time extension can never exhaust the pool mid-stream),
+        allocate the prompt's pages, mount the table row, and run the
+        prompt through fixed-size prefill chunks.  Returns False when the
+        pool cannot reserve yet (head-of-line wait: the request admits
+        once running slots retire)."""
+        r = self.queue[0]
+        L0 = len(r.prompt)
+        horizon = min(L0 + r.max_new_tokens + 1, self.max_seq)
+        if not self.allocator.can_admit(L0, horizon):
+            return False
+        self.queue.pop(0)
+        self.allocator.admit(s, n_tokens=L0, horizon=horizon)
+        self._mount(s, 0)
+        C = self.prefill_chunk
+        logits = None
+        for c0 in range(0, max(L0, 1), C):
+            n = min(C, L0 - c0)
+            toks = np.zeros((1, C), np.int32)
+            toks[0, :n] = r.prompt[c0:c0 + n]
+            logits, self.state = self.model.prefill_paged(
+                self.params, self.state,
+                torch.as_tensor(toks, device=self.device), s, c0, n)
+        self.prefill_buckets_used.add(C)
+        self._start_stream(s, r, logits)
+        return True
+
+    def _ensure_pages(self, active: List[int]):
+        """Lazy page growth: before decode, any slot whose next write
+        position crosses into an unallocated page draws one from its
+        admission reservation and remounts its table row — live bytes
+        track actual depth, not the reservation."""
+        for s in active:
+            r = self.slots[s]
+            write_pos = len(r.prompt) + len(r.out_tokens) - 1
+            if write_pos >= self.allocator.pages_for(s) * self.page_size:
+                self.allocator.extend(s, write_pos + 1)
+                self._mount(s, write_pos)
 
     def _active(self) -> List[int]:
         return [s for s in range(self.n_slots) if self.slots[s] is not None]
 
     def _occupancy(self) -> float:
-        """Mean tokens resident per active slot (prompt + generated)."""
+        """Mean tokens resident per active slot (prompt + generated).
+        Paged engines report page-rounded ALLOCATED tokens — the τ anchor
+        then prices exactly the memory the allocator handed out."""
         act = self._active()
         if not act:
             return 0.0
+        if self.paged:
+            return float(np.mean([self.allocator.pages_for(s)
+                                  * self.page_size for s in act]))
         return float(np.mean([len(self.slots[s].prompt)
                               + len(self.slots[s].out_tokens) for s in act]))
 
@@ -389,6 +507,8 @@ class ServingEngine:
         active = self._active()
         if not active:
             return False
+        if self.paged:
+            self._ensure_pages(active)
         t0 = time.monotonic()
         logits, self.state = self.model.decode_step(
             self.params, self.state,

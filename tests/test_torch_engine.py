@@ -119,8 +119,6 @@ def test_sampling_is_seeded():
 
 
 @pytest.mark.parametrize("over,kw,item", [
-    ({}, dict(paged=True), "#6"),
-    ({"kv_quant": True}, {}, "#7"),
     ({}, dict(pipeline_k=2), "#8"),
     ({}, dict(search="bottleneck"), "#8"),
     ({"sliding_window": 16}, {}, "#12"),

@@ -59,3 +59,104 @@ def test_kernel_rejects_unsupported_head_width(cuda):
         decode_attention_resident(q, k, k, torch.ones(1, dtype=torch.int32,
                                                       device=cuda),
                                   torch.arange(2, device=cuda))
+
+
+def _q8(x):
+    from repro_torch.models.layers import _q8 as q8
+    return q8(x)
+
+
+def _paged_inputs(cuda, dtype, dh, P, seed):
+    """A random (n_pages, KvE, P, dh) pool, as a view of the model's
+    (n_pages, P, KvE, dh) store, and a page map that is a random
+    permutation of the pool with -1 -> 0 entries past each row's pages."""
+    B, H, KvE, n_log = 4, 8, 2, 5
+    T = n_log * P
+    rng = np.random.default_rng(seed)
+    n_pages = B * n_log + 2
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    store = torch.from_numpy(rng.standard_normal((2, n_pages, P, KvE, dh),
+                                                 np.float32))
+    q, store = q.to(cuda, dtype), store.to(cuda, dtype)
+    lengths = [0, 1, T, T + 1]
+    live = [-(-min(n, T) // P) for n in lengths]
+    perm = rng.permutation(n_pages)[:B * n_log].reshape(B, n_log)
+    pmap = np.where(np.arange(n_log)[None] < np.asarray(live)[:, None],
+                    perm, 0)
+    return (q, store[0].transpose(1, 2), store[1].transpose(1, 2),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda),
+            torch.as_tensor(pmap, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+def test_int8_kernel_matches_plain_version(cuda, dtype, dh):
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_int8_resident, decode_attention_int8_resident_plain)
+    B, H, KvE, T = 4, 8, 2, 80
+    rng = np.random.default_rng(dh + 1)
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    cache = torch.from_numpy(rng.standard_normal((2, B, T, KvE, dh),
+                                                 np.float32)).to(cuda)
+    (kq, ks), (vq, vs) = _q8(cache[0]), _q8(cache[1])
+    args = (q.to(cuda, dtype), kq.transpose(1, 2), ks.transpose(1, 2),
+            vq.transpose(1, 2), vs.transpose(1, 2),
+            torch.tensor([0, 1, T, T + 1], dtype=torch.int32, device=cuda),
+            torch.tensor([5, 4, 0, 2, 3], dtype=torch.int32, device=cuda))
+    before = decode_attention_int8_resident.launches
+    out = decode_attention_int8_resident(*args)
+    torch.cuda.synchronize()
+    assert decode_attention_int8_resident.launches == before + 1
+    want = decode_attention_int8_resident_plain(*args)
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    assert not out[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [64, 8, 6])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_kernels_match_plain_versions(cuda, dtype, P, quant):
+    """Page sizes 64, 8 and 6 (not a multiple of the kernel's unroll)."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, lengths, pmap = _paged_inputs(cuda, dtype, 64, P, P)
+    rows = torch.tensor([1, 0, 7, 6, 2], dtype=torch.int32, device=cuda)
+    if quant:
+        (kq, ks), (vq, vs) = _q8(k.float()), _q8(v.float())
+        args = (q, kq, ks[..., None], vq, vs[..., None], lengths, pmap, rows)
+        kern = da.decode_attention_int8_paged_resident
+        plain = da.decode_attention_int8_paged_resident_plain
+    else:
+        args = (q, k, v, lengths, pmap, rows)
+        kern = da.decode_attention_paged_resident
+        plain = da.decode_attention_paged_resident_plain
+    before = kern.launches
+    out = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    torch.testing.assert_close(out.float(), plain(*args).float(),
+                               **TOLS[dtype])
+    assert not out[0].any()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_kernel_gives_nan_for_a_page_id_out_of_range(cuda, quant):
+    """A page id the kernel would read outside [0, n_pages) gives NaN for
+    that batch row and no fault; other rows, and ids past a row's length,
+    are unaffected."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, lengths, pmap = _paged_inputs(cuda, torch.float32, 32, 8, 3)
+    n_pages = k.shape[0]
+    pmap[2, 1] = n_pages                      # read by row 2 (length T)
+    pmap[3, 0] = -5                           # read by row 3
+    pmap[1, 3] = 10 ** 6                      # past row 1's length 1
+    rows = torch.arange(8, dtype=torch.int32, device=cuda)
+    if quant:
+        (kq, ks), (vq, vs) = _q8(k), _q8(v)
+        out = da.decode_attention_int8_paged_resident(
+            q, kq, ks[..., None], vq, vs[..., None], lengths, pmap, rows)
+    else:
+        out = da.decode_attention_paged_resident(q, k, v, lengths, pmap,
+                                                 rows)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[2]).all() and torch.isnan(out[3]).all()
+    assert torch.isfinite(out[:2]).all()

@@ -32,7 +32,7 @@ for name in names:
     __import__(name)
 import chip_smoke
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
-print(len(names), "modules")
+print(len(names), "modules:", " ".join(names))
 """
 
 
@@ -46,7 +46,12 @@ def test_every_module_imports_with_jax_and_repro_refused():
                          env=_env(), cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 20
+    assert int(out.stdout.split()[0]) >= 21
+    names = out.stdout.split(":", 1)[1].split()
+    for name in ("repro_torch.serving.paging", "repro_torch.serving.engine",
+                 "repro_torch.kernels.decode_attention",
+                 "repro_torch.kernels.ops"):
+        assert name in names
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -79,7 +84,21 @@ def test_serve_cli_answers_requests_on_the_cpu():
     assert "3 requests, 12 tokens" in out.stdout
 
 
+def test_serve_cli_serves_paged_int8_kv_on_the_cpu():
+    """``--paged --page-size 8 --kv-quant``: the paged int8 cache through
+    the paged int8 kernel's plain version."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--reduced", "--layers", "2", "--requests", "3", "--tokens", "4",
+         "--slots", "2", "--lam", "2", "--paged", "--page-size", "8",
+         "--kv-quant", "--use-kernel", "--straggler", "0"],
+        env=_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "3 requests, 12 tokens" in out.stdout
+    assert "prefill buckets [8]" in out.stdout
+
+
 def test_serve_cli_refuses_unported_flags():
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        main(["--device", "cpu", "--paged"])
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
+        main(["--device", "cpu", "--pipeline-k", "2"])

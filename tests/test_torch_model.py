@@ -24,7 +24,18 @@ from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+# int8 caches: the two frameworks' float32 K/V differ by ~1e-7, which moves
+# ``round(x / scale)`` by one step for the rare value within that of a
+# half-integer.  One step is one element's scale (amax / 127, ~2 % of it)
+# and moves the logits by up to a few 1e-4; the caches are checked to
+# differ by at most one step in at most 0.1 % of their values.
+TOL_INT8 = dict(atol=2e-3, rtol=1e-3)
 T_MAX = 32
+
+
+def _assert_int8_caches_close(got, want):
+    diff = np.abs(got.numpy().astype(np.int32) - np.asarray(want, np.int32))
+    assert diff.max() <= 1 and diff.mean() < 1e-3, (diff.max(), diff.mean())
 
 
 @pytest.fixture(scope="module")
@@ -37,10 +48,11 @@ def pair():
     return cfg_j, cfg_t, params_j, params_t
 
 
-def _compiled(model):
-    """The reference's prefill and decode, compiled once (state donated,
-    as the reference engine does)."""
-    return (jax.jit(model.prefill_bucketed, donate_argnums=(1,)),
+def _compiled(model, paged=False):
+    """The reference's prefill (bucketed, or one paged chunk) and decode,
+    compiled once (state donated, as the reference engine does)."""
+    prefill = model.prefill_paged if paged else model.prefill_bucketed
+    return (jax.jit(prefill, donate_argnums=(1,)),
             jax.jit(model.decode_step, donate_argnums=(1,)))
 
 
@@ -199,3 +211,141 @@ def test_numpy_bridge_matches_reference():
         jbridge.migration_pairs_layers(ident, pj, H // n_slots)
     np.testing.assert_array_equal(bridge.relative_perms(ident, pt),
                                   jbridge.relative_perms(ident, pj))
+
+
+def _pair_for(pair, **over):
+    cfg_j, cfg_t, params_j, params_t = pair
+    return (cfg_j.with_overrides(**over), cfg_t.with_overrides(**over),
+            params_j, params_t)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_int8_staggered_slot_decode_matches_reference(pair, use_kernel):
+    """``kv_quant``: the int8 cache with its scales, spliced per slot by
+    insert_slot, written per slot at decode, read dequantized (or by the
+    int8 kernel) — per-step logits match the reference's."""
+    cfg_j, cfg_t, params_j, params_t = _pair_for(pair, kv_quant=True)
+    mj = jax_build_model(cfg_j, use_kernel=use_kernel)
+    mt = build_model(cfg_t, use_kernel=use_kernel, device="cpu")
+    prefill_j, decode_j = _compiled(mj)
+    B = 3
+    sj = mj.init_decode_state(params_j, B, T_MAX, per_slot=True)
+    st = mt.init_decode_state(params_t, B, T_MAX, per_slot=True)
+    assert st["cache"]["k"].dtype == torch.int8
+    assert st["cache"]["k_sc"].shape == tuple(sj["cache"]["k_sc"].shape)
+    if use_kernel:
+        rows, inv = _row_maps(cfg_j.n_layers, cfg_j.n_heads, 5)
+        sj = dict(sj, head_rows=jnp.asarray(rows), head_inv=jnp.asarray(inv))
+        st.update(head_rows=torch.from_numpy(rows),
+                  head_inv=torch.from_numpy(inv))
+    rng = np.random.default_rng(0)
+    prompts = {0: rng.integers(0, cfg_j.vocab_size, 5),
+               1: rng.integers(0, cfg_j.vocab_size, 11),
+               2: rng.integers(0, cfg_j.vocab_size, 3)}
+    admit_at = {0: 0, 1: 0, 2: 3}
+    nxt = np.zeros(B, np.int32)
+    for step in range(6):
+        for slot, at in admit_at.items():
+            if at != step:
+                continue
+            p = prompts[slot]
+            Lb = 8 if len(p) <= 8 else 16
+            toks = np.zeros((1, Lb), np.int32)
+            toks[0, :len(p)] = p
+            lj, subj = prefill_j(
+                params_j, mj.init_decode_state(params_j, 1, Lb,
+                                               per_slot=True),
+                jnp.asarray(toks), jnp.asarray([len(p)], jnp.int32))
+            lt, subt = mt.prefill_bucketed(
+                params_t, mt.init_decode_state(params_t, 1, Lb,
+                                               per_slot=True),
+                torch.from_numpy(toks), torch.tensor([len(p)]))
+            np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL_INT8)
+            sj = mj.insert_slot(sj, subj, slot)
+            st = mt.insert_slot(st, subt, slot)
+            nxt[slot] = int(np.argmax(np.asarray(lj)[0]))
+        lj, sj = decode_j(params_j, sj, jnp.asarray(nxt))
+        lt, st = mt.decode_step(params_t, st, torch.from_numpy(nxt))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL_INT8)
+        nxt = np.argmax(np.asarray(lj), axis=-1).astype(np.int32)
+    np.testing.assert_allclose(st["cache"]["k_sc"].numpy(),
+                               np.asarray(sj["cache"]["k_sc"]), **TOL)
+    _assert_int8_caches_close(st["cache"]["k"], sj["cache"]["k"])
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["fp", "int8"])
+def test_paged_decode_matches_reference(pair, kv_quant, use_kernel):
+    """The paged decode-state API — init_paged_state, mount_slot_pages,
+    chunked prefill_paged with dropped tail writes, decode_step through
+    the page map (and the paged kernels) — matches the reference's
+    per-step logits and positions.  Pages come from one allocator in
+    LIFO order, so physical ids are scrambled against logical order."""
+    from repro_torch.serving.paging import PagedKVAllocator
+    cfg_j, cfg_t, params_j, params_t = _pair_for(pair, kv_quant=kv_quant)
+    mj = jax_build_model(cfg_j, use_kernel=use_kernel)
+    mt = build_model(cfg_t, use_kernel=use_kernel, device="cpu")
+    prefill_j, decode_j = _compiled(mj, paged=True)
+    B, P, n_pages, per_slot = 3, 4, 20, T_MAX // 4
+    alloc = PagedKVAllocator(n_pages, P, B, per_slot)
+    sj = mj.init_paged_state(params_j, B, n_pages, P, per_slot)
+    st = mt.init_paged_state(params_t, B, n_pages, P, per_slot)
+    if use_kernel:
+        rows, inv = _row_maps(cfg_j.n_layers, cfg_j.n_heads, 7)
+        sj = dict(sj, head_rows=jnp.asarray(rows), head_inv=jnp.asarray(inv))
+        st.update(head_rows=torch.from_numpy(rows),
+                  head_inv=torch.from_numpy(inv))
+
+    def mount(row, pos):
+        nonlocal sj, st
+        pages = alloc.page_map_row(row)
+        sj = mj.mount_slot_pages(sj, jnp.int32(row), jnp.asarray(pages),
+                                 jnp.int32(pos))
+        st = mt.mount_slot_pages(st, row, pages, pos)
+
+    tol = TOL_INT8 if kv_quant else TOL
+    rng = np.random.default_rng(3)
+    prompts = {0: rng.integers(0, cfg_j.vocab_size, 5),
+               1: rng.integers(0, cfg_j.vocab_size, 11),
+               2: rng.integers(0, cfg_j.vocab_size, 3)}
+    admit_at = {0: 0, 1: 0, 2: 3}
+    depth = {}
+    nxt = np.zeros(B, np.int32)
+    for step in range(7):
+        for row, at in admit_at.items():
+            if at != step:
+                continue
+            p = prompts[row]
+            alloc.admit(row, len(p), len(p) + 10)
+            mount(row, 0)
+            for c0 in range(0, len(p), 8):
+                n = min(8, len(p) - c0)
+                toks = np.zeros((1, 8), np.int32)
+                toks[0, :n] = p[c0:c0 + n]
+                lj, sj = prefill_j(params_j, sj, jnp.asarray(toks),
+                                   jnp.int32(row), jnp.int32(c0),
+                                   jnp.int32(n))
+                lt, st = mt.prefill_paged(params_t, st,
+                                          torch.from_numpy(toks), row, c0, n)
+            np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **tol)
+            depth[row] = len(p)
+            nxt[row] = int(np.argmax(np.asarray(lj)[0]))
+        for row, d in depth.items():      # lazy page growth, as the engine
+            if d >= alloc.pages_for(row) * P:
+                alloc.extend(row, d + 1)
+                mount(row, d)
+        lj, sj = decode_j(params_j, sj, jnp.asarray(nxt))
+        lt, st = mt.decode_step(params_t, st, torch.from_numpy(nxt))
+        live = sorted(depth)
+        np.testing.assert_allclose(lt.numpy()[live], np.asarray(lj)[live],
+                                   **tol)
+        np.testing.assert_array_equal(st["pos"].numpy(),
+                                      np.asarray(sj["pos"]))
+        nxt = np.argmax(np.asarray(lj), axis=-1).astype(np.int32)
+        depth = {r: d + 1 for r, d in depth.items()}
+    # the pool the reference holds is the port's store without its sink
+    got, want = st["cache"]["k"][:, :n_pages], sj["cache"]["k"]
+    if kv_quant:
+        _assert_int8_caches_close(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
