@@ -4,14 +4,17 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version at the main path's shapes,
+holds each against its plain PyTorch version at the main paths' shapes,
 drives the main paths — ``ServingEngine(use_kernel=True)`` serving
 llama3-8b at full width (depth cut to 4 layers, random weights from a
 seed) under continuous batching with Algorithm 1 placements applied as
 live head migrations, from a dense, a paged, an int8 and an int8 paged KV
-cache — and checks that each path's decode went through its kernel.  Then
-it checks in float32 that greedy streams with and without each kernel,
-and from paged and dense caches, are equal.
+cache; and ``make_engine(mode="auto")`` serving mixtral-8x7b at full width
+(4 layers) from its sliding-window ring cache under the wave scheduler,
+with head and expert migrations applied — and checks that each path's
+decode went through its kernel.  Then it checks in float32 that greedy
+streams with and without each kernel, and from paged and dense caches,
+are equal.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -22,6 +25,7 @@ GPU, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -38,6 +42,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 MAIN_B, MAIN_H, MAIN_KVE, MAIN_DH, MAIN_T = 8, 32, 8, 128, 1024
 N_LAYERS = 4
+# the mixtral ring path: 4 slots, a 4096-token window, 4096-token prompts
+RING_B, RING_W, RING_PROMPT, RING_NEW = 4, 4096, 4096, 64
+TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
+        # bf16 output keeps ~3 significant digits of values <~ 1
+        torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
 
 
 class SmokeFailure(RuntimeError):
@@ -93,6 +102,40 @@ def cuda_ms(calls, reps: int = 20, n: int = 50) -> float:
     return float(np.median(times)) / reps
 
 
+# the decode body's mangled name: q's type, then KVSource<E, PAGED, QUANT,
+# RING> and DH
+_QTYPE = re.compile(r"decode_attention_kernelI(f|13__nv_bfloat16)")
+_FLAGS = re.compile(r"Lb([01])ELb([01])ELb([01])EEELi(\d+)E")
+
+
+def ptxas_usage(text: str):
+    """(kernel variant, registers and spills) per entry function in nvcc's
+    ``-Xptxas -v`` output; the variant names the K/V source (linear,
+    paged, int8, ring), q's type and dh when the mangled name reads as
+    the decode body's, else the mangled name."""
+    out, name, spills = [], None, ""
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name, spills = entry.group(1), ""
+            continue
+        if "spill stores" in line:
+            spills = line.split(",", 1)[-1].strip()
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            qt, flags = _QTYPE.search(name), _FLAGS.search(name)
+            if qt and flags:
+                paged, quant, ring, dh = flags.groups()
+                kind = "ring" if ring == "1" else \
+                    ("paged " if paged == "1" else "linear ") \
+                    + ("int8" if quant == "1" else "fp")
+                q = "f32" if qt.group(1) == "f" else "bf16"
+                name = f"{kind}, {q} q, dh={dh}"
+            out.append((name, f"{used.group(1)} registers, {spills}"))
+            name = None
+    return out
+
+
 # ---------------------------------------------------------------- phase 2
 def _group_perm(rng, H, G):
     groups = rng.permutation(H // G)
@@ -123,17 +166,21 @@ def decode_inputs(dtype, *, B=MAIN_B, H=MAIN_H, KvE=MAIN_KVE, dh=MAIN_DH,
             torch.as_tensor(r, dtype=torch.int32, device=dev))
 
 
-def decode_bound_ms(q, lengths, rows, KvE, T, row_bytes=None):
+def decode_bound_ms(q, lengths, rows, KvE, T, row_bytes=None, valid=None,
+                    extra_bytes=0):
     """Least time for the function on these inputs: each valid K/V row
     (``row_bytes`` each, default dh in q's dtype) read once, q read, output
-    written; ~4 flop per K/V element per row."""
+    written; ~4 flop per K/V element per row.  ``valid`` counts the valid
+    (batch row, position) pairs (default: the clamped lengths);
+    ``extra_bytes`` are other inputs read once."""
     B, H, dh = q.shape
     R = rows.shape[0]
     item = q.element_size()
-    valid = int(lengths.clamp(0, T).sum())
+    if valid is None:
+        valid = int(lengths.clamp(0, T).sum())
     row_bytes = dh * item if row_bytes is None else row_bytes
     nbytes = valid * KvE * row_bytes * 2 + (B * H * dh + B * R * dh) * item \
-        + 4 * (B + 2 * R)
+        + 4 * (B + 2 * R) + extra_bytes
     flops = valid * R * dh * 4
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
@@ -144,9 +191,6 @@ def decode_bound_ms(q, lengths, rows, KvE, T, row_bytes=None):
 def phase_kernel_vs_plain():
     from repro_torch.kernels.decode_attention import (
         decode_attention_resident, decode_attention_resident_plain)
-    tols = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
-            # bf16 output keeps ~3 significant digits of values <~ 1
-            torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
     lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
     cases = [(dt, rows, dict(lengths=lengths))
              for dt in (torch.float32, torch.bfloat16)
@@ -162,7 +206,7 @@ def phase_kernel_vs_plain():
         torch.cuda.synchronize()
         want = decode_attention_resident_plain(q, k, v, lens, r)
         err = (out.float() - want.float()).abs().max().item()
-        ok = torch.allclose(out.float(), want.float(), **tols[dt])
+        ok = torch.allclose(out.float(), want.float(), **TOLS[dt])
         log(f"kernel vs plain {str(dt)[6:]:8s} rows={rows:10s} "
             f"dh={q.shape[2]:3d} T={k.shape[2]:4d} max_abs_err={err:.3e}")
         check(ok and torch.isfinite(out).all().item(),
@@ -282,9 +326,6 @@ def phase_new_kernels_vs_plain():
     partial rows; lengths 0, 1, T-1, T, T+1; paged at P = 64 and 8 over a
     scrambled pool), then their times at the main path's bf16 shapes."""
     from repro_torch.kernels import decode_attention as da
-    tols = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
-            # bf16 output keeps ~3 significant digits of values <~ 1
-            torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
     lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
     records = []
     for kind, (name, replaces) in NEW_KERNELS.items():
@@ -301,7 +342,7 @@ def phase_new_kernels_vs_plain():
             torch.cuda.synchronize()
             want = plain(*args)
             err = (out.float() - want.float()).abs().max().item()
-            ok = torch.allclose(out.float(), want.float(), **tols[dt])
+            ok = torch.allclose(out.float(), want.float(), **TOLS[dt])
             log(f"{name} vs plain {str(dt)[6:]:8s} rows={rows:10s}"
                 f"{f' P={P}' if P else ''} max_abs_err={err:.3e}")
             check(ok and torch.isfinite(out).all().item()
@@ -331,6 +372,95 @@ def phase_new_kernels_vs_plain():
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None})
     return records
+
+
+def ring_slot_pos(window: int, n_written: int) -> np.ndarray:
+    """A ring's slot positions after positions 0 .. n_written - 1 were
+    written, slot ``t % window`` taking position t; never-written slots
+    hold -2**30."""
+    pos = np.full(window, -2 ** 30, np.int64)
+    for t in range(max(0, n_written - window), n_written):
+        pos[t % window] = t
+    return pos
+
+
+def ring_inputs(dtype, *, n_written, lengths, rows="identity", seed=0):
+    """Kernel-layout arguments of the ring kernel at the mixtral path's
+    shapes (B 4, H 32, KvE 8, dh 128, window 4096): K/V are transposed
+    views of a (B, window, KvE, dh) ring as the model passes them."""
+    q, k, v, lens, r = decode_inputs(
+        dtype, B=RING_B, T=RING_W, rows=rows, lengths=lengths, seed=seed)
+    slot_pos = torch.as_tensor(ring_slot_pos(RING_W, n_written),
+                               dtype=torch.int32, device="cuda")
+    return q, k, v, lens, slot_pos, r
+
+
+def ring_valid(lens, slot_pos):
+    """(B, window) validity of each ring slot for each row."""
+    n, pos = lens.long()[:, None], slot_pos.long()[None, :]
+    return (pos < n) & (pos >= n - RING_W)
+
+
+def phase_ring_vs_plain():
+    """The ring kernel against its plain version at the mixtral path's
+    shapes (bf16 and f32): a wrapped ring (lengths 4097-8192), a partly
+    filled one with empty slots (lengths 1, 37, 4095, 4096 over 3000
+    written positions) and resident rows under a group permutation; then
+    its time on the main path's bf16 inputs (a full wrapped ring)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ring_resident as kern,
+        decode_attention_ring_resident_plain as plain)
+    cases = [("wrapped", 8192, [8192, 8000, 6001, 4097], "identity"),
+             ("partly_filled", 3000, [1, 37, 4095, 4096], "identity"),
+             ("permuted", 8192, [8192, 5000, 4500, 4097], "group_perm")]
+    worst = 0.0
+    for i, (dt, (label, n, lengths, rows)) in enumerate(
+            (dt, c) for dt in (torch.float32, torch.bfloat16)
+            for c in cases):
+        args = ring_inputs(dt, n_written=n, lengths=lengths, rows=rows,
+                           seed=i)
+        out = kern(*args, window=RING_W)
+        torch.cuda.synchronize()
+        want = plain(*args, window=RING_W)
+        err = (out.float() - want.float()).abs().max().item()
+        ok = torch.allclose(out.float(), want.float(), **TOLS[dt])
+        log(f"decode_attention_ring_resident vs plain {str(dt)[6:]:8s} "
+            f"{label:13s} rows={rows:10s} max_abs_err={err:.3e}")
+        check(ok and torch.isfinite(out).all().item(),
+              f"ring kernel disagrees with its plain version ({dt}, "
+              f"{label})")
+        worst = max(worst, err)
+    # the main path's decode: every row at one length past the window, all
+    # slots valid; 4 input copies (4 x 67 MB of K/V) so every call reads
+    # cold
+    n = RING_PROMPT + RING_NEW
+    sets = [ring_inputs(torch.bfloat16, n_written=n, lengths=[n] * RING_B,
+                        seed=s) for s in range(4)]
+    ms = cuda_ms([lambda a=a: kern(*a, window=RING_W) for a in sets])
+    plain_ms = cuda_ms([lambda a=a: plain(*a, window=RING_W) for a in sets])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_calls = []
+    for q, k, v, lens, slot_pos, r in sets:
+        mask = ring_valid(lens, slot_pos)[:, None, None, :]
+        qs = q.index_select(1, r.long())[:, :, None, :]
+        lib_calls.append(lambda qs=qs, k=k, v=v, mask=mask: sdpa(
+            qs, k, v, attn_mask=mask, enable_gqa=True))
+    lib = cuda_ms(lib_calls)
+    q, k, _, lens, slot_pos, r = sets[0]
+    KvE = k.shape[1]
+    # bytes: the valid K/V slots and the slot positions, each read once
+    bound, bound_by = decode_bound_ms(
+        q, lens, r, KvE, RING_W, valid=int(ring_valid(lens, slot_pos).sum()),
+        extra_bytes=4 * RING_W)
+    log(f"decode_attention_ring_resident bf16 B={RING_B} H={q.shape[1]} "
+        f"KvE={KvE} dh={q.shape[2]} window={RING_W} lengths={n}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa with mask "
+        f"{lib:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+    return {"name": "decode_attention_ring_resident", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:456",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -520,6 +650,173 @@ def phase_stream_equality():
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ the mixtral path
+def expert_straggler(eng, at: int):
+    """A token hook that lands a 500x straggler on the device holding the
+    most expert blocks, once, when the scheduler has run ``at`` decode
+    steps (and that step's interval)."""
+    fired = []
+
+    def sink(req, tok, done):
+        if not fired and eng.decode_steps == at:
+            counts = np.zeros(eng.net.n_devices)
+            for block in eng.controller.blocks:
+                if block.kind == "expert":
+                    counts[int(eng.controller.place[block.index])] += 1
+            eng.net.inject_straggler(int(counts.argmax()), slowdown=500.0)
+            fired.append(at)
+
+    eng.token_sink = sink
+    return fired
+
+
+def mixtral_engine(cfg, *, use_kernel, n_requests, max_new, seed=0,
+                   params=None, n_slots=RING_B):
+    """``make_engine(mode="auto")`` for ``cfg`` over an 8192-token extent
+    (a ring of the 4096-token window), λ = 8, four simulated devices, with
+    ``n_requests`` 4096-token prompts from ``default_rng(seed)``."""
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.serving.engine import make_engine
+    eng = make_engine(cfg, mode="auto", n_slots=n_slots, max_seq=8192,
+                      lam=8, seed=0, net=DeviceNetwork.sample(4, seed=1),
+                      use_kernel=use_kernel, params=params, device="cuda")
+    rng = np.random.default_rng(seed)
+    for _ in range(n_requests):
+        eng.submit(rng.integers(0, cfg.vocab_size, RING_PROMPT),
+                   max_new_tokens=max_new)
+    return eng
+
+
+def phase_mixtral_ring():
+    """Serve 8 requests (4096-token prompts, 64 new tokens each) on the
+    full-width 4-layer mixtral through ``make_engine(mode="auto")``, which
+    must pick the wave scheduler over the ring cache; the ring wraps from
+    the first decode step, and a straggler at step 16 on the device with
+    the most expert blocks makes the controller move heads and experts.
+    Returns the ring kernel's launches in the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.serving.engine import WaveServingEngine
+    cfg = get_config("mixtral-8x7b").with_overrides(n_layers=N_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = mixtral_engine(cfg, use_kernel=True, n_requests=8,
+                         max_new=RING_NEW)
+    check(isinstance(eng, WaveServingEngine),
+          f"make_engine picked {type(eng).__name__} for a ring cache")
+    weight_gb = sum(t.numel() * t.element_size() for t in
+                    _leaves(eng.params)) / 1e9
+    fired = expert_straggler(eng, 16)
+    seen = watch_logits(eng)
+    kernels = [k for k, _, _ in PATHS.values()] + [
+        "decode_attention_ring_resident"]
+    torch.cuda.synchronize()
+    for kernel in kernels:
+        getattr(da, kernel).launches = 0
+    t0 = time.monotonic()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: getattr(da, k).launches for k in kernels}
+    ring = launches["decode_attention_ring_resident"]
+    tokens = sum(len(r.out_tokens) for r in eng.finished)
+    heads = [e for e in eng.migration_log if e["applied"]
+             and e["n_migrations"]]
+    experts = [e for e in eng.migration_log if e["expert_applied"]
+               and e["n_expert_migrations"]]
+    n_exp = sum(e["n_expert_migrations"] for e in experts)
+    exp_bytes = sum(e["expert_mig_bytes"] for e in experts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hd = eng.model.hd
+    ring_gb = 2 * N_LAYERS * RING_B * RING_W * hd.KvE * hd.dh * 2 / 1e9
+    log(f"main path mixtral ring (make_engine auto -> "
+        f"{type(eng).__name__}) bf16 mixtral-8x7b x{N_LAYERS} layers: "
+        f"{len(eng.finished)} requests, {tokens} tokens, "
+        f"{eng.decode_steps} decode steps in {wall:.2f} s "
+        f"({tokens / wall:.1f} tok/s); decode step median "
+        f"{1e3 * float(np.median(eng.step_times)):.2f} ms; "
+        f"{len(eng.interval_times)} controller intervals, mean "
+        f"{1e3 * float(np.mean(eng.interval_times)):.1f} ms; straggler at "
+        f"step {fired}; kernel launches {launches}")
+    decode_s, interval_s = sum(eng.step_times), sum(eng.interval_times)
+    log(f"  host-clock split of {wall:.2f} s: decode steps {decode_s:.2f} s, "
+        f"controller intervals {interval_s:.2f} s, prefill and the rest "
+        f"{wall - decode_s - interval_s:.2f} s")
+    log(f"  applied: {sum(e['n_migrations'] for e in heads)} head "
+        f"migrations ({sum(e['mig_bytes'] for e in heads) / 1e6:.1f} MB) in "
+        f"{len(heads)} intervals, {n_exp} expert migrations "
+        f"({exp_bytes / 1e6:.1f} MB, "
+        f"{exp_bytes / max(n_exp, 1) / 1e6:.1f} MB each) in {len(experts)} "
+        f"intervals")
+    log(f"  memory: weights {weight_gb:.2f} GB, ring K/V {ring_gb:.2f} GB, "
+        f"peak allocated {peak_gb:.2f} GB")
+    check(len(eng.finished) == 8 and all(len(r.out_tokens) == RING_NEW
+                                         for r in eng.finished),
+          "mixtral: not every request finished with its tokens")
+    check(ring == eng.decode_steps * cfg.n_layers,
+          f"mixtral: ring kernel launches {ring} != decode steps "
+          f"{eng.decode_steps} x {cfg.n_layers} layers")
+    check(not any(n for k, n in launches.items()
+                  if k != "decode_attention_ring_resident"),
+          f"mixtral: another kernel launched: {launches}")
+    check(bool(heads), "mixtral: no interval applied a head migration")
+    check(bool(experts), "mixtral: no interval applied an expert migration")
+    check(bool(seen["finite"].item()), "mixtral: non-finite logits")
+    return ring
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_mixtral_stream_pair():
+    """float32, 2 layers: the mixtral ring path with and without the ring
+    kernel, from the same weights and a straggler at step 8, must stream
+    the same greedy tokens with the same migration logs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("mixtral-8x7b").with_overrides(
+        n_layers=2, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    keys = ("step", "n_migrations", "mig_bytes", "n_expert_migrations",
+            "expert_mig_bytes", "applied", "expert_applied")
+    runs = []
+    for use_kernel in (True, False):
+        eng = mixtral_engine(cfg, use_kernel=use_kernel, n_requests=4,
+                             max_new=32, seed=1, params=params, n_slots=2)
+        expert_straggler(eng, 8)
+        logits, inner = [], eng.model.decode_step
+
+        def decode_step(p, state, tokens, inner=inner, logits=logits):
+            out, state = inner(p, state, tokens)
+            logits.append(out.clone())
+            return out, state
+
+        eng.model.decode_step = decode_step
+        eng.run()
+        runs.append(({r.rid: r.out_tokens for r in eng.finished},
+                     [tuple(m[k] for k in keys) for m in eng.migration_log],
+                     logits))
+        del eng
+        torch.cuda.empty_cache()
+    (s0, l0, g0), (s1, l1, g1) = runs
+    worst = max((a - b).abs().max().item() for a, b in zip(g0, g1))
+    moved = sum(m[1] * m[5] + m[3] * m[6] for m in l0)
+    log(f"f32 streams mixtral ring kernel vs plain (2 layers): {len(s0)} "
+        f"requests, max per-step logit difference {worst:.3e}, applied "
+        f"migrations {moved} (head + expert), logs "
+        f"{'equal' if l0 == l1 else 'differ'}")
+    check(len(s0) == 4 and s0 == s1, "mixtral: greedy streams differ")
+    check(l0 == l1, "mixtral: migration logs differ")
+    check(moved > 0, "mixtral: no migration was applied")
+    check(all(torch.isfinite(g).all().item() for g in g0 + g1),
+          "mixtral: non-finite logits")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is present")
@@ -536,16 +833,19 @@ def main():
     log(f"built {sorted(logs) or 'nothing (cached)'} in "
         f"{time.monotonic() - t0:.1f} s")
     for text in logs.values():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
-    records = [phase_kernel_vs_plain()] + phase_new_kernels_vs_plain()
+        for variant, usage in ptxas_usage(text):
+            log(f"  ptxas: {variant}: {usage}")
+    records = [phase_kernel_vs_plain()] + phase_new_kernels_vs_plain() \
+        + [phase_ring_vs_plain()]
     torch.cuda.empty_cache()
     for path, (name, _, _) in PATHS.items():
         record = next(r for r in records if r["name"] == name)
         record["launches"] = phase_main_path(path)
         torch.cuda.empty_cache()
+    records[-1]["launches"] = phase_mixtral_ring()
+    torch.cuda.empty_cache()
     phase_stream_equality()
+    phase_mixtral_stream_pair()
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -5,5 +5,5 @@ from repro_torch.configs.base import (  # noqa: F401
     list_archs,
 )
 
-# The port's first slice serves the dense GQA family.
-from repro_torch.configs import llama3_8b  # noqa: F401
+# The port serves the dense GQA family and the sliding-window MoE family.
+from repro_torch.configs import llama3_8b, mixtral_8x7b  # noqa: F401

@@ -7,10 +7,14 @@ Algorithm 1's placement becomes one head permutation per layer
 the weights between decode steps — in the λ-interval slack, exactly where
 the paper schedules migrations.
 
-Copy of the JAX package's ``core/controller.py`` for the dense path: the
-``"rescoring"`` search (Algorithm 1, refine, payback filter).  Plans are
-identical to the reference controller's on the same network and cost
-model.
+With MoE archs whose experts tile the devices the block graph carries one
+block per (layer, expert), priced by the observed router loads; each plan
+then also holds one expert-row permutation per layer, which the engine
+applies to the stacked expert weights.
+
+Copy of the JAX package's ``core/controller.py`` with its ``"rescoring"``
+search (Algorithm 1, refine, payback filter).  Plans are identical to the
+reference controller's on the same network and cost model.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.core.delay import (migration_delay, pipelined_inference_delay,
                                     revert_unpaying_migrations)
 from repro_torch.core.network import DeviceNetwork
 from repro_torch.core.placement_bridge import (migration_pairs_layers,
+                                               placement_to_expert_perms,
                                                placement_to_perms)
 
 SEARCH_MODES = ("rescoring", "bottleneck")
@@ -44,6 +49,10 @@ class ControllerConfig:
     # of the migration filter is D_pipe(K) + D_mig; k=1 is total delay)
     pipeline_k: int = 1
     search: str = "rescoring"
+    # physical expert rows per mesh slot (MoE archs).  0 = derive from the
+    # cost model: expert_slots // n_devices (expert rows, like heads, tile
+    # the mesh).  Only consulted when the cost model carries experts.
+    experts_per_slot: int = 0
 
 
 class IntervalController:
@@ -58,21 +67,25 @@ class IntervalController:
             raise NotImplementedError(
                 "search='bottleneck' needs the port of core/baselines.py "
                 "(ROADMAP Queue 1 #8)")
-        if cost.n_experts >= 2:
-            raise NotImplementedError(
-                "per-expert MoE blocks are not ported yet "
-                "(ROADMAP Queue 1 #11)")
         self.n_layers = cost.n_layers if cost.layer_mode == "graph" else 1
-        self.blocks: List[Block] = make_blocks(n_heads, self.n_layers)
+        self.blocks: List[Block] = make_blocks(n_heads, self.n_layers,
+                                               cost.n_experts,
+                                               cost.expert_replicas)
         self.cost = cost
         self.net = net
         self.cfg = cfg
+        self.has_experts = cost.n_experts >= 2
+        self.experts_per_slot = cfg.experts_per_slot
+        if self.has_experts and not self.experts_per_slot:
+            self.experts_per_slot = max(1, cost.expert_slots // net.n_devices)
         # the feasibility budget is the WHOLE interval: λ tokens at the
         # per-token deadline
         self.assigner = ResourceAwareAssigner(self.blocks, cost,
                                               deadline=cfg.deadline * cfg.lam)
         self.place: Optional[np.ndarray] = None
         self.perms: Optional[np.ndarray] = None   # (n_layers, slots·hps)
+        # (n_layers, slots·eps) physical expert-row layout (MoE archs)
+        self.expert_perms: Optional[np.ndarray] = None
         self.tau = 0
 
     def head_counts(self) -> np.ndarray:
@@ -89,6 +102,19 @@ class IntervalController:
         inactive device observes zero whatever its telemetry says."""
         obs = np.asarray(monitor.availability(peak_flops), float)
         self.net.compute_avail = np.where(self.net.active, obs, 0.0)
+
+    def update_expert_loads(self, loads):
+        """Feed observed router loads (rows: per layer, one entry per
+        physical expert slot, each row summing to ~1) into the expert cost
+        model; the assigner is rebuilt around the new ``CostModel`` so the
+        next ``step_interval`` prices expert compute by the live gate
+        frequencies."""
+        if not self.has_experts:
+            return
+        self.cost = self.cost.with_expert_loads(loads)
+        self.assigner = ResourceAwareAssigner(
+            self.blocks, self.cost,
+            deadline=self.cfg.deadline * self.cfg.lam)
 
     # ------------------------------------------------------------- decide
     def step_interval(self, tau: Optional[int] = None,
@@ -111,17 +137,30 @@ class IntervalController:
         place = revert_unpaying_migrations(prev, place, self.blocks,
                                            self.cost, self.net, self.tau,
                                            k=k, min_gain=self.cfg.min_gain)
-        new_perms = placement_to_perms(place, self.blocks, self.net.n_devices,
+        n_slots = self.net.n_devices
+        new_perms = placement_to_perms(place, self.blocks, n_slots,
                                        self.cfg.heads_per_slot,
                                        self.cfg.group_size)
         pairs = [] if self.perms is None else \
             migration_pairs_layers(self.perms, new_perms,
                                    self.cfg.heads_per_slot)
+        new_eperms = None
+        epairs: List[tuple] = []
+        if self.has_experts:
+            new_eperms = placement_to_expert_perms(
+                place, self.blocks, n_slots, self.experts_per_slot,
+                self.cost.expert_replicas)
+            if self.expert_perms is not None:
+                epairs = migration_pairs_layers(self.expert_perms, new_eperms,
+                                                self.experts_per_slot)
         d_mig = migration_delay(prev, place, self.blocks, self.cost,
                                 self.net, self.tau)
         plan = {"tau": self.tau, "place": place,
                 "perms": new_perms, "prev_perms": self.perms,
                 "migrations": pairs,
+                "expert_perms": new_eperms,
+                "prev_expert_perms": self.expert_perms,
+                "expert_migrations": epairs,
                 "d_mig_est": d_mig,
                 "d_pipe_est": pipelined_inference_delay(
                     place, self.blocks, self.cost, self.net, self.tau, k=k),
@@ -129,4 +168,6 @@ class IntervalController:
                 "queue_depth": queue_depth,
                 "infeasible": stats.infeasible}
         self.place, self.perms = place, new_perms
+        if new_eperms is not None:
+            self.expert_perms = new_eperms
         return plan

@@ -1,5 +1,6 @@
 """Placement bridge: Algorithm 1's block→device assignment realized as
-head permutations of the stacked weights and KV cache.
+head permutations of the stacked weights and KV cache, and as expert-row
+permutations of the stacked MoE weights.
 
 An arbitrary head→slot assignment is a permutation of the head axis: slot
 s holds heads ``perm[s*Hp/n : (s+1)*Hp/n]``.  Placement changes are
@@ -18,7 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.blocks import Block, HEAD, graph_of
+from repro_torch.core.blocks import Block, HEAD, expert_slot, graph_of
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +141,43 @@ def placement_to_perms(place: np.ndarray, blocks: Sequence[Block],
     return np.stack([placement_to_perm(place, g.layer_blocks(l),
                                        n_slots, heads_per_slot, group_size)
                      for l in range(g.n_layers)])
+
+
+def placement_to_expert_perms(place: np.ndarray, blocks: Sequence[Block],
+                              n_slots: int, experts_per_slot: int,
+                              expert_replicas: int = 1) -> np.ndarray:
+    """Per-layer *expert-slot* permutations — the expert analog of
+    ``placement_to_perms``.  Row l maps permutation position p (mesh slot
+    ``p // experts_per_slot``) to the physical expert-row id
+    (``blocks.expert_slot``: expert_id·R + replica) Algorithm 1 placed
+    there; overflow beyond a slot's capacity spills round-robin exactly
+    like head spill.  Shape (n_layers, n_slots·experts_per_slot), which
+    must equal the number of physical expert rows (raises otherwise)."""
+    g = graph_of(blocks)
+    positions = n_slots * experts_per_slot
+    rows = []
+    for l in range(g.n_layers):
+        ebs = g.experts[l]
+        if positions != len(ebs):
+            raise ValueError(f"{n_slots} slots x {experts_per_slot} experts "
+                             f"per slot != {len(ebs)} expert rows")
+        buckets: List[List[int]] = [[] for _ in range(n_slots)]
+        spilled: List[int] = []
+        for b in ebs:
+            j = int(place[b.index]) % n_slots
+            sid = expert_slot(b, expert_replicas)
+            if len(buckets[j]) < experts_per_slot:
+                buckets[j].append(sid)
+            else:
+                spilled.append(sid)
+        for sid in spilled:
+            j = int(np.argmin([len(bk) for bk in buckets]))
+            buckets[j].append(sid)
+        perm: List[int] = []
+        for bk in buckets:
+            perm.extend(bk)
+        rows.append(np.array(perm))
+    return np.stack(rows)
 
 
 def kv_group_perms(perms: np.ndarray, group_size: int) -> np.ndarray:
@@ -387,3 +425,47 @@ def permute_model_heads_layers(params, perms, *, group_size: int = 1):
         return out
 
     return visit(params)
+
+
+def permute_model_experts_layers(params, perms):
+    """Physically relocate MoE expert rows, in place: row l of ``perms``
+    reorders layer l's physical expert axis of ``w_gate``/``w_up``/
+    ``w_down`` AND the ``owner``/``share`` maps that travel with the rows
+    — the expert twin of ``permute_model_heads_layers``.  The combine
+    scatters physical rows back into logical-expert order
+    (``models.moe``), so the model function is bit-identical; only which
+    mesh slot holds which expert row changes.  Layer by layer, each stack
+    is gathered and copied back into its own storage, so the move needs
+    one layer's stack of scratch, not a second copy of every expert (the
+    reference returns new arrays instead).  Returns ``params``."""
+    rows = np.atleast_2d(np.asarray(perms))
+
+    def visit(tree):
+        if not isinstance(tree, dict):
+            return
+        for k, v in tree.items():
+            if k == "moe" and isinstance(v, dict):
+                if "owner" not in v:
+                    raise ValueError(
+                        "expert migration needs owner/share maps "
+                        "(install moe.expert_identity first)")
+                for name, axis in (("w_gate", -3), ("w_up", -3),
+                                   ("w_down", -3), ("owner", -1),
+                                   ("share", -1)):
+                    _permute_layers_(v[name], axis, rows)
+            else:
+                visit(v)
+
+    visit(params)
+    return params
+
+
+def _permute_layers_(w: torch.Tensor, axis: int, rows: np.ndarray):
+    """In place: row l of ``rows`` reorders axis ``axis`` of ``w[l]``."""
+    axis = axis % w.ndim
+    if axis == 0 or rows.shape[0] != w.shape[0]:
+        raise ValueError(f"{rows.shape[0]} permutation rows for a stack of "
+                         f"shape {tuple(w.shape)}, axis {axis}")
+    idx = torch.as_tensor(rows, dtype=torch.long, device=w.device)
+    for l in range(w.shape[0]):
+        w[l].copy_(w[l].index_select(axis - 1, idx[l]))

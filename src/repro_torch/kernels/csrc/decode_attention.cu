@@ -1,11 +1,11 @@
 // Resident flash-decode for Hopper (sm_90a): one query token per batch row
 // against a long KV cache, over only the q-head rows one device hosts.
 //
-// One flash body serves four K/V sources, as the reference's one Pallas body
-// (`_kernel` / `_kernel_int8`) serves its four Pallas kernels, which differ in
-// how K/V blocks are addressed and dequantized.  Each source has its own
-// extern "C" entry point; each replaces one Pallas TPU kernel of the JAX
-// package's src/repro/kernels/decode_attention.py:
+// One flash body serves five K/V sources, as the reference's Pallas bodies
+// (`_kernel` / `_kernel_int8` / `_kernel_ring`) serve its five Pallas
+// kernels, which differ in how K/V blocks are addressed, dequantized and
+// masked.  Each source has its own extern "C" entry point; each replaces one
+// Pallas TPU kernel of the JAX package's src/repro/kernels/decode_attention.py:
 //   decode_attention_resident_launch            <- decode_attention_resident
 //     K/V (B, KvE, T, dh) in q's dtype;
 //   decode_attention_int8_resident_launch       <- decode_attention_int8_resident
@@ -13,8 +13,18 @@
 //   decode_attention_paged_resident_launch      <- decode_attention_paged_resident
 //     K/V pages (n_pages, KvE, P, dh) in q's dtype, page_map (B, np) i32;
 //   decode_attention_int8_paged_resident_launch <- decode_attention_int8_paged_resident
-//     K/V pages int8, scale pages (n_pages, KvE, P) f32.
-// Same function for each: for every (b, r)
+//     K/V pages int8, scale pages (n_pages, KvE, P) f32;
+//   decode_attention_ring_resident_launch       <- decode_attention_ring_resident
+//     a sliding-window ring K/V (B, KvE, W, dh) in q's dtype, slot_pos (W,)
+//     i32 the absolute position each ring slot holds (empty: -2^30).
+// The ring source reads every one of its W slots: validity is not a prefix
+// (the ring wraps once the query position passes W), so slot t counts iff
+//   lengths[b] - W <= slot_pos[t] < lengths[b]     (lengths = query pos + 1)
+// and its softmax weight is set to 0 where it does not: a warp that sees no
+// valid slot keeps m = -1e30, l = 0 and merges as empty, and a row with no
+// valid slot returns zeros through the l >= 1e-30 clamp.  The buffer is never
+// rotated: softmax does not depend on the order of the slots.
+// The linear and paged sources compute, for every (b, r)
 //   out[b, r] = softmax(q[b, rows[r]] . K[b, kv_rows[r], :len]^T / sqrt(dh))
 //               . V[b, kv_rows[r], :len],      len = clamp(lengths[b], 0, cap)
 // with cap = T (linear) or np * P (paged), f32 accumulation, an online
@@ -28,7 +38,8 @@
 //   sum_b len_b * KvE * 2 (k and v) * (dh * itemsize [+ 4 for an int8 scale])
 // bytes at 3.35 TB/s (H100 SXM); the arithmetic is ~4 flop per K/V element,
 // far below the card's ridge point.  Paging reads the same bytes as the
-// linear cache; int8 reads (dh + 4) / (2 dh) of bf16's.
+// linear cache; int8 reads (dh + 4) / (2 dh) of bf16's.  The ring source
+// reads its W slots (len_b replaced by the valid slots of row b).
 //
 // Design (simple first): one thread block per (r, b) with kWarps warps.  The
 // TPU's sequential kv grid axis becomes a loop inside the block: warp w walks
@@ -76,19 +87,34 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 // base (batch row b's head row for a linear cache; the head row of page 0
 // for a paged one) plus the offset of position t from it.  Strides are in
 // elements, `*_sb` along the batch or page axis.  The pointers themselves
-// are kernel parameters, so they keep their __restrict__.
-template <typename E, bool PAGED, bool QUANT>
+// are kernel parameters, so they keep their __restrict__.  A RING source is
+// a linear one whose T_len = W slots are all read, each valid by its
+// slot_pos entry (see `ring_valid`).
+template <typename E, bool PAGED, bool QUANT, bool RING = false>
 struct KVSource {
   using Elem = E;
   static constexpr bool kPaged = PAGED;
   static constexpr bool kQuant = QUANT;
+  static constexpr bool kRing = RING;
   int64_t k_sb, k_sh, k_st, v_sb, v_sh, v_st;
   int64_t ks_sb, ks_sh, ks_st, vs_sb, vs_sh, vs_st;  // QUANT: scales
-  int T_len;                // linear: positions; paged: the page size P
+  int T_len;                // linear: positions; paged: the page size P;
+                            // ring: the window W
   int n_pages, n_logical;   // PAGED: pool size, np
 
   __device__ __forceinline__ int cap() const {
     return PAGED ? n_logical * T_len : T_len;
+  }
+  // The positions the flash loop walks for a row whose `lengths` entry is
+  // `length`: the valid prefix of a linear or paged cache, every slot of a
+  // ring.
+  __device__ __forceinline__ int extent(int length) const {
+    return RING ? T_len : min(max(length, 0), cap());
+  }
+  // RING: slot t holds absolute position `pos`; it counts for the query at
+  // position length - 1 iff it lies in that query's window.
+  __device__ __forceinline__ bool ring_valid(int pos, int length) const {
+    return pos < length && pos >= length - T_len;
   }
   // Block-uniform: every page a row of length `len` reads lies in the pool.
   __device__ __forceinline__ bool pages_ok(const int32_t* page_map, int b,
@@ -159,7 +185,10 @@ decode_attention_kernel(const QT* __restrict__ q,
   const int row = rows[r];
   const int kv_row = kv_rows[r];
   QT* o = out + ((int64_t)b * R + r) * DH;
-  const int len = min(max(lengths[b], 0), src.cap());
+  // `page_map` carries the page table of a paged source and slot_pos of a
+  // ring source (unused by the others)
+  const int length = lengths[b];
+  const int len = src.extent(length);
   // both tests are uniform over the block, so its threads leave together
   if (row < 0 || row >= H || kv_row < 0 || kv_row >= KvE ||
       !src.pages_ok(page_map, b, len)) {
@@ -194,6 +223,7 @@ decode_attention_kernel(const QT* __restrict__ q,
     // unused, and the compiler drops them)
     float kr[kUnroll][EPL], vr[kUnroll][EPL], s[kUnroll], ksc[kUnroll],
         vsc[kUnroll];
+    bool valid[kUnroll];  // RING: the slot lies in the row's window
     // Where the positions lie.  Linear: offset t, computed for every
     // position with no branch, so it stays affine in t0 and the compiler
     // strength-reduces it across steps.  Paged: one division per step (one
@@ -206,7 +236,9 @@ decode_attention_kernel(const QT* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 + u;
-      const bool ok = t < len;
+      bool ok = t < len;
+      if (Src::kRing) ok = ok && src.ring_valid(page_map[t], length);
+      valid[u] = ok;
       int pg = pg0, off = off0 + u;
       if (Src::kPaged && off >= src.T_len) {
         pg += off / src.T_len;
@@ -244,7 +276,7 @@ decode_attention_kernel(const QT* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (Src::kQuant) s[u] *= ksc[u];
-      if (t0 + u >= len) s[u] = kNegInf;
+      if (Src::kRing ? !valid[u] : t0 + u >= len) s[u] = kNegInf;
       m_new = fmaxf(m_new, s[u]);
     }
     const float alpha = expf(m - m_new);
@@ -253,7 +285,9 @@ decode_attention_kernel(const QT* __restrict__ q,
     for (int i = 0; i < EPL; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const float p = expf(s[u] - m_new);
+      // a ring slot outside the window weighs 0 even while m_new is still
+      // -1e30 (where expf(s - m_new) would be 1)
+      const float p = Src::kRing && !valid[u] ? 0.f : expf(s[u] - m_new);
       const float pv = Src::kQuant ? p * vsc[u] : p;
       l += p;
 #pragma unroll
@@ -333,20 +367,20 @@ int launch(const Common& c, const Buffers& buf, const Src& src) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool PAGED, bool QUANT>
+template <bool PAGED, bool QUANT, bool RING = false>
 int run_source(int dtype, const Common& c, const Buffers& buf, int T_len,
                int n_pages, int n_logical, int64_t k_sb, int64_t k_sh,
                int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
                int64_t ks_sb, int64_t ks_sh, int64_t ks_st, int64_t vs_sb,
                int64_t vs_sh, int64_t vs_st) {
-  if (PAGED && T_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((PAGED || RING) && T_len <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_SOURCE(QT)                                                    \
   {                                                                         \
     using E = typename std::conditional<QUANT, int8_t, QT>::type;           \
-    const KVSource<E, PAGED, QUANT> src{k_sb,  k_sh,  k_st,  v_sb,  v_sh,   \
-                                        v_st,  ks_sb, ks_sh, ks_st, vs_sb,  \
-                                        vs_sh, vs_st, T_len, n_pages,       \
-                                        n_logical};                         \
+    const KVSource<E, PAGED, QUANT, RING> src{                              \
+        k_sb,  k_sh,  k_st,  v_sb,  v_sh,  v_st,  ks_sb,   ks_sh,           \
+        ks_st, vs_sb, vs_sh, vs_st, T_len, n_pages, n_logical};             \
     return launch<QT>(c, buf, src);                                         \
   }
   if (dtype == 0) REPRO_SOURCE(float)
@@ -422,4 +456,20 @@ extern "C" int decode_attention_int8_paged_resident_launch(
   return run_source<true, true>(dtype, c, {k, v, ks, vs, page_map}, P, n_pages,
                                 n_logical, k_sp, k_sh, k_st, v_sp, v_sh, v_st,
                                 ks_sp, ks_sh, ks_st, vs_sp, vs_sh, vs_st);
+}
+
+// A sliding-window ring K/V (B, KvE, W, dh) in q's dtype; slot_pos (W,)
+// int32, the absolute position each slot holds; lengths (B,) = query
+// position + 1.
+extern "C" int decode_attention_ring_resident_launch(
+    const void* q, const void* k, const void* v, const void* lengths,
+    const void* slot_pos, const void* rows, const void* kv_rows, void* out,
+    int B, int H, int KvE, int window, int R, int dh, int dtype, int64_t q_sb,
+    int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb,
+    int64_t v_sh, int64_t v_st, void* stream) {
+  const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
+                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
+  return run_source<false, false, true>(
+      dtype, c, {k, v, nullptr, nullptr, slot_pos}, window, 0, 0, k_sb, k_sh,
+      k_st, v_sb, v_sh, v_st, 0, 0, 0, 0, 0, 0);
 }

@@ -3,11 +3,11 @@ cache, over only the q-head rows one device hosts — the paper's dominant
 inference object, dispatched per (layer, device) from Algorithm 1's
 placement.
 
-Counterpart of the JAX package's ``kernels/decode_attention.py``: its four
-Pallas TPU kernels over a linear or paged cache, in the working dtype or
-int8 with per-(token, head) scales, are here one hand-written CUDA C++
-body for Hopper (``csrc/decode_attention.cu``, built by ``kernels.build``)
-behind four entry points:
+Counterpart of the JAX package's ``kernels/decode_attention.py``: its five
+Pallas TPU kernels over a linear, paged or sliding-window ring cache, in
+the working dtype or int8 with per-(token, head) scales, are here one
+hand-written CUDA C++ body for Hopper (``csrc/decode_attention.cu``, built
+by ``kernels.build``) behind five entry points:
 
 - ``decode_attention_resident``: K/V (B, KvE, T, dh);
 - ``decode_attention_int8_resident``: int8 K/V (B, KvE, T, dh) with f32
@@ -15,7 +15,9 @@ behind four entry points:
 - ``decode_attention_paged_resident``: K/V pages (n_pages, KvE, P, dh)
   read through ``page_map`` (B, np);
 - ``decode_attention_int8_paged_resident``: int8 K/V pages with f32
-  scale pages (n_pages, KvE, P, 1).
+  scale pages (n_pages, KvE, P, 1);
+- ``decode_attention_ring_resident``: a sliding-window ring K/V
+  (B, KvE, W, dh) whose slot t holds absolute position ``slot_pos[t]``.
 
 Each launches the kernel for CUDA tensors, counts the launch in its
 ``.launches``, and runs its ``*_plain`` version — the same function in
@@ -41,20 +43,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # ---------------------------------------------------------------------------
 
 
-def decode_attention_resident_plain(q, k, v, lengths, rows, kv_rows=None):
-    """Plain PyTorch version of the kernel: a masked softmax over the
-    gathered rows, accumulated in float32.  Same arguments and result as
-    :func:`decode_attention_resident`."""
+def _masked_decode_plain(q, k, v, valid, rows, kv_rows):
+    """A softmax over the gathered rows' K/V positions where ``valid``
+    (B, T) holds, accumulated in float32."""
     B, H, dh = q.shape
-    KvE, T = k.shape[1], k.shape[2]
+    KvE = k.shape[1]
     rows = rows.long()
     kv_rows = rows // (H // KvE) if kv_rows is None else kv_rows.long()
     qr = q.index_select(1, rows).float()                    # (B, R, dh)
     kr = k.index_select(1, kv_rows).float()                 # (B, R, T, dh)
     vr = v.index_select(1, kv_rows).float()
     s = torch.einsum("brd,brtd->brt", qr, kr) / math.sqrt(dh)
-    n = lengths.long().clamp(0, T)
-    valid = torch.arange(T, device=q.device)[None, :] < n[:, None]
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
     # a row with no valid position keeps a finite max, so p is all zero
     # and the l >= 1e-30 clamp returns zeros (as the kernel does)
@@ -63,6 +62,27 @@ def decode_attention_resident_plain(q, k, v, lengths, rows, kv_rows=None):
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("brt,brtd->brd", p, vr) / l
     return out.to(q.dtype)
+
+
+def decode_attention_resident_plain(q, k, v, lengths, rows, kv_rows=None):
+    """Plain PyTorch version of the kernel: a masked softmax over the
+    gathered rows, accumulated in float32.  Same arguments and result as
+    :func:`decode_attention_resident`."""
+    T = k.shape[2]
+    n = lengths.long().clamp(0, T)
+    valid = torch.arange(T, device=q.device)[None, :] < n[:, None]
+    return _masked_decode_plain(q, k, v, valid, rows, kv_rows)
+
+
+def decode_attention_ring_resident_plain(q, k, v, lengths, slot_pos, rows,
+                                         kv_rows=None, *, window: int):
+    """Plain version of :func:`decode_attention_ring_resident`: slot t of
+    row b counts iff ``lengths[b] - window <= slot_pos[t] < lengths[b]``;
+    a row with no valid slot returns zeros."""
+    n = lengths.long()[:, None]
+    pos = slot_pos.long()[None, :]
+    valid = (pos < n) & (pos >= n - window)                 # (B, window)
+    return _masked_decode_plain(q, k, v, valid, rows, kv_rows)
 
 
 def _gather_pages(pages, page_map):
@@ -119,6 +139,8 @@ _SIGNATURES = {
         [_PTR] * 8 + [_INT] * 9 + [_I64] * 8 + [_PTR],
     "decode_attention_int8_paged_resident_launch":
         [_PTR] * 10 + [_INT] * 9 + [_I64] * 14 + [_PTR],
+    "decode_attention_ring_resident_launch":
+        [_PTR] * 8 + [_INT] * 7 + [_I64] * 8 + [_PTR],
 }
 
 
@@ -339,7 +361,44 @@ def decode_attention_int8_paged_resident(q, k_q8, k_sc, v_q8, v_sc, lengths,
     return out
 
 
+def decode_attention_ring_resident(q, k, v, lengths, slot_pos, rows,
+                                   kv_rows=None, *, window: int):
+    """Sliding-window flash-decode over a ring cache, over the resident
+    head rows.
+
+    k, v: (B, KvE, window, dh) ring buffers, any strides with a unit last
+    one (the model passes a view of its (B, window, KvE, dh) ring); slot
+    t holds absolute position ``slot_pos[t]`` ((window,) int32, shared by
+    the batch; an empty slot holds -2**30); lengths: (B,) query position
+    + 1.  Every slot is read, and slot t counts for row b iff
+    ``lengths[b] - window <= slot_pos[t] < lengths[b]``; a row with no
+    valid slot returns zeros.  rows/kv_rows and the result as in
+    :func:`decode_attention_resident`."""
+    kv_rows = _kv_rows(q, k, rows, kv_rows)
+    B, H, dh = _check(q, k, v, lengths, rows, kv_rows, batch_axis=True)
+    if k.shape[2] != window or slot_pos.shape != (window,):
+        raise ValueError(f"a ring of window {window} needs k/v (B, KvE, "
+                         f"{window}, dh) and slot_pos ({window},); got "
+                         f"{tuple(k.shape)} and {tuple(slot_pos.shape)}")
+    if _on_cpu(q, k, v, lengths, slot_pos, rows, kv_rows):
+        return decode_attention_ring_resident_plain(
+            q, k, v, lengths, slot_pos, rows, kv_rows, window=window)
+    _check_kernel_inputs(q, k, v, dh, quant=False)
+    lengths, slot_pos, rows, kv_rows = _i32(lengths, slot_pos, rows, kv_rows)
+    KvE = k.shape[1]
+    out, launched = _launch(
+        "decode_attention_ring_resident_launch", q, rows.shape[0],
+        (q, k, v, lengths, slot_pos, rows, kv_rows),
+        (B, H, KvE, window, rows.shape[0]),
+        (k.stride(0), k.stride(1), k.stride(2),
+         v.stride(0), v.stride(1), v.stride(2)),
+        "decode_attention_ring_resident")
+    decode_attention_ring_resident.launches += launched
+    return out
+
+
 for _fn in (decode_attention_resident, decode_attention_int8_resident,
             decode_attention_paged_resident,
-            decode_attention_int8_paged_resident):
+            decode_attention_int8_paged_resident,
+            decode_attention_ring_resident):
     _fn.launches = 0

@@ -1,6 +1,6 @@
 """Model-layout wrappers of the kernels ((B, S, H, dh) activations,
-(B, T, KvE, dh) caches, (n_pages, P, KvE, dh) page stores) — counterpart
-of the JAX package's ``kernels/ops.py``.
+(B, T, KvE, dh) caches and rings, (n_pages, P, KvE, dh) page stores) —
+counterpart of the JAX package's ``kernels/ops.py``.
 
 The JAX wrappers transpose the whole per-layer cache (or page store) into
 the kernel layout; here the kernels read the cache through its strides,
@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import (
     decode_attention_int8_paged_resident, decode_attention_int8_resident,
-    decode_attention_paged_resident, decode_attention_resident)
+    decode_attention_paged_resident, decode_attention_resident,
+    decode_attention_ring_resident)
 
 
 def _scatter(o, inv_rows):
@@ -67,4 +68,17 @@ def decode_attention_int8_paged_bshd(q, k_q8, k_sc, v_q8, v_sc, lengths,
         q[:, 0], k_q8.transpose(1, 2), k_sc.transpose(1, 2)[..., None],
         v_q8.transpose(1, 2), v_sc.transpose(1, 2)[..., None], lengths,
         page_map, rows, kv_rows)
+    return _scatter(o, inv_rows)
+
+
+def decode_attention_ring_bshd(q, k, v, lengths, slot_pos, *, window: int,
+                               rows, kv_rows=None, inv_rows=None):
+    """Sliding-window ring-cache decode in model layout: q (B,1,H,dh), ring
+    k/v (B,window,KvE,dh), ``slot_pos`` (window,) the absolute position
+    each ring slot holds — the kernel masks by position instead of
+    rotating the buffer (softmax does not depend on the slots' order).
+    ``rows``/``inv_rows`` as in :func:`decode_attention_resident_bshd`."""
+    o = decode_attention_ring_resident(
+        q[:, 0], k.transpose(1, 2), v.transpose(1, 2), lengths, slot_pos,
+        rows, kv_rows, window=window)
     return _scatter(o, inv_rows)

@@ -1,7 +1,8 @@
-"""Plain PyTorch oracle over the full head grid, in kernel layout —
-counterpart of the JAX package's ``kernels/ref.decode_attention_ref``.
-Written independently of the kernel's plain version (softmax over a
--inf-masked score row), so tests can hold one against the other."""
+"""Plain PyTorch oracles over the full head grid, in kernel layout —
+counterpart of the JAX package's ``kernels/ref.decode_attention_ref``, plus
+one for the sliding-window ring.  Written independently of the kernels'
+plain versions (softmax over a -inf-masked score row), so tests can hold
+one against the other."""
 from __future__ import annotations
 
 import math
@@ -12,11 +13,26 @@ import torch
 def decode_attention_ref(q, k, v, lengths):
     """q: (B,H,dh) one query token; k,v: (B,KvE,T,dh); lengths: (B,) valid
     cache lengths (1..T). Returns (B,H,dh) in q's dtype."""
+    T = k.shape[2]
+    mask = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+    return _softmax_attend(q, k, v, mask)
+
+
+def decode_attention_ring_ref(q, k, v, lengths, slot_pos, window: int):
+    """q: (B,H,dh); ring k,v: (B,KvE,window,dh) whose slot t holds absolute
+    position ``slot_pos[t]``; lengths: (B,) query position + 1, each with
+    at least one slot in ``[lengths - window, lengths)``."""
+    pos = slot_pos[None, :]
+    n = lengths[:, None]
+    return _softmax_attend(q, k, v, (pos < n) & (pos >= n - window))
+
+
+def _softmax_attend(q, k, v, mask):
+    """Softmax over the (B, T) positions ``mask`` admits, per q head."""
     B, H, dh = q.shape
-    KvE, T = k.shape[1], k.shape[2]
+    KvE = k.shape[1]
     qg = q.reshape(B, KvE, H // KvE, dh).float()
     s = torch.einsum("begd,betd->begt", qg, k.float()) / math.sqrt(dh)
-    mask = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("begt,betd->begd", p, v.float())

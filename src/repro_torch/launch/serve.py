@@ -1,14 +1,20 @@
-"""Serving CLI: batched requests through the port's ServingEngine with
+"""Serving CLI: batched requests through the port's serving engines with
 the paper's interval controller (Algorithm 1 + migrations) in the loop —
 counterpart of the JAX package's ``launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --layers 4 --requests 8 --tokens 24 --use-kernel [--straggler 0]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --layers 4 --max-seq 8192 --prompt-len 4096 --tokens 64 --use-kernel
 
 Runs on the GPU unless ``--device cpu`` is given (``--reduced`` shrinks
-the widths to a CPU-sized model).  ``--paged [--page-size P]`` serves from
-a paged KV cache and ``--kv-quant`` from an int8 one, alone or together.
-The reference's ``--engine``, ``--pipeline-k`` and ``--search`` are not
+the widths to a CPU-sized model, and a sliding window to 16 tokens).
+``--engine auto`` picks the continuous engine where the arch and the
+served extent allow it and the wave engine otherwise (a sliding-window
+arch whose ``--max-seq``, default prompt + tokens + 8, reaches its window
+keeps a ring cache).  ``--paged [--page-size P]`` serves from a paged KV
+cache and ``--kv-quant`` from an int8 one, alone or together (continuous
+engine).  The reference's ``--pipeline-k`` and ``--search`` are not
 ported yet and raise.
 """
 from __future__ import annotations
@@ -19,19 +25,26 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import make_engine
 
 # reference flags this slice does not serve yet, with their ROADMAP items
-_NOT_PORTED = {"--engine": 12, "--pipeline-k": 8, "--search": 8}
+_NOT_PORTED = {"--pipeline-k": 8, "--search": 8}
+# the sliding window of a reduced config, so a short CPU run wraps its ring
+REDUCED_WINDOW = 16
 
 
 def reduced_for_cpu(cfg, d_model: int = 256):
-    """CPU-sized widths of the dense family (the reference's
-    ``launch.train.reduced_for_cpu``)."""
-    return cfg.with_overrides(
-        d_model=d_model, d_ff=d_model * 4, vocab_size=4096, n_heads=8,
-        n_kv_heads=min(8, cfg.n_kv_heads or 8), d_head=d_model // 8,
-        dtype="float32", param_dtype="float32")
+    """CPU-sized widths (the reference's ``launch.train.reduced_for_cpu``:
+    4 experts for MoE), plus a ``REDUCED_WINDOW``-token sliding window
+    for windowed archs."""
+    over = dict(d_model=d_model, d_ff=d_model * 4, vocab_size=4096,
+                n_heads=8, n_kv_heads=min(8, cfg.n_kv_heads or 8),
+                d_head=d_model // 8, dtype="float32", param_dtype="float32")
+    if cfg.is_moe:
+        over["n_experts"] = 4
+    if cfg.sliding_window:
+        over["sliding_window"] = REDUCED_WINDOW
+    return cfg.with_overrides(**over)
 
 
 def main(argv=None):
@@ -63,6 +76,14 @@ def main(argv=None):
                          "the dense engine at the same seed")
     ap.add_argument("--page-size", type=int, default=8,
                     help="tokens per KV page (--paged)")
+    ap.add_argument("--engine", default="auto",
+                    choices=("auto", "continuous", "wave"),
+                    help="continuous batching (where the arch and extent "
+                         "allow it) or the wave scheduler")
+    ap.add_argument("--max-seq", type=int, default=None,
+                    help="served extent (default prompt + tokens + 8); a "
+                         "sliding-window arch keeps a ring at or past its "
+                         "window")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args, rest = ap.parse_known_args(argv)
     for flag in rest:
@@ -82,16 +103,19 @@ def main(argv=None):
     if args.kv_quant:
         cfg = cfg.with_overrides(kv_quant=True)
     kw = {}
-    max_seq = args.prompt_len + args.tokens + 8
+    mode = args.engine
+    max_seq = args.max_seq or args.prompt_len + args.tokens + 8
     if args.paged:
-        # pages divide max_seq
+        # pages divide max_seq; the paged cache is the continuous engine's
         kw.update(paged=True, page_size=args.page_size)
         max_seq += -max_seq % args.page_size
-    eng = ServingEngine(cfg, n_slots=args.slots, max_seq=max_seq,
-                        lam=args.lam, use_kernel=args.use_kernel,
-                        device=args.device, **kw)
+        mode = "continuous"
+    eng = make_engine(cfg, mode=mode, n_slots=args.slots, max_seq=max_seq,
+                      lam=args.lam, use_kernel=args.use_kernel,
+                      device=args.device, **kw)
     print(f"[serve] engine: {type(eng).__name__} on {eng.device}, "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}")
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, max_seq {max_seq}"
+          f"{f', window {cfg.sliding_window}' if cfg.sliding_window else ''}")
     if args.straggler >= 0:
         eng.net.inject_straggler(args.straggler, slowdown=20.0)
         print(f"[serve] injected straggler on device {args.straggler}")
@@ -111,9 +135,10 @@ def main(argv=None):
     print(f"[serve] {len(done)} requests, {total_toks} tokens in "
           f"{wall:.1f}s ({total_toks / wall:.1f} tok/s)")
     migr = sum(m["n_migrations"] for m in eng.migration_log)
+    emigr = sum(m["n_expert_migrations"] for m in eng.migration_log)
     print(f"[serve] controller intervals={len(eng.migration_log)} "
-          f"head-migrations={migr}")
-    if eng.decode_steps:
+          f"head-migrations={migr} expert-migrations={emigr}")
+    if hasattr(eng, "slot_busy_steps") and eng.decode_steps:
         util = eng.slot_busy_steps / (eng.decode_steps * eng.n_slots)
         print(f"[serve] slot utilization {util:.0%}, prefill buckets "
               f"{sorted(eng.prefill_buckets_used)}")

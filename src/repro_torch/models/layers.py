@@ -1,7 +1,8 @@
-"""Dense-decoder layers: RMSNorm, RoPE, GQA attention with a per-slot or
-paged KV cache (in the working dtype or int8), SwiGLU MLP, embeddings —
-counterpart of the JAX package's ``models/layers.py``, for the branches
-the dense llama family takes.
+"""Decoder layers: RMSNorm, RoPE, GQA attention (causal or sliding-window,
+plain or chunked flash-style) with a per-slot, paged or ring KV cache (in
+the working dtype or int8), SwiGLU MLP, embeddings — counterpart of the
+JAX package's ``models/layers.py``, for the branches the llama and mixtral
+families take.
 
 Functions take plain tensors and nested dicts of parameters in the
 reference's layouts (``wq`` (D,Hp,dh), ``wk``/``wv`` (D,Kp,dh), ``wo``
@@ -134,27 +135,80 @@ def attention_scores(q, k, v, mask):
     """q: (B,S,Hp,dh), k/v: (B,T,KvE,dh), mask: broadcastable to
     (B,1,1,S,T) or None. Returns (B,S,Hp,dh). Scores and softmax in f32."""
     B, S, Hp, dh = q.shape
-    KvE = k.shape[2]
+    T, KvE = k.shape[1], k.shape[2]
+    # The KV extent is padded with masked keys to a multiple of 16, and to
+    # at least 64.  torch's CPU batched matmul computes a product with
+    # fewer than 16 columns, or fewer than 400 multiply-adds, in another
+    # summation order than a larger one, and its softmax sums a row shorter
+    # than its vector width (16 floats with AVX-512) in another order than
+    # a longer one.  Past both edges a valid prefix gets the same scores
+    # and probabilities at any extent, so a dense prefill bucket of 8
+    # tokens and the paged cache (which attends over the page table's
+    # whole span) agree bit for bit.
+    pad = max(64, -(-T // 16) * 16) - T
+    if pad:
+        if mask is None:
+            mask = torch.ones((1, 1, 1, 1, T), dtype=torch.bool,
+                              device=q.device)
+        k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+        mask = F.pad(mask, (0, pad), value=False)
     qg = q.reshape(B, S, KvE, Hp // KvE, dh)
     scores = torch.einsum("bsegd,bted->begst", qg.float(), k.float())
     scores = scores / math.sqrt(dh)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    # torch's CPU softmax sums a row shorter than its vector width (16
-    # floats with AVX-512) in another order than a longer one.  Rows padded
-    # with masked scores to a multiple of 16 give a valid prefix the same
-    # probabilities at any extent, so a dense cache and the paged cache
-    # (which attends over the page table's whole span) agree bit for bit.
-    T = scores.shape[-1]
-    probs = torch.softmax(F.pad(scores, (0, -T % 16), value=NEG_INF),
-                          dim=-1)[..., :T]
+    probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("begst,bted->bsegd", probs.to(v.dtype), v)
     return out.reshape(B, S, Hp, dh)
 
 
-def causal_mask(q_positions, kv_positions):
-    """(B,1,1,S,T) boolean; True = attend."""
+def chunked_attention(q, k, v, q_positions, kv_positions, *,
+                      causal: bool = True, window: int = 0,
+                      chunk: int = 1024):
+    """Flash-style attention in plain PyTorch: a loop over KV chunks with an
+    online softmax (m, l, acc) — peak memory O(S·chunk) instead of O(S·T).
+    Same arithmetic as the reference's ``chunked_attention`` (q scaled in
+    float32 first, masked scores at -1e30, ``l`` clamped at 1e-30).
+
+    q: (B,S,Hp,dh); k/v: (B,T,KvE,dh); positions (B,S)/(B,T); ``window``
+    > 0 keeps only keys within ``window`` positions of the query.  Returns
+    (B,S,Hp,dh) in q's dtype."""
+    B, S, Hp, dh = q.shape
+    T, KvE = k.shape[1], k.shape[2]
+    G = Hp // KvE
+    chunk = min(chunk, T)
+    if T % chunk:
+        raise ValueError(f"KV extent {T} is not a multiple of chunk {chunk}")
+    qg = (q.float() * (1.0 / math.sqrt(dh))).reshape(B, S, KvE, G, dh)
+    m = torch.full((B, KvE, G, S), NEG_INF, device=q.device)
+    l = torch.zeros((B, KvE, G, S), device=q.device)
+    acc = torch.zeros((B, KvE, G, S, dh), device=q.device)
+    qp = q_positions[:, :, None]
+    for c0 in range(0, T, chunk):
+        pb = kv_positions[:, None, c0:c0 + chunk]               # (B,1,C)
+        s = torch.einsum("bsegd,bted->begst", qg,
+                         k[:, c0:c0 + chunk].float())
+        if causal:
+            pred = pb <= qp
+            if window > 0:
+                pred &= pb > qp - window
+            s = torch.where(pred[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = alpha[..., None] * acc + torch.einsum(
+            "begst,bted->begsd", p, v[:, c0:c0 + chunk].float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hp, dh).to(q.dtype)
+
+
+def causal_mask(q_positions, kv_positions, window: int = 0):
+    """(B,1,1,S,T) boolean; True = attend.  window=0 means full causal."""
     m = kv_positions[:, None, :] <= q_positions[:, :, None]
+    if window > 0:
+        m &= kv_positions[:, None, :] > (q_positions[:, :, None] - window)
     return m[:, None, None, :, :]
 
 
@@ -277,22 +331,81 @@ def _paged_gather(cache: dict, page_map, dtype):
     return _dequant({n: gather(n) for n in cache}, dtype)
 
 
+EMPTY_SLOT = -2 ** 30   # ring slot position that never passes a window
+
+
+def _ring_attention(p: dict, q, k, v, positions, cache: dict, cache_pos,
+                    window: int, attend, use_kernel: bool, head_rows,
+                    head_inv):
+    """Sliding-window attention over a ring cache {"k","v"} (B, window,
+    KvE, dh) whose "pos" (window,) holds the absolute position of each
+    slot, updated in place.
+
+    Prefill (S > 1, positions ``cache_pos + arange(S)``, lock-step): attend
+    over the in-flight K/V under the window mask, then fold the last
+    ``window`` tokens into the ring — slot ``t % window`` takes position t,
+    slots no token reached hold ``EMPTY_SLOT``.  Decode (S == 1, an int
+    ``cache_pos``): write slot ``cache_pos % window`` and its position,
+    then attend over the ring by position (the buffer is never rotated),
+    through the ring kernel when ``use_kernel``."""
+    B, S = q.shape[0], q.shape[1]
+    if isinstance(cache_pos, torch.Tensor):
+        raise ValueError("a ring cache takes one int position for the "
+                         "whole batch (lock-step decode)")
+    if S > 1:
+        out = attend(k, v, positions, causal_mask(positions, positions,
+                                                  window))
+        if S >= window:
+            tail_k, tail_v = k[:, -window:], v[:, -window:]
+            tail_pos = positions[0, -window:].to(torch.int32)
+        else:
+            pad = window - S
+            tail_k = F.pad(k, (0, 0, 0, 0, 0, pad))
+            tail_v = F.pad(v, (0, 0, 0, 0, 0, pad))
+            tail_pos = F.pad(positions[0].to(torch.int32), (0, pad),
+                             value=EMPTY_SLOT)
+        # the first tail position, known on the host: no device sync
+        shift = (cache_pos + max(S - window, 0)) % window
+        cache["k"].copy_(torch.roll(tail_k, shift, dims=1))
+        cache["v"].copy_(torch.roll(tail_v, shift, dims=1))
+        cache["pos"].copy_(torch.roll(tail_pos, shift))
+        return _project_out(p, out)
+    idx = cache_pos % window
+    cache["k"][:, idx] = k[:, 0]
+    cache["v"][:, idx] = v[:, 0]
+    cache["pos"][idx] = cache_pos
+    if use_kernel:
+        rows, inv = _head_rows_or_identity(head_rows, head_inv, q.shape[2],
+                                           q.device)
+        out = ops.decode_attention_ring_bshd(
+            q, cache["k"], cache["v"], _decode_lengths(cache_pos, B, q.device),
+            cache["pos"], window=window, rows=rows, inv_rows=inv)
+        return _project_out(p, out)
+    kv_pos = cache["pos"][None, :].expand(B, window)
+    out = attend(cache["k"], cache["v"], kv_pos,
+                 causal_mask(positions, kv_pos, window))
+    return _project_out(p, out)
+
+
 def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
                          positions, *, cache=None, cache_pos=None,
                          window: int = 0, use_kernel: bool = False,
                          head_rows=None, head_inv=None, page_map=None,
                          write_valid=None):
-    """Causal self-attention with an optional linear or paged KV cache.
+    """Causal (``window`` > 0: sliding-window) self-attention with an
+    optional linear, paged or ring KV cache.
 
     cache: dict {"k","v"} of (B, T, KvE, dh) buffers, written in place;
       int8 caches (``kv_quant``) hold int8 values plus float32
       per-(token, head) scales {"k_sc","v_sc"} (B, T, KvE), and attention
-      reads the dequantized cache.
+      reads the dequantized cache.  A sliding-window arch whose cache
+      length is the window keeps a ring instead ({"k","v","pos"}, see
+      ``_ring_attention``).
     cache_pos: an int start position (prefill: S tokens land at
-      [cache_pos, cache_pos + S)), or a (B,) int32 tensor for slot-level
-      continuous batching (S == 1): row b writes its new K/V at its own
-      position and the causal mask is taken per row.  None for a paged
-      prefill chunk.
+      [cache_pos, cache_pos + S); lock-step decode), or a (B,) int32 tensor
+      for slot-level continuous batching (S == 1): row b writes its new K/V
+      at its own position and the causal mask is taken per row.  None for
+      a paged prefill chunk.
     page_map: (B, np) int32 — the cache is then a page store
       (n_pages + 1, P, KvE, dh) (scales (n_pages + 1, P, KvE)) shared by
       every slot; row b's logical page i is physical page
@@ -303,22 +416,39 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
       the cache's kind (``ops.decode_attention_*_bshd``) over
       ``head_rows`` — the physical q-head rows in slot-grouped placement
       order — and scatters back with ``head_inv``; None runs the identity
-      grid.  The CUDA kernels have no tiling constraint, so every cache
-      length dispatches to them.
+      grid.  As in the reference, a linear cache under a window (a
+      sliding-window arch served below its window) keeps the plain path.
+      The CUDA kernels have no tiling constraint, so every cache length
+      dispatches to them.
+    Attention over a KV extent of 2048 or more (a multiple of 1024) with
+    more than one query runs ``chunked_attention`` — the reference's
+    ``attend`` dispatch.
     Returns (out, cache).
     """
-    if window:
-        unsupported("sliding-window ring caches", 12)
     B, S = x.shape[0], x.shape[1]
     q, k, v = qkv_project(cfg, p, hd, x, positions)
+
+    def attend(kk, vv, kv_pos, mask):
+        """Chunked (flash-style) when the KV extent is long, else plain."""
+        T = kk.shape[1]
+        if S > 1 and T >= 2048 and T % 1024 == 0:
+            return chunked_attention(q, kk, vv, positions, kv_pos,
+                                     window=window, chunk=1024)
+        return attention_scores(q, kk, vv, mask)
+
     if cache is None:
-        out = attention_scores(q, k, v, causal_mask(positions, positions))
+        out = attend(k, v, positions, causal_mask(positions, positions,
+                                                  window))
         return _project_out(p, out), None
+    if page_map is None and window and cache["k"].shape[1] == window:
+        return _ring_attention(p, q, k, v, positions, cache, cache_pos,
+                               window, attend, use_kernel and S == 1,
+                               head_rows, head_inv), cache
     quant = "k_sc" in cache
     new = {"k": k, "v": v}
     if quant:
         (new["k"], new["k_sc"]), (new["v"], new["v_sc"]) = _q8(k), _q8(v)
-    kernel = use_kernel and S == 1 and cache_pos is not None
+    kernel = use_kernel and S == 1 and cache_pos is not None and not window
     if kernel:
         rows, inv = _head_rows_or_identity(head_rows, head_inv, q.shape[2],
                                            x.device)
@@ -353,7 +483,7 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
         ck, cv = _dequant(cache, x.dtype)
     T = ck.shape[1]
     kv_pos = torch.arange(T, device=x.device)[None, :].expand(B, T)
-    out = attention_scores(q, ck, cv, causal_mask(positions, kv_pos))
+    out = attend(ck, cv, kv_pos, causal_mask(positions, kv_pos, window))
     return _project_out(p, out), cache
 
 

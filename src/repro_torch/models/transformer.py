@@ -1,25 +1,35 @@
-"""Decoder-only transformer LM, dense family — counterpart of the JAX
-package's ``models/transformer.py``.
+"""Decoder-only transformer LM, dense and MoE families — counterpart of
+the JAX package's ``models/transformer.py``.
 
 Parameters are a nested dict in the reference's names and stacked
-``(L, ...)`` layouts, so a head migration is the same row permutation in
-both packages.  The reference's ``lax.scan`` over layers becomes a Python
-loop over per-layer views of the stacked params and cache, and the KV
-cache — linear or paged, in the working dtype or int8 with per-(token,
-head) scales — is updated in place (the reference donates its state
-instead).
+``(L, ...)`` layouts, so a head or expert migration is the same row
+permutation in both packages.  The reference's ``lax.scan`` over layers
+becomes a Python loop over per-layer views of the stacked params and
+cache, and the KV cache — linear, paged or (sliding-window archs) a ring
+of ``window`` slots, in the working dtype or int8 with per-(token, head)
+scales — is updated in place (the reference donates its state instead).
 """
 from __future__ import annotations
 
 import functools
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_block
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# decay of the router-load EWMA kept in the decode state ("expert_load"):
+# load_t = d*load_{t-1} + (1-d)*freq_t.  The serving engine normalizes and
+# feeds it to the controller's expert cost model each interval.
+EXPERT_LOAD_EWMA = 0.9
+# d and 1 - d as the reference computes them, in float32
+_EWMA_D = float(np.float32(EXPERT_LOAD_EWMA))
+_EWMA_1MD = float(np.float32(1.0) - np.float32(EXPERT_LOAD_EWMA))
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -33,15 +43,13 @@ def _layer_view(tree, l: int):
 
 
 class TransformerLM:
-    """Config-driven dense decoder-only LM on one device."""
+    """Config-driven dense or MoE decoder-only LM on one device."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  use_kernel: bool = False):
-        if cfg.family != "dense":
-            raise ValueError(f"TransformerLM serves the dense family, not "
-                             f"{cfg.family!r}")
-        if cfg.sliding_window:
-            L.unsupported("sliding-window ring caches", 12)
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"TransformerLM serves the dense and moe "
+                             f"families, not {cfg.family!r}")
         if cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu" \
                 or cfg.qkv_bias or cfg.rope_fraction != 1.0 \
                 or cfg.tie_embeddings:
@@ -54,6 +62,7 @@ class TransformerLM:
         # the decode state may carry per-layer "head_rows"/"head_inv"
         # gather maps (placement_bridge.head_row_maps)
         self.use_kernel = use_kernel
+        self.window = cfg.sliding_window
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -73,9 +82,13 @@ class TransformerLM:
                      "wv": dense(D, (D, hd.Kp, hd.dh)),
                      "wo": dense(hd.H * hd.dh, (hd.Hp, hd.dh, D))},
             "ln1": ones, "ln2": ones.clone(),
-            "mlp": {"w_gate": dense(D, (D, F)), "w_up": dense(D, (D, F)),
-                    "w_down": dense(F, (F, D))},
         }
+        if cfg.is_moe:
+            layers["moe"] = init_moe(g, cfg, n, dt, dev)
+        else:
+            layers["mlp"] = {"w_gate": dense(D, (D, F)),
+                             "w_up": dense(D, (D, F)),
+                             "w_down": dense(F, (F, D))}
         return {"layers": layers,
                 "tok_embed": L.normal_init(g, (V, D), 0.02, dt, dev),
                 "lm_head": L.dense_init(g, D, (D, V), dt, dev),
@@ -85,33 +98,42 @@ class TransformerLM:
     def _layer(self, p: dict, x, positions, cache, cache_pos,
                head_rows=None, head_inv=None, page_map=None,
                write_valid=None):
+        """One decoder layer.  Returns the new hidden state and, for MoE
+        layers, the (E,) routed-token fraction of this call (else None)."""
         cfg = self.cfg
         h = L.apply_norm(cfg, p, "ln1", x)
         attn_out, _ = L.self_attention_block(
             cfg, p["attn"], self.hd, h, positions, cache=cache,
-            cache_pos=cache_pos, use_kernel=self.use_kernel,
-            head_rows=head_rows, head_inv=head_inv, page_map=page_map,
-            write_valid=write_valid)
+            cache_pos=cache_pos, window=self.window,
+            use_kernel=self.use_kernel, head_rows=head_rows,
+            head_inv=head_inv, page_map=page_map, write_valid=write_valid)
         x = x + attn_out
         h = L.apply_norm(cfg, p, "ln2", x)
-        return x + L.mlp_block(cfg, p["mlp"], h)
+        if cfg.is_moe:
+            out, _, freq = moe_block(cfg, p["moe"], h)
+            return x + out, freq
+        return x + L.mlp_block(cfg, p["mlp"], h), None
 
     def _run_layers(self, params, x, positions, cache, cache_pos,
                     head_rows=None, head_inv=None, page_map=None,
                     write_valid=None):
         """Loop over layers; layer l reads its slice of the stacked params,
-        cache (values and, for int8, scales) and (n_layers, Hp) kernel row
-        maps.  One page map (and ``write_valid``) serves every layer: the
-        layer axis lives in the page store, not the table."""
+        cache (values, int8 scales, ring positions) and (n_layers, Hp)
+        kernel row maps.  One page map (and ``write_valid``) serves every
+        layer: the layer axis lives in the page store, not the table.
+        Returns the hidden state and, for MoE, the stacked (L, E) router
+        loads of this call (else None)."""
+        freqs = []
         for l in range(self.cfg.n_layers):
             layer_cache = None if cache is None else \
                 {name: buf[l] for name, buf in cache.items()}
-            x = self._layer(_layer_view(params["layers"], l), x, positions,
-                            layer_cache, cache_pos,
-                            None if head_rows is None else head_rows[l],
-                            None if head_inv is None else head_inv[l],
-                            page_map, write_valid)
-        return x
+            x, freq = self._layer(
+                _layer_view(params["layers"], l), x, positions, layer_cache,
+                cache_pos, None if head_rows is None else head_rows[l],
+                None if head_inv is None else head_inv[l], page_map,
+                write_valid)
+            freqs.append(freq)
+        return x, (torch.stack(freqs) if self.cfg.is_moe else None)
 
     def _positions(self, B: int, S: int):
         return torch.arange(S, dtype=torch.int32,
@@ -121,7 +143,7 @@ class TransformerLM:
         """Full-sequence forward without a cache. Returns logits (B,S,V)."""
         B, S = tokens.shape
         x = L.embed(self.cfg, params, tokens)
-        x = self._run_layers(params, x, self._positions(B, S), None, None)
+        x, _ = self._run_layers(params, x, self._positions(B, S), None, None)
         x = L.apply_norm(self.cfg, params, "ln_f", x)
         return L.unembed(self.cfg, params, x)
 
@@ -141,20 +163,60 @@ class TransformerLM:
         dtype = dtype or torch_dtype(self.cfg.dtype)
         return {"k": z(shape, dtype=dtype), "v": z(shape, dtype=dtype)}
 
+    def cache_len(self, max_seq: int) -> int:
+        return min(max_seq, self.window) if self.window else max_seq
+
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> dict:
-        return self._kv_buffers((self.cfg.n_layers, batch, max_seq), dtype)
+        """Stacked (L, batch, T, KvE, dh) K/V with T = ``cache_len``.  A
+        sliding-window arch served to at least its window keeps a ring of
+        ``window`` slots in the working dtype (int8 does not apply to a
+        ring, as in the reference) with "pos" (L, window) holding each
+        slot's absolute position, ``EMPTY_SLOT`` until written."""
+        T = self.cache_len(max_seq)
+        lead = (self.cfg.n_layers, batch, T)
+        if self.window and T == self.window:
+            dtype = dtype or torch_dtype(self.cfg.dtype)
+            shape = lead + (self.hd.KvE, self.hd.dh)
+            return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                    "v": torch.zeros(shape, dtype=dtype, device=self.device),
+                    "pos": torch.full((self.cfg.n_layers, T), L.EMPTY_SLOT,
+                                      dtype=torch.int32, device=self.device)}
+        return self._kv_buffers(lead, dtype)
 
     def init_decode_state(self, params, batch: int, max_seq: int, *,
                           dtype=None, per_slot: bool = False
                           ) -> Dict[str, Any]:
-        """Per-slot decode state: one position per batch row (continuous
-        batching) — decode advances each slot independently and prefills
-        land rows at different depths via :meth:`insert_slot`."""
-        if not per_slot:
-            L.unsupported("the lock-step (scalar-position) decode state", 17)
-        return {"cache": self.init_cache(batch, max_seq, dtype),
-                "pos": torch.zeros((batch,), dtype=torch.int32,
-                                   device=self.device)}
+        """``per_slot=True`` keeps one position per batch row (continuous
+        batching): decode advances each slot independently and prefills
+        land rows at different depths via :meth:`insert_slot`.  Otherwise
+        the batch decodes in lock-step from one int position (the wave
+        scheduler's state, and the only one a ring cache takes).  MoE
+        states carry the router-load EWMA "expert_load" (L, E), a uniform
+        prior that ``decode_step`` updates."""
+        pos = torch.zeros((batch,), dtype=torch.int32,
+                          device=self.device) if per_slot else 0
+        state = {"cache": self.init_cache(batch, max_seq, dtype), "pos": pos}
+        if self.cfg.is_moe:
+            E = self.cfg.n_experts
+            state["expert_load"] = torch.full(
+                (self.cfg.n_layers, E), 1.0 / E, dtype=torch.float32,
+                device=self.device)
+        return state
+
+    def prefill(self, params, state, tokens):
+        """Lock-step prefill: run the (B, S) prompts, all of length S,
+        through the model from position 0, filling the cache in place.
+        Returns the last token's logits (B, V) and the state with
+        ``pos == S``."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = L.embed(cfg, params, tokens)
+        x, _ = self._run_layers(params, x, self._positions(B, S),
+                                state["cache"], 0)
+        x = L.apply_norm(cfg, params, "ln_f", x)
+        logits = L.unembed(cfg, params, x[:, -1:])
+        state["pos"] = S
+        return logits[:, 0], state
 
     # ----------------------------------------------- continuous batching
     def prefill_bucketed(self, params, state, tokens, length):
@@ -166,8 +228,8 @@ class TransformerLM:
         cfg = self.cfg
         B, S = tokens.shape
         x = L.embed(cfg, params, tokens)
-        x = self._run_layers(params, x, self._positions(B, S),
-                             state["cache"], 0)
+        x, _ = self._run_layers(params, x, self._positions(B, S),
+                                state["cache"], 0)
         x = L.apply_norm(cfg, params, "ln_f", x)
         idx = (length.long() - 1).clamp(min=0)[:, None, None]
         last = x.gather(1, idx.expand(B, 1, x.shape[-1]))    # (B, 1, D)
@@ -186,27 +248,43 @@ class TransformerLM:
         return state
 
     def decode_step(self, params, state, tokens):
-        """One autoregressive step for every slot. tokens: (B,) int.
-        Returns (logits (B, V) float32, state).  Each row embeds, attends
-        and writes at its own position; positions advance in place and
-        clamp at the cache edge — the page table's logical span ``np · P``
-        for a paged state — where a retired slot's writes drop."""
+        """One autoregressive step for every row. tokens: (B,) int.
+        Returns (logits (B, V) float32, state).
+
+        A per-slot state's rows each embed, attend and write at their own
+        position; positions advance in place and clamp at the cache edge —
+        the page table's logical span ``np · P`` for a paged state — where
+        a retired slot's writes drop.  A lock-step state's int position
+        advances by one (a ring cache wraps, so it has no edge).  MoE
+        states fold this step's router loads into "expert_load"."""
         cfg = self.cfg
         pos = state["pos"]
-        if pos.dim() != 1:
-            L.unsupported("the lock-step (scalar-position) decode state", 17)
+        per_slot = isinstance(pos, torch.Tensor)
         page_map = state.get("page_map")
         x = L.embed(cfg, params, tokens[:, None])
-        x = self._run_layers(params, x, pos[:, None], state["cache"], pos,
-                             state.get("head_rows"), state.get("head_inv"),
-                             page_map)
+        positions = pos[:, None] if per_slot else torch.full(
+            (tokens.shape[0], 1), pos, dtype=torch.int32, device=self.device)
+        x, freqs = self._run_layers(
+            params, x, positions, state["cache"], pos,
+            state.get("head_rows"), state.get("head_inv"), page_map)
         x = L.apply_norm(cfg, params, "ln_f", x)
         logits = L.unembed(cfg, params, x)
-        if page_map is not None:
-            T = page_map.shape[1] * state["cache"]["k"].shape[2]
+        if not per_slot:
+            state["pos"] = pos + 1
         else:
-            T = state["cache"]["k"].shape[-3]
-        pos.add_(1).clamp_(max=T)
+            if page_map is not None:
+                T = page_map.shape[1] * state["cache"]["k"].shape[2]
+            else:
+                T = state["cache"]["k"].shape[-3]
+            pos.add_(1).clamp_(max=T)
+        if freqs is not None and "expert_load" in state:
+            # XLA evaluates the reference's d * load + (1 - d) * freq as one
+            # fused multiply-add, fma(d, load, (1 - d) * freq); in float64
+            # the product d * load is exact, so one rounding to float32
+            # gives the same bits
+            load = state["expert_load"]
+            load.copy_(load.double() * _EWMA_D
+                       + (freqs * _EWMA_1MD).double())
         return logits[:, 0], state
 
     # ------------------------------------------------------- paged caching
@@ -218,6 +296,10 @@ class TransformerLM:
         every slot.  Page ``n_pages`` is a sink the allocator never hands
         out: writes the reference drops land there
         (``layers._paged_write``)."""
+        if self.window:
+            raise NotImplementedError(
+                "paged caches are linear; sliding-window archs keep the "
+                "ring cache")
         return self._kv_buffers((self.cfg.n_layers, n_pages + 1, page_size),
                                 dtype)
 
@@ -247,10 +329,10 @@ class TransformerLM:
         C = tokens.shape[1]
         steps = torch.arange(C, dtype=torch.int32, device=self.device)
         x = L.embed(cfg, params, tokens)
-        x = self._run_layers(params, x, (start + steps)[None],
-                             state["cache"], None,
-                             page_map=state["page_map"][row:row + 1],
-                             write_valid=(steps < length)[None])
+        x, _ = self._run_layers(params, x, (start + steps)[None],
+                                state["cache"], None,
+                                page_map=state["page_map"][row:row + 1],
+                                write_valid=(steps < length)[None])
         x = L.apply_norm(cfg, params, "ln_f", x)
         logits = L.unembed(cfg, params, x[:, max(length - 1, 0)][:, None])
         state["pos"][row] = start + length

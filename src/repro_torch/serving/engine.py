@@ -1,35 +1,45 @@
-"""Continuous-batching serving engine with the paper's controller in the
-loop — counterpart of the JAX package's ``serving/engine.py``
-(``ServingEngine``, dense family, one in-flight group).
+"""Serving engines with the paper's controller in the loop — counterpart of
+the JAX package's ``serving/engine.py``.  Two schedulers over one model and
+controller stack:
 
-A persistent ``(n_slots, max_seq)`` KV cache with per-slot positions.  Any
-queued request is admitted into any free slot the moment one frees: the
-prompt is right-padded to a power-of-two bucket, prefilled at batch 1, and
-copied into the slot's cache row (``insert_slot``).  Decode runs one step
-for the whole batch with per-slot attention masking.  ``paged=True`` swaps
-the dense cache for a pool of pages shared by all slots (``serving.paging``):
-admission reserves a request's worst-case pages, pages are handed out as
-decode advances and freed at retire, and prefill runs in fixed-size chunks.
-``kv_quant`` configs keep the cache (dense or paged) in int8 with
-per-(token, head) scales.
+``ServingEngine`` (continuous batching, one in-flight group)
+  A persistent ``(n_slots, max_seq)`` KV cache with per-slot positions.  Any
+  queued request is admitted into any free slot the moment one frees: the
+  prompt is right-padded to a power-of-two bucket, prefilled at batch 1,
+  and copied into the slot's cache row (``insert_slot``).  Decode runs one
+  step for the whole batch with per-slot attention masking.  ``paged=True``
+  swaps the dense cache for a pool of pages shared by all slots
+  (``serving.paging``): admission reserves a request's worst-case pages,
+  pages are handed out as decode advances and freed at retire, and prefill
+  runs in fixed-size chunks.  ``kv_quant`` configs keep the cache (dense or
+  paged) in int8 with per-(token, head) scales.
+
+``WaveServingEngine`` (the static scheduler)
+  Up to ``n_slots`` equal-length prompts form a wave; the wave prefills as
+  one batch and decodes in lock-step until every request finishes.  It is
+  the scheduler of sliding-window archs served to their window, whose ring
+  cache takes one position for the whole batch (``make_engine`` picks it).
 
 Every λ decode steps the ``IntervalController`` observes step-time
-telemetry and the per-slot cache occupancy, re-runs Algorithm 1 on the
-per-(layer, head) block graph, and the engine applies the resulting
-per-layer head permutations to the live KV cache AND the weights between
-steps (``_migrate_state``), then rebuilds the decode kernel's gather maps
-from the plan (``_refresh_head_rows``).  With ``use_kernel=True`` decode
-attention runs the hand-written flash-decode kernel over those maps.
+telemetry (and the per-slot cache occupancy), re-runs Algorithm 1 on the
+per-(layer, head) block graph — with one block per (layer, expert) for MoE
+archs, priced by the decode state's router loads — and the engine applies
+the resulting per-layer head permutations to the live KV cache AND the
+weights between steps (``_migrate_state``), and the expert-row
+permutations to the stacked expert weights (``_migrate_experts``).  With
+``use_kernel=True`` decode attention runs the hand-written flash-decode
+kernel of the cache's kind; the continuous engine rebuilds its gather maps
+from each plan (``_refresh_head_rows``).
 
 The controller drives a simulated device network, as in the reference: the
 model runs on one GPU (or the CPU), and the placement decides which
-(layer, head) rows each simulated device's kernel dispatch covers.
+(layer, head) rows and experts each simulated device holds.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,9 +51,11 @@ from repro_torch.core.network import DeviceNetwork
 from repro_torch.core.placement_bridge import (apply_layer_head_perms,
                                                head_row_maps,
                                                identity_head_rows,
+                                               permute_model_experts_layers,
                                                permute_model_heads_layers,
                                                relative_perms)
 from repro_torch.models.api import build_model, resolve_device
+from repro_torch.models.moe import expert_identity
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.serving.paging import PagedKVAllocator
@@ -51,7 +63,7 @@ from repro_torch.serving.paging import PagedKVAllocator
 
 class UnsupportedArchError(NotImplementedError):
     """Raised at engine construction for configurations the slot-level
-    scheduler of this port cannot serve — never mid-serve."""
+    scheduler cannot serve — never mid-serve."""
 
 
 def _not_ported(what: str, item: int):
@@ -71,6 +83,25 @@ class Request:
     t_done: float = 0.0
 
 
+def supports_continuous(cfg: ModelConfig,
+                        max_seq: Optional[int] = None) -> Optional[str]:
+    """None when ``cfg`` can run the slot-level scheduler, else the reason
+    it cannot (config-only, so ``make_engine`` decides before building
+    params).  A sliding-window arch keeps a ring cache when the served
+    extent reaches its window, and the ring takes one position for the
+    whole batch; served with ``max_seq`` below the window its cache stays
+    linear and the slot scheduler applies.  ``max_seq=None`` (extent not
+    known yet) gets the conservative reject."""
+    if cfg.family in ("ssm", "hybrid"):
+        return f"{cfg.family} archs have no prefill_bucketed/insert_slot API"
+    if cfg.sliding_window and (max_seq is None
+                               or max_seq >= cfg.sliding_window):
+        return ("continuous batching needs a linear KV cache, not a ring; "
+                f"serve with max_seq < sliding_window "
+                f"({cfg.sliding_window}) to keep the cache linear")
+    return None
+
+
 def default_buckets(max_seq: int, lo: int = 8) -> List[int]:
     """Power-of-two prompt buckets up to ``max_seq``."""
     out, b = [], lo
@@ -81,30 +112,49 @@ def default_buckets(max_seq: int, lo: int = 8) -> List[int]:
     return sorted(set(out))
 
 
-class ServingEngine:
-    """Continuous-batching scheduler: persistent per-slot KV cache, admit-
-    on-free-slot, bucketed prefill, per-slot decode masking, and Algorithm
-    1's placements applied as live head migrations.
+def _own_expert_rows(params: Dict[str, Any], cfg: ModelConfig,
+                     injected: bool) -> Dict[str, Any]:
+    """The params with identity physical-expert maps (``owner``/``share``)
+    installed on an MoE stack that has none: expert migrations permute the
+    weight rows AND these maps, and the combine scatters rows back into
+    logical order (``models.moe``), so installing identity is a bit-exact
+    no-op until the first expert migration.  Migrations permute the
+    stacks in place, so injected expert stacks are cloned: the caller's
+    tensors never move.  The caller's dicts are not modified."""
+    layers = params.get("layers")
+    if not (cfg.is_moe and isinstance(layers, dict) and "moe" in layers):
+        return params
+    moe = dict(layers["moe"])
+    if injected:
+        for name in ("w_gate", "w_up", "w_down", "owner", "share"):
+            if name in moe:
+                moe[name] = moe[name].clone()
+    if "owner" not in moe:
+        moe["owner"], moe["share"] = expert_identity(
+            cfg.n_experts, cfg.n_layers, device=moe["w_gate"].device)
+    return dict(params, layers=dict(layers, moe=moe))
+
+
+class _EngineBase:
+    """Model, weights and controller wiring, intake, the sampler, and the
+    interval machinery (observe -> Algorithm 1 -> migrate heads and expert
+    rows) shared by both schedulers.
 
     ``device`` is where the model runs (``None``: the GPU, raising when
     none is present).  ``params`` injects weights in the model's layout
     (for example ``weights.params_from_jax`` of the reference's); without
-    it the model draws random weights from ``seed``."""
+    it the model draws random weights from ``seed``.  Expert migrations
+    permute the engine's expert stacks in place; injected ones are cloned
+    first."""
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int = 4,
                  max_seq: int = 512, lam: int = 16, seed: int = 0,
                  net: Optional[DeviceNetwork] = None, greedy: bool = True,
                  use_kernel: bool = False, search: str = "rescoring",
                  params: Optional[Dict[str, Any]] = None, device=None,
-                 pipeline_k: int = 1, paged: bool = False,
-                 page_size: int = 64, kv_pages: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None):
+                 pipeline_k: int = 1, cost_page_size: int = 0):
         if cfg.family == "vlm":
             _not_ported("VLM serving", 13)
-        if cfg.is_moe:
-            _not_ported("MoE serving", 11)
-        if cfg.family in ("ssm", "hybrid"):
-            _not_ported(f"{cfg.family} serving", 14)
         if pipeline_k != 1:
             _not_ported("pipeline_k > 1 slot groups", 8)
         self.cfg = cfg
@@ -115,10 +165,11 @@ class ServingEngine:
         self.use_kernel = use_kernel
         self.model = build_model(cfg, use_kernel=use_kernel,
                                  device=self.device)
+        injected = params is not None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
-        self.params = params
+        self.params = _own_expert_rows(params, cfg, injected)
         # non-greedy sampling draws from its own seeded generator
         self._sample_gen = torch.Generator(
             device=self.device).manual_seed(seed + 0x5EED)
@@ -137,13 +188,20 @@ class ServingEngine:
         self.net = net or DeviceNetwork.sample(4, seed=seed + 1)
         hd = self.model.hd
         heads_per_slot = max(1, hd.Hp // self.net.n_devices)
-        # a paged engine prices cache memory (and so migration bytes) at
-        # page granularity — what the allocator actually hands out
+        # MoE archs: the controller places per-expert blocks (router-load-
+        # weighted compute, weight-only migration bytes) when the expert
+        # count tiles the devices; otherwise the cost model stays expert-
+        # oblivious (one ffn block) rather than emitting perms that cannot
+        # be applied to the weight stacks
+        n_exp = cfg.n_experts if (cfg.is_moe and cfg.n_experts >= 2
+                                  and cfg.n_experts
+                                  % self.net.n_devices == 0) else 0
         self.cost = CostModel(d_model=cfg.d_model, n_heads=cfg.n_heads,
                               L0=8, n_layers=cfg.n_layers, lam=lam,
                               compute_mode="incremental",
-                              layer_mode="graph",
-                              page_size=page_size if paged else 0)
+                              layer_mode="graph", n_experts=n_exp,
+                              d_ff=cfg.d_ff if n_exp else 0,
+                              page_size=cost_page_size)
         # GQA stacks migrate whole KV groups: group-consistent perms
         group = hd.Hp // hd.Kp
         if group > 1 and ((self.net.n_devices * heads_per_slot) % group
@@ -161,6 +219,214 @@ class ServingEngine:
         self.lam = lam
         self.decode_steps = 0
         self.migration_log: List[dict] = []
+        # host-clock telemetry: seconds per decode step (ends in a device
+        # sync) and per controller interval (Algorithm 1 + migration)
+        self.step_times: List[float] = []
+        self.interval_times: List[float] = []
+
+    # ---------------------------------------------------------------- intake
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
+        req = Request(self._rid, np.asarray(prompt, np.int32),
+                      max_new_tokens, t_submit=time.monotonic())
+        self._rid += 1
+        self.queue.append(req)
+        return req.rid
+
+    # --------------------------------------------------------------- sampler
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        """Next tokens, on the device: greedy argmax, else a draw from
+        the softmax with the engine's seeded generator."""
+        if self.greedy:
+            return logits.argmax(dim=-1).cpu().numpy()
+        probs = torch.softmax(logits.float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=self._sample_gen
+                                 )[:, 0].cpu().numpy()
+
+    def _sync(self):
+        """Wait for the device (host-clock timings end here)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -------------------------------------------------------------- streaming
+    def _emit_token(self, req: Request, tok: int):
+        """Append one generated token and fire the stream hook — the one
+        place tokens enter a request."""
+        req.out_tokens.append(tok)
+        if self.token_sink is not None:
+            self.token_sink(req, tok, False)
+
+    def _emit_done(self, req: Request):
+        if self.token_sink is not None:
+            self.token_sink(req, None, True)
+
+    # ------------------------------------------------------------- telemetry
+    def _record_step(self, dt: float):
+        self.step_times.append(dt)
+        for j in self.net.active_ids:
+            self.monitor.record_step(j, dt)
+
+    def _load_signal(self) -> tuple:
+        """(arrivals per scheduler step, queue depth) since the last
+        interval; resets the marks."""
+        steps = self.decode_steps - self._load_mark_step
+        arrived = self._rid - self._load_mark_rid
+        self._load_mark_step = self.decode_steps
+        self._load_mark_rid = self._rid
+        return arrived / max(steps, 1), len(self.queue)
+
+    # --------------------------------------------------------------- interval
+    def _interval_plan(self, tau_tokens: Optional[float] = None) -> dict:
+        """Observe -> Algorithm 1: one migration plan per interval."""
+        self.net.step_background_load()
+        self.controller.observe_monitor(self.monitor,
+                                        peak_flops=self.net.compute_avail)
+        rate, depth = self._load_signal()
+        return self.controller.step_interval(tau=self._tau_of(tau_tokens),
+                                             arrival_rate=rate,
+                                             queue_depth=depth)
+
+    def _tau_of(self, tau_tokens: Optional[float]) -> Optional[int]:
+        """Occupancy (tokens) -> interval index τ of the cost model (None:
+        the controller advances its own τ by one)."""
+        if tau_tokens is None:
+            return None
+        return max(1, round((tau_tokens - self.cost.L0)
+                            / max(self.cost.lam, 1)))
+
+    def _migrate_state(self, state: Dict[str, Any], plan):
+        """Execute ``plan`` physically: permute the weights AND the cache of
+        ``state`` by the same group-consistent per-layer head permutations
+        (row l of the plan's perms is layer l; the cache's leading axis is
+        the layer stack).  Attention is permutation-equivariant over heads
+        (GQA: over whole KV groups) within each layer, so the model
+        function is unchanged while the placement moves.  A ring's slot
+        positions have no head axis and stay."""
+        hd = self.model.hd
+        G = hd.Hp // hd.Kp
+        rel = relative_perms(plan["prev_perms"], plan["perms"])
+        cache = state["cache"]
+        self.params = permute_model_heads_layers(self.params, rel,
+                                                 group_size=G)
+        # the head axis is -2 of the values of a dense (L, B, T, KvE, dh)
+        # cache, a ring and a paged (L, n_pages + 1, P, KvE, dh) store
+        # alike, and -1 of int8 scales
+        cache["k"], cache["v"] = apply_layer_head_perms(
+            cache["k"], cache["v"], rel, head_axis=-2, group_size=G)
+        if "k_sc" in cache:
+            cache["k_sc"], cache["v_sc"] = apply_layer_head_perms(
+                cache["k_sc"], cache["v_sc"], rel, head_axis=-1,
+                group_size=G)
+
+    def _feed_expert_loads(self, states: Sequence[Dict[str, Any]]):
+        """Average the decode states' router-load EWMAs ((L, E)
+        routed-token fractions), normalize rows to sum 1, and hand them to
+        the controller's expert cost model.  No-op for expert-oblivious
+        cost models."""
+        if not self.cost.n_experts:
+            return
+        loads = [st["expert_load"].cpu().numpy() for st in states
+                 if "expert_load" in st]
+        if not loads:
+            return
+        rows = np.mean(loads, axis=0)
+        rows = rows / np.maximum(rows.sum(axis=-1, keepdims=True), 1e-9)
+        self.controller.update_expert_loads(rows)
+
+    def _migrate_experts(self, plan) -> tuple:
+        """Execute the plan's expert migrations physically: permute the
+        w_gate/w_up/w_down expert rows (and the owner/share maps that ride
+        with them) by the per-layer relative permutations, in place —
+        weight-only, as head migrations permute cache rows.  Returns
+        (applied, reason)."""
+        if plan.get("prev_expert_perms") is None \
+                or not plan.get("expert_migrations"):
+            return False, None
+        moe = self.params.get("layers", {}).get("moe")
+        if moe is None or "owner" not in moe:
+            return False, "params carry no physical expert rows"
+        rel = relative_perms(plan["prev_expert_perms"], plan["expert_perms"])
+        n = int(moe["owner"].shape[0])
+        if rel.shape[0] == 1:
+            rel = np.broadcast_to(rel, (n, rel.shape[1]))
+        if rel.shape[0] != n:
+            return False, ("expert plan rows do not match the stacked "
+                           "expert weights")
+        self.params = permute_model_experts_layers(self.params, rel)
+        return True, None
+
+    # ------------------------------------------------- migration pricing
+    def _live_cache_tokens(self) -> int:
+        """KV tokens a migration moves, summed over slots: the full
+        reserved ``n_slots × max_seq`` extent per kv row (the paged engine
+        counts its allocated pages instead)."""
+        return self.n_slots * self.max_seq
+
+    def _migration_bytes(self, pairs) -> int:
+        """Bytes the plan's head migrations move through the cache: one
+        k+v row over the live token extent per distinct migrated
+        (layer, kv group), + f32 scales for int8 KV."""
+        hd = self.model.hd
+        if not pairs:
+            return 0
+        G = hd.Hp // hd.Kp
+        kv_moves = {(l, h // G) for (l, h, _s, _d) in pairs}
+        tokens = self._live_cache_tokens()
+        if self.cfg.kv_quant:
+            per_row = tokens * 2 * (hd.dh + 4)   # int8 k+v + f32 scales
+        else:
+            per_row = tokens * 2 * hd.dh * \
+                torch_dtype(self.cfg.dtype).itemsize
+        return int(len(kv_moves) * per_row)
+
+    def _expert_migration_bytes(self, pairs) -> int:
+        """Bytes the plan's expert migrations move: 3·D·F weights per
+        distinct migrated (layer, expert row) — weight-only, no KV term."""
+        if not pairs:
+            return 0
+        moves = {(l, e) for (l, e, _s, _d) in pairs}
+        D = self.cfg.d_model
+        F = self.cfg.d_ff or 4 * D
+        per = 3 * D * F * torch_dtype(self.cfg.param_dtype).itemsize
+        return int(len(moves) * per)
+
+    def _log_interval(self, plan, applied: bool, reason: Optional[str] = None,
+                      expert_applied: bool = False,
+                      expert_reason: Optional[str] = None):
+        epairs = plan.get("expert_migrations") or []
+        self.migration_log.append({
+            "step": self.decode_steps,
+            "arrival_rate": plan["arrival_rate"],
+            "queue_depth": plan["queue_depth"],
+            "n_migrations": len(plan["migrations"]),
+            "mig_bytes": self._migration_bytes(plan["migrations"]),
+            "n_expert_migrations": len(epairs),
+            "expert_mig_bytes": self._expert_migration_bytes(epairs),
+            "d_mig_est": plan["d_mig_est"],
+            "d_pipe_est": plan["d_pipe_est"],
+            "applied": applied, "reason": reason,
+            "expert_applied": expert_applied,
+            "expert_reason": expert_reason})
+
+
+class ServingEngine(_EngineBase):
+    """Continuous-batching scheduler: persistent per-slot KV cache, admit-
+    on-free-slot, bucketed prefill, per-slot decode masking, and Algorithm
+    1's placements applied as live head (and expert) migrations.  A
+    sliding-window arch is served here only below its window, where its
+    cache stays linear (``supports_continuous``)."""
+
+    def __init__(self, cfg: ModelConfig, *, paged: bool = False,
+                 page_size: int = 64, kv_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None, **kw):
+        # config-only check before params and controller are built; the
+        # served extent decides whether a sliding-window arch stays linear
+        reason = supports_continuous(cfg, kw.get("max_seq", 512))
+        if reason is not None:
+            raise UnsupportedArchError(reason + "; use WaveServingEngine")
+        # a paged engine prices cache memory (and so migration bytes) at
+        # page granularity — what the allocator actually hands out
+        super().__init__(cfg, cost_page_size=page_size if paged else 0, **kw)
+        hd = self.model.hd
         self.buckets = default_buckets(self.max_seq)
         self.paged = bool(paged)
         if self.paged:
@@ -186,14 +452,14 @@ class ServingEngine:
         # slot-grouped placement order) carried in the decode state
         self._rows_layers = 0
         if self.use_kernel:
-            width = self.net.n_devices * heads_per_slot
-            if width != hd.Hp:
+            hps = self.controller.cfg.heads_per_slot
+            if self.net.n_devices * hps != hd.Hp:
                 raise UnsupportedArchError(
                     f"use_kernel: the bridge's {self.net.n_devices}x"
-                    f"{heads_per_slot} head-position space must equal the "
+                    f"{hps} head-position space must equal the "
                     f"model's {hd.Hp} padded heads for placement-derived "
                     f"kernel grids")
-            self._rows_layers = cfg.n_layers
+            self._rows_layers = self.cfg.n_layers
             self._head_rows, self._head_inv = identity_head_rows(
                 self._rows_layers, hd.Hp)
             self._phys_perms = None   # layout actually applied to weights
@@ -202,10 +468,6 @@ class ServingEngine:
         self._next = np.zeros(self.n_slots, np.int32)
         self.prefill_buckets_used: set = set()
         self.slot_busy_steps = 0              # sum of active slots per step
-        # host-clock telemetry: seconds per decode step (ends in a device
-        # sync) and per controller interval (Algorithm 1 + migration)
-        self.step_times: List[float] = []
-        self.interval_times: List[float] = []
 
     def _fresh_state(self, batch: int, max_seq: Optional[int] = None):
         if self.paged:
@@ -218,86 +480,7 @@ class ServingEngine:
     # ---------------------------------------------------------------- intake
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
         self._bucket(len(np.asarray(prompt)))   # reject over-long at intake
-        req = Request(self._rid, np.asarray(prompt, np.int32),
-                      max_new_tokens, t_submit=time.monotonic())
-        self._rid += 1
-        self.queue.append(req)
-        return req.rid
-
-    # --------------------------------------------------------------- sampler
-    def _sample(self, logits: torch.Tensor) -> np.ndarray:
-        """Next tokens, on the device: greedy argmax, else a draw from
-        the softmax with the engine's seeded generator."""
-        if self.greedy:
-            return logits.argmax(dim=-1).cpu().numpy()
-        probs = torch.softmax(logits.float(), dim=-1)
-        return torch.multinomial(probs, 1, generator=self._sample_gen
-                                 )[:, 0].cpu().numpy()
-
-    # -------------------------------------------------------------- streaming
-    def _emit_token(self, req: Request, tok: int):
-        """Append one generated token and fire the stream hook — the one
-        place tokens enter a request."""
-        req.out_tokens.append(tok)
-        if self.token_sink is not None:
-            self.token_sink(req, tok, False)
-
-    def _emit_done(self, req: Request):
-        if self.token_sink is not None:
-            self.token_sink(req, None, True)
-
-    # ------------------------------------------------------------- telemetry
-    def _record_step(self, dt: float):
-        for j in self.net.active_ids:
-            self.monitor.record_step(j, dt)
-
-    def _load_signal(self) -> tuple:
-        """(arrivals per scheduler step, queue depth) since the last
-        interval; resets the marks."""
-        steps = self.decode_steps - self._load_mark_step
-        arrived = self._rid - self._load_mark_rid
-        self._load_mark_step = self.decode_steps
-        self._load_mark_rid = self._rid
-        return arrived / max(steps, 1), len(self.queue)
-
-    # --------------------------------------------------------------- interval
-    def _interval_plan(self, tau_tokens: float) -> dict:
-        """Observe -> Algorithm 1: one migration plan per interval."""
-        self.net.step_background_load()
-        self.controller.observe_monitor(self.monitor,
-                                        peak_flops=self.net.compute_avail)
-        rate, depth = self._load_signal()
-        return self.controller.step_interval(tau=self._tau_of(tau_tokens),
-                                             arrival_rate=rate,
-                                             queue_depth=depth)
-
-    def _tau_of(self, tau_tokens: float) -> int:
-        """Occupancy (tokens) -> interval index τ of the cost model."""
-        return max(1, round((tau_tokens - self.cost.L0)
-                            / max(self.cost.lam, 1)))
-
-    def _migrate_state(self, plan):
-        """Execute ``plan`` physically: permute the weights AND the cache
-        by the same group-consistent per-layer head permutations (row l
-        of the plan's perms is layer l; the cache's leading axis is the
-        layer stack).  Attention is permutation-equivariant over heads
-        (GQA: over whole KV groups) within each layer, so the model
-        function is unchanged while the placement moves."""
-        hd = self.model.hd
-        G = hd.Hp // hd.Kp
-        rel = relative_perms(plan["prev_perms"], plan["perms"])
-        cache = self.state["cache"]
-        self.params = permute_model_heads_layers(self.params, rel,
-                                                 group_size=G)
-        # the head axis is -2 of the values of a dense (L, B, T, KvE, dh)
-        # cache and a paged (L, n_pages + 1, P, KvE, dh) store alike, and -1
-        # of int8 scales
-        cache["k"], cache["v"] = apply_layer_head_perms(
-            cache["k"], cache["v"], rel, head_axis=-2, group_size=G)
-        if "k_sc" in cache:
-            cache["k_sc"], cache["v_sc"] = apply_layer_head_perms(
-                cache["k_sc"], cache["v_sc"], rel, head_axis=-1,
-                group_size=G)
+        return super().submit(prompt, max_new_tokens)
 
     def _live_cache_tokens(self) -> int:
         """KV tokens a migration moves, summed over slots: a dense engine
@@ -305,47 +488,20 @@ class ServingEngine:
         extent per kv row, a paged engine only its allocated pages."""
         if self.paged:
             return self.allocator.live_pages * self.page_size
-        return self.n_slots * self.max_seq
-
-    def _migration_bytes(self, pairs) -> int:
-        """Bytes the plan's head migrations move through the cache: one
-        k+v row over the live token extent per distinct migrated
-        (layer, kv group), + f32 scales for int8 KV."""
-        hd = self.model.hd
-        if not pairs:
-            return 0
-        G = hd.Hp // hd.Kp
-        kv_moves = {(l, h // G) for (l, h, _s, _d) in pairs}
-        tokens = self._live_cache_tokens()
-        if self.cfg.kv_quant:
-            per_row = tokens * 2 * (hd.dh + 4)   # int8 k+v + f32 scales
-        else:
-            per_row = tokens * 2 * hd.dh * \
-                torch_dtype(self.cfg.dtype).itemsize
-        return int(len(kv_moves) * per_row)
-
-    def _log_interval(self, plan, applied: bool):
-        self.migration_log.append({
-            "step": self.decode_steps,
-            "arrival_rate": plan["arrival_rate"],
-            "queue_depth": plan["queue_depth"],
-            "n_migrations": len(plan["migrations"]),
-            "mig_bytes": self._migration_bytes(plan["migrations"]),
-            "d_mig_est": plan["d_mig_est"],
-            "d_pipe_est": plan["d_pipe_est"],
-            "applied": applied})
+        return super()._live_cache_tokens()
 
     def _apply_plan(self, plan: dict):
-        """Execute a controller plan: cache/weight permutations, kernel
-        gather maps, interval log."""
+        """Execute a controller plan: cache/weight permutations, expert
+        weight rows, kernel gather maps, interval log."""
         applied = bool(plan["migrations"])
         if applied:
-            self._migrate_state(plan)
+            self._migrate_state(self.state, plan)
             # weights/caches now sit in the plan's layout; the kernel
             # gather maps must follow the same source of truth
             self._phys_perms = plan["perms"]
+        e_applied, e_reason = self._migrate_experts(plan)
         self._refresh_head_rows(plan)
-        self._log_interval(plan, applied)
+        self._log_interval(plan, applied, None, e_applied, e_reason)
 
     # ----------------------------------------------------- kernel row maps
     def _attach_head_rows(self, state: Dict[str, Any]) -> Dict[str, Any]:
@@ -513,13 +669,11 @@ class ServingEngine:
         logits, self.state = self.model.decode_step(
             self.params, self.state,
             torch.as_tensor(self._next, device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         dt = time.monotonic() - t0
         toks = self._sample(logits)
         self.decode_steps += 1
         self.slot_busy_steps += len(active)
-        self.step_times.append(dt)
         for s in active:
             tok = int(toks[s])
             self._emit_token(self.slots[s], tok)
@@ -528,10 +682,12 @@ class ServingEngine:
         self._record_step(dt)
         if self.decode_steps % self.lam == 0:
             t0 = time.monotonic()
+            # live router loads first: this interval's expert placement is
+            # priced by the decode stream's gate frequencies, not the prior
+            self._feed_expert_loads([self.state])
             plan = self._interval_plan(tau_tokens=self._occupancy())
             self._apply_plan(plan)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
             self.interval_times.append(time.monotonic() - t0)
         return True
 
@@ -555,14 +711,97 @@ class ServingEngine:
         _not_ported("elastic churn (rejoin_device)", 10)
 
 
-class WaveServingEngine:
-    """The reference's wave scheduler baseline — not ported yet."""
+class WaveServingEngine(_EngineBase):
+    """The static wave scheduler: up to ``n_slots`` equal-length prompts
+    form a wave, prefill as one batch and decode in lock-step (one int
+    position for the batch) until every request of the wave finishes;
+    slots free only when the wave drains.  It serves sliding-window archs
+    over their ring cache, and any other arch the port builds."""
 
-    def __init__(self, *args, **kw):
-        _not_ported("WaveServingEngine", 12)
+    def _next_wave(self) -> List[Request]:
+        """Up to n_slots queued requests with equal prompt length."""
+        if not self.queue:
+            return []
+        L0 = len(self.queue[0].prompt)
+        wave = [r for r in self.queue if len(r.prompt) == L0][:self.n_slots]
+        for r in wave:
+            self.queue.remove(r)
+        return wave
+
+    def _interval(self, state: Dict[str, Any]):
+        """The paper's controller interval: observe -> Algorithm 1 ->
+        migrate head shards (weights and ``state``'s cache) and expert
+        weight rows in the decode gap.  The controller advances its own τ
+        (the reference's wave scheduler passes no occupancy)."""
+        t0 = time.monotonic()
+        self._feed_expert_loads([state])
+        plan = self._interval_plan()
+        applied = False
+        if plan["migrations"]:
+            self._migrate_state(state, plan)
+            applied = True
+        e_applied, e_reason = self._migrate_experts(plan)
+        self._log_interval(plan, applied, None, e_applied, e_reason)
+        self._sync()
+        self.interval_times.append(time.monotonic() - t0)
+
+    def _run_wave(self, wave: List[Request], max_steps: int):
+        B = self.n_slots
+        L0 = len(wave[0].prompt)
+        prompts = np.zeros((B, L0), np.int32)
+        for i, r in enumerate(wave):
+            prompts[i] = r.prompt
+        state = self.model.init_decode_state(self.params, B, self.max_seq)
+        logits, state = self.model.prefill(
+            self.params, state, torch.as_tensor(prompts, device=self.device))
+        for r in wave:
+            r.t_first = time.monotonic()
+        active = {i: r for i, r in enumerate(wave)}
+        nxt = self._sample(logits)
+        while active and self.decode_steps < max_steps:
+            for i, r in list(active.items()):
+                self._emit_token(r, int(nxt[i]))
+                if (len(r.out_tokens) >= r.max_new_tokens
+                        or L0 + len(r.out_tokens) >= self.max_seq - 1):
+                    r.done = True
+                    r.t_done = time.monotonic()
+                    self.finished.append(r)
+                    del active[i]
+                    self._emit_done(r)
+            if not active:
+                break
+            t0 = time.monotonic()
+            logits, state = self.model.decode_step(
+                self.params, state, torch.as_tensor(nxt, device=self.device))
+            self._sync()
+            dt = time.monotonic() - t0
+            nxt = self._sample(logits)
+            self.decode_steps += 1
+            self._record_step(dt)
+            if self.decode_steps % self.lam == 0:
+                self._interval(state)
+
+    def run(self, max_steps: int = 10_000):
+        while self.queue and self.decode_steps < max_steps:
+            wave = self._next_wave()
+            if not wave:
+                break
+            self._run_wave(wave, max_steps)
+        return self.finished
 
 
 def make_engine(cfg: ModelConfig, *, mode: str = "auto", **kw):
-    """The reference picks continuous or wave by architecture; this port
-    has only the continuous engine — build ``ServingEngine`` directly."""
-    _not_ported("make_engine (continuous/wave selection)", 12)
+    """``continuous`` | ``wave`` | ``auto`` (continuous when the arch and
+    the served extent support the slot API, wave otherwise: the
+    continuous engine refuses at construction, before building params)."""
+    if mode == "wave":
+        return WaveServingEngine(cfg, **kw)
+    if mode == "continuous":
+        return ServingEngine(cfg, **kw)
+    if mode != "auto":
+        raise ValueError(f"mode must be auto, continuous or wave; got "
+                         f"{mode!r}")
+    try:
+        return ServingEngine(cfg, **kw)
+    except NotImplementedError:
+        return WaveServingEngine(cfg, **kw)

@@ -160,3 +160,54 @@ def test_paged_kernel_gives_nan_for_a_page_id_out_of_range(cuda, quant):
     torch.cuda.synchronize()
     assert torch.isnan(out[2]).all() and torch.isnan(out[3]).all()
     assert torch.isfinite(out[:2]).all()
+
+
+def ring_slot_pos(window, n_written):
+    """The slot positions of a ring after positions 0 .. n_written - 1
+    were written, slot ``t % window`` taking position t; never-written
+    slots hold -2**30."""
+    pos = np.full(window, -2 ** 30, np.int64)
+    for t in range(max(0, n_written - window), n_written):
+        pos[t % window] = t
+    return pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["wrapped", "partly_filled", "permuted"])
+def test_ring_kernel_matches_plain_version(cuda, dtype, case):
+    """A ring wrapped past its window (lengths in (W, 3W]), a partly filled
+    one with empty slots (lengths 0 .. W, a row with no valid slot returns
+    zeros), and resident rows under a group permutation."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ring_resident, decode_attention_ring_resident_plain)
+    B, H, KvE, W, dh = 4, 8, 2, 96, 128
+    rng = np.random.default_rng(len(case))
+    if case == "partly_filled":
+        n = 53
+        lengths = [0, 1, 37, n]
+    else:
+        n = 2 * W + 17
+        lengths = [n, n - 1, n - 40, W + 3]
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    ring = torch.from_numpy(rng.standard_normal((2, B, W, KvE, dh),
+                                                np.float32))
+    q, ring = q.to(cuda, dtype), ring.to(cuda, dtype)
+    if case == "permuted":
+        groups = rng.permutation(KvE)
+        rows = np.concatenate([g * 4 + rng.permutation(4) for g in groups])
+    else:
+        rows = np.arange(H)
+    args = (q, ring[0].transpose(1, 2), ring[1].transpose(1, 2),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda),
+            torch.as_tensor(ring_slot_pos(W, n), dtype=torch.int32,
+                            device=cuda),
+            torch.as_tensor(rows, dtype=torch.int32, device=cuda))
+    before = decode_attention_ring_resident.launches
+    out = decode_attention_ring_resident(*args, window=W)
+    torch.cuda.synchronize()
+    assert decode_attention_ring_resident.launches == before + 1
+    want = decode_attention_ring_resident_plain(*args, window=W)
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    assert torch.isfinite(out).all()
+    if case == "partly_filled":
+        assert not out[0].any()              # no valid slot: zeros

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
 JAX and nothing of the JAX package, its entry points want the GPU unless
 the caller asks for the CPU, and its serving CLI answers requests."""
+import functools
 import os
 import re
 import subprocess
@@ -50,7 +51,8 @@ def test_every_module_imports_with_jax_and_repro_refused():
     names = out.stdout.split(":", 1)[1].split()
     for name in ("repro_torch.serving.paging", "repro_torch.serving.engine",
                  "repro_torch.kernels.decode_attention",
-                 "repro_torch.kernels.ops"):
+                 "repro_torch.kernels.ops", "repro_torch.models.moe",
+                 "repro_torch.configs.mixtral_8x7b"):
         assert name in names
 
 
@@ -72,6 +74,29 @@ def test_engine_without_device_wants_the_gpu():
         vocab_size=50)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, n_slots=2, max_seq=16)
+
+
+@pytest.mark.parametrize("entry", ["build_model", "ServingEngine",
+                                   "WaveServingEngine", "make_engine"])
+def test_mixtral_entry_points_want_the_gpu_unless_asked_for_the_cpu(entry):
+    """Each entry point of the Mixtral slice raises without a GPU when no
+    device is named, and runs on the CPU when asked to."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None serves on it")
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import engine
+    cfg = get_config("mixtral-8x7b").with_overrides(
+        n_layers=1, d_model=32, n_heads=4, n_kv_heads=2, d_head=8, d_ff=64,
+        vocab_size=50, n_experts=4, sliding_window=32)
+    if entry == "build_model":
+        make = build_model
+    else:
+        make = functools.partial(getattr(engine, entry), n_slots=2,
+                                 max_seq=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(cfg)
+    assert make(cfg, device="cpu") is not None
 
 
 def test_serve_cli_answers_requests_on_the_cpu():
@@ -96,6 +121,25 @@ def test_serve_cli_serves_paged_int8_kv_on_the_cpu():
     assert out.returncode == 0, out.stderr
     assert "3 requests, 12 tokens" in out.stdout
     assert "prefill buckets [8]" in out.stdout
+
+
+def test_serve_cli_serves_mixtral_past_its_window_on_the_cpu():
+    """``--arch mixtral-8x7b --engine wave --use-kernel``: the reduced
+    window (16) is below the served extent, so the ring cache wraps and
+    decode runs the ring kernel's plain version; ``auto`` picks the same
+    engine."""
+    for engine in ("wave", "auto"):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+             "cpu", "--reduced", "--layers", "2", "--arch", "mixtral-8x7b",
+             "--engine", engine, "--use-kernel", "--requests", "3",
+             "--prompt-len", "12", "--tokens", "10", "--max-seq", "40",
+             "--slots", "2", "--lam", "3", "--straggler", "0"],
+            env=_env(), cwd=REPO, capture_output=True, text=True,
+            timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert "WaveServingEngine" in out.stdout and "window 16" in out.stdout
+        assert "3 requests, 30 tokens" in out.stdout
 
 
 def test_serve_cli_refuses_unported_flags():
