@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version at the main paths' shapes,
-drives the main paths — ``ServingEngine(use_kernel=True)`` serving
-llama3-8b at full width (depth cut to 4 layers, random weights from a
-seed) under continuous batching with Algorithm 1 placements applied as
-live head migrations, from a dense, a paged, an int8 and an int8 paged KV
-cache; and ``make_engine(mode="auto")`` serving mixtral-8x7b at full width
-(4 layers) from its sliding-window ring cache under the wave scheduler,
-with head and expert migrations applied — and checks that each path's
-decode went through its kernel.  Then it checks in float32 that greedy
+Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, started together), holds each against its plain
+PyTorch version at the main paths' shapes, drives the main paths —
+``ServingEngine(use_kernel=True)`` serving llama3-8b at full width (depth
+cut to 4 layers, random weights from a seed) under continuous batching
+with Algorithm 1 placements applied as live head migrations, from a
+dense, a paged, an int8 and an int8 paged KV cache; ``make_engine(mode=
+"auto")`` serving mixtral-8x7b at full width (4 layers) from its
+sliding-window ring cache under the wave scheduler, with head and expert
+migrations applied; and ``make_engine(mode="auto")`` serving the
+attention-free rwkv6-7b at full width (4 layers) under the wave
+scheduler, prefill and decode through the WKV6 kernel, with the
+controller's head plans logged as not applied — and checks that each
+path went through its kernel.  Then it checks in float32 that greedy
 streams with and without each kernel, and from paged and dense caches,
 are equal.
 
@@ -24,6 +28,7 @@ GPU, or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -44,6 +49,13 @@ MAIN_B, MAIN_H, MAIN_KVE, MAIN_DH, MAIN_T = 8, 32, 8, 128, 1024
 N_LAYERS = 4
 # the mixtral ring path: 4 slots, a 4096-token window, 4096-token prompts
 RING_B, RING_W, RING_PROMPT, RING_NEW = 4, 4096, 4096, 64
+# the rwkv6 path: 8 slots, 64 WKV heads of 64, 1024-token prompts; the
+# kernel runs once per layer at prefill (S = prompt) and every decode step
+RWKV_B, RWKV_H, RWKV_DH, RWKV_PROMPT, RWKV_NEW = 8, 64, 64, 1024, 64
+# the WKV6 kernel and its plain version both compute in float32 from the
+# same inputs: summation order only, over up to 1024 dependent steps
+RWKV_TOL = dict(atol=1e-4, rtol=1e-4)
+NO_HEADS = "model has no addressable attention heads"
 TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
         # bf16 output keeps ~3 significant digits of values <~ 1
         torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
@@ -103,9 +115,11 @@ def cuda_ms(calls, reps: int = 20, n: int = 50) -> float:
 
 
 # the decode body's mangled name: q's type, then KVSource<E, PAGED, QUANT,
-# RING> and DH
+# RING> and DH; the WKV6 kernel's: r/k/v's type, u's type and DH
 _QTYPE = re.compile(r"decode_attention_kernelI(f|13__nv_bfloat16)")
 _FLAGS = re.compile(r"Lb([01])ELb([01])ELb([01])EEELi(\d+)E")
+_RWKV = re.compile(r"rwkv6_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)"
+                   r"Li(\d+)E")
 
 
 def ptxas_usage(text: str):
@@ -124,7 +138,13 @@ def ptxas_usage(text: str):
         used = re.search(r"Used (\d+) registers", line)
         if used and name:
             qt, flags = _QTYPE.search(name), _FLAGS.search(name)
-            if qt and flags:
+            wkv = _RWKV.search(name)
+            if wkv:
+                rt, ut, dh = wkv.groups()
+                ut = rt if ut.startswith("S") else ut   # the same type again
+                name = (f"rwkv6, {'f32' if rt == 'f' else 'bf16'} r/k/v, "
+                        f"{'f32' if ut == 'f' else 'bf16'} u, dh={dh}")
+            elif qt and flags:
                 paged, quant, ring, dh = flags.groups()
                 kind = "ring" if ring == "1" else \
                     ("paged " if paged == "1" else "linear ") \
@@ -464,9 +484,12 @@ def phase_ring_vs_plain():
 
 
 # ---------------------------------------------------------------- phase 3
-def traffic(n_requests: int, vocab: int):
+def traffic(n_requests: int, vocab: int, length=None):
+    """Prompts from ``default_rng(0)``: lengths 32-512, or all ``length``
+    tokens long."""
     rng = np.random.default_rng(0)
-    lens = rng.integers(32, 513, n_requests)
+    lens = rng.integers(32, 513, n_requests) if length is None \
+        else [length] * n_requests
     return [rng.integers(0, vocab, int(n)) for n in lens]
 
 
@@ -764,6 +787,14 @@ def phase_mixtral_ring():
     return ring
 
 
+def release():
+    """Free what the last phase left: its engines can sit in reference
+    cycles (a token hook that closes over its engine), which only the
+    collector frees, and the peak of the next phase must not count them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -802,7 +833,7 @@ def phase_mixtral_stream_pair():
                      [tuple(m[k] for k in keys) for m in eng.migration_log],
                      logits))
         del eng
-        torch.cuda.empty_cache()
+        release()
     (s0, l0, g0), (s1, l1, g1) = runs
     worst = max((a - b).abs().max().item() for a, b in zip(g0, g1))
     moved = sum(m[1] * m[5] + m[3] * m[6] for m in l0)
@@ -817,6 +848,292 @@ def phase_mixtral_stream_pair():
           "mixtral: non-finite logits")
 
 
+# ------------------------------------------------------- the rwkv6 path
+def rwkv6_inputs(dtype, *, S, B=RWKV_B, H=RWKV_H, dh=RWKV_DH, seed=0):
+    """Kernel-layout arguments of the WKV6 kernel: r/k/v in ``dtype`` and
+    w float32 in (0.45, 0.95) as transposed views of (B, S, H, dh)
+    activations (the model's layout), u (H, dh) in ``dtype`` (the param
+    dtype) and a nonzero float32 starting state, all from
+    ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    act = torch.from_numpy(rng.standard_normal((4, B, S, H, dh),
+                                               np.float32)).to("cuda")
+    act *= 0.5
+    r, k, v = (act[i].to(dtype).transpose(1, 2) for i in range(3))
+    w = (0.45 + 0.5 * torch.sigmoid(act[3])).transpose(1, 2)
+    del act
+    u = torch.from_numpy(0.5 * rng.standard_normal((H, dh), np.float32)
+                         ).to("cuda", dtype)
+    s0 = torch.from_numpy(0.1 * rng.standard_normal((B, H, dh, dh),
+                                                    np.float32)).to("cuda")
+    return r, k, v, w, u, s0
+
+
+def rwkv6_bound_ms(r, w, u, state):
+    """Least time for the recurrence on these inputs: r/k/v, w and u read
+    once, y written once in float32, the state read and written once;
+    5 dh^2 + 3 dh float32 flops per (b, h, t), outside the tensor cores."""
+    B, H, S, dh = r.shape
+    nbytes = 3 * r.numel() * r.element_size() + w.numel() * 4 \
+        + r.numel() * 4 + u.numel() * u.element_size() \
+        + 2 * state.numel() * 4
+    flops = B * H * S * (5 * dh * dh + 3 * dh)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_rwkv6_vs_plain():
+    """The WKV6 kernel against its plain version at the rwkv6 path's
+    shapes — decode (B 8, H 64, S 1, dh 64) and prefill (S 1024) — in f32
+    and bf16, with a nonzero u and starting state; two chained calls
+    writing the state in place must equal one.  Then its times at both
+    shapes (bf16, the main path's dtype); the decode shape's go into the
+    record."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked as kern
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_plain as plain
+    worst = 0.0
+    for i, (dt, S) in enumerate((dt, S) for dt in (torch.float32,
+                                                   torch.bfloat16)
+                                for S in (1, RWKV_PROMPT)):
+        args = rwkv6_inputs(dt, S=S, seed=i)
+        y, s = kern(*args)
+        torch.cuda.synchronize()
+        want_y, want_s = plain(*args)
+        err = max((y - want_y).abs().max().item(),
+                  (s - want_s).abs().max().item())
+        ok = torch.allclose(y, want_y, **RWKV_TOL) \
+            and torch.allclose(s, want_s, **RWKV_TOL)
+        checks = f"y and final state max_abs_err={err:.3e}"
+        if S > 1:
+            # the state carry: two calls, the state written over itself
+            r, k, v, w, u, s0 = args
+            state, half = s0.clone(), S // 2 - 7
+            ys = [kern(r[:, :, a:b], k[:, :, a:b], v[:, :, a:b],
+                       w[:, :, a:b], u, state, out_state=state)[0]
+                  for a, b in ((0, half), (half, S))]
+            torch.cuda.synchronize()
+            chain = max((torch.cat(ys, dim=2) - want_y).abs().max().item(),
+                        (state - want_s).abs().max().item())
+            ok = ok and torch.allclose(torch.cat(ys, dim=2), want_y,
+                                       **RWKV_TOL) \
+                and torch.allclose(state, want_s, **RWKV_TOL)
+            checks += f", two chained calls max_abs_err={chain:.3e}"
+            err = max(err, chain)
+        log(f"rwkv6_chunked vs plain {str(dt)[6:]:8s} B={RWKV_B} "
+            f"H={RWKV_H} S={S:4d} dh={RWKV_DH}: {checks}")
+        check(ok and torch.isfinite(y).all().item(),
+              f"rwkv6_chunked disagrees with its plain version ({dt}, "
+              f"S={S})")
+        worst = max(worst, err)
+        del args
+    timed = {}
+    # eight decode input copies (8 x 8.4 MB of state) so every call reads
+    # cold, the state written over itself as on the main path; prefill
+    # inputs are 0.3 GB each, one copy, and its plain loop is timed once
+    for S, copies, plain_reps in ((1, 8, 20), (RWKV_PROMPT, 1, 1)):
+        sets = [rwkv6_inputs(torch.bfloat16, S=S, seed=10 + c)
+                for c in range(copies)]
+        ms = cuda_ms([lambda a=a: kern(*a, out_state=a[5]) for a in sets])
+        plain_ms = cuda_ms([lambda a=a: plain(*a) for a in sets],
+                           reps=plain_reps, n=3 if S > 1 else 50)
+        bound, bound_by = rwkv6_bound_ms(sets[0][0], sets[0][3],
+                                         sets[0][4], sets[0][5])
+        timed[S] = (ms, plain_ms, bound, bound_by)
+        log(f"rwkv6_chunked bf16 B={RWKV_B} H={RWKV_H} S={S} dh={RWKV_DH}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by})")
+        del sets
+    log("  library_ms null: no single PyTorch call computes the WKV6 "
+        "recurrence")
+    ms, plain_ms, bound, bound_by = timed[1]
+    return {"name": "rwkv6_chunked", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6_kernel.py:63",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def nonzero_adapters(params, seed=0):
+    """Set ``u`` (0.5 N), ``lora_B`` (0.1 N) and ``lw_B`` (0.5 N) in place
+    from a seeded generator: the reference's init leaves them at zero,
+    which would silence the bonus term and the data-dependent token shift
+    and decay."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, scale in (("u", 0.5), ("lora_B", 0.1), ("lw_B", 0.5)):
+        t = params["layers"][name]
+        t.copy_(scale * torch.randn(t.shape, generator=gen, device="cuda"))
+
+
+def head_straggler(eng, at: int):
+    """A token hook that lands a 500x straggler on the device holding the
+    most heads, once, when the wave scheduler has run ``at`` decode
+    steps."""
+    fired = []
+
+    def sink(req, tok, done):
+        if not fired and eng.decode_steps == at:
+            dev = int(np.argmax(eng.controller.head_counts()))
+            eng.net.inject_straggler(dev, slowdown=500.0)
+            fired.append(at)
+
+    eng.token_sink = sink
+    return fired
+
+
+def rwkv6_engine(cfg, *, use_kernel, n_requests, prompt, max_new,
+                 params=None):
+    """``make_engine(mode="auto")`` for ``cfg``: 8 slots, λ = 8, four
+    simulated devices, ``n_requests`` prompts of ``prompt`` tokens from
+    the ``traffic`` helper; random weights from seed 0 unless ``params``
+    are given."""
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.serving.engine import make_engine
+    eng = make_engine(cfg, mode="auto", n_slots=RWKV_B,
+                      max_seq=prompt + max_new + 8, lam=8, seed=0,
+                      net=DeviceNetwork.sample(4, seed=1),
+                      use_kernel=use_kernel, params=params, device="cuda")
+    for p in traffic(n_requests, cfg.vocab_size, length=prompt):
+        eng.submit(p, max_new_tokens=max_new)
+    return eng
+
+
+def phase_rwkv6_path():
+    """Serve 16 requests (1024-token prompts, 64 new tokens each, two
+    waves of 8) on the full-width 4-layer rwkv6-7b through
+    ``make_engine(mode="auto")``, which must pick the wave scheduler;
+    prefill and decode run the WKV6 kernel once per layer, and a straggler
+    at step 16 makes the controller plan head moves, which the engine logs
+    as not applied (the model has no attention heads).  Returns the
+    kernel's launches in the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    from repro_torch.serving.engine import WaveServingEngine
+    cfg = get_config("rwkv6-7b").with_overrides(n_layers=N_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = rwkv6_engine(cfg, use_kernel=True, n_requests=16,
+                       prompt=RWKV_PROMPT, max_new=RWKV_NEW)
+    check(isinstance(eng, WaveServingEngine),
+          f"make_engine picked {type(eng).__name__} for rwkv6")
+    nonzero_adapters(eng.params)
+    log("rwkv6 weights: random from seed 0, then u, lora_B and lw_B set "
+        "to seeded small random values (the init leaves them at zero)")
+    weight_gb = sum(t.numel() * t.element_size() for t in
+                    _leaves(eng.params)) / 1e9
+    fired = head_straggler(eng, 16)
+    seen = watch_logits(eng)
+    prefill, inner = [], eng.model.prefill
+
+    def counted_prefill(*a):
+        before = rwkv6_chunked.launches
+        out = inner(*a)
+        prefill.append(rwkv6_chunked.launches - before)
+        return out
+
+    eng.model.prefill = counted_prefill
+    decode_kernels = [k for k, _, _ in PATHS.values()] + [
+        "decode_attention_ring_resident"]
+    torch.cuda.synchronize()
+    for kernel in decode_kernels:
+        getattr(da, kernel).launches = 0
+    rwkv6_chunked.launches = 0
+    t0 = time.monotonic()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = rwkv6_chunked.launches
+    others = {k: getattr(da, k).launches for k in decode_kernels}
+    tokens = sum(len(r.out_tokens) for r in eng.finished)
+    planned = [e for e in eng.migration_log if e["n_migrations"]]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_mb = N_LAYERS * RWKV_B * RWKV_H * RWKV_DH * RWKV_DH * 4 / 1e6
+    log(f"main path rwkv6 (make_engine auto -> {type(eng).__name__}) bf16 "
+        f"rwkv6-7b x{N_LAYERS} layers: {len(eng.finished)} requests, "
+        f"{tokens} tokens, {eng.decode_steps} decode steps in {wall:.2f} s "
+        f"({tokens / wall:.1f} tok/s); decode step median "
+        f"{1e3 * float(np.median(eng.step_times)):.2f} ms; "
+        f"{len(eng.interval_times)} controller intervals, mean "
+        f"{1e3 * float(np.mean(eng.interval_times)):.1f} ms; straggler at "
+        f"step {fired}; rwkv6_chunked launches {launches} (prefill "
+        f"{prefill}, decode {launches - sum(prefill)})")
+    decode_s, interval_s = sum(eng.step_times), sum(eng.interval_times)
+    log(f"  host-clock split of {wall:.2f} s: decode steps {decode_s:.2f} s, "
+        f"controller intervals {interval_s:.2f} s, prefill and the rest "
+        f"{wall - decode_s - interval_s:.2f} s")
+    log(f"  controller: {sum(e['n_migrations'] for e in planned)} head "
+        f"migrations planned in {len(planned)} intervals, none applied "
+        f"({NO_HEADS!r})")
+    log(f"  memory: weights {weight_gb:.2f} GB, WKV state {state_mb:.1f} "
+        f"MB, peak allocated {peak_gb:.2f} GB")
+    check(len(eng.finished) == 16 and all(len(r.out_tokens) == RWKV_NEW
+                                          for r in eng.finished),
+          "rwkv6: not every request finished with its tokens")
+    check(prefill == [N_LAYERS, N_LAYERS],
+          f"rwkv6: prefill launches {prefill} != 2 waves x {N_LAYERS}")
+    check(launches - sum(prefill) == eng.decode_steps * N_LAYERS
+          == 2 * (RWKV_NEW - 1) * N_LAYERS,
+          f"rwkv6: decode launches {launches - sum(prefill)} != decode "
+          f"steps {eng.decode_steps} x {N_LAYERS} layers")
+    check(not any(others.values()),
+          f"rwkv6: a decode-attention kernel launched: {others}")
+    check(bool(planned), "rwkv6: the controller planned no head move")
+    check(all(not e["applied"] and e["mig_bytes"] == 0 for e in
+              eng.migration_log)
+          and all(e["reason"] == NO_HEADS for e in planned),
+          "rwkv6: an interval was logged as applied, or without the "
+          "reference's reason")
+    check(bool(seen["finite"].item()), "rwkv6: non-finite logits")
+    return launches
+
+
+def phase_rwkv6_stream_pair():
+    """float32, 2 layers: the rwkv6 path with and without the WKV6
+    kernel, from the same weights (nonzero adapters) and a straggler at
+    step 8 (the first interval's), must stream the same greedy tokens with
+    the same logs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("rwkv6-7b").with_overrides(
+        n_layers=2, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    nonzero_adapters(params)
+    keys = ("step", "n_migrations", "mig_bytes", "applied", "reason")
+    runs = []
+    for use_kernel in (True, False):
+        eng = rwkv6_engine(cfg, use_kernel=use_kernel, n_requests=8,
+                           prompt=256, max_new=24, params=params)
+        head_straggler(eng, 8)
+        logits, inner = [], eng.model.decode_step
+
+        def decode_step(p, state, tokens, inner=inner, logits=logits):
+            out, state = inner(p, state, tokens)
+            logits.append(out.clone())
+            return out, state
+
+        eng.model.decode_step = decode_step
+        eng.run()
+        runs.append(({r.rid: r.out_tokens for r in eng.finished},
+                     [tuple(m[k] for k in keys) for m in eng.migration_log],
+                     logits))
+        del eng
+        release()
+    (s0, l0, g0), (s1, l1, g1) = runs
+    worst = max((a - b).abs().max().item() for a, b in zip(g0, g1))
+    log(f"f32 streams rwkv6 kernel vs plain (2 layers): {len(s0)} requests, "
+        f"max per-step logit difference {worst:.3e}, "
+        f"{sum(m[1] for m in l0)} head migrations planned (none applied), "
+        f"logs {'equal' if l0 == l1 else 'differ'}")
+    check(len(s0) == 8 and s0 == s1, "rwkv6: greedy streams differ")
+    check(l0 == l1, "rwkv6: migration logs differ")
+    check(any(m[1] and not m[3] and m[4] == NO_HEADS for m in l0),
+          "rwkv6: no head move was planned and logged as not applied")
+    check(all(torch.isfinite(g).all().item() for g in g0 + g1),
+          "rwkv6: non-finite logits")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is present")
@@ -829,23 +1146,26 @@ def main():
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log(f"card: {card}")
     t0 = time.monotonic()
-    logs = build.build(["decode_attention"])
+    logs = build.build(["decode_attention", "rwkv6"])
     log(f"built {sorted(logs) or 'nothing (cached)'} in "
         f"{time.monotonic() - t0:.1f} s")
     for text in logs.values():
         for variant, usage in ptxas_usage(text):
             log(f"  ptxas: {variant}: {usage}")
     records = [phase_kernel_vs_plain()] + phase_new_kernels_vs_plain() \
-        + [phase_ring_vs_plain()]
-    torch.cuda.empty_cache()
+        + [phase_ring_vs_plain(), phase_rwkv6_vs_plain()]
+    release()
     for path, (name, _, _) in PATHS.items():
         record = next(r for r in records if r["name"] == name)
         record["launches"] = phase_main_path(path)
-        torch.cuda.empty_cache()
-    records[-1]["launches"] = phase_mixtral_ring()
-    torch.cuda.empty_cache()
+        release()
+    records[-2]["launches"] = phase_mixtral_ring()
+    release()
+    records[-1]["launches"] = phase_rwkv6_path()
+    release()
     phase_stream_equality()
     phase_mixtral_stream_pair()
+    phase_rwkv6_stream_pair()
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

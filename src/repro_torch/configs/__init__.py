@@ -5,5 +5,6 @@ from repro_torch.configs.base import (  # noqa: F401
     list_archs,
 )
 
-# The port serves the dense GQA family and the sliding-window MoE family.
-from repro_torch.configs import llama3_8b, mixtral_8x7b  # noqa: F401
+# The port serves the dense GQA family, the sliding-window MoE family and
+# the attention-free RWKV-6 family.
+from repro_torch.configs import llama3_8b, mixtral_8x7b, rwkv6_7b  # noqa: F401

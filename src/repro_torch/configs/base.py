@@ -2,8 +2,8 @@
 
 Copy of the JAX package's ``configs/base.py`` (fields unchanged, so a
 config converts between the packages with ``dataclasses.asdict``).  The
-port serves the dense and MoE families; the model raises on the fields of
-the other families.
+port serves the dense, MoE and RWKV-6 (``ssm``) families; the model raises
+on the fields of the other families.
 """
 from __future__ import annotations
 

@@ -2,9 +2,10 @@
 (B, T, KvE, dh) caches and rings, (n_pages, P, KvE, dh) page stores) —
 counterpart of the JAX package's ``kernels/ops.py``.
 
-The JAX wrappers transpose the whole per-layer cache (or page store) into
-the kernel layout; here the kernels read the cache through its strides,
-so the wrappers pass transposed *views* and nothing is copied.
+The JAX wrappers transpose the whole per-layer cache (or page store, or
+the RWKV activations) into the kernel layout; here the kernels read
+through strides, so the wrappers pass transposed *views* and nothing is
+copied.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_int8_paged_resident, decode_attention_int8_resident,
     decode_attention_paged_resident, decode_attention_resident,
     decode_attention_ring_resident)
+from repro_torch.kernels.rwkv6 import rwkv6_chunked
 
 
 def _scatter(o, inv_rows):
@@ -82,3 +84,14 @@ def decode_attention_ring_bshd(q, k, v, lengths, slot_pos, *, window: int,
         q[:, 0], k.transpose(1, 2), v.transpose(1, 2), lengths, slot_pos,
         rows, kv_rows, window=window)
     return _scatter(o, inv_rows)
+
+
+def rwkv6(r, k, v, w, u, state, *, out_state=None):
+    """The WKV6 recurrence in model layout: r/k/v/w (B,S,H,dh), u (H,dh),
+    state (B,H,dh,dh) float32.  Returns y (B,S,H,dh) float32 (contiguous
+    from the kernel) and the final state, written into ``out_state`` (which
+    may be ``state``) when given."""
+    y, s = rwkv6_chunked(r.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), w.transpose(1, 2), u, state,
+                         out_state=out_state)
+    return y.transpose(1, 2), s

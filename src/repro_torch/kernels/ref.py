@@ -1,7 +1,8 @@
 """Plain PyTorch oracles over the full head grid, in kernel layout —
 counterpart of the JAX package's ``kernels/ref.decode_attention_ref``, plus
-one for the sliding-window ring.  Written independently of the kernels'
-plain versions (softmax over a -inf-masked score row), so tests can hold
+one for the sliding-window ring, and the WKV6 recurrence.  Written
+independently of the kernels' plain versions (softmax over a -inf-masked
+score row; the recurrence over the stacked time axis), so tests can hold
 one against the other."""
 from __future__ import annotations
 
@@ -37,3 +38,19 @@ def _softmax_attend(q, k, v, mask):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("begt,betd->begd", p, v.float())
     return o.reshape(B, H, dh).to(q.dtype)
+
+
+def rwkv6_ref(r, k, v, w, u, state):
+    """WKV6 recurrence. r,k,v,w: (B,H,S,dh); u: (H,dh); state: (B,H,dh,dh)
+    (S[i,j] = key i, value j).  Returns y (B,H,S,dh) float32 and the final
+    state, float32."""
+    r, k, v, w = (t.float().movedim(2, 0) for t in (r, k, v, w))
+    u = u.float()
+    s = state.float()
+    ys = []
+    for r_t, k_t, v_t, w_t in zip(r, k, v, w):
+        y = torch.einsum("bhi,bhij->bhj", r_t, s)
+        bonus = torch.einsum("bhi,hi,bhi->bh", r_t, u, k_t)
+        ys.append(y + bonus[..., None] * v_t)
+        s = w_t[..., None] * s + k_t[..., None] * v_t[:, :, None, :]
+    return torch.stack(ys, dim=2), s

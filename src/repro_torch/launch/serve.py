@@ -6,13 +6,17 @@ counterpart of the JAX package's ``launch/serve.py``.
       --layers 4 --requests 8 --tokens 24 --use-kernel [--straggler 0]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --layers 4 --max-seq 8192 --prompt-len 4096 --tokens 64 --use-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --layers 4 --slots 8 --requests 16 --prompt-len 1024 --tokens 64 \
+      --use-kernel
 
 Runs on the GPU unless ``--device cpu`` is given (``--reduced`` shrinks
 the widths to a CPU-sized model, and a sliding window to 16 tokens).
 ``--engine auto`` picks the continuous engine where the arch and the
 served extent allow it and the wave engine otherwise (a sliding-window
 arch whose ``--max-seq``, default prompt + tokens + 8, reaches its window
-keeps a ring cache).  ``--paged [--page-size P]`` serves from a paged KV
+keeps a ring cache; the attention-free rwkv6-7b always takes the wave
+engine).  ``--paged [--page-size P]`` serves from a paged KV
 cache and ``--kv-quant`` from an int8 one, alone or together (continuous
 engine).  The reference's ``--pipeline-k`` and ``--search`` are not
 ported yet and raise.
@@ -66,7 +70,8 @@ def main(argv=None):
                     help="vary prompt lengths per request")
     ap.add_argument("--use-kernel", action="store_true",
                     help="decode through the placement-driven flash-decode "
-                         "kernel (its plain version on the CPU); greedy "
+                         "kernel (rwkv6-7b: prefill and decode through the "
+                         "WKV6 kernel; plain versions on the CPU); greedy "
                          "streams must match the plain path")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache with per-(token, head) scales")

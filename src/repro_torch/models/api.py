@@ -1,11 +1,12 @@
 """Model API: ``build_model(cfg, use_kernel=..., device=...)`` — counterpart
-of the JAX package's ``models/api.py`` for the dense and MoE families.
+of the JAX package's ``models/api.py`` for the dense, MoE and RWKV-6
+(``ssm``) families.
 
-The returned model exposes ``init(generator)``, ``forward``, the lock-step
-API of the wave scheduler (``init_decode_state``, ``prefill``,
-``decode_step``) and the continuous-batching slot API:
-``init_decode_state(..., per_slot=True)``, ``prefill_bucketed``,
-``insert_slot`` and ``decode_step``.
+The returned model exposes ``init(generator)``, ``forward`` and the
+lock-step API of the wave scheduler (``init_decode_state``, ``prefill``,
+``decode_step``).  Attention-backed models (dense, MoE) also expose the
+continuous-batching slot API: ``init_decode_state(..., per_slot=True)``,
+``prefill_bucketed``, ``insert_slot`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -13,9 +14,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import unsupported
+from repro_torch.models.rwkv6 import RWKV6Model
 from repro_torch.models.transformer import TransformerLM
 
-_FAMILY_ITEMS = {"vlm": 13, "ssm": 14, "hybrid": 14, "audio": 17}
+_FAMILY_ITEMS = {"vlm": 13, "hybrid": 14, "audio": 17}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -30,6 +32,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None):
+    if cfg.family == "ssm":
+        return RWKV6Model(cfg, use_kernel=use_kernel,
+                          device=resolve_device(device))
     if cfg.family not in ("dense", "moe"):
         unsupported(f"the {cfg.family!r} family",
                     _FAMILY_ITEMS.get(cfg.family, 17))

@@ -90,6 +90,16 @@ def rms_norm(x, scale, eps: float):
     return (out * scale.float()).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps: float):
+    """LayerNorm over the last axis in float32 (population variance), then
+    scale and bias in float32, cast back to x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
 def apply_norm(cfg: ModelConfig, p: dict, name: str, x):
     if cfg.norm_type != "rmsnorm":
         unsupported(f"norm_type={cfg.norm_type!r}", 17)

@@ -1,0 +1,240 @@
+"""RWKV-6 "Finch" — the attention-free LM with data-dependent decay —
+counterpart of the JAX package's ``models/rwkv6.py``.
+
+Token-shift ddlerp with a shared low-rank adapter, per-channel
+data-dependent decay w = exp(-exp(w0 + lora)), a per-head WKV state S in
+R^{dh x dh}, bonus u, group norm, silu(g) gating and a squared-relu
+channel mix (arXiv:2404.05892).  The decode state is O(1) per sequence:
+the last token of each mix (``shift_t``, ``shift_c``) and the WKV states.
+The model has no attention heads, so the placement controller's head
+plans cannot be applied to it (``serving.engine`` reports them as not
+applied, as the reference does).
+
+Parameters are a nested dict in the reference's names and stacked
+``(L, ...)`` layouts (``weights.params_from_jax`` carries them unchanged);
+the reference's ``lax.scan`` over layers is a Python loop over per-layer
+views, and the decode state is updated in place.  ``wkv_scan`` is the
+model's plain recurrence (``use_kernel=False``); ``use_kernel=True`` runs
+the hand-written WKV6 kernel (``kernels.rwkv6``) through ``kernels.ops``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import _layer_view, torch_dtype
+
+LORA_R = 32      # shared ddlerp adapter rank
+LORA_W_R = 64    # decay adapter rank
+MIX_NAMES = ("w", "k", "v", "r", "g")
+
+
+def wkv_scan(r, k, v, w, u, state):
+    """Sequential WKV recurrence in float32.
+
+    r,k,v,w: (B,S,H,dh); u: (H,dh); state: (B,H,dh,dh) with S[i,j] indexed
+    [key channel i, value channel j].  Returns y (B,S,H,dh) and the final
+    state."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()
+    s = state.float()
+    ys = []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+        y = torch.einsum("bhi,bhij->bhj", r_t, s)
+        bonus = torch.einsum("bhi,hi,bhi->bh", r_t, u, k_t)
+        ys.append(y + bonus[..., None] * v_t)
+        s = w_t[..., None] * s + k_t[..., None] * v_t[:, :, None, :]
+    return torch.stack(ys, dim=1), s
+
+
+def group_norm_heads(y, scale, bias, eps: float = 1e-5):
+    """Per-head layer norm of (B,S,H,dh); scale/bias (H*dh,).  Returns
+    (B,S,H*dh) in float32."""
+    B, S, H, dh = y.shape
+    y32 = y.float()
+    mu = y32.mean(dim=-1, keepdim=True)
+    var = (y32 - mu).square().mean(dim=-1, keepdim=True)
+    out = (y32 - mu) * torch.rsqrt(var + eps)
+    return out.reshape(B, S, H * dh) * scale.float() + bias.float()
+
+
+def _shifted(x, shift_state):
+    """The previous token of every position: ``shift_state`` (B, D) — the
+    last token of the previous call — then x's tokens but the last."""
+    return torch.cat([shift_state[:, None, :], x[:, :-1, :]], dim=1)
+
+
+class RWKV6Model:
+    """Config-driven RWKV-6 LM on one device."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device,
+                 use_kernel: bool = False):
+        if cfg.family != "ssm":
+            raise ValueError(f"RWKV6Model serves the ssm family, not "
+                             f"{cfg.family!r}")
+        if cfg.tie_embeddings:
+            L.unsupported("tied embeddings", 17)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.use_kernel = use_kernel
+        self.H = cfg.n_heads
+        self.dh = cfg.d_model // cfg.n_heads
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+        """Random weights at the reference's init scales (normal draws from
+        ``generator``, which must live on this model's device).  As in the
+        reference, ``lora_B``, ``lw_B`` and ``u`` start at zero."""
+        cfg = self.cfg
+        D, F_, V, n = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+        dt, dev, g = torch_dtype(cfg.param_dtype), self.device, generator
+
+        def dense(d_in, shape):
+            return L.dense_init(g, d_in, (n,) + shape, dt, dev)
+
+        def full(shape, value):
+            return torch.full((n,) + shape, value, dtype=dt, device=dev)
+
+        layers = {
+            # time mix
+            "mu_x": full((D,), 0.5),
+            "mix_mu": full((5, D), 0.5),
+            "lora_A": dense(D, (D, 5 * LORA_R)),
+            "lora_B": full((5, LORA_R, D), 0.0),
+            "w0": full((D,), -6.0),       # exp(-exp(-6)): slow decay
+            "lw_A": dense(D, (D, LORA_W_R)),
+            "lw_B": full((LORA_W_R, D), 0.0),
+            "wr": dense(D, (D, D)),
+            "wk": dense(D, (D, D)),
+            "wv": dense(D, (D, D)),
+            "wg": dense(D, (D, D)),
+            "wo": dense(D, (D, D)),
+            "u": full((self.H, self.dh), 0.0),
+            "gn_scale": full((D,), 1.0),
+            "gn_bias": full((D,), 0.0),
+            # channel mix
+            "mu_ck": full((D,), 0.5),
+            "mu_cr": full((D,), 0.5),
+            "wck": dense(D, (D, F_)),
+            "wcv": dense(F_, (F_, D)),
+            "wcr": dense(D, (D, D)),
+        }
+        for nm in ("ln1", "ln2"):
+            layers[nm] = full((D,), 1.0)
+            layers[nm + "_b"] = full((D,), 0.0)
+        return {"layers": layers,
+                "tok_embed": L.normal_init(g, (V, D), 0.02, dt, dev),
+                "lm_head": L.dense_init(g, D, (D, V), dt, dev),
+                "ln_f": torch.ones((D,), dtype=dt, device=dev),
+                "ln_f_b": torch.zeros((D,), dtype=dt, device=dev)}
+
+    # ------------------------------------------------------------- time mix
+    def _time_mix(self, p, x, shift_state, wkv_state):
+        """x: (B,S,D); shift_state (B,D) and wkv_state (B,H,dh,dh) are this
+        layer's views of the decode state, updated in place."""
+        B, S, D = x.shape
+        dx = _shifted(x, shift_state) - x
+        x_mix = x + dx * p["mu_x"]
+        lora = torch.tanh(x_mix @ p["lora_A"]).reshape(B, S, 5, LORA_R)
+        lora = torch.einsum("bsnr,nrd->bsnd", lora, p["lora_B"])
+        mixed = x[:, :, None, :] + dx[:, :, None, :] * \
+            (p["mix_mu"][None, None] + lora)                   # (B,S,5,D)
+        xw, xk, xv, xr, xg = mixed.unbind(dim=2)
+        r = xr @ p["wr"]
+        k = xk @ p["wk"]
+        v = xv @ p["wv"]
+        g = xg @ p["wg"]
+        w_log = p["w0"].float() + (torch.tanh(xw @ p["lw_A"])
+                                   @ p["lw_B"]).float()
+        w = torch.exp(-torch.exp(w_log))                       # (B,S,D) f32
+        r, k, v, w = (t.reshape(B, S, self.H, self.dh) for t in (r, k, v, w))
+        if self.use_kernel:
+            y, _ = ops.rwkv6(r, k, v, w, p["u"], wkv_state,
+                             out_state=wkv_state)
+        else:
+            y, new_wkv = wkv_scan(r, k, v, w, p["u"], wkv_state)
+            wkv_state.copy_(new_wkv)
+        shift_state.copy_(x[:, -1])
+        y = group_norm_heads(y, p["gn_scale"], p["gn_bias"])
+        y = (y * F.silu(g.float())).to(x.dtype)
+        return y @ p["wo"]
+
+    def _channel_mix(self, p, x, shift_state):
+        dx = _shifted(x, shift_state) - x
+        shift_state.copy_(x[:, -1])
+        xk = x + dx * p["mu_ck"]
+        xr = x + dx * p["mu_cr"]
+        k = torch.square(torch.relu(xk @ p["wck"]))
+        return torch.sigmoid(xr @ p["wcr"]) * (k @ p["wcv"])
+
+    def _layer(self, p, x, state):
+        eps = self.cfg.norm_eps
+        h = L.layer_norm(x, p["ln1"], p["ln1_b"], eps)
+        x = x + self._time_mix(p, h, state["shift_t"], state["wkv"])
+        h = L.layer_norm(x, p["ln2"], p["ln2_b"], eps)
+        return x + self._channel_mix(p, h, state["shift_c"])
+
+    # --------------------------------------------------------------- forward
+    def _zero_state(self, batch: int) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        dt, dev = torch_dtype(cfg.dtype), self.device
+        return {
+            "shift_t": torch.zeros((cfg.n_layers, batch, cfg.d_model),
+                                   dtype=dt, device=dev),
+            "shift_c": torch.zeros((cfg.n_layers, batch, cfg.d_model),
+                                   dtype=dt, device=dev),
+            "wkv": torch.zeros((cfg.n_layers, batch, self.H, self.dh,
+                                self.dh), dtype=torch.float32, device=dev),
+        }
+
+    def _run_layers(self, params, x, state):
+        """Loop over layers; layer l reads its slice of the stacked params
+        and updates its slice of ``state`` in place."""
+        for l in range(self.cfg.n_layers):
+            x = self._layer(_layer_view(params["layers"], l), x,
+                            {name: buf[l] for name, buf in state.items()})
+        return x
+
+    def _logits(self, params, x):
+        x = L.layer_norm(x, params["ln_f"], params["ln_f_b"],
+                         self.cfg.norm_eps)
+        return L.unembed(self.cfg, params, x)
+
+    def forward(self, params, tokens):
+        """Full-sequence forward from a zero state. Returns logits
+        (B,S,V)."""
+        x = L.embed(self.cfg, params, tokens)
+        x = self._run_layers(params, x, self._zero_state(tokens.shape[0]))
+        return self._logits(params, x)
+
+    # ---------------------------------------------------------------- decode
+    def init_decode_state(self, params, batch: int, max_seq: int, **_):
+        """The lock-step decode state: ``cache`` holds the per-layer token
+        shifts and WKV states (O(1) in the sequence; ``max_seq`` is
+        unused) and ``pos`` the batch's position."""
+        return {"cache": self._zero_state(batch), "pos": 0}
+
+    def prefill(self, params, state, tokens):
+        """Run the (B, S) prompts through the model from ``state``,
+        updating it in place.  Returns the last token's logits (B, V) and
+        the state with ``pos == S``."""
+        x = L.embed(self.cfg, params, tokens)
+        x = self._run_layers(params, x, state["cache"])
+        logits = self._logits(params, x[:, -1:])
+        state["pos"] = tokens.shape[1]
+        return logits[:, 0], state
+
+    def decode_step(self, params, state, tokens):
+        """One step for every row. tokens: (B,) int.  Returns (logits
+        (B, V) float32, state)."""
+        x = L.embed(self.cfg, params, tokens[:, None])
+        x = self._run_layers(params, x, state["cache"])
+        logits = self._logits(params, x)
+        state["pos"] += 1
+        return logits[:, 0], state

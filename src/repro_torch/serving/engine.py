@@ -18,7 +18,8 @@ controller stack:
   Up to ``n_slots`` equal-length prompts form a wave; the wave prefills as
   one batch and decodes in lock-step until every request finishes.  It is
   the scheduler of sliding-window archs served to their window, whose ring
-  cache takes one position for the whole batch (``make_engine`` picks it).
+  cache takes one position for the whole batch, and of the attention-free
+  RWKV-6, which has no slot API (``make_engine`` picks it for both).
 
 Every λ decode steps the ``IntervalController`` observes step-time
 telemetry (and the per-slot cache occupancy), re-runs Algorithm 1 on the
@@ -186,8 +187,12 @@ class _EngineBase:
         # controller wiring: the per-layer block graph of the model's
         # depth, priced at its widths (Table I, incremental decode)
         self.net = net or DeviceNetwork.sample(4, seed=seed + 1)
-        hd = self.model.hd
-        heads_per_slot = max(1, hd.Hp // self.net.n_devices)
+        # an attention-free model (RWKV-6) has no ``hd``: the controller
+        # still places cfg.n_heads blocks per layer, and its plans are
+        # logged as not applied (``_migrate_state``)
+        hd = getattr(self.model, "hd", None)
+        n_heads = cfg.n_heads if hd is None else hd.Hp
+        heads_per_slot = max(1, n_heads // self.net.n_devices)
         # MoE archs: the controller places per-expert blocks (router-load-
         # weighted compute, weight-only migration bytes) when the expert
         # count tiles the devices; otherwise the cost model stays expert-
@@ -203,7 +208,7 @@ class _EngineBase:
                               d_ff=cfg.d_ff if n_exp else 0,
                               page_size=cost_page_size)
         # GQA stacks migrate whole KV groups: group-consistent perms
-        group = hd.Hp // hd.Kp
+        group = 1 if hd is None else hd.Hp // hd.Kp
         if group > 1 and ((self.net.n_devices * heads_per_slot) % group
                           or cfg.n_heads % group):
             raise UnsupportedArchError(
@@ -293,15 +298,18 @@ class _EngineBase:
         return max(1, round((tau_tokens - self.cost.L0)
                             / max(self.cost.lam, 1)))
 
-    def _migrate_state(self, state: Dict[str, Any], plan):
+    def _migrate_state(self, state: Dict[str, Any], plan) -> tuple:
         """Execute ``plan`` physically: permute the weights AND the cache of
         ``state`` by the same group-consistent per-layer head permutations
         (row l of the plan's perms is layer l; the cache's leading axis is
         the layer stack).  Attention is permutation-equivariant over heads
         (GQA: over whole KV groups) within each layer, so the model
         function is unchanged while the placement moves.  A ring's slot
-        positions have no head axis and stay."""
-        hd = self.model.hd
+        positions have no head axis and stay.  Returns (applied, reason):
+        a model without attention heads applies nothing, and says so."""
+        hd = getattr(self.model, "hd", None)
+        if hd is None:
+            return False, "model has no addressable attention heads"
         G = hd.Hp // hd.Kp
         rel = relative_perms(plan["prev_perms"], plan["perms"])
         cache = state["cache"]
@@ -316,6 +324,7 @@ class _EngineBase:
             cache["k_sc"], cache["v_sc"] = apply_layer_head_perms(
                 cache["k_sc"], cache["v_sc"], rel, head_axis=-1,
                 group_size=G)
+        return True, None
 
     def _feed_expert_loads(self, states: Sequence[Dict[str, Any]]):
         """Average the decode states' router-load EWMAs ((L, E)
@@ -364,9 +373,10 @@ class _EngineBase:
     def _migration_bytes(self, pairs) -> int:
         """Bytes the plan's head migrations move through the cache: one
         k+v row over the live token extent per distinct migrated
-        (layer, kv group), + f32 scales for int8 KV."""
-        hd = self.model.hd
-        if not pairs:
+        (layer, kv group), + f32 scales for int8 KV; 0 for a model without
+        attention heads."""
+        hd = getattr(self.model, "hd", None)
+        if hd is None or not pairs:
             return 0
         G = hd.Hp // hd.Kp
         kv_moves = {(l, h // G) for (l, h, _s, _d) in pairs}
@@ -493,15 +503,15 @@ class ServingEngine(_EngineBase):
     def _apply_plan(self, plan: dict):
         """Execute a controller plan: cache/weight permutations, expert
         weight rows, kernel gather maps, interval log."""
-        applied = bool(plan["migrations"])
-        if applied:
-            self._migrate_state(self.state, plan)
+        applied, reason = False, None
+        if plan["migrations"]:
+            applied, reason = self._migrate_state(self.state, plan)
             # weights/caches now sit in the plan's layout; the kernel
             # gather maps must follow the same source of truth
             self._phys_perms = plan["perms"]
         e_applied, e_reason = self._migrate_experts(plan)
         self._refresh_head_rows(plan)
-        self._log_interval(plan, applied, None, e_applied, e_reason)
+        self._log_interval(plan, applied, reason, e_applied, e_reason)
 
     # ----------------------------------------------------- kernel row maps
     def _attach_head_rows(self, state: Dict[str, Any]) -> Dict[str, Any]:
@@ -716,7 +726,8 @@ class WaveServingEngine(_EngineBase):
     form a wave, prefill as one batch and decode in lock-step (one int
     position for the batch) until every request of the wave finishes;
     slots free only when the wave drains.  It serves sliding-window archs
-    over their ring cache, and any other arch the port builds."""
+    over their ring cache, the attention-free RWKV-6 (whose head plans
+    are logged as not applied), and any other arch the port builds."""
 
     def _next_wave(self) -> List[Request]:
         """Up to n_slots queued requests with equal prompt length."""
@@ -736,12 +747,11 @@ class WaveServingEngine(_EngineBase):
         t0 = time.monotonic()
         self._feed_expert_loads([state])
         plan = self._interval_plan()
-        applied = False
+        applied, reason = False, None
         if plan["migrations"]:
-            self._migrate_state(state, plan)
-            applied = True
+            applied, reason = self._migrate_state(state, plan)
         e_applied, e_reason = self._migrate_experts(plan)
-        self._log_interval(plan, applied, None, e_applied, e_reason)
+        self._log_interval(plan, applied, reason, e_applied, e_reason)
         self._sync()
         self.interval_times.append(time.monotonic() - t0)
 

@@ -211,3 +211,71 @@ def test_ring_kernel_matches_plain_version(cuda, dtype, case):
     assert torch.isfinite(out).all()
     if case == "partly_filled":
         assert not out[0].any()              # no valid slot: zeros
+
+
+# ------------------------------------------------------------------ rwkv6
+# Kernel and plain version both compute in float32 from the same inputs
+# (bfloat16 r/k/v are upcast exactly), so one tolerance holds for both
+# dtypes: summation order only, over up to 200 dependent steps.
+RWKV_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def rwkv_inputs(cuda, dtype, B, H, S, dh, seed, u_dtype=None):
+    """r/k/v (B, H, S, dh) in ``dtype`` and w float32 in (0.45, 0.95), as
+    transposed views of (B, S, H, dh) activations (the model's layout);
+    u (H, dh) and a nonzero float32 starting state."""
+    rng = np.random.default_rng(seed)
+    act = torch.from_numpy(0.5 * rng.standard_normal((4, B, S, H, dh))
+                           ).float().to(cuda)
+    r, k, v = (act[i].to(dtype).transpose(1, 2) for i in range(3))
+    w = (0.45 + 0.5 * torch.sigmoid(act[3])).transpose(1, 2)
+    u = torch.from_numpy(0.5 * rng.standard_normal((H, dh))).to(
+        cuda, u_dtype or dtype)
+    s0 = torch.from_numpy(0.1 * rng.standard_normal((B, H, dh, dh))).to(
+        cuda, torch.float32)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("S", [1, 37, 200])
+def test_rwkv6_kernel_matches_plain_version(cuda, dtype, dh, S):
+    """Decode (S = 1), a ragged last chunk (37) and several chunks (200)."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
+    args = rwkv_inputs(cuda, dtype, 3, 4, S, dh, seed=S + dh)
+    before = rwkv6_chunked.launches
+    y, s = rwkv6_chunked(*args)
+    torch.cuda.synchronize()
+    assert rwkv6_chunked.launches == before + 1
+    want_y, want_s = rwkv6_chunked_plain(*args)
+    assert y.shape == (3, 4, S, dh) and y.dtype == torch.float32
+    torch.testing.assert_close(y, want_y, **RWKV_TOL)
+    torch.testing.assert_close(s, want_s, **RWKV_TOL)
+
+
+def test_rwkv6_kernel_chains_in_place(cuda):
+    """Two calls writing the state over their input equal one call; a
+    bfloat16 u with float32 r/k/v is read as float32."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
+    r, k, v, w, u, s0 = rwkv_inputs(cuda, torch.float32, 2, 3, 80, 64,
+                                    seed=7, u_dtype=torch.bfloat16)
+    y_full, s_full = rwkv6_chunked_plain(r, k, v, w, u, s0)
+    state = s0.clone()
+    ys = [rwkv6_chunked(r[:, :, a:b], k[:, :, a:b], v[:, :, a:b],
+                        w[:, :, a:b], u, state, out_state=state)[0]
+          for a, b in ((0, 33), (33, 80))]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(ys, dim=2), y_full, **RWKV_TOL)
+    torch.testing.assert_close(state, s_full, **RWKV_TOL)
+
+
+def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    r, k, v, w, u, s0 = rwkv_inputs(cuda, torch.float32, 1, 2, 4, 16, seed=1)
+    with pytest.raises(ValueError, match="float32 w"):
+        rwkv6_chunked(r, k, v, w.to(torch.bfloat16), u, s0)
+    with pytest.raises(ValueError, match="r/k/v"):
+        rwkv6_chunked(r.half(), k.half(), v.half(), w, u, s0)
+    big = rwkv_inputs(cuda, torch.float32, 1, 1, 2, 128, seed=2)
+    with pytest.raises(ValueError, match="dh"):
+        rwkv6_chunked(*big)
