@@ -15,9 +15,14 @@ sliding-window ring cache under the wave scheduler, with head and expert
 migrations applied; and ``make_engine(mode="auto")`` serving the
 attention-free rwkv6-7b at full width (4 layers) under the wave
 scheduler, prefill and decode through the WKV6 kernel, with the
-controller's head plans logged as not applied — and checks that each
-path went through its kernel.  Then it checks in float32 that greedy
-streams with and without each kernel, and from paged and dense caches,
+controller's head plans logged as not applied; and ``make_engine(mode=
+"auto")`` serving glm4-9b (QKV bias set to seeded random values, half-head
+RoPE) at full width (4 layers) under continuous batching with 2048-8192
+token prompts and applied head migrations — and checks that each path
+went through its kernels, with exact launch counts.  Every prefill whose
+queries and keys share their positions (bucketed, lock-step, ring) runs
+the flash attention kernel.  Then it checks in float32 that greedy
+streams with and without the kernels, and from paged and dense caches,
 are equal.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
@@ -56,9 +61,24 @@ RWKV_B, RWKV_H, RWKV_DH, RWKV_PROMPT, RWKV_NEW = 8, 64, 64, 1024, 64
 # same inputs: summation order only, over up to 1024 dependent steps
 RWKV_TOL = dict(atol=1e-4, rtol=1e-4)
 NO_HEADS = "model has no addressable attention heads"
+# the glm4 path: 8 slots, 16 prompts of 2048-8192 tokens, 64 new tokens
+# each, an extent of 8264; every prompt bucket is 2048, 4096 or 8192
+GLM_B, GLM_LO, GLM_HI, GLM_NEW, GLM_MAX_SEQ = 8, 2048, 8192, 64, 8264
+# prefill attention through the flash kernel, per main path: one launch
+# per layer for each bucketed prefill (16 requests) or lock-step wave
+# (mixtral: 2); the paged chunk prefill and rwkv6 have no such attention
+FLASH_LAUNCHES = {"dense": 16 * N_LAYERS, "paged": 0,
+                  "int8": 16 * N_LAYERS, "int8_paged": 0,
+                  "mixtral": 2 * N_LAYERS, "rwkv6": 0,
+                  "glm4": 16 * N_LAYERS}
 TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
         # bf16 output keeps ~3 significant digits of values <~ 1
         torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
+# The flash phase also bounds each query row's relative error
+# ||out_r - want_r|| / ||want_r||: a row over i keys of N(0, 1) inputs has
+# outputs of ~sqrt(e / i), 0.03 at S 8192, so TOLS's bf16 atol alone
+# passes a kernel that drops a K/V tile in late rows (PERF.md, PR 15).
+FLASH_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -120,6 +140,7 @@ _QTYPE = re.compile(r"decode_attention_kernelI(f|13__nv_bfloat16)")
 _FLAGS = re.compile(r"Lb([01])ELb([01])ELb([01])EEELi(\d+)E")
 _RWKV = re.compile(r"rwkv6_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)"
                    r"Li(\d+)E")
+_FLASH = re.compile(r"flash_(mma|simt)_kernelILi(\d+)E")
 
 
 def ptxas_usage(text: str):
@@ -139,7 +160,12 @@ def ptxas_usage(text: str):
         if used and name:
             qt, flags = _QTYPE.search(name), _FLAGS.search(name)
             wkv = _RWKV.search(name)
-            if wkv:
+            flash = _FLASH.search(name)
+            if flash:
+                kind, dh = flash.groups()
+                name = (f"flash, {'bf16 mma.sync' if kind == 'mma' else 'f32'}"
+                        f", dh={dh}")
+            elif wkv:
                 rt, ut, dh = wkv.groups()
                 ut = rt if ut.startswith("S") else ut   # the same type again
                 name = (f"rwkv6, {'f32' if rt == 'f' else 'bf16'} r/k/v, "
@@ -484,13 +510,46 @@ def phase_ring_vs_plain():
 
 
 # ---------------------------------------------------------------- phase 3
-def traffic(n_requests: int, vocab: int, length=None):
-    """Prompts from ``default_rng(0)``: lengths 32-512, or all ``length``
-    tokens long."""
+def traffic(n_requests: int, vocab: int, length=None, lo=32, hi=512):
+    """Prompts from ``default_rng(0)``: lengths ``lo``-``hi``, or all
+    ``length`` tokens long."""
     rng = np.random.default_rng(0)
-    lens = rng.integers(32, 513, n_requests) if length is None \
+    lens = rng.integers(lo, hi + 1, n_requests) if length is None \
         else [length] * n_requests
     return [rng.integers(0, vocab, int(n)) for n in lens]
+
+
+def time_prefill(eng):
+    """Wrap the engine model's prefill entry points (bucketed, paged chunk,
+    lock-step) in a host clock that starts and ends with a device sync;
+    returns {"s": seconds so far, "calls": count}."""
+    spent = {"s": 0.0, "calls": 0}
+    for name in ("prefill_bucketed", "prefill_paged", "prefill"):
+        inner = getattr(eng.model, name, None)
+        if inner is None:
+            continue
+
+        def timed(*a, inner=inner):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = inner(*a)
+            torch.cuda.synchronize()
+            spent["s"] += time.monotonic() - t0
+            spent["calls"] += 1
+            return out
+
+        setattr(eng.model, name, timed)
+    return spent
+
+
+def log_split(eng, wall, prefill):
+    """The host-clock split of a main path's wall time."""
+    decode_s, interval_s = sum(eng.step_times), sum(eng.interval_times)
+    log(f"  host-clock split of {wall:.2f} s: decode steps {decode_s:.2f} s, "
+        f"controller intervals {interval_s:.2f} s, prefill "
+        f"{prefill['s']:.2f} s ({prefill['calls']} calls), admission, "
+        f"sampling and the rest "
+        f"{wall - decode_s - interval_s - prefill['s']:.2f} s")
 
 
 def watch_logits(eng):
@@ -550,16 +609,20 @@ PATHS = {
 
 def phase_main_path(path="dense"):
     """Serve 16 requests x 64 tokens on the ``path`` cache through its
-    kernel; returns that kernel's launches in the run."""
+    kernels; returns the decode kernel's and the flash kernel's launches
+    in the run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
     name, over, kw = PATHS[path]
     cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS, **over)
     eng = serve(cfg, use_kernel=True, n_requests=16, max_new=64, **kw)
     seen = watch_logits(eng)
+    prefill = time_prefill(eng)
     torch.cuda.synchronize()
     for kernel, _, _ in PATHS.values():
         getattr(da, kernel).launches = 0
+    flash_attention.launches = 0
     t0 = time.monotonic()
     while drive(eng):
         pass
@@ -567,6 +630,7 @@ def phase_main_path(path="dense"):
     wall = time.monotonic() - t0
     launches = {kernel: getattr(da, kernel).launches
                 for kernel, _, _ in PATHS.values()}
+    flash = flash_attention.launches
     tokens = sum(len(r.out_tokens) for r in eng.finished)
     applied = [e for e in eng.migration_log
                if e["applied"] and e["n_migrations"]]
@@ -579,11 +643,8 @@ def phase_main_path(path="dense"):
         f"{1e3 * float(np.mean(eng.interval_times)):.1f} ms; "
         f"{sum(e['n_migrations'] for e in eng.migration_log)} head "
         f"migrations in {len(applied)} applied intervals; kernel launches "
-        f"{launches}")
-    decode_s, interval_s = sum(eng.step_times), sum(eng.interval_times)
-    log(f"  host-clock split of {wall:.2f} s: decode steps {decode_s:.2f} s, "
-        f"controller intervals {interval_s:.2f} s, admission and prefill "
-        f"{wall - decode_s - interval_s:.2f} s")
+        f"{launches}, flash_attention {flash}")
+    log_split(eng, wall, prefill)
     check(len(eng.finished) == 16 and all(len(r.out_tokens) == 64
                                           for r in eng.finished),
           f"{path}: not every request finished with its 64 tokens")
@@ -593,6 +654,9 @@ def phase_main_path(path="dense"):
           f"{eng.decode_steps} x {cfg.n_layers} layers")
     check(not any(n for k, n in launches.items() if k != name),
           f"{path}: another path's kernel launched: {launches}")
+    check(flash == FLASH_LAUNCHES[path],
+          f"{path}: flash_attention launches {flash} != "
+          f"{FLASH_LAUNCHES[path]}")
     check(bool(seen["finite"].item()),
           f"{path}: non-finite logits on the main path")
     if eng.paged:
@@ -604,7 +668,7 @@ def phase_main_path(path="dense"):
               f"drain")
         check(eng.page_waits > 0, f"{path}: admission never waited for "
               f"pages")
-    return launches[name]
+    return launches[name], flash
 
 
 # ---------------------------------------------------------------- phase 4
@@ -719,6 +783,7 @@ def phase_mixtral_ring():
     Returns the ring kernel's launches in the run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.serving.engine import WaveServingEngine
     cfg = get_config("mixtral-8x7b").with_overrides(n_layers=N_LAYERS)
     torch.cuda.reset_peak_memory_stats()
@@ -730,16 +795,19 @@ def phase_mixtral_ring():
                     _leaves(eng.params)) / 1e9
     fired = expert_straggler(eng, 16)
     seen = watch_logits(eng)
+    prefill = time_prefill(eng)
     kernels = [k for k, _, _ in PATHS.values()] + [
         "decode_attention_ring_resident"]
     torch.cuda.synchronize()
     for kernel in kernels:
         getattr(da, kernel).launches = 0
+    flash_attention.launches = 0
     t0 = time.monotonic()
     eng.run()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: getattr(da, k).launches for k in kernels}
+    flash = flash_attention.launches
     ring = launches["decode_attention_ring_resident"]
     tokens = sum(len(r.out_tokens) for r in eng.finished)
     heads = [e for e in eng.migration_log if e["applied"]
@@ -759,11 +827,9 @@ def phase_mixtral_ring():
         f"{1e3 * float(np.median(eng.step_times)):.2f} ms; "
         f"{len(eng.interval_times)} controller intervals, mean "
         f"{1e3 * float(np.mean(eng.interval_times)):.1f} ms; straggler at "
-        f"step {fired}; kernel launches {launches}")
-    decode_s, interval_s = sum(eng.step_times), sum(eng.interval_times)
-    log(f"  host-clock split of {wall:.2f} s: decode steps {decode_s:.2f} s, "
-        f"controller intervals {interval_s:.2f} s, prefill and the rest "
-        f"{wall - decode_s - interval_s:.2f} s")
+        f"step {fired}; kernel launches {launches}, flash_attention "
+        f"{flash}")
+    log_split(eng, wall, prefill)
     log(f"  applied: {sum(e['n_migrations'] for e in heads)} head "
         f"migrations ({sum(e['mig_bytes'] for e in heads) / 1e6:.1f} MB) in "
         f"{len(heads)} intervals, {n_exp} expert migrations "
@@ -781,10 +847,13 @@ def phase_mixtral_ring():
     check(not any(n for k, n in launches.items()
                   if k != "decode_attention_ring_resident"),
           f"mixtral: another kernel launched: {launches}")
+    check(flash == FLASH_LAUNCHES["mixtral"],
+          f"mixtral: flash_attention launches {flash} != "
+          f"{FLASH_LAUNCHES['mixtral']} (2 waves x {N_LAYERS} layers)")
     check(bool(heads), "mixtral: no interval applied a head migration")
     check(bool(experts), "mixtral: no interval applied an expert migration")
     check(bool(seen["finite"].item()), "mixtral: non-finite logits")
-    return ring
+    return ring, flash
 
 
 def release():
@@ -1009,6 +1078,7 @@ def phase_rwkv6_path():
     kernel's launches in the run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rwkv6 import rwkv6_chunked
     from repro_torch.serving.engine import WaveServingEngine
     cfg = get_config("rwkv6-7b").with_overrides(n_layers=N_LAYERS)
@@ -1033,18 +1103,21 @@ def phase_rwkv6_path():
         return out
 
     eng.model.prefill = counted_prefill
+    prefill_time = time_prefill(eng)
     decode_kernels = [k for k, _, _ in PATHS.values()] + [
         "decode_attention_ring_resident"]
     torch.cuda.synchronize()
     for kernel in decode_kernels:
         getattr(da, kernel).launches = 0
     rwkv6_chunked.launches = 0
+    flash_attention.launches = 0
     t0 = time.monotonic()
     eng.run()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = rwkv6_chunked.launches
     others = {k: getattr(da, k).launches for k in decode_kernels}
+    others["flash_attention"] = flash_attention.launches
     tokens = sum(len(r.out_tokens) for r in eng.finished)
     planned = [e for e in eng.migration_log if e["n_migrations"]]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1058,10 +1131,7 @@ def phase_rwkv6_path():
         f"{1e3 * float(np.mean(eng.interval_times)):.1f} ms; straggler at "
         f"step {fired}; rwkv6_chunked launches {launches} (prefill "
         f"{prefill}, decode {launches - sum(prefill)})")
-    decode_s, interval_s = sum(eng.step_times), sum(eng.interval_times)
-    log(f"  host-clock split of {wall:.2f} s: decode steps {decode_s:.2f} s, "
-        f"controller intervals {interval_s:.2f} s, prefill and the rest "
-        f"{wall - decode_s - interval_s:.2f} s")
+    log_split(eng, wall, prefill_time)
     log(f"  controller: {sum(e['n_migrations'] for e in planned)} head "
         f"migrations planned in {len(planned)} intervals, none applied "
         f"({NO_HEADS!r})")
@@ -1077,7 +1147,7 @@ def phase_rwkv6_path():
           f"rwkv6: decode launches {launches - sum(prefill)} != decode "
           f"steps {eng.decode_steps} x {N_LAYERS} layers")
     check(not any(others.values()),
-          f"rwkv6: a decode-attention kernel launched: {others}")
+          f"rwkv6: an attention kernel launched: {others}")
     check(bool(planned), "rwkv6: the controller planned no head move")
     check(all(not e["applied"] and e["mig_bytes"] == 0 for e in
               eng.migration_log)
@@ -1134,6 +1204,297 @@ def phase_rwkv6_stream_pair():
           "rwkv6: non-finite logits")
 
 
+# ------------------------------------------------ the flash attention kernel
+def flash_inputs(dtype, *, B, H, KvE, Sq, Skv=None, dh=128, seed=0):
+    """q (B, H, Sq, dh) and k, v (B, KvE, Skv, dh) as transposed views of
+    the model's (B, S, H, dh) activations, standard normal from a seeded
+    generator on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    Skv = Sq if Skv is None else Skv
+    return (draw((B, Sq, H, dh)).transpose(1, 2),
+            draw((B, Skv, KvE, dh)).transpose(1, 2),
+            draw((B, Skv, KvE, dh)).transpose(1, 2))
+
+
+def row_rel_err(out, want) -> float:
+    """The worst (b, h, query row)'s ||out_r - want_r|| / ||want_r||, in
+    float32; a row whose ``want`` is zero counts its error's norm."""
+    diff = (out.float() - want.float()).norm(dim=-1)
+    norm = want.float().norm(dim=-1)
+    return torch.where(norm > 0, diff / norm, diff).max().item()
+
+
+def flash_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask admits, per (b, h)."""
+    if not causal:
+        return Sq * Skv
+    i = np.arange(Sq)
+    hi = np.minimum(i, Skv - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound_ms(q, k, causal, window):
+    """Least time for the function on these inputs: q, k, v read once and
+    o written once; 4 dh flops per admitted (query, key) pair per head
+    (2 for q.k, 2 for p.v) at the tensor cores' rate for the dtype."""
+    B, H, Sq, dh = q.shape
+    Skv = k.shape[2]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4 * dh * B * H * flash_pairs(Sq, Skv, causal, window)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+# label -> (B, H, KvE, S, window): the prefill attention of each path that
+# runs the kernel, in bf16 — llama's largest bucket (the dense and int8
+# paths), mixtral's lock-step wave over its window, glm4's longest bucket
+FLASH_SHAPES = {
+    "llama bucket": (1, 32, 8, 512, 0),
+    "mixtral wave": (RING_B, 32, 8, RING_PROMPT, RING_W),
+    "glm4": (1, 32, 2, GLM_HI, 0),
+}
+
+
+def phase_flash_vs_plain():
+    """The flash kernel against its plain version (the model's own prefill
+    arithmetic: ``attention_scores`` below a KV extent of 2048,
+    ``chunked_attention`` at 2048 and above) at the three paths' bf16
+    shapes, a ragged S = 1000 under a window, a non-causal case, Sq < Skv,
+    and float32; then its times at the three shapes beside the plain
+    version, SDPA and the bound.  The glm4 shape's go into the record."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(label, bf16, dict(B=B, H=H, KvE=KvE, Sq=S), True, w)
+             for label, (B, H, KvE, S, w) in FLASH_SHAPES.items()]
+    cases += [
+        ("ragged S=1000 window 300", bf16,
+         dict(B=2, H=32, KvE=2, Sq=1000), True, 300),
+        ("non-causal S=700", bf16, dict(B=1, H=32, KvE=8, Sq=700), False, 0),
+        ("Sq=300 < Skv=2048", bf16, dict(B=1, H=32, KvE=2, Sq=300,
+                                         Skv=2048), True, 0),
+        ("llama bucket f32", f32, dict(B=1, H=32, KvE=8, Sq=512), True, 0),
+        ("ragged S=1000 f32 GQA 16", f32, dict(B=1, H=32, KvE=2, Sq=1000),
+         True, 0),
+    ]
+    worst = worst_rel = 0.0
+    for i, (label, dt, shape, causal, window) in enumerate(cases):
+        q, k, v = flash_inputs(dt, seed=i, **shape)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        err = (out.float() - want.float()).abs().max().item()
+        rel = row_rel_err(out, want)
+        ok = torch.allclose(out.float(), want.float(), **TOLS[dt]) \
+            and rel <= FLASH_ROW_REL[dt]
+        log(f"flash_attention vs plain {str(dt)[6:]:8s} {label:26s} "
+            f"{tuple(q.shape)} over {tuple(k.shape)} causal={causal} "
+            f"window={window} max_abs_err={err:.3e} max_row_rel_err="
+            f"{rel:.3e} (limit {FLASH_ROW_REL[dt]:.0e})")
+        check(ok and torch.isfinite(out).all().item(),
+              f"flash_attention disagrees with its plain version ({label})")
+        if dt == bf16:
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        del q, k, v, out, want
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed = {}
+    for label, (B, H, KvE, S, window) in FLASH_SHAPES.items():
+        # input copies together larger than the 50 MB L2, so every call
+        # reads cold; long shapes are one copy and fewer timed calls
+        small = S <= 1024
+        sets = [flash_inputs(bf16, B=B, H=H, KvE=KvE, Sq=S, seed=10 + c)
+                for c in range(16 if small else 1)]
+        kw = dict(causal=True, window=window)
+        reps, n = (20, 50) if small else (2, 5)
+        ms = cuda_ms([lambda a=a: flash_attention(*a, **kw) for a in sets],
+                     reps=reps, n=n)
+        plain_ms = cuda_ms([lambda a=a: flash_attention_plain(*a, **kw)
+                            for a in sets], reps=reps if small else 1,
+                           n=n if small else 3)
+        # yardstick only: SDPA's causal mask is aligned at the top left as
+        # the kernel's; a window needs a boolean mask
+        mask = None
+        if window and window < S:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+        lib_ms = cuda_ms([lambda a=a: sdpa(
+            *a, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+            for a in sets], reps=reps, n=n)
+        bound, bound_by = flash_bound_ms(sets[0][0], sets[0][1], True, window)
+        timed[label] = (ms, plain_ms, bound, bound_by, lib_ms)
+        log(f"flash_attention bf16 {label} B={B} H={H} KvE={KvE} S={S} "
+            f"dh=128 window={window}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by}, {flash_pairs(S, S, True, window)} pairs per "
+            f"head)")
+        del sets
+        release()
+    ms, plain_ms, bound, bound_by, lib_ms = timed["glm4"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:83",
+            "max_abs_err": worst, "max_rel_err": worst_rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+# --------------------------------------------------------- the glm4 path
+def random_qkv_bias(params, seed=0):
+    """Set ``bq``/``bk``/``bv`` in place to 0.5 N(0, 1) from a seeded
+    generator: the init leaves them at zero, which would hide a bias that
+    did not move with its head."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    attn = params["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        t = attn[name]
+        t.copy_(0.5 * torch.randn(t.shape, generator=gen, device="cuda"))
+
+
+def glm4_engine(cfg, *, use_kernel, n_requests, hi, max_new, max_seq,
+                params=None):
+    """``make_engine(mode="auto")`` for ``cfg``: 8 slots, λ = 8, four
+    simulated devices, ``n_requests`` prompts of ``GLM_LO``-``hi`` tokens
+    from ``default_rng(0)``."""
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.serving.engine import make_engine
+    eng = make_engine(cfg, mode="auto", n_slots=GLM_B, max_seq=max_seq,
+                      lam=8, seed=0, net=DeviceNetwork.sample(4, seed=1),
+                      use_kernel=use_kernel, params=params, device="cuda")
+    for p in traffic(n_requests, cfg.vocab_size, lo=GLM_LO, hi=hi):
+        eng.submit(p, max_new_tokens=max_new)
+    return eng
+
+
+def phase_glm4_path():
+    """Serve 16 requests (2048-8192-token prompts, 64 new tokens each) on
+    the full-width 4-layer glm4-9b through ``make_engine(mode="auto")``,
+    which must pick the continuous engine: every bucketed prefill runs the
+    flash kernel once per layer (buckets 4096 and 8192), every decode step
+    the flash-decode kernel, and a straggler at step 16 on the busiest
+    device makes an interval apply head migrations (moving the random
+    biases with their heads).  Returns the decode kernel's and the flash
+    kernel's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("glm4-9b").with_overrides(n_layers=N_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = glm4_engine(cfg, use_kernel=True, n_requests=16, hi=GLM_HI,
+                      max_new=GLM_NEW, max_seq=GLM_MAX_SEQ)
+    check(isinstance(eng, ServingEngine),
+          f"make_engine picked {type(eng).__name__} for glm4")
+    random_qkv_bias(eng.params)
+    log("glm4 weights: random from seed 0, then bq, bk and bv set to "
+        "seeded 0.5 N(0, 1) (the init leaves them at zero)")
+    weight_gb = sum(t.numel() * t.element_size() for t in
+                    _leaves(eng.params)) / 1e9
+    seen = watch_logits(eng)
+    prefill = time_prefill(eng)
+    kernels = [k for k, _, _ in PATHS.values()] + [
+        "decode_attention_ring_resident"]
+    torch.cuda.synchronize()
+    for kernel in kernels:
+        getattr(da, kernel).launches = 0
+    flash_attention.launches = 0
+    t0 = time.monotonic()
+    while drive(eng):
+        pass
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: getattr(da, k).launches for k in kernels}
+    flash = flash_attention.launches
+    decode = launches["decode_attention_resident"]
+    tokens = sum(len(r.out_tokens) for r in eng.finished)
+    applied = [e for e in eng.migration_log
+               if e["applied"] and e["n_migrations"]]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"main path glm4 (make_engine auto -> {type(eng).__name__}) bf16 "
+        f"glm4-9b x{N_LAYERS} layers: {len(eng.finished)} requests, "
+        f"{tokens} tokens, {eng.decode_steps} decode steps in {wall:.2f} s "
+        f"({tokens / wall:.1f} tok/s); decode step median "
+        f"{1e3 * float(np.median(eng.step_times)):.2f} ms; "
+        f"{len(eng.interval_times)} controller intervals, mean "
+        f"{1e3 * float(np.mean(eng.interval_times)):.1f} ms; "
+        f"{sum(e['n_migrations'] for e in applied)} head migrations "
+        f"({sum(e['mig_bytes'] for e in applied) / 1e6:.1f} MB) in "
+        f"{len(applied)} applied intervals; prefill buckets "
+        f"{sorted(eng.prefill_buckets_used)}; kernel launches {launches}, "
+        f"flash_attention {flash}")
+    log_split(eng, wall, prefill)
+    log(f"  memory: weights {weight_gb:.2f} GB, peak allocated "
+        f"{peak_gb:.2f} GB")
+    check(len(eng.finished) == 16 and all(len(r.out_tokens) == GLM_NEW
+                                          for r in eng.finished),
+          "glm4: not every request finished with its 64 tokens")
+    check(bool(applied), "glm4: no interval applied a migration")
+    check(flash == FLASH_LAUNCHES["glm4"],
+          f"glm4: flash_attention launches {flash} != "
+          f"{FLASH_LAUNCHES['glm4']} (16 prefills x {N_LAYERS} layers)")
+    check(decode == eng.decode_steps * cfg.n_layers,
+          f"glm4: decode kernel launches {decode} != decode steps "
+          f"{eng.decode_steps} x {cfg.n_layers} layers")
+    check(not any(n for k, n in launches.items()
+                  if k != "decode_attention_resident"),
+          f"glm4: another path's kernel launched: {launches}")
+    check(bool(seen["finite"].item()), "glm4: non-finite logits")
+    return decode, flash
+
+
+def phase_glm4_stream_pair():
+    """float32, 4 layers, biased: the glm4 path with the kernels (flash
+    prefill, flash-decode) and without, from the same weights, 8 requests
+    of 2048-4096 tokens and a straggler at step 8 (an interval applies
+    head migrations at step 16), must stream the same greedy tokens with
+    the same migration logs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("glm4-9b").with_overrides(
+        n_layers=N_LAYERS, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    random_qkv_bias(params)
+    keys = ("step", "n_migrations", "mig_bytes", "applied")
+    engines = [glm4_engine(cfg, use_kernel=uk, n_requests=8, hi=4096,
+                           max_new=32, max_seq=4096 + 40, params=params)
+               for uk in (True, False)]
+    seen = [watch_logits(e) for e in engines]
+    worst = 0.0
+    while True:
+        more = [drive(e, straggle_at=8) for e in engines]
+        check(more[0] == more[1], "glm4: the two engines stopped at "
+              "different steps")
+        if not more[0]:
+            break
+        active = engines[0]._active()
+        if active:
+            worst = max(worst, (seen[0]["last"][active]
+                                - seen[1]["last"][active]).abs().max().item())
+    streams = [{r.rid: r.out_tokens for r in e.finished} for e in engines]
+    logs = [[tuple(m[k] for k in keys) for m in e.migration_log]
+            for e in engines]
+    moved = [sum(m[1] for m in lg if m[3]) for lg in logs]
+    log(f"f32 streams glm4 kernels vs plain ({N_LAYERS} layers): "
+        f"{len(streams[0])} requests, max per-step logit difference "
+        f"{worst:.3e}, applied migrations {moved[0]} and {moved[1]}, logs "
+        f"{'equal' if logs[0] == logs[1] else 'differ'}")
+    check(len(streams[0]) == 8 and streams[0] == streams[1],
+          "glm4: greedy streams differ")
+    check(logs[0] == logs[1], "glm4: migration logs differ")
+    check(min(moved) > 0, "glm4: no migration was applied")
+    check(all(bool(s["finite"].item()) for s in seen),
+          "glm4: non-finite logits")
+    del engines, seen, params
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is present")
@@ -1146,30 +1507,44 @@ def main():
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log(f"card: {card}")
     t0 = time.monotonic()
-    logs = build.build(["decode_attention", "rwkv6"])
+    logs = build.build(["decode_attention", "rwkv6", "flash_attention"])
     log(f"built {sorted(logs) or 'nothing (cached)'} in "
         f"{time.monotonic() - t0:.1f} s")
     for text in logs.values():
         for variant, usage in ptxas_usage(text):
             log(f"  ptxas: {variant}: {usage}")
     records = [phase_kernel_vs_plain()] + phase_new_kernels_vs_plain() \
-        + [phase_ring_vs_plain(), phase_rwkv6_vs_plain()]
+        + [phase_ring_vs_plain(), phase_rwkv6_vs_plain(),
+           phase_flash_vs_plain()]
+    by_name = {r["name"]: r for r in records}
     release()
+    # each path's launches: its decode kernel's in that kernel's record,
+    # the flash kernel's logged; the flash record carries glm4's
+    flash = {}
     for path, (name, _, _) in PATHS.items():
-        record = next(r for r in records if r["name"] == name)
-        record["launches"] = phase_main_path(path)
+        by_name[name]["launches"], flash[path] = phase_main_path(path)
         release()
-    records[-2]["launches"] = phase_mixtral_ring()
+    by_name["decode_attention_ring_resident"]["launches"], \
+        flash["mixtral"] = phase_mixtral_ring()
     release()
-    records[-1]["launches"] = phase_rwkv6_path()
+    by_name["rwkv6_chunked"]["launches"] = phase_rwkv6_path()
+    flash["rwkv6"] = 0          # checked inside the phase
+    release()
+    _, flash["glm4"] = phase_glm4_path()
+    by_name["flash_attention"]["launches"] = flash["glm4"]
+    log(f"flash_attention launches per main path: {flash}")
     release()
     phase_stream_equality()
+    release()
     phase_mixtral_stream_pair()
     phase_rwkv6_stream_pair()
+    phase_glm4_stream_pair()
+    release()
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+            "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

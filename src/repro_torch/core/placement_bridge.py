@@ -399,8 +399,9 @@ def apply_layer_head_perms(cache_k, cache_v, perms, *, head_axis: int = 3,
 def permute_model_heads_layers(params, perms, *, group_size: int = 1):
     """Per-layer physical head relocation of layer-stacked attention
     weights: row l of ``perms`` reorders the head axis of layer l's
-    ``wq``/``wo`` (query heads) and ``wk``/``wv`` (their KV groups, via
-    ``kv_group_perms`` when ``group_size`` > 1).  Attention is
+    ``wq``/``wo`` and ``bq`` (query heads) and ``wk``/``wv`` and
+    ``bk``/``bv`` (their KV groups, via ``kv_group_perms`` when
+    ``group_size`` > 1).  Attention is
     permutation-equivariant over heads within a layer (``wo`` sums over
     them), so the model function is unchanged; only which device holds
     which (layer, head) moves.  Returns a new params dict sharing every
@@ -419,6 +420,11 @@ def permute_model_heads_layers(params, perms, *, group_size: int = 1):
                 a["wk"] = _take_layers(v["wk"], -2, kv_rows)
                 a["wv"] = _take_layers(v["wv"], -2, kv_rows)
                 a["wo"] = _take_layers(v["wo"], -3, q_rows)
+                if "bq" in v:
+                    a["bq"] = _take_layers(v["bq"], -2, q_rows)
+                for b in ("bk", "bv"):
+                    if b in v:
+                        a[b] = _take_layers(v[b], -2, kv_rows)
                 out[k] = a
             else:
                 out[k] = visit(v)

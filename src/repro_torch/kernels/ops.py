@@ -1,11 +1,11 @@
 """Model-layout wrappers of the kernels ((B, S, H, dh) activations,
-(B, T, KvE, dh) caches and rings, (n_pages, P, KvE, dh) page stores) —
-counterpart of the JAX package's ``kernels/ops.py``.
+(B, T, KvE, dh) keys, caches and rings, (n_pages, P, KvE, dh) page
+stores) — counterpart of the JAX package's ``kernels/ops.py``.
 
 The JAX wrappers transpose the whole per-layer cache (or page store, or
-the RWKV activations) into the kernel layout; here the kernels read
-through strides, so the wrappers pass transposed *views* and nothing is
-copied.
+the prefill or RWKV activations) into the kernel layout; here the kernels
+read through strides, so the wrappers pass transposed *views* and nothing
+is copied.
 """
 from __future__ import annotations
 
@@ -13,7 +13,18 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_int8_paged_resident, decode_attention_int8_resident,
     decode_attention_paged_resident, decode_attention_resident,
     decode_attention_ring_resident)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rwkv6 import rwkv6_chunked
+
+
+def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
+    """Prefill attention in model layout: q (B,S,H,dh), k/v (B,T,KvE,dh) ->
+    (B,S,H,dh), rows and columns aligned at the top left (row i is position
+    i, column j position j).  The kernel reads transposed views; its output
+    is already (B,S,H,dh) memory."""
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2)
 
 
 def _scatter(o, inv_rows):

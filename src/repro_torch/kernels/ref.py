@@ -1,14 +1,37 @@
 """Plain PyTorch oracles over the full head grid, in kernel layout —
-counterpart of the JAX package's ``kernels/ref.decode_attention_ref``, plus
-one for the sliding-window ring, and the WKV6 recurrence.  Written
-independently of the kernels' plain versions (softmax over a -inf-masked
-score row; the recurrence over the stacked time axis), so tests can hold
-one against the other."""
+counterpart of the JAX package's ``kernels/ref.flash_attention_ref`` and
+``decode_attention_ref``, plus one for the sliding-window ring, and the
+WKV6 recurrence.  Written independently of the kernels' plain versions
+(softmax over a -inf-masked score row; the recurrence over the stacked
+time axis), so tests can hold one against the other."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """q: (B,H,Sq,dh); k,v: (B,KvE,Skv,dh). GQA: H % KvE == 0.
+    Returns (B,H,Sq,dh) in q.dtype; softmax in f32 over a -inf-masked
+    score row (causal: key j <= query i, aligned at the top left)."""
+    B, H, Sq, dh = q.shape
+    KvE, Skv = k.shape[1], k.shape[2]
+    G = H // KvE
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = q.reshape(B, KvE, G, Sq, dh)
+    s = torch.einsum("begsd,betd->begst", qg.float(), k.float()) * scale
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("begst,betd->begsd", p, v.float())
+    return o.reshape(B, H, Sq, dh).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, lengths):

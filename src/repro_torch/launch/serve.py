@@ -9,6 +9,9 @@ counterpart of the JAX package's ``launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --layers 4 --slots 8 --requests 16 --prompt-len 1024 --tokens 64 \
       --use-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
+      --layers 4 --slots 8 --requests 16 --prompt-len 8192 \
+      --mixed-lengths --tokens 64 --use-kernel
 
 Runs on the GPU unless ``--device cpu`` is given (``--reduced`` shrinks
 the widths to a CPU-sized model, and a sliding window to 16 tokens).
@@ -70,6 +73,7 @@ def main(argv=None):
                     help="vary prompt lengths per request")
     ap.add_argument("--use-kernel", action="store_true",
                     help="decode through the placement-driven flash-decode "
+                         "kernel and prefill through the flash attention "
                          "kernel (rwkv6-7b: prefill and decode through the "
                          "WKV6 kernel; plain versions on the CPU); greedy "
                          "streams must match the plain path")

@@ -1,13 +1,14 @@
 """Decoder layers: RMSNorm, RoPE, GQA attention (causal or sliding-window,
 plain or chunked flash-style) with a per-slot, paged or ring KV cache (in
 the working dtype or int8), SwiGLU MLP, embeddings — counterpart of the
-JAX package's ``models/layers.py``, for the branches the llama and mixtral
-families take.
+JAX package's ``models/layers.py``, for the branches the llama, glm4 (QKV
+bias, partial RoPE) and mixtral families take.
 
 Functions take plain tensors and nested dicts of parameters in the
 reference's layouts (``wq`` (D,Hp,dh), ``wk``/``wv`` (D,Kp,dh), ``wo``
-(Hp,dh,D)).  Caches are updated in place.  Branches of other families
-raise ``NotImplementedError`` naming their ROADMAP item.
+(Hp,dh,D), biases ``bq`` (Hp,dh), ``bk``/``bv`` (Kp,dh)).  Caches are
+updated in place.  Branches of other families raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,8 +20,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-
-NEG_INF = -1e30
+# attention_scores and chunked_attention stay importable from here, beside
+# the rest of the reference's layers
+from repro_torch.kernels.attention_plain import (  # noqa: F401
+    attend as plain_attend, attention_scores, causal_mask, chunked_attention)
 
 
 def unsupported(what: str, item: int):
@@ -107,19 +110,23 @@ def apply_norm(cfg: ModelConfig, p: dict, name: str, x):
 
 
 def apply_rope(x, positions, theta: float, fraction: float = 1.0):
-    """x: (B, S, n_heads, dh); positions: (B, S) int. Rotates the whole
-    head dim (llama's ``rope_fraction == 1``)."""
+    """x: (B, S, n_heads, dh); positions: (B, S) int. Rotates the first
+    ``fraction`` of the head dim, rounded down to an even count (GLM-4
+    rotates half), and passes the rest through."""
     dh = x.shape[-1]
-    if int(dh * fraction) != dh:
-        unsupported("partial RoPE (rope_fraction < 1)", 17)
-    freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
-                                          device=x.device) / dh))
-    ang = positions[..., None].float() * freqs              # (B, S, dh/2)
+    dh_rot = int(dh * fraction)
+    dh_rot -= dh_rot % 2
+    freqs = 1.0 / (theta ** (torch.arange(0, dh_rot, 2, dtype=torch.float32,
+                                          device=x.device) / dh_rot))
+    ang = positions[..., None].float() * freqs          # (B, S, dh_rot/2)
     cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
-    xr = x.float()
-    x1, x2 = xr[..., : dh // 2], xr[..., dh // 2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                     dim=-1).to(x.dtype)
+    xr = x[..., :dh_rot].float()
+    x1, x2 = xr[..., : dh_rot // 2], xr[..., dh_rot // 2:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                        dim=-1).to(x.dtype)
+    if dh_rot == dh:
+        return rotated
+    return torch.cat([rotated, x[..., dh_rot:]], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -128,98 +135,20 @@ def apply_rope(x, positions, theta: float, fraction: float = 1.0):
 
 
 def qkv_project(cfg: ModelConfig, p: dict, hd: HeadDims, x, positions):
-    """Returns q (B,S,Hp,dh) and k, v (B,S,KvE,dh)."""
-    if cfg.qkv_bias:
-        unsupported("qkv_bias", 17)
+    """Returns q (B,S,Hp,dh) and k, v (B,S,KvE,dh); ``qkv_bias`` configs
+    add ``bq`` (Hp,dh) and ``bk``/``bv`` (Kp,dh) before RoPE."""
     if hd.rep > 1:
         unsupported("replicated KV heads (rep > 1)", 17)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return q, k, v
-
-
-def attention_scores(q, k, v, mask):
-    """q: (B,S,Hp,dh), k/v: (B,T,KvE,dh), mask: broadcastable to
-    (B,1,1,S,T) or None. Returns (B,S,Hp,dh). Scores and softmax in f32."""
-    B, S, Hp, dh = q.shape
-    T, KvE = k.shape[1], k.shape[2]
-    # The KV extent is padded with masked keys to a multiple of 16, and to
-    # at least 64.  torch's CPU batched matmul computes a product with
-    # fewer than 16 columns, or fewer than 400 multiply-adds, in another
-    # summation order than a larger one, and its softmax sums a row shorter
-    # than its vector width (16 floats with AVX-512) in another order than
-    # a longer one.  Past both edges a valid prefix gets the same scores
-    # and probabilities at any extent, so a dense prefill bucket of 8
-    # tokens and the paged cache (which attends over the page table's
-    # whole span) agree bit for bit.
-    pad = max(64, -(-T // 16) * 16) - T
-    if pad:
-        if mask is None:
-            mask = torch.ones((1, 1, 1, 1, T), dtype=torch.bool,
-                              device=q.device)
-        k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
-        mask = F.pad(mask, (0, pad), value=False)
-    qg = q.reshape(B, S, KvE, Hp // KvE, dh)
-    scores = torch.einsum("bsegd,bted->begst", qg.float(), k.float())
-    scores = scores / math.sqrt(dh)
-    if mask is not None:
-        scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("begst,bted->bsegd", probs.to(v.dtype), v)
-    return out.reshape(B, S, Hp, dh)
-
-
-def chunked_attention(q, k, v, q_positions, kv_positions, *,
-                      causal: bool = True, window: int = 0,
-                      chunk: int = 1024):
-    """Flash-style attention in plain PyTorch: a loop over KV chunks with an
-    online softmax (m, l, acc) — peak memory O(S·chunk) instead of O(S·T).
-    Same arithmetic as the reference's ``chunked_attention`` (q scaled in
-    float32 first, masked scores at -1e30, ``l`` clamped at 1e-30).
-
-    q: (B,S,Hp,dh); k/v: (B,T,KvE,dh); positions (B,S)/(B,T); ``window``
-    > 0 keeps only keys within ``window`` positions of the query.  Returns
-    (B,S,Hp,dh) in q's dtype."""
-    B, S, Hp, dh = q.shape
-    T, KvE = k.shape[1], k.shape[2]
-    G = Hp // KvE
-    chunk = min(chunk, T)
-    if T % chunk:
-        raise ValueError(f"KV extent {T} is not a multiple of chunk {chunk}")
-    qg = (q.float() * (1.0 / math.sqrt(dh))).reshape(B, S, KvE, G, dh)
-    m = torch.full((B, KvE, G, S), NEG_INF, device=q.device)
-    l = torch.zeros((B, KvE, G, S), device=q.device)
-    acc = torch.zeros((B, KvE, G, S, dh), device=q.device)
-    qp = q_positions[:, :, None]
-    for c0 in range(0, T, chunk):
-        pb = kv_positions[:, None, c0:c0 + chunk]               # (B,1,C)
-        s = torch.einsum("bsegd,bted->begst", qg,
-                         k[:, c0:c0 + chunk].float())
-        if causal:
-            pred = pb <= qp
-            if window > 0:
-                pred &= pb > qp - window
-            s = torch.where(pred[:, None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(dim=-1)
-        acc = alpha[..., None] * acc + torch.einsum(
-            "begst,bted->begsd", p, v[:, c0:c0 + chunk].float())
-        m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hp, dh).to(q.dtype)
-
-
-def causal_mask(q_positions, kv_positions, window: int = 0):
-    """(B,1,1,S,T) boolean; True = attend.  window=0 means full causal."""
-    m = kv_positions[:, None, :] <= q_positions[:, :, None]
-    if window > 0:
-        m &= kv_positions[:, None, :] > (q_positions[:, :, None] - window)
-    return m[:, None, None, :, :]
 
 
 def _decode_lengths(cache_pos, B: int, device):
@@ -352,19 +281,21 @@ def _ring_attention(p: dict, q, k, v, positions, cache: dict, cache_pos,
     slot, updated in place.
 
     Prefill (S > 1, positions ``cache_pos + arange(S)``, lock-step): attend
-    over the in-flight K/V under the window mask, then fold the last
-    ``window`` tokens into the ring — slot ``t % window`` takes position t,
-    slots no token reached hold ``EMPTY_SLOT``.  Decode (S == 1, an int
-    ``cache_pos``): write slot ``cache_pos % window`` and its position,
-    then attend over the ring by position (the buffer is never rotated),
-    through the ring kernel when ``use_kernel``."""
+    over the in-flight K/V under the window mask — queries and keys share
+    their positions, so with ``use_kernel`` this is the flash kernel's
+    aligned windowed attention — then fold the last ``window`` tokens into
+    the ring: slot ``t % window`` takes position t, slots no token reached
+    hold ``EMPTY_SLOT``.  Decode (S == 1, an int ``cache_pos``): write slot
+    ``cache_pos % window`` and its position, then attend over the ring by
+    position (the buffer is never rotated), through the ring kernel when
+    ``use_kernel``."""
     B, S = q.shape[0], q.shape[1]
     if isinstance(cache_pos, torch.Tensor):
         raise ValueError("a ring cache takes one int position for the "
                          "whole batch (lock-step decode)")
     if S > 1:
         out = attend(k, v, positions, causal_mask(positions, positions,
-                                                  window))
+                                                  window), flash=use_kernel)
         if S >= window:
             tail_k, tail_v = k[:, -window:], v[:, -window:]
             tail_pos = positions[0, -window:].to(torch.int32)
@@ -429,31 +360,40 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
       grid.  As in the reference, a linear cache under a window (a
       sliding-window arch served below its window) keeps the plain path.
       The CUDA kernels have no tiling constraint, so every cache length
-      dispatches to them.
-    Attention over a KV extent of 2048 or more (a multiple of 1024) with
-    more than one query runs ``chunked_attention`` — the reference's
-    ``attend`` dispatch.
+      dispatches to them.  A prefill (S > 1) whose queries and keys sit at
+      the same positions from the first key — the cacheless forward, a
+      ring prefill over the in-flight K/V, a linear-cache prefill from
+      position 0 — runs the flash attention kernel
+      (``ops.flash_attention_bshd``), which computes the plain path's
+      function.
+    Otherwise attention over a KV extent of 2048 or more (a multiple of
+    1024) with more than one query runs ``chunked_attention`` — the
+    reference's ``attend`` dispatch, which the flash kernel's plain
+    version repeats on the CPU.
     Returns (out, cache).
     """
     B, S = x.shape[0], x.shape[1]
     q, k, v = qkv_project(cfg, p, hd, x, positions)
 
-    def attend(kk, vv, kv_pos, mask):
-        """Chunked (flash-style) when the KV extent is long, else plain."""
-        T = kk.shape[1]
-        if S > 1 and T >= 2048 and T % 1024 == 0:
-            return chunked_attention(q, kk, vv, positions, kv_pos,
-                                     window=window, chunk=1024)
-        return attention_scores(q, kk, vv, mask)
+    def attend(kk, vv, kv_pos, mask, *, flash: bool = False):
+        """The reference's dispatch (chunked when the KV extent is long,
+        else plain) — or, with ``flash`` and more than one query, the flash
+        kernel, for calls whose queries and keys share their positions
+        from the first key (the causal mask aligned at the top left)."""
+        if flash and S > 1:
+            return ops.flash_attention_bshd(q, kk, vv, causal=True,
+                                            window=window)
+        return plain_attend(q, kk, vv, positions, kv_pos, mask,
+                            window=window)
 
     if cache is None:
         out = attend(k, v, positions, causal_mask(positions, positions,
-                                                  window))
+                                                  window), flash=use_kernel)
         return _project_out(p, out), None
     if page_map is None and window and cache["k"].shape[1] == window:
         return _ring_attention(p, q, k, v, positions, cache, cache_pos,
-                               window, attend, use_kernel and S == 1,
-                               head_rows, head_inv), cache
+                               window, attend, use_kernel, head_rows,
+                               head_inv), cache
     quant = "k_sc" in cache
     new = {"k": k, "v": v}
     if quant:
@@ -481,6 +421,18 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
         ck, cv = _paged_gather(cache, page_map, x.dtype)
     else:
         _write_cache(cache, new, cache_pos)
+        if use_kernel and S > 1 and not isinstance(cache_pos, torch.Tensor) \
+                and cache_pos == 0:
+            # a prefill from position 0: keys at or past S are masked for
+            # every query, so attending the cache's first S rows
+            # (dequantized for int8) equals attending the whole cache.  The
+            # paged chunk prefill above keeps the plain path: its later
+            # chunks start past position 0 over keys from position 0, which
+            # the top-left-aligned kernel does not take.
+            ck, cv = _dequant({n: t[:, :S] for n, t in cache.items()},
+                              x.dtype)
+            return _project_out(p, attend(ck, cv, None, None,
+                                          flash=True)), cache
         if kernel:
             if quant:
                 out = ops.decode_attention_int8_resident_bshd(

@@ -51,14 +51,14 @@ class TransformerLM:
             raise ValueError(f"TransformerLM serves the dense and moe "
                              f"families, not {cfg.family!r}")
         if cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu" \
-                or cfg.qkv_bias or cfg.rope_fraction != 1.0 \
                 or cfg.tie_embeddings:
-            L.unsupported("layernorm / gelu / qkv_bias / partial RoPE / "
-                          "tied-embedding dense variants", 17)
+            L.unsupported("layernorm / gelu / tied-embedding dense "
+                          "variants", 17)
         self.cfg = cfg
         self.hd = L.head_dims(cfg)
         self.device = torch.device(device)
-        # decode attention through the hand-written flash-decode kernel;
+        # decode attention through the hand-written flash-decode kernels
+        # and aligned prefill attention through the flash attention kernel;
         # the decode state may carry per-layer "head_rows"/"head_inv"
         # gather maps (placement_bridge.head_row_maps)
         self.use_kernel = use_kernel
@@ -76,13 +76,16 @@ class TransformerLM:
             return L.dense_init(g, d_in, (n,) + shape, dt, dev)
 
         ones = torch.ones((n, D), dtype=dt, device=dev)
-        layers = {
-            "attn": {"wq": dense(D, (D, hd.Hp, hd.dh)),
-                     "wk": dense(D, (D, hd.Kp, hd.dh)),
-                     "wv": dense(D, (D, hd.Kp, hd.dh)),
-                     "wo": dense(hd.H * hd.dh, (hd.Hp, hd.dh, D))},
-            "ln1": ones, "ln2": ones.clone(),
-        }
+        attn = {"wq": dense(D, (D, hd.Hp, hd.dh)),
+                "wk": dense(D, (D, hd.Kp, hd.dh)),
+                "wv": dense(D, (D, hd.Kp, hd.dh)),
+                "wo": dense(hd.H * hd.dh, (hd.Hp, hd.dh, D))}
+        if cfg.qkv_bias:
+            # zero, as the reference initializes them
+            attn["bq"] = torch.zeros((n, hd.Hp, hd.dh), dtype=dt, device=dev)
+            attn["bk"] = torch.zeros((n, hd.Kp, hd.dh), dtype=dt, device=dev)
+            attn["bv"] = torch.zeros((n, hd.Kp, hd.dh), dtype=dt, device=dev)
+        layers = {"attn": attn, "ln1": ones, "ln2": ones.clone()}
         if cfg.is_moe:
             layers["moe"] = init_moe(g, cfg, n, dt, dev)
         else:

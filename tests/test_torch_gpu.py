@@ -279,3 +279,88 @@ def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda):
     big = rwkv_inputs(cuda, torch.float32, 1, 1, 2, 128, seed=2)
     with pytest.raises(ValueError, match="dh"):
         rwkv6_chunked(*big)
+
+
+# ------------------------------------------------------------------ flash
+def flash_inputs(cuda, dtype, *, B=2, H=8, KvE=2, Sq=200, Skv=200, dh=64,
+                 seed=0):
+    """q (B, H, Sq, dh) and k, v (B, KvE, Skv, dh) as transposed views of
+    the model's (B, S, H, dh) activations and (B, T, KvE, dh) caches."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H, dh), np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, B, Skv, KvE, dh),
+                                              np.float32))
+    q, kv = q.to(cuda, dtype), kv.to(cuda, dtype)
+    return q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+
+
+def _flash_check(cuda, dtype, causal, window, **shape):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = flash_inputs(cuda, dtype, **shape)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("mask", ["causal", "window", "full"])
+def test_flash_kernel_matches_plain_version(cuda, dtype, dh, mask):
+    """Causal, windowed (48) and non-causal attention over 200 positions:
+    a ragged last tile for both kernel paths (64-row q tiles, 32- and
+    64-row K/V tiles)."""
+    _flash_check(cuda, dtype, mask != "full", 48 if mask == "window" else 0,
+                 dh=dh, seed=dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["short_q_causal", "short_q_full",
+                                  "ragged_1000", "glm_groups"])
+def test_flash_kernel_shapes(cuda, dtype, case):
+    """Sq < Skv (70 over 300; the causal mask aligned at the top left), a
+    ragged S = 1000 under a window of 300, and GLM-4's 16 query heads per
+    KV group at dh 128."""
+    shape, causal, window = {
+        "short_q_causal": (dict(Sq=70, Skv=300), True, 0),
+        "short_q_full": (dict(Sq=70, Skv=300), False, 0),
+        "ragged_1000": (dict(B=1, H=4, KvE=1, Sq=1000, Skv=1000), True,
+                        300),
+        "glm_groups": (dict(B=1, H=32, KvE=2, Sq=333, Skv=333, dh=128),
+                       True, 0),
+    }[case]
+    _flash_check(cuda, dtype, causal, window, seed=len(case), **shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_refuses_unaligned_kv(cuda, dtype):
+    """K/V whose position stride (129 values) is not a multiple of 8 cannot
+    be staged in 16-byte copies: the wrapper refuses them before launch."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, _, _ = flash_inputs(cuda, dtype, B=1, H=8, KvE=2, Sq=150, Skv=150,
+                           dh=128, seed=5)
+    rng = np.random.default_rng(6)
+    wide = torch.from_numpy(rng.standard_normal((2, 1, 150, 2, 129),
+                                                np.float32)).to(cuda, dtype)
+    k, v = (t[..., :128].transpose(1, 2) for t in wide)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(q, k, v, causal=True, window=40)
+    assert flash_attention.launches == before
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = flash_inputs(cuda, torch.float32, Sq=8, Skv=8, dh=48)
+    with pytest.raises(ValueError, match="dh"):
+        flash_attention(q, k, v)
+    q, k, v = flash_inputs(cuda, torch.float32, Sq=8, Skv=8, dh=16)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention(q, k.to(torch.bfloat16), v)

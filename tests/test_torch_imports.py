@@ -54,7 +54,10 @@ def test_every_module_imports_with_jax_and_repro_refused():
                  "repro_torch.kernels.ops", "repro_torch.models.moe",
                  "repro_torch.configs.mixtral_8x7b",
                  "repro_torch.kernels.rwkv6", "repro_torch.models.rwkv6",
-                 "repro_torch.configs.rwkv6_7b"):
+                 "repro_torch.configs.rwkv6_7b",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.attention_plain",
+                 "repro_torch.configs.glm4_9b"):
         assert name in names
 
 
@@ -178,6 +181,44 @@ def test_serve_cli_serves_rwkv6_on_the_cpu():
         env=_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "WaveServingEngine" in out.stdout
+    assert "3 requests, 18 tokens" in out.stdout
+
+
+@pytest.mark.parametrize("entry", ["build_model", "ServingEngine",
+                                   "make_engine"])
+def test_glm4_entry_points_want_the_gpu_unless_asked_for_the_cpu(entry):
+    """Each entry point of the GLM-4 slice raises without a GPU when no
+    device is named, and runs on the CPU when asked to."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None serves on it")
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import engine
+    cfg = get_config("glm4-9b").with_overrides(
+        n_layers=1, d_model=32, n_heads=4, n_kv_heads=2, d_head=8, d_ff=64,
+        vocab_size=50)
+    if entry == "build_model":
+        make = build_model
+    else:
+        make = functools.partial(getattr(engine, entry), n_slots=2,
+                                 max_seq=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(cfg)
+    assert make(cfg, device="cpu") is not None
+
+
+def test_serve_cli_serves_glm4_on_the_cpu():
+    """``--arch glm4-9b --use-kernel``: QKV bias and half-head RoPE on the
+    continuous engine; each bucketed prefill runs the flash kernel's plain
+    version, decode the flash-decode kernel's."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--reduced", "--layers", "2", "--arch", "glm4-9b", "--use-kernel",
+         "--requests", "3", "--prompt-len", "20", "--mixed-lengths",
+         "--tokens", "6", "--slots", "2", "--lam", "2", "--straggler", "0"],
+        env=_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "ServingEngine" in out.stdout and "Wave" not in out.stdout
     assert "3 requests, 18 tokens" in out.stdout
 
 
