@@ -78,3 +78,12 @@ def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (built on first use)."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def aligned16(t) -> bool:
+    """Whether 16-byte copies (``cp.async``, TMA) can read ``t``: a 16-byte
+    aligned base and strides (but the unit last one) of whole 16-byte
+    pieces, as every view of a model activation or cache has."""
+    item = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * item % 16 == 0
+                                          for s in t.stride()[:-1])

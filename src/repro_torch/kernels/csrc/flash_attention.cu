@@ -16,33 +16,45 @@
 // Bound on this card: operations.  At the main paths' shapes (bf16, dh 128,
 // 4 * H * dh flops per admitted (i, j) pair) the glm4 prefill of 8192
 // tokens (B 1, H 32) does 5.5e11 flops, 0.56 ms at 989 TFLOP/s, against
-// 68 MB of q, k, v and o, 0.02 ms at 3.35 TB/s; llama's 512-token bucket
-// and mixtral's 4 x 4096-token windowed wave are operations-bound too.
-// So the bf16 path runs on the tensor cores.
+// 68 MB of q, k, v and o, 0.02 ms at 3.35 TB/s; mixtral's 4 x 4096-token
+// windowed wave is operations-bound too (llama's 512-token bucket, at
+// 0.003 ms, is bytes-bound).  So the bf16 path runs on the tensor cores.
 //
-// Design (simple first).  The Pallas grid (B, H, nq, nk), whose sequential
-// kv axis carries (m, l, acc) in VMEM scratch, becomes one thread block per
-// (64-row q tile, h, b) whose loop walks the kv tiles; tiles wholly above
-// the diagonal or wholly before the window are not visited, as the Pallas
-// `run` predicate skips them, and the heaviest (last) q tiles are scheduled
-// first.  Any Sq and Skv are taken: the ragged edges are masked here.
-// - bfloat16 (`flash_mma_kernel`): 4 warps, each owning 16 q rows whose
-//   fragments stay in registers.  K and V tiles of 64 rows go to shared
-//   memory through cp.async into two stages, so the next tile loads while
-//   this one computes.  S = Q K^T and O += P V run as mma.sync m16n8k16
-//   (bf16 in, float32 accumulate) on fragments read with ldmatrix
-//   (transposed for V); P is rounded to bf16 in registers; the scale is
-//   folded into exp2.  Only tiles that cross the warp's diagonal, window
-//   edge or Skv are masked.
+// Design.  The Pallas grid (B, H, nq, nk), whose sequential kv axis
+// carries (m, l, acc) in VMEM scratch, becomes one thread block per (q tile,
+// h, b) whose loop walks the kv tiles; tiles wholly above the diagonal or
+// wholly before the window are not visited, as the Pallas `run` predicate
+// skips them, and the heaviest (last) q tiles are scheduled first.  Any Sq
+// and Skv are taken: the ragged edges are masked here.  Only tiles that
+// cross a row's diagonal, window edge or Skv are masked.  The scale is
+// folded into exp2, and P is rounded to bf16 in registers.  A static
+// dispatch by dtype picks one of two bodies:
+// - bfloat16 (every main path; `flash_wgmma_kernel`): a block owns 128 q
+//   rows as two consumer warpgroups of 64 and a producer warpgroup.  One
+//   producer thread keeps TMA loads of 128-row K and V tiles in flight
+//   through two shared-memory stages (swizzled in rows of 128 bytes at dh
+//   64 and 128, of the whole head, 32 or 64 bytes, at dh 16 and 32;
+//   `mbarrier`s for full and empty stages) and `setmaxnreg` hands the
+//   producer's registers to the consumers.  S = Q K^T runs as wgmma
+//   m64n128k16 from shared memory (Q and K K-major); the online softmax
+//   stays in registers; O += P V runs as wgmma with P as the register A
+//   operand and V as the transposed (MN-major) shared B operand; each
+//   warpgroup runs S, softmax and P V in turn, and the two warpgroups fill
+//   each other's gaps on the tensor cores (issuing tile t's S beside tile
+//   t - 1's P V inside a warpgroup timed no faster on the card).  The TMA
+//   maps are built on the host from the views' strides, so the transposed,
+//   uncopied (B, S, H, dh) activations and caches are read as they are; q,
+//   k and v need 16-byte aligned bases and strides in multiples of 8 values
+//   (the wrapper refuses others).  Rows and keys past Sq and Skv load as
+//   zeros.
 // - float32 (`flash_simt_kernel`): no tensor-core path keeps float32
 //   exact, so 256 threads, four per q row, each holding a quarter of the
 //   row's q and acc, sum the scores on the CUDA cores from K/V tiles of 32
 //   rows in shared memory.
 // q, k, v and o are addressed through their (b, head, position) strides
-// with a unit stride on dh, so the model passes transposed views of its
-// (B, S, H, dh) activations and caches and nothing is copied.  K/V tiles
-// read once per KV group rather than once per q head, 128-row q tiles and
-// wgmma/TMA are later work.
+// with a unit stride on dh.  A launch or a tensor-map failure returns its
+// error; no body stands in for another.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,12 +89,12 @@ __device__ __forceinline__ bool attends(const Args& a, int row, int col) {
 // The keys [lo, hi) the q tile starting at q0 needs: causal, none past its
 // last row; under a window, none at or before q0 - window.  lo is rounded
 // down to a tile of BK keys.
-template <int BK>
+template <int BK, int BQ = kBQ>
 __device__ __forceinline__ void kv_range(const Args& a, int q0, int* lo,
                                          int* hi) {
   int l = 0, h = a.Skv;
   if (a.causal) {
-    h = min(a.Skv, min(q0 + kBQ, a.Sq));
+    h = min(a.Skv, min(q0 + BQ, a.Sq));
     if (a.window > 0) l = max(0, q0 - a.window + 1);
   }
   *lo = l / BK * BK;
@@ -166,144 +178,267 @@ __global__ void __launch_bounds__(256) flash_simt_kernel(const Args a) {
   }
 }
 
-// ----------------------------------------------------------- bfloat16 path
+// ------------------------------------------------- bfloat16 path: wgmma
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 two = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&two);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+constexpr int kWgBQ = 128;      // q rows per block: two warpgroups of 64
+constexpr int kWgBK = 128;      // K/V rows per tile
+constexpr int kWgStages = 2;    // K/V tiles in flight
+constexpr int kWgThreads = 384; // warpgroups 0, 1 consume; 2 produces
+
+// Bytes of a swizzled shared-memory row: 64 values (128-byte swizzle) at
+// dh 64 and 128, the whole head at dh 16 and 32 (32- and 64-byte swizzle).
+template <int DH>
+__host__ __device__ constexpr int panel_bytes() {
+  return DH >= 64 ? 128 : 2 * DH;
 }
 
-// d += a (16 x 16, row-major) . b (16 x 8, column-major), float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-d tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, lanes 8 i .. 8 i + 7
-// giving the rows of matrix i; `.trans` transposes each on the way.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+// A wgmma shared-memory descriptor of an operand at `addr` swizzled in
+// rows of PB bytes (128, 64 or 32: layout types 1, 2, 3): `lbo` and `sbo`
+// in bytes (the leading and stride byte offsets).
+template <int PB>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  constexpr uint64_t kind = PB == 128 ? 1 : PB == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (kind << 62);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
-                                            const void* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-// 16 bytes global -> shared without passing through registers; `full`
-// false writes zeros (the source is not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
+// Registers a wgmma reads or writes asynchronously stay where they are
+// until its wait: the compiler may neither move nor reuse them before.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-// Rows k0 .. k0 + BK - 1 of one (b, KV group) K or V into shared memory,
-// zeros past Skv, asynchronously in 16-byte pieces: the base and the
-// strides are multiples of 8 values (the wrapper refuses other K/V).
-template <int DH, int BK, int NT>
-__device__ __forceinline__ void stage(bf16 (*dst)[DH + 8], const bf16* src,
-                                      int64_t st, int k0, int Skv, int tid) {
-  constexpr int CH = DH / 8;
-#pragma unroll
-  for (int e = tid; e < BK * CH; e += NT) {
-    const int c = e / CH, d = (e % CH) * 8;
-    const bool in = k0 + c < Skv;
-    cp_async16(&dst[c][d], in ? src + (k0 + c) * st + d : src, in);
-  }
+
+// d (64 x 128, f32) = A . B, A and B from shared memory, both K-major;
+// scale_d 0 ignores d's old value
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// One K/V tile against the warp's 16 q rows (ra = row g, rb = row g + 8 of
-// them): S = Q K^T, the online softmax update, O += P V.  m_a/m_b are the
-// running maxima of the raw scores (the scale is folded into exp2); l_a/l_b
-// this thread's partial sums over its columns.  MASK applies the causal,
-// window and ragged-edge masks; tiles wholly inside them skip it.
-template <int DH, int BK, bool MASK>
-__device__ __forceinline__ void mma_tile(
-    const Args& a, const bf16 (*ks)[DH + 8], const bf16 (*vs)[DH + 8],
-    const uint32_t (&qf)[DH / 16][4], float (&o)[DH / 8][4], float& m_a,
-    float& m_b, float& l_a, float& l_b, int k0, int ra, int rb, int lane,
-    float sl2) {
-  constexpr int NJ = BK / 8, NKK = DH / 16, ND = DH / 8;
-  const int g = lane >> 2, t4 = lane & 3;
-  float s[NJ][4];
+// d (64 x 128, f32) += A . B, A (bf16) from registers, B from shared
+// memory MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 64, f32) += A . B, A (bf16) from registers, B from shared
+// memory MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 32, f32) += A . B, as wgmma_rs_n64
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 16, f32) += A . B, as wgmma_rs_n64
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, "
+      "1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile(
+      "wgmma.commit_group.sync.aligned;\n"
+      "wgmma.wait_group.sync.aligned 0;\n" ::
+          : "memory");
+}
+
+// One K/V tile (kWgBK rows) against the warpgroup's 64 q rows (ra = row g,
+// rb = row g + 8 of the thread's warp): S = Q K^T on wgmma from shared
+// memory, the online softmax in registers, O += P V on wgmma with P from
+// registers and V read transposed.  m_a/m_b are the running maxima of the
+// raw scores (the scale is folded into exp2); l_a/l_b this thread's partial
+// sums over its columns.  MASK applies the causal, window and ragged-edge
+// masks; tiles wholly inside them skip it.
+//
+// Shared-memory operands are swizzled panels of PB-byte rows (PB / 2
+// values: panel_bytes), as TMA writes them: Q and K are K-major (a wgmma
+// k-step of 16 values is 32 bytes into the row, panel kk / (PB / 32)),
+// 8-row groups 8 PB bytes apart; V is MN-major (a k-step of 16 K/V rows
+// is 16 PB bytes on, the next PB / 2 dh values the next panel, kWgBK rows
+// on).
+template <int DH, bool MASK>
+__device__ __forceinline__ void wg_tile(const Args& a, uint32_t qs,
+                                        uint32_t ks, uint32_t vs,
+                                        float (&o)[DH / 2], float& m_a,
+                                        float& m_b, float& l_a, float& l_b,
+                                        int k0, int ra, int rb, int lane,
+                                        float sl2) {
+  constexpr int NJ = kWgBK / 8;
+  constexpr int PB = panel_bytes<DH>(), SPP = PB / 32;  // k-steps a panel
+  const int t4 = lane & 3;
+  float s[kWgBK / 2];
+  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    if constexpr (NKK % 2 == 0) {
-#pragma unroll
-      for (int kk = 0; kk < NKK; kk += 2) {
-        uint32_t b[4];  // B fragments of dh steps kk and kk + 1
-        ldmatrix_x4(b, &ks[8 * j + (lane & 7)][kk * 16 + 8 * (lane >> 3)]);
-        mma_bf16(s[j], qf[kk], b[0], b[1]);
-        mma_bf16(s[j], qf[kk + 1], b[2], b[3]);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < NKK; ++kk) {
-        uint32_t b0, b1;
-        ldmatrix_x2(b0, b1,
-                    &ks[8 * j + (lane & 7)][kk * 16 + 8 * ((lane >> 3) & 1)]);
-        mma_bf16(s[j], qf[kk], b0, b1);
-      }
-    }
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t at = (kk % SPP) * 32;
+    wgmma_ss_n128(
+        s, desc<PB>(qs + (kk / SPP) * kWgBQ * PB + at, 16, 8 * PB),
+        desc<PB>(ks + (kk / SPP) * kWgBK * PB + at, 16, 8 * PB), kk > 0);
   }
+  wgmma_commit_wait();
+  keep(s);
   if (MASK) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = k0 + 8 * j + 2 * t4 + e;
-        if (!attends(a, ra, col)) s[j][e] = kNegInf;
-        if (!attends(a, rb, col)) s[j][2 + e] = kNegInf;
+        if (!attends(a, ra, col)) s[4 * j + e] = kNegInf;
+        if (!attends(a, rb, col)) s[4 * j + 2 + e] = kNegInf;
       }
     }
   }
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
-    mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-    mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+    mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
@@ -320,12 +455,12 @@ __device__ __forceinline__ void mma_tile(
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       // a masked score is 0 (its key may not exist): never exp(0)
-      s[j][e] = (!MASK || s[j][e] > kNegInf)
-                    ? exp2f(fmaf(s[j][e], sl2, -off_a)) : 0.f;
-      s[j][2 + e] = (!MASK || s[j][2 + e] > kNegInf)
-                        ? exp2f(fmaf(s[j][2 + e], sl2, -off_b)) : 0.f;
-      ls_a += s[j][e];
-      ls_b += s[j][2 + e];
+      float& pa = s[4 * j + e];
+      float& pb = s[4 * j + 2 + e];
+      pa = (!MASK || pa > kNegInf) ? exp2f(fmaf(pa, sl2, -off_a)) : 0.f;
+      pb = (!MASK || pb > kNegInf) ? exp2f(fmaf(pb, sl2, -off_b)) : 0.f;
+      ls_a += pa;
+      ls_b += pb;
     }
   }
   l_a = al_a * l_a + ls_a;
@@ -333,139 +468,225 @@ __device__ __forceinline__ void mma_tile(
   m_a = mn_a;
   m_b = mn_b;
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    o[nd][0] *= al_a;
-    o[nd][1] *= al_a;
-    o[nd][2] *= al_b;
-    o[nd][3] *= al_b;
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    o[4 * nd] *= al_a;
+    o[4 * nd + 1] *= al_a;
+    o[4 * nd + 2] *= al_b;
+    o[4 * nd + 3] *= al_b;
   }
-  // O += P V, P as bf16 A fragments straight from the score registers;
-  // V's B fragments for two dh tiles per transposed ldmatrix
+  // P as bf16 A fragments: k-step kk covers the columns of n8 blocks 2 kk
+  // and 2 kk + 1, laid out as mma.sync's m16n8k16 A fragment per warp
+  uint32_t p[kWgBK / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < ND; nd += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, &vs[kk * 16 + (lane & 15)][nd * 8 + 8 * (lane >> 4)]);
-      mma_bf16(o[nd], pa, b[0], b[1]);
-      mma_bf16(o[nd + 1], pa, b[2], b[3]);
-    }
+  for (int kk = 0; kk < kWgBK / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
-}
-
-template <int DH>
-constexpr int mma_smem_bytes() {
-  return 2 * 2 * 64 * (DH + 8) * static_cast<int>(sizeof(bf16));
-}
-
-// Three blocks per SM: at dh 128 that caps the registers at 168 (a few
-// bytes spill), which timed faster on the card than two blocks at 173.
-template <int DH>
-__global__ void __launch_bounds__(128, 3) flash_mma_kernel(const Args a) {
-  constexpr int BK = 64, NT = 128, NKK = DH / 16, ND = DH / 8;
-  // two stages of K and V tiles: the next tile loads while this one
-  // computes
-  extern __shared__ __align__(16) unsigned char smem[];
-  using Tile = bf16[BK][DH + 8];
-  Tile* kst = reinterpret_cast<Tile*>(smem);
-  Tile* vst = kst + 2;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r_lo = q0 + warp * 16, r_hi = r_lo + 15;  // the warp's rows
-  const int ra = r_lo + g, rb = ra + 8;               // this thread's two
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-
-  int lo, hi;
-  kv_range<BK>(a, q0, &lo, &hi);
-  if (lo < hi) {
-    stage<DH, BK, NT>(kst[0], k, a.k_st, lo, a.Skv, tid);
-    stage<DH, BK, NT>(vst[0], v, a.v_st, lo, a.Skv, tid);
-  }
-  cp_async_commit();
-
-  // A fragments of the warp's 16 q rows, over all of dh
-  const bf16 zero = __float2bfloat16(0.f);
-  auto q_at = [&](int r, int d) { return r < a.Sq ? q[r * a.q_st + d] : zero; };
-  uint32_t qf[NKK][4];
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < NKK; ++kk) {
-    const int d = kk * 16 + 2 * t4;
-    qf[kk][0] = pack_raw(q_at(ra, d), q_at(ra, d + 1));
-    qf[kk][1] = pack_raw(q_at(rb, d), q_at(rb, d + 1));
-    qf[kk][2] = pack_raw(q_at(ra, d + 8), q_at(ra, d + 9));
-    qf[kk][3] = pack_raw(q_at(rb, d + 8), q_at(rb, d + 9));
-  }
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
-  const float sl2 = a.scale * kLog2e;
-
-  for (int k0 = lo, t = 0; k0 < hi; k0 += BK, ++t) {
-    const int buf = t & 1;
-    if (k0 + BK < hi) {  // the next tile, into the other stage
-      stage<DH, BK, NT>(kst[buf ^ 1], k, a.k_st, k0 + BK, a.Skv, tid);
-      stage<DH, BK, NT>(vst[buf ^ 1], v, a.v_st, k0 + BK, a.Skv, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // unmasked when every (row, column) of the warp's rows x the tile is
-    // admitted: inside Skv, and (causal) at or below every row's diagonal
-    // and inside every row's window
-    const bool inside =
-        k0 + BK <= a.Skv &&
-        (!a.causal || (k0 + BK - 1 <= r_lo &&
-                       (a.window <= 0 || k0 > r_hi - a.window)));
-    if (inside)
-      mma_tile<DH, BK, false>(a, kst[buf], vst[buf], qf, o, m_a, m_b, l_a,
-                              l_b, k0, ra, rb, lane, sl2);
+  for (int kk = 0; kk < kWgBK / 16; ++kk) {
+    const uint64_t dv = desc<PB>(vs + kk * 16 * PB, kWgBK * PB, 8 * PB);
+    if constexpr (DH == 128)
+      wgmma_rs_n128(o, p[kk], dv);
+    else if constexpr (DH == 64)
+      wgmma_rs_n64(o, p[kk], dv);
+    else if constexpr (DH == 32)
+      wgmma_rs_n32(o, p[kk], dv);
     else
-      mma_tile<DH, BK, true>(a, kst[buf], vst[buf], qf, o, m_a, m_b, l_a,
-                             l_b, k0, ra, rb, lane, sl2);
-    __syncthreads();  // the stage is free for the load after next
+      wgmma_rs_n16(o, p[kk], dv);
   }
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-  }
-  const float ia = 1.f / fmaxf(l_a, 1e-30f), ib = 1.f / fmaxf(l_b, 1e-30f);
-  bf16* out = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int d = nd * 8 + 2 * t4;
-    if (ra < a.Sq) {
-      out[ra * a.o_st + d] = __float2bfloat16(o[nd][0] * ia);
-      out[ra * a.o_st + d + 1] = __float2bfloat16(o[nd][1] * ia);
+  wgmma_commit_wait();
+  keep(o);
+  keep(p);
+}
+
+template <int DH>
+constexpr int wg_smem_bytes() {
+  // Q, then kWgStages K tiles, then kWgStages V tiles; 1024 bytes of slack
+  // to align the base to the swizzle's 1024-byte period
+  return (kWgBQ + 2 * kWgStages * kWgBK) * DH * 2 + 1024;
+}
+
+// One block per (128-row q tile, h, b), heaviest tiles first.  Warpgroup 2
+// is the producer: one thread keeps TMA loads of the block's K/V tiles in
+// flight through kWgStages stages (`full` barriers count the bytes in,
+// `empty` barriers the 8 consumer warps done with a stage) and gives most
+// of its registers to warpgroups 0 and 1, which own 64 q rows each.
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, const Args a) {
+  constexpr int PB = panel_bytes<DH>(), PV = PB / 2;
+  constexpr int NP = DH / PV;  // panels of a row
+  constexpr int Q_BYTES = kWgBQ * DH * 2, TILE = kWgBK * DH * 2;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kWgStages];
+  const uint32_t q_full = smem_u32(bars);
+  const uint32_t full = q_full + 8, empty = full + 8 * kWgStages;
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = q_s + Q_BYTES, v_s = k_s + kWgStages * TILE;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBQ;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
+  const int tid = threadIdx.x;
+  int lo, hi;
+  kv_range<kWgBK, kWgBQ>(a, q0, &lo, &hi);
+  const int n_tiles = lo < hi ? (hi - lo + kWgBK - 1) / kWgBK : 0;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 8);
     }
-    if (rb < a.Sq) {
-      out[rb * a.o_st + d] = __float2bfloat16(o[nd][2] * ib);
-      out[rb * a.o_st + d + 1] = __float2bfloat16(o[nd][3] * ib);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer: its paths never rejoin the consumers'
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 256) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      for (int pn = 0; pn < NP; ++pn)
+        tma_load(q_s + pn * kWgBQ * PB, &qmap, PV * pn, q0, h, b, q_full);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kWgStages, k0 = lo + t * kWgBK;
+        mbar_wait(empty + 8 * st, ((t / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, 2 * TILE);
+        for (int pn = 0; pn < NP; ++pn) {
+          tma_load(k_s + st * TILE + pn * kWgBK * PB, &kmap, PV * pn, k0,
+                   kvh, b, full + 8 * st);
+          tma_load(v_s + st * TILE + pn * kWgBK * PB, &vmap, PV * pn, k0,
+                   kvh, b, full + 8 * st);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int w_lo = q0 + 64 * wg, w_hi = w_lo + 63;  // the warpgroup's rows
+    const int ra = w_lo + 16 * warp + g, rb = ra + 8;  // this thread's two
+    const uint32_t qs = q_s + wg * 64 * PB;            // its 64 rows of Q
+    float o[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+    const float sl2 = a.scale * kLog2e;
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kWgStages, k0 = lo + t * kWgBK;
+      mbar_wait(full + 8 * st, (t / kWgStages) & 1);
+      // no (row, column) of the warpgroup's rows x the tile is admitted
+      const bool dead =
+          a.causal && (k0 > w_hi || (a.window > 0 &&
+                                     k0 + kWgBK - 1 <= w_lo - a.window));
+      // every one is: inside Skv, at or below every row's diagonal and
+      // inside every row's window
+      const bool inside =
+          k0 + kWgBK <= a.Skv &&
+          (!a.causal || (k0 + kWgBK - 1 <= w_lo &&
+                         (a.window <= 0 || k0 > w_hi - a.window)));
+      const uint32_t ks = k_s + st * TILE, vs = v_s + st * TILE;
+      if (!dead && inside)
+        wg_tile<DH, false>(a, qs, ks, vs, o, m_a, m_b, l_a, l_b, k0, ra, rb,
+                           lane, sl2);
+      else if (!dead)
+        wg_tile<DH, true>(a, qs, ks, vs, o, m_a, m_b, l_a, l_b, k0, ra, rb,
+                          lane, sl2);
+      if (lane == 0) mbar_arrive(empty + 8 * st);  // the stage is free
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    const float ia = 1.f / fmaxf(l_a, 1e-30f), ib = 1.f / fmaxf(l_b, 1e-30f);
+    bf16* out = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      const int d = nd * 8 + 2 * t4;
+      if (ra < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(out + ra * a.o_st + d) =
+            __floats2bfloat162_rn(o[4 * nd] * ia, o[4 * nd + 1] * ia);
+      if (rb < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(out + rb * a.o_st + d) =
+            __floats2bfloat162_rn(o[4 * nd + 2] * ib, o[4 * nd + 3] * ib);
     }
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map of a (n_b, n_h, S, DH) bf16 tensor addressed through its
+// element strides (a unit one on DH), read in boxes of one panel's values
+// (panel_bytes / 2) by `rows` positions, swizzled in rows of panel_bytes;
+// positions past S read as zeros.
+bool tensor_map(CUtensorMap* map, const void* base, int DH, int S, int n_h,
+                int n_b, int64_t st, int64_t sh, int64_t sb, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  // a size-1 axis is never stepped along: any valid stride will do
+  auto bytes = [](int64_t s, int n) {
+    return static_cast<cuuint64_t>(n == 1 ? 16 : s * 2);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
+                              static_cast<cuuint64_t>(S > 1 ? S : 1),
+                              static_cast<cuuint64_t>(n_h),
+                              static_cast<cuuint64_t>(n_b)};
+  const cuuint64_t strides[3] = {bytes(st, S), bytes(sh, n_h),
+                                 bytes(sb, n_b)};
+  const int pv = DH >= 64 ? 64 : DH;  // panel_bytes<DH>() / 2
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(pv),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = pv == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : pv == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int DH>
-int launch_mma(const Args& a, dim3 grid, cudaStream_t s) {
-  constexpr int bytes = mma_smem_bytes<DH>();
-  // above 48 KB a block's shared memory must be asked for, once
+int launch_wgmma(const Args& a, int B, int KvE, cudaStream_t s) {
+  CUtensorMap qm, km, vm;
+  if (!tensor_map(&qm, a.q, DH, a.Sq, a.H, B, a.q_st, a.q_sh, a.q_sb,
+                  kWgBQ) ||
+      !tensor_map(&km, a.k, DH, a.Skv, KvE, B, a.k_st, a.k_sh, a.k_sb,
+                  kWgBK) ||
+      !tensor_map(&vm, a.v, DH, a.Skv, KvE, B, a.v_st, a.v_sh, a.v_sb,
+                  kWgBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = wg_smem_bytes<DH>();
   static const cudaError_t set = cudaFuncSetAttribute(
-      flash_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (set != cudaSuccess) return static_cast<int>(set);
-  flash_mma_kernel<DH><<<grid, 128, bytes, s>>>(a);
+  const dim3 grid((a.Sq + kWgBQ - 1) / kWgBQ, a.H, B);
+  flash_wgmma_kernel<DH><<<grid, kWgThreads, bytes, s>>>(qm, km, vm, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -480,7 +701,7 @@ int launch_simt(const Args& a, dim3 grid, cudaStream_t s) {
 // Plain C entry point bound with ctypes.  Pointers are device pointers;
 // strides are in elements, with a unit stride on dh.  q: (B, H, Sq, dh);
 // k, v: (B, KvE, Skv, dh) with H % KvE == 0; o: (B, H, Sq, dh); all of
-// dtype 0 = float32 or 1 = bfloat16, dh in {16, 32, 64, 128}; k/v bases
+// dtype 0 = float32 or 1 = bfloat16, dh in {16, 32, 64, 128}; q/k/v bases
 // 16-byte aligned and their strides multiples of 8 values.  Launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after
 // the launch (0 = success).
@@ -501,10 +722,10 @@ extern "C" int flash_attention_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (dh) {
-      case 16: return launch_mma<16>(a, grid, s);
-      case 32: return launch_mma<32>(a, grid, s);
-      case 64: return launch_mma<64>(a, grid, s);
-      case 128: return launch_mma<128>(a, grid, s);
+      case 16: return launch_wgmma<16>(a, B, KvE, s);
+      case 32: return launch_wgmma<32>(a, B, KvE, s);
+      case 64: return launch_wgmma<64>(a, B, KvE, s);
+      case 128: return launch_wgmma<128>(a, B, KvE, s);
     }
   } else if (dtype == 0) {
     switch (dh) {

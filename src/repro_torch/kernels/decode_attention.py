@@ -5,9 +5,10 @@ placement.
 
 Counterpart of the JAX package's ``kernels/decode_attention.py``: its five
 Pallas TPU kernels over a linear, paged or sliding-window ring cache, in
-the working dtype or int8 with per-(token, head) scales, are here one
-hand-written CUDA C++ body for Hopper (``csrc/decode_attention.cu``, built
-by ``kernels.build``) behind five entry points:
+the working dtype or int8 with per-(token, head) scales, are here
+hand-written CUDA C++ for Hopper (``csrc/decode_attention.cu``, built by
+``kernels.build``) behind five entry points — the first four one shared
+flash body, the ring its own split-window kernel:
 
 - ``decode_attention_resident``: K/V (B, KvE, T, dh);
 - ``decode_attention_int8_resident``: int8 K/V (B, KvE, T, dh) with f32
@@ -140,8 +141,11 @@ _SIGNATURES = {
     "decode_attention_int8_paged_resident_launch":
         [_PTR] * 10 + [_INT] * 9 + [_I64] * 14 + [_PTR],
     "decode_attention_ring_resident_launch":
-        [_PTR] * 8 + [_INT] * 7 + [_I64] * 8 + [_PTR],
+        [_PTR] * 10 + [_INT] * 8 + [_I64] * 8 + [_PTR],
 }
+# the ring kernel splits the window into pieces of a multiple of this many
+# slots (a multiple of every head width's tile)
+_RING_SPLIT_ALIGN = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,9 +214,11 @@ def _check_kernel_inputs(q, k, v, dh, *, quant: bool):
         raise ValueError("q, k and v need a unit stride on dh")
 
 
-def _launch(entry: str, q, R: int, pointers, ints, strides, name: str):
+def _launch(entry: str, q, R: int, pointers, ints, strides, name: str,
+            scratch=()):
     """Allocate the (B, R, dh) output and launch ``entry`` on the current
-    stream; raises if the launch fails."""
+    stream (``scratch`` tensors follow the output pointer); raises if the
+    launch fails."""
     B, _, dh = q.shape
     out = torch.empty((B, R, dh), dtype=q.dtype, device=q.device)
     if B == 0 or R == 0:
@@ -220,7 +226,8 @@ def _launch(entry: str, q, R: int, pointers, ints, strides, name: str):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _launcher(entry)(
-            *[t.data_ptr() for t in pointers], out.data_ptr(), *ints,
+            *[t.data_ptr() for t in pointers], out.data_ptr(),
+            *[t.data_ptr() for t in scratch], *ints,
             dh, _DTYPE_CODES[q.dtype], q.stride(0), q.stride(1), *strides,
             stream)
     if err:
@@ -361,19 +368,36 @@ def decode_attention_int8_paged_resident(q, k_q8, k_sc, v_q8, v_sc, lengths,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ring_split(B: int, KvE: int, window: int, sms: int) -> int:
+    """Slots per window split: a multiple of ``_RING_SPLIT_ALIGN`` such
+    that the (split, KV head, batch row) grid holds about 4 blocks per SM
+    of a card with ``sms`` SMs (B 4, KvE 8, W 4096 on 132 SMs: 256 slots,
+    16 splits, 512 blocks)."""
+    want = max(1, -(-4 * sms // (B * KvE)))
+    split = -(-window // want)
+    return -(-split // _RING_SPLIT_ALIGN) * _RING_SPLIT_ALIGN
+
+
 def decode_attention_ring_resident(q, k, v, lengths, slot_pos, rows,
                                    kv_rows=None, *, window: int):
     """Sliding-window flash-decode over a ring cache, over the resident
     head rows.
 
     k, v: (B, KvE, window, dh) ring buffers, any strides with a unit last
-    one (the model passes a view of its (B, window, KvE, dh) ring); slot
-    t holds absolute position ``slot_pos[t]`` ((window,) int32, shared by
-    the batch; an empty slot holds -2**30); lengths: (B,) query position
-    + 1.  Every slot is read, and slot t counts for row b iff
+    one, for the kernel 16-byte aligned bases and strides of whole 16-byte
+    pieces (the model passes a view of its (B, window, KvE, dh) ring);
+    slot t holds absolute position ``slot_pos[t]`` ((window,) int32,
+    shared by the batch; an empty slot holds -2**30); lengths: (B,) query
+    position + 1.  Slot t counts for row b iff
     ``lengths[b] - window <= slot_pos[t] < lengths[b]``; a row with no
     valid slot returns zeros.  rows/kv_rows and the result as in
-    :func:`decode_attention_resident`."""
+    :func:`decode_attention_resident`.  The kernel launches as two CUDA
+    kernels (window splits, then their merge) and counts one launch."""
     kv_rows = _kv_rows(q, k, rows, kv_rows)
     B, H, dh = _check(q, k, v, lengths, rows, kv_rows, batch_axis=True)
     if k.shape[2] != window or slot_pos.shape != (window,):
@@ -384,15 +408,24 @@ def decode_attention_ring_resident(q, k, v, lengths, slot_pos, rows,
         return decode_attention_ring_resident_plain(
             q, k, v, lengths, slot_pos, rows, kv_rows, window=window)
     _check_kernel_inputs(q, k, v, dh, quant=False)
+    if not (build.aligned16(k) and build.aligned16(v)):
+        raise ValueError("the ring kernel needs k/v with 16-byte aligned "
+                         "bases and strides (cp.async copies)")
     lengths, slot_pos, rows, kv_rows = _i32(lengths, slot_pos, rows, kv_rows)
-    KvE = k.shape[1]
+    KvE, R = k.shape[1], rows.shape[0]
+    split = _ring_split(B, KvE, window, _sm_count(q.device))
+    n_splits = -(-window // split)
+    scratch = (torch.empty((B, R, n_splits, 2), dtype=torch.float32,
+                           device=q.device),
+               torch.empty((B, R, n_splits, dh), dtype=torch.float32,
+                           device=q.device))
     out, launched = _launch(
-        "decode_attention_ring_resident_launch", q, rows.shape[0],
+        "decode_attention_ring_resident_launch", q, R,
         (q, k, v, lengths, slot_pos, rows, kv_rows),
-        (B, H, KvE, window, rows.shape[0]),
+        (B, H, KvE, window, R, split),
         (k.stride(0), k.stride(1), k.stride(2),
          v.stride(0), v.stride(1), v.stride(2)),
-        "decode_attention_ring_resident")
+        "decode_attention_ring_resident", scratch=scratch)
     decode_attention_ring_resident.launches += launched
     return out
 

@@ -96,25 +96,19 @@ def _check_kernel_inputs(q, k, v):
         raise ValueError(f"kernel supports dh in {SUPPORTED_DH}, got {dh}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a unit stride on dh")
-    if not (_vec_ok(k) and _vec_ok(v)):
-        raise ValueError("k and v need 16-byte aligned bases and strides "
-                         "that are multiples of 8 values")
+    if not all(build.aligned16(t) for t in (q, k, v)):
+        raise ValueError("q, k and v need 16-byte aligned bases and strides "
+                         "of whole 16-byte pieces (multiples of 8 values "
+                         "at bf16)")
     if q.shape[0] > _MAX_GRID_YZ or q.shape[1] > _MAX_GRID_YZ:
         raise ValueError(f"kernel takes at most {_MAX_GRID_YZ} batch rows "
                          f"and heads")
 
 
-def _vec_ok(t) -> bool:
-    """Whether 16-byte copies can stage ``t`` (the bf16 path's
-    ``cp.async``): an aligned base and strides that are multiples of 8
-    values, as every view of a model activation or cache has."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-
-
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Attention of q (B, H, Sq, dh) over k, v (B, KvE, Skv, dh), any
-    strides with a unit last one, those of k and v multiples of 8 values
-    from a 16-byte aligned base (the model passes transposed views of its
+    strides with a unit last one, the others whole 16-byte pieces from a
+    16-byte aligned base (the model passes transposed views of its
     (B, S, H, dh) activations and (B, T, KvE, dh) caches), in float32 or
     bfloat16 with dh in ``SUPPORTED_DH``; any Sq and Skv.  Masks as the
     module docstring says; a row that attends no key returns zeros.

@@ -158,6 +158,20 @@ def test_kernel_input_check_refuses_unaligned_kv():
                              .transpose(1, 2))
 
 
+def test_kernel_input_check_refuses_unaligned_q():
+    """The bf16 wgmma body reads q through TMA as well: a q whose base is
+    not 16-byte aligned, or whose head stride (129 values) is not a
+    multiple of 8, is refused before a launch."""
+    kv = torch.zeros((1, 150, 2, 128), dtype=torch.bfloat16).transpose(1, 2)
+    shifted = torch.zeros(150 * 8 * 128 + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _check_kernel_inputs(shifted.view(1, 150, 8, 128).transpose(1, 2),
+                             kv, kv)
+    wide = torch.zeros((1, 150, 8, 129), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _check_kernel_inputs(wide[..., :128].transpose(1, 2), kv, kv)
+
+
 # ------------------------------------------- where the model reaches it
 def _port_cfg(cfg_j, **over):
     return get_config(cfg_j.name).with_overrides(

@@ -217,3 +217,40 @@ def test_biased_streams_unchanged_by_migrations(runs, glm):
     # the biases did move: some layer's bq rows sit in another order
     bq0 = params_from_jax(glm[2], "cpu")["layers"]["attn"]["bq"]
     assert not torch.equal(eng.params["layers"]["attn"]["bq"], bq0)
+
+
+@pytest.mark.parametrize("kv_quant,paged", [(False, True), (True, False),
+                                            (True, True)],
+                         ids=["paged", "int8", "int8_paged"])
+def test_cache_engines_stream_and_migrate_as_reference(glm, kv_quant, paged):
+    """The scenario of ``runs`` under the paged (pages of 8), int8 and
+    int8-paged caches, in both packages: streams, migration log, physical
+    layout and kernel row maps equal the reference's, with an applied
+    migration, so the cache writes keep the biases' head moves."""
+    cfg_j, cfg_t, params = glm
+    cfg_j = cfg_j.with_overrides(kv_quant=kv_quant)
+    cfg_t = cfg_t.with_overrides(kv_quant=kv_quant)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg_j.vocab_size, size=n)
+               for n in PROMPT_LENS]
+    kw = dict(n_slots=2, max_seq=64, lam=3, seed=0, use_kernel=True,
+              paged=paged, page_size=8)
+    ref = JaxEngine(cfg_j, net=JaxNetwork.sample(2, seed=1), **kw)
+    ref.params = jax.tree.map(jnp.asarray, params)
+    want = _drive(ref, prompts, straggle_at=4)
+    eng = ServingEngine(cfg_t, net=DeviceNetwork.sample(2, seed=1),
+                        device="cpu", params=params_from_jax(params, "cpu"),
+                        **kw)
+    got = _drive(eng, prompts, straggle_at=4)
+    assert len(got) == len(PROMPT_LENS) and got == want
+    keys = ("step", "n_migrations", "mig_bytes", "applied")
+    assert [tuple(e[k] for k in keys) for e in eng.migration_log] == \
+        [tuple(e[k] for k in keys) for e in ref.migration_log]
+    assert any(e["applied"] and e["n_migrations"]
+               for e in eng.migration_log), "no migration was applied"
+    np.testing.assert_array_equal(eng._phys_perms, ref._phys_perms)
+    np.testing.assert_array_equal(eng._head_rows, ref._head_rows)
+    np.testing.assert_array_equal(eng._head_inv, ref._head_inv)
+    if paged:
+        eng.allocator.check_invariants()
+        assert eng.allocator.live_pages == 0

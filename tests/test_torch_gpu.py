@@ -9,7 +9,8 @@ marked ``gpu`` and skip elsewhere.  On the card:
 machine need not have.)
 
 Tolerances: float32 ``atol=rtol=1e-5`` (summation order only); bfloat16
-``atol=2e-2`` after upcasting (the output rounds to bf16).
+``atol=2e-2`` after upcasting (the output rounds to bf16); the flash and
+ring kernels also per output row (``FLASH_ROW_REL``, ``RING_ROW_REL``).
 """
 import numpy as np
 import pytest
@@ -22,6 +23,17 @@ pytestmark = pytest.mark.gpu
 
 TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),
         torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
+# The flash and ring kernels are also bounded per output row, as the chip
+# smoke test bounds them: ||out_r - want_r|| / ||want_r|| (over many keys
+# an output is as small as TOLS's bf16 atol).
+FLASH_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+RING_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _row_rel_err(out, want) -> float:
+    diff = (out.float() - want.float()).norm(dim=-1)
+    norm = want.float().norm(dim=-1)
+    return torch.where(norm > 0, diff / norm, diff).max().item()
 
 
 @pytest.fixture
@@ -213,6 +225,113 @@ def test_ring_kernel_matches_plain_version(cuda, dtype, case):
         assert not out[0].any()              # no valid slot: zeros
 
 
+def _ring_args(cuda, dtype, *, B=4, H=16, KvE=4, W=600, dh=128, n=200,
+               lengths=(200, 1, 0, 150), rows=None, seed=0):
+    """Ring-kernel arguments: a random (B, W, KvE, dh) ring as the model
+    keeps it, seen transposed, after positions 0 .. n - 1 were written."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    ring = torch.from_numpy(rng.standard_normal((2, B, W, KvE, dh),
+                                                np.float32))
+    q, ring = q.to(cuda, dtype), ring.to(cuda, dtype)
+    rows = np.arange(H) if rows is None else np.asarray(rows)
+    return (q, ring[0].transpose(1, 2), ring[1].transpose(1, 2),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda),
+            torch.as_tensor(ring_slot_pos(W, n), dtype=torch.int32,
+                            device=cuda),
+            torch.as_tensor(rows, dtype=torch.int32, device=cuda))
+
+
+def _ring_check(args, W):
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ring_resident, decode_attention_ring_resident_plain)
+    before = decode_attention_ring_resident.launches
+    out = decode_attention_ring_resident(*args, window=W)
+    torch.cuda.synchronize()
+    assert decode_attention_ring_resident.launches == before + 1
+    want = decode_attention_ring_resident_plain(*args, window=W)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **TOLS[args[0].dtype])
+    assert _row_rel_err(out, want) <= RING_ROW_REL[args[0].dtype]
+    assert torch.isfinite(out).all()
+    return out
+
+
+def _ring_splits(args, W):
+    from repro_torch.kernels import decode_attention as da
+    q, k = args[0], args[1]
+    split = da._ring_split(q.shape[0], k.shape[1], W, da._sm_count(q.device))
+    return split, -(-W // split)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["partial_permuted", "empty_split",
+                                  "empty_row", "ragged_split",
+                                  "two_passes"])
+def test_ring_kernel_edges(cuda, dtype, case):
+    """The split-window ring kernel's edges: resident rows that are a
+    partial, permuted subset whose KV heads are not adjacent (heads 3, 0,
+    1, 3, 0 of 4); window splits that hold no valid slot (200 of 600 slots
+    written); a batch row with no valid slot (length 0: zeros); a window
+    that is not a multiple of the split (600 slots); 8 q rows per KV head,
+    scored in two passes of 4."""
+    W = 600
+    kw = {"partial_permuted": dict(rows=[13, 2, 7, 14, 1], n=2 * W + 37,
+                                   lengths=(2 * W + 37, 2 * W, W + 1, W)),
+          "empty_split": dict(n=200, lengths=(200, 120, 30, 199)),
+          "empty_row": dict(n=W + 90, lengths=(0, W + 90, 5, W + 1)),
+          "ragged_split": dict(n=3 * W, lengths=(3 * W, 3 * W - 1,
+                                                 2 * W + 1, 3 * W - 7)),
+          "two_passes": dict(KvE=2, n=2 * W + 5,
+                             rows=[15, 3, 8, 0, 9, 1, 14, 2, 7, 4, 13, 5,
+                                   10, 6, 12, 11],
+                             lengths=(2 * W + 5, 2 * W, W + 2, 700)),
+          }[case]
+    args = _ring_args(cuda, dtype, seed=len(case), **kw)
+    split, n_splits = _ring_splits(args, W)
+    assert n_splits > 1 and W % split          # several, the last ragged
+    out = _ring_check(args, W)
+    if case == "empty_row":
+        assert not out[0].any()
+    if case == "empty_split":                  # slots 200.. never written
+        assert split * (n_splits - 1) >= 200
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_ring_kernel_head_widths(cuda, dtype, dh):
+    """Every head width the wrapper takes, on a wrapped ring of 600 slots
+    in several splits and a group-permuted row order."""
+    W = 600
+    rows = np.concatenate([g * 4 + np.array([2, 0, 3, 1])
+                           for g in (1, 3, 0, 2)])
+    args = _ring_args(cuda, dtype, dh=dh, n=2 * W + 11, rows=rows,
+                      lengths=(2 * W + 11, 2 * W, W + 5, 2 * W - 300),
+                      seed=dh)
+    _ring_check(args, W)
+
+
+def test_ring_kernel_gives_nan_for_rows_out_of_range(cuda):
+    """An out-of-range ``rows`` or ``kv_rows`` entry gives NaN for that
+    entry and is never dereferenced; the other entries are unaffected."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ring_resident, decode_attention_ring_resident_plain)
+    W = 600
+    q, k, v, lens, pos, rows = _ring_args(cuda, torch.float32, n=2 * W,
+                                          lengths=(2 * W,) * 4)
+    kv_rows = rows // 4
+    rows[3], kv_rows[5] = 16, -1
+    out = decode_attention_ring_resident(q, k, v, lens, pos, rows, kv_rows,
+                                         window=W)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[:, 3]).all() and torch.isnan(out[:, 5]).all()
+    keep = [r for r in range(16) if r not in (3, 5)]
+    want = decode_attention_ring_resident_plain(q, k, v, lens, pos,
+                                                rows[keep], kv_rows[keep],
+                                                window=W)
+    torch.testing.assert_close(out[:, keep], want, **TOLS[torch.float32])
+
+
 # ------------------------------------------------------------------ rwkv6
 # Kernel and plain version both compute in float32 from the same inputs
 # (bfloat16 r/k/v are upcast exactly), so one tolerance holds for both
@@ -305,16 +424,18 @@ def _flash_check(cuda, dtype, causal, window, **shape):
     assert out.shape == q.shape and out.dtype == dtype
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    assert _row_rel_err(out, want) <= FLASH_ROW_REL[dtype]
     assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("mask", ["causal", "window", "full"])
 def test_flash_kernel_matches_plain_version(cuda, dtype, dh, mask):
-    """Causal, windowed (48) and non-causal attention over 200 positions:
-    a ragged last tile for both kernel paths (64-row q tiles, 32- and
-    64-row K/V tiles)."""
+    """Causal, windowed (48) and non-causal attention over 200 positions
+    at every head width: a ragged last tile for both bodies (bf16 wgmma:
+    128-row q and K/V tiles, 32-, 64- and 128-byte swizzles; f32: 64-row
+    q tiles, 32-row K/V tiles)."""
     _flash_check(cuda, dtype, mask != "full", 48 if mask == "window" else 0,
                  dh=dh, seed=dh)
 
@@ -364,3 +485,62 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="one dtype"):
         flash_attention(q, k.to(torch.bfloat16), v)
+
+
+def _strided_flash_inputs(cuda, dtype, *, B, H, KvE, Sq, Skv, dh, seed):
+    """q as a head slice of a wider (B, Sq, H + 4, dh) activation, k and v
+    as position slices (from 8) of (B, Skv + 24, KvE, dh) caches: strided,
+    transposed views with offset bases."""
+    rng = np.random.default_rng(seed)
+    wide = torch.from_numpy(rng.standard_normal((B, Sq, H + 4, dh),
+                                                np.float32))
+    cache = torch.from_numpy(rng.standard_normal((2, B, Skv + 24, KvE, dh),
+                                                 np.float32))
+    wide, cache = wide.to(cuda, dtype), cache.to(cuda, dtype)
+    return (wide[:, :, 2:H + 2].transpose(1, 2),
+            cache[0, :, 8:8 + Skv].transpose(1, 2),
+            cache[1, :, 8:8 + Skv].transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["glm_groups_b2", "ragged_q_tile",
+                                  "skv_over_sq", "skv_over_sq_full",
+                                  "window_crosses_tile", "strided_dh64",
+                                  "strided_dh128"])
+def test_flash_kernel_edges(cuda, dtype, case):
+    """The 128-row wgmma body's edges: GLM-4's 16 query heads per KV group
+    with B = 2; Sq not a multiple of 128 (700); Skv > Sq (130 over 520,
+    causal and not); a window edge crossing 128-row tiles (100 over 512);
+    dh 64 and 128 on strided, transposed views with offset bases."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    shape, causal, window = {
+        "glm_groups_b2": (dict(B=2, H=32, KvE=2, Sq=300, Skv=300, dh=128),
+                          True, 0),
+        "ragged_q_tile": (dict(B=1, H=8, KvE=2, Sq=700, Skv=700, dh=128),
+                          True, 0),
+        "skv_over_sq": (dict(B=2, H=8, KvE=2, Sq=130, Skv=520, dh=128),
+                        True, 0),
+        "skv_over_sq_full": (dict(B=2, H=8, KvE=2, Sq=130, Skv=520, dh=64),
+                             False, 0),
+        "window_crosses_tile": (dict(B=1, H=8, KvE=8, Sq=512, Skv=512,
+                                     dh=128), True, 100),
+        "strided_dh64": (dict(B=2, H=8, KvE=2, Sq=333, Skv=333, dh=64),
+                         True, 0),
+        "strided_dh128": (dict(B=2, H=8, KvE=2, Sq=333, Skv=333, dh=128),
+                          True, 150),
+    }[case]
+    if case.startswith("strided"):
+        q, k, v = _strided_flash_inputs(cuda, dtype, seed=len(case), **shape)
+        assert not q.is_contiguous() and k.storage_offset() > 0
+    else:
+        q, k, v = flash_inputs(cuda, dtype, seed=len(case), **shape)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    assert _row_rel_err(out, want) <= FLASH_ROW_REL[dtype]
+    assert torch.isfinite(out).all()

@@ -148,6 +148,40 @@ def test_ring_wrapper_rejects_what_the_kernel_does_not_take():
                                        rows, window=W)
 
 
+@pytest.mark.parametrize("B,KvE_,window,sms", [
+    (4, 8, 4096, 132),      # the mixtral path: 16 splits of 256, 512 blocks
+    (1, 8, 4096, 132),
+    (4, 2, 600, 132),       # a window that is no multiple of the split
+    (8, 8, 96, 132),        # a window shorter than one split
+    (1, 1, 100000, 132),
+])
+def test_ring_split_fills_the_card(B, KvE_, window, sms):
+    """The ring kernel's window split: a positive multiple of 128 slots,
+    no empty split, and at least 2 blocks per SM where the window holds
+    that many 128-slot pieces."""
+    from repro_torch.kernels.decode_attention import _ring_split
+    split = _ring_split(B, KvE_, window, sms)
+    n = -(-window // split)
+    assert split > 0 and split % 128 == 0
+    assert (n - 1) * split < window <= n * split
+    assert B * KvE_ * n >= min(2 * sms, B * KvE_ * -(-window // 128))
+    if (B, KvE_, window) == (4, 8, 4096):
+        assert (split, n, B * KvE_ * n) == (256, 16, 512)
+
+
+def test_ring_kernel_input_check_wants_16_byte_pieces():
+    """The ring kernel stages K/V with 16-byte copies: a model ring's
+    transposed view passes; an odd position stride or a shifted base
+    does not."""
+    from repro_torch.kernels.build import aligned16
+    ring = torch.zeros((2, W, KvE, DH), dtype=torch.bfloat16)
+    assert aligned16(ring.transpose(1, 2))
+    wide = torch.zeros((2, W, KvE, DH + 1), dtype=torch.bfloat16)
+    assert not aligned16(wide[..., :DH].transpose(1, 2))
+    flat = torch.zeros(2 * W * KvE * DH + 1, dtype=torch.bfloat16)[1:]
+    assert not aligned16(flat.view(2, W, KvE, DH).transpose(1, 2))
+
+
 # ------------------------------------------------------- windowed attention
 @pytest.mark.parametrize("window", [0, 37])
 def test_chunked_attention_matches_reference(window):
