@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Check or time patched copies of the split decode body on one GPU.
+
+    python3 scripts/decode_split_variants.py base skip_split zero_piece
+    python3 scripts/decode_split_variants.py base mma_lb4 cuda_core base
+
+For each named variant, in the order given, copies ``src/`` into a
+temporary directory, applies the variant's edits to the copy's
+``csrc/decode_attention.cu`` (``base``: none), and runs ``chip_smoke.py``'s
+two split-body phases — ``phase_kernel_vs_plain`` (the resident kernel at
+the dense and glm4 shapes) and ``phase_new_kernels_vs_plain`` (int8-paged
+among them) — on the copy's kernels in a fresh process.  A phase that
+fails (a planted fault) is reported after it has logged every case, and
+then records no times.  Prints the copy's ptxas lines for the split body,
+every check and time line, and last the times per turn.
+
+Faults (each must fail both phases): ``skip_split`` (the merge drops split
+n / 2), ``zero_piece`` (the last 16-byte piece of each staged K row
+zero-filled), ``unstaged_piece`` (that piece never staged).  Tuning
+variants: ``mma_lb4`` / ``core_lb4`` (a cap of 4 blocks an SM for the
+tensor-core / CUDA-core body), ``mma_st4`` / ``core_st4`` (a fourth
+stage), ``cuda_core`` (bf16 on the CUDA-core body).
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCE = Path("repro_torch/kernels/csrc/decode_attention.cu")
+STAGE_K = ("    cp_async16(kt + c * ROW + d, kb + blk * src.k_sb + off * "
+           "src.k_st + d,\n               in);")
+VARIANTS = {
+    "base": [],
+    "skip_split": [(
+        "  float m_all = kNegInf;\n  for (int s = 0; s < n; ++s) m_all",
+        "  if (PREFIX && n > 1) {\n    ml[2 * (n / 2)] = kNegInf;\n"
+        "    ml[2 * (n / 2) + 1] = 0.f;\n  }\n"
+        "  float m_all = kNegInf;\n  for (int s = 0; s < n; ++s) m_all")],
+    "zero_piece": [(STAGE_K, STAGE_K.replace(
+        "in);", "in && (e % CH) != CH - 1);"))],
+    "unstaged_piece": [(STAGE_K, "    if ((e % CH) != CH - 1)\n  "
+                        + STAGE_K.replace("\n", "\n  "))],
+    "mma_lb4": [("__launch_bounds__(kRingThreads, 3)\n"
+                 "decode_split_mma_kernel",
+                 "__launch_bounds__(kRingThreads, 4)\n"
+                 "decode_split_mma_kernel")],
+    "core_lb4": [("__launch_bounds__(kRingThreads, 3)\ndecode_split_kernel",
+                  "__launch_bounds__(kRingThreads, 4)\ndecode_split_kernel")],
+    "mma_st4": [("constexpr int kMmaStages = 3;",
+                 "constexpr int kMmaStages = 4;")],
+    "core_st4": [("constexpr int kSplitStages = 3;",
+                  "constexpr int kSplitStages = 4;")],
+    "cuda_core": [("constexpr bool kMma = std::is_same",
+                   "constexpr bool kMma = false && std::is_same")],
+}
+
+# run in a fresh process per variant, with the copy's src first on the path
+TURN = """
+import json, sys
+sys.path.insert(0, {src!r})
+sys.path.insert(1, {root!r})
+import torch
+import chip_smoke as c
+from repro_torch.kernels import build
+torch.backends.cuda.matmul.allow_tf32 = False
+for text in build.build(["decode_attention"]).values():
+    for variant, usage in c.ptxas_usage(text):
+        if variant.startswith("split"):
+            c.log(f"  ptxas: {{variant}}: {{usage}}")
+times = {{}}
+try:
+    r = c.phase_kernel_vs_plain()
+    for label, t in r["shapes"].items():
+        times[f"resident [{{label}}]"] = t["ms"]
+        times[f"resident [{{label}}] sdpa"] = t["library_ms"]
+    times["resident max_rel_err"] = r["max_rel_err"]
+except c.SmokeFailure as e:
+    print(f"PHASE FAILED phase_kernel_vs_plain: {{e}}", flush=True)
+try:
+    for rec in c.phase_new_kernels_vs_plain():
+        times[rec["name"]] = rec["ms"]
+        if "max_rel_err" in rec:
+            times[rec["name"] + " max_rel_err"] = rec["max_rel_err"]
+except c.SmokeFailure as e:
+    print(f"PHASE FAILED phase_new_kernels_vs_plain: {{e}}", flush=True)
+print("TIMES " + json.dumps(times), flush=True)
+"""
+
+
+def patched_copy(name: str, into: Path) -> Path:
+    src = into / name / "src"
+    shutil.copytree(ROOT / "src", src,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    text = (src / SOURCE).read_text()
+    for old, new in VARIANTS[name]:
+        if text.count(old) != 1:
+            raise SystemExit(f"variant {name}: its edit does not apply")
+        text = text.replace(old, new)
+    (src / SOURCE).write_text(text)
+    return src
+
+
+def main(names):
+    unknown = [n for n in names if n not in VARIANTS]
+    if not names or unknown:
+        raise SystemExit(f"name variants from {sorted(VARIANTS)}; unknown: "
+                         f"{unknown}")
+    turns = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, name in enumerate(names):
+            src = patched_copy(name, Path(tmp) / str(i))
+            print(f"=== turn {i + 1}: {name}", flush=True)
+            proc = subprocess.run(
+                [sys.executable, "-c",
+                 TURN.format(src=str(src), root=str(ROOT))],
+                capture_output=True, text=True)
+            lines = proc.stdout.splitlines()
+            print("\n".join(x for x in lines if not x.startswith("TIMES ")),
+                  flush=True)
+            if proc.returncode:
+                print(proc.stderr[-3000:], flush=True)
+            found = [x for x in lines if x.startswith("TIMES ")]
+            turns.append(json.loads(found[-1][6:]) if found else {})
+    print("=== ms per turn (" + ", ".join(names) + ")")
+    for key in sorted({k for t in turns for k in t}):
+        print(f"{key}: " + " / ".join(
+            f"{t[key]:.4f}" if key in t else "-" for t in turns))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

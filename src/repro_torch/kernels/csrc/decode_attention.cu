@@ -1,23 +1,24 @@
 // Resident flash-decode for Hopper (sm_90a): one query token per batch row
 // against a long KV cache, over only the q-head rows one device hosts.
 //
-// Two designs, five extern "C" entry points; each entry point replaces one
-// Pallas TPU kernel of the JAX package's src/repro/kernels/decode_attention.py:
+// Five extern "C" entry points; each replaces one Pallas TPU kernel of the
+// JAX package's src/repro/kernels/decode_attention.py, and names the body
+// that serves it:
 //   decode_attention_resident_launch            <- decode_attention_resident
-//     K/V (B, KvE, T, dh) in q's dtype;
+//     K/V (B, KvE, T, dh) in q's dtype;                        split body
 //   decode_attention_int8_resident_launch       <- decode_attention_int8_resident
-//     K/V (B, KvE, T, dh) int8, scales (B, KvE, T) f32;
+//     K/V (B, KvE, T, dh) int8, scales (B, KvE, T) f32;        per-row body
 //   decode_attention_paged_resident_launch      <- decode_attention_paged_resident
 //     K/V pages (n_pages, KvE, P, dh) in q's dtype, page_map (B, np) i32;
+//                                                              per-row body
 //   decode_attention_int8_paged_resident_launch <- decode_attention_int8_paged_resident
-//     K/V pages int8, scale pages (n_pages, KvE, P) f32;
+//     K/V pages int8, scale pages (n_pages, KvE, P) f32;       split body
 //   decode_attention_ring_resident_launch       <- decode_attention_ring_resident
 //     a sliding-window ring K/V (B, KvE, W, dh) in q's dtype, slot_pos (W,)
 //     i32 (see the ring section below: its own split-window kernel).
-// The first four share one flash body, as the reference's one Pallas body
+// The first four compute one function, as the reference's one Pallas body
 // (`_kernel` / `_kernel_int8`) serves its four Pallas kernels, which differ
-// in how K/V blocks are addressed and dequantized.  Same function for each:
-// for every (b, r)
+// in how K/V blocks are addressed and dequantized.  For every (b, r)
 //   out[b, r] = softmax(q[b, rows[r]] . K[b, kv_rows[r], :len]^T / sqrt(dh))
 //               . V[b, kv_rows[r], :len],      len = clamp(lengths[b], 0, cap)
 // with cap = T (linear) or np * P (paged), f32 accumulation, an online
@@ -26,30 +27,50 @@
 // offset t % P; int8 element (t, d) is q8 * scale[t] (the scale is applied
 // to the dot product for K and to the softmax weight for V, which is the
 // same sum, regrouped).  Output (B, R, dh) in q's dtype, in `rows` order.
+// A `rows` or `kv_rows` entry out of range writes NaN for that entry; a
+// page id outside [0, n_pages) that batch row b reads writes NaN for every
+// entry of row b; neither is dereferenced.
 //
 // Bound: memory.  The least work is reading each valid K/V row once,
 //   sum_b len_b * KvE * 2 (k and v) * (dh * itemsize [+ 4 for an int8 scale])
-// bytes at 3.35 TB/s (H100 SXM); the arithmetic is ~4 flop per K/V element,
+// bytes at 3.35 TB/s (H100 SXM); the arithmetic is ~4 flop per K/V element
+// per q row (G q rows share a KV row: G = 4 for llama3-8b, 16 for glm4),
 // far below the card's ridge point.  Paging reads the same bytes as the
 // linear cache; int8 reads (dh + 4) / (2 dh) of bf16's.
 //
-// Design (simple first): one thread block per (r, b) with kWarps warps.  The
-// TPU's sequential kv grid axis becomes a loop inside the block: warp w walks
-// positions w*kUnroll, w*kUnroll + kWarps*kUnroll, ..., kUnroll positions at a
-// time so their loads are in flight together, and keeps its own (m, l, acc)
-// with acc spread over the lanes (dh/32 floats per lane, dh < 32 leaves lanes
-// idle).  One merge in shared memory at the end.  Blocks of consecutive r
-// share a KV head under a group-consistent layout and run side by side, so
-// the G re-reads of a KV row mostly hit L2.  Still, this design re-reads each
-// KV row once per q-head of its group (G = 4 for llama3-8b) and does no
-// split over the sequence; split-K, TMA and shared KV loads per group are
-// later work.  The page size P is any positive integer: each position looks
-// up its own page, so P need not be a multiple of kUnroll.
+// The split body (decode_split_mma_kernel or decode_split_kernel, then
+// split_merge_kernel) reads each valid K/V row from device memory once per
+// call, at any G up to 16:
+// - One block of 4 warps per (sequence split, KV head, b).  The block finds
+//   the entries of `kv_rows` that name its KV head (any subset, any order)
+//   and scores each K/V tile against up to kSplitRows = 16 of them per
+//   pass, so one staged tile serves all 16 q heads of a glm4 group.  More
+//   than 16 rows on one KV head take more passes.
+// - K/V tiles (and int8 scales) go to shared memory once through cp.async,
+//   16-byte pieces of values and 4-byte scales, into 3 stages.
+// - Scores: bf16 q over bf16 K/V (the dense and glm4 paths) on the tensor
+//   cores (decode_split_mma_kernel: the pass's rows are one m16 tile of
+//   mma.sync; see its section); f32 q, and int8 K/V, on the CUDA cores
+//   (decode_split_kernel: the ring's lane layout, the block's subgroups in
+//   1, 2 or 4 teams of 4 rows, every team scoring every slot).  Both keep
+//   f32 sums and an online softmax in log2 units.
+// - Validity is a length prefix: the wrapper picks `split` from the cache
+//   extent (about 4 blocks an SM; it never reads `lengths`), a split that
+//   starts at or past the row's length exits at once, and the merge reads
+//   only the ceil(len / split) splits that cover the row.  Slots past the
+//   length are zero-filled, never read.
+// - Paged: a split stages its page ids into shared memory once (a tile may
+//   cross pages; any P).  A bad id makes the split write its partials with
+//   l = NaN and read no K/V; the merge tests that flag explicitly (fmaxf
+//   would drop a NaN m) and writes NaN for the row.
+// The per-row body (decode_attention_kernel) still serves the paged and
+// int8-linear entry points: one block per (r, b), so each q head re-reads
+// its KV row (G times) and a row's positions are not split.
 //
 // K, V and scales are read through their strides, so the caller passes the
 // model's (B, T, KvE, dh) cache or (n_pages, P, KvE, dh) page store (and its
-// (..., KvE) scales) as transposed views with no copy.  A gather map or a
-// read page id out of range writes NaN and is never dereferenced.
+// (..., KvE) scales) as transposed views with no copy.  The split body
+// needs 16-byte aligned value bases and strides; scales need 4 bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -129,16 +150,30 @@ struct KVSource {
       vso = blk * vs_sb + off * vs_st;
     }
   }
+  // The split body's offsets from the row bases of position t: the page id
+  // `blk` (PAGED: from the split's ids `pages`, logical page first_pg
+  // first; linear: 0) and the offset `off` in the page (linear: t).
+  __device__ __forceinline__ void locate(const int32_t* pages, int first_pg,
+                                         int t, int64_t& blk,
+                                         int& off) const {
+    if (PAGED) {
+      const int lp = t / T_len;
+      off = t - lp * T_len;
+      blk = pages[lp - first_pg];
+    } else {
+      blk = 0;
+      off = t;
+    }
+  }
 };
 
-// The second bound is the blocks an SM must hold at once; ptxas caps the
-// registers to fit (65536 / (256 threads * blocks)).  At 4 the linear fp
-// source fits in 64 registers (87 left free) and runs faster.  Under a
-// minimum of 3 or 4 the int8 and paged fp sources ran slower, and int8-paged
-// within 5 %, so theirs is 1 (no cap).
+// The per-row body: one block of kWarps warps per (r, b), for the paged
+// and int8-linear entry points.  The second bound is the blocks an SM must
+// hold at once; ptxas caps the registers to fit (65536 / (256 threads *
+// blocks)).  Under a minimum of 3 or 4 the int8 and paged fp sources ran
+// slower, so theirs is 1 (no cap).
 template <typename QT, typename Src, int DH>
-__global__ void __launch_bounds__(kWarps * 32,
-                                  Src::kPaged || Src::kQuant ? 1 : 4)
+__global__ void __launch_bounds__(kWarps * 32, 1)
 decode_attention_kernel(const QT* __restrict__ q,
                         const typename Src::Elem* __restrict__ k,
                         const typename Src::Elem* __restrict__ v,
@@ -336,96 +371,7 @@ int launch(const Common& c, const Buffers& buf, const Src& src) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool PAGED, bool QUANT>
-int run_source(int dtype, const Common& c, const Buffers& buf, int T_len,
-               int n_pages, int n_logical, int64_t k_sb, int64_t k_sh,
-               int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
-               int64_t ks_sb, int64_t ks_sh, int64_t ks_st, int64_t vs_sb,
-               int64_t vs_sh, int64_t vs_st) {
-  if (PAGED && T_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
-#define REPRO_SOURCE(QT)                                                    \
-  {                                                                         \
-    using E = typename std::conditional<QUANT, int8_t, QT>::type;           \
-    const KVSource<E, PAGED, QUANT> src{k_sb,  k_sh,  k_st,  v_sb,  v_sh,   \
-                                        v_st,  ks_sb, ks_sh, ks_st, vs_sb,  \
-                                        vs_sh, vs_st, T_len, n_pages,       \
-                                        n_logical};                         \
-    return launch<QT>(c, buf, src);                                         \
-  }
-  if (dtype == 0) REPRO_SOURCE(float)
-  if (dtype == 1) REPRO_SOURCE(__nv_bfloat16)
-#undef REPRO_SOURCE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
-
-// Plain C entry points bound with ctypes.  Pointers are device pointers;
-// strides are in elements; dtype is q's (and the output's): 0 = float32,
-// 1 = bfloat16.  Each launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() after the launch (0 = success).
-
-// K/V (B, KvE, T, dh) in q's dtype.
-extern "C" int decode_attention_resident_launch(
-    const void* q, const void* k, const void* v, const void* lengths,
-    const void* rows, const void* kv_rows, void* out, int B, int H, int KvE,
-    int T_len, int R, int dh, int dtype, int64_t q_sb, int64_t q_sh,
-    int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh,
-    int64_t v_st, void* stream) {
-  const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
-                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
-  return run_source<false, false>(dtype, c, {k, v, nullptr, nullptr, nullptr},
-                                  T_len, 0, 0, k_sb, k_sh, k_st, v_sb, v_sh,
-                                  v_st, 0, 0, 0, 0, 0, 0);
-}
-
-// K/V (B, KvE, T, dh) int8; scales (B, KvE, T) float32.
-extern "C" int decode_attention_int8_resident_launch(
-    const void* q, const void* k, const void* ks, const void* v,
-    const void* vs, const void* lengths, const void* rows,
-    const void* kv_rows, void* out, int B, int H, int KvE, int T_len, int R,
-    int dh, int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sb,
-    int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
-    int64_t ks_sb, int64_t ks_sh, int64_t ks_st, int64_t vs_sb,
-    int64_t vs_sh, int64_t vs_st, void* stream) {
-  const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
-                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
-  return run_source<false, true>(dtype, c, {k, v, ks, vs, nullptr}, T_len, 0,
-                                 0, k_sb, k_sh, k_st, v_sb, v_sh, v_st, ks_sb,
-                                 ks_sh, ks_st, vs_sb, vs_sh, vs_st);
-}
-
-// K/V pages (n_pages, KvE, P, dh) in q's dtype; page_map (B, np) int32.
-extern "C" int decode_attention_paged_resident_launch(
-    const void* q, const void* k, const void* v, const void* lengths,
-    const void* page_map, const void* rows, const void* kv_rows, void* out,
-    int B, int H, int KvE, int P, int n_pages, int n_logical, int R, int dh,
-    int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sp, int64_t k_sh,
-    int64_t k_st, int64_t v_sp, int64_t v_sh, int64_t v_st, void* stream) {
-  const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
-                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
-  return run_source<true, false>(dtype, c, {k, v, nullptr, nullptr, page_map},
-                                 P, n_pages, n_logical, k_sp, k_sh, k_st,
-                                 v_sp, v_sh, v_st, 0, 0, 0, 0, 0, 0);
-}
-
-// K/V pages (n_pages, KvE, P, dh) int8; scale pages (n_pages, KvE, P)
-// float32; page_map (B, np) int32.
-extern "C" int decode_attention_int8_paged_resident_launch(
-    const void* q, const void* k, const void* ks, const void* v,
-    const void* vs, const void* lengths, const void* page_map,
-    const void* rows, const void* kv_rows, void* out, int B, int H, int KvE,
-    int P, int n_pages, int n_logical, int R, int dh, int dtype,
-    int64_t q_sb, int64_t q_sh, int64_t k_sp, int64_t k_sh, int64_t k_st,
-    int64_t v_sp, int64_t v_sh, int64_t v_st, int64_t ks_sp, int64_t ks_sh,
-    int64_t ks_st, int64_t vs_sp, int64_t vs_sh, int64_t vs_st,
-    void* stream) {
-  const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
-                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
-  return run_source<true, true>(dtype, c, {k, v, ks, vs, page_map}, P, n_pages,
-                                n_logical, k_sp, k_sh, k_st, v_sp, v_sh, v_st,
-                                ks_sp, ks_sh, ks_st, vs_sp, vs_sh, vs_st);
-}
 
 // ------------------------------------------------------------------ the ring
 // decode_attention_ring_resident_launch replaces the Pallas TPU kernel
@@ -460,7 +406,8 @@ extern "C" int decode_attention_int8_paged_resident_launch(
 //   lane is busy at every dh.  Each subgroup keeps its own (m, l, acc) in
 //   log2 units (the scale and log2(e) are folded into q).
 // - Each split writes its (m, l, acc[dh]) per row in float32 to scratch
-//   the wrapper allocates; `ring_merge_kernel` merges the splits per (b, r).
+//   the wrapper allocates; `split_merge_kernel` merges the splits per
+//   (b, r).
 //   A split with no valid slot merges as empty (m = -1e30, l = 0).
 // Measured on an H100 (PERF.md): about half the bytes bound, held back by
 // latency rather than bandwidth; a fourth stage (3 blocks an SM), a cap
@@ -540,6 +487,13 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
+}
+__device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
+  const int2 raw = *reinterpret_cast<const int2*>(p);  // 8-byte aligned
+  const char4 a = *reinterpret_cast<const char4*>(&raw.x);
+  const char4 b = *reinterpret_cast<const char4*>(&raw.y);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
 // Slots t0 .. t0 + TS - 1 of the block's K/V head row and their slot_pos
@@ -771,15 +725,20 @@ ring_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
 }
 
 // Merges the splits' partials of each (r, b): one block of DH threads.
-// The splits' (m, l) are read once, side by side, into shared memory.
-template <typename QT, int DH>
+// The splits' (m, l) are read once, side by side, into shared memory.  The
+// ring (PREFIX false) merges all NS splits.  The split body (PREFIX true)
+// merges the ceil(len / split) splits that cover [0, len), len =
+// clamp(lengths[b], 0, cap), and writes NaN if any of them carries the
+// flag of a bad page id (l = NaN), tested explicitly: fmaxf drops a NaN.
+template <typename QT, int DH, bool PREFIX>
 __global__ void __launch_bounds__(DH)
-ring_merge_kernel(const float* __restrict__ part_ml,
-                  const float* __restrict__ part_acc,
-                  const int32_t* __restrict__ rows,
-                  const int32_t* __restrict__ kv_rows, QT* __restrict__ out,
-                  int H, int KvE, int R, int NS) {
-  extern __shared__ float ml[];  // [NS][2]
+split_merge_kernel(const float* __restrict__ part_ml,
+                   const float* __restrict__ part_acc,
+                   const int32_t* __restrict__ rows,
+                   const int32_t* __restrict__ kv_rows,
+                   const int32_t* __restrict__ lengths, QT* __restrict__ out,
+                   int H, int KvE, int R, int NS, int cap, int split) {
+  extern __shared__ float ml[];  // [n][2]
   const int r = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   QT* o = out + ((int64_t)b * R + r) * DH;
   const int row = rows[r], kv_row = kv_rows[r];
@@ -787,14 +746,24 @@ ring_merge_kernel(const float* __restrict__ part_ml,
     store(o + d, nanf(""));
     return;
   }
+  const int n =
+      PREFIX ? (min(max(lengths[b], 0), cap) + split - 1) / split : NS;
   const int64_t at = ((int64_t)b * R + r) * NS;
-  for (int i = d; i < 2 * NS; i += DH) ml[i] = part_ml[2 * at + i];
+  for (int i = d; i < 2 * n; i += DH) ml[i] = part_ml[2 * at + i];
   __syncthreads();
+  if (PREFIX) {
+    bool bad = false;
+    for (int s = 0; s < n; ++s) bad |= isnan(ml[2 * s + 1]);
+    if (bad) {
+      store(o + d, nanf(""));
+      return;
+    }
+  }
   float m_all = kNegInf;
-  for (int s = 0; s < NS; ++s) m_all = fmaxf(m_all, ml[2 * s]);
+  for (int s = 0; s < n; ++s) m_all = fmaxf(m_all, ml[2 * s]);
   float l_all = 0.f, a = 0.f;
 #pragma unroll 8
-  for (int s = 0; s < NS; ++s) {
+  for (int s = 0; s < n; ++s) {
     const float c = exp2f(ml[2 * s] - m_all);
     l_all = fmaf(ml[2 * s + 1], c, l_all);
     a = fmaf(part_acc[(at + s) * DH + d], c, a);
@@ -828,15 +797,812 @@ int launch_ring(const void* q, const void* k, const void* v,
       v_sh, v_st, sl2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ring_merge_kernel<QT, DH><<<dim3(R, B), DH, 2 * NS * sizeof(float),
-                              stream>>>(
+  split_merge_kernel<QT, DH, false><<<dim3(R, B), DH,
+                                      2 * NS * sizeof(float), stream>>>(
       part_ml, part_acc, static_cast<const int32_t*>(rows),
-      static_cast<const int32_t*>(kv_rows), static_cast<QT*>(out), H, KvE, R,
-      NS);
+      static_cast<const int32_t*>(kv_rows), nullptr, static_cast<QT*>(out), H,
+      KvE, R, NS, 0, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// ------------------------------------------------------- the split body
+// decode_attention_resident_launch and decode_attention_int8_paged_resident
+// _launch: see the head of the file.  Measured on an H100: PERF.md.
+namespace {
+
+constexpr int kSplitRows = 4 * kRingRows;  // q rows scored per pass
+constexpr int kSplitStages = 3;            // the CUDA-core body's stages
+
+// (device code reads it too, so it is __host__ __device__)
+template <typename E, bool QUANT, int DH>
+__host__ __device__ constexpr int split_smem_bytes() {  // pipe or merge
+  using S = RingShape<DH>;
+  constexpr int pipe = kSplitStages * S::TS *
+                       (2 * DH * static_cast<int>(sizeof(E)) + (QUANT ? 8 : 0));
+  constexpr int merge = S::NSG * kRingRows * (DH + 2) * 4;
+  return pipe > merge ? pipe : merge;
+}
+
+// Warp 0 picks the next (up to) N entries r >= `from` whose KV row is `kvh`
+// and whose q row is in range, 32 entries a ballot.
+template <int N>
+__device__ __forceinline__ void pick_rows(const int32_t* rows,
+                                          const int32_t* kv_rows, int R,
+                                          int H, int kvh, int from, int lane,
+                                          int* sel, int* sel_row, int& n_sel,
+                                          int& next_r) {
+  int n = 0, r0 = from;
+  for (; r0 < R && n < N; r0 += 32) {
+    const int r = r0 + lane;
+    const int row = r < R ? rows[r] : -1;
+    const bool hit = r < R && kv_rows[r] == kvh && row >= 0 && row < H;
+    const unsigned hits = __ballot_sync(0xffffffffu, hit);
+    const int at = n + __popc(hits & ((1u << lane) - 1));
+    if (hit && at < N) {
+      sel[at] = r;
+      sel_row[at] = row;
+      if (at == N - 1) next_r = r + 1;  // the rest: a later pass
+    }
+    n += __popc(hits);
+  }
+  if (lane == 0) {
+    n_sel = min(n, N);
+    if (n <= N) next_r = min(r0, R);  // every hit so far taken
+  }
+}
+
+// PAGED: the page ids of logical pages first_pg .. (t_end - 1) / P of
+// batch row b into `pages`, read once.  Returns, to every thread, whether
+// any is outside [0, n_pages); a barrier for the block either way.
+template <typename Src>
+__device__ __forceinline__ bool stage_pages(const Src& src,
+                                            const int32_t* page_map, int b,
+                                            int first_pg, int t_end,
+                                            int32_t* pages) {
+  int bad = 0;
+  if (Src::kPaged) {
+    const int n_pg = (t_end - 1) / src.T_len - first_pg + 1;
+    for (int i = threadIdx.x; i < n_pg; i += blockDim.x) {
+      const int p = src.page(page_map, b, first_pg + i);
+      bad |= p < 0 || p >= src.n_pages;
+      pages[i] = p;
+    }
+  }
+  return __syncthreads_or(bad);
+}
+
+// Positions t0 .. t0 + TS - 1 of the block's K/V head row (and, QUANT,
+// their scales) into one stage, rows ROW elements apart; positions at or
+// past t_end are zero-filled and never read.  `pages` holds the split's
+// page ids from logical page first_pg (PAGED).
+template <typename Src, int DH, int TS, int ROW>
+__device__ __forceinline__ void split_stage(
+    typename Src::Elem* kt, typename Src::Elem* vt, float* kst, float* vst,
+    const typename Src::Elem* kb, const typename Src::Elem* vb,
+    const float* ksb, const float* vsb, const int32_t* pages, int first_pg,
+    const Src& src, int t0, int t_end, int tid) {
+  using E = typename Src::Elem;
+  constexpr int VE = 16 / static_cast<int>(sizeof(E));  // elements a copy
+  constexpr int CH = DH / VE;                            // copies a row
+#pragma unroll
+  for (int e = tid; e < TS * CH; e += kRingThreads) {
+    const int c = e / CH, d = (e % CH) * VE, t = t0 + c;
+    const bool in = t < t_end;
+    int64_t blk = 0;
+    int off = 0;
+    if (in) src.locate(pages, first_pg, t, blk, off);
+    cp_async16(kt + c * ROW + d, kb + blk * src.k_sb + off * src.k_st + d,
+               in);
+    cp_async16(vt + c * ROW + d, vb + blk * src.v_sb + off * src.v_st + d,
+               in);
+  }
+  if (Src::kQuant) {
+    for (int c = tid; c < TS; c += kRingThreads) {
+      const int t = t0 + c;
+      const bool in = t < t_end;
+      int64_t blk = 0;
+      int off = 0;
+      if (in) src.locate(pages, first_pg, t, blk, off);
+      cp_async4(kst + c, ksb + blk * src.ks_sb + off * src.ks_st, in);
+      cp_async4(vst + c, vsb + blk * src.vs_sb + off * src.vs_st, in);
+    }
+  }
+}
+
+// The CUDA-core split body: f32 q, and int8 K/V.  A cap of 4 blocks an SM
+// (128 registers) spilled and ran slower than 3 (PERF.md).
+template <typename QT, typename Src, int DH>
+__global__ void __launch_bounds__(kRingThreads, 3)
+decode_split_kernel(const QT* __restrict__ q,
+                    const typename Src::Elem* __restrict__ k,
+                    const typename Src::Elem* __restrict__ v,
+                    const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const int32_t* __restrict__ page_map, const Src src,
+                    const int32_t* __restrict__ lengths,
+                    const int32_t* __restrict__ rows,
+                    const int32_t* __restrict__ kv_rows,
+                    float* __restrict__ part_ml, float* __restrict__ part_acc,
+                    int H, int R, int split, int64_t q_sb, int64_t q_sh,
+                    float sl2) {
+  using E = typename Src::Elem;
+  using S = RingShape<DH>;
+  constexpr int TS = S::TS, LPS = S::LPS, NSG = S::NSG, U = S::U;
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* k_tile = reinterpret_cast<E*>(smem);               // [stage][TS][DH]
+  E* v_tile = k_tile + kSplitStages * TS * DH;          // [stage][TS][DH]
+  float* ks_tile =                                      // QUANT: [stage][TS]
+      reinterpret_cast<float*>(v_tile + kSplitStages * TS * DH);
+  float* vs_tile = ks_tile + kSplitStages * TS;
+  // the subgroups' results, over the stages once the tiles are scored
+  float* sm_m = reinterpret_cast<float*>(smem);         // [NSG][kRingRows]
+  float* sm_l = sm_m + NSG * kRingRows;
+  float* sm_acc = sm_l + NSG * kRingRows;               // [NSG][rows][DH]
+  // PAGED: the split's page ids, past both
+  int32_t* pages = reinterpret_cast<int32_t*>(
+      smem + split_smem_bytes<E, Src::kQuant, DH>());
+  __shared__ int sel[kSplitRows], sel_row[kSplitRows];  // this pass's r
+  __shared__ int n_sel, next_r;
+
+  const int split_id = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int len = min(max(lengths[b], 0), src.cap());
+  const int t_begin = split_id * split;
+  if (t_begin >= len) return;  // block-uniform: reads and writes nothing
+  const int t_end = min(len, t_begin + split);
+  const int NS = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int li = lane % LPS;                            // lane in subgroup
+  const int sg = (tid >> 5) * S::SPW + lane / LPS;      // subgroup
+  const E* kb = k + src.row(src.k_sb, src.k_sh, b, kvh);
+  const E* vb = v + src.row(src.v_sb, src.v_sh, b, kvh);
+  // the int8 scales' rows (unused for fp sources)
+  const float* ksb = ks + (Src::kQuant ? src.row(src.ks_sb, src.ks_sh, b,
+                                                 kvh) : 0);
+  const float* vsb = vs + (Src::kQuant ? src.row(src.vs_sb, src.vs_sh, b,
+                                                 kvh) : 0);
+  if (tid < 32)
+    pick_rows<kSplitRows>(rows, kv_rows, R, H, kvh, 0, lane, sel, sel_row,
+                          n_sel, next_r);
+  const int first_pg = Src::kPaged ? t_begin / src.T_len : 0;
+  // block-uniform; the barrier also publishes the rows and page ids
+  const bool flagged = stage_pages(src, page_map, b, first_pg, t_end, pages);
+  const int n_tiles = flagged ? 0 : (t_end - t_begin + TS - 1) / TS;
+
+  while (true) {  // one pass per kSplitRows of this KV head's rows
+    const int ng = n_sel;
+    if (ng == 0) break;
+    // teams of kRingRows rows; each team's NSG / teams subgroups share
+    // every tile's slots
+    const int teams = ng <= kRingRows ? 1 : ng <= 2 * kRingRows ? 2 : 4;
+    const int team = sg % teams, tsg = sg / teams, nsgt = NSG / teams;
+
+#pragma unroll
+    for (int st = 0; st < kSplitStages - 1; ++st) {
+      if (st < n_tiles)
+        split_stage<Src, DH, TS, DH>(
+            k_tile + st * TS * DH, v_tile + st * TS * DH, ks_tile + st * TS,
+            vs_tile + st * TS, kb, vb, ksb, vsb, pages, first_pg, src,
+            t_begin + st * TS, t_end, tid);
+      cp_async_commit();
+    }
+    // q (scaled into log2 units) while the first tiles load
+    float qr[kRingRows][kRingEPL], acc[kRingRows][kRingEPL];
+    float m[kRingRows], l[kRingRows];
+#pragma unroll
+    for (int g = 0; g < kRingRows; ++g) {
+      const int i = team * kRingRows + g;
+      const QT* qp = q + b * q_sb + (i < ng ? sel_row[i] : 0) * q_sh;
+#pragma unroll
+      for (int e = 0; e < kRingEPL; ++e) {
+        qr[g][e] = i < ng ? to_f32(qp[li * kRingEPL + e]) * sl2 : 0.f;
+        acc[g][e] = 0.f;
+      }
+      m[g] = kNegInf;
+      l[g] = 0.f;
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int ahead = j + kSplitStages - 1;
+      if (ahead < n_tiles) {
+        const int st = ahead % kSplitStages;
+        split_stage<Src, DH, TS, DH>(
+            k_tile + st * TS * DH, v_tile + st * TS * DH, ks_tile + st * TS,
+            vs_tile + st * TS, kb, vb, ksb, vsb, pages, first_pg, src,
+            t_begin + ahead * TS, t_end, tid);
+      }
+      cp_async_commit();
+      cp_async_wait<kSplitStages - 1>();
+      __syncthreads();
+      const int st = j % kSplitStages;
+      const E* kt = k_tile + st * TS * DH;
+      const E* vt = v_tile + st * TS * DH;
+      const float* kst = ks_tile + st * TS;
+      const float* vst = vs_tile + st * TS;
+      const int t0 = t_begin + j * TS;
+      for (int c0 = tsg * U; c0 < TS; c0 += nsgt * U) {
+        float kr[U][kRingEPL], vr[U][kRingEPL], s[U][kRingRows];
+        float ksc[U], vsc[U];
+        bool ok[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int c = c0 + u;
+          ok[u] = t0 + c < t_end;
+          load8(kt + c * DH + li * kRingEPL, kr[u]);
+          load8(vt + c * DH + li * kRingEPL, vr[u]);
+          if (Src::kQuant) {
+            ksc[u] = kst[c];
+            vsc[u] = vst[c];
+          }
+#pragma unroll
+          for (int g = 0; g < kRingRows; ++g) {
+            float dot = 0.f;
+#pragma unroll
+            for (int e = 0; e < kRingEPL; ++e)
+              dot = fmaf(qr[g][e], kr[u][e], dot);
+            s[u][g] = dot;
+          }
+        }
+#pragma unroll
+        for (int off = LPS / 2; off > 0; off >>= 1) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int g = 0; g < kRingRows; ++g)
+              s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kRingRows; ++g) {
+          float m_new = m[g];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (Src::kQuant) s[u][g] *= ksc[u];  // K's scale
+            m_new = fmaxf(m_new, ok[u] ? s[u][g] : kNegInf);
+          }
+          const float alpha = exp2f(m[g] - m_new);
+          l[g] *= alpha;
+#pragma unroll
+          for (int e = 0; e < kRingEPL; ++e) acc[g][e] *= alpha;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            // past the length: weight 0, also while m_new is still -1e30
+            const float p = ok[u] ? exp2f(s[u][g] - m_new) : 0.f;
+            const float pv = Src::kQuant ? p * vsc[u] : p;  // V's scale
+            l[g] += p;
+#pragma unroll
+            for (int e = 0; e < kRingEPL; ++e)
+              acc[g][e] = fmaf(pv, vr[u][e], acc[g][e]);
+          }
+          m[g] = m_new;
+        }
+      }
+      __syncthreads();  // the stage is free for the load after next
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // merge each team's subgroups per row: one partial per (row, split)
+    if (li == 0) {
+#pragma unroll
+      for (int g = 0; g < kRingRows; ++g) {
+        sm_m[sg * kRingRows + g] = m[g];
+        sm_l[sg * kRingRows + g] = l[g];
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kRingRows; ++g) {
+#pragma unroll
+      for (int e = 0; e < kRingEPL; ++e)
+        sm_acc[(sg * kRingRows + g) * DH + li * kRingEPL + e] = acc[g][e];
+    }
+    __syncthreads();
+    for (int e = tid; e < ng * DH; e += kRingThreads) {
+      const int i = e / DH, d = e % DH;
+      const int tm = i / kRingRows, g = i % kRingRows;  // team, its row
+      float m_all = kNegInf;
+      for (int w = tm; w < NSG; w += teams)
+        m_all = fmaxf(m_all, sm_m[w * kRingRows + g]);
+      float l_all = 0.f, a = 0.f;
+      for (int w = tm; w < NSG; w += teams) {
+        const float c = exp2f(sm_m[w * kRingRows + g] - m_all);
+        l_all = fmaf(sm_l[w * kRingRows + g], c, l_all);
+        a = fmaf(sm_acc[(w * kRingRows + g) * DH + d], c, a);
+      }
+      const int64_t at = ((int64_t)b * R + sel[i]) * NS + split_id;
+      part_acc[at * DH + d] = a;
+      if (d == 0) {
+        part_ml[2 * at] = m_all;
+        // the flag of a bad page id, which the merge tests
+        part_ml[2 * at + 1] = flagged ? nanf("") : l_all;
+      }
+    }
+    __syncthreads();  // sel and the merge buffers are free
+    if (tid < 32)
+      pick_rows<kSplitRows>(rows, kv_rows, R, H, kvh, next_r, lane, sel,
+                            sel_row, n_sel, next_r);
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------- the split body on tensor cores
+// bf16 q over bf16 K/V (the dense and glm4 paths) run the same split, rows
+// and merge on the tensor cores: every pass's up to 16 q rows are one m16
+// tile, so QK^T is mma.sync m16n8k16 (q in registers, K by ldmatrix) and
+// PV is m16n8k8 (the scores' accumulator layout is the A operand; V by
+// ldmatrix.trans).  Each of the 4 warps takes 8 slots of every 32-slot
+// tile and keeps its own (m, l, O[16][DH]) in f32; rows of the tile sit
+// kMmaPad elements apart so ldmatrix reads no bank twice.  At G 16 this is
+// ~70 warp instructions per 8 slots of a tile for all 16 rows, against
+// ~13 per (slot, row) on the CUDA cores.  A warp rescales O only when
+// some row's running max grows.  A cap of 4 blocks an SM (128 registers)
+// spilled and ran slower than 3 (168 registers, no spills; PERF.md).
+constexpr int kMmaTile = 32;  // slots a tile; 8 per warp
+constexpr int kMmaPad = 8;    // bf16 elements past each staged row
+constexpr int kMmaStages = 3;
+
+template <int DH>
+__host__ __device__ constexpr int mma_smem_bytes() {  // pipe or merge
+  constexpr int pipe = kMmaStages * kMmaTile * (DH + kMmaPad) * 2 * 2;
+  constexpr int merge = kRingWarps * kSplitRows * (DH + 2) * 4;
+  return pipe > merge ? pipe : merge;
+}
+
+// N 8x8 b16 matrices from shared memory (N = 2 or 4): lane i gives the
+// address of row i % 8 of matrix i / 8.
+template <int N, bool TRANS>
+__device__ __forceinline__ void ldsm(uint32_t (&r)[N], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if constexpr (N == 4 && !TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  if constexpr (N == 4 && TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  if constexpr (N == 2 && !TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+  if constexpr (N == 2 && TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_1688(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 two = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&two);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16* p) {
+  __nv_bfloat162 two;
+  two.x = p[0];
+  two.y = p[1];
+  return *reinterpret_cast<const uint32_t*>(&two);
+}
+
+template <typename Src, int DH>
+__global__ void __launch_bounds__(kRingThreads, 3)
+decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const int32_t* __restrict__ page_map, const Src src,
+                        const int32_t* __restrict__ lengths,
+                        const int32_t* __restrict__ rows,
+                        const int32_t* __restrict__ kv_rows,
+                        float* __restrict__ part_ml,
+                        float* __restrict__ part_acc, int H, int R,
+                        int split, int64_t q_sb, int64_t q_sh, float sl2) {
+  using E = __nv_bfloat16;
+  constexpr int TS = kMmaTile, ROW = DH + kMmaPad;
+  constexpr int NX = DH >= 32 ? 4 : 2;   // 8x8 matrices an ldmatrix
+  constexpr int NT = DH / 8;             // PV n-tiles of 8 head-dim columns
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* k_tile = reinterpret_cast<E*>(smem);               // [stage][TS][ROW]
+  E* v_tile = k_tile + kMmaStages * TS * ROW;           // [stage][TS][ROW]
+  // the warps' results, over the stages once the tiles are scored
+  float* sm_m = reinterpret_cast<float*>(smem);         // [warp][16]
+  float* sm_l = sm_m + kRingWarps * kSplitRows;
+  float* sm_acc = sm_l + kRingWarps * kSplitRows;       // [warp][16][DH]
+  int32_t* pages = reinterpret_cast<int32_t*>(smem + mma_smem_bytes<DH>());
+  __shared__ int sel[kSplitRows], sel_row[kSplitRows];  // this pass's r
+  __shared__ int n_sel, next_r;
+
+  const int split_id = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int len = min(max(lengths[b], 0), src.cap());
+  const int t_begin = split_id * split;
+  if (t_begin >= len) return;  // block-uniform: reads and writes nothing
+  const int t_end = min(len, t_begin + split);
+  const int NS = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // the mma fragments' row, column
+  const E* kb = k + src.row(src.k_sb, src.k_sh, b, kvh);
+  const E* vb = v + src.row(src.v_sb, src.v_sh, b, kvh);
+  if (tid < 32)
+    pick_rows<kSplitRows>(rows, kv_rows, R, H, kvh, 0, lane, sel, sel_row,
+                          n_sel, next_r);
+  const int first_pg = Src::kPaged ? t_begin / src.T_len : 0;
+  // block-uniform; the barrier also publishes the rows and page ids
+  const bool flagged = stage_pages(src, page_map, b, first_pg, t_end, pages);
+  const int n_tiles = flagged ? 0 : (t_end - t_begin + TS - 1) / TS;
+
+  while (true) {  // one pass per kSplitRows of this KV head's rows
+    const int ng = n_sel;
+    if (ng == 0) break;
+#pragma unroll
+    for (int st = 0; st < kMmaStages - 1; ++st) {
+      if (st < n_tiles)
+        split_stage<Src, DH, TS, ROW>(
+            k_tile + st * TS * ROW, v_tile + st * TS * ROW, nullptr, nullptr,
+            kb, vb, nullptr, nullptr, pages, first_pg, src,
+            t_begin + st * TS, t_end, tid);
+      cp_async_commit();
+    }
+    // q rows g and g + 8 of the pass as A fragments (zero past ng)
+    uint32_t qa[DH / 16][4];
+    {
+      const E* q0 = q + b * q_sb + (g < ng ? sel_row[g] : 0) * q_sh;
+      const E* q1 = q + b * q_sb + (g + 8 < ng ? sel_row[g + 8] : 0) * q_sh;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int d = 16 * kk + 2 * tq;
+        qa[kk][0] = g < ng ? pack_bf16(q0 + d) : 0u;
+        qa[kk][1] = g + 8 < ng ? pack_bf16(q1 + d) : 0u;
+        qa[kk][2] = g < ng ? pack_bf16(q0 + d + 8) : 0u;
+        qa[kk][3] = g + 8 < ng ? pack_bf16(q1 + d + 8) : 0u;
+      }
+    }
+    // rows g (index 0) and g + 8 (index 1): running max in log2 units,
+    // this thread's part of the sum, and O's columns 8 n + 2 tq, + 1
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int ahead = j + kMmaStages - 1;
+      if (ahead < n_tiles) {
+        const int st = ahead % kMmaStages;
+        split_stage<Src, DH, TS, ROW>(
+            k_tile + st * TS * ROW, v_tile + st * TS * ROW, nullptr, nullptr,
+            kb, vb, nullptr, nullptr, pages, first_pg, src,
+            t_begin + ahead * TS, t_end, tid);
+      }
+      cp_async_commit();
+      cp_async_wait<kMmaStages - 1>();
+      __syncthreads();
+      const int st = j % kMmaStages;
+      // this warp's 8 slots of the tile; lane i addresses row i % 8 of
+      // matrix i / 8 (of NX)
+      const E* kt = k_tile + (st * TS + warp * 8 + (lane & 7)) * ROW +
+                    8 * ((lane >> 3) % NX);
+      const E* vt = v_tile + (st * TS + warp * 8 + (lane & 7)) * ROW +
+                    8 * ((lane >> 3) % NX);
+      float s[4] = {0.f, 0.f, 0.f, 0.f};   // S[g | g + 8][slot 2 tq | + 1]
+#pragma unroll
+      for (int c = 0; c < DH / (8 * NX); ++c) {
+        uint32_t kf[NX];
+        ldsm<NX, false>(kf, kt + 8 * NX * c);
+#pragma unroll
+        for (int h = 0; h < NX / 2; ++h)
+          mma_16816(s, qa[c * NX / 2 + h], kf[2 * h], kf[2 * h + 1]);
+      }
+      const int slot = t_begin + j * TS + warp * 8 + 2 * tq;
+      const bool ok0 = slot < t_end, ok1 = slot + 1 < t_end;
+      s[0] = ok0 ? s[0] * sl2 : kNegInf;
+      s[1] = ok1 ? s[1] * sl2 : kNegInf;
+      s[2] = ok0 ? s[2] * sl2 : kNegInf;
+      s[3] = ok1 ? s[3] * sl2 : kNegInf;
+      float mx[2] = {fmaxf(s[0], s[1]), fmaxf(s[2], s[3])};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      // warp-uniform: rescale only when some row's max grows
+      if (__any_sync(0xffffffffu, mx[0] > m[0] || mx[1] > m[1])) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], mx[r]);
+          const float alpha = exp2f(m[r] - m_new);
+          l[r] *= alpha;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            o[n][2 * r] *= alpha;
+            o[n][2 * r + 1] *= alpha;
+          }
+          m[r] = m_new;
+        }
+      }
+      // past the length: weight 0, also while m is still -1e30
+      const float p0 = ok0 ? exp2f(s[0] - m[0]) : 0.f;
+      const float p1 = ok1 ? exp2f(s[1] - m[0]) : 0.f;
+      const float p2 = ok0 ? exp2f(s[2] - m[1]) : 0.f;
+      const float p3 = ok1 ? exp2f(s[3] - m[1]) : 0.f;
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      const uint32_t pa0 = pack_bf16(p0, p1), pa1 = pack_bf16(p2, p3);
+#pragma unroll
+      for (int c = 0; c < DH / (8 * NX); ++c) {
+        uint32_t vf[NX];
+        ldsm<NX, true>(vf, vt + 8 * NX * c);
+#pragma unroll
+        for (int h = 0; h < NX; ++h) mma_1688(o[c * NX + h], pa0, pa1, vf[h]);
+      }
+      __syncthreads();  // the stage is free for the load after next
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // merge the warps' (m, l, O) per row: one partial per (row, split)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int at = warp * kSplitRows + g + 8 * r;
+      if (tq == 0) {
+        sm_m[at] = m[r];
+        sm_l[at] = l[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        sm_acc[at * DH + 8 * n + 2 * tq] = o[n][2 * r];
+        sm_acc[at * DH + 8 * n + 2 * tq + 1] = o[n][2 * r + 1];
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < ng * DH; e += kRingThreads) {
+      const int i = e / DH, d = e % DH;
+      float m_all = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kRingWarps; ++w)
+        m_all = fmaxf(m_all, sm_m[w * kSplitRows + i]);
+      float l_all = 0.f, a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kRingWarps; ++w) {
+        const float c = exp2f(sm_m[w * kSplitRows + i] - m_all);
+        l_all = fmaf(sm_l[w * kSplitRows + i], c, l_all);
+        a = fmaf(sm_acc[(w * kSplitRows + i) * DH + d], c, a);
+      }
+      const int64_t at = ((int64_t)b * R + sel[i]) * NS + split_id;
+      part_acc[at * DH + d] = a;
+      if (d == 0) {
+        part_ml[2 * at] = m_all;
+        // the flag of a bad page id, which the merge tests
+        part_ml[2 * at + 1] = flagged ? nanf("") : l_all;
+      }
+    }
+    __syncthreads();  // sel and the merge buffers are free
+    if (tid < 32)
+      pick_rows<kSplitRows>(rows, kv_rows, R, H, kvh, next_r, lane, sel,
+                            sel_row, n_sel, next_r);
+    __syncthreads();
+  }
+}
+
+// The split body's scratch: part_ml (B, R, NS, 2) and part_acc
+// (B, R, NS, dh) float32, NS = ceil(cap / split).
+struct Split {
+  float* part_ml;
+  float* part_acc;
+  int split;
+};
+
+// Launches `kernel` with `bytes` of dynamic shared memory, asking for
+// them first where a launch has not asked for as many (above 48 KB, static
+// shared memory included, a block must ask).
+template <typename Kernel, typename... Args>
+cudaError_t launch_with_smem(Kernel kernel, int& allowed, int bytes,
+                             dim3 grid, cudaStream_t stream, Args... args) {
+  if (bytes > allowed) {
+    const cudaError_t set = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (set != cudaSuccess) return set;
+    allowed = bytes;
+  }
+  kernel<<<grid, kRingThreads, bytes, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <typename QT, typename Src, int DH>
+int launch_split_dh(const Common& c, const Buffers& buf, const Src& src,
+                    const Split& sp) {
+  using E = typename Src::Elem;
+  // bf16 q over bf16 K/V: the tensor-core body; f32 and int8: CUDA cores
+  constexpr bool kMma = std::is_same<QT, __nv_bfloat16>::value &&
+                        std::is_same<E, __nv_bfloat16>::value;
+  const int cap = Src::kPaged ? src.n_logical * src.T_len : src.T_len;
+  const int NS = (cap + sp.split - 1) / sp.split;
+  // a split of `split` positions spans at most (split - 1) / P + 2 pages
+  const int bytes =
+      (kMma ? mma_smem_bytes<DH>() : split_smem_bytes<E, Src::kQuant, DH>()) +
+      (Src::kPaged ? 4 * ((sp.split - 1) / src.T_len + 2) : 0);
+  static int allowed = 0;
+  const float sl2 = kLog2e / sqrtf(static_cast<float>(DH));
+  const dim3 grid(NS, c.KvE, c.B);
+  const auto* lengths = static_cast<const int32_t*>(c.lengths);
+  const auto* rows = static_cast<const int32_t*>(c.rows);
+  const auto* kv_rows = static_cast<const int32_t*>(c.kv_rows);
+  const auto* page_map = static_cast<const int32_t*>(buf.page_map);
+  cudaError_t err = cudaSuccess;
+  if (NS > 0) {
+    if constexpr (kMma)
+      err = launch_with_smem(
+          decode_split_mma_kernel<Src, DH>, allowed, bytes, grid, c.stream,
+          static_cast<const E*>(c.q), static_cast<const E*>(buf.k),
+          static_cast<const E*>(buf.v), page_map, src, lengths, rows,
+          kv_rows, sp.part_ml, sp.part_acc, c.H, c.R, sp.split, c.q_sb,
+          c.q_sh, sl2);
+    else
+      err = launch_with_smem(
+          decode_split_kernel<QT, Src, DH>, allowed, bytes, grid, c.stream,
+          static_cast<const QT*>(c.q), static_cast<const E*>(buf.k),
+          static_cast<const E*>(buf.v), static_cast<const float*>(buf.ks),
+          static_cast<const float*>(buf.vs), page_map, src, lengths, rows,
+          kv_rows, sp.part_ml, sp.part_acc, c.H, c.R, sp.split, c.q_sb,
+          c.q_sh, sl2);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_merge_kernel<QT, DH, true><<<dim3(c.R, c.B), DH,
+                                     2 * NS * sizeof(float), c.stream>>>(
+      sp.part_ml, sp.part_acc, rows, kv_rows, lengths,
+      static_cast<QT*>(c.out), c.H, c.KvE, c.R, NS, cap, sp.split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, typename Src>
+int launch_split(const Common& c, const Buffers& buf, const Src& src,
+                 const Split& sp) {
+  if (sp.split <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (c.dh) {
+    case 16: return launch_split_dh<QT, Src, 16>(c, buf, src, sp);
+    case 32: return launch_split_dh<QT, Src, 32>(c, buf, src, sp);
+    case 64: return launch_split_dh<QT, Src, 64>(c, buf, src, sp);
+    case 128: return launch_split_dh<QT, Src, 128>(c, buf, src, sp);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// Builds the K/V source for q's dtype and hands it to `go(Tag<QT>, src)`,
+// which launches one of the two bodies.
+template <bool PAGED, bool QUANT, typename Go>
+int run_source(int dtype, int T_len, int n_pages, int n_logical,
+               int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb,
+               int64_t v_sh, int64_t v_st, int64_t ks_sb, int64_t ks_sh,
+               int64_t ks_st, int64_t vs_sb, int64_t vs_sh, int64_t vs_st,
+               Go go) {
+  if (T_len <= 0 && PAGED) return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_SOURCE(QT)                                                    \
+  {                                                                         \
+    using E = typename std::conditional<QUANT, int8_t, QT>::type;           \
+    const KVSource<E, PAGED, QUANT> src{k_sb,  k_sh,  k_st,  v_sb,  v_sh,   \
+                                        v_st,  ks_sb, ks_sh, ks_st, vs_sb,  \
+                                        vs_sh, vs_st, T_len, n_pages,       \
+                                        n_logical};                         \
+    return go(Tag<QT>{}, src);                                              \
+  }
+  if (dtype == 0) REPRO_SOURCE(float)
+  if (dtype == 1) REPRO_SOURCE(__nv_bfloat16)
+#undef REPRO_SOURCE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Plain C entry points bound with ctypes.  Pointers are device pointers;
+// strides are in elements; dtype is q's (and the output's): 0 = float32,
+// 1 = bfloat16.  Each launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() after the launch (0 = success).  The split
+// body's entry points take part_ml (B, R, NS, 2) and part_acc (B, R, NS,
+// dh) float32 scratch for NS = ceil(cap / split) splits of `split` > 0
+// positions, and 16-byte aligned value bases and strides.
+
+// K/V (B, KvE, T, dh) in q's dtype.  Split body.
+extern "C" int decode_attention_resident_launch(
+    const void* q, const void* k, const void* v, const void* lengths,
+    const void* rows, const void* kv_rows, void* out, void* part_ml,
+    void* part_acc, int B, int H, int KvE, int T_len, int R, int split,
+    int dh, int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sb,
+    int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
+    void* stream) {
+  const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
+                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
+  const Buffers buf{k, v, nullptr, nullptr, nullptr};
+  const Split sp{static_cast<float*>(part_ml), static_cast<float*>(part_acc),
+                 split};
+  return run_source<false, false>(
+      dtype, T_len, 0, 0, k_sb, k_sh, k_st, v_sb, v_sh, v_st, 0, 0, 0, 0, 0,
+      0, [&](auto tag, const auto& src) {
+        return launch_split<typename decltype(tag)::type>(c, buf, src, sp);
+      });
+}
+
+// K/V (B, KvE, T, dh) int8; scales (B, KvE, T) float32.  per-row body.
+extern "C" int decode_attention_int8_resident_launch(
+    const void* q, const void* k, const void* ks, const void* v,
+    const void* vs, const void* lengths, const void* rows,
+    const void* kv_rows, void* out, int B, int H, int KvE, int T_len, int R,
+    int dh, int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sb,
+    int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
+    int64_t ks_sb, int64_t ks_sh, int64_t ks_st, int64_t vs_sb,
+    int64_t vs_sh, int64_t vs_st, void* stream) {
+  const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
+                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
+  const Buffers buf{k, v, ks, vs, nullptr};
+  return run_source<false, true>(
+      dtype, T_len, 0, 0, k_sb, k_sh, k_st, v_sb, v_sh, v_st, ks_sb, ks_sh,
+      ks_st, vs_sb, vs_sh, vs_st, [&](auto tag, const auto& src) {
+        return launch<typename decltype(tag)::type>(c, buf, src);
+      });
+}
+
+// K/V pages (n_pages, KvE, P, dh) in q's dtype; page_map (B, np) int32.
+// per-row body.
+extern "C" int decode_attention_paged_resident_launch(
+    const void* q, const void* k, const void* v, const void* lengths,
+    const void* page_map, const void* rows, const void* kv_rows, void* out,
+    int B, int H, int KvE, int P, int n_pages, int n_logical, int R, int dh,
+    int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sp, int64_t k_sh,
+    int64_t k_st, int64_t v_sp, int64_t v_sh, int64_t v_st, void* stream) {
+  const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
+                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
+  const Buffers buf{k, v, nullptr, nullptr, page_map};
+  return run_source<true, false>(
+      dtype, P, n_pages, n_logical, k_sp, k_sh, k_st, v_sp, v_sh, v_st, 0, 0,
+      0, 0, 0, 0, [&](auto tag, const auto& src) {
+        return launch<typename decltype(tag)::type>(c, buf, src);
+      });
+}
+
+// K/V pages (n_pages, KvE, P, dh) int8; scale pages (n_pages, KvE, P)
+// float32; page_map (B, np) int32.  Split body.
+extern "C" int decode_attention_int8_paged_resident_launch(
+    const void* q, const void* k, const void* ks, const void* v,
+    const void* vs, const void* lengths, const void* page_map,
+    const void* rows, const void* kv_rows, void* out, void* part_ml,
+    void* part_acc, int B, int H, int KvE, int P, int n_pages,
+    int n_logical, int R, int split, int dh, int dtype, int64_t q_sb,
+    int64_t q_sh, int64_t k_sp, int64_t k_sh, int64_t k_st, int64_t v_sp,
+    int64_t v_sh, int64_t v_st, int64_t ks_sp, int64_t ks_sh, int64_t ks_st,
+    int64_t vs_sp, int64_t vs_sh, int64_t vs_st, void* stream) {
+  const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
+                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
+  const Buffers buf{k, v, ks, vs, page_map};
+  const Split sp{static_cast<float*>(part_ml), static_cast<float*>(part_acc),
+                 split};
+  return run_source<true, true>(
+      dtype, P, n_pages, n_logical, k_sp, k_sh, k_st, v_sp, v_sh, v_st,
+      ks_sp, ks_sh, ks_st, vs_sp, vs_sh, vs_st,
+      [&](auto tag, const auto& src) {
+        return launch_split<typename decltype(tag)::type>(c, buf, src, sp);
+      });
+}
 
 // A sliding-window ring K/V (B, KvE, W, dh) in q's dtype, 16-byte aligned
 // bases and strides; slot_pos (W,) int32, the absolute position each slot

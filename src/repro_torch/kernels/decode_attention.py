@@ -7,8 +7,11 @@ Counterpart of the JAX package's ``kernels/decode_attention.py``: its five
 Pallas TPU kernels over a linear, paged or sliding-window ring cache, in
 the working dtype or int8 with per-(token, head) scales, are here
 hand-written CUDA C++ for Hopper (``csrc/decode_attention.cu``, built by
-``kernels.build``) behind five entry points — the first four one shared
-flash body, the ring its own split-window kernel:
+``kernels.build``) behind five entry points.  The linear and int8-paged
+ones run a split body (one block per sequence split, KV head and batch
+row, each K/V row read once for all of its q heads, then a merge of the
+splits), the paged and int8-linear ones a per-row body (one block per
+(resident row, batch row)), and the ring its own split-window kernel:
 
 - ``decode_attention_resident``: K/V (B, KvE, T, dh);
 - ``decode_attention_int8_resident``: int8 K/V (B, KvE, T, dh) with f32
@@ -133,19 +136,22 @@ _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # argument types of each entry point of csrc/decode_attention.cu
 _SIGNATURES = {
     "decode_attention_resident_launch":
-        [_PTR] * 7 + [_INT] * 7 + [_I64] * 8 + [_PTR],
+        [_PTR] * 9 + [_INT] * 8 + [_I64] * 8 + [_PTR],
     "decode_attention_int8_resident_launch":
         [_PTR] * 9 + [_INT] * 7 + [_I64] * 14 + [_PTR],
     "decode_attention_paged_resident_launch":
         [_PTR] * 8 + [_INT] * 9 + [_I64] * 8 + [_PTR],
     "decode_attention_int8_paged_resident_launch":
-        [_PTR] * 10 + [_INT] * 9 + [_I64] * 14 + [_PTR],
+        [_PTR] * 12 + [_INT] * 10 + [_I64] * 14 + [_PTR],
     "decode_attention_ring_resident_launch":
         [_PTR] * 10 + [_INT] * 8 + [_I64] * 8 + [_PTR],
 }
 # the ring kernel splits the window into pieces of a multiple of this many
 # slots (a multiple of every head width's tile)
 _RING_SPLIT_ALIGN = 128
+# the split body splits the cache extent into pieces of a multiple of this
+# many positions (two tiles of 32 at dh 64 and 128)
+_DECODE_SPLIT_ALIGN = 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -252,6 +258,9 @@ def decode_attention_resident(q, k, v, lengths, rows, kv_rows=None):
     cache lengths, read as ``clamp(lengths, 0, T)``; rows: (R,) physical
     q-head rows; kv_rows: (R,) KV rows, default ``rows // (H // KvE)``.
     Returns the compacted (B, R, dh) slice in ``rows`` order, in q's dtype.
+    The kernel needs 16-byte aligned k/v bases and strides (every model
+    view has them) and launches as two CUDA kernels (sequence splits, then
+    their merge); it counts one launch.
     """
     kv_rows = _kv_rows(q, k, rows, kv_rows)
     B, H, dh = _check(q, k, v, lengths, rows, kv_rows, batch_axis=True)
@@ -259,14 +268,16 @@ def decode_attention_resident(q, k, v, lengths, rows, kv_rows=None):
         return decode_attention_resident_plain(q, k, v, lengths, rows,
                                                kv_rows)
     _check_kernel_inputs(q, k, v, dh, quant=False)
+    _check_aligned16(k, v)
     lengths, rows, kv_rows = _i32(lengths, rows, kv_rows)
-    KvE, T = k.shape[1], k.shape[2]
+    KvE, T, R = k.shape[1], k.shape[2], rows.shape[0]
+    split = _decode_split(B, KvE, T, _sm_count(q.device))
     out, launched = _launch(
-        "decode_attention_resident_launch", q, rows.shape[0],
-        (q, k, v, lengths, rows, kv_rows), (B, H, KvE, T, rows.shape[0]),
+        "decode_attention_resident_launch", q, R,
+        (q, k, v, lengths, rows, kv_rows), (B, H, KvE, T, R, split),
         (k.stride(0), k.stride(1), k.stride(2),
          v.stride(0), v.stride(1), v.stride(2)),
-        "decode_attention_resident")
+        "decode_attention_resident", scratch=_split_scratch(q, R, T, split))
     decode_attention_resident.launches += launched
     return out
 
@@ -341,7 +352,10 @@ def decode_attention_int8_paged_resident(q, k_q8, k_sc, v_q8, v_sc, lengths,
     """Paged + int8 twin: k_q8, v_q8 (n_pages, KvE, P, dh) int8 pages and
     k_sc, v_sc (n_pages, KvE, P, 1) float32 scale pages — scales page
     exactly like values.  Otherwise as
-    :func:`decode_attention_paged_resident`."""
+    :func:`decode_attention_paged_resident`.  The kernel needs 16-byte
+    aligned value bases and strides (scales: 4 bytes) and launches as two
+    CUDA kernels (sequence splits, then their merge); it counts one
+    launch."""
     kv_rows = _kv_rows(q, k_q8, rows, kv_rows)
     B, H, dh = _check(q, k_q8, v_q8, lengths, rows, kv_rows,
                       batch_axis=False)
@@ -353,17 +367,21 @@ def decode_attention_int8_paged_resident(q, k_q8, k_sc, v_q8, v_sc, lengths,
     _check_kernel_inputs(q, k_q8, v_q8, dh, quant=True)
     if k_sc.dtype != torch.float32 or v_sc.dtype != torch.float32:
         raise ValueError("kernel takes float32 scales")
+    _check_aligned16(k_q8, v_q8)
     lengths, page_map, rows, kv_rows = _i32(lengths, page_map, rows, kv_rows)
     n_pages, KvE, P = k_q8.shape[:3]
+    R, cap = rows.shape[0], page_map.shape[1] * P
+    split = _decode_split(B, KvE, cap, _sm_count(q.device))
     out, launched = _launch(
-        "decode_attention_int8_paged_resident_launch", q, rows.shape[0],
+        "decode_attention_int8_paged_resident_launch", q, R,
         (q, k_q8, k_sc, v_q8, v_sc, lengths, page_map, rows, kv_rows),
-        (B, H, KvE, P, n_pages, page_map.shape[1], rows.shape[0]),
+        (B, H, KvE, P, n_pages, page_map.shape[1], R, split),
         (k_q8.stride(0), k_q8.stride(1), k_q8.stride(2),
          v_q8.stride(0), v_q8.stride(1), v_q8.stride(2),
          k_sc.stride(0), k_sc.stride(1), k_sc.stride(2),
          v_sc.stride(0), v_sc.stride(1), v_sc.stride(2)),
-        "decode_attention_int8_paged_resident")
+        "decode_attention_int8_paged_resident",
+        scratch=_split_scratch(q, R, cap, split))
     decode_attention_int8_paged_resident.launches += launched
     return out
 
@@ -371,6 +389,36 @@ def decode_attention_int8_paged_resident(q, k_q8, k_sc, v_q8, v_sc, lengths,
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _decode_split(B: int, KvE: int, extent: int, sms: int) -> int:
+    """Positions per sequence split of the split body: a multiple of
+    ``_DECODE_SPLIT_ALIGN`` such that the (split, KV head, batch row) grid
+    over the cache ``extent`` (T, or np * P when paged) holds about 4
+    blocks per SM of a card with ``sms`` SMs (B 8, KvE 8, T 1024 on 132
+    SMs: 128 positions, 8 splits, 512 blocks; glm4's B 8, KvE 2, T 8264:
+    256, 33 splits, 528 blocks).  It reads no lengths: a split past a
+    row's length costs its block an early exit, not a host sync."""
+    want = max(1, -(-4 * sms // (B * KvE)))
+    split = -(-extent // want)
+    return max(1, -(-split // _DECODE_SPLIT_ALIGN)) * _DECODE_SPLIT_ALIGN
+
+
+def _split_scratch(q, R: int, extent: int, split: int):
+    """The splits' float32 partials: (m, l) (B, R, NS, 2) and acc
+    (B, R, NS, dh), NS = ceil(extent / split)."""
+    B, _, dh = q.shape
+    n_splits = -(-extent // split)
+    return (torch.empty((B, R, n_splits, 2), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((B, R, n_splits, dh), dtype=torch.float32,
+                        device=q.device))
+
+
+def _check_aligned16(k, v):
+    if not (build.aligned16(k) and build.aligned16(v)):
+        raise ValueError("the kernel needs k/v with 16-byte aligned bases "
+                         "and strides (cp.async copies)")
 
 
 def _ring_split(B: int, KvE: int, window: int, sms: int) -> int:
@@ -408,17 +456,11 @@ def decode_attention_ring_resident(q, k, v, lengths, slot_pos, rows,
         return decode_attention_ring_resident_plain(
             q, k, v, lengths, slot_pos, rows, kv_rows, window=window)
     _check_kernel_inputs(q, k, v, dh, quant=False)
-    if not (build.aligned16(k) and build.aligned16(v)):
-        raise ValueError("the ring kernel needs k/v with 16-byte aligned "
-                         "bases and strides (cp.async copies)")
+    _check_aligned16(k, v)
     lengths, slot_pos, rows, kv_rows = _i32(lengths, slot_pos, rows, kv_rows)
     KvE, R = k.shape[1], rows.shape[0]
     split = _ring_split(B, KvE, window, _sm_count(q.device))
-    n_splits = -(-window // split)
-    scratch = (torch.empty((B, R, n_splits, 2), dtype=torch.float32,
-                           device=q.device),
-               torch.empty((B, R, n_splits, dh), dtype=torch.float32,
-                           device=q.device))
+    scratch = _split_scratch(q, R, window, split)
     out, launched = _launch(
         "decode_attention_ring_resident_launch", q, R,
         (q, k, v, lengths, slot_pos, rows, kv_rows),

@@ -9,8 +9,9 @@ marked ``gpu`` and skip elsewhere.  On the card:
 machine need not have.)
 
 Tolerances: float32 ``atol=rtol=1e-5`` (summation order only); bfloat16
-``atol=2e-2`` after upcasting (the output rounds to bf16); the flash and
-ring kernels also per output row (``FLASH_ROW_REL``, ``RING_ROW_REL``).
+``atol=2e-2`` after upcasting (the output rounds to bf16); the flash, ring
+and split-body decode kernels also per output row (``FLASH_ROW_REL``,
+``RING_ROW_REL``, ``DECODE_ROW_REL``).
 """
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),
 # an output is as small as TOLS's bf16 atol).
 FLASH_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RING_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DECODE_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def _row_rel_err(out, want) -> float:
@@ -172,6 +174,192 @@ def test_paged_kernel_gives_nan_for_a_page_id_out_of_range(cuda, quant):
     torch.cuda.synchronize()
     assert torch.isnan(out[2]).all() and torch.isnan(out[3]).all()
     assert torch.isfinite(out[:2]).all()
+
+
+# ------------------------------------------- the split body (resident,
+# int8-paged): one block per (sequence split, KV head, batch row), a merge
+def _splits(q, n_kv, extent):
+    from repro_torch.kernels import decode_attention as da
+    split = da._decode_split(q.shape[0], n_kv, extent,
+                             da._sm_count(q.device))
+    return split, -(-extent // split)
+
+
+def _split_check(kern, plain, args, *, kv_rows=None, keep=None):
+    """One launch, held to TOLS and DECODE_ROW_REL per (b, resident row)
+    over the entries ``keep`` (default all); returns the output."""
+    before = kern.launches
+    out = kern(*args, kv_rows) if kv_rows is not None else kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    if keep is None:
+        want, got = plain(*args), out
+    else:
+        sub = list(args[:-1]) + [args[-1][keep]]
+        want = plain(*sub, kv_rows[keep]) if kv_rows is not None \
+            else plain(*sub)
+        got = out[:, keep]
+    dtype = args[0].dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
+    assert _row_rel_err(got, want) <= DECODE_ROW_REL[dtype]
+    assert torch.isfinite(got).all()
+    return out
+
+
+def _resident_split_args(cuda, dtype, *, H, KvE, dh, T=1100, B=6, seed=0):
+    """q and a (B, T, KvE, dh) cache seen transposed, with lengths 0, 1,
+    split - 1, split, split + 1 and T for the wrapper's split."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    cache = torch.from_numpy(rng.standard_normal((2, B, T, KvE, dh),
+                                                 np.float32))
+    q, cache = q.to(cuda, dtype), cache.to(cuda, dtype)
+    split, n_splits = _splits(q, KvE, T)
+    assert n_splits > 2
+    lengths = torch.tensor([0, 1, split - 1, split, split + 1, T][:B],
+                           dtype=torch.int32, device=cuda)
+    return (q, cache[0].transpose(1, 2), cache[1].transpose(1, 2),
+            lengths), rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [4, 16])
+@pytest.mark.parametrize("case", ["permuted", "partial", "nan_rows"])
+def test_resident_kernel_splits(cuda, dtype, dh, G, case):
+    """T 1100 over several splits, lengths on the split's edges (0, 1,
+    split - 1, split, split + 1, T), 4 and 16 q heads a KV head: every row
+    permuted across KV heads; a partial set in which KV head 0 has no row;
+    an out-of-range ``rows`` and ``kv_rows`` entry giving NaN for that
+    entry only."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_resident as kern,
+        decode_attention_resident_plain as plain)
+    H = 32
+    args, rng = _resident_split_args(cuda, dtype, H=H, KvE=H // G, dh=dh,
+                                     seed=dh + G)
+    rows = rng.permutation(H)
+    if case == "partial":
+        rows = rng.permutation([r for r in range(H) if r >= G])[:G + 3]
+    rows = torch.as_tensor(rows, dtype=torch.int32, device=cuda)
+    if case != "nan_rows":
+        out = _split_check(kern, plain, args + (rows,))
+    else:
+        kv_rows = rows // G
+        rows[3], kv_rows[5] = H, -1
+        keep = [r for r in range(H) if r not in (3, 5)]
+        out = _split_check(kern, plain, args + (rows,), kv_rows=kv_rows,
+                           keep=keep)
+        assert torch.isnan(out[:, 3]).all() and torch.isnan(out[:, 5]).all()
+        out = out[:, keep]
+    assert not out[0].any()                  # length 0 returns zeros
+
+
+def _int8_paged_split_args(cuda, dtype, dh, P, *, B=6, H=16, KvE=4, seed=0):
+    """q, int8 value pages (n_pages, KvE, P, dh) and scale pages
+    (n_pages, KvE, P, 1) as views of the model's (n_pages, P, KvE, dh) and
+    (n_pages, P, KvE) stores (a scrambled pool two pages larger than the
+    rows need), lengths on the wrapper's split edges, and the page map
+    (B, np) with 0 past each row's live pages."""
+    rng = np.random.default_rng(seed)
+    n_log = -(-1100 // P)
+    cap, n_pages = n_log * P, B * n_log + 2
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    store = torch.from_numpy(rng.standard_normal((2, n_pages, P, KvE, dh),
+                                                 np.float32)).to(cuda)
+    q = q.to(cuda, dtype)
+    (kq, ks), (vq, vs) = _q8(store[0]), _q8(store[1])
+    split, n_splits = _splits(q, KvE, cap)
+    assert n_splits > 2
+    lengths = [0, 1, split - 1, split, split + 1, cap][:B]
+    live = [-(-n // P) for n in lengths]
+    perm = rng.permutation(n_pages)[:B * n_log].reshape(B, n_log)
+    pmap = np.where(np.arange(n_log)[None] < np.asarray(live)[:, None],
+                    perm, 0)
+    return (q, kq.transpose(1, 2), ks.transpose(1, 2)[..., None],
+            vq.transpose(1, 2), vs.transpose(1, 2)[..., None],
+            torch.tensor(lengths, dtype=torch.int32, device=cuda),
+            torch.as_tensor(pmap, dtype=torch.int32, device=cuda)), rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("P", [64, 8, 6])
+def test_int8_paged_kernel_splits(cuda, dtype, dh, P):
+    """Pages of 64, 8 and 6 positions (6: tiles and splits cross pages)
+    over several splits, lengths on the split's edges, rows permuted
+    across KV heads."""
+    from repro_torch.kernels import decode_attention as da
+    args, rng = _int8_paged_split_args(cuda, dtype, dh, P, seed=dh + P)
+    rows = torch.as_tensor(rng.permutation(16), dtype=torch.int32,
+                           device=cuda)
+    out = _split_check(da.decode_attention_int8_paged_resident,
+                       da.decode_attention_int8_paged_resident_plain,
+                       args + (rows,))
+    assert not out[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_int8_paged_kernel_nan_in_the_last_split(cuda, dtype, dh):
+    """A bad page id that only the last split of row 5 (length np * P)
+    reads makes that row NaN, and only that row; a bad id past row 2's
+    length changes nothing."""
+    from repro_torch.kernels import decode_attention as da
+    kern = da.decode_attention_int8_paged_resident
+    args, rng = _int8_paged_split_args(cuda, dtype, dh, 8, seed=dh)
+    q, kq, pmap = args[0], args[1], args[-1]
+    rows = torch.as_tensor(rng.permutation(16), dtype=torch.int32,
+                           device=cuda)
+    clean = _split_check(kern, da.decode_attention_int8_paged_resident_plain,
+                         args + (rows,))
+    n_log, P = pmap.shape[1], kq.shape[2]
+    split, n_splits = _splits(q, kq.shape[1], n_log * P)
+    assert (n_log - 1) * P >= (n_splits - 1) * split   # in the last split
+    dirty = pmap.clone()
+    dirty[5, n_log - 1] = kq.shape[0]                 # read by the last
+    dirty[2, n_log - 2] = 10 ** 6                     # past row 2's length
+    out = kern(*args[:-1], dirty, rows)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[5]).all()
+    assert torch.equal(out[:5], clean[:5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["resident", "int8_paged"])
+def test_split_kernels_refuse_unaligned_values(cuda, kind, dtype, dh):
+    """Values whose position stride (dh + 1 values) is no whole number of
+    16-byte pieces cannot be staged by cp.async: the wrapper raises before
+    launch."""
+    from repro_torch.kernels import decode_attention as da
+    rng = np.random.default_rng(dh)
+    B, H, KvE, P, n_log = 2, 8, 2, 8, 4
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32)).to(
+        cuda, dtype)
+    lead = B if kind == "resident" else B * n_log
+    wide = torch.from_numpy(rng.standard_normal((2, lead, P * n_log if
+                                                 kind == "resident" else P,
+                                                 KvE, dh + 1),
+                                                np.float32)).to(cuda)
+    rows = torch.arange(H, dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([5, 17], dtype=torch.int32, device=cuda)
+    if kind == "resident":
+        kern = da.decode_attention_resident
+        k, v = (t[..., :dh].transpose(1, 2) for t in wide.to(dtype))
+        args = (q, k, v, lengths, rows)
+    else:
+        kern = da.decode_attention_int8_paged_resident
+        (kq, ks), (vq, vs) = _q8(wide[0]), _q8(wide[1])
+        pmap = torch.arange(B * n_log, dtype=torch.int32,
+                            device=cuda).reshape(B, n_log)
+        args = (q, kq[..., :dh].transpose(1, 2),
+                ks.transpose(1, 2)[..., None], vq[..., :dh].transpose(1, 2),
+                vs.transpose(1, 2)[..., None], lengths, pmap, rows)
+    before = kern.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        kern(*args)
+    assert kern.launches == before
 
 
 def ring_slot_pos(window, n_written):

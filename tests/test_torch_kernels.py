@@ -277,3 +277,33 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="is on"):
         decode_attention_paged_resident(qt, kt, vt, lens,
                                         pmap.to("meta"), rows)
+
+
+@pytest.mark.parametrize("B,KvE_,extent,sms", [
+    (8, 8, 1024, 132),      # the dense path: 8 splits of 128, 512 blocks
+    (8, 2, 8264, 132),      # the glm4 path: 33 splits of 256, 528 blocks
+    (8, 8, 1024, 114),      # another card's SM count
+    (4, 2, 80, 132),        # small shapes: fewer positions than the card
+    (6, 2, 1100, 132),
+    (1, 1, 100000, 132),
+    (8, 8, 1, 132),
+])
+def test_decode_split_fills_the_card(B, KvE_, extent, sms):
+    """The split body's sequence split: a positive multiple of its
+    alignment, NS splits covering the extent with no empty one, and a
+    grid within a factor of 2 of 4 blocks per SM where the extent holds
+    that many aligned pieces."""
+    from repro_torch.kernels.decode_attention import (_DECODE_SPLIT_ALIGN,
+                                                      _decode_split)
+    split = _decode_split(B, KvE_, extent, sms)
+    n = -(-extent // split)
+    assert split > 0 and split % _DECODE_SPLIT_ALIGN == 0
+    assert n * split >= extent > (n - 1) * split
+    grid = B * KvE_ * n
+    pieces = B * KvE_ * -(-extent // _DECODE_SPLIT_ALIGN)
+    assert grid >= min(2 * sms, pieces)
+    assert grid <= max(8 * sms, B * KvE_)
+    if (B, KvE_, extent, sms) == (8, 8, 1024, 132):
+        assert (split, n, grid) == (128, 8, 512)
+    if (B, KvE_, extent, sms) == (8, 2, 8264, 132):
+        assert (split, n, grid) == (256, 33, 528)
