@@ -21,9 +21,10 @@ RoPE) at full width (4 layers) under continuous batching with 2048-8192
 token prompts and applied head migrations — and checks that each path
 went through its kernels, with exact launch counts.  Every prefill whose
 queries and keys share their positions (bucketed, lock-step, ring) runs
-the flash attention kernel.  Then it checks in float32 that greedy
-streams with and without the kernels, and from paged and dense caches,
-are equal.
+the flash attention kernel.  It checks that the paged decode kernels give
+the linear ones' output bit for bit on the same cache in scrambled pages,
+and in float32 that greedy streams with and without the kernels, and
+from paged and dense caches, are equal.
 
     python3 chip_smoke.py --ab build/parent . . build/parent
 
@@ -92,14 +93,13 @@ FLASH_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # split in the merge or zero one 16-byte piece of each K row read
 # 0.34-0.58 (PERF.md, PR 16).
 RING_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# The split body's entry points (resident, int8-paged) are bounded per
-# (b, resident row) the same way: over T 1024 of N(0, 1) inputs an output
-# is ~sqrt(e / 1024) = 0.05, so TOLS's bf16 atol alone passes a kernel that
-# drops a K/V tile or a split.  Sound bf16 rows read <= 3.6e-3 (the tensor
-# cores round P to bf16; the CUDA cores' int8-paged rows <= 8.2e-4), f32
-# rows <= 7e-7; copies whose merge skips one split read >= 0.57 and copies
-# that zero one 16-byte piece of each K row >= 0.32 (PERF.md, "split
-# body").
+# The split body's entry points (resident, int8, paged, int8-paged) are
+# bounded per (b, resident row) the same way: over T 1024 of N(0, 1)
+# inputs an output is ~sqrt(e / 1024) = 0.05, so TOLS's bf16 atol alone
+# passes a kernel that drops a K/V tile or a split.  Sound bf16 rows read
+# <= 3.6e-3 (the tensor cores round P to bf16), f32 rows <= 7e-7; copies
+# whose merge skips one split read >= 0.57 and copies that zero one
+# 16-byte piece of each K row >= 0.32 (PERF.md, "split body").
 DECODE_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the glm4 path's decode: 32 q heads over 2 KV heads (G 16), an extent of
 # GLM_MAX_SEQ, every row between its shortest prompt and its last token
@@ -170,11 +170,11 @@ def cuda_ms(calls, reps: int = 20, n: int = 50) -> float:
     return float(np.median(times)) / reps
 
 
-# the decode bodies' mangled names (per-row or split): q's type, then
-# KVSource<E, PAGED, QUANT> and DH; the ring kernel's and the merge's: q's
-# type and DH; the WKV6 kernel's: r/k/v's type, u's type and DH; the flash
-# bodies': DH
-_QTYPE = re.compile(r"decode_(attention|split|split_mma)_kernelI"
+# the split bodies' mangled names: q's type (the tensor-core body's is
+# bf16 and not in its name), then KVSource<E, PAGED, QUANT> and DH; the ring
+# kernel's and the merge's: q's type and DH; the WKV6 kernel's: r/k/v's
+# type, u's type and DH; the flash bodies': DH
+_QTYPE = re.compile(r"decode_(split|split_mma)_kernelI"
                     r"(f|13__nv_bfloat16|NS_8KVSourceI13__nv_bfloat16)")
 _FLAGS = re.compile(r"Lb([01])ELb([01])EEELi(\d+)E")
 _RING = re.compile(r"(ring_split|split_merge)_kernelI(f|13__nv_bfloat16)"
@@ -224,8 +224,8 @@ def ptxas_usage(text: str):
                 paged, quant, dh = flags.groups()
                 kind = ("paged " if paged == "1" else "linear ") \
                     + ("int8" if quant == "1" else "fp")
-                body = {"attention": "per-row", "split": "split",
-                        "split_mma": "split mma"}[qt.group(1)]
+                body = {"split": "split", "split_mma": "split mma"}[
+                    qt.group(1)]
                 q = "f32" if qt.group(2) == "f" else "bf16"
                 name = f"{body} {kind}, {q} q, dh={dh}"
             out.append((name, f"{used.group(1)} registers, {spills}"))
@@ -434,10 +434,11 @@ def _pool(caches, rng, P, lengths):
 
 
 def kv_inputs(kind, dtype, *, rows="identity", lengths=None, seed=0, P=64):
-    """Kernel-layout arguments of the ``kind`` kernel ("int8", "paged",
-    "int8_paged") at the main path's shapes: K/V and scales are transposed
-    views of the model's (B, T, KvE, dh) cache or (n_pages, P, KvE, dh)
-    page store; int8 values and scales come from the port's ``_q8``."""
+    """Kernel-layout arguments of the ``kind`` kernel ("dense", "int8",
+    "paged", "int8_paged") at the main path's shapes: K/V and scales are
+    transposed views of the model's (B, T, KvE, dh) cache or (n_pages, P,
+    KvE, dh) page store; int8 values and scales come from the port's
+    ``_q8``."""
     from repro_torch.models.layers import _q8
     q, k, v, lens, r = decode_inputs(dtype, rows=rows, lengths=lengths,
                                      seed=seed)
@@ -483,11 +484,12 @@ def phase_new_kernels_vs_plain():
     at the main path's shapes (bf16 and f32; identity, group-permuted and
     partial rows; lengths 0, 1, T-1, T, T+1; paged at P = 64 and 8 over a
     scrambled pool), then their times at the main path's bf16 shapes.
-    Each case logs its worst (b, resident row) relative error; the split
-    body's entry point (int8-paged) is held to DECODE_ROW_REL as well."""
+    Each case is held to TOLS and to DECODE_ROW_REL per (b, resident row);
+    every case of every kernel is logged before a disagreement fails the
+    phase (a kernel that disagrees is not timed)."""
     from repro_torch.kernels import decode_attention as da
     lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
-    records = []
+    records, failed = [], []
     for kind, (name, replaces) in NEW_KERNELS.items():
         kern = getattr(da, name)
         plain = getattr(da, name + "_plain")
@@ -505,20 +507,20 @@ def phase_new_kernels_vs_plain():
             err = (out.float() - want.float()).abs().max().item()
             rel = row_rel_err(out, want)
             ok = torch.allclose(out.float(), want.float(), **TOLS[dt]) \
-                and (kind != "int8_paged" or rel <= DECODE_ROW_REL[dt])
-            limit = f" (limit {DECODE_ROW_REL[dt]:.0e})" \
-                if kind == "int8_paged" else ""
+                and rel <= DECODE_ROW_REL[dt]
             log(f"{name} vs plain {str(dt)[6:]:8s} rows={rows:10s}"
                 f"{f' P={P}' if P else ''} max_abs_err={err:.3e} "
-                f"max_row_rel_err={rel:.3e}{limit}")
+                f"max_row_rel_err={rel:.3e} (limit "
+                f"{DECODE_ROW_REL[dt]:.0e})")
             if not (ok and torch.isfinite(out).all().item()
                     and not out[0].any().item()):
                 bad.append(f"{str(dt)[6:]} {rows} P={P}")
             worst = max(worst, err)
             if dt == torch.bfloat16:
                 worst_rel = max(worst_rel, rel)
-        # every case is logged before the first disagreement fails
-        check(not bad, f"{name} disagrees with its plain version: {bad}")
+        if bad:
+            failed.append(f"{name} disagrees with its plain version: {bad}")
+            continue
         # timing at the main path's bf16 shapes (P = 64), on input copies
         # together larger than the 50 MB L2 so every call reads cold
         sets = [kv_inputs(kind, torch.bfloat16, lengths=lengths, seed=s)
@@ -539,9 +541,38 @@ def phase_new_kernels_vs_plain():
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": replaces, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None,
-            **({"max_rel_err": worst_rel} if kind == "int8_paged" else {})})
+            "library_ms": None, "max_rel_err": worst_rel})
+    check(not failed, "; ".join(failed))
     return records
+
+
+def phase_paged_equals_dense():
+    """Paged equals dense bit for bit at the kernel level: a pool holding
+    the main path's cache (fp, and int8 with its scales) in scrambled pages
+    of 64, np * P == T, gives the linear kernel's output exactly, at f32
+    and bf16, for identity and group-permuted rows: both run the split
+    body with one split, and only addressing differs between them."""
+    from repro_torch.kernels import decode_attention as da
+    names = {"dense": "decode_attention_resident",
+             **{kind: name for kind, (name, _) in NEW_KERNELS.items()}}
+    lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
+    bad = []
+    for kind, linear in (("paged", "dense"), ("int8_paged", "int8")):
+        for i, (dt, rows) in enumerate(
+                (dt, rows) for dt in (torch.float32, torch.bfloat16)
+                for rows in ("identity", "group_perm")):
+            out, want = (getattr(da, names[k])(*kv_inputs(
+                k, dt, rows=rows, lengths=lengths, seed=i))
+                for k in (kind, linear))
+            torch.cuda.synchronize()
+            same = torch.equal(out, want)
+            log(f"{names[kind]} == {names[linear]} {str(dt)[6:]:8s} "
+                f"rows={rows:10s} P=64: "
+                f"{'bit for bit' if same else 'DIFFER'} (max abs difference "
+                f"{(out.float() - want.float()).abs().max():.3e})")
+            if not same:
+                bad.append(f"{names[kind]} {str(dt)[6:]} {rows}")
+    check(not bad, f"paged kernels differ from the linear ones: {bad}")
 
 
 def ring_slot_pos(window: int, n_written: int) -> np.ndarray:
@@ -1704,6 +1735,8 @@ def main():
     log(f"flash library SASS: {check_flash_sass()} HGMMA instructions")
     records = kernel_phases()
     by_name = {r["name"]: r for r in records}
+    release()
+    phase_paged_equals_dense()
     release()
     # each path's launches: its decode kernel's in that kernel's record,
     # the flash kernel's logged; the flash record carries glm4's

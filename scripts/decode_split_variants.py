@@ -8,18 +8,25 @@ For each named variant, in the order given, copies ``src/`` into a
 temporary directory, applies the variant's edits to the copy's
 ``csrc/decode_attention.cu`` (``base``: none), and runs ``chip_smoke.py``'s
 two split-body phases — ``phase_kernel_vs_plain`` (the resident kernel at
-the dense and glm4 shapes) and ``phase_new_kernels_vs_plain`` (int8-paged
-among them) — on the copy's kernels in a fresh process.  A phase that
-fails (a planted fault) is reported after it has logged every case, and
-then records no times.  Prints the copy's ptxas lines for the split body,
-every check and time line, and last the times per turn.
+the dense and glm4 shapes) and ``phase_new_kernels_vs_plain`` (the int8,
+paged and int8-paged kernels) — on the copy's kernels in a fresh process,
+so every split entry point is checked in every turn.  A phase that fails
+(a planted fault) is reported after it has logged every case, and then
+records no times.  Prints the copy's ptxas lines for the split body, every
+check and time line, and last the times per turn.
 
-Faults (each must fail both phases): ``skip_split`` (the merge drops split
-n / 2), ``zero_piece`` (the last 16-byte piece of each staged K row
-zero-filled), ``unstaged_piece`` (that piece never staged).  Tuning
-variants: ``mma_lb4`` / ``core_lb4`` (a cap of 4 blocks an SM for the
-tensor-core / CUDA-core body), ``mma_st4`` / ``core_st4`` (a fourth
-stage), ``cuda_core`` (bf16 on the CUDA-core body).
+Faults (each must fail every case of both phases): ``skip_split`` (the
+merge drops split n / 2), ``zero_piece`` (the last 16-byte piece of each
+staged K row zero-filled), ``unstaged_piece`` (that piece never staged).
+Tuning variants: ``mma_lb4`` / ``core_lb4`` (a cap of 4 blocks an SM for
+the tensor-core / CUDA-core body), ``mma_st4`` / ``core_st4`` (a fourth
+stage), ``cuda_core`` (bf16 q on the CUDA-core body, over any K/V),
+``paged_per_piece`` (a paged stage divides by the page size for every row
+a thread copies, not once a tile), ``stage_unroll1`` /
+``stage_unrolled`` (the staging loop unrolled for no source / for every
+source; the source unrolls it for paged ones only), ``per_piece_stage``
+(every source's stage finds each 16-byte piece's row from a flat piece
+index and locates it on its own, as PR 17's did).
 """
 from __future__ import annotations
 
@@ -32,8 +39,39 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = Path("repro_torch/kernels/csrc/decode_attention.cu")
-STAGE_K = ("    cp_async16(kt + c * ROW + d, kb + blk * src.k_sb + off * "
-           "src.k_st + d,\n               in);")
+STAGE_K = ("    cp_async16(kt + c * ROW + d, kb + blk * src.k_sb + o * "
+           "src.k_st + d, in);")
+STEP = """    if (Src::kPaged && i > 0) {
+      off += RS;
+      while (off >= src.T_len) {
+        off -= src.T_len;
+        ++lp;
+      }
+    }"""
+STAGE_UNROLL = "#pragma unroll (Src::kPaged ? TS : 1)\n"
+STAGE_ROWS = """  const int c0 = tid / CH, d = (tid % CH) * VE;
+  int lp = 0, off = 0;  // PAGED: the logical page and offset of row c
+  if (Src::kPaged) {
+    lp = (t0 + c0) / src.T_len;
+    off = t0 + c0 - lp * src.T_len;
+  }
+#pragma unroll (Src::kPaged ? TS : 1)
+  for (int i = 0; i < (TS + RS - 1) / RS; ++i) {
+    const int c = c0 + i * RS;
+    if (c >= TS) break;  // RS > TS: this thread has no row
+""" + STEP + """
+    const bool in = t0 + c < t_end;
+    const int64_t blk = Src::kPaged && in ? pages[lp - first_pg] : 0;
+    const int o = !in ? 0 : Src::kPaged ? off : t0 + c;
+"""
+PER_PIECE = """#pragma unroll
+  for (int e = tid; e < TS * CH; e += kRingThreads) {
+    const int c = e / CH, d = (e % CH) * VE, t = t0 + c;
+    const bool in = t < t_end;
+    int64_t blk = 0;
+    int o = 0;
+    if (in) src.locate(pages, first_pg, t, blk, o);
+"""
 VARIANTS = {
     "base": [],
     "skip_split": [(
@@ -42,9 +80,8 @@ VARIANTS = {
         "    ml[2 * (n / 2) + 1] = 0.f;\n  }\n"
         "  float m_all = kNegInf;\n  for (int s = 0; s < n; ++s) m_all")],
     "zero_piece": [(STAGE_K, STAGE_K.replace(
-        "in);", "in && (e % CH) != CH - 1);"))],
-    "unstaged_piece": [(STAGE_K, "    if ((e % CH) != CH - 1)\n  "
-                        + STAGE_K.replace("\n", "\n  "))],
+        "in);", "in && d != DH - VE);"))],
+    "unstaged_piece": [(STAGE_K, "    if (d != DH - VE)\n  " + STAGE_K)],
     "mma_lb4": [("__launch_bounds__(kRingThreads, 3)\n"
                  "decode_split_mma_kernel",
                  "__launch_bounds__(kRingThreads, 4)\n"
@@ -57,6 +94,13 @@ VARIANTS = {
                   "constexpr int kSplitStages = 4;")],
     "cuda_core": [("constexpr bool kMma = std::is_same",
                    "constexpr bool kMma = false && std::is_same")],
+    "paged_per_piece": [(STEP, """    if (Src::kPaged) {
+      lp = (t0 + c) / src.T_len;
+      off = t0 + c - lp * src.T_len;
+    }""")],
+    "stage_unroll1": [(STAGE_UNROLL, "#pragma unroll 1\n")],
+    "stage_unrolled": [(STAGE_UNROLL, "#pragma unroll\n")],
+    "per_piece_stage": [(STAGE_ROWS, PER_PIECE)],
 }
 
 # run in a fresh process per variant, with the copy's src first on the path

@@ -2,23 +2,22 @@
 // against a long KV cache, over only the q-head rows one device hosts.
 //
 // Five extern "C" entry points; each replaces one Pallas TPU kernel of the
-// JAX package's src/repro/kernels/decode_attention.py, and names the body
-// that serves it:
+// JAX package's src/repro/kernels/decode_attention.py:
 //   decode_attention_resident_launch            <- decode_attention_resident
-//     K/V (B, KvE, T, dh) in q's dtype;                        split body
+//     K/V (B, KvE, T, dh) in q's dtype;
 //   decode_attention_int8_resident_launch       <- decode_attention_int8_resident
-//     K/V (B, KvE, T, dh) int8, scales (B, KvE, T) f32;        per-row body
+//     K/V (B, KvE, T, dh) int8, scales (B, KvE, T) f32;
 //   decode_attention_paged_resident_launch      <- decode_attention_paged_resident
 //     K/V pages (n_pages, KvE, P, dh) in q's dtype, page_map (B, np) i32;
-//                                                              per-row body
 //   decode_attention_int8_paged_resident_launch <- decode_attention_int8_paged_resident
-//     K/V pages int8, scale pages (n_pages, KvE, P) f32;       split body
+//     K/V pages int8, scale pages (n_pages, KvE, P) f32;
 //   decode_attention_ring_resident_launch       <- decode_attention_ring_resident
 //     a sliding-window ring K/V (B, KvE, W, dh) in q's dtype, slot_pos (W,)
 //     i32 (see the ring section below: its own split-window kernel).
-// The first four compute one function, as the reference's one Pallas body
-// (`_kernel` / `_kernel_int8`) serves its four Pallas kernels, which differ
-// in how K/V blocks are addressed and dequantized.  For every (b, r)
+// The first four compute one function in one split body, as the
+// reference's one Pallas body (`_kernel` / `_kernel_int8`) serves its four
+// Pallas kernels, which differ in how K/V blocks are addressed and
+// dequantized.  For every (b, r)
 //   out[b, r] = softmax(q[b, rows[r]] . K[b, kv_rows[r], :len]^T / sqrt(dh))
 //               . V[b, kv_rows[r], :len],      len = clamp(lengths[b], 0, cap)
 // with cap = T (linear) or np * P (paged), f32 accumulation, an online
@@ -40,7 +39,7 @@
 //
 // The split body (decode_split_mma_kernel or decode_split_kernel, then
 // split_merge_kernel) reads each valid K/V row from device memory once per
-// call, at any G up to 16:
+// call, at any G up to 16, for all four linear and paged entry points:
 // - One block of 4 warps per (sequence split, KV head, b).  The block finds
 //   the entries of `kv_rows` that name its KV head (any subset, any order)
 //   and scores each K/V tile against up to kSplitRows = 16 of them per
@@ -48,29 +47,30 @@
 //   than 16 rows on one KV head take more passes.
 // - K/V tiles (and int8 scales) go to shared memory once through cp.async,
 //   16-byte pieces of values and 4-byte scales, into 3 stages.
-// - Scores: bf16 q over bf16 K/V (the dense and glm4 paths) on the tensor
-//   cores (decode_split_mma_kernel: the pass's rows are one m16 tile of
-//   mma.sync; see its section); f32 q, and int8 K/V, on the CUDA cores
-//   (decode_split_kernel: the ring's lane layout, the block's subgroups in
-//   1, 2 or 4 teams of 4 rows, every team scoring every slot).  Both keep
-//   f32 sums and an online softmax in log2 units.
+// - Scores: bf16 q over bf16 K/V (the dense, glm4 and paged paths) on the
+//   tensor cores (decode_split_mma_kernel: the pass's rows are one m16 tile
+//   of mma.sync; see its section); f32 q, and int8 K/V (the int8 and
+//   int8-paged paths), on the CUDA cores (decode_split_kernel: the ring's
+//   lane layout, the block's subgroups in 1, 2 or 4 teams of 4 rows, every
+//   team scoring every slot).  Both keep f32 sums and an online softmax in
+//   log2 units.
 // - Validity is a length prefix: the wrapper picks `split` from the cache
 //   extent (about 4 blocks an SM; it never reads `lengths`), a split that
 //   starts at or past the row's length exits at once, and the merge reads
 //   only the ceil(len / split) splits that cover the row.  Slots past the
 //   length are zero-filled, never read.
 // - Paged: a split stages its page ids into shared memory once (a tile may
-//   cross pages; any P).  A bad id makes the split write its partials with
-//   l = NaN and read no K/V; the merge tests that flag explicitly (fmaxf
-//   would drop a NaN m) and writes NaN for the row.
-// The per-row body (decode_attention_kernel) still serves the paged and
-// int8-linear entry points: one block per (r, b), so each q head re-reads
-// its KV row (G times) and a row's positions are not split.
+//   cross pages; any P), and each thread finds the page and offset of its
+//   first row of a tile by one division and steps to its next rows.  A bad
+//   id makes the split write its partials with l = NaN and read no K/V; the
+//   merge tests that flag explicitly (fmaxf would drop a NaN m) and writes
+//   NaN for the row.  With np * P == T a paged cache gives the linear
+//   cache's result bit for bit: addressing is the only difference.
 //
 // K, V and scales are read through their strides, so the caller passes the
 // model's (B, T, KvE, dh) cache or (n_pages, P, KvE, dh) page store (and its
-// (..., KvE) scales) as transposed views with no copy.  The split body
-// needs 16-byte aligned value bases and strides; scales need 4 bytes.
+// (..., KvE) scales) as transposed views with no copy.  Values need 16-byte
+// aligned bases and strides; scales need 4 bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,8 +80,6 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -114,18 +112,6 @@ struct KVSource {
   __device__ __forceinline__ int cap() const {
     return PAGED ? n_logical * T_len : T_len;
   }
-  // Block-uniform: every page a row of length `len` reads lies in the pool.
-  __device__ __forceinline__ bool pages_ok(const int32_t* page_map, int b,
-                                           int len) const {
-    if (!PAGED) return true;
-    int bad = 0;
-    const int live = (len + T_len - 1) / T_len;
-    for (int i = threadIdx.x; i < live; i += blockDim.x) {
-      const int p = page(page_map, b, i);
-      bad |= p < 0 || p >= n_pages;
-    }
-    return !__syncthreads_or(bad);
-  }
   __device__ __forceinline__ int64_t row(int64_t sb, int64_t sh, int b,
                                          int kv_row) const {
     return kv_row * sh + (PAGED ? 0 : b * sb);
@@ -135,24 +121,9 @@ struct KVSource {
                                       int pg) const {
     return page_map[(int64_t)b * n_logical + pg];
   }
-  // Offsets from the row bases of logical page `pg`, offset `off` (linear:
-  // page 0, offset t): K, V and (QUANT) their scales.  Paged position t is
-  // page page_map[b, t / P], offset t % P.
-  __device__ __forceinline__ void offsets(const int32_t* page_map, int b,
-                                          int pg, int off, int64_t& ko,
-                                          int64_t& vo, int64_t& kso,
-                                          int64_t& vso) const {
-    const int64_t blk = PAGED ? page(page_map, b, pg) : 0;
-    ko = blk * k_sb + off * k_st;
-    vo = blk * v_sb + off * v_st;
-    if (QUANT) {
-      kso = blk * ks_sb + off * ks_st;
-      vso = blk * vs_sb + off * vs_st;
-    }
-  }
-  // The split body's offsets from the row bases of position t: the page id
-  // `blk` (PAGED: from the split's ids `pages`, logical page first_pg
-  // first; linear: 0) and the offset `off` in the page (linear: t).
+  // Where position t lies from the row bases: the page id `blk` (PAGED:
+  // from the split's ids `pages`, logical page first_pg first; linear: 0)
+  // and the position `off` in the page (linear: t).
   __device__ __forceinline__ void locate(const int32_t* pages, int first_pg,
                                          int t, int64_t& blk,
                                          int& off) const {
@@ -166,164 +137,6 @@ struct KVSource {
     }
   }
 };
-
-// The per-row body: one block of kWarps warps per (r, b), for the paged
-// and int8-linear entry points.  The second bound is the blocks an SM must
-// hold at once; ptxas caps the registers to fit (65536 / (256 threads *
-// blocks)).  Under a minimum of 3 or 4 the int8 and paged fp sources ran
-// slower, so theirs is 1 (no cap).
-template <typename QT, typename Src, int DH>
-__global__ void __launch_bounds__(kWarps * 32, 1)
-decode_attention_kernel(const QT* __restrict__ q,
-                        const typename Src::Elem* __restrict__ k,
-                        const typename Src::Elem* __restrict__ v,
-                        const float* __restrict__ ks,
-                        const float* __restrict__ vs,
-                        const int32_t* __restrict__ page_map, const Src src,
-                        const int32_t* __restrict__ lengths,
-                        const int32_t* __restrict__ rows,
-                        const int32_t* __restrict__ kv_rows,
-                        QT* __restrict__ out, int H, int KvE, int R,
-                        int64_t q_sb, int64_t q_sh, float scale) {
-  constexpr int EPL = (DH + 31) / 32;  // head-dim elements per lane
-  __shared__ float sm_m[kWarps];
-  __shared__ float sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][DH];
-
-  const int r = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = rows[r];
-  const int kv_row = kv_rows[r];
-  QT* o = out + ((int64_t)b * R + r) * DH;
-  const int len = min(max(lengths[b], 0), src.cap());
-  // both tests are uniform over the block, so its threads leave together
-  if (row < 0 || row >= H || kv_row < 0 || kv_row >= KvE ||
-      !src.pages_ok(page_map, b, len)) {
-    // a gather map or page id out of range: surface it as NaN, never read
-    // out of bounds
-    for (int d = threadIdx.x; d < DH; d += blockDim.x) store(o + d, nanf(""));
-    return;
-  }
-
-  const QT* qp = q + b * q_sb + row * q_sh;
-  const auto* kp = k + src.row(src.k_sb, src.k_sh, b, kv_row);
-  const auto* vp = v + src.row(src.v_sb, src.v_sh, b, kv_row);
-  // the int8 scales' rows (unused, and compiled away, for fp sources)
-  const float* ksp = ks + (Src::kQuant ? src.row(src.ks_sb, src.ks_sh, b,
-                                                 kv_row) : 0);
-  const float* vsp = vs + (Src::kQuant ? src.row(src.vs_sb, src.vs_sh, b,
-                                                 kv_row) : 0);
-  float qr[EPL];
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    const int d = i * 32 + lane;
-    qr[i] = d < DH ? to_f32(qp[d]) * scale : 0.f;
-  }
-
-  float m = kNegInf, l = 0.f;
-  float acc[EPL];
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) acc[i] = 0.f;
-
-  for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
-    // ksc/vsc: the int8 scales of each position (fp sources leave them
-    // unused, and the compiler drops them)
-    float kr[kUnroll][EPL], vr[kUnroll][EPL], s[kUnroll], ksc[kUnroll],
-        vsc[kUnroll];
-    // Where the positions lie.  Linear: offset t, computed for every
-    // position with no branch, so it stays affine in t0 and the compiler
-    // strength-reduces it across steps.  Paged: one division per step (one
-    // more only where the step crosses a page), and each position below
-    // the length reads its own page id.  (Both were chosen on the card:
-    // one page-id read per step, or a branch in the linear offsets, ran
-    // slower.)
-    const int pg0 = Src::kPaged ? t0 / src.T_len : 0;
-    const int off0 = t0 - pg0 * src.T_len;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      const bool ok = t < len;
-      int pg = pg0, off = off0 + u;
-      if (Src::kPaged && off >= src.T_len) {
-        pg += off / src.T_len;
-        off %= src.T_len;
-      }
-      int64_t ko = 0, vo = 0, kso = 0, vso = 0;
-      if (!Src::kPaged || ok)
-        src.offsets(page_map, b, pg, off, ko, vo, kso, vso);
-      if (Src::kQuant) {
-        ksc[u] = ok ? ksp[kso] : 0.f;
-        vsc[u] = ok ? vsp[vso] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) {
-        const int d = i * 32 + lane;
-        const bool in = ok && d < DH;
-        kr[u][i] = in ? to_f32(kp[ko + d]) : 0.f;
-        vr[u][i] = in ? to_f32(vp[vo + d]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float acc_s = 0.f;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) acc_s += qr[i] * kr[u][i];
-      s[u] = acc_s;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
-    }
-    float m_new = m;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (Src::kQuant) s[u] *= ksc[u];
-      if (t0 + u >= len) s[u] = kNegInf;
-      m_new = fmaxf(m_new, s[u]);
-    }
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float p = expf(s[u] - m_new);
-      const float pv = Src::kQuant ? p * vsc[u] : p;
-      l += p;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) acc[i] += pv * vr[u][i];
-    }
-    m = m_new;
-  }
-
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    const int d = i * 32 + lane;
-    if (d < DH) sm_acc[warp][d] = acc[i];
-  }
-  __syncthreads();
-  float m_all = kNegInf;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sm_m[w]);
-  for (int d = threadIdx.x; d < DH; d += blockDim.x) {
-    float l_all = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w] - m_all);
-      l_all += sm_l[w] * c;
-      a += sm_acc[w][d] * c;
-    }
-    store(o + d, a / fmaxf(l_all, 1e-30f));
-  }
-}
 
 struct Common {
   const void* q;
@@ -344,32 +157,6 @@ struct Buffers {
   const void* vs;
   const void* page_map;
 };
-
-template <typename QT, typename Src>
-int launch(const Common& c, const Buffers& buf, const Src& src) {
-  using E = typename Src::Elem;
-  const dim3 grid(c.R, c.B);
-  const float scale = 1.0f / sqrtf(static_cast<float>(c.dh));
-#define REPRO_LAUNCH(DH)                                                     \
-  decode_attention_kernel<QT, Src, DH><<<grid, kWarps * 32, 0, c.stream>>>( \
-      static_cast<const QT*>(c.q), static_cast<const E*>(buf.k),            \
-      static_cast<const E*>(buf.v), static_cast<const float*>(buf.ks),      \
-      static_cast<const float*>(buf.vs),                                    \
-      static_cast<const int32_t*>(buf.page_map), src,                       \
-      static_cast<const int32_t*>(c.lengths),                               \
-      static_cast<const int32_t*>(c.rows),                                  \
-      static_cast<const int32_t*>(c.kv_rows), static_cast<QT*>(c.out), c.H, \
-      c.KvE, c.R, c.q_sb, c.q_sh, scale)
-  switch (c.dh) {
-    case 16: REPRO_LAUNCH(16); break;
-    case 32: REPRO_LAUNCH(32); break;
-    case 64: REPRO_LAUNCH(64); break;
-    case 128: REPRO_LAUNCH(128); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef REPRO_LAUNCH
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
@@ -808,8 +595,8 @@ int launch_ring(const void* q, const void* k, const void* v,
 }  // namespace
 
 // ------------------------------------------------------- the split body
-// decode_attention_resident_launch and decode_attention_int8_paged_resident
-// _launch: see the head of the file.  Measured on an H100: PERF.md.
+// The linear, int8, paged and int8-paged entry points: see the head of the
+// file.  Measured on an H100: PERF.md.
 namespace {
 
 constexpr int kSplitRows = 4 * kRingRows;  // q rows scored per pass
@@ -876,7 +663,12 @@ __device__ __forceinline__ bool stage_pages(const Src& src,
 // Positions t0 .. t0 + TS - 1 of the block's K/V head row (and, QUANT,
 // their scales) into one stage, rows ROW elements apart; positions at or
 // past t_end are zero-filled and never read.  `pages` holds the split's
-// page ids from logical page first_pg (PAGED).
+// page ids from logical page first_pg (PAGED).  Each thread copies one
+// 16-byte piece of rows c0, c0 + RS, ...: it finds the page and offset of
+// its first row by one division and steps to the next ones.  The loop is
+// unrolled for paged sources only: unrolled, a linear source keeps one
+// 64-bit row offset per row and tensor live across the tile loop, and the
+// bodies spilled at dh 128; not unrolled, paged ran 3 % slower (PERF.md).
 template <typename Src, int DH, int TS, int ROW>
 __device__ __forceinline__ void split_stage(
     typename Src::Elem* kt, typename Src::Elem* vt, float* kst, float* vst,
@@ -886,27 +678,39 @@ __device__ __forceinline__ void split_stage(
   using E = typename Src::Elem;
   constexpr int VE = 16 / static_cast<int>(sizeof(E));  // elements a copy
   constexpr int CH = DH / VE;                            // copies a row
-#pragma unroll
-  for (int e = tid; e < TS * CH; e += kRingThreads) {
-    const int c = e / CH, d = (e % CH) * VE, t = t0 + c;
-    const bool in = t < t_end;
-    int64_t blk = 0;
-    int off = 0;
-    if (in) src.locate(pages, first_pg, t, blk, off);
-    cp_async16(kt + c * ROW + d, kb + blk * src.k_sb + off * src.k_st + d,
-               in);
-    cp_async16(vt + c * ROW + d, vb + blk * src.v_sb + off * src.v_st + d,
-               in);
+  constexpr int RS = kRingThreads / CH;                  // rows a round
+  const int c0 = tid / CH, d = (tid % CH) * VE;
+  int lp = 0, off = 0;  // PAGED: the logical page and offset of row c
+  if (Src::kPaged) {
+    lp = (t0 + c0) / src.T_len;
+    off = t0 + c0 - lp * src.T_len;
+  }
+#pragma unroll (Src::kPaged ? TS : 1)
+  for (int i = 0; i < (TS + RS - 1) / RS; ++i) {
+    const int c = c0 + i * RS;
+    if (c >= TS) break;  // RS > TS: this thread has no row
+    if (Src::kPaged && i > 0) {
+      off += RS;
+      while (off >= src.T_len) {
+        off -= src.T_len;
+        ++lp;
+      }
+    }
+    const bool in = t0 + c < t_end;
+    const int64_t blk = Src::kPaged && in ? pages[lp - first_pg] : 0;
+    const int o = !in ? 0 : Src::kPaged ? off : t0 + c;
+    cp_async16(kt + c * ROW + d, kb + blk * src.k_sb + o * src.k_st + d, in);
+    cp_async16(vt + c * ROW + d, vb + blk * src.v_sb + o * src.v_st + d, in);
   }
   if (Src::kQuant) {
     for (int c = tid; c < TS; c += kRingThreads) {
       const int t = t0 + c;
       const bool in = t < t_end;
       int64_t blk = 0;
-      int off = 0;
-      if (in) src.locate(pages, first_pg, t, blk, off);
-      cp_async4(kst + c, ksb + blk * src.ks_sb + off * src.ks_st, in);
-      cp_async4(vst + c, vsb + blk * src.vs_sb + off * src.vs_st, in);
+      int o = 0;
+      if (in) src.locate(pages, first_pg, t, blk, o);
+      cp_async4(kst + c, ksb + blk * src.ks_sb + o * src.ks_st, in);
+      cp_async4(vst + c, vsb + blk * src.vs_sb + o * src.vs_st, in);
     }
   }
 }
@@ -1126,17 +930,17 @@ decode_split_kernel(const QT* __restrict__ q,
 }
 
 // ------------------------------------------- the split body on tensor cores
-// bf16 q over bf16 K/V (the dense and glm4 paths) run the same split, rows
-// and merge on the tensor cores: every pass's up to 16 q rows are one m16
-// tile, so QK^T is mma.sync m16n8k16 (q in registers, K by ldmatrix) and
-// PV is m16n8k8 (the scores' accumulator layout is the A operand; V by
-// ldmatrix.trans).  Each of the 4 warps takes 8 slots of every 32-slot
-// tile and keeps its own (m, l, O[16][DH]) in f32; rows of the tile sit
-// kMmaPad elements apart so ldmatrix reads no bank twice.  At G 16 this is
-// ~70 warp instructions per 8 slots of a tile for all 16 rows, against
-// ~13 per (slot, row) on the CUDA cores.  A warp rescales O only when
-// some row's running max grows.  A cap of 4 blocks an SM (128 registers)
-// spilled and ran slower than 3 (168 registers, no spills; PERF.md).
+// bf16 q over bf16 K/V (the dense, glm4 and paged paths) run the same
+// split, rows and merge on the tensor cores: every pass's up to 16 q rows
+// are one m16 tile, so QK^T is mma.sync m16n8k16 (q in registers, K by
+// ldmatrix) and PV is m16n8k8 (the scores' accumulator layout is the A
+// operand; V by ldmatrix.trans).  Each of the 4 warps takes 8 slots of
+// every 32-slot tile and keeps its own (m, l, O[16][DH]) in f32; rows of
+// the tile sit kMmaPad elements apart so ldmatrix reads no bank twice.  At
+// G 16 this is ~70 warp instructions per 8 slots of a tile for all 16
+// rows, against ~13 per (slot, row) on the CUDA cores.  A warp rescales O
+// only when some row's running max grows.  A cap of 4 blocks an SM (128
+// registers) spilled and ran slower than 3 (PERF.md).
 constexpr int kMmaTile = 32;  // slots a tile; 8 per warp
 constexpr int kMmaPad = 8;    // bf16 elements past each staged row
 constexpr int kMmaStages = 3;
@@ -1490,7 +1294,7 @@ struct Tag {
 };
 
 // Builds the K/V source for q's dtype and hands it to `go(Tag<QT>, src)`,
-// which launches one of the two bodies.
+// which launches the split body.
 template <bool PAGED, bool QUANT, typename Go>
 int run_source(int dtype, int T_len, int n_pages, int n_logical,
                int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb,
@@ -1518,12 +1322,12 @@ int run_source(int dtype, int T_len, int n_pages, int n_logical,
 // Plain C entry points bound with ctypes.  Pointers are device pointers;
 // strides are in elements; dtype is q's (and the output's): 0 = float32,
 // 1 = bfloat16.  Each launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() after the launch (0 = success).  The split
-// body's entry points take part_ml (B, R, NS, 2) and part_acc (B, R, NS,
-// dh) float32 scratch for NS = ceil(cap / split) splits of `split` > 0
+// returns cudaGetLastError() after the launch (0 = success).  The four
+// split-body entry points take part_ml (B, R, NS, 2) and part_acc (B, R,
+// NS, dh) float32 scratch for NS = ceil(cap / split) splits of `split` > 0
 // positions, and 16-byte aligned value bases and strides.
 
-// K/V (B, KvE, T, dh) in q's dtype.  Split body.
+// K/V (B, KvE, T, dh) in q's dtype.
 extern "C" int decode_attention_resident_launch(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* rows, const void* kv_rows, void* out, void* part_ml,
@@ -1543,45 +1347,50 @@ extern "C" int decode_attention_resident_launch(
       });
 }
 
-// K/V (B, KvE, T, dh) int8; scales (B, KvE, T) float32.  per-row body.
+// K/V (B, KvE, T, dh) int8; scales (B, KvE, T) float32.
 extern "C" int decode_attention_int8_resident_launch(
     const void* q, const void* k, const void* ks, const void* v,
     const void* vs, const void* lengths, const void* rows,
-    const void* kv_rows, void* out, int B, int H, int KvE, int T_len, int R,
-    int dh, int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sb,
-    int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
-    int64_t ks_sb, int64_t ks_sh, int64_t ks_st, int64_t vs_sb,
-    int64_t vs_sh, int64_t vs_st, void* stream) {
+    const void* kv_rows, void* out, void* part_ml, void* part_acc, int B,
+    int H, int KvE, int T_len, int R, int split, int dh, int dtype,
+    int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_st,
+    int64_t v_sb, int64_t v_sh, int64_t v_st, int64_t ks_sb, int64_t ks_sh,
+    int64_t ks_st, int64_t vs_sb, int64_t vs_sh, int64_t vs_st,
+    void* stream) {
   const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
                  q_sb, q_sh, static_cast<cudaStream_t>(stream)};
   const Buffers buf{k, v, ks, vs, nullptr};
+  const Split sp{static_cast<float*>(part_ml), static_cast<float*>(part_acc),
+                 split};
   return run_source<false, true>(
       dtype, T_len, 0, 0, k_sb, k_sh, k_st, v_sb, v_sh, v_st, ks_sb, ks_sh,
       ks_st, vs_sb, vs_sh, vs_st, [&](auto tag, const auto& src) {
-        return launch<typename decltype(tag)::type>(c, buf, src);
+        return launch_split<typename decltype(tag)::type>(c, buf, src, sp);
       });
 }
 
 // K/V pages (n_pages, KvE, P, dh) in q's dtype; page_map (B, np) int32.
-// per-row body.
 extern "C" int decode_attention_paged_resident_launch(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* page_map, const void* rows, const void* kv_rows, void* out,
-    int B, int H, int KvE, int P, int n_pages, int n_logical, int R, int dh,
-    int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sp, int64_t k_sh,
-    int64_t k_st, int64_t v_sp, int64_t v_sh, int64_t v_st, void* stream) {
+    void* part_ml, void* part_acc, int B, int H, int KvE, int P, int n_pages,
+    int n_logical, int R, int split, int dh, int dtype, int64_t q_sb,
+    int64_t q_sh, int64_t k_sp, int64_t k_sh, int64_t k_st, int64_t v_sp,
+    int64_t v_sh, int64_t v_st, void* stream) {
   const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
                  q_sb, q_sh, static_cast<cudaStream_t>(stream)};
   const Buffers buf{k, v, nullptr, nullptr, page_map};
+  const Split sp{static_cast<float*>(part_ml), static_cast<float*>(part_acc),
+                 split};
   return run_source<true, false>(
       dtype, P, n_pages, n_logical, k_sp, k_sh, k_st, v_sp, v_sh, v_st, 0, 0,
       0, 0, 0, 0, [&](auto tag, const auto& src) {
-        return launch<typename decltype(tag)::type>(c, buf, src);
+        return launch_split<typename decltype(tag)::type>(c, buf, src, sp);
       });
 }
 
 // K/V pages (n_pages, KvE, P, dh) int8; scale pages (n_pages, KvE, P)
-// float32; page_map (B, np) int32.  Split body.
+// float32; page_map (B, np) int32.
 extern "C" int decode_attention_int8_paged_resident_launch(
     const void* q, const void* k, const void* ks, const void* v,
     const void* vs, const void* lengths, const void* page_map,

@@ -7,11 +7,11 @@ Counterpart of the JAX package's ``kernels/decode_attention.py``: its five
 Pallas TPU kernels over a linear, paged or sliding-window ring cache, in
 the working dtype or int8 with per-(token, head) scales, are here
 hand-written CUDA C++ for Hopper (``csrc/decode_attention.cu``, built by
-``kernels.build``) behind five entry points.  The linear and int8-paged
-ones run a split body (one block per sequence split, KV head and batch
+``kernels.build``) behind five entry points.  The four linear and paged
+ones run one split body (one block per sequence split, KV head and batch
 row, each K/V row read once for all of its q heads, then a merge of the
-splits), the paged and int8-linear ones a per-row body (one block per
-(resident row, batch row)), and the ring its own split-window kernel:
+splits; bf16 q over bf16 K/V on the tensor cores, f32 q and int8 K/V on
+the CUDA cores), and the ring its own split-window kernel:
 
 - ``decode_attention_resident``: K/V (B, KvE, T, dh);
 - ``decode_attention_int8_resident``: int8 K/V (B, KvE, T, dh) with f32
@@ -26,7 +26,9 @@ splits), the paged and int8-linear ones a per-row body (one block per
 Each launches the kernel for CUDA tensors, counts the launch in its
 ``.launches``, and runs its ``*_plain`` version — the same function in
 plain PyTorch — only for tensors on the CPU.  There is no fallback: a
-CUDA tensor the kernel does not take raises.
+CUDA tensor the kernel does not take (a dtype it lacks, a dh outside
+``SUPPORTED_DH``, values without 16-byte aligned bases and strides)
+raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -138,9 +140,9 @@ _SIGNATURES = {
     "decode_attention_resident_launch":
         [_PTR] * 9 + [_INT] * 8 + [_I64] * 8 + [_PTR],
     "decode_attention_int8_resident_launch":
-        [_PTR] * 9 + [_INT] * 7 + [_I64] * 14 + [_PTR],
+        [_PTR] * 11 + [_INT] * 8 + [_I64] * 14 + [_PTR],
     "decode_attention_paged_resident_launch":
-        [_PTR] * 8 + [_INT] * 9 + [_I64] * 8 + [_PTR],
+        [_PTR] * 10 + [_INT] * 10 + [_I64] * 8 + [_PTR],
     "decode_attention_int8_paged_resident_launch":
         [_PTR] * 12 + [_INT] * 10 + [_I64] * 14 + [_PTR],
     "decode_attention_ring_resident_launch":
@@ -287,7 +289,10 @@ def decode_attention_int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths, rows,
     """int8-KV twin of :func:`decode_attention_resident`: k_q8, v_q8
     (B, KvE, T, dh) int8 and k_sc, v_sc (B, KvE, T) float32
     per-(token, head) scales, any strides (a unit one on dh), dequantized
-    in the kernel.  Returns the compacted (B, R, dh) slice in q's dtype."""
+    in the kernel.  Returns the compacted (B, R, dh) slice in q's dtype.
+    The kernel needs 16-byte aligned value bases and strides (scales: 4
+    bytes) and launches as two CUDA kernels (sequence splits, then their
+    merge); it counts one launch."""
     kv_rows = _kv_rows(q, k_q8, rows, kv_rows)
     B, H, dh = _check(q, k_q8, v_q8, lengths, rows, kv_rows,
                       batch_axis=True)
@@ -298,17 +303,20 @@ def decode_attention_int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths, rows,
     _check_kernel_inputs(q, k_q8, v_q8, dh, quant=True)
     if k_sc.dtype != torch.float32 or v_sc.dtype != torch.float32:
         raise ValueError("kernel takes float32 scales")
+    _check_aligned16(k_q8, v_q8)
     lengths, rows, kv_rows = _i32(lengths, rows, kv_rows)
-    KvE, T = k_q8.shape[1], k_q8.shape[2]
+    KvE, T, R = k_q8.shape[1], k_q8.shape[2], rows.shape[0]
+    split = _decode_split(B, KvE, T, _sm_count(q.device))
     out, launched = _launch(
-        "decode_attention_int8_resident_launch", q, rows.shape[0],
+        "decode_attention_int8_resident_launch", q, R,
         (q, k_q8, k_sc, v_q8, v_sc, lengths, rows, kv_rows),
-        (B, H, KvE, T, rows.shape[0]),
+        (B, H, KvE, T, R, split),
         (k_q8.stride(0), k_q8.stride(1), k_q8.stride(2),
          v_q8.stride(0), v_q8.stride(1), v_q8.stride(2),
          k_sc.stride(0), k_sc.stride(1), k_sc.stride(2),
          v_sc.stride(0), v_sc.stride(1), v_sc.stride(2)),
-        "decode_attention_int8_resident")
+        "decode_attention_int8_resident",
+        scratch=_split_scratch(q, R, T, split))
     decode_attention_int8_resident.launches += launched
     return out
 
@@ -325,7 +333,9 @@ def decode_attention_paged_resident(q, k_pages, v_pages, lengths, page_map,
     Entries at or past a row's length are never read (callers clamp
     their -1 sentinels to 0); a page id it reads outside ``[0, n_pages)``
     gives NaN in the kernel.  rows/kv_rows as in
-    :func:`decode_attention_resident`."""
+    :func:`decode_attention_resident`.  The kernel needs 16-byte aligned
+    k/v bases and strides and launches as two CUDA kernels (sequence
+    splits, then their merge); it counts one launch."""
     kv_rows = _kv_rows(q, k_pages, rows, kv_rows)
     B, H, dh = _check(q, k_pages, v_pages, lengths, rows, kv_rows,
                       batch_axis=False)
@@ -334,15 +344,19 @@ def decode_attention_paged_resident(q, k_pages, v_pages, lengths, page_map,
         return decode_attention_paged_resident_plain(
             q, k_pages, v_pages, lengths, page_map, rows, kv_rows)
     _check_kernel_inputs(q, k_pages, v_pages, dh, quant=False)
+    _check_aligned16(k_pages, v_pages)
     lengths, page_map, rows, kv_rows = _i32(lengths, page_map, rows, kv_rows)
     n_pages, KvE, P = k_pages.shape[:3]
+    R, cap = rows.shape[0], page_map.shape[1] * P
+    split = _decode_split(B, KvE, cap, _sm_count(q.device))
     out, launched = _launch(
-        "decode_attention_paged_resident_launch", q, rows.shape[0],
+        "decode_attention_paged_resident_launch", q, R,
         (q, k_pages, v_pages, lengths, page_map, rows, kv_rows),
-        (B, H, KvE, P, n_pages, page_map.shape[1], rows.shape[0]),
+        (B, H, KvE, P, n_pages, page_map.shape[1], R, split),
         (k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
          v_pages.stride(0), v_pages.stride(1), v_pages.stride(2)),
-        "decode_attention_paged_resident")
+        "decode_attention_paged_resident",
+        scratch=_split_scratch(q, R, cap, split))
     decode_attention_paged_resident.launches += launched
     return out
 

@@ -130,7 +130,7 @@ def test_int8_kernel_matches_plain_version(cuda, dtype, dh):
 @pytest.mark.parametrize("P", [64, 8, 6])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 def test_paged_kernels_match_plain_versions(cuda, dtype, P, quant):
-    """Page sizes 64, 8 and 6 (not a multiple of the kernel's unroll)."""
+    """Page sizes 64, 8 and 6 (6: tiles and splits cross pages)."""
     from repro_torch.kernels import decode_attention as da
     q, k, v, lengths, pmap = _paged_inputs(cuda, dtype, 64, P, P)
     rows = torch.tensor([1, 0, 7, 6, 2], dtype=torch.int32, device=cuda)
@@ -176,8 +176,9 @@ def test_paged_kernel_gives_nan_for_a_page_id_out_of_range(cuda, quant):
     assert torch.isfinite(out[:2]).all()
 
 
-# ------------------------------------------- the split body (resident,
-# int8-paged): one block per (sequence split, KV head, batch row), a merge
+# ------------------------------------------- the split body (linear, int8,
+# paged, int8-paged): one block per (sequence split, KV head, batch row), a
+# merge
 def _splits(q, n_kv, extent):
     from repro_torch.kernels import decode_attention as da
     split = da._decode_split(q.shape[0], n_kv, extent,
@@ -206,20 +207,52 @@ def _split_check(kern, plain, args, *, kv_rows=None, keep=None):
     return out
 
 
-def _resident_split_args(cuda, dtype, *, H, KvE, dh, T=1100, B=6, seed=0):
-    """q and a (B, T, KvE, dh) cache seen transposed, with lengths 0, 1,
-    split - 1, split, split + 1 and T for the wrapper's split."""
+def _resident_split_args(cuda, dtype, *, H, KvE, dh, T=1100, B=6, seed=0,
+                         quant=False):
+    """q and a (B, T, KvE, dh) cache seen transposed (``quant``: int8
+    values and their (B, T, KvE) scales, as k, k_sc, v, v_sc), with
+    lengths 0, 1, split - 1, split, split + 1 and T for the wrapper's
+    split."""
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
     cache = torch.from_numpy(rng.standard_normal((2, B, T, KvE, dh),
-                                                 np.float32))
-    q, cache = q.to(cuda, dtype), cache.to(cuda, dtype)
+                                                 np.float32)).to(cuda)
+    q = q.to(cuda, dtype)
     split, n_splits = _splits(q, KvE, T)
     assert n_splits > 2
     lengths = torch.tensor([0, 1, split - 1, split, split + 1, T][:B],
                            dtype=torch.int32, device=cuda)
-    return (q, cache[0].transpose(1, 2), cache[1].transpose(1, 2),
-            lengths), rng
+    if quant:
+        (kq, ks), (vq, vs) = _q8(cache[0]), _q8(cache[1])
+        kv = (kq.transpose(1, 2), ks.transpose(1, 2), vq.transpose(1, 2),
+              vs.transpose(1, 2))
+    else:
+        kv = (cache[0].to(dtype).transpose(1, 2),
+              cache[1].to(dtype).transpose(1, 2))
+    return (q,) + kv + (lengths,), rng
+
+
+def _check_rows_case(kern, plain, args, rng, H, G, case):
+    """Rows for ``case`` (every row permuted across KV heads; a partial set
+    in which KV head 0 has no row; an out-of-range ``rows`` and
+    ``kv_rows`` entry giving NaN for that entry only), held to the plain
+    version; a row of length 0 returns zeros."""
+    cuda = args[0].device
+    rows = rng.permutation(H)
+    if case == "partial":
+        rows = rng.permutation([r for r in range(H) if r >= G])[:G + 3]
+    rows = torch.as_tensor(rows, dtype=torch.int32, device=cuda)
+    if case != "nan_rows":
+        out = _split_check(kern, plain, args + (rows,))
+    else:
+        kv_rows = rows // G
+        rows[3], kv_rows[5] = H, -1
+        keep = [r for r in range(H) if r not in (3, 5)]
+        out = _split_check(kern, plain, args + (rows,), kv_rows=kv_rows,
+                           keep=keep)
+        assert torch.isnan(out[:, 3]).all() and torch.isnan(out[:, 5]).all()
+        out = out[:, keep]
+    assert not out[0].any()                  # length 0 returns zeros
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -238,29 +271,33 @@ def test_resident_kernel_splits(cuda, dtype, dh, G, case):
     H = 32
     args, rng = _resident_split_args(cuda, dtype, H=H, KvE=H // G, dh=dh,
                                      seed=dh + G)
-    rows = rng.permutation(H)
-    if case == "partial":
-        rows = rng.permutation([r for r in range(H) if r >= G])[:G + 3]
-    rows = torch.as_tensor(rows, dtype=torch.int32, device=cuda)
-    if case != "nan_rows":
-        out = _split_check(kern, plain, args + (rows,))
-    else:
-        kv_rows = rows // G
-        rows[3], kv_rows[5] = H, -1
-        keep = [r for r in range(H) if r not in (3, 5)]
-        out = _split_check(kern, plain, args + (rows,), kv_rows=kv_rows,
-                           keep=keep)
-        assert torch.isnan(out[:, 3]).all() and torch.isnan(out[:, 5]).all()
-        out = out[:, keep]
-    assert not out[0].any()                  # length 0 returns zeros
+    _check_rows_case(kern, plain, args, rng, H, G, case)
 
 
-def _int8_paged_split_args(cuda, dtype, dh, P, *, B=6, H=16, KvE=4, seed=0):
-    """q, int8 value pages (n_pages, KvE, P, dh) and scale pages
-    (n_pages, KvE, P, 1) as views of the model's (n_pages, P, KvE, dh) and
-    (n_pages, P, KvE) stores (a scrambled pool two pages larger than the
-    rows need), lengths on the wrapper's split edges, and the page map
-    (B, np) with 0 past each row's live pages."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [4, 16])
+def test_int8_kernel_splits(cuda, dtype, dh, G):
+    """int8 K/V with scales, T 1100 over several splits, lengths on the
+    split's edges, 4 and 16 q heads a KV head, rows permuted across KV
+    heads."""
+    from repro_torch.kernels import decode_attention as da
+    H = 32
+    args, rng = _resident_split_args(cuda, dtype, H=H, KvE=H // G, dh=dh,
+                                     seed=dh + G + 1, quant=True)
+    _check_rows_case(da.decode_attention_int8_resident,
+                     da.decode_attention_int8_resident_plain, args, rng, H,
+                     G, "permuted")
+
+
+def _paged_split_args(cuda, dtype, dh, P, *, quant=True, B=6, H=16, KvE=4,
+                      seed=0):
+    """q and value pages (n_pages, KvE, P, dh) as views of the model's
+    (n_pages, P, KvE, dh) store (a scrambled pool two pages larger than the
+    rows need) — ``quant``: int8 value pages and scale pages (n_pages, KvE,
+    P, 1) from (n_pages, P, KvE) stores, as k, k_sc, v, v_sc — lengths on
+    the wrapper's split edges, and the page map (B, np) with 0 past each
+    row's live pages."""
     rng = np.random.default_rng(seed)
     n_log = -(-1100 // P)
     cap, n_pages = n_log * P, B * n_log + 2
@@ -268,7 +305,13 @@ def _int8_paged_split_args(cuda, dtype, dh, P, *, B=6, H=16, KvE=4, seed=0):
     store = torch.from_numpy(rng.standard_normal((2, n_pages, P, KvE, dh),
                                                  np.float32)).to(cuda)
     q = q.to(cuda, dtype)
-    (kq, ks), (vq, vs) = _q8(store[0]), _q8(store[1])
+    if quant:
+        (kq, ks), (vq, vs) = _q8(store[0]), _q8(store[1])
+        kv = (kq.transpose(1, 2), ks.transpose(1, 2)[..., None],
+              vq.transpose(1, 2), vs.transpose(1, 2)[..., None])
+    else:
+        kv = (store[0].to(dtype).transpose(1, 2),
+              store[1].to(dtype).transpose(1, 2))
     split, n_splits = _splits(q, KvE, cap)
     assert n_splits > 2
     lengths = [0, 1, split - 1, split, split + 1, cap][:B]
@@ -276,10 +319,27 @@ def _int8_paged_split_args(cuda, dtype, dh, P, *, B=6, H=16, KvE=4, seed=0):
     perm = rng.permutation(n_pages)[:B * n_log].reshape(B, n_log)
     pmap = np.where(np.arange(n_log)[None] < np.asarray(live)[:, None],
                     perm, 0)
-    return (q, kq.transpose(1, 2), ks.transpose(1, 2)[..., None],
-            vq.transpose(1, 2), vs.transpose(1, 2)[..., None],
-            torch.tensor(lengths, dtype=torch.int32, device=cuda),
-            torch.as_tensor(pmap, dtype=torch.int32, device=cuda)), rng
+    return (q,) + kv + (
+        torch.tensor(lengths, dtype=torch.int32, device=cuda),
+        torch.as_tensor(pmap, dtype=torch.int32, device=cuda)), rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [4, 16])
+@pytest.mark.parametrize("P", [64, 8, 6])
+@pytest.mark.parametrize("case", ["permuted", "partial", "nan_rows"])
+def test_paged_kernel_splits(cuda, dtype, dh, G, P, case):
+    """Pages of 64, 8 and 6 positions (6: tiles and splits cross pages)
+    over several splits, lengths on the split's edges, 4 and 16 q heads a
+    KV head, rows as in :func:`test_resident_kernel_splits`."""
+    from repro_torch.kernels import decode_attention as da
+    H = 32
+    args, rng = _paged_split_args(cuda, dtype, dh, P, quant=False, H=H,
+                                  KvE=H // G, seed=dh + G + P)
+    _check_rows_case(da.decode_attention_paged_resident,
+                     da.decode_attention_paged_resident_plain, args, rng, H,
+                     G, case)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -290,7 +350,7 @@ def test_int8_paged_kernel_splits(cuda, dtype, dh, P):
     over several splits, lengths on the split's edges, rows permuted
     across KV heads."""
     from repro_torch.kernels import decode_attention as da
-    args, rng = _int8_paged_split_args(cuda, dtype, dh, P, seed=dh + P)
+    args, rng = _paged_split_args(cuda, dtype, dh, P, seed=dh + P)
     rows = torch.as_tensor(rng.permutation(16), dtype=torch.int32,
                            device=cuda)
     out = _split_check(da.decode_attention_int8_paged_resident,
@@ -299,20 +359,14 @@ def test_int8_paged_kernel_splits(cuda, dtype, dh, P):
     assert not out[0].any()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
-def test_int8_paged_kernel_nan_in_the_last_split(cuda, dtype, dh):
+def _nan_in_the_last_split(kern, plain, args, rng):
     """A bad page id that only the last split of row 5 (length np * P)
     reads makes that row NaN, and only that row; a bad id past row 2's
     length changes nothing."""
-    from repro_torch.kernels import decode_attention as da
-    kern = da.decode_attention_int8_paged_resident
-    args, rng = _int8_paged_split_args(cuda, dtype, dh, 8, seed=dh)
     q, kq, pmap = args[0], args[1], args[-1]
     rows = torch.as_tensor(rng.permutation(16), dtype=torch.int32,
-                           device=cuda)
-    clean = _split_check(kern, da.decode_attention_int8_paged_resident_plain,
-                         args + (rows,))
+                           device=q.device)
+    clean = _split_check(kern, plain, args + (rows,))
     n_log, P = pmap.shape[1], kq.shape[2]
     split, n_splits = _splits(q, kq.shape[1], n_log * P)
     assert (n_log - 1) * P >= (n_splits - 1) * split   # in the last split
@@ -327,7 +381,30 @@ def test_int8_paged_kernel_nan_in_the_last_split(cuda, dtype, dh):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
-@pytest.mark.parametrize("kind", ["resident", "int8_paged"])
+def test_int8_paged_kernel_nan_in_the_last_split(cuda, dtype, dh):
+    """See :func:`_nan_in_the_last_split`: int8 pages of 8."""
+    from repro_torch.kernels import decode_attention as da
+    args, rng = _paged_split_args(cuda, dtype, dh, 8, seed=dh)
+    _nan_in_the_last_split(da.decode_attention_int8_paged_resident,
+                           da.decode_attention_int8_paged_resident_plain,
+                           args, rng)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_paged_kernel_nan_in_the_last_split(cuda, dtype, dh):
+    """See :func:`_nan_in_the_last_split`: pages of 8 in q's dtype."""
+    from repro_torch.kernels import decode_attention as da
+    args, rng = _paged_split_args(cuda, dtype, dh, 8, quant=False,
+                                  seed=dh + 1)
+    _nan_in_the_last_split(da.decode_attention_paged_resident,
+                           da.decode_attention_paged_resident_plain, args,
+                           rng)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["resident", "int8", "paged", "int8_paged"])
 def test_split_kernels_refuse_unaligned_values(cuda, kind, dtype, dh):
     """Values whose position stride (dh + 1 values) is no whole number of
     16-byte pieces cannot be staged by cp.async: the wrapper raises before
@@ -335,31 +412,88 @@ def test_split_kernels_refuse_unaligned_values(cuda, kind, dtype, dh):
     from repro_torch.kernels import decode_attention as da
     rng = np.random.default_rng(dh)
     B, H, KvE, P, n_log = 2, 8, 2, 8, 4
+    paged = "paged" in kind
     q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32)).to(
         cuda, dtype)
-    lead = B if kind == "resident" else B * n_log
-    wide = torch.from_numpy(rng.standard_normal((2, lead, P * n_log if
-                                                 kind == "resident" else P,
-                                                 KvE, dh + 1),
-                                                np.float32)).to(cuda)
+    wide = torch.from_numpy(rng.standard_normal(
+        (2, B * n_log if paged else B, P if paged else P * n_log, KvE,
+         dh + 1), np.float32)).to(cuda)
     rows = torch.arange(H, dtype=torch.int32, device=cuda)
     lengths = torch.tensor([5, 17], dtype=torch.int32, device=cuda)
-    if kind == "resident":
-        kern = da.decode_attention_resident
-        k, v = (t[..., :dh].transpose(1, 2) for t in wide.to(dtype))
-        args = (q, k, v, lengths, rows)
-    else:
-        kern = da.decode_attention_int8_paged_resident
+    pmap = torch.arange(B * n_log, dtype=torch.int32,
+                        device=cuda).reshape(B, n_log)
+    if "int8" in kind:
         (kq, ks), (vq, vs) = _q8(wide[0]), _q8(wide[1])
-        pmap = torch.arange(B * n_log, dtype=torch.int32,
-                            device=cuda).reshape(B, n_log)
-        args = (q, kq[..., :dh].transpose(1, 2),
-                ks.transpose(1, 2)[..., None], vq[..., :dh].transpose(1, 2),
-                vs.transpose(1, 2)[..., None], lengths, pmap, rows)
+        ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+        if paged:
+            ks, vs = ks[..., None], vs[..., None]
+        kv = (kq[..., :dh].transpose(1, 2), ks, vq[..., :dh].transpose(1, 2),
+              vs)
+    else:
+        kv = tuple(t[..., :dh].transpose(1, 2) for t in wide.to(dtype))
+    kern = getattr(da, {"resident": "decode_attention_resident",
+                        "int8": "decode_attention_int8_resident",
+                        "paged": "decode_attention_paged_resident",
+                        "int8_paged": "decode_attention_int8_paged_resident"
+                        }[kind])
+    args = (q,) + kv + (lengths,) + ((pmap,) if paged else ()) + (rows,)
     before = kern.launches
     with pytest.raises(ValueError, match="16-byte"):
         kern(*args)
     assert kern.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("G", [4, 16])
+def test_paged_kernels_equal_linear_ones_bit_for_bit(cuda, dtype, quant, G):
+    """A dense cache, and a pool that holds the same rows in scrambled
+    pages with np * P == T: the paged kernel's output equals the linear
+    kernel's bit for bit (fp and int8), since both run the split body with
+    one split and only addressing differs."""
+    from repro_torch.kernels import decode_attention as da
+    B, H, dh, P, n_log = 6, 32, 128, 64, 18
+    KvE, T = H // G, n_log * P
+    rng = np.random.default_rng(G + quant)
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32)).to(
+        cuda, dtype)
+    cache = torch.from_numpy(rng.standard_normal((2, B, T, KvE, dh),
+                                                 np.float32)).to(cuda)
+    split, n_splits = _splits(q, KvE, T)
+    assert n_splits > 2
+    lengths = torch.tensor([0, 1, split - 1, split + 1, T, T + 1],
+                           dtype=torch.int32, device=cuda)
+    rows = torch.as_tensor(rng.permutation(H), dtype=torch.int32,
+                           device=cuda)
+    perm = torch.as_tensor(rng.permutation(B * n_log).reshape(B, n_log),
+                           device=cuda)
+
+    def pool(x):                       # (B, T, ...) -> scrambled pages
+        out = torch.empty((B * n_log, P) + x.shape[2:], dtype=x.dtype,
+                          device=cuda)
+        out[perm.reshape(-1)] = x.reshape((B * n_log, P) + x.shape[2:])
+        return out
+
+    pmap = perm.to(torch.int32)
+    if quant:
+        (kq, ks), (vq, vs) = _q8(cache[0]), _q8(cache[1])
+        linear = da.decode_attention_int8_resident(
+            q, kq.transpose(1, 2), ks.transpose(1, 2), vq.transpose(1, 2),
+            vs.transpose(1, 2), lengths, rows)
+        paged = da.decode_attention_int8_paged_resident(
+            q, pool(kq).transpose(1, 2), pool(ks).transpose(1, 2)[..., None],
+            pool(vq).transpose(1, 2), pool(vs).transpose(1, 2)[..., None],
+            lengths, pmap, rows)
+    else:
+        k, v = cache[0].to(dtype), cache[1].to(dtype)
+        linear = da.decode_attention_resident(
+            q, k.transpose(1, 2), v.transpose(1, 2), lengths, rows)
+        paged = da.decode_attention_paged_resident(
+            q, pool(k).transpose(1, 2), pool(v).transpose(1, 2), lengths,
+            pmap, rows)
+    torch.cuda.synchronize()
+    assert torch.isfinite(linear).all() and linear[1:].any()
+    assert torch.equal(paged, linear)
 
 
 def ring_slot_pos(window, n_written):

@@ -8,6 +8,10 @@ their own tests run them.  Inputs are made with numpy from
 a seed and handed to both.  Tolerance: ``atol=rtol=1e-5`` in float32 — the
 two sum in different orders and nothing else differs.
 """
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -287,6 +291,8 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take():
     (6, 2, 1100, 132),
     (1, 1, 100000, 132),
     (8, 8, 1, 132),
+    (8, 8, 16 * 64, 132),   # the paged path: 16 pages of 64
+    (8, 8, 171 * 6, 132),   # pages of 6: an extent of no whole split
 ])
 def test_decode_split_fills_the_card(B, KvE_, extent, sms):
     """The split body's sequence split: a positive multiple of its
@@ -307,3 +313,33 @@ def test_decode_split_fills_the_card(B, KvE_, extent, sms):
         assert (split, n, grid) == (128, 8, 512)
     if (B, KvE_, extent, sms) == (8, 2, 8264, 132):
         assert (split, n, grid) == (256, 33, 528)
+    if (B, KvE_, extent, sms) == (8, 8, 171 * 6, 132):
+        assert (split, n, grid) == (128, 9, 576)
+
+
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "int64_t": ctypes.c_int64}
+
+
+@pytest.mark.parametrize("entry", [
+    "decode_attention_resident_launch",
+    "decode_attention_int8_resident_launch",
+    "decode_attention_paged_resident_launch",
+    "decode_attention_int8_paged_resident_launch",
+    "decode_attention_ring_resident_launch",
+])
+def test_signatures_match_the_cuda_entry_points(entry):
+    """Each entry point's ctypes argument types (``_SIGNATURES``) against
+    its ``extern "C"`` declaration in ``csrc/decode_attention.cu``, parsed
+    from the source: a count or an order that differs would pass a pointer
+    as an int.  The source declares exactly the wrapped entry points."""
+    from repro_torch.kernels import decode_attention as da
+    src = (Path(da.__file__).with_name("csrc")
+           / "decode_attention.cu").read_text()
+    assert set(re.findall(r'extern "C" int (\w+)\(', src)) \
+        == set(da._SIGNATURES)
+    params = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", src,
+                       re.S).group(1)
+    types = [p.strip().rsplit(None, 1)[0].replace("const ", "")
+             .replace(" ", "") for p in params.split(",")]
+    assert [_C_TYPES[t] for t in types] == da._SIGNATURES[entry]
