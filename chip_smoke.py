@@ -54,8 +54,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense FLOP/s by type
+# (float32 on the CUDA cores; TF32 on the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 
 MAIN_B, MAIN_H, MAIN_KVE, MAIN_DH, MAIN_T = 8, 32, 8, 128, 1024
 N_LAYERS = 4
@@ -64,6 +66,8 @@ RING_B, RING_W, RING_PROMPT, RING_NEW = 4, 4096, 4096, 64
 # the rwkv6 path: 8 slots, 64 WKV heads of 64, 1024-token prompts; the
 # kernel runs once per layer at prefill (S = prompt) and every decode step
 RWKV_B, RWKV_H, RWKV_DH, RWKV_PROMPT, RWKV_NEW = 8, 64, 64, 1024, 64
+# the WKV6 kernel's chunk: S >= 16 runs its chunked body, S < 16 steps
+RWKV_CHUNK = 16
 # the WKV6 kernel and its plain version both compute in float32 from the
 # same inputs: summation order only, over up to 1024 dependent steps
 RWKV_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -172,15 +176,15 @@ def cuda_ms(calls, reps: int = 20, n: int = 50) -> float:
 
 # the split bodies' mangled names: q's type (the tensor-core body's is
 # bf16 and not in its name), then KVSource<E, PAGED, QUANT> and DH; the ring
-# kernel's and the merge's: q's type and DH; the WKV6 kernel's: r/k/v's
-# type, u's type and DH; the flash bodies': DH
+# kernel's and the merge's: q's type and DH; the WKV6 bodies' (per-step or
+# chunked): r/k/v's type, u's type and DH; the flash bodies': DH
 _QTYPE = re.compile(r"decode_(split|split_mma)_kernelI"
                     r"(f|13__nv_bfloat16|NS_8KVSourceI13__nv_bfloat16)")
 _FLAGS = re.compile(r"Lb([01])ELb([01])EEELi(\d+)E")
 _RING = re.compile(r"(ring_split|split_merge)_kernelI(f|13__nv_bfloat16)"
                    r"Li(\d+)E")
-_RWKV = re.compile(r"rwkv6_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)"
-                   r"Li(\d+)E")
+_RWKV = re.compile(r"rwkv6_(step_|chunk_)?kernelI(f|13__nv_bfloat16)"
+                   r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E")
 _FLASH = re.compile(r"flash_(simt|wgmma)_kernelILi(\d+)E")
 _FLASH_KIND = {"simt": "f32", "wgmma": "bf16 wgmma + TMA"}
 
@@ -216,10 +220,12 @@ def ptxas_usage(text: str):
                 name = (f"{part}, {'f32' if qt_ == 'f' else 'bf16'} q, "
                         f"dh={dh}")
             elif wkv:
-                rt, ut, dh = wkv.groups()
+                body, rt, ut, dh = wkv.groups()
                 ut = rt if ut.startswith("S") else ut   # the same type again
-                name = (f"rwkv6, {'f32' if rt == 'f' else 'bf16'} r/k/v, "
-                        f"{'f32' if ut == 'f' else 'bf16'} u, dh={dh}")
+                body = "chunked" if body == "chunk_" else "per-step"
+                name = (f"rwkv6 {body}, {'f32' if rt == 'f' else 'bf16'} "
+                        f"r/k/v, {'f32' if ut == 'f' else 'bf16'} u, "
+                        f"dh={dh}")
             elif qt and flags:
                 paged, quant, dh = flags.groups()
                 kind = ("paged " if paged == "1" else "linear ") \
@@ -1081,18 +1087,40 @@ def phase_mixtral_stream_pair():
 
 
 # ------------------------------------------------------- the rwkv6 path
-def rwkv6_inputs(dtype, *, S, B=RWKV_B, H=RWKV_H, dh=RWKV_DH, seed=0):
+def extreme_decays(u: torch.Tensor, smooth: torch.Tensor) -> torch.Tensor:
+    """Decays as the rwkv6 path meets them — one full-width rwkv6-7b layer
+    over 256 tokens, adapters seeded as ``nonzero_adapters`` seeds them,
+    gave exact 0.0, values below 1e-30, exact 1.0 and a third above 0.999
+    — from a uniform draw ``u`` in [0, 1): 0.0 where u < 0.03, 10^-30 to
+    10^-44 (below 1e-38 a float32 denormal) where u < 0.06, 1.0 where
+    u < 0.26, 1 - 10^-3 x (0, 1] where u < 0.66, else ``smooth``."""
+    f = u.double()
+    tiny = torch.pow(10.0, -30.0 - 14.0 * (f - 0.03) / 0.03)
+    near = 1.0 - 1e-3 * (0.66 - f) / 0.4
+    w = torch.where(f < 0.66, near, smooth.double())
+    w = torch.where(f < 0.26, 1.0, w)
+    w = torch.where(f < 0.06, tiny, w)
+    return torch.where(f < 0.03, 0.0, w).float()
+
+
+def rwkv6_inputs(dtype, *, S, B=RWKV_B, H=RWKV_H, dh=RWKV_DH, seed=0,
+                 decays="smooth"):
     """Kernel-layout arguments of the WKV6 kernel: r/k/v in ``dtype`` and
-    w float32 in (0.45, 0.95) as transposed views of (B, S, H, dh)
-    activations (the model's layout), u (H, dh) in ``dtype`` (the param
-    dtype) and a nonzero float32 starting state, all from
-    ``default_rng(seed)``."""
+    w float32 as transposed views of (B, S, H, dh) activations (the
+    model's layout), u (H, dh) in ``dtype`` (the param dtype) and a nonzero
+    float32 starting state, all from ``default_rng(seed)``.  ``decays``:
+    "smooth" draws w in (0.45, 0.95); "extreme" mixes in the path's
+    extremes (``extreme_decays``)."""
     rng = np.random.default_rng(seed)
     act = torch.from_numpy(rng.standard_normal((4, B, S, H, dh),
                                                np.float32)).to("cuda")
     act *= 0.5
     r, k, v = (act[i].to(dtype).transpose(1, 2) for i in range(3))
-    w = (0.45 + 0.5 * torch.sigmoid(act[3])).transpose(1, 2)
+    w = 0.45 + 0.5 * torch.sigmoid(act[3])
+    if decays == "extreme":
+        w = extreme_decays(torch.from_numpy(
+            rng.random((B, S, H, dh), np.float32)).to("cuda"), w)
+    w = w.transpose(1, 2)
     del act
     u = torch.from_numpy(0.5 * rng.standard_normal((H, dh), np.float32)
                          ).to("cuda", dtype)
@@ -1104,44 +1132,64 @@ def rwkv6_inputs(dtype, *, S, B=RWKV_B, H=RWKV_H, dh=RWKV_DH, seed=0):
 def rwkv6_bound_ms(r, w, u, state):
     """Least time for the recurrence on these inputs: r/k/v, w and u read
     once, y written once in float32, the state read and written once;
-    5 dh^2 + 3 dh float32 flops per (b, h, t), outside the tensor cores."""
+    operations as the body that runs them does them.  Per-step body (S <
+    RWKV_CHUNK): 5 dh^2 + 3 dh float32 flops per (b, h, t) on the CUDA
+    cores.  Chunked body, per (b, h) and chunk of C steps: the products
+    2 C dh^2 (inter-chunk), 2 C^2 dh (A V) and 2 C dh^2 (state) on the
+    tensor cores in three TF32 passes, a third of the TF32 rate; A's
+    C (C - 1) / 2 pairs and C bonus entries, 3 flops per channel, and the
+    2 C dh decay factors on the CUDA cores; the slower unit bounds."""
     B, H, S, dh = r.shape
     nbytes = 3 * r.numel() * r.element_size() + w.numel() * 4 \
         + r.numel() * 4 + u.numel() * u.element_size() \
         + 2 * state.numel() * 4
-    flops = B * H * S * (5 * dh * dh + 3 * dh)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    if S < RWKV_CHUNK:
+        t_ops = B * H * S * (5 * dh * dh + 3 * dh) \
+            / PEAK_FLOPS[torch.float32]
+    else:
+        C, n_chunks = RWKV_CHUNK, -(-S // RWKV_CHUNK)
+        mma = n_chunks * (4 * C * dh * dh + 2 * C * C * dh)
+        core = n_chunks * (3 * dh * C * (C + 1) // 2 + 2 * C * dh)
+        t_ops = B * H * max(mma / (PEAK_TF32 / 3),
+                            core / PEAK_FLOPS[torch.float32])
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
-def phase_rwkv6_vs_plain():
+def rwkv6_cases():
     """The WKV6 kernel against its plain version at the rwkv6 path's
-    shapes — decode (B 8, H 64, S 1, dh 64) and prefill (S 1024) — in f32
-    and bf16, with a nonzero u and starting state; two chained calls
-    writing the state in place must equal one.  Then its times at both
-    shapes (bf16, the main path's dtype); the decode shape's go into the
-    record."""
+    widths (B 8, H 64, dh 64) in f32 and bf16, with a nonzero u and
+    starting state: the per-step body at S 1 (decode) and 15, the chunked
+    body at S 16, 17 (a ragged chunk) and 1024 (prefill), each with smooth
+    decays and with the path's extremes (``extreme_decays``); for S > 1
+    two chained calls writing the state in place (a per-step and a chunked
+    call at S 17) must equal one.  Each case is held to RWKV_TOL and must
+    be finite; every case is logged.  Returns the largest error and the
+    cases that failed."""
     from repro_torch.kernels.rwkv6 import rwkv6_chunked as kern
     from repro_torch.kernels.rwkv6 import rwkv6_chunked_plain as plain
-    worst = 0.0
-    for i, (dt, S) in enumerate((dt, S) for dt in (torch.float32,
-                                                   torch.bfloat16)
-                                for S in (1, RWKV_PROMPT)):
-        args = rwkv6_inputs(dt, S=S, seed=i)
+    worst, bad = 0.0, []
+    cases = [(dt, S, decays) for decays in ("smooth", "extreme")
+             for dt in (torch.float32, torch.bfloat16)
+             for S in (1, RWKV_CHUNK - 1, RWKV_CHUNK, RWKV_CHUNK + 1,
+                       RWKV_PROMPT)]
+    for i, (dt, S, decays) in enumerate(cases):
+        args = rwkv6_inputs(dt, S=S, seed=i, decays=decays)
         y, s = kern(*args)
         torch.cuda.synchronize()
         want_y, want_s = plain(*args)
         err = max((y - want_y).abs().max().item(),
                   (s - want_s).abs().max().item())
         ok = torch.allclose(y, want_y, **RWKV_TOL) \
-            and torch.allclose(s, want_s, **RWKV_TOL)
+            and torch.allclose(s, want_s, **RWKV_TOL) \
+            and torch.isfinite(y).all().item() \
+            and torch.isfinite(s).all().item()
         checks = f"y and final state max_abs_err={err:.3e}"
         if S > 1:
             # the state carry: two calls, the state written over itself
             r, k, v, w, u, s0 = args
-            state, half = s0.clone(), S // 2 - 7
+            state, half = s0.clone(), max(1, S // 2 - 7)
             ys = [kern(r[:, :, a:b], k[:, :, a:b], v[:, :, a:b],
                        w[:, :, a:b], u, state, out_state=state)[0]
                   for a, b in ((0, half), (half, S))]
@@ -1154,37 +1202,59 @@ def phase_rwkv6_vs_plain():
             checks += f", two chained calls max_abs_err={chain:.3e}"
             err = max(err, chain)
         log(f"rwkv6_chunked vs plain {str(dt)[6:]:8s} B={RWKV_B} "
-            f"H={RWKV_H} S={S:4d} dh={RWKV_DH}: {checks}")
-        check(ok and torch.isfinite(y).all().item(),
-              f"rwkv6_chunked disagrees with its plain version ({dt}, "
-              f"S={S})")
+            f"H={RWKV_H} S={S:4d} dh={RWKV_DH} {decays:7s} decays: "
+            f"{checks}")
+        if not ok:
+            bad.append(f"{str(dt)[6:]} S={S} {decays}")
         worst = max(worst, err)
         del args
-    timed = {}
+    return worst, bad
+
+
+def rwkv6_times(plain_too=True):
+    """The WKV6 kernel's times at the decode (S 1) and the prefill shape
+    (S 1024), bf16 as on the main path, beside its plain version's (if
+    ``plain_too``) and the bound: {shape label: times}."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked as kern
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_plain as plain
+    shapes = {}
     # eight decode input copies (8 x 8.4 MB of state) so every call reads
     # cold, the state written over itself as on the main path; prefill
     # inputs are 0.3 GB each, one copy, and its plain loop is timed once
-    for S, copies, plain_reps in ((1, 8, 20), (RWKV_PROMPT, 1, 1)):
+    for label, S, copies, plain_reps in (("decode", 1, 8, 20),
+                                         ("prefill", RWKV_PROMPT, 1, 1)):
         sets = [rwkv6_inputs(torch.bfloat16, S=S, seed=10 + c)
                 for c in range(copies)]
         ms = cuda_ms([lambda a=a: kern(*a, out_state=a[5]) for a in sets])
         plain_ms = cuda_ms([lambda a=a: plain(*a) for a in sets],
-                           reps=plain_reps, n=3 if S > 1 else 50)
+                           reps=plain_reps, n=3 if S > 1 else 50) \
+            if plain_too else None
         bound, bound_by = rwkv6_bound_ms(sets[0][0], sets[0][3],
                                          sets[0][4], sets[0][5])
-        timed[S] = (ms, plain_ms, bound, bound_by)
-        log(f"rwkv6_chunked bf16 B={RWKV_B} H={RWKV_H} S={S} dh={RWKV_DH}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({bound_by})")
+        shapes[f"{label} S={S}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by}
+        log(f"rwkv6_chunked bf16 {label} B={RWKV_B} H={RWKV_H} S={S} "
+            f"dh={RWKV_DH}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms or float('nan'):.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by})")
         del sets
+    return shapes
+
+
+def phase_rwkv6_vs_plain():
+    """``rwkv6_cases`` (every case logged, then any disagreement fails the
+    phase), then ``rwkv6_times``: the decode shape's times go into the
+    record, both shapes' into its ``shapes``."""
+    worst, bad = rwkv6_cases()
+    check(not bad, f"rwkv6_chunked disagrees with its plain version: {bad}")
+    shapes = rwkv6_times()
     log("  library_ms null: no single PyTorch call computes the WKV6 "
         "recurrence")
-    ms, plain_ms, bound, bound_by = timed[1]
     return {"name": "rwkv6_chunked", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
             "replaces": "src/repro/kernels/rwkv6_kernel.py:63",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": worst, **shapes["decode S=1"], "shapes": shapes}
 
 
 def nonzero_adapters(params, seed=0):
@@ -1663,12 +1733,14 @@ def kernel_phases():
 
 def kernel_times(records):
     """{kernel: ms} from kernel records, and every shape of a record that
-    carries ``shapes`` (the resident and flash kernels) beside SDPA."""
+    carries ``shapes`` (the resident, WKV6 and flash kernels), beside SDPA
+    where a shape has a library time."""
     out = {r["name"]: r["ms"] for r in records}
     for r in records:
         for label, t in r.get("shapes", {}).items():
             out[f"{r['name']} [{label}]"] = t["ms"]
-            out[f"{r['name']} [{label}] sdpa"] = t["library_ms"]
+            if t["library_ms"] is not None:
+                out[f"{r['name']} [{label}] sdpa"] = t["library_ms"]
     return out
 
 
@@ -1693,8 +1765,9 @@ def ab(roots):
                  if x.startswith('{"kernels"')]
         turns.append(kernel_times(json.loads(lines[-1])["kernels"]))
     log("ms per turn (" + ", ".join(map(str, roots)) + "):")
-    for name in turns[0]:
-        log(f"  {name}: " + ", ".join(f"{t[name]:.4f}" for t in turns))
+    for name in dict.fromkeys(n for t in turns for n in t):
+        log(f"  {name}: " + ", ".join(
+            f"{t[name]:.4f}" if name in t else "-" for t in turns))
     print(json.dumps({"roots": list(map(str, roots)), "turns": turns}))
 
 

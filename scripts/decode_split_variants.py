@@ -136,33 +136,38 @@ print("TIMES " + json.dumps(times), flush=True)
 """
 
 
-def patched_copy(name: str, into: Path) -> Path:
+def patched_copy(name: str, edits, source: Path, into: Path) -> Path:
+    """A copy of ``src/`` under ``into`` with ``edits`` (old, new) applied
+    to ``source``; each old text must occur exactly once."""
     src = into / name / "src"
     shutil.copytree(ROOT / "src", src,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    text = (src / SOURCE).read_text()
-    for old, new in VARIANTS[name]:
+    text = (src / source).read_text()
+    for old, new in edits:
         if text.count(old) != 1:
             raise SystemExit(f"variant {name}: its edit does not apply")
         text = text.replace(old, new)
-    (src / SOURCE).write_text(text)
+    (src / source).write_text(text)
     return src
 
 
-def main(names):
-    unknown = [n for n in names if n not in VARIANTS]
+def run_turns(names, variants, source: Path, turn):
+    """For each named variant, in order, a patched copy of ``src/`` and a
+    fresh process running ``turn(name, copy's src)``; prints its output
+    but the ``TIMES {json}`` line, then every key of those lines per
+    turn."""
+    unknown = [n for n in names if n not in variants]
     if not names or unknown:
-        raise SystemExit(f"name variants from {sorted(VARIANTS)}; unknown: "
+        raise SystemExit(f"name variants from {sorted(variants)}; unknown: "
                          f"{unknown}")
     turns = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, name in enumerate(names):
-            src = patched_copy(name, Path(tmp) / str(i))
+            src = patched_copy(name, variants[name], source,
+                               Path(tmp) / str(i))
             print(f"=== turn {i + 1}: {name}", flush=True)
-            proc = subprocess.run(
-                [sys.executable, "-c",
-                 TURN.format(src=str(src), root=str(ROOT))],
-                capture_output=True, text=True)
+            proc = subprocess.run([sys.executable, "-c", turn(name, src)],
+                                  capture_output=True, text=True)
             lines = proc.stdout.splitlines()
             print("\n".join(x for x in lines if not x.startswith("TIMES ")),
                   flush=True)
@@ -170,10 +175,15 @@ def main(names):
                 print(proc.stderr[-3000:], flush=True)
             found = [x for x in lines if x.startswith("TIMES ")]
             turns.append(json.loads(found[-1][6:]) if found else {})
-    print("=== ms per turn (" + ", ".join(names) + ")")
+    print("=== per turn (" + ", ".join(names) + ")")
     for key in sorted({k for t in turns for k in t}):
         print(f"{key}: " + " / ".join(
-            f"{t[key]:.4f}" if key in t else "-" for t in turns))
+            f"{t[key]:.4g}" if key in t else "-" for t in turns))
+
+
+def main(names):
+    run_turns(names, VARIANTS, SOURCE,
+              lambda name, src: TURN.format(src=str(src), root=str(ROOT)))
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ float32:
 launch in its ``.launches``; it runs ``rwkv6_chunked_plain`` — the same
 recurrence as a step-by-step float32 loop in plain PyTorch — only for
 tensors on the CPU.  There is no fallback: a CUDA tensor the kernel does
-not take raises.
+not take raises.  The kernel runs a sequence of ``CHUNK`` or more steps in
+the chunked, parallel-in-time form that ``rwkv6_chunkwise_plain`` spells
+out in plain PyTorch (the CPU tests hold that form against the step-by-step
+one); shorter ones (decode) step by step.
 """
 from __future__ import annotations
 
@@ -26,6 +29,11 @@ from repro_torch.kernels import build
 
 SUPPORTED_DH = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's chunk (kChunk in csrc/rwkv6.cu): sequences of CHUNK or more
+# steps run the chunked body, shorter ones the per-step body
+CHUNK = 16
+# the chunked form's floor of log2 w (kLog2Floor): w = 0 decays by 2^-40
+LOG2_FLOOR = -40.0
 
 
 def _new_y(B, H, S, dh, device):
@@ -54,6 +62,53 @@ def rwkv6_chunked_plain(r, k, v, w, u, state, *, out_state=None):
     return y, out_state
 
 
+def rwkv6_chunkwise_plain(r, k, v, w, u, state, *, out_state=None,
+                          chunk=CHUNK):
+    """The chunked form the kernel computes for sequences of ``CHUNK`` or
+    more steps, in plain PyTorch: for each chunk of ``chunk`` steps from
+    the carried state S0, with l_t = max(log2 w_t, LOG2_FLOOR) and
+    L_t = l_0 + ... + l_t (L_-1 = 0),
+
+        y_t = (r_t 2^L_{t-1}) S0 + sum_{s<t} A_ts v_s + (r_t . (u k_t)) v_t,
+        A_ts = sum_i r_t[i] k_s[i] 2^(L_{t-1}[i] - L_s[i]),
+        S_C = diag(2^L_{C-1}) S0 + (k_s 2^(L_{C-1} - L_s))^T V,
+
+    in the kernel's order of terms (inter-chunk, then A V with the bonus on
+    A's diagonal).  Products are float32; the exponents are float64, as
+    accurate as the kernel's compensated float32 pairs.  Same arguments and
+    result as :func:`rwkv6_chunked`.  Nothing on the main path calls it:
+    the tests use it to hold the algebra against the step-by-step form."""
+    B, H, S, dh = r.shape
+    r, k, v = (t.float() for t in (r, k, v))
+    u = u.float()
+    s = state.float()
+    lw = torch.log2(w.double())
+    lw = torch.where(lw < LOG2_FLOOR, LOG2_FLOOR, lw)      # a NaN stays
+    y = _new_y(B, H, S, dh, r.device)
+    for t0 in range(0, S, chunk):
+        sl = slice(t0, min(t0 + chunk, S))
+        n = sl.stop - t0
+        r_c, k_c, v_c = r[:, :, sl], k[:, :, sl], v[:, :, sl]
+        lam = lw[:, :, sl].cumsum(dim=2)                       # L_t
+        lam_q = torch.cat([torch.zeros_like(lam[:, :, :1]), lam[:, :, :-1]],
+                          dim=2)                                # L_{t-1}
+        inter = (r_c * torch.exp2(lam_q).float()) @ s
+        diff = lam_q[:, :, :, None] - lam[:, :, None]           # (t, s, i)
+        lower = torch.ones(n, n, dtype=torch.bool, device=r.device).tril(-1)
+        diff = torch.where(lower[:, :, None], diff, -torch.inf)
+        a = torch.einsum("bhti,bhsi,bhtsi->bhts", r_c, k_c,
+                         torch.exp2(diff).float())
+        a = a + torch.diag_embed((r_c * u[:, None] * k_c).sum(dim=-1))
+        y[:, :, sl] = inter + a @ v_c
+        kd = k_c * torch.exp2(lam[:, :, -1:] - lam).float()
+        s = torch.exp2(lam[:, :, -1]).float()[..., None] * s \
+            + kd.transpose(-1, -2) @ v_c
+    if out_state is None:
+        return y, s
+    out_state.copy_(s)
+    return y, out_state
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
@@ -61,10 +116,14 @@ def rwkv6_chunked_plain(r, k, v, w, u, state, *, out_state=None):
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
+# ctypes argument types of the entry point, as ``csrc/rwkv6.cu`` declares it
+_SIGNATURES = {"rwkv6_launch": [_PTR] * 8 + [_INT] * 6 + [_I64] * 20 + [_PTR]}
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("rwkv6").rwkv6_launch
-    fn.argtypes = [_PTR] * 8 + [_INT] * 6 + [_I64] * 20 + [_PTR]
+    fn.argtypes = _SIGNATURES["rwkv6_launch"]
     fn.restype = _INT
     return fn
 
@@ -108,6 +167,9 @@ def _check_kernel_inputs(r, k, v, w, u, state, out_state, dh):
     for name, t in (("state", state), ("out_state", out_state)):
         if t.stride(3) != 1 or t.stride(2) != dh:
             raise ValueError(f"{name} needs dense (dh, dh) matrices")
+    if r.shape[2] >= CHUNK and not all(map(build.aligned16, (r, k, v, w))):
+        raise ValueError("the chunked kernel (S >= 16) needs 16-byte "
+                         "aligned bases and strides for r, k, v and w")
 
 
 def rwkv6_chunked(r, k, v, w, u, state, *, out_state=None):
@@ -116,10 +178,12 @@ def rwkv6_chunked(r, k, v, w, u, state, *, out_state=None):
     r, k, v: (B, H, S, dh) in float32 or bfloat16, any strides with a unit
     last one (the model passes transposed views of its (B, S, H, dh)
     activations); w: the same shape in float32, the per-channel decay in
-    (0, 1); u: (H, dh) bonus, float32 or bfloat16; state: (B, H, dh, dh)
+    [0, 1]; u: (H, dh) bonus, float32 or bfloat16; state: (B, H, dh, dh)
     float32, S[i, j] = key channel i, value channel j.  ``out_state``, if
     given, receives the final state and may be ``state`` itself (each
-    (b, h) state is read whole before it is written).
+    (b, h) state is read whole before it is written).  On the card, S >=
+    ``CHUNK`` needs 16-byte aligned bases and strides for r, k, v and w, as
+    every view of a model activation has.
 
     Returns y (B, H, S, dh) float32 — a view of (B, S, H, dh) memory — and
     the final state (``out_state``, or a new tensor)."""

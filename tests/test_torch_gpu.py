@@ -661,15 +661,33 @@ def test_ring_kernel_gives_nan_for_rows_out_of_range(cuda):
 RWKV_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def rwkv_inputs(cuda, dtype, B, H, S, dh, seed, u_dtype=None):
-    """r/k/v (B, H, S, dh) in ``dtype`` and w float32 in (0.45, 0.95), as
+def extreme_decays(rng, smooth):
+    """Decays as the rwkv6 path meets them (exact 0.0, below 1e-30, exact
+    1.0, above 0.999), mixed per element into ``smooth`` (B, S, H, dh):
+    0.0 (3 %), 10^-30 to 10^-44 (3 %; below 1e-38 a float32 denormal),
+    1.0 (20 %), 1 - 10^-3 x (0, 1] (40 %), else ``smooth``."""
+    f = torch.from_numpy(rng.random(tuple(smooth.shape))).to(smooth.device)
+    w = torch.where(f < 0.66, 1.0 - 1e-3 * (0.66 - f) / 0.4, smooth.double())
+    w = torch.where(f < 0.26, 1.0, w)
+    w = torch.where(f < 0.06, torch.pow(10.0, -30.0 - 14.0 * (f - 0.03)
+                                        / 0.03), w)
+    return torch.where(f < 0.03, 0.0, w).float()
+
+
+def rwkv_inputs(cuda, dtype, B, H, S, dh, seed, u_dtype=None,
+                decays="smooth"):
+    """r/k/v (B, H, S, dh) in ``dtype`` and w float32 in (0.45, 0.95)
+    (``decays="extreme"``: with the path's extremes mixed in), as
     transposed views of (B, S, H, dh) activations (the model's layout);
     u (H, dh) and a nonzero float32 starting state."""
     rng = np.random.default_rng(seed)
     act = torch.from_numpy(0.5 * rng.standard_normal((4, B, S, H, dh))
                            ).float().to(cuda)
     r, k, v = (act[i].to(dtype).transpose(1, 2) for i in range(3))
-    w = (0.45 + 0.5 * torch.sigmoid(act[3])).transpose(1, 2)
+    w = 0.45 + 0.5 * torch.sigmoid(act[3])
+    if decays == "extreme":
+        w = extreme_decays(rng, w)
+    w = w.transpose(1, 2)
     u = torch.from_numpy(0.5 * rng.standard_normal((H, dh))).to(
         cuda, u_dtype or dtype)
     s0 = torch.from_numpy(0.1 * rng.standard_normal((B, H, dh, dh))).to(
@@ -708,6 +726,69 @@ def test_rwkv6_kernel_chains_in_place(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(torch.cat(ys, dim=2), y_full, **RWKV_TOL)
     torch.testing.assert_close(state, s_full, **RWKV_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 200])
+def test_rwkv6_kernel_at_extreme_decays(cuda, dtype, dh, S):
+    """Both bodies at the path's extreme decays (exact 0.0, below 1e-30,
+    exact 1.0, above 0.999): the per-step body (S < 16), the chunked body
+    at one chunk, a chunk and one, and many chunks; held to the plain
+    version and, for the chunked body, to the plain chunked form.  Every
+    output is finite."""
+    from repro_torch.kernels.rwkv6 import (rwkv6_chunked,
+                                           rwkv6_chunked_plain,
+                                           rwkv6_chunkwise_plain)
+    args = rwkv_inputs(cuda, dtype, 3, 4, S, dh, seed=3 * S + dh,
+                       decays="extreme")
+    before = rwkv6_chunked.launches
+    y, s = rwkv6_chunked(*args)
+    torch.cuda.synchronize()
+    assert rwkv6_chunked.launches == before + 1
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    want_y, want_s = rwkv6_chunked_plain(*args)
+    torch.testing.assert_close(y, want_y, **RWKV_TOL)
+    torch.testing.assert_close(s, want_s, **RWKV_TOL)
+    if S >= 16:
+        form_y, form_s = rwkv6_chunkwise_plain(*args)
+        torch.testing.assert_close(y, form_y, **RWKV_TOL)
+        torch.testing.assert_close(s, form_s, **RWKV_TOL)
+
+
+@pytest.mark.parametrize("split", [1, 16, 33])
+def test_rwkv6_kernel_chains_in_place_at_extreme_decays(cuda, split):
+    """Two bf16 calls writing the state over their input, across the two
+    bodies (split 1: per-step then chunked; 16 and 33: chunked twice, the
+    second ragged), equal one plain call at the extreme decays."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
+    r, k, v, w, u, s0 = rwkv_inputs(cuda, torch.bfloat16, 2, 3, 90, 64,
+                                    seed=split, decays="extreme")
+    y_full, s_full = rwkv6_chunked_plain(r, k, v, w, u, s0)
+    state = s0.clone()
+    ys = [rwkv6_chunked(r[:, :, a:b], k[:, :, a:b], v[:, :, a:b],
+                        w[:, :, a:b], u, state, out_state=state)[0]
+          for a, b in ((0, split), (split, 90))]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(ys, dim=2), y_full, **RWKV_TOL)
+    torch.testing.assert_close(state, s_full, **RWKV_TOL)
+
+
+def test_rwkv6_chunked_body_rejects_unaligned_inputs(cuda):
+    """The chunked body stages 16-byte pieces: an r/k/v/w whose base or
+    strides are not 16-byte multiples raises for S >= 16 (the per-step
+    body reads them one by one and takes them)."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    r, k, v, w, u, s0 = rwkv_inputs(cuda, torch.float32, 1, 2, 17, 16,
+                                    seed=4)
+    odd = torch.zeros(1 + r.numel(), device=cuda)[1:].view(r.shape)
+    odd.copy_(r)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_chunked(odd, k, v, w, u, s0)
+    y, _ = rwkv6_chunked(odd[:, :, :15], k[:, :, :15], v[:, :, :15],
+                         w[:, :, :15], u, s0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
 
 
 def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda):

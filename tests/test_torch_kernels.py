@@ -327,19 +327,22 @@ _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
     "decode_attention_paged_resident_launch",
     "decode_attention_int8_paged_resident_launch",
     "decode_attention_ring_resident_launch",
+    "rwkv6_launch",
 ])
 def test_signatures_match_the_cuda_entry_points(entry):
-    """Each entry point's ctypes argument types (``_SIGNATURES``) against
-    its ``extern "C"`` declaration in ``csrc/decode_attention.cu``, parsed
-    from the source: a count or an order that differs would pass a pointer
-    as an int.  The source declares exactly the wrapped entry points."""
-    from repro_torch.kernels import decode_attention as da
-    src = (Path(da.__file__).with_name("csrc")
-           / "decode_attention.cu").read_text()
+    """Each entry point's ctypes argument types (its wrapper module's
+    ``_SIGNATURES``) against its ``extern "C"`` declaration in the module's
+    source (``csrc/decode_attention.cu``, ``csrc/rwkv6.cu``), parsed from
+    the source: a count or an order that differs would pass a pointer as
+    an int.  Each source declares exactly its wrapped entry points."""
+    from repro_torch.kernels import decode_attention, rwkv6
+    mod = next(m for m in (decode_attention, rwkv6) if entry in m._SIGNATURES)
+    src = (Path(mod.__file__).with_name("csrc")
+           / f"{mod.__name__.rsplit('.', 1)[-1]}.cu").read_text()
     assert set(re.findall(r'extern "C" int (\w+)\(', src)) \
-        == set(da._SIGNATURES)
+        == set(mod._SIGNATURES)
     params = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", src,
                        re.S).group(1)
     types = [p.strip().rsplit(None, 1)[0].replace("const ", "")
              .replace(" ", "") for p in params.split(",")]
-    assert [_C_TYPES[t] for t in types] == da._SIGNATURES[entry]
+    assert [_C_TYPES[t] for t in types] == mod._SIGNATURES[entry]

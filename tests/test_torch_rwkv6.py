@@ -12,7 +12,10 @@ the reference's weights through ``weights.params_from_jax``, with ``u``,
 the bonus term and the data-dependent shift and decay — overwritten in
 both packages' params with the same seeded values.  Tolerances (float32;
 the two frameworks sum in different orders): kernels ``atol=rtol=1e-5``,
-logits ``1e-4``.
+logits ``1e-4``.  The chunked form (``rwkv6_chunkwise_plain``, what the
+CUDA kernel computes for 16 or more steps) is held to the same 1e-5
+against the step-by-step form and the Pallas kernel: it regroups the
+same float32 sums and takes its decay exponents in float64.
 """
 import dataclasses
 
@@ -31,7 +34,9 @@ from repro.models.api import build_model as jax_build_model
 from repro.serving.engine import make_engine as jax_make_engine
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
+from repro_torch.kernels.rwkv6 import (CHUNK, rwkv6_chunked,
+                                      rwkv6_chunked_plain,
+                                      rwkv6_chunkwise_plain)
 from repro_torch.models import layers
 from repro_torch.models.api import build_model
 from repro_torch.models.rwkv6 import RWKV6Model
@@ -47,15 +52,30 @@ LOG_KEYS = ("step", "n_migrations", "mig_bytes", "applied", "reason",
 NO_HEADS = "model has no addressable attention heads"
 
 
-def _wkv_inputs(B, H, S, dh, seed, zero_state=False):
-    """r, k, v (0.5 N), w in (0.45, 0.95), u (0.1 N), state (0.1 N), as
-    numpy float32 in the kernel's (B, H, S, dh) layout."""
+def _extreme_decays(rng, smooth):
+    """Decays as the rwkv6 path meets them (exact 0.0, below 1e-30, exact
+    1.0, above 0.999), mixed per element into ``smooth``: 0.0 (3 %),
+    10^-30 to 10^-44 (3 %; below 1e-38 a float32 denormal), 1.0 (20 %),
+    1 - 10^-3 x (0, 1] (40 %), else ``smooth``."""
+    f = rng.random(smooth.shape)
+    w = np.where(f < 0.66, 1.0 - 1e-3 * (0.66 - f) / 0.4, smooth)
+    w = np.where(f < 0.26, 1.0, w)
+    w = np.where(f < 0.06, 10.0 ** (-30.0 - 14.0 * (f - 0.03) / 0.03), w)
+    return np.where(f < 0.03, 0.0, w).astype(np.float32)
+
+
+def _wkv_inputs(B, H, S, dh, seed, zero_state=False, decays="smooth"):
+    """r, k, v (0.5 N), w in (0.45, 0.95) (``decays="extreme"``: with the
+    path's extremes mixed in, ``_extreme_decays``), u (0.1 N), state
+    (0.1 N), as numpy float32 in the kernel's (B, H, S, dh) layout."""
     rng = np.random.default_rng(seed)
     mk = lambda *shape, s=0.5: (s * rng.standard_normal(shape)).astype(
         np.float32)
     r, k, v = mk(B, H, S, dh), mk(B, H, S, dh), mk(B, H, S, dh)
     w = (0.45 + 0.5 / (1 + np.exp(-rng.standard_normal((B, H, S, dh))))
          ).astype(np.float32)
+    if decays == "extreme":
+        w = _extreme_decays(rng, w)
     u = mk(H, dh, s=0.1)
     s0 = np.zeros((B, H, dh, dh), np.float32) if zero_state \
         else mk(B, H, dh, dh, s=0.1)
@@ -110,6 +130,67 @@ def test_plain_state_chaining_equals_one_call():
     torch.testing.assert_close(torch.cat([y1, y2], dim=2), y_full, **TOL)
     torch.testing.assert_close(state, s_full, **TOL)
     assert not s0.any()                      # the input was not written
+
+
+@pytest.mark.parametrize("decays", ["smooth", "extreme"])
+@pytest.mark.parametrize("dh,S", [
+    (16, 1), (16, CHUNK - 1), (16, CHUNK + 1), (16, 40),
+    (32, CHUNK), (32, 3 * CHUNK + 5),
+    (64, 1), (64, CHUNK - 1), (64, CHUNK + 1), (64, 4 * CHUNK),
+])
+def test_chunkwise_plain_matches_sequential_and_pallas(dh, S, decays):
+    """The chunked form the CUDA kernel computes against the step-by-step
+    plain version and the Pallas kernel in interpret mode: one step, a
+    chunk less one, a chunk and one, ragged and whole several chunks; the
+    extreme decays hold exact 0.0, values below 1e-30 (denormals too),
+    exact 1.0 and values above 0.999, which a factored 2^L / 2^L form
+    cannot take.  Every output is finite."""
+    args = _wkv_inputs(2, 3, S, dh, seed=7 * S + dh, decays=decays)
+    if decays == "extreme":
+        w = args[3]
+        assert (w == 0).any() and ((w > 0) & (w < 1e-30)).any() \
+            and (w == 1).any() and ((w > 0.999) & (w < 1)).any()
+    targs = [torch.from_numpy(a) for a in args]
+    y, s = rwkv6_chunkwise_plain(*targs)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y_seq, s_seq = rwkv6_chunked_plain(*targs)
+    torch.testing.assert_close(y, y_seq, **TOL)
+    torch.testing.assert_close(s, s_seq, **TOL)
+    y_j, s_j = jax_rwkv6_chunked(*(jnp.asarray(a) for a in args),
+                                 chunk=min(S, 128), interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_j), **TOL)
+
+
+@pytest.mark.parametrize("split", [1, CHUNK, CHUNK + 3])
+def test_chunkwise_plain_chains_state_in_place(split):
+    """Two chunked calls, the second from the first's final state written
+    over its input, equal one step-by-step call at the extreme decays."""
+    B, H, S, dh = 2, 2, 3 * CHUNK + 7, 32
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in _wkv_inputs(
+        B, H, S, dh, seed=split, decays="extreme"))
+    y_seq, s_seq = rwkv6_chunked_plain(r, k, v, w, u, s0)
+    state = s0.clone()
+    ys = [rwkv6_chunkwise_plain(r[:, :, a:b], k[:, :, a:b], v[:, :, a:b],
+                                w[:, :, a:b], u, state, out_state=state)[0]
+          for a, b in ((0, split), (split, S))]
+    torch.testing.assert_close(torch.cat(ys, dim=2), y_seq, **TOL)
+    torch.testing.assert_close(state, s_seq, **TOL)
+
+
+def test_chunkwise_floor_keeps_zero_decays_finite():
+    """A chunk whose decays are all exactly 0 (log2 w = -inf) forgets the
+    state as the step-by-step form does; an unfloored L would give
+    -inf - -inf = NaN in the pairwise differences."""
+    B, H, S, dh = 1, 2, 2 * CHUNK, 16
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in
+                         _wkv_inputs(B, H, S, dh, seed=3))
+    w = torch.zeros_like(w)
+    y, s = rwkv6_chunkwise_plain(r, k, v, w, u, s0)
+    y_seq, s_seq = rwkv6_chunked_plain(r, k, v, w, u, s0)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, y_seq, **TOL)
+    torch.testing.assert_close(s, s_seq, **TOL)
 
 
 def test_ops_rwkv6_in_model_layout_matches_reference():
