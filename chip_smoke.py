@@ -18,13 +18,16 @@ scheduler, prefill and decode through the WKV6 kernel, with the
 controller's head plans logged as not applied; and ``make_engine(mode=
 "auto")`` serving glm4-9b (QKV bias set to seeded random values, half-head
 RoPE) at full width (4 layers) under continuous batching with 2048-8192
-token prompts and applied head migrations — and checks that each path
-went through its kernels, with exact launch counts.  Every prefill whose
-queries and keys share their positions (bucketed, lock-step, ring) runs
-the flash attention kernel.  It checks that the paged decode kernels give
-the linear ones' output bit for bit on the same cache in scrambled pages,
-and in float32 that greedy streams with and without the kernels, and
-from paged and dense caches, are equal.
+token prompts and applied head migrations; and ``make_engine(mode="auto")``
+serving musicgen-large (MHA at dh 64, LayerNorm, GELU, their biases set to
+seeded random values) at full width (4 layers) on the dense path's traffic
+— and checks that each path went through its kernels, with exact launch
+counts.  Every prefill whose queries and keys share their positions
+(bucketed, lock-step, ring) runs the flash attention kernel.  It checks
+that the paged decode kernels give the linear ones' output bit for bit on
+the same cache in scrambled pages, and in float32 that greedy streams
+with and without the kernels, and from paged and dense caches, are
+equal.
 
     python3 chip_smoke.py --ab build/parent . . build/parent
 
@@ -81,7 +84,7 @@ GLM_B, GLM_LO, GLM_HI, GLM_NEW, GLM_MAX_SEQ = 8, 2048, 8192, 64, 8264
 FLASH_LAUNCHES = {"dense": 16 * N_LAYERS, "paged": 0,
                   "int8": 16 * N_LAYERS, "int8_paged": 0,
                   "mixtral": 2 * N_LAYERS, "rwkv6": 0,
-                  "glm4": 16 * N_LAYERS}
+                  "glm4": 16 * N_LAYERS, "musicgen": 16 * N_LAYERS}
 TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
         # bf16 output keeps ~3 significant digits of values <~ 1
         torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
@@ -109,6 +112,10 @@ DECODE_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # GLM_MAX_SEQ, every row between its shortest prompt and its last token
 GLM_DECODE = dict(B=8, H=32, KvE=2, dh=128, T=GLM_MAX_SEQ)
 GLM_DECODE_LENGTHS = [8256, 2048, 5000, 7777, 3333, 6144, 4097, 8000]
+# the musicgen path's decode: 32 q heads over 32 KV heads (MHA, G 1) at dh
+# 64 over the dense path's extent
+MG_DECODE = dict(B=MAIN_B, H=32, KvE=32, dh=64, T=MAIN_T)
+DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
 
 
 class SmokeFailure(RuntimeError):
@@ -319,24 +326,27 @@ def decode_bound_ms(q, lengths, rows, KvE, T, row_bytes=None, valid=None,
 
 def sdpa_decode(q, k, v, lens, rows):
     """Yardstick only: one library call computing the resident kernel's
-    function on the gathered q and the length-masked K/V."""
+    function on the gathered q and the length-masked K/V (grouped query
+    heads where the rows outnumber the KV heads)."""
     T = k.shape[2]
     mask = (torch.arange(T, device=q.device)[None, :]
             < lens.clamp(0, T)[:, None])[:, None, None, :]
     qs = q.index_select(1, rows.long())[:, :, None, :]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, k, v, attn_mask=mask, enable_gqa=True)
+        qs, k, v, attn_mask=mask, enable_gqa=qs.shape[1] != k.shape[1])
 
 
 def phase_kernel_vs_plain():
     """The resident kernel against its plain version at the dense path's
     shapes (bf16 and f32; identity, group-permuted and partial rows;
     lengths 0, 1, T-1, T, T+1 and between, over 8 splits), the other head
-    widths, and the glm4 path's decode shape (G 16, 33 splits), each held
-    to TOLS and to DECODE_ROW_REL per (b, resident row); then its times at
-    the dense shape (ragged and full lengths) and the glm4 shape beside
-    the plain version, SDPA and the bound.  The dense shape's go into the
-    record, both shapes' into its ``shapes``."""
+    widths, the glm4 path's decode shape (G 16, 33 splits), and MHA (G 1:
+    one q row a KV head) at the musicgen path's shape (dh 64) and
+    qwen1.5-32b's heads (40 at dh 128), each held to TOLS and to
+    DECODE_ROW_REL per (b, resident row); then its times at the dense
+    shape (ragged and full lengths), the glm4 shape and the musicgen shape
+    beside the plain version, SDPA and the bound.  The dense shape's go
+    into the record, every shape's into its ``shapes``."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_resident, decode_attention_resident_plain)
     lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
@@ -353,6 +363,13 @@ def phase_kernel_vs_plain():
               (torch.float32, "group_perm",
                dict(GLM_DECODE, lengths=[0, 1, 8264, 8265, 2048, 255, 256,
                                          257]))]
+    # MHA: musicgen's decode on both bodies, and qwen1.5-32b's heads
+    cases += [(dt, rows, dict(MG_DECODE, lengths=lengths))
+              for dt in (torch.float32, torch.bfloat16)
+              for rows in ("identity", "group_perm", "partial")]
+    cases += [(dt, "group_perm", dict(B=2, H=40, KvE=40, dh=128,
+                                      lengths=[MAIN_T, 700]))
+              for dt in (torch.float32, torch.bfloat16)]
     worst = worst_rel = 0.0
     bad = []
     for i, (dt, rows, kw) in enumerate(cases):
@@ -400,7 +417,9 @@ def phase_kernel_vs_plain():
              dict(lengths=lengths)),
             ("glm4", lambda lens: lens,
              dict(GLM_DECODE, lengths=GLM_DECODE_LENGTHS, copies=3,
-                  plain_reps=(2, 5)))):
+                  plain_reps=(2, 5))),
+            ("musicgen", lambda lens: lens, dict(MG_DECODE,
+                                                 lengths=lengths))):
         t = timed(lens_of, **shape)
         shapes[label] = dict(zip(keys, t))
         B, H, KvE, dh, T = (shape.get(n, d) for n, d in (
@@ -721,6 +740,23 @@ def log_split(eng, wall, prefill):
         f"{wall - decode_s - interval_s - prefill['s']:.2f} s")
 
 
+def graph_decode_step(eng):
+    """After the drain, the whole batch's decode step captured in a CUDA
+    graph and replayed (``cuda_ms``; positions advance to the cache edge,
+    so the rows attend their full extent): the device's own time for a
+    step, host launches removed.  Logged beside the eager step median
+    (``step_times``: launches, then a device sync), whose rest is the time
+    the device waits for the host's launches.  The engine's counts are
+    read before this runs."""
+    tokens = torch.as_tensor(eng._next, device=eng.device)
+    graph_ms = cuda_ms([lambda: eng.model.decode_step(eng.params, eng.state,
+                                                      tokens)], reps=5, n=20)
+    eager_ms = 1e3 * float(np.median(eng.step_times))
+    log(f"  decode step as one CUDA graph: {graph_ms:.3f} ms of device work "
+        f"against the eager median {eager_ms:.2f} ms (the device idle "
+        f"{100 * (1 - graph_ms / eager_ms):.1f} % of an eager step)")
+
+
 def watch_logits(eng):
     """Wrap the engine model's decode_step: keep the last logits and a
     device-side flag that every step's logits were finite."""
@@ -837,6 +873,8 @@ def phase_main_path(path="dense"):
               f"drain")
         check(eng.page_waits > 0, f"{path}: admission never waited for "
               f"pages")
+    if path == "dense":
+        graph_decode_step(eng)
     return launches[name], flash
 
 
@@ -1477,28 +1515,31 @@ def flash_bound_ms(q, k, causal, window):
                                  else "operations")
 
 
-# label -> (B, H, KvE, S, window): the prefill attention of each path that
-# runs the kernel, in bf16 — llama's largest bucket (the dense and int8
-# paths), mixtral's lock-step wave over its window, glm4's longest bucket
+# label -> (B, H, KvE, S, window, dh): the prefill attention of each path
+# that runs the kernel, in bf16 — llama's largest bucket (the dense and
+# int8 paths), mixtral's lock-step wave over its window, glm4's longest
+# bucket, musicgen's largest bucket (MHA at dh 64)
 FLASH_SHAPES = {
-    "llama bucket": (1, 32, 8, 512, 0),
-    "mixtral wave": (RING_B, 32, 8, RING_PROMPT, RING_W),
-    "glm4": (1, 32, 2, GLM_HI, 0),
+    "llama bucket": (1, 32, 8, 512, 0, 128),
+    "mixtral wave": (RING_B, 32, 8, RING_PROMPT, RING_W, 128),
+    "glm4": (1, 32, 2, GLM_HI, 0, 128),
+    "musicgen bucket": (1, 32, 32, 512, 0, 64),
 }
 
 
 def phase_flash_vs_plain():
     """The flash kernel against its plain version (the model's own prefill
     arithmetic: ``attention_scores`` below a KV extent of 2048,
-    ``chunked_attention`` at 2048 and above) at the three paths' bf16
+    ``chunked_attention`` at 2048 and above) at the four paths' bf16
     shapes, a ragged S = 1000 under a window, a non-causal case, Sq < Skv,
-    and float32; then its times at the three shapes beside the plain
-    version, SDPA and the bound.  The glm4 shape's go into the record."""
+    MHA at dh 128 (qwen1.5-32b's heads), and float32; then its times at the
+    four shapes beside the plain version, SDPA and the bound.  The glm4
+    shape's go into the record."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(label, bf16, dict(B=B, H=H, KvE=KvE, Sq=S), True, w)
-             for label, (B, H, KvE, S, w) in FLASH_SHAPES.items()]
+    cases = [(label, bf16, dict(B=B, H=H, KvE=KvE, Sq=S, dh=dh), True, w)
+             for label, (B, H, KvE, S, w, dh) in FLASH_SHAPES.items()]
     cases += [
         ("ragged S=1000 window 300", bf16,
          dict(B=2, H=32, KvE=2, Sq=1000), True, 300),
@@ -1507,6 +1548,9 @@ def phase_flash_vs_plain():
                                          Skv=2048), True, 0),
         ("llama bucket f32", f32, dict(B=1, H=32, KvE=8, Sq=512), True, 0),
         ("ragged S=1000 f32 GQA 16", f32, dict(B=1, H=32, KvE=2, Sq=1000),
+         True, 0),
+        ("qwen MHA S=700", bf16, dict(B=1, H=40, KvE=40, Sq=700), True, 0),
+        ("musicgen bucket f32", f32, dict(B=1, H=32, KvE=32, Sq=512, dh=64),
          True, 0),
     ]
     worst = worst_rel = 0.0
@@ -1530,11 +1574,12 @@ def phase_flash_vs_plain():
         del q, k, v, out, want
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = {}
-    for label, (B, H, KvE, S, window) in FLASH_SHAPES.items():
+    for label, (B, H, KvE, S, window, dh) in FLASH_SHAPES.items():
         # input copies together larger than the 50 MB L2, so every call
         # reads cold; long shapes are one copy and fewer timed calls
         small = S <= 1024
-        sets = [flash_inputs(bf16, B=B, H=H, KvE=KvE, Sq=S, seed=10 + c)
+        sets = [flash_inputs(bf16, B=B, H=H, KvE=KvE, Sq=S, dh=dh,
+                             seed=10 + c)
                 for c in range(16 if small else 1)]
         kw = dict(causal=True, window=window)
         reps, n = (20, 50) if small else (2, 5)
@@ -1551,12 +1596,12 @@ def phase_flash_vs_plain():
             mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
                                                  - window)
         lib_ms = cuda_ms([lambda a=a: sdpa(
-            *a, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+            *a, attn_mask=mask, is_causal=mask is None, enable_gqa=H != KvE)
             for a in sets], reps=reps, n=n)
         bound, bound_by = flash_bound_ms(sets[0][0], sets[0][1], True, window)
         timed[label] = (ms, plain_ms, bound, bound_by, lib_ms)
         log(f"flash_attention bf16 {label} B={B} H={H} KvE={KvE} S={S} "
-            f"dh=128 window={window}: kernel {ms:.4f} ms, plain "
+            f"dh={dh} window={window}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bound_by}, {flash_pairs(S, S, True, window)} pairs per "
             f"head)")
@@ -1586,43 +1631,35 @@ def random_qkv_bias(params, seed=0):
         t.copy_(0.5 * torch.randn(t.shape, generator=gen, device="cuda"))
 
 
-def glm4_engine(cfg, *, use_kernel, n_requests, hi, max_new, max_seq,
+def auto_engine(cfg, *, use_kernel, n_requests, lo, hi, max_new, max_seq,
                 params=None):
     """``make_engine(mode="auto")`` for ``cfg``: 8 slots, λ = 8, four
-    simulated devices, ``n_requests`` prompts of ``GLM_LO``-``hi`` tokens
-    from ``default_rng(0)``."""
+    simulated devices, ``n_requests`` prompts of ``lo``-``hi`` tokens from
+    ``default_rng(0)``."""
     from repro_torch.core.network import DeviceNetwork
     from repro_torch.serving.engine import make_engine
-    eng = make_engine(cfg, mode="auto", n_slots=GLM_B, max_seq=max_seq,
+    eng = make_engine(cfg, mode="auto", n_slots=MAIN_B, max_seq=max_seq,
                       lam=8, seed=0, net=DeviceNetwork.sample(4, seed=1),
                       use_kernel=use_kernel, params=params, device="cuda")
-    for p in traffic(n_requests, cfg.vocab_size, lo=GLM_LO, hi=hi):
+    for p in traffic(n_requests, cfg.vocab_size, lo=lo, hi=hi):
         eng.submit(p, max_new_tokens=max_new)
     return eng
 
 
-def phase_glm4_path():
-    """Serve 16 requests (2048-8192-token prompts, 64 new tokens each) on
-    the full-width 4-layer glm4-9b through ``make_engine(mode="auto")``,
-    which must pick the continuous engine: every bucketed prefill runs the
-    flash kernel once per layer (buckets 4096 and 8192), every decode step
-    the flash-decode kernel, and a straggler at step 16 on the busiest
-    device makes an interval apply head migrations (moving the random
-    biases with their heads).  Returns the decode kernel's and the flash
-    kernel's launches."""
-    from repro_torch.configs import get_config
+def drive_auto_path(path, eng, max_new):
+    """Drive a continuous-batching path built by ``auto_engine`` to idle
+    with every kernel's count set to 0 just before, a straggler at step 16
+    on the busiest device; log its host-clock split and peak memory, and
+    check that every request finished, an interval applied head
+    migrations, the flash kernel launched ``FLASH_LAUNCHES[path]`` times,
+    the resident decode kernel once a layer each decode step, and no other
+    kernel.  Returns the decode and flash launches."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.serving.engine import ServingEngine
-    cfg = get_config("glm4-9b").with_overrides(n_layers=N_LAYERS)
-    torch.cuda.reset_peak_memory_stats()
-    eng = glm4_engine(cfg, use_kernel=True, n_requests=16, hi=GLM_HI,
-                      max_new=GLM_NEW, max_seq=GLM_MAX_SEQ)
+    cfg = eng.cfg
     check(isinstance(eng, ServingEngine),
-          f"make_engine picked {type(eng).__name__} for glm4")
-    random_qkv_bias(eng.params)
-    log("glm4 weights: random from seed 0, then bq, bk and bv set to "
-        "seeded 0.5 N(0, 1) (the init leaves them at zero)")
+          f"make_engine picked {type(eng).__name__} for {path}")
     weight_gb = sum(t.numel() * t.element_size() for t in
                     _leaves(eng.params)) / 1e9
     seen = watch_logits(eng)
@@ -1645,8 +1682,9 @@ def phase_glm4_path():
     applied = [e for e in eng.migration_log
                if e["applied"] and e["n_migrations"]]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"main path glm4 (make_engine auto -> {type(eng).__name__}) bf16 "
-        f"glm4-9b x{N_LAYERS} layers: {len(eng.finished)} requests, "
+    log(f"main path {path} (make_engine auto -> {type(eng).__name__}) "
+        f"{DTYPE_NAMES[cfg.dtype]} {cfg.name} x{cfg.n_layers} layers: "
+        f"{len(eng.finished)} requests, "
         f"{tokens} tokens, {eng.decode_steps} decode steps in {wall:.2f} s "
         f"({tokens / wall:.1f} tok/s); decode step median "
         f"{1e3 * float(np.median(eng.step_times)):.2f} ms; "
@@ -1660,21 +1698,74 @@ def phase_glm4_path():
     log_split(eng, wall, prefill)
     log(f"  memory: weights {weight_gb:.2f} GB, peak allocated "
         f"{peak_gb:.2f} GB")
-    check(len(eng.finished) == 16 and all(len(r.out_tokens) == GLM_NEW
-                                          for r in eng.finished),
-          "glm4: not every request finished with its 64 tokens")
-    check(bool(applied), "glm4: no interval applied a migration")
-    check(flash == FLASH_LAUNCHES["glm4"],
-          f"glm4: flash_attention launches {flash} != "
-          f"{FLASH_LAUNCHES['glm4']} (16 prefills x {N_LAYERS} layers)")
+    check(len(eng.finished) == 16
+          and all(len(r.out_tokens) == max_new for r in eng.finished),
+          f"{path}: not every request finished with its {max_new} tokens")
+    check(bool(applied), f"{path}: no interval applied a migration")
+    check(flash == FLASH_LAUNCHES[path],
+          f"{path}: flash_attention launches {flash} != "
+          f"{FLASH_LAUNCHES[path]} (16 prefills x {cfg.n_layers} layers)")
     check(decode == eng.decode_steps * cfg.n_layers,
-          f"glm4: decode kernel launches {decode} != decode steps "
+          f"{path}: decode kernel launches {decode} != decode steps "
           f"{eng.decode_steps} x {cfg.n_layers} layers")
     check(not any(n for k, n in launches.items()
                   if k != "decode_attention_resident"),
-          f"glm4: another path's kernel launched: {launches}")
-    check(bool(seen["finite"].item()), "glm4: non-finite logits")
+          f"{path}: another path's kernel launched: {launches}")
+    check(bool(seen["finite"].item()), f"{path}: non-finite logits")
+    graph_decode_step(eng)
     return decode, flash
+
+
+def phase_glm4_path():
+    """Serve 16 requests (2048-8192-token prompts, 64 new tokens each) on
+    the full-width 4-layer glm4-9b through ``make_engine(mode="auto")``,
+    which must pick the continuous engine: every bucketed prefill runs the
+    flash kernel once per layer (buckets 4096 and 8192), every decode step
+    the flash-decode kernel, and a straggler at step 16 on the busiest
+    device makes an interval apply head migrations (moving the random
+    biases with their heads).  Returns the decode kernel's and the flash
+    kernel's launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config("glm4-9b").with_overrides(n_layers=N_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = auto_engine(cfg, use_kernel=True, n_requests=16, lo=GLM_LO,
+                      hi=GLM_HI, max_new=GLM_NEW, max_seq=GLM_MAX_SEQ)
+    random_qkv_bias(eng.params)
+    log("glm4 weights: random from seed 0, then bq, bk and bv set to "
+        "seeded 0.5 N(0, 1) (the init leaves them at zero)")
+    return drive_auto_path("glm4", eng, GLM_NEW)
+
+
+def stream_pair(label, engines, straggle_at=8):
+    """Drive two engines built from the same weights in step, a straggler
+    at ``straggle_at``: their greedy streams and migration logs must be
+    equal, with applied migrations, and every logit finite."""
+    seen = [watch_logits(e) for e in engines]
+    keys = ("step", "n_migrations", "mig_bytes", "applied")
+    worst = 0.0
+    while True:
+        more = [drive(e, straggle_at=straggle_at) for e in engines]
+        check(more[0] == more[1], f"{label}: the two engines stopped at "
+              f"different steps")
+        if not more[0]:
+            break
+        active = engines[0]._active()
+        if active:
+            worst = max(worst, (seen[0]["last"][active]
+                                - seen[1]["last"][active]).abs().max().item())
+    streams = [{r.rid: r.out_tokens for r in e.finished} for e in engines]
+    logs = [[tuple(m[k] for k in keys) for m in e.migration_log]
+            for e in engines]
+    moved = [sum(m[1] for m in lg if m[3]) for lg in logs]
+    log(f"f32 streams {label}: {len(streams[0])} requests, max per-step "
+        f"logit difference {worst:.3e}, applied migrations {moved[0]} and "
+        f"{moved[1]}, logs {'equal' if logs[0] == logs[1] else 'differ'}")
+    check(len(streams[0]) == 8 and streams[0] == streams[1],
+          f"{label}: greedy streams differ")
+    check(logs[0] == logs[1], f"{label}: migration logs differ")
+    check(min(moved) > 0, f"{label}: no migration was applied")
+    check(all(bool(s["finite"].item()) for s in seen),
+          f"{label}: non-finite logits")
 
 
 def phase_glm4_stream_pair():
@@ -1690,37 +1781,67 @@ def phase_glm4_stream_pair():
     params = build_model(cfg, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
     random_qkv_bias(params)
-    keys = ("step", "n_migrations", "mig_bytes", "applied")
-    engines = [glm4_engine(cfg, use_kernel=uk, n_requests=8, hi=4096,
-                           max_new=32, max_seq=4096 + 40, params=params)
+    engines = [auto_engine(cfg, use_kernel=uk, n_requests=8, lo=GLM_LO,
+                           hi=4096, max_new=32, max_seq=4096 + 40,
+                           params=params)
                for uk in (True, False)]
-    seen = [watch_logits(e) for e in engines]
-    worst = 0.0
-    while True:
-        more = [drive(e, straggle_at=8) for e in engines]
-        check(more[0] == more[1], "glm4: the two engines stopped at "
-              "different steps")
-        if not more[0]:
-            break
-        active = engines[0]._active()
-        if active:
-            worst = max(worst, (seen[0]["last"][active]
-                                - seen[1]["last"][active]).abs().max().item())
-    streams = [{r.rid: r.out_tokens for r in e.finished} for e in engines]
-    logs = [[tuple(m[k] for k in keys) for m in e.migration_log]
-            for e in engines]
-    moved = [sum(m[1] for m in lg if m[3]) for lg in logs]
-    log(f"f32 streams glm4 kernels vs plain ({N_LAYERS} layers): "
-        f"{len(streams[0])} requests, max per-step logit difference "
-        f"{worst:.3e}, applied migrations {moved[0]} and {moved[1]}, logs "
-        f"{'equal' if logs[0] == logs[1] else 'differ'}")
-    check(len(streams[0]) == 8 and streams[0] == streams[1],
-          "glm4: greedy streams differ")
-    check(logs[0] == logs[1], "glm4: migration logs differ")
-    check(min(moved) > 0, "glm4: no migration was applied")
-    check(all(bool(s["finite"].item()) for s in seen),
-          "glm4: non-finite logits")
-    del engines, seen, params
+    stream_pair(f"glm4 kernels vs plain ({N_LAYERS} layers)", engines)
+    del engines, params
+
+
+# ----------------------------------------------------- the musicgen path
+def random_norm_mlp_bias(params, seed=0):
+    """Set the LayerNorm biases ``ln1_b``, ``ln2_b`` and ``ln_f_b`` and the
+    GELU MLP's ``b_up`` and ``b_down`` in place to 0.5 N(0, 1) from a
+    seeded generator: the init leaves them at zero, which would hide a
+    bias the model drops."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layers = params["layers"]
+    for t in (layers["ln1_b"], layers["ln2_b"], params["ln_f_b"],
+              layers["mlp"]["b_up"], layers["mlp"]["b_down"]):
+        t.copy_(0.5 * torch.randn(t.shape, generator=gen, device="cuda"))
+
+
+def phase_musicgen_path():
+    """Serve the dense path's traffic (16 requests of 32-512 tokens, 64 new
+    tokens each, an extent of 1024) on the full-width 4-layer
+    musicgen-large (MHA: 32 q heads over 32 KV heads at dh 64, LayerNorm,
+    GELU) through ``make_engine(mode="auto")``, which must pick the
+    continuous engine: every bucketed prefill runs the flash kernel once
+    per layer at H == KvE, every decode step the resident kernel at G 1,
+    and a straggler at step 16 on the busiest device makes an interval
+    apply head migrations.  Returns the decode kernel's and the flash
+    kernel's launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config("musicgen-large").with_overrides(n_layers=N_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = auto_engine(cfg, use_kernel=True, n_requests=16, lo=32, hi=512,
+                      max_new=64, max_seq=MAIN_T)
+    random_norm_mlp_bias(eng.params)
+    log("musicgen weights: random from seed 0, then ln1_b, ln2_b, ln_f_b, "
+        "b_up and b_down set to seeded 0.5 N(0, 1) (the init leaves them "
+        "at zero)")
+    return drive_auto_path("musicgen", eng, 64)
+
+
+def phase_musicgen_stream_pair():
+    """float32, 2 layers, biased: the musicgen path with the kernels (flash
+    prefill on the CUDA-core body at H == KvE, the resident decode kernel's
+    CUDA-core body at G 1) and without, from the same weights, 8 requests
+    of 32-512 tokens and a straggler at step 8, must stream the same greedy
+    tokens with the same migration logs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("musicgen-large").with_overrides(
+        n_layers=2, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    random_norm_mlp_bias(params)
+    engines = [auto_engine(cfg, use_kernel=uk, n_requests=8, lo=32, hi=512,
+                           max_new=32, max_seq=MAIN_T, params=params)
+               for uk in (True, False)]
+    stream_pair("musicgen kernels vs plain (2 layers)", engines)
+    del engines, params
 
 
 def kernel_phases():
@@ -1825,6 +1946,8 @@ def main():
     release()
     _, flash["glm4"] = phase_glm4_path()
     by_name["flash_attention"]["launches"] = flash["glm4"]
+    release()
+    _, flash["musicgen"] = phase_musicgen_path()
     log(f"flash_attention launches per main path: {flash}")
     release()
     phase_stream_equality()
@@ -1832,6 +1955,8 @@ def main():
     phase_mixtral_stream_pair()
     phase_rwkv6_stream_pair()
     phase_glm4_stream_pair()
+    release()
+    phase_musicgen_stream_pair()
     release()
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,12 +1,38 @@
 """Architecture registry — import every config module so @register runs."""
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
+    ShapeConfig,
+    SHAPES,
+    cell_is_runnable,
     get_config,
     list_archs,
 )
 
-# The port serves the dense GQA family (llama, and GLM-4 with QKV bias and
-# partial RoPE), the sliding-window MoE family and the attention-free
-# RWKV-6 family.
+# The reference's architectures the port registers: the dense family
+# (llama, GLM-4, Qwen1.5 and the paper's own model), the sliding-window MoE
+# family, the attention-free RWKV-6 and the audio decoder musicgen-large.
+# The VLM and zamba2 configs wait for their model families (ROADMAP Queue 1
+# #13 and #14).
 from repro_torch.configs import (  # noqa: F401
-    glm4_9b, llama3_8b, mixtral_8x7b, rwkv6_7b)
+    glm4_9b,
+    llama3_8b,
+    mixtral_8x22b,
+    mixtral_8x7b,
+    musicgen_large,
+    paper_gpt,
+    qwen1_5_110b,
+    qwen1_5_32b,
+    rwkv6_7b,
+)
+
+# the reference's assigned architectures that the port serves
+ASSIGNED_ARCHS = (
+    "qwen1.5-32b",
+    "qwen1.5-110b",
+    "llama3-8b",
+    "glm4-9b",
+    "rwkv6-7b",
+    "mixtral-8x22b",
+    "mixtral-8x7b",
+    "musicgen-large",
+)

@@ -2,6 +2,8 @@
 the paper's interval controller (Algorithm 1 + migrations) in the loop —
 counterpart of the JAX package's ``launch/serve.py``.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \
+      --layers 4 --requests 8 --tokens 24 --use-kernel [--straggler 0]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --layers 4 --requests 8 --tokens 24 --use-kernel [--straggler 0]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
@@ -13,8 +15,10 @@ counterpart of the JAX package's ``launch/serve.py``.
       --layers 4 --slots 8 --requests 16 --prompt-len 8192 \
       --mixed-lengths --tokens 64 --use-kernel
 
-Runs on the GPU unless ``--device cpu`` is given (``--reduced`` shrinks
-the widths to a CPU-sized model, and a sliding window to 16 tokens).
+The default ``--arch`` is musicgen-large, as in the reference.  Runs on
+the GPU unless ``--device cpu`` is given (``--reduced`` shrinks the widths
+to a CPU-sized model, keeping MHA where the arch has it, and a sliding
+window to 16 tokens).
 ``--engine auto`` picks the continuous engine where the arch and the
 served extent allow it and the wave engine otherwise (a sliding-window
 arch whose ``--max-seq``, default prompt + tokens + 8, reaches its window
@@ -56,7 +60,7 @@ def reduced_for_cpu(cfg, d_model: int = 256):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="musicgen-large")
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized widths (d_model 256, 8 heads, f32)")
     ap.add_argument("--layers", type=int, default=None,
@@ -122,7 +126,7 @@ def main(argv=None):
     eng = make_engine(cfg, mode=mode, n_slots=args.slots, max_seq=max_seq,
                       lam=args.lam, use_kernel=args.use_kernel,
                       device=args.device, **kw)
-    print(f"[serve] engine: {type(eng).__name__} on {eng.device}, "
+    print(f"[serve] {cfg.name} engine: {type(eng).__name__} on {eng.device}, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, max_seq {max_seq}"
           f"{f', window {cfg.sliding_window}' if cfg.sliding_window else ''}")
     if args.straggler >= 0:

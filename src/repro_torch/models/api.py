@@ -1,6 +1,6 @@
 """Model API: ``build_model(cfg, use_kernel=..., device=...)`` — counterpart
-of the JAX package's ``models/api.py`` for the dense, MoE and RWKV-6
-(``ssm``) families.
+of the JAX package's ``models/api.py`` for the dense, MoE, audio and RWKV-6
+(``ssm``) families — and ``batch_extras``, the stubbed frontend inputs.
 
 The returned model exposes ``init(generator)``, ``forward`` and the
 lock-step API of the wave scheduler (``init_decode_state``, ``prefill``,
@@ -10,6 +10,8 @@ continuous-batching slot API: ``init_decode_state(..., per_slot=True)``,
 """
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -17,7 +19,7 @@ from repro_torch.models.layers import unsupported
 from repro_torch.models.rwkv6 import RWKV6Model
 from repro_torch.models.transformer import TransformerLM
 
-_FAMILY_ITEMS = {"vlm": 13, "hybrid": 14, "audio": 17}
+_FAMILY_ITEMS = {"vlm": 13, "hybrid": 14}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,8 +37,16 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None):
     if cfg.family == "ssm":
         return RWKV6Model(cfg, use_kernel=use_kernel,
                           device=resolve_device(device))
-    if cfg.family not in ("dense", "moe"):
-        unsupported(f"the {cfg.family!r} family",
-                    _FAMILY_ITEMS.get(cfg.family, 17))
+    if cfg.family in _FAMILY_ITEMS:
+        unsupported(f"the {cfg.family!r} family", _FAMILY_ITEMS[cfg.family])
     return TransformerLM(cfg, use_kernel=use_kernel,
                          device=resolve_device(device))
+
+
+def batch_extras(cfg: ModelConfig, batch: int, dtype) -> Dict[str, Any]:
+    """Extra (stubbed) frontend inputs for a batch.  The audio family's
+    EnCodec frontend is stubbed to the codec tokens themselves, so it needs
+    none; the VLM's patch embeddings wait for its port."""
+    if cfg.family == "vlm":
+        unsupported("VLM frontend inputs", 13)
+    return {}

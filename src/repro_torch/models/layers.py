@@ -1,8 +1,10 @@
-"""Decoder layers: RMSNorm, RoPE, GQA attention (causal or sliding-window,
-plain or chunked flash-style) with a per-slot, paged or ring KV cache (in
-the working dtype or int8), SwiGLU MLP, embeddings — counterpart of the
-JAX package's ``models/layers.py``, for the branches the llama, glm4 (QKV
-bias, partial RoPE) and mixtral families take.
+"""Decoder layers: RMSNorm and LayerNorm, RoPE, GQA attention (causal or
+sliding-window, plain or chunked flash-style) with a per-slot, paged or
+ring KV cache (in the working dtype or int8), SwiGLU and GELU MLPs,
+embeddings (tied or not) — counterpart of the JAX package's
+``models/layers.py``, for the branches the llama, glm4 (QKV bias, partial
+RoPE), qwen1.5, mixtral and musicgen (LayerNorm, GELU with biases) families
+take.
 
 Functions take plain tensors and nested dicts of parameters in the
 reference's layouts (``wq`` (D,Hp,dh), ``wk``/``wv`` (D,Kp,dh), ``wo``
@@ -104,8 +106,10 @@ def layer_norm(x, scale, bias, eps: float):
 
 
 def apply_norm(cfg: ModelConfig, p: dict, name: str, x):
-    if cfg.norm_type != "rmsnorm":
-        unsupported(f"norm_type={cfg.norm_type!r}", 17)
+    """The config's norm of ``x`` with scale ``p[name]`` (LayerNorm: and
+    bias ``p[name + "_b"]``)."""
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, p[name], p[name + "_b"], cfg.norm_eps)
     return rms_norm(x, p[name], cfg.norm_eps)
 
 
@@ -138,7 +142,7 @@ def qkv_project(cfg: ModelConfig, p: dict, hd: HeadDims, x, positions):
     """Returns q (B,S,Hp,dh) and k, v (B,S,KvE,dh); ``qkv_bias`` configs
     add ``bq`` (Hp,dh) and ``bk``/``bv`` (Kp,dh) before RoPE."""
     if hd.rep > 1:
-        unsupported("replicated KV heads (rep > 1)", 17)
+        unsupported("replicated KV heads (rep > 1)", 18)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
@@ -455,10 +459,15 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
 
 
 def mlp_block(cfg: ModelConfig, p: dict, x):
-    if cfg.mlp_type != "swiglu":
-        unsupported(f"mlp_type={cfg.mlp_type!r}", 17)
-    h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
-    return h @ p["w_down"].to(x.dtype)
+    """SwiGLU, or (``mlp_type="gelu"``) ``gelu(x w_up + b_up) w_down +
+    b_down`` with the tanh approximation: ``jax.nn.gelu``'s default, which
+    the reference calls (torch's default is the exact erf form)."""
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+        return h @ p["w_down"].to(x.dtype)
+    h = F.gelu(x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype),
+               approximate="tanh")
+    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
 
 
 def embed(cfg: ModelConfig, p: dict, tokens):
@@ -468,7 +477,7 @@ def embed(cfg: ModelConfig, p: dict, tokens):
 
 
 def unembed(cfg: ModelConfig, p: dict, x):
-    """Logits in float32."""
-    if cfg.tie_embeddings:
-        unsupported("tied embeddings", 17)
-    return torch.einsum("bsd,dv->bsv", x, p["lm_head"].to(x.dtype)).float()
+    """Logits in float32, through ``lm_head`` (D, V) or, with tied
+    embeddings, the transposed ``tok_embed`` (V, D)."""
+    w = p["tok_embed"].T if cfg.tie_embeddings else p["lm_head"]
+    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).float()

@@ -78,8 +78,6 @@ class RWKV6Model:
         if cfg.family != "ssm":
             raise ValueError(f"RWKV6Model serves the ssm family, not "
                              f"{cfg.family!r}")
-        if cfg.tie_embeddings:
-            L.unsupported("tied embeddings", 17)
         self.cfg = cfg
         self.device = torch.device(device)
         self.use_kernel = use_kernel
@@ -128,11 +126,13 @@ class RWKV6Model:
         for nm in ("ln1", "ln2"):
             layers[nm] = full((D,), 1.0)
             layers[nm + "_b"] = full((D,), 0.0)
-        return {"layers": layers,
-                "tok_embed": L.normal_init(g, (V, D), 0.02, dt, dev),
-                "lm_head": L.dense_init(g, D, (D, V), dt, dev),
-                "ln_f": torch.ones((D,), dtype=dt, device=dev),
-                "ln_f_b": torch.zeros((D,), dtype=dt, device=dev)}
+        params = {"layers": layers,
+                  "tok_embed": L.normal_init(g, (V, D), 0.02, dt, dev)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(g, D, (D, V), dt, dev)
+        params["ln_f"] = torch.ones((D,), dtype=dt, device=dev)
+        params["ln_f_b"] = torch.zeros((D,), dtype=dt, device=dev)
+        return params
 
     # ------------------------------------------------------------- time mix
     def _time_mix(self, p, x, shift_state, wkv_state):
@@ -174,10 +174,9 @@ class RWKV6Model:
         return torch.sigmoid(xr @ p["wcr"]) * (k @ p["wcv"])
 
     def _layer(self, p, x, state):
-        eps = self.cfg.norm_eps
-        h = L.layer_norm(x, p["ln1"], p["ln1_b"], eps)
+        h = L.apply_norm(self.cfg, p, "ln1", x)
         x = x + self._time_mix(p, h, state["shift_t"], state["wkv"])
-        h = L.layer_norm(x, p["ln2"], p["ln2_b"], eps)
+        h = L.apply_norm(self.cfg, p, "ln2", x)
         return x + self._channel_mix(p, h, state["shift_c"])
 
     # --------------------------------------------------------------- forward
@@ -202,8 +201,7 @@ class RWKV6Model:
         return x
 
     def _logits(self, params, x):
-        x = L.layer_norm(x, params["ln_f"], params["ln_f_b"],
-                         self.cfg.norm_eps)
+        x = L.apply_norm(self.cfg, params, "ln_f", x)
         return L.unembed(self.cfg, params, x)
 
     def forward(self, params, tokens):

@@ -1,5 +1,8 @@
-"""Decoder-only transformer LM, dense and MoE families — counterpart of
-the JAX package's ``models/transformer.py``.
+"""Decoder-only transformer LM, dense, MoE and audio families —
+counterpart of the JAX package's ``models/transformer.py``.  The audio
+family (musicgen-large) is the reference's decoder over one stream of
+codec tokens: LayerNorm, a GELU MLP with biases and RoPE, its frontend
+stubbed.
 
 Parameters are a nested dict in the reference's names and stacked
 ``(L, ...)`` layouts, so a head or expert migration is the same row
@@ -43,17 +46,13 @@ def _layer_view(tree, l: int):
 
 
 class TransformerLM:
-    """Config-driven dense or MoE decoder-only LM on one device."""
+    """Config-driven dense, MoE or audio decoder-only LM on one device."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  use_kernel: bool = False):
-        if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"TransformerLM serves the dense and moe "
+        if cfg.family not in ("dense", "moe", "audio"):
+            raise ValueError(f"TransformerLM serves the dense, moe and audio "
                              f"families, not {cfg.family!r}")
-        if cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu" \
-                or cfg.tie_embeddings:
-            L.unsupported("layernorm / gelu / tied-embedding dense "
-                          "variants", 17)
         self.cfg = cfg
         self.hd = L.head_dims(cfg)
         self.device = torch.device(device)
@@ -67,35 +66,53 @@ class TransformerLM:
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random weights at the reference's init scales (normal draws
-        from ``generator``, which must live on this model's device)."""
+        from ``generator``, which must live on this model's device), in
+        its tree: LayerNorm configs add zero biases ``ln1_b``, ``ln2_b``
+        and ``ln_f_b``, GELU MLPs zero ``b_up`` and ``b_down``, and tied
+        embeddings have no ``lm_head``."""
         cfg, hd = self.cfg, self.hd
         D, F, V, n = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
         dt, dev, g = torch_dtype(cfg.param_dtype), self.device, generator
+        layer_norm = cfg.norm_type == "layernorm"
 
         def dense(d_in, shape):
             return L.dense_init(g, d_in, (n,) + shape, dt, dev)
 
-        ones = torch.ones((n, D), dtype=dt, device=dev)
+        def zeros(shape):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
         attn = {"wq": dense(D, (D, hd.Hp, hd.dh)),
                 "wk": dense(D, (D, hd.Kp, hd.dh)),
                 "wv": dense(D, (D, hd.Kp, hd.dh)),
                 "wo": dense(hd.H * hd.dh, (hd.Hp, hd.dh, D))}
         if cfg.qkv_bias:
             # zero, as the reference initializes them
-            attn["bq"] = torch.zeros((n, hd.Hp, hd.dh), dtype=dt, device=dev)
-            attn["bk"] = torch.zeros((n, hd.Kp, hd.dh), dtype=dt, device=dev)
-            attn["bv"] = torch.zeros((n, hd.Kp, hd.dh), dtype=dt, device=dev)
-        layers = {"attn": attn, "ln1": ones, "ln2": ones.clone()}
+            attn["bq"] = zeros((n, hd.Hp, hd.dh))
+            attn["bk"] = zeros((n, hd.Kp, hd.dh))
+            attn["bv"] = zeros((n, hd.Kp, hd.dh))
+        layers = {"attn": attn}
+        for name in ("ln1", "ln2"):
+            layers[name] = torch.ones((n, D), dtype=dt, device=dev)
+            if layer_norm:
+                layers[name + "_b"] = zeros((n, D))
         if cfg.is_moe:
             layers["moe"] = init_moe(g, cfg, n, dt, dev)
-        else:
+        elif cfg.mlp_type == "swiglu":
             layers["mlp"] = {"w_gate": dense(D, (D, F)),
                              "w_up": dense(D, (D, F)),
                              "w_down": dense(F, (F, D))}
-        return {"layers": layers,
-                "tok_embed": L.normal_init(g, (V, D), 0.02, dt, dev),
-                "lm_head": L.dense_init(g, D, (D, V), dt, dev),
-                "ln_f": torch.ones((D,), dtype=dt, device=dev)}
+        else:
+            layers["mlp"] = {"w_up": dense(D, (D, F)), "b_up": zeros((n, F)),
+                             "w_down": dense(F, (F, D)),
+                             "b_down": zeros((n, D))}
+        params = {"layers": layers,
+                  "tok_embed": L.normal_init(g, (V, D), 0.02, dt, dev)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(g, D, (D, V), dt, dev)
+        params["ln_f"] = torch.ones((D,), dtype=dt, device=dev)
+        if layer_norm:
+            params["ln_f_b"] = zeros((D,))
+        return params
 
     # ----------------------------------------------------------------- layer
     def _layer(self, p: dict, x, positions, cache, cache_pos,

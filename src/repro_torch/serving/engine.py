@@ -146,12 +146,21 @@ class _EngineBase:
     (for example ``weights.params_from_jax`` of the reference's); without
     it the model draws random weights from ``seed``.  Expert migrations
     permute the engine's expert stacks in place; injected ones are cloned
-    first."""
+    first.
+
+    ``cost_cfg`` prices the controller's placements at another config's
+    widths (the production one while a reduced model serves).
+    ``layer_mode="graph"`` places the per-layer block graph of the served
+    model's depth, one head permutation per layer; ``"columns"`` places
+    one column per head over ``cost_cfg``'s layers, one permutation for
+    every layer."""
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int = 4,
                  max_seq: int = 512, lam: int = 16, seed: int = 0,
-                 net: Optional[DeviceNetwork] = None, greedy: bool = True,
-                 use_kernel: bool = False, search: str = "rescoring",
+                 net: Optional[DeviceNetwork] = None,
+                 cost_cfg: Optional[ModelConfig] = None, greedy: bool = True,
+                 layer_mode: str = "graph", use_kernel: bool = False,
+                 search: str = "rescoring",
                  params: Optional[Dict[str, Any]] = None, device=None,
                  pipeline_k: int = 1, cost_page_size: int = 0):
         if cfg.family == "vlm":
@@ -184,8 +193,9 @@ class _EngineBase:
                                            None]] = None
         self._load_mark_step = 0
         self._load_mark_rid = 0
-        # controller wiring: the per-layer block graph of the model's
-        # depth, priced at its widths (Table I, incremental decode)
+        # controller wiring: Table I, incremental decode, priced at
+        # cost_cfg's widths over the served depth ("graph") or cost_cfg's
+        # depth ("columns")
         self.net = net or DeviceNetwork.sample(4, seed=seed + 1)
         # an attention-free model (RWKV-6) has no ``hd``: the controller
         # still places cfg.n_heads blocks per layer, and its plans are
@@ -201,11 +211,13 @@ class _EngineBase:
         n_exp = cfg.n_experts if (cfg.is_moe and cfg.n_experts >= 2
                                   and cfg.n_experts
                                   % self.net.n_devices == 0) else 0
-        self.cost = CostModel(d_model=cfg.d_model, n_heads=cfg.n_heads,
-                              L0=8, n_layers=cfg.n_layers, lam=lam,
+        ccfg = cost_cfg or cfg
+        n_l = cfg.n_layers if layer_mode == "graph" else ccfg.n_layers
+        self.cost = CostModel(d_model=ccfg.d_model, n_heads=cfg.n_heads,
+                              L0=8, n_layers=n_l, lam=lam,
                               compute_mode="incremental",
-                              layer_mode="graph", n_experts=n_exp,
-                              d_ff=cfg.d_ff if n_exp else 0,
+                              layer_mode=layer_mode, n_experts=n_exp,
+                              d_ff=ccfg.d_ff if n_exp else 0,
                               page_size=cost_page_size)
         # GQA stacks migrate whole KV groups: group-consistent perms
         group = 1 if hd is None else hd.Hp // hd.Kp
@@ -302,7 +314,8 @@ class _EngineBase:
         """Execute ``plan`` physically: permute the weights AND the cache of
         ``state`` by the same group-consistent per-layer head permutations
         (row l of the plan's perms is layer l; the cache's leading axis is
-        the layer stack).  Attention is permutation-equivariant over heads
+        the layer stack); a ``"columns"`` controller's one row permutes
+        every layer.  Attention is permutation-equivariant over heads
         (GQA: over whole KV groups) within each layer, so the model
         function is unchanged while the placement moves.  A ring's slot
         positions have no head axis and stay.  Returns (applied, reason):
@@ -312,6 +325,8 @@ class _EngineBase:
             return False, "model has no addressable attention heads"
         G = hd.Hp // hd.Kp
         rel = relative_perms(plan["prev_perms"], plan["perms"])
+        if rel.shape[0] != self.cfg.n_layers:
+            rel = np.repeat(rel, self.cfg.n_layers, axis=0)
         cache = state["cache"]
         self.params = permute_model_heads_layers(self.params, rel,
                                                  group_size=G)
@@ -531,9 +546,13 @@ class ServingEngine(_EngineBase):
         rows."""
         if not self._rows_layers:
             return
-        self._head_rows, self._head_inv = head_row_maps(
+        rows, inv = head_row_maps(
             plan["place"], self.controller.blocks, self.net.n_devices,
             self.model.hd.Hp, perms=self._phys_perms)
+        # a columns-mode controller's one row serves every model layer
+        shape = (self._rows_layers, rows.shape[1])
+        self._head_rows = np.broadcast_to(rows, shape).copy()
+        self._head_inv = np.broadcast_to(inv, shape).copy()
         self.state = self._attach_head_rows(self.state)
 
     # ------------------------------------------------------------- scheduler

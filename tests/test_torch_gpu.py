@@ -257,11 +257,12 @@ def _check_rows_case(kern, plain, args, rng, H, G, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
-@pytest.mark.parametrize("G", [4, 16])
+@pytest.mark.parametrize("G", [1, 4, 16])
 @pytest.mark.parametrize("case", ["permuted", "partial", "nan_rows"])
 def test_resident_kernel_splits(cuda, dtype, dh, G, case):
     """T 1100 over several splits, lengths on the split's edges (0, 1,
-    split - 1, split, split + 1, T), 4 and 16 q heads a KV head: every row
+    split - 1, split, split + 1, T), 1 (MHA), 4 and 16 q heads a KV head:
+    every row
     permuted across KV heads; a partial set in which KV head 0 has no row;
     an out-of-range ``rows`` and ``kv_rows`` entry giving NaN for that
     entry only."""
@@ -276,10 +277,10 @@ def test_resident_kernel_splits(cuda, dtype, dh, G, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
-@pytest.mark.parametrize("G", [4, 16])
+@pytest.mark.parametrize("G", [1, 4, 16])
 def test_int8_kernel_splits(cuda, dtype, dh, G):
     """int8 K/V with scales, T 1100 over several splits, lengths on the
-    split's edges, 4 and 16 q heads a KV head, rows permuted across KV
+    split's edges, 1, 4 and 16 q heads a KV head, rows permuted across KV
     heads."""
     from repro_torch.kernels import decode_attention as da
     H = 32
@@ -326,13 +327,13 @@ def _paged_split_args(cuda, dtype, dh, P, *, quant=True, B=6, H=16, KvE=4,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
-@pytest.mark.parametrize("G", [4, 16])
+@pytest.mark.parametrize("G", [1, 4, 16])
 @pytest.mark.parametrize("P", [64, 8, 6])
 @pytest.mark.parametrize("case", ["permuted", "partial", "nan_rows"])
 def test_paged_kernel_splits(cuda, dtype, dh, G, P, case):
     """Pages of 64, 8 and 6 positions (6: tiles and splits cross pages)
-    over several splits, lengths on the split's edges, 4 and 16 q heads a
-    KV head, rows as in :func:`test_resident_kernel_splits`."""
+    over several splits, lengths on the split's edges, 1, 4 and 16 q heads
+    a KV head, rows as in :func:`test_resident_kernel_splits`."""
     from repro_torch.kernels import decode_attention as da
     H = 32
     args, rng = _paged_split_args(cuda, dtype, dh, P, quant=False, H=H,
@@ -445,7 +446,7 @@ def test_split_kernels_refuse_unaligned_values(cuda, kind, dtype, dh):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
-@pytest.mark.parametrize("G", [4, 16])
+@pytest.mark.parametrize("G", [1, 4, 16])
 def test_paged_kernels_equal_linear_ones_bit_for_bit(cuda, dtype, quant, G):
     """A dense cache, and a pool that holds the same rows in scrambled
     pages with np * P == T: the paged kernel's output equals the linear
@@ -845,11 +846,13 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, dh, mask):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["short_q_causal", "short_q_full",
-                                  "ragged_1000", "glm_groups"])
+                                  "ragged_1000", "glm_groups",
+                                  "musicgen_mha", "qwen_mha"])
 def test_flash_kernel_shapes(cuda, dtype, case):
     """Sq < Skv (70 over 300; the causal mask aligned at the top left), a
-    ragged S = 1000 under a window of 300, and GLM-4's 16 query heads per
-    KV group at dh 128."""
+    ragged S = 1000 under a window of 300, GLM-4's 16 query heads per KV
+    group at dh 128, and MHA (one query head per KV head): musicgen-large's
+    32 heads at dh 64 and qwen1.5-32b's 40 at dh 128."""
     shape, causal, window = {
         "short_q_causal": (dict(Sq=70, Skv=300), True, 0),
         "short_q_full": (dict(Sq=70, Skv=300), False, 0),
@@ -857,6 +860,10 @@ def test_flash_kernel_shapes(cuda, dtype, case):
                         300),
         "glm_groups": (dict(B=1, H=32, KvE=2, Sq=333, Skv=333, dh=128),
                        True, 0),
+        "musicgen_mha": (dict(B=2, H=32, KvE=32, Sq=333, Skv=333, dh=64),
+                         True, 0),
+        "qwen_mha": (dict(B=1, H=40, KvE=40, Sq=333, Skv=333, dh=128),
+                     True, 0),
     }[case]
     _flash_check(cuda, dtype, causal, window, seed=len(case), **shape)
 
