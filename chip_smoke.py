@@ -773,13 +773,14 @@ def watch_logits(eng):
     return seen
 
 
-def serve(cfg, *, use_kernel, n_requests, max_new, params=None, **kw):
+def serve(cfg, *, use_kernel, n_requests, max_new, params=None, lam=8,
+          **kw):
     """The main path's engine with every request submitted: 8 slots, a
     1024-token cache, λ = 8, four simulated devices; ``kw`` are the
-    engine's paged-cache arguments."""
+    engine's paged-cache and pipelining arguments."""
     from repro_torch.core.network import DeviceNetwork
     from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(cfg, n_slots=MAIN_B, max_seq=MAIN_T, lam=8,
+    eng = ServingEngine(cfg, n_slots=MAIN_B, max_seq=MAIN_T, lam=lam,
                         seed=0, net=DeviceNetwork.sample(4, seed=1),
                         use_kernel=use_kernel, device="cuda", params=params,
                         **kw)
@@ -1844,6 +1845,159 @@ def phase_musicgen_stream_pair():
     del engines, params
 
 
+# ---------------------------------------------------- the pipelined paths
+# pipeline_k = 2: the dense path's 8 slots in 2 groups of 4, one group
+# decoded a scheduler step, the controller's plans from the bottleneck
+# search every λ·K = 16 steps.  Paged: pages of 64, 24 a group (48 in all,
+# as the paged path).
+PIPE_K = 2
+PIPE_PATHS = {
+    "dense": ("decode_attention_resident", {}),
+    "paged": ("decode_attention_paged_resident",
+              dict(paged=True, page_size=64, kv_pages=24)),
+}
+DECODE_KERNELS = ("decode_attention_resident",
+                  "decode_attention_int8_resident",
+                  "decode_attention_paged_resident",
+                  "decode_attention_int8_paged_resident",
+                  "decode_attention_ring_resident")
+
+
+def phase_pipelined_path(path="dense"):
+    """Serve the dense path's traffic (16 requests of 32-512 tokens, 64 new
+    tokens each, a 500x straggler at step 16 on the busiest device) with
+    ``pipeline_k=2`` and ``search="bottleneck"`` from the ``path`` cache:
+    each step decodes one group of 4 rows through its kernel (an empty
+    group launches nothing), every interval falls on a multiple of λ·K,
+    and one applies a bottleneck-planned migration to both groups' caches.
+    Returns the decode kernel's and the flash kernel's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
+    name, kw = PIPE_PATHS[path]
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    eng = serve(cfg, use_kernel=True, n_requests=16, max_new=64,
+                pipeline_k=PIPE_K, search="bottleneck", **kw)
+    seen = watch_logits(eng)
+    prefill = time_prefill(eng)
+    torch.cuda.synchronize()
+    for kernel in DECODE_KERNELS:
+        getattr(da, kernel).launches = 0
+    flash_attention.launches = 0
+    t0 = time.monotonic()
+    while drive(eng):
+        pass
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: getattr(da, k).launches for k in DECODE_KERNELS}
+    flash = flash_attention.launches
+    tokens = sum(len(r.out_tokens) for r in eng.finished)
+    cadence = eng.lam * eng.pipeline_k
+    applied = [e for e in eng.migration_log
+               if e["applied"] and e["n_migrations"] and e["reason"] is None]
+    rows = {int(st["pos"].shape[0]) for st in eng.states}
+    log(f"pipelined path {path} (K {eng.pipeline_k}, {eng.rows_per_group} "
+        f"rows a group, search {eng.controller._policy.search}) bf16 "
+        f"llama3-8b x{N_LAYERS} layers: {len(eng.finished)} requests, "
+        f"{tokens} tokens, {eng.decode_steps} scheduler steps "
+        f"({len(eng.step_times)} group decodes) in {wall:.2f} s "
+        f"({tokens / wall:.1f} tok/s); decode step median "
+        f"{1e3 * float(np.median(eng.step_times)):.2f} ms; "
+        f"{len(eng.interval_times)} controller intervals, mean "
+        f"{1e3 * float(np.mean(eng.interval_times)):.1f} ms; "
+        f"{sum(e['n_migrations'] for e in eng.migration_log)} head "
+        f"migrations in {len(applied)} applied intervals; kernel launches "
+        f"{launches}, flash_attention {flash}")
+    log_split(eng, wall, prefill)
+    check(len(eng.finished) == 16 and all(len(r.out_tokens) == 64
+                                          for r in eng.finished),
+          f"pipelined {path}: not every request finished with its 64 "
+          f"tokens")
+    check(rows == {MAIN_B // PIPE_K}, f"pipelined {path}: group states of "
+          f"{rows} rows")
+    check(launches[name] == len(eng.step_times) * cfg.n_layers,
+          f"pipelined {path}: kernel launches {launches[name]} != group "
+          f"decodes {len(eng.step_times)} x {cfg.n_layers} layers")
+    check(not any(n for k, n in launches.items() if k != name),
+          f"pipelined {path}: another path's kernel launched: {launches}")
+    check(flash == FLASH_LAUNCHES[path],
+          f"pipelined {path}: flash_attention launches {flash} != "
+          f"{FLASH_LAUNCHES[path]}")
+    check(bool(eng.migration_log) and all(
+        e["step"] % cadence == 0 for e in eng.migration_log),
+        f"pipelined {path}: an interval off the {cadence}-step cadence: "
+        f"{[e['step'] for e in eng.migration_log]}")
+    check(eng.controller._policy is not None
+          and eng.controller._policy.search == "bottleneck",
+          f"pipelined {path}: the controller's plans are not the "
+          f"bottleneck search's")
+    check(bool(applied), f"pipelined {path}: no interval applied a "
+          f"migration")
+    check(bool(seen["finite"].item()),
+          f"pipelined {path}: non-finite logits")
+    if eng.paged:
+        for alloc in eng.allocators:
+            alloc.check_invariants()
+        live = [a.live_pages for a in eng.allocators]
+        log(f"  paged pools {eng.kv_pages} pages of {eng.page_size} a "
+            f"group: admission waited {eng.page_waits} scheduler steps; "
+            f"{live} pages live after drain")
+        check(not any(live), f"pipelined {path}: pages live after drain")
+    return launches[name], flash
+
+
+def run_to_end(eng, straggle_at):
+    """Drive one engine until it is idle, a straggler at ``straggle_at``
+    (None: none); returns its streams."""
+    while drive(eng, straggle_at=straggle_at):
+        pass
+    return {r.rid: r.out_tokens for r in eng.finished}
+
+
+def phase_pipelined_stream_pairs():
+    """float32, 2 layers, shared weights, 8 requests of 32 new tokens; each
+    engine runs to its end (a pipelined engine takes more scheduler steps
+    than a sequential one).  The pipelined engine with the kernels, the
+    bottleneck search and the straggler must stream the sequential plain
+    engine's tokens with no migration, having applied migrations; and the
+    paged pipelined engine the dense pipelined one's, both with the
+    kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("llama3-8b").with_overrides(
+        n_layers=2, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    pipe = dict(pipeline_k=PIPE_K, search="bottleneck")
+    sides = {
+        "pipelined kernel": (dict(use_kernel=True, **pipe), 16),
+        "sequential plain": (dict(use_kernel=False, lam=10 ** 9), None),
+        "paged pipelined kernel": (dict(use_kernel=True, paged=True,
+                                        page_size=64, **pipe), 16),
+    }
+    streams, moved = {}, {}
+    for label, (kw, straggle_at) in sides.items():
+        eng = serve(cfg, n_requests=8, max_new=32, params=params, **kw)
+        seen = watch_logits(eng)
+        streams[label] = run_to_end(eng, straggle_at)
+        moved[label] = sum(e["n_migrations"] for e in eng.migration_log
+                           if e["applied"])
+        check(bool(seen["finite"].item()), f"{label}: non-finite logits")
+        del eng, seen
+        release()
+    for a, b in (("pipelined kernel", "sequential plain"),
+                 ("paged pipelined kernel", "pipelined kernel")):
+        log(f"f32 streams {a} vs {b} (2 layers): {len(streams[a])} "
+            f"requests, streams {'equal' if streams[a] == streams[b] else 'differ'}, "
+            f"applied migrations {moved[a]} and {moved[b]}")
+        check(len(streams[a]) == 8 and streams[a] == streams[b],
+              f"{a} vs {b}: greedy streams differ")
+        check(moved[a] > 0, f"{a}: no migration was applied")
+    check(moved["sequential plain"] == 0,
+          "the sequential plain engine migrated")
+    del params
+
+
 def kernel_phases():
     """Every kernel against its plain version, then timed at its main
     path's shapes: one record per kernel."""
@@ -1948,8 +2102,16 @@ def main():
     by_name["flash_attention"]["launches"] = flash["glm4"]
     release()
     _, flash["musicgen"] = phase_musicgen_path()
-    log(f"flash_attention launches per main path: {flash}")
     release()
+    # the pipelined paths' launches (B = 4 rows a group) are logged; each
+    # kernel's record keeps its sequential path's
+    pipelined = {}
+    for path in PIPE_PATHS:
+        pipelined[path], flash[f"pipelined {path}"] = \
+            phase_pipelined_path(path)
+        release()
+    log(f"decode kernel launches per pipelined path: {pipelined}")
+    log(f"flash_attention launches per main path: {flash}")
     phase_stream_equality()
     release()
     phase_mixtral_stream_pair()
@@ -1957,6 +2119,8 @@ def main():
     phase_glm4_stream_pair()
     release()
     phase_musicgen_stream_pair()
+    release()
+    phase_pipelined_stream_pairs()
     release()
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

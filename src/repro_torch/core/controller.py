@@ -12,9 +12,11 @@ block per (layer, expert), priced by the observed router loads; each plan
 then also holds one expert-row permutation per layer, which the engine
 applies to the stacked expert weights.
 
-Copy of the JAX package's ``core/controller.py`` with its ``"rescoring"``
-search (Algorithm 1, refine, payback filter).  Plans are identical to the
-reference controller's on the same network and cost model.
+Copy of the JAX package's ``core/controller.py``: the ``"rescoring"``
+search (Algorithm 1, refine, payback filter) and, with ``pipeline_k > 1``,
+the ``"bottleneck"`` search of ``baselines.ResourceAwarePolicy``.  Plans
+are identical to the reference controller's on the same network and cost
+model.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.core.algorithm import ResourceAwareAssigner
+from repro_torch.core.baselines import ResourceAwarePolicy
 from repro_torch.core.blocks import Block, CostModel, make_blocks
 from repro_torch.core.delay import (migration_delay, pipelined_inference_delay,
                                     revert_unpaying_migrations)
@@ -31,8 +34,6 @@ from repro_torch.core.network import DeviceNetwork
 from repro_torch.core.placement_bridge import (migration_pairs_layers,
                                                placement_to_expert_perms,
                                                placement_to_perms)
-
-SEARCH_MODES = ("rescoring", "bottleneck")
 
 
 @dataclasses.dataclass
@@ -45,10 +46,18 @@ class ControllerConfig:
     # every emitted permutation group-consistent, so grouped caches/weights
     # can physically migrate (placement_bridge.kv_group_perms).
     group_size: int = 1
-    # decode tokens in flight across layer-disjoint stages (the objective
-    # of the migration filter is D_pipe(K) + D_mig; k=1 is total delay)
+    # decode tokens in flight across layer-disjoint stages; > 1 switches
+    # the migration-filter objective to D_pipe(K) + D_mig and the engine
+    # scales its interval cadence by K (λ stays token-denominated while a
+    # scheduler step advances only 1/K of the slots).
     pipeline_k: int = 1
+    # placement search mode: "rescoring" is Algorithm 1, refine, filter;
+    # "bottleneck" (with pipeline_k > 1) adds the bottleneck-targeted
+    # search — stage-balanced chain seed + layer-chain moves aimed at the
+    # argmax resource, migrations amortized over ``amortize`` intervals
+    # (baselines.ResourceAwarePolicy docstring).
     search: str = "rescoring"
+    amortize: int = 16
     # physical expert rows per mesh slot (MoE archs).  0 = derive from the
     # cost model: expert_slots // n_devices (expert rows, like heads, tile
     # the mesh).  Only consulted when the cost model carries experts.
@@ -60,13 +69,12 @@ class IntervalController:
 
     def __init__(self, n_heads: int, cost: CostModel, net: DeviceNetwork,
                  cfg: ControllerConfig = ControllerConfig()):
-        if cfg.search not in SEARCH_MODES:
-            raise ValueError(f"ControllerConfig.search must be one of "
-                             f"{SEARCH_MODES}, got {cfg.search!r}")
-        if cfg.search == "bottleneck":
-            raise NotImplementedError(
-                "search='bottleneck' needs the port of core/baselines.py "
-                "(ROADMAP Queue 1 #8)")
+        # unknown modes fail here, at construction: a typo must not
+        # silently serve the rescoring planner the caller opted out of
+        if cfg.search not in ResourceAwarePolicy.SEARCH_MODES:
+            raise ValueError(
+                f"ControllerConfig.search must be one of "
+                f"{ResourceAwarePolicy.SEARCH_MODES}, got {cfg.search!r}")
         self.n_layers = cost.n_layers if cost.layer_mode == "graph" else 1
         self.blocks: List[Block] = make_blocks(n_heads, self.n_layers,
                                                cost.n_experts,
@@ -82,11 +90,24 @@ class IntervalController:
         # per-token deadline
         self.assigner = ResourceAwareAssigner(self.blocks, cost,
                                               deadline=cfg.deadline * cfg.lam)
+        # bottleneck mode: plans come from the full policy (assign →
+        # refine → filter → bottleneck search); "rescoring", and
+        # "bottleneck" at pipeline_k=1, stay the assigner path below
+        self._policy = None
+        if cfg.search == "bottleneck" and cfg.pipeline_k > 1:
+            self._policy = self._make_policy()
         self.place: Optional[np.ndarray] = None
         self.perms: Optional[np.ndarray] = None   # (n_layers, slots·hps)
         # (n_layers, slots·eps) physical expert-row layout (MoE archs)
         self.expert_perms: Optional[np.ndarray] = None
         self.tau = 0
+
+    def _make_policy(self) -> ResourceAwarePolicy:
+        return ResourceAwarePolicy(
+            self.blocks, self.cost,
+            deadline=self.cfg.deadline * self.cfg.lam,
+            pipeline_k=self.cfg.pipeline_k, search="bottleneck",
+            amortize=self.cfg.amortize, min_gain=self.cfg.min_gain)
 
     def head_counts(self) -> np.ndarray:
         """Heads per device in the current placement, summed over
@@ -106,15 +127,17 @@ class IntervalController:
     def update_expert_loads(self, loads):
         """Feed observed router loads (rows: per layer, one entry per
         physical expert slot, each row summing to ~1) into the expert cost
-        model; the assigner is rebuilt around the new ``CostModel`` so the
-        next ``step_interval`` prices expert compute by the live gate
-        frequencies."""
+        model; the assigner (and the bottleneck policy) are rebuilt around
+        the new ``CostModel`` so the next ``step_interval`` prices expert
+        compute by the live gate frequencies."""
         if not self.has_experts:
             return
         self.cost = self.cost.with_expert_loads(loads)
         self.assigner = ResourceAwareAssigner(
             self.blocks, self.cost,
             deadline=self.cfg.deadline * self.cfg.lam)
+        if self._policy is not None:
+            self._policy = self._make_policy()
 
     # ------------------------------------------------------------- decide
     def step_interval(self, tau: Optional[int] = None,
@@ -129,14 +152,24 @@ class IntervalController:
         self.tau = max(1, int(tau)) if tau is not None else self.tau + 1
         prev = self.place
         k = self.cfg.pipeline_k
-        place, stats = self.assigner.assign(self.net, self.tau, prev)
-        if place is None:
-            place = prev if prev is not None else \
-                np.zeros(len(self.blocks), dtype=int)
-        # objective filter: keep migrations only if they pay (§III.G)
-        place = revert_unpaying_migrations(prev, place, self.blocks,
-                                           self.cost, self.net, self.tau,
-                                           k=k, min_gain=self.cfg.min_gain)
+        if self._policy is not None:
+            # the policy already refines, filters (with min_gain) and runs
+            # the bottleneck-targeted search
+            place = self._policy.place(self.net, self.tau, prev)
+            stats = self._policy.last_stats
+            if place is None:
+                place = prev if prev is not None else \
+                    np.zeros(len(self.blocks), dtype=int)
+        else:
+            place, stats = self.assigner.assign(self.net, self.tau, prev)
+            if place is None:
+                place = prev if prev is not None else \
+                    np.zeros(len(self.blocks), dtype=int)
+            # objective filter: keep migrations only if they pay (§III.G)
+            place = revert_unpaying_migrations(prev, place, self.blocks,
+                                               self.cost, self.net, self.tau,
+                                               k=k,
+                                               min_gain=self.cfg.min_gain)
         n_slots = self.net.n_devices
         new_perms = placement_to_perms(place, self.blocks, n_slots,
                                        self.cfg.heads_per_slot,

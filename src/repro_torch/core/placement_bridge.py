@@ -354,6 +354,18 @@ def relative_perms(prev_perms: np.ndarray, new_perms: np.ndarray
     return out
 
 
+def stage_slot_partition(place, blocks: Sequence[Block],
+                         n_slots: int) -> List[tuple]:
+    """Mesh-slot view of ``BlockGraph.stage_partition``: contiguous layer
+    stages whose *slot* sets (device % n_slots) are adjacent-disjoint.
+    ``len()`` bounds the micro-batch depth K a serving engine can usefully
+    keep in flight on this placement — stage s+1's slots are free to start
+    the next token while stage s finishes the previous one."""
+    g = graph_of(blocks)
+    slot_place = np.asarray(place, dtype=int) % n_slots
+    return [(frozenset(devs), layer_ids)
+            for devs, layer_ids in g.stage_partition(slot_place)]
+
 
 # ---------------------------------------------------------------------------
 # Applying permutations to tensors

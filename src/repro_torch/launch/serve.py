@@ -14,6 +14,9 @@ counterpart of the JAX package's ``launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
       --layers 4 --slots 8 --requests 16 --prompt-len 8192 \
       --mixed-lengths --tokens 64 --use-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --layers 4 --slots 8 --requests 16 --tokens 64 --use-kernel \
+      --pipeline-k 2 --search bottleneck --straggler 0
 
 The default ``--arch`` is musicgen-large, as in the reference.  Runs on
 the GPU unless ``--device cpu`` is given (``--reduced`` shrinks the widths
@@ -25,8 +28,9 @@ arch whose ``--max-seq``, default prompt + tokens + 8, reaches its window
 keeps a ring cache; the attention-free rwkv6-7b always takes the wave
 engine).  ``--paged [--page-size P]`` serves from a paged KV
 cache and ``--kv-quant`` from an int8 one, alone or together (continuous
-engine).  The reference's ``--pipeline-k`` and ``--search`` are not
-ported yet and raise.
+engine).  ``--pipeline-k K`` keeps K decode tokens in flight across slot
+groups (K divides ``--slots``) and ``--search bottleneck`` plans the
+migrations with the bottleneck-targeted search (with K > 1).
 """
 from __future__ import annotations
 
@@ -36,10 +40,9 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.core.baselines import ResourceAwarePolicy
 from repro_torch.serving.engine import make_engine
 
-# reference flags this slice does not serve yet, with their ROADMAP items
-_NOT_PORTED = {"--pipeline-k": 8, "--search": 8}
 # the sliding window of a reduced config, so a short CPU run wraps its ring
 REDUCED_WINDOW = 16
 
@@ -83,6 +86,14 @@ def main(argv=None):
                          "streams must match the plain path")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache with per-(token, head) scales")
+    ap.add_argument("--pipeline-k", type=int, default=1,
+                    help="decode tokens in flight across slot groups "
+                         "(must divide --slots)")
+    ap.add_argument("--search", default="rescoring",
+                    choices=ResourceAwarePolicy.SEARCH_MODES,
+                    help="controller placement search: rescoring "
+                         "(Algorithm 1, refine, filter) or the "
+                         "bottleneck-targeted search (pipeline-k > 1)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache: pooled page store + per-slot "
                          "page tables, chunked prefill; streams must match "
@@ -98,15 +109,7 @@ def main(argv=None):
                          "sliding-window arch keeps a ring at or past its "
                          "window")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    args, rest = ap.parse_known_args(argv)
-    for flag in rest:
-        name = flag.split("=", 1)[0]
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{name} is not ported to repro_torch yet (ROADMAP Queue 1 "
-                f"#{_NOT_PORTED[name]})")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -125,6 +128,7 @@ def main(argv=None):
         mode = "continuous"
     eng = make_engine(cfg, mode=mode, n_slots=args.slots, max_seq=max_seq,
                       lam=args.lam, use_kernel=args.use_kernel,
+                      pipeline_k=args.pipeline_k, search=args.search,
                       device=args.device, **kw)
     print(f"[serve] {cfg.name} engine: {type(eng).__name__} on {eng.device}, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, max_seq {max_seq}"

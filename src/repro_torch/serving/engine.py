@@ -2,17 +2,20 @@
 the JAX package's ``serving/engine.py``.  Two schedulers over one model and
 controller stack:
 
-``ServingEngine`` (continuous batching, one in-flight group)
+``ServingEngine`` (continuous batching)
   A persistent ``(n_slots, max_seq)`` KV cache with per-slot positions.  Any
   queued request is admitted into any free slot the moment one frees: the
   prompt is right-padded to a power-of-two bucket, prefilled at batch 1,
   and copied into the slot's cache row (``insert_slot``).  Decode runs one
   step for the whole batch with per-slot attention masking.  ``paged=True``
-  swaps the dense cache for a pool of pages shared by all slots
+  swaps the dense cache for a pool of pages shared by a group's slots
   (``serving.paging``): admission reserves a request's worst-case pages,
   pages are handed out as decode advances and freed at retire, and prefill
   runs in fixed-size chunks.  ``kv_quant`` configs keep the cache (dense or
-  paged) in int8 with per-(token, head) scales.
+  paged) in int8 with per-(token, head) scales.  ``pipeline_k=K`` splits
+  the slots into K contiguous groups with a decode state (and a page pool)
+  each; a scheduler step decodes one group, so K tokens are in flight
+  across the layer stages the controller places.
 
 ``WaveServingEngine`` (the static scheduler)
   Up to ``n_slots`` equal-length prompts form a wave; the wave prefills as
@@ -21,7 +24,8 @@ controller stack:
   cache takes one position for the whole batch, and of the attention-free
   RWKV-6, which has no slot API (``make_engine`` picks it for both).
 
-Every λ decode steps the ``IntervalController`` observes step-time
+Every λ generated tokens (λ·pipeline_k scheduler steps) the
+``IntervalController`` observes step-time
 telemetry (and the per-slot cache occupancy), re-runs Algorithm 1 on the
 per-(layer, head) block graph — with one block per (layer, expert) for MoE
 archs, priced by the decode state's router loads — and the engine applies
@@ -165,14 +169,16 @@ class _EngineBase:
                  pipeline_k: int = 1, cost_page_size: int = 0):
         if cfg.family == "vlm":
             _not_ported("VLM serving", 13)
-        if pipeline_k != 1:
-            _not_ported("pipeline_k > 1 slot groups", 8)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.greedy = greedy
         self.use_kernel = use_kernel
+        # decode tokens in flight across slot groups (ServingEngine); the
+        # controller's objective becomes D_pipe(K) + D_mig, and with
+        # search="bottleneck" its plans come from the bottleneck search
+        self.pipeline_k = max(1, int(pipeline_k))
         self.model = build_model(cfg, use_kernel=use_kernel,
                                  device=self.device)
         injected = params is not None
@@ -231,7 +237,8 @@ class _EngineBase:
         self.controller = IntervalController(
             cfg.n_heads, self.cost, self.net,
             ControllerConfig(lam=lam, heads_per_slot=heads_per_slot,
-                             group_size=group, search=search))
+                             group_size=group, pipeline_k=self.pipeline_k,
+                             search=search))
         self.monitor = HeartbeatMonitor(self.net.n_devices)
         self.lam = lam
         self.decode_steps = 0
@@ -310,7 +317,8 @@ class _EngineBase:
         return max(1, round((tau_tokens - self.cost.L0)
                             / max(self.cost.lam, 1)))
 
-    def _migrate_state(self, state: Dict[str, Any], plan) -> tuple:
+    def _migrate_state(self, state: Dict[str, Any], plan,
+                       permute_params: bool = True) -> tuple:
         """Execute ``plan`` physically: permute the weights AND the cache of
         ``state`` by the same group-consistent per-layer head permutations
         (row l of the plan's perms is layer l; the cache's leading axis is
@@ -319,7 +327,10 @@ class _EngineBase:
         (GQA: over whole KV groups) within each layer, so the model
         function is unchanged while the placement moves.  A ring's slot
         positions have no head axis and stay.  Returns (applied, reason):
-        a model without attention heads applies nothing, and says so."""
+        a model without attention heads applies nothing, and says so.
+
+        ``permute_params=False`` skips the shared weights: an engine with
+        one decode state per in-flight group permutes them once a plan."""
         hd = getattr(self.model, "hd", None)
         if hd is None:
             return False, "model has no addressable attention heads"
@@ -328,8 +339,9 @@ class _EngineBase:
         if rel.shape[0] != self.cfg.n_layers:
             rel = np.repeat(rel, self.cfg.n_layers, axis=0)
         cache = state["cache"]
-        self.params = permute_model_heads_layers(self.params, rel,
-                                                 group_size=G)
+        if permute_params:
+            self.params = permute_model_heads_layers(self.params, rel,
+                                                     group_size=G)
         # the head axis is -2 of the values of a dense (L, B, T, KvE, dh)
         # cache, a ring and a paged (L, n_pages + 1, P, KvE, dh) store
         # alike, and -1 of int8 scales
@@ -438,7 +450,17 @@ class ServingEngine(_EngineBase):
     on-free-slot, bucketed prefill, per-slot decode masking, and Algorithm
     1's placements applied as live head (and expert) migrations.  A
     sliding-window arch is served here only below its window, where its
-    cache stays linear (``supports_continuous``)."""
+    cache stays linear (``supports_continuous``).
+
+    ``pipeline_k`` > 1 keeps K decode tokens in flight across slot groups:
+    the slots split into K contiguous groups of ``rows_per_group`` with a
+    decode state each (``states``; paged: an allocator and pool each,
+    ``allocators``), and each scheduler step decodes ONE group, the one
+    whose phase ``decode_steps % K`` is due.  An empty due group is a
+    pipeline bubble: the step count advances, and nothing is launched.  A
+    slot emits one token every K steps, so the controller fires every λ·K
+    steps (λ tokens a slot).  ``state`` and ``allocator`` name the one
+    group of a ``pipeline_k=1`` engine."""
 
     def __init__(self, cfg: ModelConfig, *, paged: bool = False,
                  page_size: int = 64, kv_pages: Optional[int] = None,
@@ -452,6 +474,13 @@ class ServingEngine(_EngineBase):
         # page granularity — what the allocator actually hands out
         super().__init__(cfg, cost_page_size=page_size if paged else 0, **kw)
         hd = self.model.hd
+        if self.n_slots % self.pipeline_k:
+            raise ValueError(f"n_slots={self.n_slots} must be divisible by "
+                             f"pipeline_k={self.pipeline_k}")
+        if self.pipeline_k > 1 and not self.greedy:
+            raise ValueError("pipeline_k > 1 requires greedy decoding "
+                             "(host-side sampling would serialize groups)")
+        self.rows_per_group = self.n_slots // self.pipeline_k
         self.buckets = default_buckets(self.max_seq)
         self.paged = bool(paged)
         if self.paged:
@@ -460,14 +489,16 @@ class ServingEngine(_EngineBase):
                                  f"multiple of page_size={page_size}")
             self.page_size = int(page_size)
             self.pages_per_slot = self.max_seq // self.page_size
-            # pool size: default = the full dense reservation (paged is then
-            # a pure re-layout); a SMALLER pool is the memory-budget knob —
-            # the same bytes admit more slots, which hold only live pages
+            # pool size per decode group: default = the group's full dense
+            # reservation (paged is then a pure re-layout); a SMALLER pool
+            # is the memory-budget knob — the same bytes admit more slots,
+            # which hold only live pages
             self.kv_pages = int(kv_pages) if kv_pages is not None \
-                else self.n_slots * self.pages_per_slot
-            self.allocator = PagedKVAllocator(
-                self.kv_pages, self.page_size, self.n_slots,
-                self.pages_per_slot)
+                else self.rows_per_group * self.pages_per_slot
+            self.allocators = [
+                PagedKVAllocator(self.kv_pages, self.page_size,
+                                 self.rows_per_group, self.pages_per_slot)
+                for _ in range(self.pipeline_k)]
             # one fixed chunk shape serves every prompt
             self.prefill_chunk = int(prefill_chunk or self.page_size)
         # scheduler steps at which the queue head waited for pages while a
@@ -488,7 +519,9 @@ class ServingEngine(_EngineBase):
             self._head_rows, self._head_inv = identity_head_rows(
                 self._rows_layers, hd.Hp)
             self._phys_perms = None   # layout actually applied to weights
-        self.state = self._attach_head_rows(self._fresh_state(self.n_slots))
+        self.states: List[Dict[str, Any]] = [
+            self._attach_head_rows(self._fresh_state(self.rows_per_group))
+            for _ in range(self.pipeline_k)]
         self.slots: List[Optional[Request]] = [None] * self.n_slots
         self._next = np.zeros(self.n_slots, np.int32)
         self.prefill_buckets_used: set = set()
@@ -507,20 +540,43 @@ class ServingEngine(_EngineBase):
         self._bucket(len(np.asarray(prompt)))   # reject over-long at intake
         return super().submit(prompt, max_new_tokens)
 
+    # ------------------------------------------------------------- geometry
+    @property
+    def state(self) -> Dict[str, Any]:
+        """The decode state of a single-group engine (a pipelined engine
+        holds one per in-flight group in ``states``)."""
+        assert self.pipeline_k == 1, "pipelined engine: use .states[g]"
+        return self.states[0]
+
+    @property
+    def allocator(self) -> PagedKVAllocator:
+        """The page allocator of a single-group paged engine (a pipelined
+        one holds one per group in ``allocators``)."""
+        assert self.pipeline_k == 1, "pipelined engine: use .allocators[g]"
+        return self.allocators[0]
+
+    def _group_of(self, slot: int) -> tuple:
+        return slot // self.rows_per_group, slot % self.rows_per_group
+
     def _live_cache_tokens(self) -> int:
         """KV tokens a migration moves, summed over slots: a dense engine
         holds (and must copy) the full reserved ``n_slots × max_seq``
-        extent per kv row, a paged engine only its allocated pages."""
+        extent per kv row, a paged engine only its allocated pages, summed
+        over groups."""
         if self.paged:
-            return self.allocator.live_pages * self.page_size
+            return sum(a.live_pages for a in self.allocators) \
+                * self.page_size
         return super()._live_cache_tokens()
 
     def _apply_plan(self, plan: dict):
-        """Execute a controller plan: cache/weight permutations, expert
-        weight rows, kernel gather maps, interval log."""
+        """Execute a controller plan on every in-flight group: cache
+        permutations (the shared weights once), expert weight rows once,
+        kernel gather maps, interval log."""
         applied, reason = False, None
         if plan["migrations"]:
-            applied, reason = self._migrate_state(self.state, plan)
+            for g, st in enumerate(self.states):
+                applied, reason = self._migrate_state(
+                    st, plan, permute_params=(g == 0))
             # weights/caches now sit in the plan's layout; the kernel
             # gather maps must follow the same source of truth
             self._phys_perms = plan["perms"]
@@ -553,7 +609,8 @@ class ServingEngine(_EngineBase):
         shape = (self._rows_layers, rows.shape[1])
         self._head_rows = np.broadcast_to(rows, shape).copy()
         self._head_inv = np.broadcast_to(inv, shape).copy()
-        self.state = self._attach_head_rows(self.state)
+        for st in self.states:
+            self._attach_head_rows(st)
 
     # ------------------------------------------------------------- scheduler
     def _bucket(self, n: int) -> int:
@@ -574,8 +631,9 @@ class ServingEngine(_EngineBase):
             # free the slot's pages and unmount its table row: the row's
             # future (clamped) writes drop and its reads are masked, so
             # recycled pages cannot be corrupted by a retired slot
-            self.allocator.release(slot)
-            self._mount(slot, 0)
+            g, row = self._group_of(slot)
+            self.allocators[g].release(row)
+            self._mount(g, row, 0)
         self._emit_done(r)
 
     def _finish_check(self, slot: int):
@@ -606,7 +664,8 @@ class ServingEngine(_EngineBase):
                 self.params, sub, torch.as_tensor(toks, device=self.device),
                 torch.tensor([L0], dtype=torch.int32, device=self.device))
             self.prefill_buckets_used.add(Lb)
-            self.state = self.model.insert_slot(self.state, sub, s)
+            g, row = self._group_of(s)
+            self.states[g] = self.model.insert_slot(self.states[g], sub, row)
             self._start_stream(s, r, logits)
 
     def _start_stream(self, s: int, r: Request, logits):
@@ -621,11 +680,11 @@ class ServingEngine(_EngineBase):
         self._emit_token(r, tok)
         self._finish_check(s)
 
-    def _mount(self, slot: int, pos: int):
-        """Mirror the allocator's page list of ``slot`` (-1 padded) and its
-        position into the decode state."""
-        self.state = self.model.mount_slot_pages(
-            self.state, slot, self.allocator.page_map_row(slot), pos)
+    def _mount(self, g: int, row: int, pos: int):
+        """Mirror group ``g``'s allocator page list of ``row`` (-1 padded)
+        and its position into the group's decode state."""
+        self.states[g] = self.model.mount_slot_pages(
+            self.states[g], row, self.allocators[g].page_map_row(row), pos)
 
     def _admit_paged(self, s: int) -> bool:
         """Admit the queue head into free slot ``s``: reserve its
@@ -637,39 +696,48 @@ class ServingEngine(_EngineBase):
         once running slots retire)."""
         r = self.queue[0]
         L0 = len(r.prompt)
+        g, row = self._group_of(s)
+        alloc = self.allocators[g]
         horizon = min(L0 + r.max_new_tokens + 1, self.max_seq)
-        if not self.allocator.can_admit(L0, horizon):
+        if not alloc.can_admit(L0, horizon):
             return False
         self.queue.pop(0)
-        self.allocator.admit(s, n_tokens=L0, horizon=horizon)
-        self._mount(s, 0)
+        alloc.admit(row, n_tokens=L0, horizon=horizon)
+        self._mount(g, row, 0)
         C = self.prefill_chunk
         logits = None
         for c0 in range(0, max(L0, 1), C):
             n = min(C, L0 - c0)
             toks = np.zeros((1, C), np.int32)
             toks[0, :n] = r.prompt[c0:c0 + n]
-            logits, self.state = self.model.prefill_paged(
-                self.params, self.state,
-                torch.as_tensor(toks, device=self.device), s, c0, n)
+            logits, self.states[g] = self.model.prefill_paged(
+                self.params, self.states[g],
+                torch.as_tensor(toks, device=self.device), row, c0, n)
         self.prefill_buckets_used.add(C)
         self._start_stream(s, r, logits)
         return True
 
-    def _ensure_pages(self, active: List[int]):
-        """Lazy page growth: before decode, any slot whose next write
-        position crosses into an unallocated page draws one from its
-        admission reservation and remounts its table row — live bytes
-        track actual depth, not the reservation."""
+    def _ensure_pages(self, g: int, active: List[int], lo: int):
+        """Lazy page growth: before group ``g`` decodes, any slot whose
+        next write position crosses into an unallocated page draws one
+        from its admission reservation and remounts its table row — live
+        bytes track actual depth, not the reservation."""
+        alloc = self.allocators[g]
         for s in active:
+            row = s - lo
             r = self.slots[s]
             write_pos = len(r.prompt) + len(r.out_tokens) - 1
-            if write_pos >= self.allocator.pages_for(s) * self.page_size:
-                self.allocator.extend(s, write_pos + 1)
-                self._mount(s, write_pos)
+            if write_pos >= alloc.pages_for(row) * self.page_size:
+                alloc.extend(row, write_pos + 1)
+                self._mount(g, row, write_pos)
 
     def _active(self) -> List[int]:
         return [s for s in range(self.n_slots) if self.slots[s] is not None]
+
+    def _group_active(self, g: int) -> List[int]:
+        lo = g * self.rows_per_group
+        return [s for s in range(lo, lo + self.rows_per_group)
+                if self.slots[s] is not None]
 
     def _occupancy(self) -> float:
         """Mean tokens resident per active slot (prompt + generated).
@@ -679,41 +747,52 @@ class ServingEngine(_EngineBase):
         if not act:
             return 0.0
         if self.paged:
-            return float(np.mean([self.allocator.pages_for(s)
-                                  * self.page_size for s in act]))
+            return float(np.mean(
+                [self.allocators[g].pages_for(row) * self.page_size
+                 for g, row in map(self._group_of, act)]))
         return float(np.mean([len(self.slots[s].prompt)
                               + len(self.slots[s].out_tokens) for s in act]))
 
     def step(self) -> bool:
         """One scheduler iteration: admit into free slots, then one decode
-        step for every slot, then — every λ steps — the controller
-        interval.  Returns False when idle."""
+        step for the group whose pipeline phase is due (with
+        ``pipeline_k=1`` every active slot), then — every λ·K steps — the
+        controller interval.  Returns False when idle.  An empty due group
+        is a bubble: the step count advances, nothing is launched or
+        timed."""
         self._admit()
-        active = self._active()
-        if not active:
+        if not self._active():
             return False
-        if self.paged:
-            self._ensure_pages(active)
-        t0 = time.monotonic()
-        logits, self.state = self.model.decode_step(
-            self.params, self.state,
-            torch.as_tensor(self._next, device=self.device))
-        self._sync()
-        dt = time.monotonic() - t0
-        toks = self._sample(logits)
+        g = self.decode_steps % self.pipeline_k
+        lo = g * self.rows_per_group
+        active = self._group_active(g)
+        if active:
+            if self.paged:
+                self._ensure_pages(g, active, lo)
+            t0 = time.monotonic()
+            nxt = self._next[lo:lo + self.rows_per_group]
+            logits, self.states[g] = self.model.decode_step(
+                self.params, self.states[g],
+                torch.as_tensor(nxt, device=self.device))
+            self._sync()
+            dt = time.monotonic() - t0
+            toks = self._sample(logits)
         self.decode_steps += 1
-        self.slot_busy_steps += len(active)
-        for s in active:
-            tok = int(toks[s])
-            self._emit_token(self.slots[s], tok)
-            self._next[s] = tok
-            self._finish_check(s)
-        self._record_step(dt)
-        if self.decode_steps % self.lam == 0:
+        if active:
+            self.slot_busy_steps += len(active)
+            for s in active:
+                tok = int(toks[s - lo])
+                self._emit_token(self.slots[s], tok)
+                self._next[s] = tok
+                self._finish_check(s)
+            self._record_step(dt)
+        # a slot emits one token every pipeline_k steps: λ tokens a slot
+        # are λ·K scheduler steps
+        if self.decode_steps % (self.lam * self.pipeline_k) == 0:
             t0 = time.monotonic()
             # live router loads first: this interval's expert placement is
             # priced by the decode stream's gate frequencies, not the prior
-            self._feed_expert_loads([self.state])
+            self._feed_expert_loads(self.states)
             plan = self._interval_plan(tau_tokens=self._occupancy())
             self._apply_plan(plan)
             self._sync()

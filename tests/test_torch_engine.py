@@ -119,8 +119,6 @@ def test_sampling_is_seeded():
 
 
 @pytest.mark.parametrize("over,kw,item", [
-    ({}, dict(pipeline_k=2), "#8"),
-    ({}, dict(search="bottleneck"), "#8"),
     # a window the served extent reaches keeps a ring cache, which the
     # continuous engine refuses, naming the wave engine that serves it
     pytest.param({"sliding_window": 16}, {}, "WaveServingEngine",
@@ -130,3 +128,24 @@ def test_unported_options_raise_naming_their_roadmap_item(over, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(_tiny(**over), n_slots=2, max_seq=32, device="cpu",
                       **kw)
+
+
+def test_unknown_search_mode_raises_at_construction():
+    """A typo in ``search`` must not silently serve the rescoring planner
+    the caller opted out of."""
+    with pytest.raises(ValueError, match="search must be one of"):
+        ServingEngine(_tiny(), n_slots=2, max_seq=32, device="cpu",
+                      search="nope")
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_bottleneck_search_serves_at_any_depth(k):
+    """``search="bottleneck"`` builds the bottleneck policy only on the
+    pipelined objective (k > 1); at k = 1 the controller keeps the
+    rescoring path, as the reference's does."""
+    eng = ServingEngine(_tiny(), n_slots=2, max_seq=32, device="cpu",
+                        pipeline_k=k, search="bottleneck")
+    assert (eng.controller._policy is not None) == (k > 1)
+    streams = _drive(eng, [np.arange(1, 6), np.arange(7, 10)],
+                     straggle_at=None)
+    assert sorted(streams) == [0, 1]

@@ -954,3 +954,60 @@ def test_flash_kernel_edges(cuda, dtype, case):
     torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
     assert _row_rel_err(out, want) <= FLASH_ROW_REL[dtype]
     assert torch.isfinite(out).all()
+
+
+# ------------------------------------------------------ the pipelined engine
+def _pipelined_run(cfg, params, prompts, **kw):
+    """Serve ``prompts`` (8 new tokens each) on the card, a 500x straggler
+    at step 6 on the busiest device when ``pipeline_k`` > 1; returns the
+    streams and the engine."""
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, n_slots=4, max_seq=64, seed=0,
+                        net=DeviceNetwork.sample(4, seed=1), device="cuda",
+                        params=params, **kw)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=8)
+    while True:
+        if eng.pipeline_k > 1 and eng.decode_steps == 6:
+            dev = int(eng.controller.head_counts().argmax())
+            eng.net.inject_straggler(dev, slowdown=500.0)
+        if not eng.step():
+            break
+    return {r.rid: r.out_tokens for r in eng.finished}, eng
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_pipelined_engine_streams_through_the_kernels(cuda, paged):
+    """``pipeline_k=2`` with the bottleneck search and the kernels, in
+    float32: streams equal the sequential plain engine's with no
+    migration, migrations were applied to both groups, the decode kernel
+    launched once a layer for each group decode (B = 2 rows), and every
+    interval fell on a multiple of λ·K."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.api import build_model
+    cfg = get_config("llama3-8b").with_overrides(
+        n_layers=2, d_model=256, n_heads=8, n_kv_heads=2, d_head=32,
+        d_ff=512, vocab_size=1024, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 1024, size=n) for n in (4, 9, 6, 11, 7, 5)]
+    seq, _ = _pipelined_run(cfg, params, prompts, lam=10 ** 9)
+    kernel = da.decode_attention_paged_resident if paged \
+        else da.decode_attention_resident
+    before = kernel.launches
+    kw = dict(paged=True, page_size=8) if paged else {}
+    pipe, eng = _pipelined_run(cfg, params, prompts, lam=3, pipeline_k=2,
+                               search="bottleneck", use_kernel=True, **kw)
+    assert pipe == seq and len(pipe) == len(prompts)
+    assert kernel.launches - before == len(eng.step_times) * cfg.n_layers
+    assert all(int(st["pos"].shape[0]) == 2 for st in eng.states)
+    assert all(e["step"] % 6 == 0 for e in eng.migration_log)
+    assert any(e["applied"] and e["n_migrations"] and e["reason"] is None
+               for e in eng.migration_log)
+    if paged:
+        for alloc in eng.allocators:
+            alloc.check_invariants()
+            assert alloc.live_pages == 0

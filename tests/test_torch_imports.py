@@ -57,7 +57,10 @@ def test_every_module_imports_with_jax_and_repro_refused():
                  "repro_torch.configs.rwkv6_7b",
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.attention_plain",
-                 "repro_torch.configs.glm4_9b"):
+                 "repro_torch.configs.glm4_9b",
+                 "repro_torch.core.solver", "repro_torch.core.baselines",
+                 "repro_torch.core.simulator",
+                 "repro_torch.launch.migration_demo"):
         assert name in names
 
 
@@ -222,7 +225,29 @@ def test_serve_cli_serves_glm4_on_the_cpu():
     assert "3 requests, 18 tokens" in out.stdout
 
 
-def test_serve_cli_refuses_unported_flags():
-    from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        main(["--device", "cpu", "--pipeline-k", "2"])
+def test_serve_cli_serves_pipelined_bottleneck_search_on_the_cpu():
+    """``--pipeline-k 2 --search bottleneck``: two slot groups decode in
+    turn, and the bottleneck search plans the straggler's migrations."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--reduced", "--layers", "2", "--arch", "llama3-8b", "--requests",
+         "6", "--tokens", "10", "--slots", "4", "--lam", "2",
+         "--pipeline-k", "2", "--search", "bottleneck", "--use-kernel",
+         "--mixed-lengths", "--straggler", "0"],
+        env=_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "ServingEngine" in out.stdout
+    assert "6 requests, 60 tokens" in out.stdout
+    migrations = re.search(r"head-migrations=(\d+)", out.stdout)
+    assert migrations and int(migrations.group(1)) > 0
+
+
+def test_migration_demo_prints_the_six_policies():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.migration_demo"],
+        env=_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rows = [line.split()[0] for line in out.stdout.splitlines()[1:7]]
+    assert rows == ["resource-aware", "static", "galaxy", "edgeshard",
+                    "greedy", "round-robin"]
+    assert "speedups vs resource-aware" in out.stdout
