@@ -22,12 +22,17 @@ token prompts and applied head migrations; and ``make_engine(mode="auto")``
 serving musicgen-large (MHA at dh 64, LayerNorm, GELU, their biases set to
 seeded random values) at full width (4 layers) on the dense path's traffic
 — and checks that each path went through its kernels, with exact launch
-counts.  Every prefill whose queries and keys share their positions
+counts.  It then serves a seeded Poisson load on the paged llama3-8b
+engine through ``drive_virtual``, the same load through
+``AsyncServingEngine`` (bf16 streams equal to ``drive_virtual``'s), and
+the load with a device failing mid-decode and rejoining on the paged and
+dense engines (evacuation and teacher-forced replay, launch counts exact
+with the replay).  Every prefill whose queries and keys share their positions
 (bucketed, lock-step, ring) runs the flash attention kernel.  It checks
 that the paged decode kernels give the linear ones' output bit for bit on
 the same cache in scrambled pages, and in float32 that greedy streams
-with and without the kernels, and from paged and dense caches, are
-equal.
+with and without the kernels, from paged and dense caches, and with and
+without a device failure or slowdown, are equal.
 
     python3 chip_smoke.py --ab build/parent . . build/parent
 
@@ -44,6 +49,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -1998,6 +2004,371 @@ def phase_pipelined_stream_pairs():
     del params
 
 
+# ------------------------------------- the load, async and elastic paths
+# The seeded load: Poisson arrivals at 0.1 a scheduler step over 160 steps
+# (17 requests), prompts of 32-512 tokens, 64 new tokens each — about 80 %
+# of what the 48-page pool (pages of 64) serves at once.  One scheduler
+# step is one unit of the virtual clock, so TTFT and ITL are in steps.
+LOAD = dict(rate=0.1, horizon=160.0, seed=11,
+            prompt_mix=((1.0, 32, 512),), out_mix=((1.0, 64, 64),))
+LOAD_PAGED = dict(paged=True, page_size=64, kv_pages=48)
+T_FAIL, T_REJOIN = 40.0, 100.0
+
+
+def load_workload(vocab: int):
+    from repro_torch.serving.workload import make_workload
+    return make_workload("poisson", vocab=vocab, **LOAD)
+
+
+def load_engine(cfg, *, lam=8, params=None, **kw):
+    """The load paths' engine: 8 slots, a 1024-token cache, four
+    simulated devices, the kernels."""
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.serving.engine import ServingEngine
+    return ServingEngine(cfg, n_slots=MAIN_B, max_seq=MAIN_T, lam=lam,
+                         seed=0, net=DeviceNetwork.sample(4, seed=1),
+                         use_kernel=True, device="cuda", params=params, **kw)
+
+
+def reset_launches():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
+    torch.cuda.synchronize()
+    for k in DECODE_KERNELS:
+        getattr(da, k).launches = 0
+    flash_attention.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
+    out = {k: getattr(da, k).launches for k in DECODE_KERNELS}
+    out["flash_attention"] = flash_attention.launches
+    return out
+
+
+def log_load_metrics(label, m, eng, wall):
+    tokens = sum(len(r.out_tokens) for r in eng.finished)
+    log(f"{label}: {m['n_finished']}/{m['n_submitted']} requests, {tokens} "
+        f"tokens, {m['steps']} scheduler steps to t {m['t_end']:.1f}; TTFT "
+        f"p50/p95/p99 {m['p50_ttft']:.2f}/{m['p95_ttft']:.2f}/"
+        f"{m['p99_ttft']:.2f} steps, ITL p50/p95/p99 {m['p50_itl']:.2f}/"
+        f"{m['p95_itl']:.2f}/{m['p99_itl']:.2f} steps, goodput "
+        f"{m['goodput']:.3f} tokens a step; wall {wall:.2f} s "
+        f"({tokens / wall:.1f} tok/s), decode step median "
+        f"{1e3 * float(np.median(eng.step_times)):.2f} ms; "
+        f"{len(eng.interval_times)} controller intervals"
+        + (f", mean {1e3 * float(np.mean(eng.interval_times)):.1f} ms"
+           if eng.interval_times else "")
+        + f"; admission waited {eng.page_waits if eng.paged else 0} steps")
+
+
+def check_drained(label, eng):
+    if eng.paged:
+        for alloc in eng.allocators:
+            alloc.check_invariants()
+        live = [a.live_pages for a in eng.allocators]
+        check(not any(live), f"{label}: pages live after the drain: {live}")
+
+
+def phase_load_path():
+    """Serve the seeded Poisson load (``LOAD``) on the paged llama3-8b
+    engine (pages of 64, a pool of 48, λ 8) through ``drive_virtual``:
+    every request finishes, the pool drains, and the paged kernel launched
+    once a layer on every scheduler step that had active rows.  Returns
+    the workload's size and the paged kernel's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.workload import drive_virtual, offered_load
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    reqs = load_workload(cfg.vocab_size)
+    eng = load_engine(cfg, **LOAD_PAGED)
+    seen = watch_logits(eng)
+    prefill = time_prefill(eng)
+    reset_launches()
+    t0 = time.monotonic()
+    m = drive_virtual(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    off = offered_load(reqs, LOAD["horizon"])
+    log(f"load path (drive_virtual, Poisson {LOAD['rate']} a step, "
+        f"{len(reqs)} requests, offered {off['tok_rate']:.1f} tokens a "
+        f"step) paged bf16 llama3-8b x{N_LAYERS} layers")
+    log_load_metrics("  load path", m, eng, wall)
+    log(f"  kernel launches {launches}")
+    log_split(eng, wall, prefill)
+    name = "decode_attention_paged_resident"
+    check(m["n_finished"] == len(reqs) == m["n_submitted"],
+          f"load path: {m['n_finished']}/{len(reqs)} requests finished")
+    check(all(len(r.out_tokens) == 64 for r in eng.finished),
+          "load path: a request ended short of its 64 tokens")
+    check(launches[name] == len(eng.step_times) * cfg.n_layers,
+          f"load path: paged kernel launches {launches[name]} != decode "
+          f"steps with active rows {len(eng.step_times)} x {cfg.n_layers}")
+    check(len(eng.step_times) == eng.decode_steps == m["steps"],
+          "load path: a scheduler step decoded no row")
+    check(not any(n for k, n in launches.items() if k != name),
+          f"load path: another kernel launched: {launches}")
+    check(bool(seen["finite"].item()), "load path: non-finite logits")
+    check_drained("load path", eng)
+    return len(reqs), launches[name]
+
+
+def phase_async_path():
+    """The load workload through ``AsyncServingEngine(queue_limit=n + 1)``,
+    every request submitted in arrival order up front, on a paged engine
+    with no intervals (λ 10^9): its bf16 streams must equal those of
+    ``drive_virtual`` on an engine built the same way, bit for bit, and
+    the drain must leave no live page.  Logs the handles' wall TTFT.
+    Returns the async run's paged kernel launches."""
+    import asyncio
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.async_runtime import AsyncServingEngine
+    from repro_torch.serving.workload import drive_virtual
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    reqs = load_workload(cfg.vocab_size)
+    sync = drive_virtual(load_engine(cfg, lam=10 ** 9, **LOAD_PAGED), reqs)
+    release()
+    eng = load_engine(cfg, lam=10 ** 9, **LOAD_PAGED)
+    seen = watch_logits(eng)
+    prefill = time_prefill(eng)
+
+    async def serve_all():
+        async with AsyncServingEngine(eng, queue_limit=len(reqs) + 1) as rt:
+            handles = [rt.submit(r.prompt, max_new_tokens=r.max_new_tokens)
+                       for r in sorted(reqs, key=lambda r: r.t_arrival)]
+            await rt.drain()
+        return handles
+
+    reset_launches()
+    t0 = time.monotonic()
+    handles = asyncio.run(serve_all())
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()["decode_attention_paged_resident"]
+    streams = {h.rid: list(h.tokens) for h in handles}
+    ttft = [1e3 * (h.t_first - h.t_submit) for h in handles]
+    tokens = sum(len(t) for t in streams.values())
+    log(f"async path (AsyncServingEngine over the paged engine, λ 10^9, "
+        f"{len(reqs)} requests submitted at once): {tokens} tokens in "
+        f"{wall:.2f} s ({tokens / wall:.1f} tok/s), {eng.decode_steps} "
+        f"decode steps; wall TTFT p50/p95/p99 "
+        + "/".join(f"{np.percentile(ttft, p):.1f}" for p in (50, 95, 99))
+        + f" ms; paged kernel launches {launches}; streams "
+        f"{'equal' if streams == sync['streams'] else 'differ'} to "
+        f"drive_virtual's")
+    log_split(eng, wall, prefill)
+    check(all(h.error is None for h in handles), "async path: a handle "
+          "failed")
+    check(len(streams) == len(reqs) and streams == sync["streams"],
+          "async path: bf16 streams differ from drive_virtual's")
+    check(launches == eng.decode_steps * cfg.n_layers,
+          f"async path: paged kernel launches {launches} != decode steps "
+          f"{eng.decode_steps} x {cfg.n_layers}")
+    check(bool(seen["finite"].item()), "async path: non-finite logits")
+    check(len(eng.queue) == 0 and not eng._active(),
+          "async path: the drain left work behind")
+    check_drained("async path", eng)
+    return launches
+
+
+def restart_vs_evac(eng, plan, rec) -> float:
+    """``benchmarks/elastic_serving``'s recovery comparison for one
+    failure: steps to evacuate (the plan's migration delay over its
+    per-token delay, plus the replay) against steps to restart (every
+    placed block re-sent from the controller node at the link rates, plus
+    the same replay)."""
+    net, place = eng.net, np.asarray(plan["place"])
+    step = float(plan["d_pipe_est"])
+    check(bool(np.isfinite(step) and step > 0), "elastic path: the "
+          "evacuated placement has no finite per-token delay")
+    tau = max(int(plan["tau"]), 2)
+    restore = 0.0
+    for b in eng.controller.blocks:
+        rate = net.bandwidth[net.controller, int(place[b.index])]
+        if np.isfinite(rate):
+            restore += eng.cost.memory(b, tau - 1) / rate
+    evac = math.ceil(plan["d_mig_est"] / step) + rec["replay_steps"]
+    restart = math.ceil(restore / step) + rec["replay_steps"]
+    return restart / max(evac, 1)
+
+
+def churn_events(info, slow=False):
+    """``drive_virtual`` events: at ``T_FAIL`` the active device holding
+    the most heads (never the network's controller node) fails (or, with
+    ``slow``, runs 8x slower); at ``T_REJOIN`` it rejoins.  ``info``
+    collects the device, the plans made while it was down, the fail
+    event's host ms and the slots active when it fired."""
+    def pick(eng):
+        counts = eng.controller.head_counts().astype(float)
+        counts[eng.net.controller] = -1
+        counts[~eng.net.active] = -1
+        return int(counts.argmax())
+
+    def fail(eng):
+        dev = info["device"] = pick(eng)
+        info["slots"] = len(eng._active())
+        info["inflight"] = sum(len(eng.slots[s].out_tokens)
+                               for s in eng._active())
+        inner = eng.controller.step_interval
+
+        def recorded(*a, **k):
+            plan = inner(*a, **k)
+            if not eng.net.is_active(dev):
+                info["plans_down"].append(np.asarray(plan["place"]).copy())
+            return plan
+
+        info["plans_down"] = []
+        eng.controller.step_interval = recorded
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        info["plan"] = eng.fail_device(dev)
+        torch.cuda.synchronize()
+        info["fail_ms"] = 1e3 * (time.monotonic() - t0)
+
+    def rejoin(eng):
+        eng.rejoin_device(info["device"])
+
+    if slow:
+        return [(T_FAIL, lambda eng: eng.slow_device(pick(eng), 8.0))]
+    return [(T_FAIL, fail), (T_REJOIN, rejoin)]
+
+
+def phase_elastic_path(path="paged"):
+    """The load workload on the ``path`` engine (λ 8) with churn: at t 40
+    the busiest non-controller device fails mid-decode (evacuation, then
+    teacher-forced replay of every in-flight stream), at t 100 it rejoins.
+    Checks the recovery log, zero lost tokens, a replay that decoded, no
+    block on the dead device in any plan while it was down, every request
+    finished, the pool drained, and exact launch counts with the replay:
+    the decode kernel once a layer on every live and every replay step;
+    dense, flash once a layer on every admission and every replay
+    prefill.  Returns the decode kernel's and the flash kernel's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.workload import drive_virtual
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    reqs = load_workload(cfg.vocab_size)
+    kw = LOAD_PAGED if path == "paged" else {}
+    name = "decode_attention_paged_resident" if path == "paged" \
+        else "decode_attention_resident"
+    eng = load_engine(cfg, **kw)
+    seen = watch_logits(eng)
+    prefill = time_prefill(eng)
+    info = {}
+    reset_launches()
+    t0 = time.monotonic()
+    m = drive_virtual(eng, reqs, events=churn_events(info))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    rec = eng.recovery_log
+    fail = rec[0] if rec else {}
+    x = restart_vs_evac(eng, info["plan"], fail) if fail else float("nan")
+    log(f"elastic path {path} (drive_virtual, device {info.get('device')} "
+        f"fails at t {T_FAIL:g} with {info.get('slots')} slots active, "
+        f"rejoins at t {T_REJOIN:g}) bf16 llama3-8b x{N_LAYERS} layers")
+    log_load_metrics(f"  elastic {path}", m, eng, wall)
+    log(f"  fail event {info.get('fail_ms', float('nan')):.1f} ms of host "
+        f"time (plan, migration, replay of {fail.get('replayed_slots')} "
+        f"slots: {fail.get('replay_prefills')} prefills, "
+        f"{fail.get('replay_steps')} decode steps; "
+        f"{len(info['plan']['migrations']) if fail else 0} head blocks "
+        f"evacuated); d_mig_est "
+        f"{fail.get('d_mig_est', float('nan')):.4g} s, d_pipe_est "
+        f"{fail.get('d_pipe_est', float('nan')):.4g} s; x_restart_vs_evac "
+        f"{x:.3f}; tokens lost {eng.tokens_lost} (a restart would lose "
+        f"{info.get('inflight')}); kernel launches {launches}")
+    log_split(eng, wall, prefill)
+    dev = info.get("device")
+    check([r["event"] for r in rec] == ["fail", "rejoin"],
+          f"elastic {path}: recovery log {rec}")
+    check(dev is not None and dev != eng.net.controller,
+          f"elastic {path}: failed device {dev} is the controller node")
+    check(info["slots"] > 0, f"elastic {path}: the failure fired into an "
+          f"idle engine")
+    check(fail["tokens_lost"] == 0 and eng.tokens_lost == 0,
+          f"elastic {path}: tokens lost")
+    check(fail["replay_steps"] > 0, f"elastic {path}: replay decoded "
+          f"nothing")
+    check(len(info["plan"]["migrations"]) > 0, f"elastic {path}: the "
+          f"evacuation moved no head (device {dev} held none)")
+    check(bool(info["plans_down"]) and not any(
+        np.any(p == dev) for p in info["plans_down"]),
+        f"elastic {path}: a plan placed a block on dead device {dev}")
+    check(eng.net.is_active(dev), f"elastic {path}: device {dev} did not "
+          f"rejoin")
+    check(m["n_finished"] == len(reqs) and all(
+        len(r.out_tokens) == 64 for r in eng.finished),
+        f"elastic {path}: {m['n_finished']}/{len(reqs)} requests finished")
+    want = (len(eng.step_times) + fail["replay_steps"]) * cfg.n_layers
+    check(launches[name] == want,
+          f"elastic {path}: {name} launches {launches[name]} != (decode "
+          f"steps {len(eng.step_times)} + replay steps "
+          f"{fail['replay_steps']}) x {cfg.n_layers}")
+    check(not any(n for k, n in launches.items()
+                  if k not in (name, "flash_attention")),
+          f"elastic {path}: another kernel launched: {launches}")
+    want_flash = 0 if path == "paged" else \
+        (len(reqs) + fail["replay_prefills"]) * cfg.n_layers
+    check(launches["flash_attention"] == want_flash,
+          f"elastic {path}: flash_attention launches "
+          f"{launches['flash_attention']} != {want_flash}")
+    check(bool(seen["finite"].item()), f"elastic {path}: non-finite logits")
+    check_drained(f"elastic {path}", eng)
+    return launches[name], launches["flash_attention"]
+
+
+def phase_churn_stream_pairs():
+    """float32, 2 layers, shared weights, the kernels, λ 8, the load
+    workload: on a dense and a paged engine, the fail+rejoin run and the
+    slow run (8x at t 40 on the busiest non-controller device) must each
+    stream what the churn-free run streams, every request finishing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.workload import drive_virtual
+    cfg = get_config("llama3-8b").with_overrides(
+        n_layers=2, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    reqs = load_workload(cfg.vocab_size)
+    for path, kw in (("dense", {}), ("paged", LOAD_PAGED)):
+        runs = {}
+        for label in ("churn-free", "fail+rejoin", "slow"):
+            eng = load_engine(cfg, params=params, **kw)
+            seen = watch_logits(eng)
+            info = {}
+            events = None if label == "churn-free" else \
+                churn_events(info, slow=label == "slow")
+            m = drive_virtual(eng, reqs, events=events)
+            check(m["n_finished"] == len(reqs),
+                  f"f32 {path} {label}: not every request finished")
+            check(bool(seen["finite"].item()),
+                  f"f32 {path} {label}: non-finite logits")
+            check_drained(f"f32 {path} {label}", eng)
+            runs[label] = (m["streams"], eng.recovery_log,
+                           sum(e["n_migrations"] for e in eng.migration_log
+                               if e["applied"]))
+            del eng, seen
+            release()
+        for label in ("fail+rejoin", "slow"):
+            same = runs[label][0] == runs["churn-free"][0]
+            log(f"f32 streams {path} {label} vs churn-free (2 layers, "
+                f"kernels): {len(runs[label][0])} requests, streams "
+                f"{'equal' if same else 'differ'}, recovery "
+                f"{[r['event'] for r in runs[label][1]]}, applied "
+                f"migrations {runs[label][2]} and {runs['churn-free'][2]}")
+            check(same, f"f32 {path} {label}: streams differ from the "
+                  f"churn-free run's")
+        check([r["event"] for r in runs["fail+rejoin"][1]]
+              == ["fail", "rejoin"], f"f32 {path}: recovery log "
+              f"{runs['fail+rejoin'][1]}")
+        check(runs["fail+rejoin"][1][0]["replay_steps"] > 0,
+              f"f32 {path}: replay decoded nothing")
+    del params
+
+
 def kernel_phases():
     """Every kernel against its plain version, then timed at its main
     path's shapes: one record per kernel."""
@@ -2121,6 +2492,22 @@ def main():
     phase_musicgen_stream_pair()
     release()
     phase_pipelined_stream_pairs()
+    release()
+    # the load, async and elastic paths' launches are logged; each
+    # kernel's record keeps its sequential path's
+    churn = {}
+    n_load, churn["load paged"] = phase_load_path()
+    release()
+    churn["async paged"] = phase_async_path()
+    release()
+    for path in ("paged", "dense"):
+        churn[f"elastic {path}"], flash[f"elastic {path}"] = \
+            phase_elastic_path(path)
+        release()
+    log(f"decode kernel launches on the load, async and elastic paths "
+        f"({n_load} requests): {churn}")
+    log(f"flash_attention launches with the elastic paths: {flash}")
+    phase_churn_stream_pairs()
     release()
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

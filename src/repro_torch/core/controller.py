@@ -31,9 +31,12 @@ from repro_torch.core.blocks import Block, CostModel, make_blocks
 from repro_torch.core.delay import (migration_delay, pipelined_inference_delay,
                                     revert_unpaying_migrations)
 from repro_torch.core.network import DeviceNetwork
-from repro_torch.core.placement_bridge import (migration_pairs_layers,
+from repro_torch.core.placement_bridge import (apply_head_perm,
+                                               apply_layer_head_perms,
+                                               migration_pairs_layers,
                                                placement_to_expert_perms,
-                                               placement_to_perms)
+                                               placement_to_perms,
+                                               relative_perms)
 
 
 @dataclasses.dataclass
@@ -101,6 +104,7 @@ class IntervalController:
         # (n_layers, slots·eps) physical expert-row layout (MoE archs)
         self.expert_perms: Optional[np.ndarray] = None
         self.tau = 0
+        self.history: List[dict] = []
 
     def _make_policy(self) -> ResourceAwarePolicy:
         return ResourceAwarePolicy(
@@ -109,20 +113,40 @@ class IntervalController:
             pipeline_k=self.cfg.pipeline_k, search="bottleneck",
             amortize=self.cfg.amortize, min_gain=self.cfg.min_gain)
 
-    def head_counts(self) -> np.ndarray:
-        """Heads per device in the current placement, summed over
-        layers."""
+    @property
+    def perm(self) -> Optional[np.ndarray]:
+        """Layer-0 permutation (single-layer callers)."""
+        return None if self.perms is None else self.perms[0]
+
+    def head_counts(self, place: Optional[np.ndarray] = None) -> np.ndarray:
+        """Heads per device in ``place`` (default: the current placement),
+        summed over layers."""
+        place = self.place if place is None else place
         heads = [b.index for b in self.blocks if b.kind == "head"]
-        return np.bincount(np.asarray(self.place)[heads],
+        return np.bincount(np.asarray(place)[heads],
                            minlength=self.net.n_devices)
 
     # ------------------------------------------------------------ observe
-    def observe_monitor(self, monitor, peak_flops):
+    def observe(self, compute_avail: Optional[np.ndarray] = None,
+                mem_avail: Optional[np.ndarray] = None):
+        """Feed observed instantaneous availability.  ``mem_avail`` lands
+        in the network's availability field; the hardware ``mem_capacity``
+        is never overwritten by an observation."""
+        if compute_avail is not None:
+            obs = np.asarray(compute_avail, float)
+            # an inactive device has zero availability whatever the
+            # (possibly stale) telemetry claims
+            self.net.compute_avail = np.where(self.net.active, obs, 0.0)
+        if mem_avail is not None:
+            self.net.mem_avail = np.asarray(mem_avail, float)
+
+    def observe_monitor(self, monitor, peak_flops=None):
         """Per-slot step-time EWMAs from a ``HeartbeatMonitor`` become the
-        C_j(τ) estimates Algorithm 1 reads (slot j is device j); an
-        inactive device observes zero whatever its telemetry says."""
-        obs = np.asarray(monitor.availability(peak_flops), float)
-        self.net.compute_avail = np.where(self.net.active, obs, 0.0)
+        C_j(τ) estimates Algorithm 1 reads (slot j is device j; dead slots
+        estimate to zero).  ``peak_flops`` defaults to the network's
+        ``compute_max``."""
+        peak = self.net.compute_max if peak_flops is None else peak_flops
+        self.observe(compute_avail=monitor.availability(peak))
 
     def update_expert_loads(self, loads):
         """Feed observed router loads (rows: per layer, one entry per
@@ -190,6 +214,8 @@ class IntervalController:
                                 self.net, self.tau)
         plan = {"tau": self.tau, "place": place,
                 "perms": new_perms, "prev_perms": self.perms,
+                "perm": new_perms[0],
+                "prev_perm": None if self.perms is None else self.perms[0],
                 "migrations": pairs,
                 "expert_perms": new_eperms,
                 "prev_expert_perms": self.expert_perms,
@@ -203,4 +229,72 @@ class IntervalController:
         self.place, self.perms = place, new_perms
         if new_eperms is not None:
             self.expert_perms = new_eperms
+        self.history.append({"tau": self.tau, "n_migrations": len(pairs),
+                             "n_expert_migrations": len(epairs),
+                             "d_mig_est": d_mig,
+                             "arrival_rate": arrival_rate,
+                             "queue_depth": queue_depth,
+                             "infeasible": stats.infeasible})
         return plan
+
+    # ------------------------------------------------------------- churn
+    def handle_failure(self, device: int,
+                       tau: Optional[int] = None) -> dict:
+        """Death event -> evacuation plan: mark ``device`` failed and
+        re-place at once.  The assigner cannot place on an inactive device
+        and the payback filter never reverts a block onto one, so the
+        evacuation is mandatory, not priced; surviving blocks keep their
+        stickiness.  Raises when the plan still places a block on the dead
+        device (the survivors cannot hold the model)."""
+        self.net.fail(device)
+        plan = self.step_interval(tau=tau)
+        if np.any(np.asarray(plan["place"]) == device):
+            raise RuntimeError(
+                f"evacuation infeasible: surviving devices cannot hold "
+                f"device {device}'s blocks (n_active={self.net.n_active})")
+        plan["evacuation"] = True
+        plan["failed_device"] = int(device)
+        self.history[-1]["evacuation"] = True
+        self.history[-1]["failed_device"] = int(device)
+        return plan
+
+    def handle_rejoin(self, device: int,
+                      tau: Optional[int] = None) -> dict:
+        """A failed device comes back (fresh, no resident state) ->
+        expansion plan.  Expansion is optional: blocks move onto the
+        rejoined device only where the move pays under the usual filter."""
+        self.net.rejoin(device)
+        plan = self.step_interval(tau=tau)
+        plan["expansion"] = True
+        plan["rejoined_device"] = int(device)
+        self.history[-1]["expansion"] = True
+        self.history[-1]["rejoined_device"] = int(device)
+        return plan
+
+    # ---------------------------------------------------------------- act
+    def apply_to_cache(self, cache_k, cache_v, plan, head_axis: int = 3,
+                       layer_axis: int = 0):
+        """Execute ``plan`` on a layer-stacked head-expanded KV cache
+        (torch tensors): per-layer gathers by the relative permutations
+        (the new layout in terms of current positions).  The cache's
+        ``layer_axis`` must cover the controller's ``n_layers`` (a
+        single-layer plan applies to every layer).  Returns new tensors."""
+        prev_perms = plan.get("prev_perms")
+        if prev_perms is None or not plan["migrations"]:
+            return cache_k, cache_v
+        rel = relative_perms(prev_perms, plan["perms"])
+        gs = self.cfg.group_size
+        if rel.shape[0] == 1:
+            return apply_head_perm(cache_k, cache_v, rel[0], head_axis,
+                                   group_size=gs)
+        # the port's per-layer gather takes the layers on the leading axis
+        nd = cache_k.ndim
+        la, ha = layer_axis % nd, head_axis % nd
+        if la == ha:
+            raise ValueError("layer_axis and head_axis name the same axis")
+        moved = [la] + [a for a in range(nd) if a != la]
+        k, v = apply_layer_head_perms(
+            cache_k.permute(moved), cache_v.permute(moved), rel,
+            head_axis=moved.index(ha), group_size=gs)
+        back = [moved.index(a) for a in range(nd)]
+        return k.permute(back), v.permute(back)

@@ -395,6 +395,20 @@ def _take_layers(w: torch.Tensor, axis: int, rows: np.ndarray) -> torch.Tensor:
                         for l in range(w.shape[0])])
 
 
+def apply_head_perm(cache_k, cache_v, perm, head_axis: int = 3,
+                    group_size: int = 1, rep: int = 1):
+    """Reorder the head axis of a stacked cache ((L, B, T, KvE, dh) by
+    default) by ONE permutation, the same for every layer.  ``group_size``
+    > 1: ``perm`` is a (group-consistent) query-head permutation and the
+    cache's head axis holds one KV head per group, so the induced KV
+    permutation is applied (lifted to ``rep`` replicated rows).  Returns
+    new tensors; the inputs are not modified."""
+    kv = _kv_perms(perm, group_size, rep)[0]
+    idx = torch.as_tensor(kv, dtype=torch.long, device=cache_k.device)
+    axis = head_axis % cache_k.ndim
+    return cache_k.index_select(axis, idx), cache_v.index_select(axis, idx)
+
+
 def apply_layer_head_perms(cache_k, cache_v, perms, *, head_axis: int = 3,
                            group_size: int = 1, rep: int = 1):
     """Per-layer reorder of a stacked cache ((L, B, T, KvE, dh) by default):

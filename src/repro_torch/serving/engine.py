@@ -36,15 +36,23 @@ permutations to the stacked expert weights (``_migrate_experts``).  With
 kernel of the cache's kind; the continuous engine rebuilds its gather maps
 from each plan (``_refresh_head_rows``).
 
+Device churn (``ServingEngine``): ``fail_device`` applies the controller's
+evacuation plan and rebuilds every in-flight stream's cache by
+teacher-forced replay through admission's own prefill helpers and the
+decode step, so streams do not change; ``rejoin_device`` applies an
+expansion plan; ``slow_device`` pins load the next interval observes;
+``request_replan`` fires the interval on the next step.
+
 The controller drives a simulated device network, as in the reference: the
 model runs on one GPU (or the CPU), and the placement decides which
 (layer, head) rows and experts each simulated device holds.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -286,6 +294,8 @@ class _EngineBase:
     # ------------------------------------------------------------- telemetry
     def _record_step(self, dt: float):
         self.step_times.append(dt)
+        # only live devices heartbeat: a failed device stays silent (its
+        # availability estimate pinned at zero) until it rejoins
         for j in self.net.active_ids:
             self.monitor.record_step(j, dt)
 
@@ -526,6 +536,15 @@ class ServingEngine(_EngineBase):
         self._next = np.zeros(self.n_slots, np.int32)
         self.prefill_buckets_used: set = set()
         self.slot_busy_steps = 0              # sum of active slots per step
+        # scheduler decisions, bounded: a serving loop must not grow per
+        # request ({step, slot, rid, bucket}, and pages when paged)
+        self.admission_log: Deque[dict] = collections.deque(maxlen=4096)
+        # elastic churn: recovery events (fail, rejoin) with their replay
+        # accounting, and the client-visible tokens recovery dropped
+        # (teacher-forced replay re-derives every stream: it stays 0)
+        self.recovery_log: List[dict] = []
+        self.tokens_lost = 0
+        self._replan_pending = False
 
     def _fresh_state(self, batch: int, max_seq: Optional[int] = None):
         if self.paged:
@@ -655,22 +674,30 @@ class ServingEngine(_EngineBase):
                     return      # head-of-line: wait for pages to free
                 continue
             r = self.queue.pop(0)
-            L0 = len(r.prompt)
-            Lb = self._bucket(L0)
-            toks = np.zeros((1, Lb), np.int32)
-            toks[0, :L0] = r.prompt
-            sub = self._fresh_state(1, Lb)
-            logits, sub = self.model.prefill_bucketed(
-                self.params, sub, torch.as_tensor(toks, device=self.device),
-                torch.tensor([L0], dtype=torch.int32, device=self.device))
+            logits, Lb = self._prefill_dense(s, r)
             self.prefill_buckets_used.add(Lb)
-            g, row = self._group_of(s)
-            self.states[g] = self.model.insert_slot(self.states[g], sub, row)
-            self._start_stream(s, r, logits)
+            self._start_stream(s, r, logits, {"bucket": Lb})
 
-    def _start_stream(self, s: int, r: Request, logits):
-        """Seat prefilled request ``r`` in slot ``s`` and emit its first
-        token."""
+    def _prefill_dense(self, s: int, r: Request) -> tuple:
+        """Prefill ``r``'s prompt right-padded to its bucket at batch 1 and
+        copy it into slot ``s``'s row of its group state.  Admission and
+        replay both run it: replay is exact only through the very calls
+        admission made.  Returns (last prompt token's logits, bucket)."""
+        L0 = len(r.prompt)
+        Lb = self._bucket(L0)
+        toks = np.zeros((1, Lb), np.int32)
+        toks[0, :L0] = r.prompt
+        sub = self._fresh_state(1, Lb)
+        logits, sub = self.model.prefill_bucketed(
+            self.params, sub, torch.as_tensor(toks, device=self.device),
+            torch.tensor([L0], dtype=torch.int32, device=self.device))
+        g, row = self._group_of(s)
+        self.states[g] = self.model.insert_slot(self.states[g], sub, row)
+        return logits, Lb
+
+    def _start_stream(self, s: int, r: Request, logits, logged: dict):
+        """Seat prefilled request ``r`` in slot ``s``, emit its first token
+        and log the admission (``logged``: its bucket, and pages)."""
         r.t_first = time.monotonic()
         self.slots[s] = r
         # the admission-time sample is the scheduler's sync point: the
@@ -678,6 +705,8 @@ class ServingEngine(_EngineBase):
         tok = int(self._sample(logits)[0])
         self._next[s] = tok
         self._emit_token(r, tok)
+        self.admission_log.append({"step": self.decode_steps, "slot": s,
+                                   "rid": r.rid, **logged})
         self._finish_check(s)
 
     def _mount(self, g: int, row: int, pos: int):
@@ -695,14 +724,29 @@ class ServingEngine(_EngineBase):
         pool cannot reserve yet (head-of-line wait: the request admits
         once running slots retire)."""
         r = self.queue[0]
-        L0 = len(r.prompt)
         g, row = self._group_of(s)
-        alloc = self.allocators[g]
-        horizon = min(L0 + r.max_new_tokens + 1, self.max_seq)
-        if not alloc.can_admit(L0, horizon):
+        if not self.allocators[g].can_admit(len(r.prompt), self._horizon(r)):
             return False
         self.queue.pop(0)
-        alloc.admit(row, n_tokens=L0, horizon=horizon)
+        logits, pages = self._prefill_paged(g, row, r)
+        self.prefill_buckets_used.add(self.prefill_chunk)
+        self._start_stream(s, r, logits, {"bucket": self.prefill_chunk,
+                                          "pages": pages})
+        return True
+
+    def _horizon(self, r: Request) -> int:
+        """Tokens a request may ever hold: its prompt, its decode budget
+        and the last token's write, capped at the cache extent."""
+        return min(len(r.prompt) + r.max_new_tokens + 1, self.max_seq)
+
+    def _prefill_paged(self, g: int, row: int, r: Request) -> tuple:
+        """Reserve ``r``'s worst-case pages in group ``g``'s pool,
+        allocate its prompt's, mount the table row and run the prompt
+        through fixed-size prefill chunks.  Admission and replay both run
+        it.  Returns (last prompt token's logits, pages allocated)."""
+        L0 = len(r.prompt)
+        pages = self.allocators[g].admit(row, n_tokens=L0,
+                                         horizon=self._horizon(r))
         self._mount(g, row, 0)
         C = self.prefill_chunk
         logits = None
@@ -713,23 +757,25 @@ class ServingEngine(_EngineBase):
             logits, self.states[g] = self.model.prefill_paged(
                 self.params, self.states[g],
                 torch.as_tensor(toks, device=self.device), row, c0, n)
-        self.prefill_buckets_used.add(C)
-        self._start_stream(s, r, logits)
-        return True
+        return logits, len(pages)
 
     def _ensure_pages(self, g: int, active: List[int], lo: int):
         """Lazy page growth: before group ``g`` decodes, any slot whose
         next write position crosses into an unallocated page draws one
         from its admission reservation and remounts its table row — live
         bytes track actual depth, not the reservation."""
-        alloc = self.allocators[g]
         for s in active:
-            row = s - lo
             r = self.slots[s]
-            write_pos = len(r.prompt) + len(r.out_tokens) - 1
-            if write_pos >= alloc.pages_for(row) * self.page_size:
-                alloc.extend(row, write_pos + 1)
-                self._mount(g, row, write_pos)
+            self._extend_pages(g, s - lo,
+                               len(r.prompt) + len(r.out_tokens) - 1)
+
+    def _extend_pages(self, g: int, row: int, write_pos: int):
+        """Draw a page from ``row``'s reservation when ``write_pos`` falls
+        past its allocated pages, and remount the row."""
+        alloc = self.allocators[g]
+        if write_pos >= alloc.pages_for(row) * self.page_size:
+            alloc.extend(row, write_pos + 1)
+            self._mount(g, row, write_pos)
 
     def _active(self) -> List[int]:
         return [s for s in range(self.n_slots) if self.slots[s] is not None]
@@ -756,10 +802,10 @@ class ServingEngine(_EngineBase):
     def step(self) -> bool:
         """One scheduler iteration: admit into free slots, then one decode
         step for the group whose pipeline phase is due (with
-        ``pipeline_k=1`` every active slot), then — every λ·K steps — the
-        controller interval.  Returns False when idle.  An empty due group
-        is a bubble: the step count advances, nothing is launched or
-        timed."""
+        ``pipeline_k=1`` every active slot), then — every λ·K steps, or on
+        the step after ``request_replan`` — the controller interval.
+        Returns False when idle.  An empty due group is a bubble: the step
+        count advances, nothing is launched or timed."""
         self._admit()
         if not self._active():
             return False
@@ -788,7 +834,9 @@ class ServingEngine(_EngineBase):
             self._record_step(dt)
         # a slot emits one token every pipeline_k steps: λ tokens a slot
         # are λ·K scheduler steps
-        if self.decode_steps % (self.lam * self.pipeline_k) == 0:
+        if self._replan_pending \
+                or self.decode_steps % (self.lam * self.pipeline_k) == 0:
+            self._replan_pending = False
             t0 = time.monotonic()
             # live router loads first: this interval's expert placement is
             # priced by the decode stream's gate frequencies, not the prior
@@ -807,16 +855,127 @@ class ServingEngine(_EngineBase):
 
     # ------------------------------------------------------------- churn
     def request_replan(self):
-        _not_ported("forced re-planning", 10)
+        """Fire the controller interval on the next scheduler step,
+        whatever the λ cadence — the async watchdog's escalation hook (a
+        hang must not wait out a long interval)."""
+        self._replan_pending = True
 
     def slow_device(self, device: int, factor: float):
-        _not_ported("elastic churn (slow_device)", 10)
+        """Persistent ``factor``x slowdown of ``device``: pinned load the
+        next interval observes, where Algorithm 1 migrates away iff the
+        move pays."""
+        self.net.slow(device, factor)
 
     def fail_device(self, device: int) -> dict:
-        _not_ported("elastic churn (fail_device)", 10)
+        """Device death mid-decode: evacuate, then recover bit for bit.
+
+        The controller's evacuation plan moves the dead device's blocks to
+        survivors (raising when they cannot hold them) and ``_apply_plan``
+        permutes weights and caches into the new layout.  The dead
+        device's cache rows are lost, so every in-flight stream is rebuilt
+        by teacher-forced replay of its emitted tokens through the
+        engine's own prefill and decode calls (same calls, same batch
+        geometry: the same cache, so the same surviving streams).  No
+        client-visible token is dropped and replay re-emits nothing."""
+        if not self.net.is_active(device):
+            raise ValueError(f"device {device} is not active")
+        self.monitor.mark_failed(device)
+        self._feed_expert_loads(self.states)
+        plan = self.controller.handle_failure(
+            device, tau=self._tau_of(self._occupancy()))
+        self._apply_plan(plan)
+        stats = self._replay_groups()
+        self.recovery_log.append({
+            "step": self.decode_steps, "event": "fail",
+            "device": int(device), "tokens_lost": 0,
+            "d_mig_est": plan["d_mig_est"],
+            "d_pipe_est": plan["d_pipe_est"], **stats})
+        return plan
 
     def rejoin_device(self, device: int) -> dict:
-        _not_ported("elastic churn (rejoin_device)", 10)
+        """A failed device returns, empty: the controller's expansion plan
+        moves blocks onto it where that pays, and ``_apply_plan`` copies
+        their KV rows from the survivors, so rejoin needs no replay."""
+        if self.net.is_active(device):
+            raise ValueError(f"device {device} is already active")
+        plan = self.controller.handle_rejoin(
+            device, tau=self._tau_of(self._occupancy()))
+        self.monitor.record_heartbeat(device)
+        self._apply_plan(plan)
+        self.recovery_log.append({
+            "step": self.decode_steps, "event": "rejoin",
+            "device": int(device),
+            "n_migrations": len(plan["migrations"])})
+        return plan
+
+    # ----------------------------------------------------------- replay
+    def _replay_groups(self) -> dict:
+        stats = {"replay_steps": 0, "replay_prefills": 0,
+                 "replayed_slots": 0}
+        for g in range(self.pipeline_k):
+            for k, v in self._replay_group(g).items():
+                stats[k] += v
+        return stats
+
+    def _replay_group(self, g: int) -> dict:
+        """Rebuild group ``g``'s KV cache from its slots' request records.
+
+        Slots are prefilled again, then teacher-forced through the same
+        decode call in the same batch geometry, each emitted token fed at
+        the position that produced its successor.  Unequal depths are
+        staggered: with n_s tokens emitted on slot s and N = max(n_s),
+        slot s is inserted at tick N - n_s so every slot ends together;
+        before its insertion a row decodes garbage as a freed row does,
+        which cannot touch other rows.  The rebuilt state takes the
+        current kernel row maps (the plan just changed the layout).
+        Replay samples and emits nothing: ``_next``, ``decode_steps`` and
+        ``step_times`` stay as live decode left them."""
+        active = self._group_active(g)
+        lo = g * self.rows_per_group
+        if self.paged:
+            # the old pool described the lost cache; a fresh one admitted
+            # again reproduces admission's reservations
+            self.allocators[g] = PagedKVAllocator(
+                self.kv_pages, self.page_size, self.rows_per_group,
+                self.pages_per_slot)
+        self.states[g] = self._attach_head_rows(
+            self._fresh_state(self.rows_per_group))
+        out = {"replay_steps": 0, "replay_prefills": 0,
+               "replayed_slots": len(active)}
+        if not active:
+            return out
+        ns = {s: len(self.slots[s].out_tokens) for s in active}
+        max_n = max(ns.values())
+        for i in range(max_n):
+            for s in active:
+                if max_n - ns[s] == i:
+                    self._replay_insert(g, s)
+                    out["replay_prefills"] += 1
+            if i == max_n - 1:
+                break   # the last emitted token was never decoded upon
+            nxt = np.zeros(self.rows_per_group, np.int32)
+            for s in active:
+                k = i - (max_n - ns[s])
+                if k >= 0:
+                    r = self.slots[s]
+                    nxt[s - lo] = r.out_tokens[k]
+                    if self.paged:
+                        # this step writes position L0 + k of slot s
+                        self._extend_pages(g, s - lo, len(r.prompt) + k)
+            _, self.states[g] = self.model.decode_step(
+                self.params, self.states[g],
+                torch.as_tensor(nxt, device=self.device))
+            out["replay_steps"] += 1
+        return out
+
+    def _replay_insert(self, g: int, s: int):
+        """Run slot ``s``'s admission prefill again (the same calls, the
+        same bucket or chunks) into the rebuilt group state."""
+        r = self.slots[s]
+        if self.paged:
+            self._prefill_paged(g, s - g * self.rows_per_group, r)
+        else:
+            self._prefill_dense(s, r)
 
 
 class WaveServingEngine(_EngineBase):

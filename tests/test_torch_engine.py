@@ -23,6 +23,7 @@ from repro_torch.core.network import DeviceNetwork
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 PROMPT_LENS = (5, 11, 8, 14, 6)
 

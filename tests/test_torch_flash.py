@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_attention import (_check_kernel_inputs,
                                                  flash_attention_plain)
 from repro_torch.serving.engine import ServingEngine, WaveServingEngine
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),
         torch.bfloat16: dict(atol=2e-2, rtol=0.0)}

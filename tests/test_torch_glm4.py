@@ -27,6 +27,7 @@ from repro_torch.models.layers import apply_rope
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 T_MAX = 32

@@ -1011,3 +1011,95 @@ def test_pipelined_engine_streams_through_the_kernels(cuda, paged):
         for alloc in eng.allocators:
             alloc.check_invariants()
             assert alloc.live_pages == 0
+
+
+# ------------------------------------------------- churn and the async drain
+def _churn_engine(cfg, params, **kw):
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.serving.engine import ServingEngine
+    return ServingEngine(cfg, n_slots=4, max_seq=64, seed=0,
+                         net=DeviceNetwork.sample(4, seed=1), device="cuda",
+                         params=params, **kw)
+
+
+def _small_f32():
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("llama3-8b").with_overrides(
+        n_layers=2, d_model=256, n_heads=8, n_kv_heads=2, d_head=32,
+        d_ff=512, vocab_size=1024, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 1024, size=n) for n in (4, 9, 6, 11, 7, 5)]
+    return cfg, params, prompts
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_fail_rejoin_through_the_kernels_equals_plain(cuda, paged):
+    """float32 on the card: the busiest device fails at step 5 and rejoins
+    at step 12 on a kernel-path engine (λ 4); its streams equal the plain
+    engine's with no churn, the replay's decode steps went through the
+    kernel (launches == (decodes + replay steps) x layers), and the pool
+    drains."""
+    from repro_torch.kernels import decode_attention as da
+    cfg, params, prompts = _small_f32()
+    kw = dict(paged=True, page_size=8) if paged else {}
+    plain = _churn_engine(cfg, params, lam=10 ** 9, **kw)
+    for p in prompts:
+        plain.submit(p, max_new_tokens=8)
+    plain.run()
+    kernel = da.decode_attention_paged_resident if paged \
+        else da.decode_attention_resident
+    eng = _churn_engine(cfg, params, lam=4, use_kernel=True, **kw)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=8)
+    before = kernel.launches
+    dead = None
+    while True:
+        if eng.decode_steps == 5:
+            dead = int(eng.controller.head_counts().argmax())
+            assert eng._active()
+            eng.fail_device(dead)
+        if eng.decode_steps == 12:
+            eng.rejoin_device(dead)
+        if not eng.step():
+            break
+    assert {r.rid: r.out_tokens for r in eng.finished} == \
+        {r.rid: r.out_tokens for r in plain.finished}
+    rec = eng.recovery_log
+    assert [r["event"] for r in rec] == ["fail", "rejoin"]
+    assert rec[0]["replay_steps"] > 0 and rec[0]["tokens_lost"] == 0
+    assert kernel.launches - before == \
+        (len(eng.step_times) + rec[0]["replay_steps"]) * cfg.n_layers
+    if paged:
+        eng.allocator.check_invariants()
+        assert eng.allocator.live_pages == 0
+
+
+def test_async_drain_on_the_card_leaves_no_live_page(cuda):
+    """The async runtime over a paged kernel-path engine on the card: the
+    streams equal ``drive_virtual``'s and the drain frees every page."""
+    import asyncio
+
+    from repro_torch.serving.async_runtime import AsyncServingEngine
+    from repro_torch.serving.workload import drive_virtual, make_workload
+    cfg, params, _ = _small_f32()
+    reqs = make_workload("poisson", rate=0.3, horizon=30.0, seed=5,
+                         vocab=cfg.vocab_size)
+    kw = dict(lam=10 ** 9, use_kernel=True, paged=True, page_size=8,
+              kv_pages=12)
+    sync = drive_virtual(_churn_engine(cfg, params, **kw), reqs)
+    eng = _churn_engine(cfg, params, **kw)
+
+    async def go():
+        async with AsyncServingEngine(eng, queue_limit=len(reqs) + 1) as rt:
+            handles = [rt.submit(r.prompt, max_new_tokens=r.max_new_tokens)
+                       for r in reqs]
+            await rt.drain()
+        return {h.rid: h.tokens for h in handles}
+
+    assert asyncio.run(go()) == sync["streams"]
+    assert sync["n_finished"] == len(reqs)
+    eng.allocator.check_invariants()
+    assert eng.allocator.live_pages == 0 and eng.allocator.reserved_pages == 0

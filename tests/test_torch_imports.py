@@ -60,7 +60,9 @@ def test_every_module_imports_with_jax_and_repro_refused():
                  "repro_torch.configs.glm4_9b",
                  "repro_torch.core.solver", "repro_torch.core.baselines",
                  "repro_torch.core.simulator",
-                 "repro_torch.launch.migration_demo"):
+                 "repro_torch.launch.migration_demo",
+                 "repro_torch.serving.workload",
+                 "repro_torch.serving.async_runtime"):
         assert name in names
 
 

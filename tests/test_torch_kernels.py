@@ -32,6 +32,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_paged_resident, decode_attention_resident,
     decode_attention_resident_plain)
 from repro_torch.models.layers import _q8
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, KvE, T, DH = 3, 8, 2, 64, 16
 G = H // KvE

@@ -22,6 +22,7 @@ from repro_torch.core import placement_bridge as bridge
 from repro_torch.models.api import build_model
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 # int8 caches: the two frameworks' float32 K/V differ by ~1e-7, which moves

@@ -35,6 +35,7 @@ from repro_torch.core.network import DeviceNetwork
 from repro_torch.models import moe
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

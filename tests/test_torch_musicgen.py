@@ -48,6 +48,7 @@ from repro_torch.models.api import batch_extras, build_model
 from repro_torch.serving.engine import ServingEngine, make_engine
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-4)

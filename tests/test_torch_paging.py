@@ -34,6 +34,7 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.paging import PagedKVAllocator, PageExhaustedError
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _port_cfg(cfg_j):

@@ -24,6 +24,7 @@ import repro_torch.core as T
 import repro_torch.core.placement_bridge as TB
 import repro_torch.core.simulator as TS
 import repro_torch.core.solver as TV
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 GB = 2 ** 30

@@ -27,6 +27,7 @@ from repro_torch.core.network import DeviceNetwork
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 PROMPT_LENS = (4, 9, 6, 11)
 LAM, K, STRAGGLE_AT = 3, 2, 6

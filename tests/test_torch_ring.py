@@ -33,6 +33,7 @@ from repro_torch.models.api import build_model
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
 from tests.test_torch_gpu import ring_slot_pos
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, KvE, W, DH = 3, 8, 2, 64, 16
 G = H // KvE

@@ -44,6 +44,7 @@ from repro_torch.serving.engine import (ServingEngine, UnsupportedArchError,
                                         WaveServingEngine, make_engine)
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 TOL_LOGITS = dict(atol=1e-4, rtol=1e-4)

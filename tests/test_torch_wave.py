@@ -30,6 +30,7 @@ from repro_torch.serving.engine import (ServingEngine, UnsupportedArchError,
                                         supports_continuous)
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 LOG_KEYS = ("step", "n_migrations", "mig_bytes", "n_expert_migrations",
             "expert_mig_bytes", "applied", "expert_applied")
