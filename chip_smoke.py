@@ -20,10 +20,13 @@ controller's head plans logged as not applied; and ``make_engine(mode=
 RoPE) at full width (4 layers) under continuous batching with 2048-8192
 token prompts and applied head migrations; and ``make_engine(mode="auto")``
 serving musicgen-large (MHA at dh 64, LayerNorm, GELU, their biases set to
-seeded random values) at full width (4 layers) on the dense path's traffic
-— and checks that each path went through its kernels, with exact launch
-counts.  It then serves a seeded Poisson load on the paged llama3-8b
-engine through ``drive_virtual``, the same load through
+seeded random values) at full width (4 layers) on the dense path's traffic;
+and ``make_engine(mode="auto")`` serving llama-3.2-vision-11b (gated
+cross-attention over 1601-row image K/V, its gates set nonzero) at full
+width (2 supergroups: 8 self + 2 cross layers) on the dense path's traffic
+with images of 1601, 1025 and 0 rows — and checks that each path went
+through its kernels, with exact launch counts.  It then serves a seeded
+Poisson load on the paged llama3-8b engine through ``drive_virtual``, the same load through
 ``AsyncServingEngine`` (bf16 streams equal to ``drive_virtual``'s), and
 the load with a device failing mid-decode and rejoining on the paged and
 dense engines (evacuation and teacher-forced replay, launch counts exact
@@ -47,6 +50,7 @@ GPU, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -87,10 +91,18 @@ GLM_B, GLM_LO, GLM_HI, GLM_NEW, GLM_MAX_SEQ = 8, 2048, 8192, 64, 8264
 # prefill attention through the flash kernel, per main path: one launch
 # per layer for each bucketed prefill (16 requests) or lock-step wave
 # (mixtral: 2); the paged chunk prefill and rwkv6 have no such attention
+# the VLM path: llama-3.2-vision-11b cut to 2 supergroups of [3 self,
+# 1 gated cross, 1 self] — 8 self-attention layers (flash at prefill, the
+# resident kernel at decode) and 2 cross layers (the resident kernel at
+# decode over the image K/V; plain masked attention at prefill, as the
+# reference)
+VLM_LAYERS = 10
+VLM_SELF = VLM_LAYERS // 5 * 4
 FLASH_LAUNCHES = {"dense": 16 * N_LAYERS, "paged": 0,
                   "int8": 16 * N_LAYERS, "int8_paged": 0,
                   "mixtral": 2 * N_LAYERS, "rwkv6": 0,
-                  "glm4": 16 * N_LAYERS, "musicgen": 16 * N_LAYERS}
+                  "glm4": 16 * N_LAYERS, "musicgen": 16 * N_LAYERS,
+                  "vlm": 16 * VLM_SELF}
 TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
         # bf16 output keeps ~3 significant digits of values <~ 1
         torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
@@ -121,6 +133,14 @@ GLM_DECODE_LENGTHS = [8256, 2048, 5000, 7777, 3333, 6144, 4097, 8000]
 # the musicgen path's decode: 32 q heads over 32 KV heads (MHA, G 1) at dh
 # 64 over the dense path's extent
 MG_DECODE = dict(B=MAIN_B, H=32, KvE=32, dh=64, T=MAIN_T)
+# the VLM path's cross-attention decode: 32 q heads over 8 KV heads (G 4)
+# at dh 128 over the 1601-token image K/V of one cross layer, a view into
+# the (G, B, I, KvE, dh) stack; rows hold a full image (1601 rows), one
+# 448x448 tile (1025) or none (length 0, patched to the mean of V after
+# the kernel)
+VLM_IMG, VLM_TILE = 1601, 1025
+VLM_CROSS = dict(B=MAIN_B, H=32, KvE=8, dh=128, T=VLM_IMG, stack=2)
+VLM_CROSS_LENGTHS = [VLM_IMG, VLM_TILE, 0] * 2 + [VLM_IMG, VLM_TILE]
 DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
 
 
@@ -285,14 +305,21 @@ def _group_perm(rng, H, G):
 
 
 def decode_inputs(dtype, *, B=MAIN_B, H=MAIN_H, KvE=MAIN_KVE, dh=MAIN_DH,
-                  T=MAIN_T, rows="identity", lengths=None, seed=0):
+                  T=MAIN_T, rows="identity", lengths=None, seed=0, stack=0):
     """Kernel-layout inputs; K/V are transposed views of a cache in the
-    model's (B, T, KvE, dh) layout, as the main path passes them."""
+    model's (B, T, KvE, dh) layout, as the main path passes them — with
+    ``stack`` > 0, of the last layer of a (stack, B, T, KvE, dh) stack (the
+    VLM's image K/V)."""
     rng = np.random.default_rng(seed)
     dev = "cuda"
     q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
-    kc = torch.from_numpy(rng.standard_normal((B, T, KvE, dh), np.float32))
-    vc = torch.from_numpy(rng.standard_normal((B, T, KvE, dh), np.float32))
+    lead = (stack,) if stack else ()
+    kc = torch.from_numpy(rng.standard_normal(lead + (B, T, KvE, dh),
+                                              np.float32))
+    vc = torch.from_numpy(rng.standard_normal(lead + (B, T, KvE, dh),
+                                              np.float32))
+    if stack:
+        kc, vc = kc.to(dev, dtype)[-1], vc.to(dev, dtype)[-1]
     if lengths is None:
         lengths = rng.integers(0, T + 2, B)
     if rows == "identity":
@@ -348,11 +375,14 @@ def phase_kernel_vs_plain():
     lengths 0, 1, T-1, T, T+1 and between, over 8 splits), the other head
     widths, the glm4 path's decode shape (G 16, 33 splits), and MHA (G 1:
     one q row a KV head) at the musicgen path's shape (dh 64) and
-    qwen1.5-32b's heads (40 at dh 128), each held to TOLS and to
-    DECODE_ROW_REL per (b, resident row); then its times at the dense
-    shape (ragged and full lengths), the glm4 shape and the musicgen shape
-    beside the plain version, SDPA and the bound.  The dense shape's go
-    into the record, every shape's into its ``shapes``."""
+    qwen1.5-32b's heads (40 at dh 128), and the VLM's cross-attention
+    (T 1601 through a view into the image K/V stack, rows of length 0),
+    each held to TOLS and to DECODE_ROW_REL per (b, resident row), with
+    faults planted in the cross-attention shape's outputs that the bound
+    must catch; then its times at the dense shape (ragged and full
+    lengths), the glm4, musicgen and VLM cross-attention shapes beside
+    the plain version, SDPA and the bound.  The dense shape's go into the
+    record, every shape's into its ``shapes``."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_resident, decode_attention_resident_plain)
     lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
@@ -376,6 +406,10 @@ def phase_kernel_vs_plain():
     cases += [(dt, "group_perm", dict(B=2, H=40, KvE=40, dh=128,
                                       lengths=[MAIN_T, 700]))
               for dt in (torch.float32, torch.bfloat16)]
+    # the VLM's cross-attention: views into a stack of image K/V, T 1601
+    # (no multiple of a split or a tile), rows of length 0 among full ones
+    cases += [(dt, "identity", dict(VLM_CROSS, lengths=VLM_CROSS_LENGTHS))
+              for dt in (torch.float32, torch.bfloat16)]
     worst = worst_rel = 0.0
     bad = []
     for i, (dt, rows, kw) in enumerate(cases):
@@ -398,6 +432,7 @@ def phase_kernel_vs_plain():
         del q, k, v, out, want
     # every case is logged before the first disagreement fails the phase
     check(not bad, f"kernel disagrees with its plain version: {bad}")
+    cross_faults_caught()
 
     # timing at the main paths' shapes and dtype (bf16, all 32 rows), on
     # input copies together larger than the 50 MB L2 so every call reads
@@ -425,7 +460,9 @@ def phase_kernel_vs_plain():
              dict(GLM_DECODE, lengths=GLM_DECODE_LENGTHS, copies=3,
                   plain_reps=(2, 5))),
             ("musicgen", lambda lens: lens, dict(MG_DECODE,
-                                                 lengths=lengths))):
+                                                 lengths=lengths)),
+            ("vlm cross", lambda lens: lens,
+             dict(VLM_CROSS, lengths=VLM_CROSS_LENGTHS))):
         t = timed(lens_of, **shape)
         shapes[label] = dict(zip(keys, t))
         B, H, KvE, dh, T = (shape.get(n, d) for n, d in (
@@ -441,6 +478,49 @@ def phase_kernel_vs_plain():
             "replaces": "src/repro/kernels/decode_attention.py:152",
             "max_abs_err": worst, "max_rel_err": worst_rel,
             **shapes["dense"], "shapes": shapes}
+
+
+def cross_faults_caught():
+    """The per-row bound catches the faults the cross-attention shape
+    (T 1601, rows of length 0) invites, each planted in the plain
+    version's output: a kernel that drops the last split of a row (the
+    split that holds the partial tile) on random inputs, and one that
+    drops a row's last position, on inputs where that position's key
+    carries most of the row's softmax weight (a "needle": 4 times the
+    mean of its KV group's q rows).  The kernel itself must pass the
+    needle case."""
+    from repro_torch.kernels.decode_attention import (
+        _decode_split, _sm_count, decode_attention_resident,
+        decode_attention_resident_plain)
+    dt, limit = torch.bfloat16, DECODE_ROW_REL[torch.bfloat16]
+    q, k, v, lens, r = decode_inputs(dt, seed=99, lengths=VLM_CROSS_LENGTHS,
+                                     **VLM_CROSS)
+    B, H, _ = q.shape
+    KvE, T = k.shape[1], k.shape[2]
+    split = _decode_split(B, KvE, T, _sm_count(q.device))
+    want = decode_attention_resident_plain(q, k, v, lens, r)
+    last_split = torch.where(lens > 0, (lens - 1) // split * split, lens)
+    rel_split = row_rel_err(
+        decode_attention_resident_plain(q, k, v, last_split, r), want)
+    G = H // KvE
+    for b, n in enumerate(VLM_CROSS_LENGTHS):
+        if n:
+            k[b, :, n - 1] = (4 * q[b].view(KvE, G, -1).float().mean(1)
+                              ).to(dt)
+    out = decode_attention_resident(q, k, v, lens, r)
+    torch.cuda.synchronize()
+    want = decode_attention_resident_plain(q, k, v, lens, r)
+    rel_needle = row_rel_err(out, want)
+    rel_last = row_rel_err(decode_attention_resident_plain(
+        q, k, v, (lens - 1).clamp_min(0), r), want)
+    log(f"cross-attention bound (bf16, T={T}, lengths "
+        f"{VLM_CROSS_LENGTHS}, split {split}): kernel on the needle inputs "
+        f"max_row_rel_err={rel_needle:.3e}; planted faults: last split "
+        f"dropped {rel_split:.3e}, last position dropped (needle) "
+        f"{rel_last:.3e}; limit {limit:.0e}")
+    check(rel_needle <= limit, "the kernel fails the needle case")
+    check(rel_split > limit and rel_last > limit,
+          "the cross-attention bound misses a planted fault")
 
 
 def _pool(caches, rng, P, lengths):
@@ -1711,10 +1791,11 @@ def drive_auto_path(path, eng, max_new):
     check(bool(applied), f"{path}: no interval applied a migration")
     check(flash == FLASH_LAUNCHES[path],
           f"{path}: flash_attention launches {flash} != "
-          f"{FLASH_LAUNCHES[path]} (16 prefills x {cfg.n_layers} layers)")
+          f"{FLASH_LAUNCHES[path]} (16 prefills x its self-attention "
+          f"layers)")
     check(decode == eng.decode_steps * cfg.n_layers,
           f"{path}: decode kernel launches {decode} != decode steps "
-          f"{eng.decode_steps} x {cfg.n_layers} layers")
+          f"{eng.decode_steps} x {cfg.n_layers} attention layers")
     check(not any(n for k, n in launches.items()
                   if k != "decode_attention_resident"),
           f"{path}: another path's kernel launched: {launches}")
@@ -1849,6 +1930,108 @@ def phase_musicgen_stream_pair():
                for uk in (True, False)]
     stream_pair("musicgen kernels vs plain (2 layers)", engines)
     del engines, params
+
+
+# --------------------------------------------------------- the VLM path
+def vlm_images(n: int, d_model: int, seed: int = 0):
+    """Image embeddings of ``n`` requests from ``default_rng(seed)``:
+    request i holds ``VLM_IMG``, ``VLM_TILE`` or no rows (None), in
+    turn."""
+    rng = np.random.default_rng(seed)
+    rows = (VLM_IMG, VLM_TILE, 0)
+    return [rng.standard_normal((rows[i % 3], d_model), np.float32)
+            if rows[i % 3] else None for i in range(n)]
+
+
+def set_vlm_gates(params):
+    """Every cross layer's attention gate to 0.7 and MLP gate to 0.5 (the
+    reference's own VLM test's values), in place: the init leaves both at
+    zero, where a cross layer adds nothing and a wrong cross-attention
+    would pass every check."""
+    params["cross_layers"]["attn"]["gate"].fill_(0.7)
+    params["cross_layers"]["gate_ffn"].fill_(0.5)
+
+
+def vlm_engine(cfg, *, use_kernel, n_requests, max_new, params=None):
+    """``make_engine(mode="auto")`` for the VLM on the dense path's shape
+    (8 slots, an extent of 1024, λ = 8, four simulated devices) with image
+    buffers of ``VLM_IMG`` rows and the "columns" layout (one plan for
+    every layer: it applies to the supergroup stacks, the cross layers and
+    the image K/V); the dense path's prompts, each with its image of
+    ``vlm_images``.  Weights drawn here get the gates of
+    ``set_vlm_gates``."""
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.serving.engine import make_engine
+    eng = make_engine(cfg, mode="auto", n_slots=MAIN_B, max_seq=MAIN_T,
+                      lam=8, seed=0, net=DeviceNetwork.sample(4, seed=1),
+                      use_kernel=use_kernel, params=params, device="cuda",
+                      img_tokens=VLM_IMG, layer_mode="columns")
+    if params is None:
+        set_vlm_gates(eng.params)
+    for p, img in zip(traffic(n_requests, cfg.vocab_size),
+                      vlm_images(n_requests, cfg.d_model)):
+        eng.submit(p, max_new_tokens=max_new, img_embeds=img)
+    return eng
+
+
+def phase_vlm_path():
+    """Serve the dense path's traffic (16 requests of 32-512 tokens, 64 new
+    tokens each) on the full-width llama-3.2-vision-11b cut to 2
+    supergroups (8 self + 2 gated cross layers) through
+    ``make_engine(mode="auto")``, which must pick the continuous engine;
+    requests carry a 1601-row image, a 1025-row one or none, in turn.
+    Every bucketed prefill runs the flash kernel once a self layer, every
+    decode step the resident kernel once a layer (self layers over the
+    cache with identity rows, cross layers over the image K/V with
+    lengths 1601, 1025 or 0 from the masks), and a straggler at step 16
+    on the busiest device makes an interval apply head migrations to the
+    weights, the cache and the image K/V.  Returns the decode kernel's
+    and the flash kernel's launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama-3.2-vision-11b").with_overrides(
+        n_layers=VLM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = vlm_engine(cfg, use_kernel=True, n_requests=16, max_new=64)
+    log(f"vlm weights: random from seed 0, then every cross layer's gate "
+        f"0.7 and gate_ffn 0.5 (the init leaves them at zero); images "
+        f"N(0, 1) from seed 0 of {VLM_IMG}, {VLM_TILE} and 0 rows in turn, "
+        f"in a {VLM_IMG}-row buffer a slot")
+    return drive_auto_path("vlm", eng, 64)
+
+
+def phase_vlm_stream_pair():
+    """float32, one supergroup (5 layers), gated: the VLM path with the
+    kernels (flash prefill, the resident decode kernel's CUDA-core body
+    over the cache and over the 1601-row image K/V with lengths from the
+    masks) and without, from the same weights, 8 requests of 32-512
+    tokens with their images and a straggler at step 8, must stream the
+    same greedy tokens with the same migration logs.  An image must move
+    its request's logits: each imaged request's first logits, from a
+    prefill with its image and one without, differ by more than 1e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("llama-3.2-vision-11b").with_overrides(
+        n_layers=5, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    set_vlm_gates(params)
+    engines = [vlm_engine(cfg, use_kernel=uk, n_requests=8, max_new=32,
+                          params=params) for uk in (True, False)]
+    stream_pair("vlm kernels vs plain (5 layers)", engines)
+    eng = engines[0]
+    moved = []
+    for r in eng.finished:
+        if not r.img_mask.any():
+            continue
+        with_img, _ = eng._prefill_dense(0, r)
+        blind = dataclasses.replace(r, img=None, img_mask=None)
+        without, _ = eng._prefill_dense(0, blind)
+        moved.append((with_img - without).abs().max().item())
+    log(f"vlm image effect: max |first logits with image - without| per "
+        f"imaged request {[f'{m:.3e}' for m in moved]}")
+    check(moved and min(moved) > 1e-2, "an image did not move its "
+          "request's logits")
+    del engines, eng, params
 
 
 # ---------------------------------------------------- the pipelined paths
@@ -2474,6 +2657,16 @@ def main():
     release()
     _, flash["musicgen"] = phase_musicgen_path()
     release()
+    # the VLM path's launches add to the resident kernel's (dense) and the
+    # flash kernel's (glm4) records
+    resident = {"dense": by_name["decode_attention_resident"]["launches"]}
+    resident["vlm"], flash["vlm"] = phase_vlm_path()
+    by_name["decode_attention_resident"]["launches"] = \
+        sum(resident.values())
+    by_name["flash_attention"]["launches"] = flash["glm4"] + flash["vlm"]
+    log(f"decode_attention_resident launches in its record: {resident}; "
+        f"flash_attention: glm4 {flash['glm4']} + vlm {flash['vlm']}")
+    release()
     # the pipelined paths' launches (B = 4 rows a group) are logged; each
     # kernel's record keeps its sequential path's
     pipelined = {}
@@ -2490,6 +2683,8 @@ def main():
     phase_glm4_stream_pair()
     release()
     phase_musicgen_stream_pair()
+    release()
+    phase_vlm_stream_pair()
     release()
     phase_pipelined_stream_pairs()
     release()

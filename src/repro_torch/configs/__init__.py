@@ -10,11 +10,12 @@ from repro_torch.configs.base import (  # noqa: F401
 
 # The reference's architectures the port registers: the dense family
 # (llama, GLM-4, Qwen1.5 and the paper's own model), the sliding-window MoE
-# family, the attention-free RWKV-6 and the audio decoder musicgen-large.
-# The VLM and zamba2 configs wait for their model families (ROADMAP Queue 1
-# #13 and #14).
+# family, the attention-free RWKV-6, the audio decoder musicgen-large and
+# the VLM llama-3.2-vision.  The zamba2 config waits for its model family
+# (ROADMAP Queue 1 #14).
 from repro_torch.configs import (  # noqa: F401
     glm4_9b,
+    llama3_2_vision_11b,
     llama3_8b,
     mixtral_8x22b,
     mixtral_8x7b,
@@ -31,6 +32,7 @@ ASSIGNED_ARCHS = (
     "qwen1.5-110b",
     "llama3-8b",
     "glm4-9b",
+    "llama-3.2-vision-11b",
     "rwkv6-7b",
     "mixtral-8x22b",
     "mixtral-8x7b",

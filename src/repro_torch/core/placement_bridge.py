@@ -373,26 +373,33 @@ def stage_slot_partition(place, blocks: Sequence[Block],
 
 
 def _kv_perms(perms: np.ndarray, group_size: int, rep: int = 1) -> np.ndarray:
-    """Rows of query-head permutations -> the KV-row permutations that move
-    each grouped (and ``rep``-replicated) KV head with its query heads."""
+    """Query-head permutations (any leading axes, heads last) -> the KV-row
+    permutations that move each grouped (and ``rep``-replicated) KV head
+    with its query heads, with the same leading axes."""
     perms = np.atleast_2d(np.asarray(perms))
     if group_size <= 1:
         return perms
-    return expand_kv_perms(kv_group_perms(perms, group_size), rep)
+    flat = expand_kv_perms(kv_group_perms(
+        perms.reshape(-1, perms.shape[-1]), group_size), rep)
+    return flat.reshape(perms.shape[:-1] + (flat.shape[-1],))
 
 
 def _take_layers(w: torch.Tensor, axis: int, rows: np.ndarray) -> torch.Tensor:
-    """Row l of ``rows`` reorders axis ``axis`` of layer slice ``w[l]``
-    (the layer axis leads)."""
+    """Cell c of ``rows``' leading axes reorders axis ``axis`` of the
+    layer slice ``w[c]``: rows (L, H) for a (L, ...) stack, (G, 4, H) for
+    the VLM's (G, 4, ...) one (the layer axes lead)."""
     axis = axis % w.ndim
-    if axis == 0:
-        raise ValueError("the head axis cannot be the leading layer axis")
-    if rows.shape[0] != w.shape[0]:
-        raise ValueError(f"{rows.shape[0]} permutation rows for "
-                         f"{w.shape[0]} stacked layers")
-    idx = torch.as_tensor(rows, dtype=torch.long, device=w.device)
-    return torch.stack([w[l].index_select(axis - 1, idx[l])
-                        for l in range(w.shape[0])])
+    n_lead = rows.ndim - 1
+    if axis < n_lead:
+        raise ValueError("the head axis cannot be a leading layer axis")
+    if tuple(rows.shape[:-1]) != tuple(w.shape[:n_lead]):
+        raise ValueError(f"{rows.shape[:-1]} permutation rows for "
+                         f"{tuple(w.shape[:n_lead])} stacked layers")
+    idx = torch.as_tensor(rows.reshape(-1, rows.shape[-1]),
+                          dtype=torch.long, device=w.device)
+    flat = w.reshape((-1,) + w.shape[n_lead:])
+    return torch.stack([flat[l].index_select(axis - n_lead, idx[l])
+                        for l in range(flat.shape[0])]).reshape(w.shape)
 
 
 def apply_head_perm(cache_k, cache_v, perm, head_axis: int = 3,
@@ -416,10 +423,51 @@ def apply_layer_head_perms(cache_k, cache_v, perms, *, head_axis: int = 3,
     rows are (group-consistent) query-head permutations while the cache
     head axis holds KV heads, so each row is mapped through
     ``kv_group_perms`` (and ``expand_kv_perms`` for ``rep`` > 1) first.
-    Returns new tensors; the inputs are not modified."""
+    ``perms`` may carry several leading axes, (G, 4, H) for a VLM cache
+    (G, 4, B, T, KvE, dh), one permutation per leading cell.  Returns new
+    tensors; the inputs are not modified."""
     kv = _kv_perms(perms, group_size, rep)
     return (_take_layers(cache_k, head_axis, kv),
             _take_layers(cache_v, head_axis, kv))
+
+
+def permute_model_heads(params, perm, *, group_size: int = 1):
+    """Physical head relocation by ONE permutation for every layer: the
+    head axis of every ``attn`` dict's ``wq``/``wo``/``bq`` (query heads)
+    and ``wk``/``wv``/``bk``/``bv`` (their KV groups, via
+    ``kv_group_perms`` when ``group_size`` > 1), whatever its leading
+    stack axes — the dense (L, ...) stack, the VLM's (G, 4, ...) self
+    layers and (G, ...) cross layers alike.  Returns a new params dict
+    sharing every tensor it does not permute."""
+    q_idx = np.asarray(perm)
+    kv_idx = _kv_perms(q_idx, group_size)[0]
+
+    def take(w, axis, rows):
+        return w.index_select(axis % w.ndim, torch.as_tensor(
+            rows, dtype=torch.long, device=w.device))
+
+    def visit(tree):
+        if not isinstance(tree, dict):
+            return tree
+        out = {}
+        for k, v in tree.items():
+            if k == "attn" and isinstance(v, dict):
+                a = dict(v)
+                a["wq"] = take(v["wq"], -2, q_idx)
+                a["wk"] = take(v["wk"], -2, kv_idx)
+                a["wv"] = take(v["wv"], -2, kv_idx)
+                a["wo"] = take(v["wo"], -3, q_idx)
+                if "bq" in v:
+                    a["bq"] = take(v["bq"], -2, q_idx)
+                for b in ("bk", "bv"):
+                    if b in v:
+                        a[b] = take(v[b], -2, kv_idx)
+                out[k] = a
+            else:
+                out[k] = visit(v)
+        return out
+
+    return visit(params)
 
 
 def permute_model_heads_layers(params, perms, *, group_size: int = 1):
@@ -430,8 +478,10 @@ def permute_model_heads_layers(params, perms, *, group_size: int = 1):
     ``group_size`` > 1).  Attention is
     permutation-equivariant over heads within a layer (``wo`` sums over
     them), so the model function is unchanged; only which device holds
-    which (layer, head) moves.  Returns a new params dict sharing every
-    tensor it does not permute."""
+    which (layer, head) moves.  ``perms`` may carry several leading axes,
+    (G, 4, H) for the VLM's supergroup-stacked self layers, matching the
+    params' own.  Returns a new params dict sharing every tensor it does
+    not permute."""
     q_rows = np.atleast_2d(np.asarray(perms))
     kv_rows = _kv_perms(q_rows, group_size)
 

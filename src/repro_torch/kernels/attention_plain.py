@@ -32,7 +32,10 @@ def attention_scores(q, k, v, mask):
     # a longer one.  Past both edges a valid prefix gets the same scores
     # and probabilities at any extent, so a dense prefill bucket of 8
     # tokens and the paged cache (which attends over the page table's
-    # whole span) agree bit for bit.
+    # whole span) agree bit for bit.  Padded keys score -inf, below a
+    # masked key's -1e30: a row with a valid key gives both weight 0, and
+    # a fully masked row (an imageless cross-attention row) averages V
+    # over its T keys, as the reference's unpadded softmax does.
     pad = max(64, -(-T // 16) * 16) - T
     if pad:
         if mask is None:
@@ -45,6 +48,8 @@ def attention_scores(q, k, v, mask):
     scores = scores / math.sqrt(dh)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
+    if pad:
+        scores[..., T:] = -math.inf
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("begst,bted->bsegd", probs.to(v.dtype), v)
     return out.reshape(B, S, Hp, dh)

@@ -17,6 +17,10 @@ counterpart of the JAX package's ``launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --layers 4 --slots 8 --requests 16 --tokens 64 --use-kernel \
       --pipeline-k 2 --search bottleneck --straggler 0
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-11b --layers 10 --slots 8 --requests 16 \
+      --prompt-len 512 --mixed-lengths --tokens 64 --img-tokens 1601 \
+      --use-kernel
 
 The default ``--arch`` is musicgen-large, as in the reference.  Runs on
 the GPU unless ``--device cpu`` is given (``--reduced`` shrinks the widths
@@ -30,7 +34,10 @@ engine).  ``--paged [--page-size P]`` serves from a paged KV
 cache and ``--kv-quant`` from an int8 one, alone or together (continuous
 engine).  ``--pipeline-k K`` keeps K decode tokens in flight across slot
 groups (K divides ``--slots``) and ``--search bottleneck`` plans the
-migrations with the bottleneck-targeted search (with K > 1).
+migrations with the bottleneck-targeted search (with K > 1).  The VLM
+(llama-3.2-vision-11b; ``--layers`` a multiple of 5) holds an image buffer
+of ``--img-tokens`` rows a slot, and its requests carry seeded images of
+all, half and none of those rows, in turn.
 """
 from __future__ import annotations
 
@@ -108,6 +115,9 @@ def main(argv=None):
                     help="served extent (default prompt + tokens + 8); a "
                          "sliding-window arch keeps a ring at or past its "
                          "window")
+    ap.add_argument("--img-tokens", type=int, default=16,
+                    help="VLM: image rows a slot holds (requests carry "
+                         "images of all, half and none of them, in turn)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
@@ -119,6 +129,9 @@ def main(argv=None):
     if args.kv_quant:
         cfg = cfg.with_overrides(kv_quant=True)
     kw = {}
+    vlm = cfg.family == "vlm"
+    if vlm:
+        kw["img_tokens"] = args.img_tokens
     mode = args.engine
     max_seq = args.max_seq or args.prompt_len + args.tokens + 8
     if args.paged:
@@ -137,15 +150,21 @@ def main(argv=None):
         eng.net.inject_straggler(args.straggler, slowdown=20.0)
         print(f"[serve] injected straggler on device {args.straggler}")
     rng = np.random.default_rng(0)
+    img_rows = (args.img_tokens, max(1, args.img_tokens // 2), 0)
     t0 = time.time()
-    for _ in range(args.requests):
+    for i in range(args.requests):
         if args.mixed_lengths:
             plen = int(rng.integers(max(2, args.prompt_len // 2),
                                     args.prompt_len + 1))
         else:
             plen = args.prompt_len
+        img = None
+        if vlm and img_rows[i % 3]:
+            img = rng.standard_normal((img_rows[i % 3], cfg.d_model),
+                                      np.float32)
         eng.submit(rng.integers(0, cfg.vocab_size, size=plen),
-                   max_new_tokens=args.tokens)
+                   max_new_tokens=args.tokens,
+                   **({"img_embeds": img} if vlm else {}))
     done = eng.run()
     wall = time.time() - t0
     total_toks = sum(len(r.out_tokens) for r in done)

@@ -1,12 +1,14 @@
 """Model API: ``build_model(cfg, use_kernel=..., device=...)`` — counterpart
-of the JAX package's ``models/api.py`` for the dense, MoE, audio and RWKV-6
-(``ssm``) families — and ``batch_extras``, the stubbed frontend inputs.
+of the JAX package's ``models/api.py`` for the dense, MoE, audio, VLM and
+RWKV-6 (``ssm``) families — and ``batch_extras``, the stubbed frontend
+inputs.
 
 The returned model exposes ``init(generator)``, ``forward`` and the
 lock-step API of the wave scheduler (``init_decode_state``, ``prefill``,
-``decode_step``).  Attention-backed models (dense, MoE) also expose the
-continuous-batching slot API: ``init_decode_state(..., per_slot=True)``,
-``prefill_bucketed``, ``insert_slot`` and ``decode_step``.
+``decode_step``).  Attention-backed models (dense, MoE, audio, VLM) also
+expose the continuous-batching slot API:
+``init_decode_state(..., per_slot=True)``, ``prefill_bucketed``,
+``insert_slot`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -15,11 +17,12 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.llama3_2_vision_11b import N_IMAGE_TOKENS
 from repro_torch.models.layers import unsupported
 from repro_torch.models.rwkv6 import RWKV6Model
 from repro_torch.models.transformer import TransformerLM
 
-_FAMILY_ITEMS = {"vlm": 13, "hybrid": 14}
+_FAMILY_ITEMS = {"hybrid": 14}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,10 +46,16 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None):
                          device=resolve_device(device))
 
 
-def batch_extras(cfg: ModelConfig, batch: int, dtype) -> Dict[str, Any]:
-    """Extra (stubbed) frontend inputs for a batch.  The audio family's
-    EnCodec frontend is stubbed to the codec tokens themselves, so it needs
-    none; the VLM's patch embeddings wait for its port."""
+def batch_extras(cfg: ModelConfig, batch: int, dtype,
+                 device="cpu") -> Dict[str, Any]:
+    """Extra (stubbed) frontend inputs for a batch: the VLM's precomputed
+    patch embeddings (zeros, (batch, N_IMAGE_TOKENS, d_model)) and an
+    all-valid mask.  The audio family's EnCodec frontend is stubbed to the
+    codec tokens themselves, so it needs none."""
     if cfg.family == "vlm":
-        unsupported("VLM frontend inputs", 13)
+        return {"img_embeds": torch.zeros((batch, N_IMAGE_TOKENS,
+                                           cfg.d_model), dtype=dtype,
+                                          device=device),
+                "img_mask": torch.ones((batch, N_IMAGE_TOKENS),
+                                       dtype=torch.bool, device=device)}
     return {}

@@ -1,10 +1,10 @@
 """Decoder layers: RMSNorm and LayerNorm, RoPE, GQA attention (causal or
 sliding-window, plain or chunked flash-style) with a per-slot, paged or
-ring KV cache (in the working dtype or int8), SwiGLU and GELU MLPs,
-embeddings (tied or not) — counterpart of the JAX package's
-``models/layers.py``, for the branches the llama, glm4 (QKV bias, partial
-RoPE), qwen1.5, mixtral and musicgen (LayerNorm, GELU with biases) families
-take.
+ring KV cache (in the working dtype or int8), gated cross-attention over
+image K/V (llama-3.2-vision), SwiGLU and GELU MLPs, embeddings (tied or
+not) — counterpart of the JAX package's ``models/layers.py``, for the
+branches the llama, glm4 (QKV bias, partial RoPE), qwen1.5, mixtral,
+musicgen (LayerNorm, GELU with biases) and VLM families take.
 
 Functions take plain tensors and nested dicts of parameters in the
 reference's layouts (``wq`` (D,Hp,dh), ``wk``/``wv`` (D,Kp,dh), ``wo``
@@ -81,6 +81,53 @@ def normal_init(gen: torch.Generator, shape, scale: float, dtype,
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
     return (x * scale).to(dtype)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, hd: HeadDims,
+                   lead: tuple, dtype, device, *, cross: bool = False
+                   ) -> dict:
+    """Attention weights stacked over ``lead`` (the layer axes): ``wq``,
+    ``wk``, ``wv``, ``wo`` drawn in that order at the reference's scales;
+    ``qkv_bias`` configs add zero ``bq``/``bk``/``bv``, and a gated
+    cross-attention layer (llama-3.2-vision) a zero ``gate`` per layer,
+    as the reference initializes them."""
+    D = cfg.d_model
+
+    def dense(d_in, shape):
+        return dense_init(gen, d_in, lead + shape, dtype, device)
+
+    def zeros(shape):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    p = {"wq": dense(D, (D, hd.Hp, hd.dh)),
+         "wk": dense(D, (D, hd.Kp, hd.dh)),
+         "wv": dense(D, (D, hd.Kp, hd.dh)),
+         "wo": dense(hd.H * hd.dh, (hd.Hp, hd.dh, D))}
+    if cfg.qkv_bias:
+        p["bq"] = zeros((hd.Hp, hd.dh))
+        p["bk"] = zeros((hd.Kp, hd.dh))
+        p["bv"] = zeros((hd.Kp, hd.dh))
+    if cross:
+        p["gate"] = zeros(())
+    return p
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: tuple, dtype,
+             device) -> dict:
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or GELU (``w_up``, zero
+    ``b_up``, ``w_down``, zero ``b_down``) weights stacked over ``lead``."""
+    D, F_ = cfg.d_model, cfg.d_ff
+
+    def dense(d_in, shape):
+        return dense_init(gen, d_in, lead + shape, dtype, device)
+
+    if cfg.mlp_type == "swiglu":
+        return {"w_gate": dense(D, (D, F_)), "w_up": dense(D, (D, F_)),
+                "w_down": dense(F_, (F_, D))}
+    return {"w_up": dense(D, (D, F_)),
+            "b_up": torch.zeros(lead + (F_,), dtype=dtype, device=device),
+            "w_down": dense(F_, (F_, D)),
+            "b_down": torch.zeros(lead + (D,), dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +219,13 @@ def _head_rows_or_identity(head_rows, head_inv, n_rows: int, device):
     return head_rows, head_inv
 
 
-def _project_out(p: dict, out):
-    """Attention output tail: the wo projection."""
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+def _project_out(p: dict, out, *, gate=None):
+    """Attention output tail: the wo projection, times ``tanh(gate)`` for
+    the VLM's gated cross-attention."""
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+    if gate is not None:
+        out = out * torch.tanh(gate).to(out.dtype)
+    return out
 
 
 # XLA rewrites the reference's ``amax / 127.0`` into a multiply by
@@ -451,6 +502,85 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
     kv_pos = torch.arange(T, device=x.device)[None, :].expand(B, T)
     out = attend(ck, cv, kv_pos, causal_mask(positions, kv_pos, window))
     return _project_out(p, out), cache
+
+
+def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x) -> dict:
+    """Cross-attention K/V {"k", "v"} (B, I, KvE, dh) of the image
+    embeddings ``kv_x`` (B, I, D): no RoPE, ``bk``/``bv`` for
+    ``qkv_bias`` configs."""
+    if hd.rep > 1:
+        unsupported("replicated KV heads (rep > 1)", 18)
+    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"].to(kv_x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"].to(kv_x.dtype))
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(kv_x.dtype)
+        v = v + p["bv"].to(kv_x.dtype)
+    return {"k": k, "v": v}
+
+
+def check_prefix_mask(kv_mask):
+    """Raise unless every row of ``kv_mask`` (B, I) is a prefix of valid
+    positions (right-padded): the decode kernel models validity as a
+    per-row length.  One host sync; callers run it where a mask enters a
+    decode state, not in every layer at every step."""
+    I = kv_mask.shape[-1]
+    lens = kv_mask.sum(-1)
+    pref = torch.arange(I, device=kv_mask.device)[None, :] < lens[:, None]
+    if not bool(torch.equal(kv_mask.bool(), pref)):
+        raise ValueError("use_kernel cross-attention needs a prefix "
+                         "(right-padded) kv_mask; got a non-contiguous "
+                         "validity set — use the plain path instead")
+
+
+def cross_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x, *,
+                          kv_embeds=None, kv_cache=None, kv_mask=None,
+                          use_kernel: bool = False,
+                          check_prefix: bool = True):
+    """Gated cross-attention (llama-3.2-vision): queries from ``x``
+    (B, S, D), K/V either projected here from ``kv_embeds`` (B, I, D) and
+    returned as a static cache, or read from ``kv_cache`` {"k","v"}
+    (B, I, KvE, dh, any strides with a unit one on dh).  ``kv_mask``
+    (B, I) bool marks each row's valid image positions (None: all).  The
+    output is ``tanh(gate)`` times the wo projection.
+
+    ``use_kernel`` sends S == 1 decode to the resident decode kernel over
+    every q head with per-row lengths ``kv_mask.sum(-1)`` — the engine's
+    image buffers are right-padded, so validity is a length prefix, the
+    kernel's model of it.  ``check_prefix`` refuses a mask that is not a
+    prefix (``ValueError``; a host sync): the model checks masks where
+    they enter a decode state and passes False.  A fully masked row (an
+    imageless request) comes back from the kernel as zeros and is
+    replaced by the plain path's value, the mean of V over the image
+    positions.  S > 1, or no kernel: the plain masked attention, as in
+    the reference, which has no kernel there.  The CUDA kernel takes any
+    image extent (the reference's kernel only one that tiles its block).
+    Returns (out, kv_cache)."""
+    B, S = x.shape[0], x.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    if kv_cache is None:
+        kv_cache = project_kv(cfg, p, hd, kv_embeds)
+    k, v = kv_cache["k"], kv_cache["v"]
+    if use_kernel and S == 1:
+        I = k.shape[1]
+        if kv_mask is None:
+            lens = torch.full((B,), I, dtype=torch.int32, device=x.device)
+        else:
+            lens = kv_mask.sum(-1).to(torch.int32)
+            if check_prefix:
+                check_prefix_mask(kv_mask)
+        rows = torch.arange(q.shape[2], dtype=torch.int32, device=x.device)
+        out = ops.decode_attention_resident_bshd(q, k, v, lens, rows)
+        if kv_mask is not None:
+            G = q.shape[2] // v.shape[2]
+            vm = v.mean(dim=1).repeat_interleave(G, dim=1)[:, None]
+            out = torch.where((lens == 0)[:, None, None, None],
+                              vm.to(out.dtype), out)
+        return _project_out(p, out, gate=p["gate"]), kv_cache
+    mask = None if kv_mask is None else kv_mask[:, None, None, None, :]
+    out = attention_scores(q, k, v, mask)
+    return _project_out(p, out, gate=p["gate"]), kv_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,11 @@
-"""Decoder-only transformer LM, dense, MoE and audio families —
+"""Decoder-only transformer LM, dense, MoE, audio and VLM families —
 counterpart of the JAX package's ``models/transformer.py``.  The audio
 family (musicgen-large) is the reference's decoder over one stream of
 codec tokens: LayerNorm, a GELU MLP with biases and RoPE, its frontend
-stubbed.
+stubbed.  The VLM (llama-3.2-vision) stacks its layers as supergroups of
+[3 self, 1 gated cross-attention, 1 self]: self layers ``(G, 4, ...)``,
+cross layers ``(G, ...)``; the cross layers' K/V are projected once from
+the (stubbed) image embeddings and live in the decode state.
 
 Parameters are a nested dict in the reference's names and stacked
 ``(L, ...)`` layouts, so a head or expert migration is the same row
@@ -39,20 +42,27 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-def _layer_view(tree, l: int):
+def _layer_view(tree, l):
+    """Layer ``l`` (an index, or a tuple of them for the VLM's (G, 4)
+    stacks) of every tensor of a stacked params or cache tree."""
     if isinstance(tree, dict):
         return {k: _layer_view(v, l) for k, v in tree.items()}
     return tree[l]
 
 
+# the VLM's supergroup: self layers 0-2, the cross layer, self layer 3
+SELF_BEFORE_CROSS = 3
+
+
 class TransformerLM:
-    """Config-driven dense, MoE or audio decoder-only LM on one device."""
+    """Config-driven dense, MoE, audio or VLM decoder-only LM on one
+    device."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  use_kernel: bool = False):
-        if cfg.family not in ("dense", "moe", "audio"):
-            raise ValueError(f"TransformerLM serves the dense, moe and audio "
-                             f"families, not {cfg.family!r}")
+        if cfg.family not in ("dense", "moe", "audio", "vlm"):
+            raise ValueError(f"TransformerLM serves the dense, moe, audio "
+                             f"and vlm families, not {cfg.family!r}")
         self.cfg = cfg
         self.hd = L.head_dims(cfg)
         self.device = torch.device(device)
@@ -61,57 +71,63 @@ class TransformerLM:
         # the decode state may carry per-layer "head_rows"/"head_inv"
         # gather maps (placement_bridge.head_row_maps)
         self.use_kernel = use_kernel
+        self.is_vlm = cfg.family == "vlm"
+        if self.is_vlm:
+            if cfg.n_layers % 5:
+                raise ValueError(f"a VLM stacks supergroups of 5 layers; "
+                                 f"got {cfg.n_layers}")
+            self.n_groups = cfg.n_layers // 5
         self.window = cfg.sliding_window
 
     # ------------------------------------------------------------------ init
+    def _init_layers(self, g: torch.Generator, lead: tuple, *,
+                     cross: bool = False) -> dict:
+        """One layer's weights stacked over ``lead``: attention (a cross
+        layer's with its ``gate``), the norms (LayerNorm configs with zero
+        biases), then the MLP or MoE block; a cross layer adds the MLP
+        gate ``gate_ffn``, zero as the reference initializes it."""
+        cfg = self.cfg
+        dt, dev = torch_dtype(cfg.param_dtype), self.device
+        layers = {"attn": L.init_attention(g, cfg, self.hd, lead, dt, dev,
+                                           cross=cross)}
+        for name in ("ln1", "ln2"):
+            layers[name] = torch.ones(lead + (cfg.d_model,), dtype=dt,
+                                      device=dev)
+            if cfg.norm_type == "layernorm":
+                layers[name + "_b"] = torch.zeros(lead + (cfg.d_model,),
+                                                  dtype=dt, device=dev)
+        if cfg.is_moe:
+            layers["moe"] = init_moe(g, cfg, lead[0], dt, dev)
+        else:
+            layers["mlp"] = L.init_mlp(g, cfg, lead, dt, dev)
+        if cross:
+            layers["gate_ffn"] = torch.zeros(lead, dtype=dt, device=dev)
+        return layers
+
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random weights at the reference's init scales (normal draws
         from ``generator``, which must live on this model's device), in
         its tree: LayerNorm configs add zero biases ``ln1_b``, ``ln2_b``
         and ``ln_f_b``, GELU MLPs zero ``b_up`` and ``b_down``, and tied
-        embeddings have no ``lm_head``."""
-        cfg, hd = self.cfg, self.hd
-        D, F, V, n = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+        embeddings have no ``lm_head``.  A VLM's self layers stack as
+        ``(G, 4, ...)`` and its gated cross layers as ``(G, ...)``
+        (``cross_layers``; both gates zero, as the reference's)."""
+        cfg = self.cfg
+        D, V = cfg.d_model, cfg.vocab_size
         dt, dev, g = torch_dtype(cfg.param_dtype), self.device, generator
         layer_norm = cfg.norm_type == "layernorm"
-
-        def dense(d_in, shape):
-            return L.dense_init(g, d_in, (n,) + shape, dt, dev)
-
-        def zeros(shape):
-            return torch.zeros(shape, dtype=dt, device=dev)
-
-        attn = {"wq": dense(D, (D, hd.Hp, hd.dh)),
-                "wk": dense(D, (D, hd.Kp, hd.dh)),
-                "wv": dense(D, (D, hd.Kp, hd.dh)),
-                "wo": dense(hd.H * hd.dh, (hd.Hp, hd.dh, D))}
-        if cfg.qkv_bias:
-            # zero, as the reference initializes them
-            attn["bq"] = zeros((n, hd.Hp, hd.dh))
-            attn["bk"] = zeros((n, hd.Kp, hd.dh))
-            attn["bv"] = zeros((n, hd.Kp, hd.dh))
-        layers = {"attn": attn}
-        for name in ("ln1", "ln2"):
-            layers[name] = torch.ones((n, D), dtype=dt, device=dev)
-            if layer_norm:
-                layers[name + "_b"] = zeros((n, D))
-        if cfg.is_moe:
-            layers["moe"] = init_moe(g, cfg, n, dt, dev)
-        elif cfg.mlp_type == "swiglu":
-            layers["mlp"] = {"w_gate": dense(D, (D, F)),
-                             "w_up": dense(D, (D, F)),
-                             "w_down": dense(F, (F, D))}
+        if self.is_vlm:
+            params = {"layers": self._init_layers(g, (self.n_groups, 4)),
+                      "cross_layers": self._init_layers(
+                          g, (self.n_groups,), cross=True)}
         else:
-            layers["mlp"] = {"w_up": dense(D, (D, F)), "b_up": zeros((n, F)),
-                             "w_down": dense(F, (F, D)),
-                             "b_down": zeros((n, D))}
-        params = {"layers": layers,
-                  "tok_embed": L.normal_init(g, (V, D), 0.02, dt, dev)}
+            params = {"layers": self._init_layers(g, (cfg.n_layers,))}
+        params["tok_embed"] = L.normal_init(g, (V, D), 0.02, dt, dev)
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(g, D, (D, V), dt, dev)
         params["ln_f"] = torch.ones((D,), dtype=dt, device=dev)
         if layer_norm:
-            params["ln_f_b"] = zeros((D,))
+            params["ln_f_b"] = torch.zeros((D,), dtype=dt, device=dev)
         return params
 
     # ----------------------------------------------------------------- layer
@@ -134,15 +150,69 @@ class TransformerLM:
             return x + out, freq
         return x + L.mlp_block(cfg, p["mlp"], h), None
 
+    def _cross_layer(self, p: dict, x, img_kv, img_mask):
+        """A gated cross-attention layer over the image K/V ``img_kv``
+        {"k","v"} (B, I, KvE, dh): attention gated by ``tanh(gate)``, the
+        MLP by ``tanh(gate_ffn)``.  Masks reach it checked
+        (``_check_img_mask``)."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg, p, "ln1", x)
+        attn_out, _ = L.cross_attention_block(
+            cfg, p["attn"], self.hd, h, kv_cache=img_kv, kv_mask=img_mask,
+            use_kernel=self.use_kernel, check_prefix=False)
+        x = x + attn_out
+        h = L.apply_norm(cfg, p, "ln2", x)
+        return x + L.mlp_block(cfg, p["mlp"], h) \
+            * torch.tanh(p["gate_ffn"]).to(x.dtype)
+
+    def _project_img_kv(self, params, img_embeds) -> dict:
+        """The cross layers' image K/V {"k","v"} (G, B, I, KvE, dh) of
+        ``img_embeds`` (B, I, D), in the embeddings' dtype."""
+        kv = [L.project_kv(self.cfg, _layer_view(params["cross_layers"],
+                                                 g)["attn"], self.hd,
+                           img_embeds)
+              for g in range(self.n_groups)]
+        return {n: torch.stack([t[n] for t in kv]) for n in ("k", "v")}
+
+    def _check_img_mask(self, img_mask):
+        """A mask the decode kernel reads as per-row lengths must be a
+        prefix of each row; checked once where it enters a state or a
+        forward (a host sync), never per layer and step."""
+        if self.use_kernel and img_mask is not None:
+            L.check_prefix_mask(img_mask)
+
+    def _run_layers_vlm(self, params, x, positions, cache, cache_pos,
+                        img_kv, img_mask):
+        """The VLM's supergroups [3 self, 1 cross, 1 self]: self layer
+        (g, i) reads ``params["layers"]`` and the cache at (g, i), cross
+        layer g ``params["cross_layers"]`` and the image K/V at g.  Self
+        attention decodes over identity head rows (the reference threads
+        no row maps into a VLM's grouped stacks)."""
+        for g in range(self.n_groups):
+            for i in range(4):
+                if i == SELF_BEFORE_CROSS:
+                    x = self._cross_layer(
+                        _layer_view(params["cross_layers"], g), x,
+                        _layer_view(img_kv, g), img_mask)
+                layer_cache = None if cache is None else \
+                    {name: buf[g, i] for name, buf in cache.items()}
+                x, _ = self._layer(_layer_view(params["layers"], (g, i)), x,
+                                   positions, layer_cache, cache_pos)
+        return x, None
+
     def _run_layers(self, params, x, positions, cache, cache_pos,
                     head_rows=None, head_inv=None, page_map=None,
-                    write_valid=None):
+                    write_valid=None, img_kv=None, img_mask=None):
         """Loop over layers; layer l reads its slice of the stacked params,
         cache (values, int8 scales, ring positions) and (n_layers, Hp)
         kernel row maps.  One page map (and ``write_valid``) serves every
-        layer: the layer axis lives in the page store, not the table.
-        Returns the hidden state and, for MoE, the stacked (L, E) router
-        loads of this call (else None)."""
+        layer: the layer axis lives in the page store, not the table.  A
+        VLM runs its supergroups over ``img_kv`` and ``img_mask``
+        instead.  Returns the hidden state and, for MoE, the stacked
+        (L, E) router loads of this call (else None)."""
+        if self.is_vlm:
+            return self._run_layers_vlm(params, x, positions, cache,
+                                        cache_pos, img_kv, img_mask)
         freqs = []
         for l in range(self.cfg.n_layers):
             layer_cache = None if cache is None else \
@@ -159,11 +229,17 @@ class TransformerLM:
         return torch.arange(S, dtype=torch.int32,
                             device=self.device)[None].expand(B, S)
 
-    def forward(self, params, tokens):
-        """Full-sequence forward without a cache. Returns logits (B,S,V)."""
+    def forward(self, params, tokens, *, img_embeds=None, img_mask=None):
+        """Full-sequence forward without a cache. Returns logits (B,S,V).
+        A VLM takes its image embeddings (B, I, D) and mask (B, I)."""
         B, S = tokens.shape
         x = L.embed(self.cfg, params, tokens)
-        x, _ = self._run_layers(params, x, self._positions(B, S), None, None)
+        img_kv = None
+        if self.is_vlm:
+            self._check_img_mask(img_mask)
+            img_kv = self._project_img_kv(params, img_embeds)
+        x, _ = self._run_layers(params, x, self._positions(B, S), None, None,
+                                img_kv=img_kv, img_mask=img_mask)
         x = L.apply_norm(self.cfg, params, "ln_f", x)
         return L.unembed(self.cfg, params, x)
 
@@ -187,12 +263,15 @@ class TransformerLM:
         return min(max_seq, self.window) if self.window else max_seq
 
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> dict:
-        """Stacked (L, batch, T, KvE, dh) K/V with T = ``cache_len``.  A
-        sliding-window arch served to at least its window keeps a ring of
-        ``window`` slots in the working dtype (int8 does not apply to a
-        ring, as in the reference) with "pos" (L, window) holding each
-        slot's absolute position, ``EMPTY_SLOT`` until written."""
+        """Stacked (L, batch, T, KvE, dh) K/V with T = ``cache_len`` (a
+        VLM's self layers: (G, 4, batch, T, KvE, dh)).  A sliding-window
+        arch served to at least its window keeps a ring of ``window``
+        slots in the working dtype (int8 does not apply to a ring, as in
+        the reference) with "pos" (L, window) holding each slot's absolute
+        position, ``EMPTY_SLOT`` until written."""
         T = self.cache_len(max_seq)
+        if self.is_vlm:
+            return self._kv_buffers((self.n_groups, 4, batch, T), dtype)
         lead = (self.cfg.n_layers, batch, T)
         if self.window and T == self.window:
             dtype = dtype or torch_dtype(self.cfg.dtype)
@@ -204,15 +283,19 @@ class TransformerLM:
         return self._kv_buffers(lead, dtype)
 
     def init_decode_state(self, params, batch: int, max_seq: int, *,
-                          dtype=None, per_slot: bool = False
-                          ) -> Dict[str, Any]:
+                          img_embeds=None, img_mask=None, dtype=None,
+                          per_slot: bool = False) -> Dict[str, Any]:
         """``per_slot=True`` keeps one position per batch row (continuous
         batching): decode advances each slot independently and prefills
         land rows at different depths via :meth:`insert_slot`.  Otherwise
         the batch decodes in lock-step from one int position (the wave
         scheduler's state, and the only one a ring cache takes).  MoE
         states carry the router-load EWMA "expert_load" (L, E), a uniform
-        prior that ``decode_step`` updates."""
+        prior that ``decode_step`` updates.  A VLM state carries the image
+        K/V "img_kv" (G, B, I, KvE, dh), projected here from
+        ``img_embeds`` (B, I, D), and its mask "img_mask" (B, I) bool
+        (None: every position valid), checked to be a prefix of each row
+        when the kernels decode."""
         pos = torch.zeros((batch,), dtype=torch.int32,
                           device=self.device) if per_slot else 0
         state = {"cache": self.init_cache(batch, max_seq, dtype), "pos": pos}
@@ -221,6 +304,13 @@ class TransformerLM:
             state["expert_load"] = torch.full(
                 (self.cfg.n_layers, E), 1.0 / E, dtype=torch.float32,
                 device=self.device)
+        if self.is_vlm:
+            if img_embeds is None:
+                raise ValueError("a VLM decode state needs img_embeds "
+                                 "(B, I, d_model)")
+            self._check_img_mask(img_mask)
+            state["img_kv"] = self._project_img_kv(params, img_embeds)
+            state["img_mask"] = img_mask
         return state
 
     def prefill(self, params, state, tokens):
@@ -232,7 +322,9 @@ class TransformerLM:
         B, S = tokens.shape
         x = L.embed(cfg, params, tokens)
         x, _ = self._run_layers(params, x, self._positions(B, S),
-                                state["cache"], 0)
+                                state["cache"], 0,
+                                img_kv=state.get("img_kv"),
+                                img_mask=state.get("img_mask"))
         x = L.apply_norm(cfg, params, "ln_f", x)
         logits = L.unembed(cfg, params, x[:, -1:])
         state["pos"] = S
@@ -249,7 +341,9 @@ class TransformerLM:
         B, S = tokens.shape
         x = L.embed(cfg, params, tokens)
         x, _ = self._run_layers(params, x, self._positions(B, S),
-                                state["cache"], 0)
+                                state["cache"], 0,
+                                img_kv=state.get("img_kv"),
+                                img_mask=state.get("img_mask"))
         x = L.apply_norm(cfg, params, "ln_f", x)
         idx = (length.long() - 1).clamp(min=0)[:, None, None]
         last = x.gather(1, idx.expand(B, 1, x.shape[-1]))    # (B, 1, D)
@@ -261,10 +355,25 @@ class TransformerLM:
         """Copy a batch-1 prefilled ``sub`` state (cache length Lb <= T)
         into batch row ``slot`` of the per-slot decode state, in place.
         int8 caches splice their scales ((L, B, T, KvE)) with the values:
-        values without their scales would dequantize garbage."""
+        values without their scales would dequantize garbage.  The batch
+        axis sits before the cache's last ``4`` axes of values (``3`` of
+        scales), so one rule covers (L, B, T, KvE, dh) and the VLM's
+        (G, 4, B, T, KvE, dh); a VLM also splices the request's image K/V
+        (G, B, I, KvE, dh) and mask rows."""
         for name, src in sub["cache"].items():
-            state["cache"][name][:, slot, :src.shape[2]].copy_(src[:, 0])
+            dst = state["cache"][name]
+            tail = 3 if name.endswith("_sc") else 4
+            lead = (slice(None),) * (dst.dim() - tail)
+            dst[lead + (slot, slice(0, src.shape[-tail + 1]))].copy_(
+                src[lead + (0,)])
         state["pos"][slot] = sub["pos"][0]
+        if "img_kv" in state and "img_kv" in sub:
+            for name, src in sub["img_kv"].items():
+                state["img_kv"][name][:, slot].copy_(src[:, 0])
+        if state.get("img_mask") is not None \
+                and sub.get("img_mask") is not None:
+            self._check_img_mask(sub["img_mask"])
+            state["img_mask"][slot] = sub["img_mask"][0]
         return state
 
     def decode_step(self, params, state, tokens):
@@ -286,7 +395,8 @@ class TransformerLM:
             (tokens.shape[0], 1), pos, dtype=torch.int32, device=self.device)
         x, freqs = self._run_layers(
             params, x, positions, state["cache"], pos,
-            state.get("head_rows"), state.get("head_inv"), page_map)
+            state.get("head_rows"), state.get("head_inv"), page_map,
+            img_kv=state.get("img_kv"), img_mask=state.get("img_mask"))
         x = L.apply_norm(cfg, params, "ln_f", x)
         logits = L.unembed(cfg, params, x)
         if not per_slot:
@@ -320,6 +430,9 @@ class TransformerLM:
             raise NotImplementedError(
                 "paged caches are linear; sliding-window archs keep the "
                 "ring cache")
+        if self.is_vlm:
+            raise NotImplementedError(
+                "paged caches do not yet carry the VLM image K/V")
         return self._kv_buffers((self.cfg.n_layers, n_pages + 1, page_size),
                                 dtype)
 

@@ -36,6 +36,11 @@ permutations to the stacked expert weights (``_migrate_experts``).  With
 kernel of the cache's kind; the continuous engine rebuilds its gather maps
 from each plan (``_refresh_head_rows``).
 
+The VLM (llama-3.2-vision) serves on ``ServingEngine``: a request
+carries its image patch embeddings (``submit(img_embeds=)``), right-padded
+into a slot's buffer of ``img_tokens`` rows, projected at prefill into the
+request's image K/V and spliced into its slot with the cache.
+
 Device churn (``ServingEngine``): ``fail_device`` applies the controller's
 evacuation plan and rebuilds every in-flight stream's cache by
 teacher-forced replay through admission's own prefill helpers and the
@@ -61,10 +66,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocks import CostModel
 from repro_torch.core.controller import ControllerConfig, IntervalController
 from repro_torch.core.network import DeviceNetwork
-from repro_torch.core.placement_bridge import (apply_layer_head_perms,
+from repro_torch.core.placement_bridge import (apply_head_perm,
+                                               apply_layer_head_perms,
                                                head_row_maps,
                                                identity_head_rows,
                                                permute_model_experts_layers,
+                                               permute_model_heads,
                                                permute_model_heads_layers,
                                                relative_perms)
 from repro_torch.models.api import build_model, resolve_device
@@ -79,11 +86,6 @@ class UnsupportedArchError(NotImplementedError):
     scheduler cannot serve — never mid-serve."""
 
 
-def _not_ported(what: str, item: int):
-    raise UnsupportedArchError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP Queue 1 #{item})")
-
-
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -94,6 +96,8 @@ class Request:
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
+    img: Optional[np.ndarray] = None       # (I, D) VLM patch embeddings
+    img_mask: Optional[np.ndarray] = None  # (I,) bool
 
 
 def supports_continuous(cfg: ModelConfig,
@@ -175,8 +179,6 @@ class _EngineBase:
                  search: str = "rescoring",
                  params: Optional[Dict[str, Any]] = None, device=None,
                  pipeline_k: int = 1, cost_page_size: int = 0):
-        if cfg.family == "vlm":
-            _not_ported("VLM serving", 13)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_slots = n_slots
@@ -336,8 +338,12 @@ class _EngineBase:
         every layer.  Attention is permutation-equivariant over heads
         (GQA: over whole KV groups) within each layer, so the model
         function is unchanged while the placement moves.  A ring's slot
-        positions have no head axis and stay.  Returns (applied, reason):
-        a model without attention heads applies nothing, and says so.
+        positions have no head axis and stay.  A VLM's (G, 4, ...) stacks
+        have no leading layer axis, so, as in the reference, only a plan
+        equal for every layer applies there: one permutation of every self
+        and cross layer's weights, the cache and the image K/V.  Returns
+        (applied, reason): a model without attention heads, or a VLM given
+        a per-layer plan, applies nothing, and says so.
 
         ``permute_params=False`` skips the shared weights: an engine with
         one decode state per in-flight group permutes them once a plan."""
@@ -346,6 +352,8 @@ class _EngineBase:
             return False, "model has no addressable attention heads"
         G = hd.Hp // hd.Kp
         rel = relative_perms(plan["prev_perms"], plan["perms"])
+        if getattr(self.model, "is_vlm", False):
+            return self._migrate_vlm_state(state, rel, G, permute_params)
         if rel.shape[0] != self.cfg.n_layers:
             rel = np.repeat(rel, self.cfg.n_layers, axis=0)
         cache = state["cache"]
@@ -360,6 +368,28 @@ class _EngineBase:
         if "k_sc" in cache:
             cache["k_sc"], cache["v_sc"] = apply_layer_head_perms(
                 cache["k_sc"], cache["v_sc"], rel, head_axis=-1,
+                group_size=G)
+        return True, None
+
+    def _migrate_vlm_state(self, state: Dict[str, Any], rel: np.ndarray,
+                           G: int, permute_params: bool) -> tuple:
+        """The reference's one-layout branch: a plan whose rows are all
+        equal permutes the head axis of every self and cross layer's
+        weights, of the (G, 4, B, T, KvE, dh) cache (and int8 scales) and
+        of the image K/V (G, B, I, KvE, dh) by its one row."""
+        if rel.shape[0] > 1 and not np.all(rel == rel[0]):
+            return False, ("per-layer plan on a cache without a leading "
+                           "layer axis")
+        if permute_params:
+            self.params = permute_model_heads(self.params, rel[0],
+                                              group_size=G)
+        for buf in (state["cache"], state["img_kv"]):
+            buf["k"], buf["v"] = apply_head_perm(
+                buf["k"], buf["v"], rel[0], head_axis=-2, group_size=G)
+        cache = state["cache"]
+        if "k_sc" in cache:
+            cache["k_sc"], cache["v_sc"] = apply_head_perm(
+                cache["k_sc"], cache["v_sc"], rel[0], head_axis=-1,
                 group_size=G)
         return True, None
 
@@ -474,12 +504,17 @@ class ServingEngine(_EngineBase):
 
     def __init__(self, cfg: ModelConfig, *, paged: bool = False,
                  page_size: int = 64, kv_pages: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None, **kw):
+                 prefill_chunk: Optional[int] = None, img_tokens: int = 16,
+                 **kw):
         # config-only check before params and controller are built; the
         # served extent decides whether a sliding-window arch stays linear
         reason = supports_continuous(cfg, kw.get("max_seq", 512))
         if reason is not None:
             raise UnsupportedArchError(reason + "; use WaveServingEngine")
+        if paged and cfg.family == "vlm":
+            raise UnsupportedArchError(
+                "paged KV does not yet carry the VLM image K/V; "
+                "use paged=False")
         # a paged engine prices cache memory (and so migration bytes) at
         # page granularity — what the allocator actually hands out
         super().__init__(cfg, cost_page_size=page_size if paged else 0, **kw)
@@ -492,6 +527,9 @@ class ServingEngine(_EngineBase):
                              "(host-side sampling would serialize groups)")
         self.rows_per_group = self.n_slots // self.pipeline_k
         self.buckets = default_buckets(self.max_seq)
+        # a VLM slot holds a fixed buffer of ``img_tokens`` image rows
+        self.is_vlm = cfg.family == "vlm"
+        self.img_tokens = img_tokens
         self.paged = bool(paged)
         if self.paged:
             if self.max_seq % page_size:
@@ -515,9 +553,11 @@ class ServingEngine(_EngineBase):
         # slot was free (head-of-line admission)
         self.page_waits = 0
         # kernelized decode: per-layer gather maps (physical q-head rows in
-        # slot-grouped placement order) carried in the decode state
+        # slot-grouped placement order) carried in the decode state.  A
+        # VLM's (G, 4, ...) stacks migrate all layers alike, so the
+        # identity rows the model defaults to stay right there.
         self._rows_layers = 0
-        if self.use_kernel:
+        if self.use_kernel and not self.is_vlm:
             hps = self.controller.cfg.heads_per_slot
             if self.net.n_devices * hps != hd.Hp:
                 raise UnsupportedArchError(
@@ -546,18 +586,60 @@ class ServingEngine(_EngineBase):
         self.tokens_lost = 0
         self._replan_pending = False
 
-    def _fresh_state(self, batch: int, max_seq: Optional[int] = None):
+    def _fresh_state(self, batch: int, max_seq: Optional[int] = None,
+                     img: Optional[np.ndarray] = None,
+                     img_mask: Optional[np.ndarray] = None):
+        """A per-slot decode state of ``batch`` rows.  A VLM's carries the
+        image K/V of ``img`` (batch, img_tokens, D) under ``img_mask``
+        (batch, img_tokens), in the model's dtype; without them every row
+        is an empty, fully masked image (zero K/V: an imageless slot's
+        cross-attention adds nothing)."""
         if self.paged:
             return self.model.init_paged_state(
                 self.params, batch, self.kv_pages, self.page_size,
                 self.pages_per_slot)
+        kw: Dict[str, Any] = {}
+        if self.is_vlm:
+            dt, dev = torch_dtype(self.cfg.dtype), self.device
+            if img is None:
+                kw["img_embeds"] = torch.zeros(
+                    (batch, self.img_tokens, self.cfg.d_model), dtype=dt,
+                    device=dev)
+                kw["img_mask"] = torch.zeros((batch, self.img_tokens),
+                                             dtype=torch.bool, device=dev)
+            else:
+                kw["img_embeds"] = torch.as_tensor(img, device=dev).to(dt)
+                kw["img_mask"] = torch.as_tensor(img_mask, device=dev)
         return self.model.init_decode_state(
-            self.params, batch, max_seq or self.max_seq, per_slot=True)
+            self.params, batch, max_seq or self.max_seq, per_slot=True, **kw)
 
     # ---------------------------------------------------------------- intake
-    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
+               img_embeds: Optional[np.ndarray] = None) -> int:
+        """``img_embeds`` (I, d_model), I <= ``img_tokens``: a VLM
+        request's image patch embeddings, right-padded and masked into the
+        slot's fixed image buffer.  Rejected at intake, not mid-run."""
         self._bucket(len(np.asarray(prompt)))   # reject over-long at intake
-        return super().submit(prompt, max_new_tokens)
+        if img_embeds is not None and not self.is_vlm:
+            raise ValueError(f"{self.cfg.name} is not a VLM: it takes no "
+                             f"image embeddings")
+        rid = super().submit(prompt, max_new_tokens)
+        if self.is_vlm:
+            req = self.queue[-1]
+            img = np.zeros((self.img_tokens, self.cfg.d_model), np.float32)
+            mask = np.zeros((self.img_tokens,), bool)
+            if img_embeds is not None:
+                img_embeds = np.asarray(img_embeds)
+                n = img_embeds.shape[0]
+                if img_embeds.ndim != 2 or n > self.img_tokens \
+                        or img_embeds.shape[1] != self.cfg.d_model:
+                    raise ValueError(
+                        f"img_embeds must be (I<={self.img_tokens}, "
+                        f"{self.cfg.d_model}), got {img_embeds.shape}")
+                img[:n] = img_embeds
+                mask[:n] = True
+            req.img, req.img_mask = img, mask
+        return rid
 
     # ------------------------------------------------------------- geometry
     @property
@@ -596,6 +678,7 @@ class ServingEngine(_EngineBase):
             for g, st in enumerate(self.states):
                 applied, reason = self._migrate_state(
                     st, plan, permute_params=(g == 0))
+        if applied:
             # weights/caches now sit in the plan's layout; the kernel
             # gather maps must follow the same source of truth
             self._phys_perms = plan["perms"]
@@ -687,7 +770,9 @@ class ServingEngine(_EngineBase):
         Lb = self._bucket(L0)
         toks = np.zeros((1, Lb), np.int32)
         toks[0, :L0] = r.prompt
-        sub = self._fresh_state(1, Lb)
+        sub = self._fresh_state(
+            1, Lb, img=None if r.img is None else r.img[None],
+            img_mask=None if r.img is None else r.img_mask[None])
         logits, sub = self.model.prefill_bucketed(
             self.params, sub, torch.as_tensor(toks, device=self.device),
             torch.tensor([L0], dtype=torch.int32, device=self.device))
@@ -970,7 +1055,8 @@ class ServingEngine(_EngineBase):
 
     def _replay_insert(self, g: int, s: int):
         """Run slot ``s``'s admission prefill again (the same calls, the
-        same bucket or chunks) into the rebuilt group state."""
+        same bucket or chunks, a VLM request's image) into the rebuilt
+        group state."""
         r = self.slots[s]
         if self.paged:
             self._prefill_paged(g, s - g * self.rows_per_group, r)

@@ -275,6 +275,68 @@ def test_resident_kernel_splits(cuda, dtype, dh, G, case):
     _check_rows_case(kern, plain, args, rng, H, G, case)
 
 
+# the VLM's cross-attention decode: q (B, 32, 128) over one cross layer's
+# image K/V, a view into the (G, B, I, KvE, dh) stack, I = 1601 (no
+# multiple of a split or a tile), rows of a full image, a 448x448 tile
+# (1025 rows) or none
+VLM_IMG = 1601
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [(VLM_IMG, 1025, 0, VLM_IMG),
+                                     (0, 0, 0, 0), (1, 1600, 64, 1537)],
+                         ids=["mixed", "imageless", "edges"])
+def test_kernel_over_stacked_image_kv(cuda, dtype, lengths):
+    rng = np.random.default_rng(len(lengths) + lengths[-1])
+    B, H, KvE, dh = len(lengths), 32, 8, 128
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    img_kv = torch.from_numpy(rng.standard_normal(
+        (2, 2, B, VLM_IMG, KvE, dh), np.float32))
+    q, img_kv = q.to(cuda, dtype), img_kv.to(cuda, dtype)
+    k, v = img_kv[0, 1].transpose(1, 2), img_kv[1, 1].transpose(1, 2)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    out = _split_check(decode_attention_resident,
+                       decode_attention_resident_plain,
+                       (q, k, v, lens, torch.arange(H, dtype=torch.int32,
+                                                    device=cuda)))
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not out[b].any()          # length 0 returns zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_block_kernel_equals_plain(cuda, dtype):
+    """The model's gated cross-attention at the VLM's head shapes: S == 1
+    through the kernel (lengths from the mask, imageless rows patched to
+    the mean of V) against the plain masked path, over image K/V of
+    1601 rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("llama-3.2-vision-11b").with_overrides(
+        d_model=512, dtype=str(dtype).split(".")[-1])
+    hd = L.head_dims(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = L.init_attention(gen, cfg, hd, (), dtype, cuda, cross=True)
+    p["gate"].fill_(0.7)
+    B = 4
+    x = torch.randn((B, 1, 512), generator=gen, device=cuda).to(dtype)
+    img = torch.randn((B, VLM_IMG, 512), generator=gen,
+                      device=cuda).to(dtype)
+    mask = torch.zeros((B, VLM_IMG), dtype=torch.bool, device=cuda)
+    for b, n in enumerate((VLM_IMG, 1025, 0, 7)):
+        mask[b, :n] = True
+    plain, kv = L.cross_attention_block(cfg, p, hd, x, kv_embeds=img,
+                                        kv_mask=mask)
+    got, _ = L.cross_attention_block(cfg, p, hd, x, kv_cache=kv,
+                                     kv_mask=mask, use_kernel=True)
+    torch.cuda.synchronize()
+    tol = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}[dtype]
+    torch.testing.assert_close(got.float(), plain.float(), **tol)
+    assert _row_rel_err(got[:, 0], plain[:, 0]) <= DECODE_ROW_REL[dtype]
+    assert got[2].abs().max() > 0            # the patched imageless row
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("G", [1, 4, 16])

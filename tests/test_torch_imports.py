@@ -62,7 +62,8 @@ def test_every_module_imports_with_jax_and_repro_refused():
                  "repro_torch.core.simulator",
                  "repro_torch.launch.migration_demo",
                  "repro_torch.serving.workload",
-                 "repro_torch.serving.async_runtime"):
+                 "repro_torch.serving.async_runtime",
+                 "repro_torch.configs.llama3_2_vision_11b"):
         assert name in names
 
 
@@ -221,6 +222,45 @@ def test_serve_cli_serves_glm4_on_the_cpu():
          "--reduced", "--layers", "2", "--arch", "glm4-9b", "--use-kernel",
          "--requests", "3", "--prompt-len", "20", "--mixed-lengths",
          "--tokens", "6", "--slots", "2", "--lam", "2", "--straggler", "0"],
+        env=_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "ServingEngine" in out.stdout and "Wave" not in out.stdout
+    assert "3 requests, 18 tokens" in out.stdout
+
+
+@pytest.mark.parametrize("entry", ["build_model", "ServingEngine",
+                                   "make_engine"])
+def test_vlm_entry_points_want_the_gpu_unless_asked_for_the_cpu(entry):
+    """Each entry point of the VLM slice raises without a GPU when no
+    device is named, and runs on the CPU when asked to."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None serves on it")
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import engine
+    cfg = get_config("llama-3.2-vision-11b").with_overrides(
+        n_layers=5, d_model=32, n_heads=4, n_kv_heads=2, d_head=8, d_ff=64,
+        vocab_size=50)
+    if entry == "build_model":
+        make = build_model
+    else:
+        make = functools.partial(getattr(engine, entry), n_slots=2,
+                                 max_seq=16, img_tokens=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(cfg)
+    assert make(cfg, device="cpu") is not None
+
+
+def test_serve_cli_serves_the_vlm_on_the_cpu():
+    """``--arch llama-3.2-vision-11b --use-kernel``: one supergroup on the
+    continuous engine, requests with images of 8, 4 and 0 rows in an
+    8-row buffer; decode runs the resident kernel's plain version for the
+    self and the cross layers."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--reduced", "--layers", "5", "--arch", "llama-3.2-vision-11b",
+         "--use-kernel", "--requests", "3", "--tokens", "6", "--slots", "2",
+         "--lam", "2", "--img-tokens", "8", "--straggler", "0"],
         env=_env(), cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "ServingEngine" in out.stdout and "Wave" not in out.stdout

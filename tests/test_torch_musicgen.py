@@ -56,9 +56,9 @@ T_MAX = 32
 PROMPT_LENS = (5, 11, 8, 14, 6)
 ARCHS = ("musicgen-large", "qwen1.5-32b")
 # the config modules of the reference that the port registers
-PORTED = ("glm4-9b", "llama3-8b", "mixtral-8x22b", "mixtral-8x7b",
-          "musicgen-large", "paper-gpt", "qwen1.5-110b", "qwen1.5-32b",
-          "rwkv6-7b")
+PORTED = ("glm4-9b", "llama-3.2-vision-11b", "llama3-8b", "mixtral-8x22b",
+          "mixtral-8x7b", "musicgen-large", "paper-gpt", "qwen1.5-110b",
+          "qwen1.5-32b", "rwkv6-7b")
 
 
 def _seeded(params, names, seed=7):
@@ -115,8 +115,7 @@ def test_config_equals_reference(name):
 def test_registry_and_shapes_equal_reference():
     assert list_archs() == sorted(PORTED)
     assert set(ASSIGNED_ARCHS) <= set(JAX_ASSIGNED)
-    assert set(JAX_ASSIGNED) - set(ASSIGNED_ARCHS) == {
-        "llama-3.2-vision-11b", "zamba2-2.7b"}
+    assert set(JAX_ASSIGNED) - set(ASSIGNED_ARCHS) == {"zamba2-2.7b"}
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()}
     assert [SHAPES[k].is_decode for k in SHAPES] == \
@@ -136,13 +135,16 @@ def test_musicgen_builds_at_full_width_and_wants_the_gpu():
 
 def test_batch_extras():
     """The audio frontend is stubbed to the codec tokens: no extras; the
-    VLM's inputs wait for its port."""
+    VLM's are zero patch embeddings (B, 1601, D) and an all-true mask, and
+    ``build_model`` builds the VLM."""
     cfg = get_config("musicgen-large")
     assert batch_extras(cfg, 2, torch.float32) == {}
-    with pytest.raises(NotImplementedError, match="Queue 1 #13"):
-        batch_extras(cfg.with_overrides(family="vlm"), 2, torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 #13"):
-        build_model(cfg.with_overrides(family="vlm"), device="cpu")
+    vlm = get_config("llama-3.2-vision-11b")
+    extras = batch_extras(vlm, 2, torch.float32)
+    assert extras["img_embeds"].shape == (2, 1601, 4096)
+    assert extras["img_mask"].shape == (2, 1601) and extras["img_mask"].all()
+    model = build_model(vlm, device="cpu")
+    assert model.is_vlm and model.n_groups == 8
 
 
 # -------------------------------------------------------------- layers
