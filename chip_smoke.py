@@ -24,8 +24,14 @@ seeded random values) at full width (4 layers) on the dense path's traffic;
 and ``make_engine(mode="auto")`` serving llama-3.2-vision-11b (gated
 cross-attention over 1601-row image K/V, its gates set nonzero) at full
 width (2 supergroups: 8 self + 2 cross layers) on the dense path's traffic
-with images of 1601, 1025 and 0 rows — and checks that each path went
-through its kernels, with exact launch counts.  It then serves a seeded
+with images of 1601, 1025 and 0 rows; and ``make_engine(mode="auto")``
+serving zamba2-2.7b (the Mamba-2 backbone in plain torch, its seeded conv
+bias, decays, dt bias and skip nonzero; the shared attention block at
+head width 80 through flash and the resident decode kernel) at full width
+(2 of 9 supergroups) under the wave scheduler, its head plans logged as
+not applied — and checks that each path went through its kernels, with
+exact launch counts.  The whole 54-layer zamba2 then prefills and decodes
+through both kernels, without an engine.  It then serves a seeded
 Poisson load on the paged llama3-8b engine through ``drive_virtual``, the same load through
 ``AsyncServingEngine`` (bf16 streams equal to ``drive_virtual``'s), and
 the load with a device failing mid-decode and rejoining on the paged and
@@ -98,11 +104,26 @@ GLM_B, GLM_LO, GLM_HI, GLM_NEW, GLM_MAX_SEQ = 8, 2048, 8192, 64, 8264
 # reference)
 VLM_LAYERS = 10
 VLM_SELF = VLM_LAYERS // 5 * 4
+# the zamba2 path: zamba2-2.7b at full width cut to 2 of its 9 supergroups
+# (12 mamba layers, the shared attention block at the top of every 6, so
+# one weight copy serves two caches); 8 slots, 16 requests of 1024 tokens
+# (2 waves), 64 new tokens each, an extent of 1096.  The shared block
+# prefills through flash (B 8, 32 heads of 80, H == KvE) and decodes
+# through the resident kernel at G 1, once a supergroup each.
+ZAMBA_LAYERS, ZAMBA_EVERY = 12, 6
+ZAMBA_GROUPS = ZAMBA_LAYERS // ZAMBA_EVERY
+ZAMBA_B, ZAMBA_PROMPT, ZAMBA_NEW, ZAMBA_MAX_SEQ = 8, 1024, 64, 1096
+ZAMBA_DECODE = dict(B=ZAMBA_B, H=32, KvE=32, dh=80, T=ZAMBA_MAX_SEQ)
+# the lock-step wave's lengths at its last decode step, and a mixed set
+# with 0, 1 and T
+ZAMBA_LOCKSTEP = [ZAMBA_PROMPT + ZAMBA_NEW] * ZAMBA_B
+ZAMBA_MIXED = [1, ZAMBA_MAX_SEQ, 1088, 0, 517, 64, 65, ZAMBA_MAX_SEQ - 1]
+NO_CACHE = "state has no addressable KV cache"
 FLASH_LAUNCHES = {"dense": 16 * N_LAYERS, "paged": 0,
                   "int8": 16 * N_LAYERS, "int8_paged": 0,
                   "mixtral": 2 * N_LAYERS, "rwkv6": 0,
                   "glm4": 16 * N_LAYERS, "musicgen": 16 * N_LAYERS,
-                  "vlm": 16 * VLM_SELF}
+                  "vlm": 16 * VLM_SELF, "zamba2": 2 * ZAMBA_GROUPS}
 TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
         # bf16 output keeps ~3 significant digits of values <~ 1
         torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
@@ -284,18 +305,28 @@ def log_ptxas(logs):
 
 
 def check_flash_sass():
-    """The built flash library's SASS must hold warpgroup MMA (``HGMMA``):
-    the bf16 prefill runs on wgmma.  Returns the count of
-    HGMMA instructions."""
+    """The built flash library's SASS must hold warpgroup MMA (``HGMMA``)
+    in the wgmma body of every head width: the bf16 prefill runs on
+    wgmma.  Returns the count of HGMMA instructions, in all and per head
+    width."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import SUPPORTED_DH
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "--dump-sass",
                            str(build.library_path("flash_attention"))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
+    per_dh = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = _FLASH.search(part.split("\n", 1)[0])
+        if name and name.group(1) == "wgmma":
+            per_dh[int(name.group(2))] = len(re.findall(r"\bHGMMA\.",
+                                                        part))
     n = len(re.findall(r"\bHGMMA\.", sass))
-    check(n > 0, "the flash library's SASS holds no HGMMA instruction")
-    return n
+    check(n > 0 and set(per_dh) == set(SUPPORTED_DH)
+          and all(per_dh.values()),
+          f"the flash library's SASS lacks HGMMA in a wgmma body: {per_dh}")
+    return n, dict(sorted(per_dh.items()))
 
 
 # ---------------------------------------------------------------- phase 2
@@ -374,15 +405,16 @@ def phase_kernel_vs_plain():
     shapes (bf16 and f32; identity, group-permuted and partial rows;
     lengths 0, 1, T-1, T, T+1 and between, over 8 splits), the other head
     widths, the glm4 path's decode shape (G 16, 33 splits), and MHA (G 1:
-    one q row a KV head) at the musicgen path's shape (dh 64) and
-    qwen1.5-32b's heads (40 at dh 128), and the VLM's cross-attention
+    one q row a KV head) at the musicgen path's shape (dh 64),
+    qwen1.5-32b's heads (40 at dh 128) and the zamba2 path's (32 at dh 80,
+    T 1096, lock-step and mixed lengths), and the VLM's cross-attention
     (T 1601 through a view into the image K/V stack, rows of length 0),
     each held to TOLS and to DECODE_ROW_REL per (b, resident row), with
-    faults planted in the cross-attention shape's outputs that the bound
-    must catch; then its times at the dense shape (ragged and full
-    lengths), the glm4, musicgen and VLM cross-attention shapes beside
-    the plain version, SDPA and the bound.  The dense shape's go into the
-    record, every shape's into its ``shapes``."""
+    faults planted in the cross-attention and dh-80 shapes' outputs that
+    the bound must catch; then its times at the dense shape (ragged and
+    full lengths), the glm4, musicgen, VLM cross-attention and zamba2
+    shapes beside the plain version, SDPA and the bound.  The dense
+    shape's go into the record, every shape's into its ``shapes``."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_resident, decode_attention_resident_plain)
     lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
@@ -410,6 +442,14 @@ def phase_kernel_vs_plain():
     # (no multiple of a split or a tile), rows of length 0 among full ones
     cases += [(dt, "identity", dict(VLM_CROSS, lengths=VLM_CROSS_LENGTHS))
               for dt in (torch.float32, torch.bfloat16)]
+    # zamba2's shared attention: MHA at dh 80 (G 1) over its extent of
+    # 1096 (no multiple of a tile of 32 past 1088), lock-step and mixed
+    # lengths, on both bodies
+    cases += [(dt, rows, dict(ZAMBA_DECODE, lengths=lens))
+              for dt in (torch.float32, torch.bfloat16)
+              for rows, lens in (("identity", ZAMBA_LOCKSTEP),
+                                 ("identity", ZAMBA_MIXED),
+                                 ("group_perm", ZAMBA_MIXED))]
     worst = worst_rel = 0.0
     bad = []
     for i, (dt, rows, kw) in enumerate(cases):
@@ -433,6 +473,7 @@ def phase_kernel_vs_plain():
     # every case is logged before the first disagreement fails the phase
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     cross_faults_caught()
+    dh80_faults_caught()
 
     # timing at the main paths' shapes and dtype (bf16, all 32 rows), on
     # input copies together larger than the 50 MB L2 so every call reads
@@ -462,7 +503,9 @@ def phase_kernel_vs_plain():
             ("musicgen", lambda lens: lens, dict(MG_DECODE,
                                                  lengths=lengths)),
             ("vlm cross", lambda lens: lens,
-             dict(VLM_CROSS, lengths=VLM_CROSS_LENGTHS))):
+             dict(VLM_CROSS, lengths=VLM_CROSS_LENGTHS)),
+            ("zamba2", lambda lens: lens,
+             dict(ZAMBA_DECODE, lengths=ZAMBA_LOCKSTEP))):
         t = timed(lens_of, **shape)
         shapes[label] = dict(zip(keys, t))
         B, H, KvE, dh, T = (shape.get(n, d) for n, d in (
@@ -523,6 +566,44 @@ def cross_faults_caught():
           "the cross-attention bound misses a planted fault")
 
 
+def dh80_faults_caught():
+    """The per-row bound catches the faults head width 80 invites, each
+    planted in the plain version's output at the zamba2 shape (bf16,
+    mixed lengths): a kernel that drops the last 16 columns of V (the
+    tail .x2 load: output columns 64-79 zero) or of K (scores over 64 of
+    80 columns), and one that drops each row's last split.  The kernel's
+    own rows on the same inputs are logged beside them."""
+    from repro_torch.kernels.decode_attention import (
+        _decode_split, _sm_count, decode_attention_resident,
+        decode_attention_resident_plain as plain)
+    dt, limit = torch.bfloat16, DECODE_ROW_REL[torch.bfloat16]
+    q, k, v, lens, r = decode_inputs(dt, seed=80, lengths=ZAMBA_MIXED,
+                                     **ZAMBA_DECODE)
+    B, KvE, T = q.shape[0], k.shape[1], k.shape[2]
+    split = _decode_split(B, KvE, T, _sm_count(q.device))
+    want = plain(q, k, v, lens, r)
+    out = decode_attention_resident(q, k, v, lens, r)
+    torch.cuda.synchronize()
+    rel_kernel = row_rel_err(out, want)
+    v_cut = want.clone()
+    v_cut[..., 64:] = 0
+    k_cut = k.clone()
+    k_cut[..., 64:] = 0
+    last_split = torch.where(lens > 0, (lens - 1) // split * split, lens)
+    rel = {"V's last 16 columns": row_rel_err(v_cut, want),
+           "K's last 16 columns": row_rel_err(plain(q, k_cut, v, lens, r),
+                                              want),
+           "each row's last split": row_rel_err(
+               plain(q, k, v, last_split, r), want)}
+    log(f"dh 80 bound (bf16, T={T}, lengths {ZAMBA_MIXED}, split {split}): "
+        f"kernel max_row_rel_err={rel_kernel:.3e}; planted faults: "
+        + ", ".join(f"{n} dropped {e:.3e}" for n, e in rel.items())
+        + f"; limit {limit:.0e}")
+    check(rel_kernel <= limit, "the kernel fails the dh 80 fault inputs")
+    check(min(rel.values()) > limit, "the dh 80 bound misses a planted "
+          "fault")
+
+
 def _pool(caches, rng, P, lengths):
     """The model-layout (B, T, KvE, dh) ``caches`` as page stores
     (n_pages, P, KvE, dh) whose pages sit at one random permutation of the
@@ -544,15 +625,17 @@ def _pool(caches, rng, P, lengths):
     return pools, torch.where(live_page, perm, 0).to(torch.int32)
 
 
-def kv_inputs(kind, dtype, *, rows="identity", lengths=None, seed=0, P=64):
+def kv_inputs(kind, dtype, *, rows="identity", lengths=None, seed=0, P=64,
+              **shape):
     """Kernel-layout arguments of the ``kind`` kernel ("dense", "int8",
-    "paged", "int8_paged") at the main path's shapes: K/V and scales are
+    "paged", "int8_paged") at the main path's shapes (``shape`` overrides
+    them: ``decode_inputs``'s B, H, KvE, dh, T): K/V and scales are
     transposed views of the model's (B, T, KvE, dh) cache or (n_pages, P,
     KvE, dh) page store; int8 values and scales come from the port's
     ``_q8``."""
     from repro_torch.models.layers import _q8
     q, k, v, lens, r = decode_inputs(dtype, rows=rows, lengths=lengths,
-                                     seed=seed)
+                                     seed=seed, **shape)
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)       # (B, T, KvE, dh)
     if "paged" in kind:
         (kc, vc), pmap = _pool((kc, vc), np.random.default_rng(seed), P,
@@ -592,9 +675,11 @@ def kv_bound_ms(kind, args):
 
 def phase_new_kernels_vs_plain():
     """The int8, paged and int8-paged kernels against their plain versions
-    at the main path's shapes (bf16 and f32; identity, group-permuted and
-    partial rows; lengths 0, 1, T-1, T, T+1; paged at P = 64 and 8 over a
-    scrambled pool), then their times at the main path's bf16 shapes.
+    at the main path's shapes and at head width 80 (zamba2's: G 4 as the
+    main path, and G 1 over 32 KV heads) (bf16 and f32; identity,
+    group-permuted and partial rows; lengths 0, 1, T-1, T, T+1; paged at
+    P = 64 and 8 over a scrambled pool), then their times at the main
+    path's bf16 shapes.
     Each case is held to TOLS and to DECODE_ROW_REL per (b, resident row);
     every case of every kernel is logged before a disagreement fails the
     phase (a kernel that disagrees is not timed)."""
@@ -606,12 +691,14 @@ def phase_new_kernels_vs_plain():
         plain = getattr(da, name + "_plain")
         worst = worst_rel = 0.0
         bad = []
-        for i, (dt, rows, P) in enumerate(
-                (dt, rows, P) for dt in (torch.float32, torch.bfloat16)
+        for i, (shape, dt, rows, P) in enumerate(
+                (shape, dt, rows, P)
+                for shape in ({}, dict(dh=80), dict(KvE=32, dh=80))
+                for dt in (torch.float32, torch.bfloat16)
                 for rows in ("identity", "group_perm", "partial")
                 for P in ((64, 8) if "paged" in kind else (None,))):
             args = kv_inputs(kind, dt, rows=rows, lengths=lengths, seed=i,
-                             P=P or 64)
+                             P=P or 64, **shape)
             out = kern(*args)
             torch.cuda.synchronize()
             want = plain(*args)
@@ -620,12 +707,13 @@ def phase_new_kernels_vs_plain():
             ok = torch.allclose(out.float(), want.float(), **TOLS[dt]) \
                 and rel <= DECODE_ROW_REL[dt]
             log(f"{name} vs plain {str(dt)[6:]:8s} rows={rows:10s}"
-                f"{f' P={P}' if P else ''} max_abs_err={err:.3e} "
+                f"{f' P={P}' if P else ''} dh={args[0].shape[2]} "
+                f"KvE={args[1].shape[1]} max_abs_err={err:.3e} "
                 f"max_row_rel_err={rel:.3e} (limit "
                 f"{DECODE_ROW_REL[dt]:.0e})")
             if not (ok and torch.isfinite(out).all().item()
                     and not out[0].any().item()):
-                bad.append(f"{str(dt)[6:]} {rows} P={P}")
+                bad.append(f"{str(dt)[6:]} {rows} P={P} {shape}")
             worst = max(worst, err)
             if dt == torch.bfloat16:
                 worst_rel = max(worst_rel, rel)
@@ -696,12 +784,15 @@ def ring_slot_pos(window: int, n_written: int) -> np.ndarray:
     return pos
 
 
-def ring_inputs(dtype, *, n_written, lengths, rows="identity", seed=0):
+def ring_inputs(dtype, *, n_written, lengths, rows="identity", seed=0,
+                dh=MAIN_DH):
     """Kernel-layout arguments of the ring kernel at the mixtral path's
-    shapes (B 4, H 32, KvE 8, dh 128, window 4096): K/V are transposed
-    views of a (B, window, KvE, dh) ring as the model passes them."""
+    shapes (B 4, H 32, KvE 8, dh 128 unless given, window 4096): K/V are
+    transposed views of a (B, window, KvE, dh) ring as the model passes
+    them."""
     q, k, v, lens, r = decode_inputs(
-        dtype, B=RING_B, T=RING_W, rows=rows, lengths=lengths, seed=seed)
+        dtype, B=RING_B, T=RING_W, rows=rows, lengths=lengths, seed=seed,
+        dh=dh)
     slot_pos = torch.as_tensor(ring_slot_pos(RING_W, n_written),
                                dtype=torch.int32, device="cuda")
     return q, k, v, lens, slot_pos, r
@@ -717,22 +808,28 @@ def phase_ring_vs_plain():
     """The ring kernel against its plain version at the mixtral path's
     shapes (bf16 and f32): a wrapped ring (lengths 4097-8192), a partly
     filled one with empty slots (lengths 1, 37, 4095, 4096 over 3000
-    written positions) and resident rows under a group permutation, each
+    written positions) and resident rows under a group permutation (also
+    at head width 80), each
     held to TOLS and to RING_ROW_REL per (b, resident row); then its time
     on the main path's bf16 inputs (a full wrapped ring)."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_ring_resident as kern,
         decode_attention_ring_resident_plain as plain)
-    cases = [("wrapped", 8192, [8192, 8000, 6001, 4097], "identity"),
-             ("partly_filled", 3000, [1, 37, 4095, 4096], "identity"),
-             ("permuted", 8192, [8192, 5000, 4500, 4097], "group_perm")]
+    cases = [("wrapped", 8192, [8192, 8000, 6001, 4097], "identity", 128),
+             ("partly_filled", 3000, [1, 37, 4095, 4096], "identity", 128),
+             ("permuted", 8192, [8192, 5000, 4500, 4097], "group_perm",
+              128),
+             ("permuted dh 80", 8192, [8192, 5000, 4500, 4097],
+              "group_perm", 80),
+             ("partly_filled dh 80", 3000, [1, 37, 4095, 4096], "identity",
+              80)]
     worst = worst_rel = 0.0
     bad = []
-    for i, (dt, (label, n, lengths, rows)) in enumerate(
+    for i, (dt, (label, n, lengths, rows, dh)) in enumerate(
             (dt, c) for dt in (torch.float32, torch.bfloat16)
             for c in cases):
         args = ring_inputs(dt, n_written=n, lengths=lengths, rows=rows,
-                           seed=i)
+                           seed=i, dh=dh)
         out = kern(*args, window=RING_W)
         torch.cuda.synchronize()
         want = plain(*args, window=RING_W)
@@ -741,7 +838,7 @@ def phase_ring_vs_plain():
         ok = torch.allclose(out.float(), want.float(), **TOLS[dt]) \
             and rel <= RING_ROW_REL[dt]
         log(f"decode_attention_ring_resident vs plain {str(dt)[6:]:8s} "
-            f"{label:13s} rows={rows:10s} max_abs_err={err:.3e} "
+            f"{label:19s} rows={rows:10s} max_abs_err={err:.3e} "
             f"max_row_rel_err={rel:.3e} (limit {RING_ROW_REL[dt]:.0e})")
         if not (ok and torch.isfinite(out).all().item()):
             bad.append(f"{str(dt)[6:]} {label}")
@@ -1605,23 +1702,26 @@ def flash_bound_ms(q, k, causal, window):
 # label -> (B, H, KvE, S, window, dh): the prefill attention of each path
 # that runs the kernel, in bf16 — llama's largest bucket (the dense and
 # int8 paths), mixtral's lock-step wave over its window, glm4's longest
-# bucket, musicgen's largest bucket (MHA at dh 64)
+# bucket, musicgen's largest bucket (MHA at dh 64), zamba2's lock-step wave
+# (MHA at dh 80)
 FLASH_SHAPES = {
     "llama bucket": (1, 32, 8, 512, 0, 128),
     "mixtral wave": (RING_B, 32, 8, RING_PROMPT, RING_W, 128),
     "glm4": (1, 32, 2, GLM_HI, 0, 128),
     "musicgen bucket": (1, 32, 32, 512, 0, 64),
+    "zamba2 wave": (ZAMBA_B, 32, 32, ZAMBA_PROMPT, 0, 80),
 }
 
 
 def phase_flash_vs_plain():
     """The flash kernel against its plain version (the model's own prefill
     arithmetic: ``attention_scores`` below a KV extent of 2048,
-    ``chunked_attention`` at 2048 and above) at the four paths' bf16
+    ``chunked_attention`` at 2048 and above) at the five paths' bf16
     shapes, a ragged S = 1000 under a window, a non-causal case, Sq < Skv,
-    MHA at dh 128 (qwen1.5-32b's heads), and float32; then its times at the
-    four shapes beside the plain version, SDPA and the bound.  The glm4
-    shape's go into the record."""
+    MHA at dh 128 (qwen1.5-32b's heads), dh 80 (zamba2's: non-causal and
+    Sq < Skv too), and float32, with a fault planted at dh 80 that the
+    bound must catch; then its times at the five shapes beside the plain
+    version, SDPA and the bound.  The glm4 shape's go into the record."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1639,8 +1739,18 @@ def phase_flash_vs_plain():
         ("qwen MHA S=700", bf16, dict(B=1, H=40, KvE=40, Sq=700), True, 0),
         ("musicgen bucket f32", f32, dict(B=1, H=32, KvE=32, Sq=512, dh=64),
          True, 0),
+        ("zamba2 wave f32", f32, dict(B=ZAMBA_B, H=32, KvE=32,
+                                      Sq=ZAMBA_PROMPT, dh=80), True, 0),
+        ("zamba2 non-causal S=300", bf16, dict(B=1, H=32, KvE=32, Sq=300,
+                                               dh=80), False, 0),
+        ("zamba2 Sq=200 < Skv=700", bf16, dict(B=2, H=32, KvE=32, Sq=200,
+                                               Skv=700, dh=80), True, 0),
+        ("zamba2 Sq=200 < Skv=700 f32", f32, dict(B=2, H=32, KvE=32,
+                                                  Sq=200, Skv=700, dh=80),
+         True, 0),
     ]
     worst = worst_rel = 0.0
+    planted = None
     for i, (label, dt, shape, causal, window) in enumerate(cases):
         q, k, v = flash_inputs(dt, seed=i, **shape)
         out = flash_attention(q, k, v, causal=causal, window=window)
@@ -1658,7 +1768,18 @@ def phase_flash_vs_plain():
               f"flash_attention disagrees with its plain version ({label})")
         if dt == bf16:
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        if label == "zamba2 wave":
+            # a body that drops the last of dh 80's five panels of V: the
+            # output's columns 64-79 zero
+            cut = want.clone()
+            cut[..., 64:] = 0
+            planted = row_rel_err(cut, want)
+            log(f"  planted fault at dh 80 (V's last panel dropped): "
+                f"max_row_rel_err={planted:.3e} (limit "
+                f"{FLASH_ROW_REL[dt]:.0e})")
         del q, k, v, out, want
+    check(planted is not None and planted > FLASH_ROW_REL[bf16],
+          "the flash bound misses the dh 80 planted fault")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = {}
     for label, (B, H, KvE, S, window, dh) in FLASH_SHAPES.items():
@@ -1667,14 +1788,17 @@ def phase_flash_vs_plain():
         small = S <= 1024
         sets = [flash_inputs(bf16, B=B, H=H, KvE=KvE, Sq=S, dh=dh,
                              seed=10 + c)
-                for c in range(16 if small else 1)]
+                for c in range((16 if B == 1 else 4) if small else 1)]
         kw = dict(causal=True, window=window)
         reps, n = (20, 50) if small else (2, 5)
         ms = cuda_ms([lambda a=a: flash_attention(*a, **kw) for a in sets],
                      reps=reps, n=n)
+        # the plain version materializes the scores (1 GB at zamba2's
+        # wave): fewer calls past one batch row
+        plain_reps = (reps, n) if small and B == 1 else (4, 10) if small \
+            else (1, 3)
         plain_ms = cuda_ms([lambda a=a: flash_attention_plain(*a, **kw)
-                            for a in sets], reps=reps if small else 1,
-                           n=n if small else 3)
+                            for a in sets], *plain_reps)
         # yardstick only: SDPA's causal mask is aligned at the top left as
         # the kernel's; a window needs a boolean mask
         mask = None
@@ -2032,6 +2156,317 @@ def phase_vlm_stream_pair():
     check(moved and min(moved) > 1e-2, "an image did not move its "
           "request's logits")
     del engines, eng, params
+
+
+# ------------------------------------------------------- the zamba2 path
+def seed_ssm_params(params, seed=0):
+    """Set every mamba layer's ``conv_b`` (0.3 N), ``A_log`` (evenly over
+    [-6, 3] across all SSM heads, shuffled: decays exp(-exp(A_log) dt)
+    from near 1 to near 0), ``dt_bias`` (0.5 N) and ``D`` (1 + 0.5 N) in
+    place from a seeded generator: the init leaves them at 0, 0, 0 and 1,
+    which would hide a wrong conv bias, decay or skip."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lay = params["layers"]
+
+    def normal(t):
+        return torch.randn(t.shape, generator=gen, device="cuda")
+
+    n = lay["A_log"].numel()
+    spread = torch.linspace(-6.0, 3.0, n, device="cuda")
+    lay["A_log"].copy_(spread[torch.randperm(n, generator=gen,
+                                             device="cuda")].view_as(
+        lay["A_log"]))
+    lay["conv_b"].copy_(0.3 * normal(lay["conv_b"]))
+    lay["dt_bias"].copy_(0.5 * normal(lay["dt_bias"]))
+    lay["D"].copy_(1.0 + 0.5 * normal(lay["D"]))
+
+
+def zamba2_cfg(n_layers=ZAMBA_LAYERS, **over):
+    from repro_torch.configs import get_config
+    return get_config("zamba2-2.7b").with_overrides(n_layers=n_layers,
+                                                    **over)
+
+
+def zamba2_engine(cfg, *, use_kernel, n_requests, prompt, max_new,
+                  params=None, max_seq=ZAMBA_MAX_SEQ):
+    """``make_engine(mode="auto")`` for zamba2: 8 slots, λ = 8, four
+    simulated devices, the "columns" layout (as the VLM path: per-layer
+    plans of a graph layout cost hundreds of ms an interval and, like
+    every plan, cannot apply to a hybrid state), ``n_requests`` prompts
+    of ``prompt`` tokens; random weights from seed 0, then
+    ``seed_ssm_params``, unless ``params`` are given."""
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.serving.engine import make_engine
+    eng = make_engine(cfg, mode="auto", n_slots=ZAMBA_B, max_seq=max_seq,
+                      lam=8, seed=0, net=DeviceNetwork.sample(4, seed=1),
+                      use_kernel=use_kernel, params=params, device="cuda",
+                      layer_mode="columns")
+    if params is None:
+        seed_ssm_params(eng.params)
+    for p in traffic(n_requests, cfg.vocab_size, length=prompt):
+        eng.submit(p, max_new_tokens=max_new)
+    return eng
+
+
+def time_ssd_scan():
+    """Wrap the Mamba-2 block's ``ssd_scan`` in a host clock between device
+    syncs, for calls over more than one token (prefill); returns {"s":
+    seconds so far, "calls": count}.  Undo with ``untime_ssd_scan``."""
+    from repro_torch.models import mamba2
+    spent = {"s": 0.0, "calls": 0, "inner": mamba2.ssd_scan}
+
+    def timed(xh, *a):
+        if xh.shape[1] == 1:
+            return spent["inner"](xh, *a)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = spent["inner"](xh, *a)
+        torch.cuda.synchronize()
+        spent["s"] += time.monotonic() - t0
+        spent["calls"] += 1
+        return out
+
+    mamba2.ssd_scan = timed
+    return spent
+
+
+def untime_ssd_scan(spent):
+    from repro_torch.models import mamba2
+    mamba2.ssd_scan = spent["inner"]
+
+
+def graph_wave_step(model, params, prompt, max_seq):
+    """A lock-step batch of ``ZAMBA_B`` rows prefilled with ``prompt``
+    tokens, then its decode step captured in a CUDA graph and replayed
+    (``cuda_ms``): the device's own time for a step, host launches
+    removed (the model's own methods: the engine's hooks are not
+    captured).  Returns ms."""
+    cls = type(model)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, model.cfg.vocab_size, (ZAMBA_B, prompt),
+                           generator=gen, device="cuda")
+    state = model.init_decode_state(params, ZAMBA_B, max_seq)
+    _, state = cls.prefill(model, params, state, tokens)
+    nxt = tokens[:, -1].clone()
+    ms = cuda_ms([lambda: cls.decode_step(model, params, state, nxt)],
+                 reps=5, n=20)
+    del state
+    return ms
+
+
+def phase_zamba2_path():
+    """Serve 16 requests (1024-token prompts, 64 new tokens each, two
+    waves of 8) on the full-width zamba2-2.7b cut to 2 of its 9
+    supergroups (12 mamba layers, the shared attention block every 6)
+    through ``make_engine(mode="auto")``, which must pick the wave
+    scheduler.  Each wave's prefill runs the flash kernel once a
+    supergroup (B 8, 32 heads of 80), each decode step the resident
+    kernel once a supergroup (identity rows, G 1); the Mamba-2 layers run
+    plain torch.  A straggler at step 16 makes the controller plan head
+    moves, which the engine logs as not applied (a hybrid state has no
+    addressable KV cache) and which move nothing.  Returns the resident
+    and flash kernels' launches."""
+    from repro_torch.serving.engine import WaveServingEngine
+    cfg = zamba2_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    eng = zamba2_engine(cfg, use_kernel=True, n_requests=16,
+                        prompt=ZAMBA_PROMPT, max_new=ZAMBA_NEW)
+    check(isinstance(eng, WaveServingEngine),
+          f"make_engine picked {type(eng).__name__} for zamba2")
+    log("zamba2 weights: random from seed 0, then every mamba layer's "
+        "conv_b, A_log (spread over [-6, 3]), dt_bias and D set from seed 0 "
+        "(the init leaves them at 0, 0, 0 and 1); the \"columns\" layout: "
+        "no plan applies to a hybrid state, and a graph layout's intervals "
+        "cost hundreds of ms")
+    weight_gb = sum(t.numel() * t.element_size() for t in
+                    _leaves(eng.params)) / 1e9
+    shared = [t.clone() for t in _leaves(eng.params["shared"])]
+    fired = head_straggler(eng, 16)
+    seen = watch_logits(eng)
+    prefill = time_prefill(eng)
+    scan = time_ssd_scan()
+    reset_launches()
+    # the weights' init draws each stack in float32 before casting: its
+    # peak is logged apart from the run's
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        eng.run()
+    finally:
+        untime_ssd_scan(scan)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    resident = launches.pop("decode_attention_resident")
+    flash = launches.pop("flash_attention")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = sum(len(r.out_tokens) for r in eng.finished)
+    planned = [e for e in eng.migration_log if e["n_migrations"]]
+    hd = eng.model.hd
+    cache_mb = 2 * ZAMBA_GROUPS * ZAMBA_B * ZAMBA_MAX_SEQ * hd.KvE * hd.dh \
+        * 2 / 1e6
+    ssm_mb = ZAMBA_LAYERS * ZAMBA_B * 80 * 64 * 64 * 4 / 1e6
+    log(f"main path zamba2 (make_engine auto -> {type(eng).__name__}) bf16 "
+        f"zamba2-2.7b x{ZAMBA_LAYERS} mamba layers, {ZAMBA_GROUPS} "
+        f"supergroups: {len(eng.finished)} requests, {tokens} tokens, "
+        f"{eng.decode_steps} decode steps in {wall:.2f} s "
+        f"({tokens / wall:.1f} tok/s); decode step median "
+        f"{1e3 * float(np.median(eng.step_times)):.2f} ms; "
+        f"{len(eng.interval_times)} controller intervals, mean "
+        f"{1e3 * float(np.mean(eng.interval_times)):.1f} ms; straggler at "
+        f"step {fired}; decode_attention_resident {resident}, "
+        f"flash_attention {flash}, others {launches}")
+    log_split(eng, wall, prefill)
+    log(f"  controller: {sum(e['n_migrations'] for e in planned)} head "
+        f"migrations planned in {len(planned)} intervals (priced at "
+        f"{sum(e['mig_bytes'] for e in planned) / 1e6:.1f} MB, as the "
+        f"reference prices them), none applied ({NO_CACHE!r}): 0 bytes "
+        f"moved, the shared block's weights unchanged")
+    log(f"  prefill: the SSD scan's token loop {scan['s']:.2f} s of "
+        f"{prefill['s']:.2f} s ({scan['calls']} calls, "
+        f"{100 * scan['s'] / prefill['s']:.1f} %)")
+    log(f"  memory: weights {weight_gb:.2f} GB, attention cache "
+        f"{cache_mb:.1f} MB, SSM state {ssm_mb:.1f} MB a wave; peak "
+        f"allocated {peak_gb:.2f} GB serving ({init_gb:.2f} GB while the "
+        f"weights were drawn)")
+    check(len(eng.finished) == 16 and all(len(r.out_tokens) == ZAMBA_NEW
+                                          for r in eng.finished),
+          "zamba2: not every request finished with its tokens")
+    check(eng.decode_steps == 2 * (ZAMBA_NEW - 1),
+          f"zamba2: {eng.decode_steps} decode steps != 2 waves x "
+          f"{ZAMBA_NEW - 1}")
+    check(resident == eng.decode_steps * ZAMBA_GROUPS,
+          f"zamba2: resident launches {resident} != decode steps "
+          f"{eng.decode_steps} x {ZAMBA_GROUPS} supergroups")
+    check(flash == FLASH_LAUNCHES["zamba2"],
+          f"zamba2: flash launches {flash} != 2 waves x {ZAMBA_GROUPS}")
+    check(not any(launches.values()),
+          f"zamba2: another kernel launched: {launches}")
+    check(bool(planned), "zamba2: the controller planned no head move")
+    check(all(not e["applied"] for e in eng.migration_log)
+          and all(e["reason"] == NO_CACHE for e in planned),
+          "zamba2: an interval was logged as applied, or without the "
+          "reference's reason")
+    check(all(torch.equal(a, b) for a, b in
+              zip(_leaves(eng.params["shared"]), shared)),
+          "zamba2: a plan permuted the shared block's weights")
+    check(bool(seen["finite"].item()), "zamba2: non-finite logits")
+    del shared
+    graph_ms = graph_wave_step(eng.model, eng.params, ZAMBA_PROMPT,
+                               ZAMBA_MAX_SEQ)
+    eager_ms = 1e3 * float(np.median(eng.step_times))
+    log(f"  decode step as one CUDA graph: {graph_ms:.3f} ms of device work "
+        f"against the eager median {eager_ms:.2f} ms (the device idle "
+        f"{100 * (1 - graph_ms / eager_ms):.1f} % of an eager step)")
+    return resident, flash
+
+
+def phase_zamba2_full_depth():
+    """The whole 54-layer zamba2-2.7b (9 supergroups: one shared block over
+    nine cache slots), no engine: prefill 8 x 1024 tokens and decode 16
+    steps through both kernels.  Flash launches once a supergroup in the
+    prefill, the resident kernel once a supergroup a step; the logits are
+    finite."""
+    from repro_torch.models.api import build_model
+    cfg = zamba2_cfg(54)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, use_kernel=True, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    seed_ssm_params(params)
+    weight_gb = sum(t.numel() * t.element_size() for t in
+                    _leaves(params)) / 1e9
+    # the init draws each stack in float32 before casting (5.8 GB for the
+    # 54 layers' w_in): its peak is logged apart from the run's
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (ZAMBA_B, ZAMBA_PROMPT),
+                           generator=gen, device="cuda")
+    state = model.init_decode_state(params, ZAMBA_B, ZAMBA_MAX_SEQ)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, state = model.prefill(params, state, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    finite = torch.isfinite(logits).all()
+    steps = []
+    for _ in range(16):
+        t0 = time.monotonic()
+        logits, state = model.decode_step(params, state,
+                                          logits.argmax(-1))
+        torch.cuda.synchronize()
+        steps.append(time.monotonic() - t0)
+        finite &= torch.isfinite(logits).all()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"zamba2 full depth (54 mamba layers, {model.n_groups} "
+        f"supergroups, bf16): weights {weight_gb:.2f} GB, peak allocated "
+        f"{peak_gb:.2f} GB prefilling and decoding ({init_gb:.2f} GB while "
+        f"the weights were drawn); prefill {ZAMBA_B} x {ZAMBA_PROMPT} tokens "
+        f"{prefill_s:.2f} s; decode step median "
+        f"{1e3 * float(np.median(steps)):.2f} ms over 16 steps; "
+        f"flash_attention {launches['flash_attention']}, "
+        f"decode_attention_resident "
+        f"{launches['decode_attention_resident']}")
+    check(model.n_groups == 9, "zamba2: the full model is not 9 supergroups")
+    check(launches["flash_attention"] == model.n_groups
+          and launches["decode_attention_resident"] == 16 * model.n_groups,
+          f"zamba2 full depth: launches {launches} != 9 flash and 16 x 9 "
+          f"resident")
+    check(bool(finite.item()), "zamba2 full depth: non-finite logits")
+    del model, params, state, logits
+
+
+def phase_zamba2_stream_pair():
+    """float32, full widths, the reference's own hybrid reduction of depth
+    (4 mamba layers, the shared block every 2: 2 supergroups), seeded SSM
+    parameters: the zamba2 path with the kernels (flash's CUDA-core body
+    and the resident kernel's CUDA-core body at dh 80, G 1) and without,
+    from the same weights, 8 requests of 64 tokens and a straggler at step
+    8, must stream the same greedy tokens with the same logs (plans
+    logged, none applied)."""
+    from repro_torch.models.api import build_model
+    cfg = zamba2_cfg(4, shared_attn_every=2, dtype="float32",
+                     param_dtype="float32")
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    seed_ssm_params(params)
+    keys = ("step", "n_migrations", "mig_bytes", "applied", "reason")
+    runs = []
+    for use_kernel in (True, False):
+        eng = zamba2_engine(cfg, use_kernel=use_kernel, n_requests=8,
+                            prompt=64, max_new=24, params=params,
+                            max_seq=96)
+        head_straggler(eng, 8)
+        logits, inner = [], eng.model.decode_step
+
+        def decode_step(p, state, tokens, inner=inner, logits=logits):
+            out, state = inner(p, state, tokens)
+            logits.append(out.clone())
+            return out, state
+
+        eng.model.decode_step = decode_step
+        eng.run()
+        runs.append(({r.rid: r.out_tokens for r in eng.finished},
+                     [tuple(m[k] for k in keys) for m in eng.migration_log],
+                     logits))
+        del eng
+        release()
+    (s0, l0, g0), (s1, l1, g1) = runs
+    worst = max((a - b).abs().max().item() for a, b in zip(g0, g1))
+    log(f"f32 streams zamba2 kernels vs plain (4 mamba layers, 2 "
+        f"supergroups): {len(s0)} requests, max per-step logit difference "
+        f"{worst:.3e}, {sum(m[1] for m in l0)} head migrations planned "
+        f"(none applied), logs {'equal' if l0 == l1 else 'differ'}")
+    check(len(s0) == 8 and s0 == s1, "zamba2: greedy streams differ")
+    check(l0 == l1, "zamba2: migration logs differ")
+    check(any(m[1] and not m[3] and m[4] == NO_CACHE for m in l0),
+          "zamba2: no head move was planned and logged as not applied")
+    check(all(torch.isfinite(g).all().item() for g in g0 + g1),
+          "zamba2: non-finite logits")
+    del params
 
 
 # ---------------------------------------------------- the pipelined paths
@@ -2634,7 +3069,9 @@ def main():
     log(f"built {sorted(logs) or 'nothing (cached)'} in "
         f"{time.monotonic() - t0:.1f} s")
     log_ptxas(logs)
-    log(f"flash library SASS: {check_flash_sass()} HGMMA instructions")
+    n_hgmma, per_dh = check_flash_sass()
+    log(f"flash library SASS: {n_hgmma} HGMMA instructions; per head width "
+        f"of the wgmma body {per_dh}")
     records = kernel_phases()
     by_name = {r["name"]: r for r in records}
     release()
@@ -2661,11 +3098,18 @@ def main():
     # flash kernel's (glm4) records
     resident = {"dense": by_name["decode_attention_resident"]["launches"]}
     resident["vlm"], flash["vlm"] = phase_vlm_path()
+    release()
+    # and the zamba2 path's (the shared block's decode and prefill at dh 80)
+    resident["zamba2"], flash["zamba2"] = phase_zamba2_path()
     by_name["decode_attention_resident"]["launches"] = \
         sum(resident.values())
-    by_name["flash_attention"]["launches"] = flash["glm4"] + flash["vlm"]
+    by_name["flash_attention"]["launches"] = \
+        flash["glm4"] + flash["vlm"] + flash["zamba2"]
     log(f"decode_attention_resident launches in its record: {resident}; "
-        f"flash_attention: glm4 {flash['glm4']} + vlm {flash['vlm']}")
+        f"flash_attention: glm4 {flash['glm4']} + vlm {flash['vlm']} + "
+        f"zamba2 {flash['zamba2']}")
+    release()
+    phase_zamba2_full_depth()
     release()
     # the pipelined paths' launches (B = 4 rows a group) are logged; each
     # kernel's record keeps its sequential path's
@@ -2685,6 +3129,8 @@ def main():
     phase_musicgen_stream_pair()
     release()
     phase_vlm_stream_pair()
+    release()
+    phase_zamba2_stream_pair()
     release()
     phase_pipelined_stream_pairs()
     release()

@@ -8,11 +8,10 @@ from repro_torch.configs.base import (  # noqa: F401
     list_archs,
 )
 
-# The reference's architectures the port registers: the dense family
+# Register every architecture the reference registers: the dense family
 # (llama, GLM-4, Qwen1.5 and the paper's own model), the sliding-window MoE
-# family, the attention-free RWKV-6, the audio decoder musicgen-large and
-# the VLM llama-3.2-vision.  The zamba2 config waits for its model family
-# (ROADMAP Queue 1 #14).
+# family, the attention-free RWKV-6, the audio decoder musicgen-large, the
+# VLM llama-3.2-vision and the Mamba-2 hybrid zamba2.
 from repro_torch.configs import (  # noqa: F401
     glm4_9b,
     llama3_2_vision_11b,
@@ -24,9 +23,10 @@ from repro_torch.configs import (  # noqa: F401
     qwen1_5_110b,
     qwen1_5_32b,
     rwkv6_7b,
+    zamba2_2_7b,
 )
 
-# the reference's assigned architectures that the port serves
+# the reference's assigned architectures, all of which the port serves
 ASSIGNED_ARCHS = (
     "qwen1.5-32b",
     "qwen1.5-110b",
@@ -37,4 +37,5 @@ ASSIGNED_ARCHS = (
     "mixtral-8x22b",
     "mixtral-8x7b",
     "musicgen-large",
+    "zamba2-2.7b",
 )

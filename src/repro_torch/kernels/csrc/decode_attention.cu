@@ -54,6 +54,13 @@
 //   lane layout, the block's subgroups in 1, 2 or 4 teams of 4 rows, every
 //   team scoring every slot).  Both keep f32 sums and an online softmax in
 //   log2 units.
+// - Head widths 16, 32, 64, 80 (zamba2's shared attention) and 128.  At
+//   dh 80 the tensor-core body loads 8 slots of K or V as two ldmatrix.x4
+//   (64 columns) and one .x2 (the last 16); the CUDA-core body gives a slot
+//   16 lanes of 8 elements, as at dh 128, the top 6 holding zeros: 10
+//   lanes would break the xor reductions over a slot's lanes, and 5
+//   elements a lane would need 10-byte loads.  The ring kernel shares that
+//   lane layout.
 // - Validity is a length prefix: the wrapper picks `split` from the cache
 //   extent (about 4 blocks an SM; it never reads `lengths`), a split that
 //   starts at or past the row's length exits at once, and the merge reads
@@ -190,7 +197,7 @@ struct Buffers {
 // - Scores stay on the CUDA cores: a subgroup of dh / 8 lanes owns a slot,
 //   each lane 8 contiguous head-dim elements (one 16-byte shared load per
 //   K or V row at bf16), so a score needs log2(dh / 8) shuffles and every
-//   lane is busy at every dh.  Each subgroup keeps its own (m, l, acc) in
+//   lane is busy at dh 16 to 128 (dh 80: 16 lanes, the top 6 idle).  Each subgroup keeps its own (m, l, acc) in
 //   log2 units (the scale and log2(e) are folded into q).
 // - Each split writes its (m, l, acc[dh]) per row in float32 to scratch
 //   the wrapper allocates; `split_merge_kernel` merges the splits per
@@ -211,7 +218,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DH>
 struct RingShape {
-  static constexpr int LPS = DH / kRingEPL;        // lanes per slot, 2..16
+  static constexpr int LANES = DH / kRingEPL;      // lanes holding a slot
+  // lanes per slot: LANES rounded up to a power of two, so the xor
+  // shuffles reduce exactly one slot's lanes (2..16; at dh 80 the top 6 of
+  // 16 hold zeros: 5 elements a lane would need 10-byte loads)
+  static constexpr int LPS = LANES <= 2   ? 2
+                             : LANES <= 4 ? 4
+                             : LANES <= 8 ? 8
+                                          : 16;
+  static_assert(DH % kRingEPL == 0 && LANES <= 16, "head width");
   static constexpr int SPW = 32 / LPS;             // slots a warp scores
   static constexpr int NSG = kRingWarps * SPW;     // slot subgroups
   static constexpr int U = 2;                      // slots per subgroup step
@@ -337,6 +352,7 @@ ring_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int NS = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31;
   const int li = lane % LPS;                            // lane in subgroup
+  const bool holds = li < S::LANES;  // dh 80: lanes 10..15 hold zeros
   const int sg = (tid >> 5) * S::SPW + lane / LPS;      // subgroup
   const int t_begin = split_id * split;
   const int t_end = min(W, t_begin + split);
@@ -393,7 +409,8 @@ ring_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
       const E* qp = q + b * q_sb + (g < ng ? sel_row[g] : 0) * q_sh;
 #pragma unroll
       for (int e = 0; e < kRingEPL; ++e) {
-        qr[g][e] = g < ng ? to_f32(qp[li * kRingEPL + e]) * sl2 : 0.f;
+        qr[g][e] = g < ng && holds ? to_f32(qp[li * kRingEPL + e]) * sl2
+                                   : 0.f;
         acc[g][e] = 0.f;
       }
       m[g] = kNegInf;
@@ -424,8 +441,13 @@ ring_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
         for (int u = 0; u < U; ++u) {
           const int c = c0 + u;
           ok[u] = t0 + c < t_end && in_window(pt[c], length, W);
-          load8(kt + c * DH + li * kRingEPL, kr[u]);
-          load8(vt + c * DH + li * kRingEPL, vr[u]);
+          if (holds) {
+            load8(kt + c * DH + li * kRingEPL, kr[u]);
+            load8(vt + c * DH + li * kRingEPL, vr[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kRingEPL; ++e) kr[u][e] = vr[u][e] = 0.f;
+          }
 #pragma unroll
           for (int g = 0; g < kRingRows; ++g) {
             float dot = 0.f;
@@ -480,11 +502,13 @@ ring_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
         sm_l[sg * kRingRows + g] = l[g];
       }
     }
+    if (holds) {
 #pragma unroll
-    for (int g = 0; g < kRingRows; ++g) {
+      for (int g = 0; g < kRingRows; ++g) {
 #pragma unroll
-      for (int e = 0; e < kRingEPL; ++e)
-        sm_acc[(sg * kRingRows + g) * DH + li * kRingEPL + e] = acc[g][e];
+        for (int e = 0; e < kRingEPL; ++e)
+          sm_acc[(sg * kRingRows + g) * DH + li * kRingEPL + e] = acc[g][e];
+      }
     }
     __syncthreads();
     for (int e = tid; e < ng * DH; e += kRingThreads) {
@@ -679,6 +703,9 @@ __device__ __forceinline__ void split_stage(
   constexpr int VE = 16 / static_cast<int>(sizeof(E));  // elements a copy
   constexpr int CH = DH / VE;                            // copies a row
   constexpr int RS = kRingThreads / CH;                  // rows a round
+  // threads past RS whole rows of copiers (dh 80: CH 5, 10 or 20) copy
+  // nothing
+  const bool copier = tid < RS * CH;
   const int c0 = tid / CH, d = (tid % CH) * VE;
   int lp = 0, off = 0;  // PAGED: the logical page and offset of row c
   if (Src::kPaged) {
@@ -688,7 +715,7 @@ __device__ __forceinline__ void split_stage(
 #pragma unroll (Src::kPaged ? TS : 1)
   for (int i = 0; i < (TS + RS - 1) / RS; ++i) {
     const int c = c0 + i * RS;
-    if (c >= TS) break;  // RS > TS: this thread has no row
+    if (c >= TS || !copier) break;  // RS > TS: this thread has no row
     if (Src::kPaged && i > 0) {
       off += RS;
       while (off >= src.T_len) {
@@ -758,6 +785,7 @@ decode_split_kernel(const QT* __restrict__ q,
   const int NS = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31;
   const int li = lane % LPS;                            // lane in subgroup
+  const bool holds = li < S::LANES;  // dh 80: lanes 10..15 hold zeros
   const int sg = (tid >> 5) * S::SPW + lane / LPS;      // subgroup
   const E* kb = k + src.row(src.k_sb, src.k_sh, b, kvh);
   const E* vb = v + src.row(src.v_sb, src.v_sh, b, kvh);
@@ -800,7 +828,8 @@ decode_split_kernel(const QT* __restrict__ q,
       const QT* qp = q + b * q_sb + (i < ng ? sel_row[i] : 0) * q_sh;
 #pragma unroll
       for (int e = 0; e < kRingEPL; ++e) {
-        qr[g][e] = i < ng ? to_f32(qp[li * kRingEPL + e]) * sl2 : 0.f;
+        qr[g][e] = i < ng && holds ? to_f32(qp[li * kRingEPL + e]) * sl2
+                                   : 0.f;
         acc[g][e] = 0.f;
       }
       m[g] = kNegInf;
@@ -832,8 +861,13 @@ decode_split_kernel(const QT* __restrict__ q,
         for (int u = 0; u < U; ++u) {
           const int c = c0 + u;
           ok[u] = t0 + c < t_end;
-          load8(kt + c * DH + li * kRingEPL, kr[u]);
-          load8(vt + c * DH + li * kRingEPL, vr[u]);
+          if (holds) {
+            load8(kt + c * DH + li * kRingEPL, kr[u]);
+            load8(vt + c * DH + li * kRingEPL, vr[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kRingEPL; ++e) kr[u][e] = vr[u][e] = 0.f;
+          }
           if (Src::kQuant) {
             ksc[u] = kst[c];
             vsc[u] = vst[c];
@@ -894,11 +928,13 @@ decode_split_kernel(const QT* __restrict__ q,
         sm_l[sg * kRingRows + g] = l[g];
       }
     }
+    if (holds) {
 #pragma unroll
-    for (int g = 0; g < kRingRows; ++g) {
+      for (int g = 0; g < kRingRows; ++g) {
 #pragma unroll
-      for (int e = 0; e < kRingEPL; ++e)
-        sm_acc[(sg * kRingRows + g) * DH + li * kRingEPL + e] = acc[g][e];
+        for (int e = 0; e < kRingEPL; ++e)
+          sm_acc[(sg * kRingRows + g) * DH + li * kRingEPL + e] = acc[g][e];
+      }
     }
     __syncthreads();
     for (int e = tid; e < ng * DH; e += kRingThreads) {
@@ -1020,8 +1056,10 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         int split, int64_t q_sb, int64_t q_sh, float sl2) {
   using E = __nv_bfloat16;
   constexpr int TS = kMmaTile, ROW = DH + kMmaPad;
-  constexpr int NX = DH >= 32 ? 4 : 2;   // 8x8 matrices an ldmatrix
+  constexpr int N4 = DH / 32;            // ldmatrix.x4 loads of 32 columns
+  constexpr bool TAIL = DH % 32 != 0;    // and an .x2 of the last 16 (16, 80)
   constexpr int NT = DH / 8;             // PV n-tiles of 8 head-dim columns
+  static_assert(DH % 16 == 0, "head width");
   extern __shared__ __align__(16) unsigned char smem[];
   E* k_tile = reinterpret_cast<E*>(smem);               // [stage][TS][ROW]
   E* v_tile = k_tile + kMmaStages * TS * ROW;           // [stage][TS][ROW]
@@ -1098,19 +1136,24 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
       __syncthreads();
       const int st = j % kMmaStages;
       // this warp's 8 slots of the tile; lane i addresses row i % 8 of
-      // matrix i / 8 (of NX)
-      const E* kt = k_tile + (st * TS + warp * 8 + (lane & 7)) * ROW +
-                    8 * ((lane >> 3) % NX);
-      const E* vt = v_tile + (st * TS + warp * 8 + (lane & 7)) * ROW +
-                    8 * ((lane >> 3) % NX);
+      // matrix i / 8: columns x4 + 32 c of an x4 load, x2 + 32 N4 of the
+      // tail's x2 load
+      const int row = (st * TS + warp * 8 + (lane & 7)) * ROW;
+      const int x4 = 8 * ((lane >> 3) & 3), x2 = 8 * ((lane >> 3) & 1);
+      const E* kt = k_tile + row;
+      const E* vt = v_tile + row;
       float s[4] = {0.f, 0.f, 0.f, 0.f};   // S[g | g + 8][slot 2 tq | + 1]
 #pragma unroll
-      for (int c = 0; c < DH / (8 * NX); ++c) {
-        uint32_t kf[NX];
-        ldsm<NX, false>(kf, kt + 8 * NX * c);
-#pragma unroll
-        for (int h = 0; h < NX / 2; ++h)
-          mma_16816(s, qa[c * NX / 2 + h], kf[2 * h], kf[2 * h + 1]);
+      for (int c = 0; c < N4; ++c) {
+        uint32_t kf[4];
+        ldsm<4, false>(kf, kt + 32 * c + x4);
+        mma_16816(s, qa[2 * c], kf[0], kf[1]);
+        mma_16816(s, qa[2 * c + 1], kf[2], kf[3]);
+      }
+      if constexpr (TAIL) {
+        uint32_t kf[2];
+        ldsm<2, false>(kf, kt + 32 * N4 + x2);
+        mma_16816(s, qa[2 * N4], kf[0], kf[1]);
       }
       const int slot = t_begin + j * TS + warp * 8 + 2 * tq;
       const bool ok0 = slot < t_end, ok1 = slot + 1 < t_end;
@@ -1148,11 +1191,17 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
       l[1] += p2 + p3;
       const uint32_t pa0 = pack_bf16(p0, p1), pa1 = pack_bf16(p2, p3);
 #pragma unroll
-      for (int c = 0; c < DH / (8 * NX); ++c) {
-        uint32_t vf[NX];
-        ldsm<NX, true>(vf, vt + 8 * NX * c);
+      for (int c = 0; c < N4; ++c) {
+        uint32_t vf[4];
+        ldsm<4, true>(vf, vt + 32 * c + x4);
 #pragma unroll
-        for (int h = 0; h < NX; ++h) mma_1688(o[c * NX + h], pa0, pa1, vf[h]);
+        for (int h = 0; h < 4; ++h) mma_1688(o[4 * c + h], pa0, pa1, vf[h]);
+      }
+      if constexpr (TAIL) {
+        uint32_t vf[2];
+        ldsm<2, true>(vf, vt + 32 * N4 + x2);
+        mma_1688(o[4 * N4], pa0, pa1, vf[0]);
+        mma_1688(o[4 * N4 + 1], pa0, pa1, vf[1]);
       }
       __syncthreads();  // the stage is free for the load after next
     }
@@ -1283,6 +1332,7 @@ int launch_split(const Common& c, const Buffers& buf, const Src& src,
     case 16: return launch_split_dh<QT, Src, 16>(c, buf, src, sp);
     case 32: return launch_split_dh<QT, Src, 32>(c, buf, src, sp);
     case 64: return launch_split_dh<QT, Src, 64>(c, buf, src, sp);
+    case 80: return launch_split_dh<QT, Src, 80>(c, buf, src, sp);
     case 128: return launch_split_dh<QT, Src, 128>(c, buf, src, sp);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1438,6 +1488,7 @@ extern "C" int decode_attention_ring_resident_launch(
     case 16: REPRO_RING(QT, 16);     \
     case 32: REPRO_RING(QT, 32);     \
     case 64: REPRO_RING(QT, 64);     \
+    case 80: REPRO_RING(QT, 80);     \
     case 128: REPRO_RING(QT, 128);   \
   }
   if (dtype == 0) REPRO_RING_DH(float)

@@ -32,9 +32,11 @@
 // - bfloat16 (every main path; `flash_wgmma_kernel`): a block owns 128 q
 //   rows as two consumer warpgroups of 64 and a producer warpgroup.  One
 //   producer thread keeps TMA loads of 128-row K and V tiles in flight
-//   through two shared-memory stages (swizzled in rows of 128 bytes at dh
-//   64 and 128, of the whole head, 32 or 64 bytes, at dh 16 and 32;
-//   `mbarrier`s for full and empty stages) and `setmaxnreg` hands the
+//   through two shared-memory stages (swizzled in panels of 128-byte rows
+//   at dh 64 and 128, of the whole head, 32 or 64 bytes, at dh 16 and 32,
+//   and in five panels of 32-byte rows at dh 80, whose 160-byte rows are
+//   no multiple of a 64- or 128-byte swizzle; `mbarrier`s for full and
+//   empty stages) and `setmaxnreg` hands the
 //   producer's registers to the consumers.  S = Q K^T runs as wgmma
 //   m64n128k16 from shared memory (Q and K K-major); the online softmax
 //   stays in registers; O += P V runs as wgmma with P as the register A
@@ -189,11 +191,13 @@ constexpr int kWgBK = 128;      // K/V rows per tile
 constexpr int kWgStages = 2;    // K/V tiles in flight
 constexpr int kWgThreads = 384; // warpgroups 0, 1 consume; 2 produces
 
-// Bytes of a swizzled shared-memory row: 64 values (128-byte swizzle) at
-// dh 64 and 128, the whole head at dh 16 and 32 (32- and 64-byte swizzle).
-template <int DH>
-__host__ __device__ constexpr int panel_bytes() {
-  return DH >= 64 ? 128 : 2 * DH;
+// Bytes of a swizzled shared-memory row of one panel: 64 values (128-byte
+// swizzle) at dh 64 and 128, the whole head at dh 16 and 32 (32- and
+// 64-byte swizzle), 16 values (32-byte swizzle) at dh 80: five panels, each
+// one k-step of Q K^T and 16 columns of P V, so one descriptor layout (and
+// the same strides as dh 128's two panels) serves every panel.
+__host__ __device__ constexpr int panel_bytes(int dh) {
+  return dh % 64 == 0 ? 128 : dh == 32 ? 64 : 32;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -332,6 +336,28 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// d (64 x 80, f32) += A . B, as wgmma_rs_n128 (dh 80: B is five panels of
+// 16 columns, LBO apart)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39},"
+      " {%40, %41, %42, %43}, %44, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 // d (64 x 64, f32) += A . B, A (bf16) from registers, B from shared
 // memory MN-major (transposed)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -410,7 +436,7 @@ __device__ __forceinline__ void wg_tile(const Args& a, uint32_t qs,
                                         int k0, int ra, int rb, int lane,
                                         float sl2) {
   constexpr int NJ = kWgBK / 8;
-  constexpr int PB = panel_bytes<DH>(), SPP = PB / 32;  // k-steps a panel
+  constexpr int PB = panel_bytes(DH), SPP = PB / 32;  // k-steps a panel
   const int t4 = lane & 3;
   float s[kWgBK / 2];
   wgmma_fence();
@@ -490,6 +516,8 @@ __device__ __forceinline__ void wg_tile(const Args& a, uint32_t qs,
     const uint64_t dv = desc<PB>(vs + kk * 16 * PB, kWgBK * PB, 8 * PB);
     if constexpr (DH == 128)
       wgmma_rs_n128(o, p[kk], dv);
+    else if constexpr (DH == 80)
+      wgmma_rs_n80(o, p[kk], dv);
     else if constexpr (DH == 64)
       wgmma_rs_n64(o, p[kk], dv);
     else if constexpr (DH == 32)
@@ -519,7 +547,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, const Args a) {
-  constexpr int PB = panel_bytes<DH>(), PV = PB / 2;
+  constexpr int PB = panel_bytes(DH), PV = PB / 2;
   constexpr int NP = DH / PV;  // panels of a row
   constexpr int Q_BYTES = kWgBQ * DH * 2, TILE = kWgBK * DH * 2;
   extern __shared__ unsigned char smem_raw[];
@@ -657,7 +685,7 @@ bool tensor_map(CUtensorMap* map, const void* base, int DH, int S, int n_h,
                               static_cast<cuuint64_t>(n_b)};
   const cuuint64_t strides[3] = {bytes(st, S), bytes(sh, n_h),
                                  bytes(sb, n_b)};
-  const int pv = DH >= 64 ? 64 : DH;  // panel_bytes<DH>() / 2
+  const int pv = panel_bytes(DH) / 2;
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(pv),
                              static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
@@ -701,7 +729,7 @@ int launch_simt(const Args& a, dim3 grid, cudaStream_t s) {
 // Plain C entry point bound with ctypes.  Pointers are device pointers;
 // strides are in elements, with a unit stride on dh.  q: (B, H, Sq, dh);
 // k, v: (B, KvE, Skv, dh) with H % KvE == 0; o: (B, H, Sq, dh); all of
-// dtype 0 = float32 or 1 = bfloat16, dh in {16, 32, 64, 128}; q/k/v bases
+// dtype 0 = float32 or 1 = bfloat16, dh in {16, 32, 64, 80, 128}; q/k/v bases
 // 16-byte aligned and their strides multiples of 8 values.  Launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after
 // the launch (0 = success).
@@ -725,6 +753,7 @@ extern "C" int flash_attention_launch(
       case 16: return launch_wgmma<16>(a, B, KvE, s);
       case 32: return launch_wgmma<32>(a, B, KvE, s);
       case 64: return launch_wgmma<64>(a, B, KvE, s);
+      case 80: return launch_wgmma<80>(a, B, KvE, s);
       case 128: return launch_wgmma<128>(a, B, KvE, s);
     }
   } else if (dtype == 0) {
@@ -732,6 +761,7 @@ extern "C" int flash_attention_launch(
       case 16: return launch_simt<16>(a, grid, s);
       case 32: return launch_simt<32>(a, grid, s);
       case 64: return launch_simt<64>(a, grid, s);
+      case 80: return launch_simt<80>(a, grid, s);
       case 128: return launch_simt<128>(a, grid, s);
     }
   }

@@ -27,8 +27,8 @@ Each launches the kernel for CUDA tensors, counts the launch in its
 ``.launches``, and runs its ``*_plain`` version — the same function in
 plain PyTorch — only for tensors on the CPU.  There is no fallback: a
 CUDA tensor the kernel does not take (a dtype it lacks, a dh outside
-``SUPPORTED_DH``, values without 16-byte aligned bases and strides)
-raises ``ValueError``.
+``SUPPORTED_DH`` — 16, 32, 64, zamba2's 80 and 128 — values without
+16-byte aligned bases and strides) raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.kernels import build
 
-SUPPORTED_DH = (16, 32, 64, 128)
+SUPPORTED_DH = (16, 32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -14,7 +14,8 @@ keeps only j > i - window.  Without ``causal`` every column is attended and
 ``flash_attention`` launches the kernel for CUDA tensors and counts the
 launch in its ``.launches``; it runs ``flash_attention_plain`` — the model's
 own prefill arithmetic on these positions — only for tensors on the CPU.
-There is no fallback: a CUDA tensor the kernel does not take raises.
+There is no fallback: a CUDA tensor the kernel does not take (a head width
+outside ``SUPPORTED_DH``: 16, 32, 64, zamba2's 80 and 128) raises.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.attention_plain import attend, causal_mask
 
-SUPPORTED_DH = (16, 32, 64, 128)
+SUPPORTED_DH = (16, 32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 

@@ -21,6 +21,9 @@ counterpart of the JAX package's ``launch/serve.py``.
       --arch llama-3.2-vision-11b --layers 10 --slots 8 --requests 16 \
       --prompt-len 512 --mixed-lengths --tokens 64 --img-tokens 1601 \
       --use-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --layers 12 --slots 8 --requests 16 --prompt-len 1024 --tokens 64 \
+      --use-kernel
 
 The default ``--arch`` is musicgen-large, as in the reference.  Runs on
 the GPU unless ``--device cpu`` is given (``--reduced`` shrinks the widths
@@ -37,7 +40,11 @@ groups (K divides ``--slots``) and ``--search bottleneck`` plans the
 migrations with the bottleneck-targeted search (with K > 1).  The VLM
 (llama-3.2-vision-11b; ``--layers`` a multiple of 5) holds an image buffer
 of ``--img-tokens`` rows a slot, and its requests carry seeded images of
-all, half and none of those rows, in turn.
+all, half and none of those rows, in turn.  The Zamba2 hybrid
+(zamba2-2.7b; ``--layers`` a multiple of its supergroup of 6, or of 2 with
+``--reduced``, which keeps the reference's 4 layers with a shared block
+every 2) always takes the wave engine, and its head plans are logged as not
+applied.
 """
 from __future__ import annotations
 
@@ -56,11 +63,14 @@ REDUCED_WINDOW = 16
 
 def reduced_for_cpu(cfg, d_model: int = 256):
     """CPU-sized widths (the reference's ``launch.train.reduced_for_cpu``:
-    4 experts for MoE), plus a ``REDUCED_WINDOW``-token sliding window
-    for windowed archs."""
+    4 experts for MoE; a hybrid keeps 4 layers with a shared block every
+    2), plus a ``REDUCED_WINDOW``-token sliding window for windowed
+    archs."""
     over = dict(d_model=d_model, d_ff=d_model * 4, vocab_size=4096,
                 n_heads=8, n_kv_heads=min(8, cfg.n_kv_heads or 8),
                 d_head=d_model // 8, dtype="float32", param_dtype="float32")
+    if cfg.family == "hybrid":
+        over.update(n_layers=4, shared_attn_every=2)
     if cfg.is_moe:
         over["n_experts"] = 4
     if cfg.sliding_window:

@@ -1,7 +1,7 @@
 """Model API: ``build_model(cfg, use_kernel=..., device=...)`` — counterpart
-of the JAX package's ``models/api.py`` for the dense, MoE, audio, VLM and
-RWKV-6 (``ssm``) families — and ``batch_extras``, the stubbed frontend
-inputs.
+of the JAX package's ``models/api.py`` for every family the reference
+builds (dense, MoE, audio, VLM, RWKV-6 ``ssm`` and the Zamba2 ``hybrid``)
+— and ``batch_extras``, the stubbed frontend inputs.
 
 The returned model exposes ``init(generator)``, ``forward`` and the
 lock-step API of the wave scheduler (``init_decode_state``, ``prefill``,
@@ -18,11 +18,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.llama3_2_vision_11b import N_IMAGE_TOKENS
-from repro_torch.models.layers import unsupported
 from repro_torch.models.rwkv6 import RWKV6Model
 from repro_torch.models.transformer import TransformerLM
-
-_FAMILY_ITEMS = {"hybrid": 14}
+from repro_torch.models.zamba2 import Zamba2Model
 
 
 def resolve_device(device=None) -> torch.device:
@@ -40,8 +38,9 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None):
     if cfg.family == "ssm":
         return RWKV6Model(cfg, use_kernel=use_kernel,
                           device=resolve_device(device))
-    if cfg.family in _FAMILY_ITEMS:
-        unsupported(f"the {cfg.family!r} family", _FAMILY_ITEMS[cfg.family])
+    if cfg.family == "hybrid":
+        return Zamba2Model(cfg, use_kernel=use_kernel,
+                           device=resolve_device(device))
     return TransformerLM(cfg, use_kernel=use_kernel,
                          device=resolve_device(device))
 

@@ -342,21 +342,25 @@ class _EngineBase:
         have no leading layer axis, so, as in the reference, only a plan
         equal for every layer applies there: one permutation of every self
         and cross layer's weights, the cache and the image K/V.  Returns
-        (applied, reason): a model without attention heads, or a VLM given
-        a per-layer plan, applies nothing, and says so.
+        (applied, reason): a model without attention heads, a state whose
+        cache has no "k" (zamba2's {"attn_cache", "mamba"}), or a VLM given
+        a per-layer plan, applies nothing, permutes nothing, and says so.
 
         ``permute_params=False`` skips the shared weights: an engine with
         one decode state per in-flight group permutes them once a plan."""
         hd = getattr(self.model, "hd", None)
         if hd is None:
             return False, "model has no addressable attention heads"
+        cache = state.get("cache")
+        if not (isinstance(cache, dict) and "k" in cache
+                and cache["k"].dim() >= 4):
+            return False, "state has no addressable KV cache"
         G = hd.Hp // hd.Kp
         rel = relative_perms(plan["prev_perms"], plan["perms"])
         if getattr(self.model, "is_vlm", False):
             return self._migrate_vlm_state(state, rel, G, permute_params)
         if rel.shape[0] != self.cfg.n_layers:
             rel = np.repeat(rel, self.cfg.n_layers, axis=0)
-        cache = state["cache"]
         if permute_params:
             self.params = permute_model_heads_layers(self.params, rel,
                                                      group_size=G)
@@ -1069,8 +1073,9 @@ class WaveServingEngine(_EngineBase):
     form a wave, prefill as one batch and decode in lock-step (one int
     position for the batch) until every request of the wave finishes;
     slots free only when the wave drains.  It serves sliding-window archs
-    over their ring cache, the attention-free RWKV-6 (whose head plans
-    are logged as not applied), and any other arch the port builds."""
+    over their ring cache, the attention-free RWKV-6 and the Zamba2
+    hybrid (whose head plans are logged as not applied), and any other
+    arch the port builds."""
 
     def _next_wave(self) -> List[Request]:
         """Up to n_slots queued requests with equal prompt length."""

@@ -46,7 +46,7 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 def test_kernel_matches_plain_version(cuda, dtype, dh):
     B, H, KvE, T = 4, 8, 2, 80
     rng = np.random.default_rng(dh)
@@ -103,7 +103,7 @@ def _paged_inputs(cuda, dtype, dh, P, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("dh", [16, 64, 80, 128])
 def test_int8_kernel_matches_plain_version(cuda, dtype, dh):
     from repro_torch.kernels.decode_attention import (
         decode_attention_int8_resident, decode_attention_int8_resident_plain)
@@ -256,7 +256,7 @@ def _check_rows_case(kern, plain, args, rng, H, G, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("G", [1, 4, 16])
 @pytest.mark.parametrize("case", ["permuted", "partial", "nan_rows"])
 def test_resident_kernel_splits(cuda, dtype, dh, G, case):
@@ -338,7 +338,7 @@ def test_cross_attention_block_kernel_equals_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("G", [1, 4, 16])
 def test_int8_kernel_splits(cuda, dtype, dh, G):
     """int8 K/V with scales, T 1100 over several splits, lengths on the
@@ -388,7 +388,7 @@ def _paged_split_args(cuda, dtype, dh, P, *, quant=True, B=6, H=16, KvE=4,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("G", [1, 4, 16])
 @pytest.mark.parametrize("P", [64, 8, 6])
 @pytest.mark.parametrize("case", ["permuted", "partial", "nan_rows"])
@@ -406,7 +406,7 @@ def test_paged_kernel_splits(cuda, dtype, dh, G, P, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("P", [64, 8, 6])
 def test_int8_paged_kernel_splits(cuda, dtype, dh, P):
     """Pages of 64, 8 and 6 positions (6: tiles and splits cross pages)
@@ -443,7 +443,7 @@ def _nan_in_the_last_split(kern, plain, args, rng):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 def test_int8_paged_kernel_nan_in_the_last_split(cuda, dtype, dh):
     """See :func:`_nan_in_the_last_split`: int8 pages of 8."""
     from repro_torch.kernels import decode_attention as da
@@ -454,7 +454,7 @@ def test_int8_paged_kernel_nan_in_the_last_split(cuda, dtype, dh):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 def test_paged_kernel_nan_in_the_last_split(cuda, dtype, dh):
     """See :func:`_nan_in_the_last_split`: pages of 8 in q's dtype."""
     from repro_torch.kernels import decode_attention as da
@@ -466,7 +466,7 @@ def test_paged_kernel_nan_in_the_last_split(cuda, dtype, dh):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("kind", ["resident", "int8", "paged", "int8_paged"])
 def test_split_kernels_refuse_unaligned_values(cuda, kind, dtype, dh):
     """Values whose position stride (dh + 1 values) is no whole number of
@@ -683,7 +683,7 @@ def test_ring_kernel_edges(cuda, dtype, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 def test_ring_kernel_head_widths(cuda, dtype, dh):
     """Every head width the wrapper takes, on a wrapped ring of 600 slots
     in several splits and a group-permuted row order."""
@@ -895,13 +895,13 @@ def _flash_check(cuda, dtype, causal, window, **shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("mask", ["causal", "window", "full"])
 def test_flash_kernel_matches_plain_version(cuda, dtype, dh, mask):
     """Causal, windowed (48) and non-causal attention over 200 positions
     at every head width: a ragged last tile for both bodies (bf16 wgmma:
-    128-row q and K/V tiles, 32-, 64- and 128-byte swizzles; f32: 64-row
-    q tiles, 32-row K/V tiles)."""
+    128-row q and K/V tiles, 32-, 64- and 128-byte swizzles, dh 80 in
+    five 32-byte panels; f32: 64-row q tiles, 32-row K/V tiles)."""
     _flash_check(cuda, dtype, mask != "full", 48 if mask == "window" else 0,
                  dh=dh, seed=dh)
 
@@ -909,12 +909,14 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, dh, mask):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["short_q_causal", "short_q_full",
                                   "ragged_1000", "glm_groups",
-                                  "musicgen_mha", "qwen_mha"])
+                                  "musicgen_mha", "qwen_mha", "zamba2_mha",
+                                  "zamba2_short_q", "zamba2_short_q_full"])
 def test_flash_kernel_shapes(cuda, dtype, case):
     """Sq < Skv (70 over 300; the causal mask aligned at the top left), a
     ragged S = 1000 under a window of 300, GLM-4's 16 query heads per KV
     group at dh 128, and MHA (one query head per KV head): musicgen-large's
-    32 heads at dh 64 and qwen1.5-32b's 40 at dh 128."""
+    32 heads at dh 64, qwen1.5-32b's 40 at dh 128 and zamba2's 32 at dh 80
+    (also with Sq < Skv, causal and not)."""
     shape, causal, window = {
         "short_q_causal": (dict(Sq=70, Skv=300), True, 0),
         "short_q_full": (dict(Sq=70, Skv=300), False, 0),
@@ -926,6 +928,12 @@ def test_flash_kernel_shapes(cuda, dtype, case):
                          True, 0),
         "qwen_mha": (dict(B=1, H=40, KvE=40, Sq=333, Skv=333, dh=128),
                      True, 0),
+        "zamba2_mha": (dict(B=2, H=32, KvE=32, Sq=333, Skv=333, dh=80),
+                       True, 0),
+        "zamba2_short_q": (dict(B=1, H=8, KvE=8, Sq=70, Skv=300, dh=80),
+                           True, 0),
+        "zamba2_short_q_full": (dict(B=1, H=8, KvE=8, Sq=70, Skv=300,
+                                     dh=80), False, 0),
     }[case]
     _flash_check(cuda, dtype, causal, window, seed=len(case), **shape)
 
@@ -1165,3 +1173,86 @@ def test_async_drain_on_the_card_leaves_no_live_page(cuda):
     assert sync["n_finished"] == len(reqs)
     eng.allocator.check_invariants()
     assert eng.allocator.live_pages == 0 and eng.allocator.reserved_pages == 0
+
+
+# ------------------------------------------------------- head width 80
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_width_80_reaches_the_cuda_library(cuda, dtype, monkeypatch):
+    """At dh 80 on the card every decode entry point and flash launch
+    their CUDA kernels: with each plain version replaced by one that
+    raises, the wrappers still return (and count a launch), and the
+    results match the real plain versions."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import _q8 as q8
+    plain = {n: getattr(da, n + "_plain") for n in (
+        "decode_attention_resident", "decode_attention_int8_resident",
+        "decode_attention_paged_resident",
+        "decode_attention_int8_paged_resident",
+        "decode_attention_ring_resident")}
+    plain["flash_attention"] = fa.flash_attention_plain
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran for CUDA tensors")
+
+    for name in plain:
+        if name == "flash_attention":
+            monkeypatch.setattr(fa, "flash_attention_plain", refuse)
+        else:
+            monkeypatch.setattr(da, name + "_plain", refuse)
+    rng = np.random.default_rng(80)
+    B, H, T, P, dh = 2, 4, 96, 16, 80
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32)).to(
+        cuda, dtype)
+    cache = torch.from_numpy(rng.standard_normal((2, B, T, H, dh),
+                                                 np.float32)).to(cuda)
+    lens = torch.tensor([T, 37], dtype=torch.int32, device=cuda)
+    rows = torch.arange(H, dtype=torch.int32, device=cuda)
+    kc, vc = cache[0].to(dtype), cache[1].to(dtype)
+    (kq, ks), (vq, vs) = q8(cache[0]), q8(cache[1])
+    pmap = torch.arange(B * (T // P), dtype=torch.int32,
+                        device=cuda).reshape(B, T // P)
+
+    def pages(t):   # (B, T, ...) -> a (B * T / P, P, ...) store, seen
+        return t.reshape((B * (T // P), P) + t.shape[2:])
+
+    cases = {
+        "decode_attention_resident": (q, kc.transpose(1, 2),
+                                      vc.transpose(1, 2), lens, rows),
+        "decode_attention_int8_resident": (
+            q, kq.transpose(1, 2), ks.transpose(1, 2), vq.transpose(1, 2),
+            vs.transpose(1, 2), lens, rows),
+        "decode_attention_paged_resident": (
+            q, pages(kc).transpose(1, 2), pages(vc).transpose(1, 2), lens,
+            pmap, rows),
+        "decode_attention_int8_paged_resident": (
+            q, pages(kq).transpose(1, 2), pages(ks).transpose(1, 2)[..., None],
+            pages(vq).transpose(1, 2), pages(vs).transpose(1, 2)[..., None],
+            lens, pmap, rows),
+        "decode_attention_ring_resident": (
+            q, kc.transpose(1, 2), vc.transpose(1, 2), lens,
+            torch.arange(T, dtype=torch.int32, device=cuda), rows),
+    }
+    ring = {"window": T}
+    qf, kf, vf = flash_inputs(cuda, dtype, B=1, H=4, KvE=4, Sq=150, Skv=150,
+                              dh=dh, seed=8)
+    outs = {}
+    for name, args in cases.items():
+        kern = getattr(da, name)
+        before = kern.launches
+        outs[name] = kern(*args, **(ring if "ring" in name else {}))
+        assert kern.launches == before + 1, name
+    before = fa.flash_attention.launches
+    outs["flash_attention"] = fa.flash_attention(qf, kf, vf, causal=True)
+    assert fa.flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    monkeypatch.undo()     # the int8 plain versions call the fp one
+    cases["flash_attention"] = (qf, kf, vf)
+    for name, args in cases.items():
+        flash = name == "flash_attention"
+        want = plain[name](*args, **({"causal": True} if flash else ring
+                                     if "ring" in name else {}))
+        torch.testing.assert_close(outs[name].float(), want.float(),
+                                   **TOLS[dtype])
+        bound = (FLASH_ROW_REL if flash else DECODE_ROW_REL)[dtype]
+        assert _row_rel_err(outs[name], want) <= bound, name

@@ -204,9 +204,8 @@ def test_make_engine_chooses_as_the_reference_does():
     """``tests/test_serving.py``'s picker cases: a ring falls back to the
     wave engine and the continuous engine refuses it; a window above the
     served extent stays continuous; llama is continuous; rwkv6 and zamba2
-    are refused by the continuous engine, and ``auto`` serves rwkv6 from
-    the wave engine, as the reference does, while the port builds no
-    zamba2."""
+    are refused by the continuous engine, and ``auto`` serves both from
+    the wave engine, as the reference does."""
     moe = reduced_config("mixtral-8x7b")
     kw = dict(n_slots=2, lam=10 ** 9, seed=0)
     for max_seq, want in ((32, "WaveServingEngine"), (7, "ServingEngine")):
@@ -232,13 +231,9 @@ def test_make_engine_chooses_as_the_reference_does():
         assert supports_continuous(cfg, 32) is not None
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, max_seq=32, device="cpu", **kw)
-        if arch == "rwkv6-7b":
-            ref = jax_make_engine(reduced_config(arch), max_seq=32, **kw)
-            eng = make_engine(cfg, max_seq=32, device="cpu", **kw)
-            assert type(ref).__name__ == type(eng).__name__ \
-                == "WaveServingEngine"
-        else:
-            with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-                make_engine(cfg, max_seq=32, device="cpu", **kw)
+        ref = jax_make_engine(reduced_config(arch), max_seq=32, **kw)
+        eng = make_engine(cfg, max_seq=32, device="cpu", **kw)
+        assert type(ref).__name__ == type(eng).__name__ \
+            == "WaveServingEngine"
     with pytest.raises(ValueError, match="mode"):
         make_engine(dense, mode="waves", max_seq=32, device="cpu", **kw)
