@@ -31,7 +31,15 @@ head width 80 through flash and the resident decode kernel) at full width
 (2 of 9 supergroups) under the wave scheduler, its head plans logged as
 not applied — and checks that each path went through its kernels, with
 exact launch counts.  The whole 54-layer zamba2 then prefills and decodes
-through both kernels, without an engine.  It then serves a seeded
+through both kernels, without an engine, and so does the whole 32-layer
+mixtral-8x7b on int8 weights (drawn a layer at a time; 46.7 GB where
+bf16 would need 93.4) with GShard capacity dispatch: 4 x 4096-token
+prompts through windowed flash, 64 steps through the ring kernel.  The
+4-layer mixtral holds capacity dispatch at cf E/k to dense dispatch and
+a replicated expert to the unreplicated model; f32 streams on int8
+weights (mixtral, llama3-8b) are equal with and without the kernels; the
+identity-row wrappers ``decode_attention`` and ``decode_attention_int8``
+are held to their plain versions and timed.  It then serves a seeded
 Poisson load on the paged llama3-8b engine through ``drive_virtual``, the same load through
 ``AsyncServingEngine`` (bf16 streams equal to ``drive_virtual``'s), and
 the load with a device failing mid-decode and rejoining on the paged and
@@ -163,6 +171,15 @@ VLM_IMG, VLM_TILE = 1601, 1025
 VLM_CROSS = dict(B=MAIN_B, H=32, KvE=8, dh=128, T=VLM_IMG, stack=2)
 VLM_CROSS_LENGTHS = [VLM_IMG, VLM_TILE, 0] * 2 + [VLM_IMG, VLM_TILE]
 DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
+# Capacity dispatch at cf E/k (no token dropped) against dense dispatch,
+# and a replicated expert against the unreplicated model, per row of bf16
+# last-token logits (vocab 32000): the same function summed in another
+# order and rounded to bf16 at other points, down 4 layers.  A dropped
+# token, a wrong gate or share moves a row by O(1) of its norm.
+CAPACITY_ROW_REL = 5e-2
+# f32 streams with and without the kernels: every step's logits (the
+# summation order only; earlier f32 pairs read <= 3.3e-5, PERF.md)
+STREAM_LOGIT_ATOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -745,6 +762,84 @@ def phase_new_kernels_vs_plain():
     return records
 
 
+# the reference's dense-grid wrappers: the resident builders over identity
+# rows; here the split body of the kind's resident entry point
+IDENTITY_KERNELS = {   # wrapper -> (kv_inputs kind, TPU function it ports)
+    "decode_attention": ("dense",
+                         "src/repro/kernels/decode_attention.py:520"),
+    "decode_attention_int8": ("int8",
+                              "src/repro/kernels/decode_attention.py:127"),
+}
+
+
+def phase_identity_wrappers_vs_plain():
+    """``decode_attention`` and ``decode_attention_int8`` (the split body
+    over identity rows, R == H) against their plain versions at the dense
+    path's shape (B 8, H 32, KvE 8, dh 128, T 1024; lengths 0, 1, T-1, T,
+    T+1 and between): f32 and bf16 q over K/V of q's dtype, and over int8
+    K/V with scales, held to TOLS and DECODE_ROW_REL per (b, head); then
+    timed at bf16 beside the plain version, the bound and (fp) SDPA.  No
+    serving path calls them (the models decode through the resident, paged
+    and ring entry points with their row maps), so a record's launches are
+    this phase's checked calls."""
+    from repro_torch.kernels import decode_attention as da
+    lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
+    records, failed = [], []
+    for name, (kind, replaces) in IDENTITY_KERNELS.items():
+        kern, plain = getattr(da, name), getattr(da, name + "_plain")
+        kern.launches = 0
+        worst = worst_rel = 0.0
+        bad = []
+        for i, dt in enumerate((torch.float32, torch.bfloat16)):
+            args = kv_inputs(kind, dt, lengths=lengths, seed=40 + i)[:-1]
+            out = kern(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            err = (out.float() - want.float()).abs().max().item()
+            rel = row_rel_err(out, want)
+            log(f"{name} vs plain {str(dt)[6:]:8s} (identity rows) "
+                f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e} (limit "
+                f"{DECODE_ROW_REL[dt]:.0e})")
+            if not (torch.allclose(out.float(), want.float(), **TOLS[dt])
+                    and rel <= DECODE_ROW_REL[dt]
+                    and torch.isfinite(out).all().item()
+                    and not out[0].any().item()):
+                bad.append(str(dt)[6:])
+            worst = max(worst, err)
+            if dt == torch.bfloat16:
+                worst_rel = max(worst_rel, rel)
+        launches = kern.launches
+        if bad:
+            failed.append(f"{name} disagrees with its plain version: {bad}")
+            continue
+        sets = [kv_inputs(kind, torch.bfloat16, lengths=lengths, seed=s)
+                for s in range(8)]
+        ms = cuda_ms([lambda a=a: kern(*a[:-1]) for a in sets])
+        plain_ms = cuda_ms([lambda a=a: plain(*a[:-1]) for a in sets])
+        bound, bound_by = kv_bound_ms(kind, sets[0])
+        lib = None
+        if kind == "dense":
+            lib = cuda_ms([sdpa_decode(*a) for a in sets])
+        log(f"{name} bf16 B={MAIN_B} H={MAIN_H} KvE={MAIN_KVE} dh={MAIN_DH} "
+            f"T={MAIN_T} lengths={lengths}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, "
+            + (f"sdpa {lib:.4f} ms, " if lib is not None else
+               "library_ms null (no single PyTorch call reads int8 K/V "
+               "with scales), ")
+            + f"bound {bound:.4f} ms ({bound_by}); {launches} checked "
+            f"launches")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": worst, "max_rel_err": worst_rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib})
+        release()
+    check(not failed, "; ".join(failed))
+    return records
+
+
 def phase_paged_equals_dense():
     """Paged equals dense bit for bit at the kernel level: a pool holding
     the main path's cache (fp, and int8 with its scales) in scrambled pages
@@ -1261,6 +1356,388 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def int8_layerwise(cfg, device, seed=0):
+    """``quantize_params`` of random weights for ``cfg``, drawn one layer
+    at a time: layer l is a 1-layer model's ``init`` from seed ``seed + l``,
+    quantized and copied into slot l of int8 stacks (and their float32
+    scales) allocated once; the embeddings, head and final norm are the
+    first draw's.  A full model's float weights need not fit at once (the
+    bf16 mixtral-8x7b, 93.4 GB, does not), and since every scale is per
+    layer this equals ``quantize_params`` of the stacked draws bit for bit
+    (``tests/test_torch_quant.py``)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.models.quantization import quantize_params
+    one = build_model(cfg.with_overrides(n_layers=1), device=device)
+
+    def draw(l):
+        return quantize_params(one.init(
+            torch.Generator(device=device).manual_seed(seed + l)))
+
+    def alloc(tree):
+        if isinstance(tree, dict):
+            return {k: alloc(v) for k, v in tree.items()}
+        return torch.empty((cfg.n_layers,) + tree.shape[1:],
+                           dtype=tree.dtype, device=device)
+
+    def put(dst, src, l):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], l)
+        else:
+            dst[l].copy_(src[0])
+
+    params = draw(0)
+    layers = alloc(params["layers"])
+    put(layers, params["layers"], 0)
+    for l in range(1, cfg.n_layers):
+        put(layers, draw(l)["layers"], l)
+    params["layers"] = layers
+    return params
+
+
+def _drop_counter():
+    """Patches the transformer's capacity MoE call to also count, per
+    call, the (token, expert row) assignments it drops (``moe.
+    capacity_drops``: the router run again on the same input).  Returns
+    the list the counts land in and the function that removes the patch."""
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import capacity_drops
+    inner, drops = transformer.moe_block_capacity, []
+
+    def counting(cfg, p, x, capacity_factor=1.25, group=1024):
+        drops.append(capacity_drops(cfg, p, x, capacity_factor, group))
+        return inner(cfg, p, x, capacity_factor, group)
+
+    transformer.moe_block_capacity = counting
+
+    def undo():
+        transformer.moe_block_capacity = inner
+    return drops, undo
+
+
+def _weight_bytes(params):
+    """(bytes as held, bytes the same weights take in bf16): int8 values
+    count 2 bytes each in bf16, every other leaf as it is."""
+    held = bf16 = 0
+    for t in _leaves(params):
+        held += t.numel() * t.element_size()
+        bf16 += t.numel() * (2 if t.dtype == torch.int8 else
+                             t.element_size())
+    return held, bf16
+
+
+def _scale_bytes(tree):
+    """Bytes of the float32 scales of a tree's int8 leaves."""
+    if not isinstance(tree, dict):
+        return 0
+    if "q8" in tree:
+        return tree["sc"].numel() * tree["sc"].element_size()
+    return sum(_scale_bytes(v) for v in tree.values())
+
+
+def phase_mixtral_int8_full_depth(card):
+    """The whole 32-layer mixtral-8x7b at published widths with int8
+    weights (``quantize_params``'s layout, drawn a layer at a time by
+    ``int8_layerwise``: its 93.4 GB of bf16 do not fit the card), no
+    engine: ``build_model(cfg, use_kernel=True, capacity_moe=True)``,
+    a ring state for 4 rows over the 4096-token window, a lock-step
+    prefill of 4 x 4096 tokens (windowed flash, capacity dispatch at cf
+    1.25) and 64 greedy decode steps through the ring kernel.  Flash
+    launches once a layer, the ring kernel once a layer a step, no other
+    decode kernel; the logits are finite.  Returns (ring, flash)
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.api import build_model
+    cfg = get_config("mixtral-8x7b")
+    L_ = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = int8_layerwise(cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    draw_s = time.monotonic() - t0
+    held, bf16 = _weight_bytes(params)
+    scales = _scale_bytes(params)
+    draw_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, use_kernel=True, capacity_moe=True,
+                        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (RING_B, RING_PROMPT),
+                           generator=gen, device="cuda")
+    state = model.init_decode_state(params, RING_B, RING_PROMPT + RING_NEW)
+    check("pos" in state["cache"], "mixtral int8: no ring cache")
+    hd = model.hd
+    ring_gb = sum(state["cache"][n].numel() * state["cache"][n].element_size()
+                  for n in ("k", "v")) / 1e9
+    reset_launches()
+    drops, undo = _drop_counter()
+    try:
+        t0 = time.monotonic()
+        logits, state = model.prefill(params, state, tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t0
+    finally:
+        undo()
+    flash = flash_attention.launches
+    finite = torch.isfinite(logits).all()
+    steps = []
+    for _ in range(RING_NEW):
+        t0 = time.monotonic()
+        logits, state = model.decode_step(params, state, logits.argmax(-1))
+        torch.cuda.synchronize()
+        steps.append(time.monotonic() - t0)
+        finite &= torch.isfinite(logits).all()
+    launches = read_launches()
+    ring = launches.pop("decode_attention_ring_resident")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    drops = [int(d) for d in drops]
+    assigned = RING_B * RING_PROMPT * cfg.experts_per_token
+    log(f"mixtral int8 full depth ({L_} layers, d {cfg.d_model}, {hd.H} q / "
+        f"{hd.KvE} KV heads of {hd.dh}, {cfg.n_experts} experts of d_ff "
+        f"{cfg.d_ff}, capacity dispatch at cf 1.25; card {card}): weights "
+        f"{held / 1e9:.2f} GB int8 ({scales / 1e6:.2f} MB of scales; "
+        f"{bf16 / 1e9:.2f} GB in bf16), drawn a layer at a time in "
+        f"{draw_s:.1f} s; ring K/V {ring_gb:.2f} GB; peak allocated "
+        f"{peak_gb:.2f} GB serving ({draw_gb:.2f} GB while drawing)")
+    log(f"  prefill {RING_B} x {RING_PROMPT} tokens {prefill_s:.2f} s (with "
+        f"the drop count's second router pass); decode step median "
+        f"{1e3 * float(np.median(steps)):.2f} ms over {RING_NEW} steps "
+        f"(min {1e3 * min(steps):.2f}); flash_attention {flash}, "
+        f"decode_attention_ring_resident {ring}, others {launches}")
+    log(f"  tokens dropped by capacity in the prefill, per layer (of "
+        f"{assigned} assignments): {drops}; total {sum(drops)} "
+        f"({100 * sum(drops) / (assigned * L_):.3f} %)")
+    parts = dequant_breakdown(cfg, params)
+    n_w = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+    one, two = parts["dequantize_weight"], parts["two-kernel form"]
+    layer_ms = one + parts["bf16 products"]
+    log(f"  one layer's expert work at decode (layer 0, {n_w / 1e9:.2f}·10⁹ "
+        f"int8 weights, CUDA graphs): "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        + f" (dequantize_weight {3 * n_w / one / 1e6:.0f} GB/s of 3 bytes a "
+        f"weight, the two-kernel form {11 * n_w / two / 1e6:.0f} GB/s of "
+        f"11); x {L_} layers: {L_ * layer_ms:.1f} ms of the "
+        f"{1e3 * float(np.median(steps)):.2f} ms step")
+    check(len(drops) == L_, f"mixtral int8: {len(drops)} capacity calls "
+          f"in the prefill, not {L_}")
+    check(flash == L_, f"mixtral int8: flash launches {flash} != {L_}")
+    check(ring == RING_NEW * L_, f"mixtral int8: ring launches {ring} != "
+          f"{RING_NEW} steps x {L_} layers")
+    check(not any(n for k, n in launches.items() if k != "flash_attention"),
+          f"mixtral int8: another decode kernel launched: {launches}")
+    check(bool(finite.item()), "mixtral int8 full depth: non-finite logits")
+    del model, params, state, logits
+    return ring, flash
+
+
+def dequant_breakdown(cfg, params):
+    """Device ms of one layer's expert work in a decode step, as CUDA
+    graphs: layer 0's three int8 expert stacks dequantized to bf16 by
+    ``dequantize_weight`` and by the two-kernel form with the same bits
+    (``q8 * sc`` to float32, then the cast), and the three bf16 expert
+    products at the step's ``RING_B`` rows.  Each stack (0.47·10⁹
+    weights) is far larger than the L2, so every call reads cold.
+    Returns {label: ms for the three stacks}."""
+    from repro_torch.models.quantization import (_broadcast_scale,
+                                                 dequantize_weight)
+    bf = torch.bfloat16
+    stacks = {n: {k: t[0] for k, t in params["layers"]["moe"][n].items()}
+              for n in ("w_gate", "w_up", "w_down")}
+
+    def two_kernels(leaf):
+        return (leaf["q8"] * _broadcast_scale(leaf["sc"], 3)).to(bf)
+
+    out = {}
+    for label, fn in (("dequantize_weight", lambda l: dequantize_weight(l,
+                                                                         bf)),
+                      ("two-kernel form", two_kernels)):
+        out[label] = sum(cuda_ms([lambda l=l: fn(l)], reps=5, n=10)
+                         for l in stacks.values())
+        release()
+    w = {n: dequantize_weight(l, bf) for n, l in stacks.items()}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((cfg.n_experts, RING_B, cfg.d_model), generator=gen,
+                    device="cuda", dtype=bf)
+    h = torch.randn((cfg.n_experts, RING_B, cfg.d_ff), generator=gen,
+                    device="cuda", dtype=bf)
+    out["bf16 products"] = sum(cuda_ms([lambda a=a, b=b: a @ b])
+                               for a, b in ((x, w["w_gate"]),
+                                            (x, w["w_up"]),
+                                            (h, w["w_down"])))
+    return out
+
+
+def mixtral4_params():
+    """The 4-layer bf16 mixtral's weights (the ring path's draw)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("mixtral-8x7b").with_overrides(n_layers=N_LAYERS)
+    return cfg, build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+
+
+def phase_mixtral_capacity(cfg, params):
+    """The 4-layer bf16 mixtral at published widths, one lock-step prefill
+    of 4 x 4096 tokens into the ring state (flash, windowed) with dense
+    dispatch and with capacity dispatch at cf E/k (cap == group: nothing
+    dropped) and at the default 1.25.  Capacity at E/k computes dense
+    dispatch's function: its last-token logits must be within
+    CAPACITY_ROW_REL per row of dense's.  Each prefill runs twice and the
+    second is timed."""
+    from repro_torch.models.api import build_model
+    E_k = cfg.n_experts / cfg.experts_per_token
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (RING_B, RING_PROMPT),
+                           generator=gen, device="cuda")
+    runs = {}
+    for label, kw in (("dense", {}),
+                      (f"capacity cf {E_k:g}",
+                       dict(capacity_moe=True, capacity_factor=E_k)),
+                      ("capacity cf 1.25", dict(capacity_moe=True))):
+        model = build_model(cfg, use_kernel=True, device="cuda", **kw)
+        for _ in range(2):
+            state = model.init_decode_state(params, RING_B,
+                                            RING_PROMPT + RING_NEW)
+            drops, undo = _drop_counter()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                logits, state = model.prefill(params, state, tokens)
+                torch.cuda.synchronize()
+                secs = time.monotonic() - t0
+            finally:
+                undo()
+            del state
+        runs[label] = (logits, secs, [int(d) for d in drops])
+        log(f"mixtral {N_LAYERS} layers bf16 prefill {RING_B} x "
+            f"{RING_PROMPT} tokens, {label}: {secs:.3f} s"
+            + (f"; dropped per layer {runs[label][2]}" if drops else ""))
+    want = runs["dense"][0]
+    exact = runs[f"capacity cf {E_k:g}"]
+    rel = row_rel_err(exact[0], want)
+    rel125 = row_rel_err(runs["capacity cf 1.25"][0], want)
+    log(f"  capacity cf {E_k:g} vs dense: max_row_rel_err {rel:.3e} (limit "
+        f"{CAPACITY_ROW_REL:.0e}), bit-equal "
+        f"{bool(torch.equal(exact[0], want))}; cf 1.25 vs dense "
+        f"{rel125:.3e} (not bounded: it drops)")
+    check(not any(exact[2]), f"capacity at cf {E_k:g} dropped {exact[2]}")
+    check(rel <= CAPACITY_ROW_REL, f"capacity at cf {E_k:g} differs from "
+          f"dense dispatch: row rel {rel:.3e}")
+    check(all(torch.isfinite(r[0]).all().item() for r in runs.values()),
+          "mixtral capacity: non-finite logits")
+    return {label: r[1] for label, r in runs.items()}
+
+
+def phase_mixtral_replicated(cfg, params, expert=3):
+    """``replicate_expert`` on the card: expert ``expert`` replicated in
+    every layer of the 4-layer bf16 mixtral's stacks (9 physical rows a
+    layer), the owner/share the reference builds (owner ``[0..7,
+    expert]``, share 1/2 on the expert's two rows, 1 elsewhere); then a
+    prefill of 4 x 1024 tokens into the ring state and 8 teacher-forced
+    decode steps through the kernels, whose logits must be within
+    CAPACITY_ROW_REL per row of the unreplicated model's."""
+    from repro_torch.models.api import build_model
+    from repro_torch.models.moe import replicate_expert
+    E = cfg.n_experts
+    rep = dict(params, layers=dict(params["layers"]))
+    rep["layers"]["moe"] = replicate_expert(params["layers"]["moe"], expert)
+    moe = rep["layers"]["moe"]
+    want_own = torch.tensor(list(range(E)) + [expert], dtype=torch.int32,
+                            device="cuda").repeat(N_LAYERS, 1)
+    want_sh = torch.ones((N_LAYERS, E + 1), device="cuda")
+    want_sh[:, [expert, E]] = 0.5
+    check(moe["w_gate"].shape[:2] == (N_LAYERS, E + 1)
+          and torch.equal(moe["owner"], want_own)
+          and torch.equal(moe["share"], want_sh),
+          f"replicate_expert: owner {moe['owner'][0].tolist()}, share "
+          f"{moe['share'][0].tolist()}")
+    check(all(torch.equal(moe[n][:, E], moe[n][:, expert])
+              for n in ("w_gate", "w_up", "w_down")),
+          "replicate_expert: the replica's rows are not the expert's")
+    model = build_model(cfg, use_kernel=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (RING_B, 1024), generator=gen,
+                           device="cuda")
+    outs = []
+    for p in (params, rep):
+        state = model.init_decode_state(p, RING_B, RING_PROMPT + RING_NEW)
+        logits, state = model.prefill(p, state, tokens)
+        seen = [logits]
+        for t in range(8):
+            nxt = outs[0][t].argmax(-1) if outs else logits.argmax(-1)
+            logits, state = model.decode_step(p, state, nxt)
+            seen.append(logits)
+        outs.append(seen)
+        del state
+    rel = max(row_rel_err(a, b) for a, b in zip(*outs))
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    log(f"replicate_expert({expert}) in every layer of the {N_LAYERS}-layer "
+        f"bf16 mixtral ({E + 1} physical rows a layer): prefill + 8 decode "
+        f"steps max_row_rel_err {rel:.3e} (limit {CAPACITY_ROW_REL:.0e}) "
+        f"against the unreplicated model, bit-equal {same}")
+    check(rel <= CAPACITY_ROW_REL, f"replicated expert moves the logits: "
+          f"row rel {rel:.3e}")
+    check(all(torch.isfinite(t).all().item() for t in outs[1]),
+          "replicated mixtral: non-finite logits")
+    del rep, moe
+
+
+def _lockstep_stream(model, params, tokens, steps):
+    """Greedy lock-step decode: the prefill's logits, then ``steps``
+    steps; returns the tokens and every step's logits."""
+    state = model.init_decode_state(params, tokens.shape[0],
+                                    tokens.shape[1] + steps)
+    logits, state = model.prefill(params, state, tokens)
+    seen, toks = [logits], []
+    for _ in range(steps):
+        toks.append(logits.argmax(-1))
+        logits, state = model.decode_step(params, state, toks[-1])
+        seen.append(logits)
+    return torch.stack(toks, dim=1), seen
+
+
+def phase_int8_weight_stream_pair():
+    """float32, published widths, 4 layers, int8 weights
+    (``int8_layerwise``): mixtral-8x7b with capacity dispatch (2 rows of
+    4096 tokens into the ring: windowed flash, the ring kernel) and
+    llama3-8b (4 rows of 512: flash, the resident kernel over identity
+    rows), each with the kernels and without, through the lock-step API
+    (the engines take no int8 weights, as the reference's): the greedy
+    streams must be equal and every step's logits within
+    STREAM_LOGIT_ATOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    for arch, B, S, kw in (("mixtral-8x7b", 2, RING_PROMPT,
+                            dict(capacity_moe=True)),
+                           ("llama3-8b", 4, 512, {})):
+        cfg = get_config(arch).with_overrides(
+            n_layers=N_LAYERS, dtype="float32", param_dtype="float32")
+        params = int8_layerwise(cfg, "cuda", seed=1)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda")
+        runs = [_lockstep_stream(build_model(cfg, use_kernel=uk,
+                                             device="cuda", **kw),
+                                 params, tokens, 32)
+                for uk in (True, False)]
+        worst = max((a - b).abs().max().item()
+                    for a, b in zip(runs[0][1], runs[1][1]))
+        same = torch.equal(runs[0][0], runs[1][0])
+        log(f"f32 int8-weight streams {arch} ({N_LAYERS} layers, {B} x {S} "
+            f"tokens, 32 steps) kernels vs plain: streams "
+            f"{'equal' if same else 'differ'}, max per-step logit "
+            f"difference {worst:.3e} (limit {STREAM_LOGIT_ATOL:.0e})")
+        check(same, f"{arch} int8 weights: greedy streams differ")
+        check(worst <= STREAM_LOGIT_ATOL, f"{arch} int8 weights: logits "
+              f"differ by {worst:.3e}")
+        check(all(torch.isfinite(g).all().item() for r in runs for g in r[1]),
+              f"{arch} int8 weights: non-finite logits")
+        del params, runs
+        release()
 
 
 def phase_mixtral_stream_pair():
@@ -3072,7 +3549,10 @@ def main():
     n_hgmma, per_dh = check_flash_sass()
     log(f"flash library SASS: {n_hgmma} HGMMA instructions; per head width "
         f"of the wgmma body {per_dh}")
-    records = kernel_phases()
+    # the identity-row wrappers run the resident split body: not part of
+    # the kernel phases that --ab times across checkouts (a parent tree
+    # before them lacks the wrappers)
+    records = kernel_phases() + phase_identity_wrappers_vs_plain()
     by_name = {r["name"]: r for r in records}
     release()
     phase_paged_equals_dense()
@@ -3111,6 +3591,21 @@ def main():
     release()
     phase_zamba2_full_depth()
     release()
+    # the whole mixtral-8x7b on int8 weights: its ring and flash launches
+    # add to those kernels' records
+    ring_int8, flash["mixtral int8"] = phase_mixtral_int8_full_depth(card)
+    by_name["decode_attention_ring_resident"]["launches"] += ring_int8
+    by_name["flash_attention"]["launches"] += flash["mixtral int8"]
+    log(f"decode_attention_ring_resident launches in its record: mixtral "
+        f"ring + mixtral int8 {ring_int8}; flash_attention: + mixtral int8 "
+        f"{flash['mixtral int8']}")
+    release()
+    cfg4, params4 = mixtral4_params()
+    phase_mixtral_capacity(cfg4, params4)
+    release()
+    phase_mixtral_replicated(cfg4, params4)
+    del params4
+    release()
     # the pipelined paths' launches (B = 4 rows a group) are logged; each
     # kernel's record keeps its sequential path's
     pipelined = {}
@@ -3131,6 +3626,8 @@ def main():
     phase_vlm_stream_pair()
     release()
     phase_zamba2_stream_pair()
+    release()
+    phase_int8_weight_stream_pair()
     release()
     phase_pipelined_stream_pairs()
     release()

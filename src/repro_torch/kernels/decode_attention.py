@@ -21,7 +21,10 @@ the CUDA cores), and the ring its own split-window kernel:
 - ``decode_attention_int8_paged_resident``: int8 K/V pages with f32
   scale pages (n_pages, KvE, P, 1);
 - ``decode_attention_ring_resident``: a sliding-window ring K/V
-  (B, KvE, W, dh) whose slot t holds absolute position ``slot_pos[t]``.
+  (B, KvE, W, dh) whose slot t holds absolute position ``slot_pos[t]``;
+
+and ``decode_attention`` / ``decode_attention_int8``, the reference's
+dense-grid wrappers: the first two over identity rows (``arange(H)``).
 
 Each launches the kernel for CUDA tensors, counts the launch in its
 ``.launches``, and runs its ``*_plain`` version — the same function in
@@ -89,6 +92,23 @@ def decode_attention_ring_resident_plain(q, k, v, lengths, slot_pos, rows,
     pos = slot_pos.long()[None, :]
     valid = (pos < n) & (pos >= n - window)                 # (B, window)
     return _masked_decode_plain(q, k, v, valid, rows, kv_rows)
+
+
+def _identity_rows(q):
+    return torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+
+
+def decode_attention_plain(q, k, v, lengths):
+    """Plain version of :func:`decode_attention`: the resident plain
+    version over identity rows."""
+    return decode_attention_resident_plain(q, k, v, lengths,
+                                           _identity_rows(q))
+
+
+def decode_attention_int8_plain(q, k_q8, k_sc, v_q8, v_sc, lengths):
+    """Plain version of :func:`decode_attention_int8`."""
+    return decode_attention_int8_resident_plain(q, k_q8, k_sc, v_q8, v_sc,
+                                                lengths, _identity_rows(q))
 
 
 def _gather_pages(pages, page_map):
@@ -264,11 +284,19 @@ def decode_attention_resident(q, k, v, lengths, rows, kv_rows=None):
     view has them) and launches as two CUDA kernels (sequence splits, then
     their merge); it counts one launch.
     """
+    out, launched = _resident(q, k, v, lengths, rows, kv_rows)
+    decode_attention_resident.launches += launched
+    return out
+
+
+def _resident(q, k, v, lengths, rows, kv_rows):
+    """:func:`decode_attention_resident`'s body: (out, whether the kernel
+    launched), for the wrapper that counts the launch under its name."""
     kv_rows = _kv_rows(q, k, rows, kv_rows)
     B, H, dh = _check(q, k, v, lengths, rows, kv_rows, batch_axis=True)
     if _on_cpu(q, k, v, lengths, rows, kv_rows):
         return decode_attention_resident_plain(q, k, v, lengths, rows,
-                                               kv_rows)
+                                               kv_rows), False
     _check_kernel_inputs(q, k, v, dh, quant=False)
     _check_aligned16(k, v)
     lengths, rows, kv_rows = _i32(lengths, rows, kv_rows)
@@ -280,8 +308,7 @@ def decode_attention_resident(q, k, v, lengths, rows, kv_rows=None):
         (k.stride(0), k.stride(1), k.stride(2),
          v.stride(0), v.stride(1), v.stride(2)),
         "decode_attention_resident", scratch=_split_scratch(q, R, T, split))
-    decode_attention_resident.launches += launched
-    return out
+    return out, launched
 
 
 def decode_attention_int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths, rows,
@@ -293,13 +320,22 @@ def decode_attention_int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths, rows,
     The kernel needs 16-byte aligned value bases and strides (scales: 4
     bytes) and launches as two CUDA kernels (sequence splits, then their
     merge); it counts one launch."""
+    out, launched = _int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths, rows,
+                                   kv_rows)
+    decode_attention_int8_resident.launches += launched
+    return out
+
+
+def _int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths, rows, kv_rows):
+    """:func:`decode_attention_int8_resident`'s body: (out, whether the
+    kernel launched)."""
     kv_rows = _kv_rows(q, k_q8, rows, kv_rows)
     B, H, dh = _check(q, k_q8, v_q8, lengths, rows, kv_rows,
                       batch_axis=True)
     _check_scales(k_q8, k_sc, v_sc, k_q8.shape[:3])
     if _on_cpu(q, k_q8, k_sc, v_q8, v_sc, lengths, rows, kv_rows):
         return decode_attention_int8_resident_plain(
-            q, k_q8, k_sc, v_q8, v_sc, lengths, rows, kv_rows)
+            q, k_q8, k_sc, v_q8, v_sc, lengths, rows, kv_rows), False
     _check_kernel_inputs(q, k_q8, v_q8, dh, quant=True)
     if k_sc.dtype != torch.float32 or v_sc.dtype != torch.float32:
         raise ValueError("kernel takes float32 scales")
@@ -317,7 +353,28 @@ def decode_attention_int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths, rows,
          v_sc.stride(0), v_sc.stride(1), v_sc.stride(2)),
         "decode_attention_int8_resident",
         scratch=_split_scratch(q, R, T, split))
-    decode_attention_int8_resident.launches += launched
+    return out, launched
+
+
+def decode_attention(q, k, v, lengths):
+    """Flash-decode over every q head: q (B, H, dh), k/v (B, KvE, T, dh),
+    lengths (B,) -> (B, H, dh).  The dense grid is the resident one with
+    the identity gather map (rows = arange(H)): the split body of
+    :func:`decode_attention_resident`, no kernel of its own.  Counts its
+    launches in its own ``.launches``."""
+    out, launched = _resident(q, k, v, lengths, _identity_rows(q), None)
+    decode_attention.launches += launched
+    return out
+
+
+def decode_attention_int8(q, k_q8, k_sc, v_q8, v_sc, lengths):
+    """int8-KV twin of :func:`decode_attention`: k_q8/v_q8 (B, KvE, T, dh)
+    int8, k_sc/v_sc (B, KvE, T) float32 scales; the split body of
+    :func:`decode_attention_int8_resident` over identity rows.  Counts
+    its launches in its own ``.launches``."""
+    out, launched = _int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths,
+                                   _identity_rows(q), None)
+    decode_attention_int8.launches += launched
     return out
 
 
@@ -486,7 +543,8 @@ def decode_attention_ring_resident(q, k, v, lengths, slot_pos, rows,
     return out
 
 
-for _fn in (decode_attention_resident, decode_attention_int8_resident,
+for _fn in (decode_attention, decode_attention_int8,
+            decode_attention_resident, decode_attention_int8_resident,
             decode_attention_paged_resident,
             decode_attention_int8_paged_resident,
             decode_attention_ring_resident):

@@ -10,7 +10,7 @@ is copied.
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import (
-    decode_attention_int8_paged_resident, decode_attention_int8_resident,
+    decode_attention, decode_attention_int8_paged_resident, decode_attention_int8_resident,
     decode_attention_paged_resident, decode_attention_resident,
     decode_attention_ring_resident)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -33,6 +33,13 @@ def _scatter(o, inv_rows):
     if inv_rows is not None:
         o = o.index_select(1, inv_rows)
     return o[:, None]
+
+
+def decode_attention_bshd(q, k, v, lengths):
+    """Decode over every q head in model layout: q (B,1,H,dh), cache k/v
+    (B,T,KvE,dh), lengths (B,) -> (B,1,H,dh) (identity rows)."""
+    return decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                            lengths)[:, None]
 
 
 def decode_attention_resident_bshd(q, k, v, lengths, rows, kv_rows=None, *,

@@ -34,7 +34,11 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None):
+def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None,
+                capacity_moe: bool = False, capacity_factor: float = 1.25):
+    """``capacity_moe`` runs MoE layers through GShard capacity dispatch
+    at ``capacity_factor`` (attention families; RWKV-6 and Zamba2 have no
+    MoE, as in the reference, which ignores the option for them)."""
     if cfg.family == "ssm":
         return RWKV6Model(cfg, use_kernel=use_kernel,
                           device=resolve_device(device))
@@ -42,7 +46,9 @@ def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None):
         return Zamba2Model(cfg, use_kernel=use_kernel,
                            device=resolve_device(device))
     return TransformerLM(cfg, use_kernel=use_kernel,
-                         device=resolve_device(device))
+                         device=resolve_device(device),
+                         capacity_moe=capacity_moe,
+                         capacity_factor=capacity_factor)
 
 
 def batch_extras(cfg: ModelConfig, batch: int, dtype,

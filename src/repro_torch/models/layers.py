@@ -8,8 +8,9 @@ musicgen (LayerNorm, GELU with biases) and VLM families take.
 
 Functions take plain tensors and nested dicts of parameters in the
 reference's layouts (``wq`` (D,Hp,dh), ``wk``/``wv`` (D,Kp,dh), ``wo``
-(Hp,dh,D), biases ``bq`` (Hp,dh), ``bk``/``bv`` (Kp,dh)).  Caches are
-updated in place.  Branches of other families raise
+(Hp,dh,D), biases ``bq`` (Hp,dh), ``bk``/``bv`` (Kp,dh)); each matmul
+weight may be int8 (``quantization.quantize_params``) and is read through
+``quantization.wt``.  Caches are updated in place.  Branches of other families raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.quantization import is_quantized, wt
 # attention_scores and chunked_attention stay importable from here, beside
 # the rest of the reference's layers
 from repro_torch.kernels.attention_plain import (  # noqa: F401
@@ -190,9 +192,9 @@ def qkv_project(cfg: ModelConfig, p: dict, hd: HeadDims, x, positions):
     add ``bq`` (Hp,dh) and ``bk``/``bv`` (Kp,dh) before RoPE."""
     if hd.rep > 1:
         unsupported("replicated KV heads (rep > 1)", 18)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    q = torch.einsum("bsd,dhk->bshk", x, wt(p, "wq", x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, wt(p, "wk", x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, wt(p, "wv", x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -222,7 +224,7 @@ def _head_rows_or_identity(head_rows, head_inv, n_rows: int, device):
 def _project_out(p: dict, out, *, gate=None):
     """Attention output tail: the wo projection, times ``tanh(gate)`` for
     the VLM's gated cross-attention."""
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+    out = torch.einsum("bshk,hkd->bsd", out, wt(p, "wo", out.dtype))
     if gate is not None:
         out = out * torch.tanh(gate).to(out.dtype)
     return out
@@ -510,8 +512,8 @@ def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x) -> dict:
     ``qkv_bias`` configs."""
     if hd.rep > 1:
         unsupported("replicated KV heads (rep > 1)", 18)
-    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"].to(kv_x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"].to(kv_x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", kv_x, wt(p, "wk", kv_x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", kv_x, wt(p, "wv", kv_x.dtype))
     if cfg.qkv_bias:
         k = k + p["bk"].to(kv_x.dtype)
         v = v + p["bv"].to(kv_x.dtype)
@@ -556,7 +558,7 @@ def cross_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x, *,
     image extent (the reference's kernel only one that tiles its block).
     Returns (out, kv_cache)."""
     B, S = x.shape[0], x.shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = torch.einsum("bsd,dhk->bshk", x, wt(p, "wq", x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
     if kv_cache is None:
@@ -593,21 +595,27 @@ def mlp_block(cfg: ModelConfig, p: dict, x):
     b_down`` with the tanh approximation: ``jax.nn.gelu``'s default, which
     the reference calls (torch's default is the exact erf form)."""
     if cfg.mlp_type == "swiglu":
-        h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
-        return h @ p["w_down"].to(x.dtype)
-    h = F.gelu(x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype),
+        h = F.silu(x @ wt(p, "w_gate", x.dtype)) * (x @ wt(p, "w_up", x.dtype))
+        return h @ wt(p, "w_down", x.dtype)
+    h = F.gelu(x @ wt(p, "w_up", x.dtype) + p["b_up"].to(x.dtype),
                approximate="tanh")
-    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
+    return h @ wt(p, "w_down", x.dtype) + p["b_down"].to(x.dtype)
 
 
 def embed(cfg: ModelConfig, p: dict, tokens):
-    if isinstance(p["tok_embed"], dict):
-        unsupported("int8 weights", 1)
-    return F.embedding(tokens.long(), p["tok_embed"])
+    """Token rows of ``tok_embed``; an int8 table gathers its int8 rows and
+    dequantizes only those, into ``cfg.dtype`` (as the reference)."""
+    tab = p["tok_embed"]
+    if is_quantized(tab):
+        rows = tab["q8"][tokens.long()].float()
+        return (rows * tab["sc"]).to(getattr(torch, cfg.dtype))
+    return F.embedding(tokens.long(), tab)
 
 
 def unembed(cfg: ModelConfig, p: dict, x):
     """Logits in float32, through ``lm_head`` (D, V) or, with tied
-    embeddings, the transposed ``tok_embed`` (V, D)."""
-    w = p["tok_embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).float()
+    embeddings, the transposed ``tok_embed`` (V, D) — either one
+    dequantized when int8."""
+    w = wt(p, "tok_embed", x.dtype).T if cfg.tie_embeddings \
+        else wt(p, "lm_head", x.dtype)
+    return torch.einsum("bsd,dv->bsv", x, w).float()

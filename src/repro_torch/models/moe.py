@@ -1,26 +1,31 @@
 """Mixtral-style sparse MoE MLP: top-2 routing, softmax-renormalized gates
-— counterpart of the JAX package's ``models/moe.py`` for the dense
-dispatch the serving model uses.
+— counterpart of the JAX package's ``models/moe.py``.
 
-Dense dispatch: every expert computes on every token and the outputs are
-combined by gate weight (with 8 experts and top-2, 4× the FLOPs of packed
-dispatch).  The expert products are plain batched matrix products over
-the stacked ``(E, D, F)`` weights, left to ``torch.matmul`` as the
-reference leaves them to XLA.
+Dense dispatch (``moe_block``): every expert computes on every token and
+the outputs are combined by gate weight (with 8 experts and top-2, 4× the
+FLOPs of packed dispatch).  GShard capacity dispatch
+(``moe_block_capacity``): tokens are grouped and each group routes into
+per-expert buckets of a fixed capacity, overflow dropped, so expert work
+is O(tokens · k · capacity_factor).  The expert products are plain
+batched matrix products over the stacked ``(E, D, F)`` weights (int8
+ones dequantized through ``quantization.wt``), left to ``torch.matmul``
+and ``torch.einsum`` as the reference leaves them to XLA.
 
-Physical expert layout (expert migration): the weight stacks
-``w_gate``/``w_up``/``w_down`` may hold the experts in any *physical* row
-order, described by two side arrays in the same param dict:
+Physical expert layout (expert migration and replication): the weight
+stacks ``w_gate``/``w_up``/``w_down`` may hold the experts in any
+*physical* row order — or with extra replica rows — described by two side
+arrays in the same param dict:
 
- - ``owner`` (Ep,) int32: physical row r holds logical expert ``owner[r]``;
- - ``share`` (Ep,) float32: row r's fraction of its expert's gate.
+ - ``owner`` (Ep,) int32: physical row r holds a copy of logical expert
+   ``owner[r]`` (Ep >= E when replicas exist);
+ - ``share`` (Ep,) float32: row r's fraction of its expert's gate (rows
+   owned by the same expert sum to 1).
 
 The router scores the E logical experts; physical rows compute, and the
 combine scatters row outputs back into logical-expert order before the
 gate reduction.  With a pure permutation that scatter adds exact zeros and
 multiplies by 1.0, so decode streams are bit-identical across applied
-expert migrations.  ``moe_block_capacity`` and ``replicate_expert`` are not
-ported yet (ROADMAP Queue 1 #11).
+expert migrations.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.models.quantization import wt
 
 
 def expert_identity(n_experts: int, n_layers: int = 0, device=None):
@@ -40,6 +46,41 @@ def expert_identity(n_experts: int, n_layers: int = 0, device=None):
         owner = owner.repeat(n_layers, 1)
         share = share.repeat(n_layers, 1)
     return owner, share
+
+
+def replicate_expert(p: dict, expert: int) -> dict:
+    """Append one physical replica of logical ``expert``: copy its weight
+    rows and renormalize the gate share evenly across all of its copies.
+    Accepts a per-layer moe dict ((E, D, F) weights) or the stacked layer
+    tree ((L, E, D, F)); installs identity owner/share first if absent.
+    Returns a new dict; ``p`` is not changed."""
+    stacked = p["w_gate"].dim() == 4
+    out = dict(p)
+    if "owner" not in out:
+        E = p["w_gate"].shape[1 if stacked else 0]
+        n_layers = p["w_gate"].shape[0] if stacked else 0
+        out["owner"], out["share"] = expert_identity(
+            E, n_layers, device=p["w_gate"].device)
+    own, sh = out["owner"], out["share"]
+    # per layer, the first physical row that currently holds ``expert``
+    src = (own == expert).int().argmax(dim=-1)
+    for name in ("w_gate", "w_up", "w_down"):
+        w = out[name]
+        if stacked:
+            row = w[torch.arange(w.shape[0], device=w.device), src][:, None]
+            out[name] = torch.cat([w, row], dim=1)
+        else:
+            out[name] = torch.cat([w, w[src][None]], dim=0)
+    new_col = torch.full(own.shape[:-1] + (1,), expert, dtype=own.dtype,
+                         device=own.device)
+    own = torch.cat([own, new_col], dim=-1)
+    sh = torch.cat([sh, torch.ones(new_col.shape, dtype=sh.dtype,
+                                   device=sh.device)], dim=-1)
+    mask = own == expert
+    cnt = mask.sum(dim=-1, keepdim=True).to(sh.dtype)
+    out["owner"] = own
+    out["share"] = torch.where(mask, 1.0 / cnt, sh)
+    return out
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype,
@@ -90,12 +131,80 @@ def moe_block(cfg: ModelConfig, p: dict, x):
     # every physical expert row on every token: (Ep, B*S, F), one batched
     # product per weight stack (the token matrix broadcasts over experts)
     xe = x.reshape(1, B * S, D)
-    h = torch.matmul(xe, p["w_gate"].to(x.dtype))
-    u = torch.matmul(xe, p["w_up"].to(x.dtype))
+    h = torch.matmul(xe, wt(p, "w_gate", x.dtype))
+    u = torch.matmul(xe, wt(p, "w_up", x.dtype))
     h = F.silu(h) * u
-    out = torch.matmul(h, p["w_down"].to(x.dtype))          # (Ep, B*S, D)
+    out = torch.matmul(h, wt(p, "w_down", x.dtype))         # (Ep, B*S, D)
     out = out.permute(1, 0, 2).reshape(B, S, -1, D)         # (B,S,Ep,D)
     if "owner" in p:
         out = _combine_physical(out, p, cfg.n_experts)
     out = torch.einsum("bsed,bse->bsd", out, gates)
     return out, aux, freq
+
+
+def _capacity_routing(cfg: ModelConfig, p: dict, x, capacity_factor: float,
+                      group: int):
+    """The capacity dispatch's routing: gates on the physical rows grouped
+    as (BG, n, Ep) in x's dtype (replicas each take their share of their
+    expert's gate), the bucket capacity, each (token, row)'s bucket
+    position (its rank among the group's tokens routed to that row) and
+    whether it fits, plus the aux loss and the logical freq."""
+    B, S, _ = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    n = min(group, S)
+    if S % n:
+        raise ValueError(f"capacity dispatch groups {n} tokens; a sequence "
+                         f"of {S} does not split into them")
+    cap = max(int(capacity_factor * k * n / E), 1)
+    gates, aux = router_probs(cfg, p, x)                    # (B,S,E)
+    freq = (gates > 0).float().mean(dim=(0, 1))
+    gates = gates.to(x.dtype)
+    if "owner" in p:
+        gates = gates.index_select(-1, p["owner"].long()) \
+            * p["share"].to(x.dtype)
+    gt = gates.reshape(B * (S // n), n, -1)
+    sel = gt > 0
+    pos = torch.cumsum(sel.int(), dim=1) - 1                # (BG,n,Ep)
+    keep = sel & (pos < cap)
+    return gt, cap, pos, sel, keep, aux, freq
+
+
+def moe_block_capacity(cfg: ModelConfig, p: dict, x,
+                       capacity_factor: float = 1.25, group: int = 1024):
+    """GShard-style grouped capacity dispatch.
+
+    Tokens are split into groups of ``group`` along the sequence (whole
+    batch rows per group); each group routes into per-row buckets of
+    capacity C = max(int(cf·k·n / E), 1), and a (token, row) past C in
+    its group is dropped (standard MoE semantics).  Expert work is
+    O(N·k·cf) instead of dense dispatch's O(N·E).  Returns (out (B,S,D),
+    aux, freq) as :func:`moe_block`."""
+    B, S, D = x.shape
+    gt, cap, pos, _, keep, aux, freq = _capacity_routing(
+        cfg, p, x, capacity_factor, group)
+    BG, n, Ep = gt.shape
+    # one-hot bucket slots; a dropped (token, row) — unselected, or past
+    # the capacity — goes to the spare slot ``cap``, sliced away, so it
+    # dispatches nowhere (``jax.nn.one_hot`` zeroes such indices; torch's
+    # raises on them)
+    slot = torch.where(keep, pos, cap).long()
+    disp = torch.zeros((BG, n, Ep, cap + 1), dtype=x.dtype, device=x.device)
+    disp = disp.scatter_(-1, slot[..., None], 1.0)[..., :cap]
+    xe = torch.einsum("gnd,gnec->gecd", x.reshape(BG, n, D), disp)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe,
+                            wt(p, "w_gate", x.dtype)))
+    h = h * torch.einsum("gecd,edf->gecf", xe, wt(p, "w_up", x.dtype))
+    ye = torch.einsum("gecf,efd->gecd", h, wt(p, "w_down", x.dtype))
+    comb = disp * gt[..., None]                             # (BG,n,Ep,C)
+    y = torch.einsum("gecd,gnec->gnd", ye, comb)
+    return y.reshape(B, S, D), aux, freq
+
+
+def capacity_drops(cfg: ModelConfig, p: dict, x,
+                   capacity_factor: float = 1.25, group: int = 1024):
+    """The number of (token, physical row) assignments that
+    :func:`moe_block_capacity` drops on ``x`` (routed, but past their
+    bucket's capacity), as a 0-d tensor."""
+    _, _, _, sel, keep, _, _ = _capacity_routing(cfg, p, x,
+                                                 capacity_factor, group)
+    return (sel & ~keep).sum()

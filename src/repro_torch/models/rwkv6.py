@@ -194,7 +194,16 @@ class RWKV6Model:
 
     def _run_layers(self, params, x, state):
         """Loop over layers; layer l reads its slice of the stacked params
-        and updates its slice of ``state`` in place."""
+        and updates its slice of ``state`` in place.  int8 layer weights
+        are refused: the reference's ``quantize_params`` gives RWKV-6's
+        (L, D, D) ``wk``/``wv``/``wo`` the attention base rank 3, so
+        their scales carry no layer axis and its layer scan fails on
+        them; the port does not invent a scheme the reference lacks."""
+        if any(L.is_quantized(v) for v in params["layers"].values()):
+            raise NotImplementedError(
+                "RWKV-6 takes no int8 layer weights: the reference's "
+                "quantize_params gives its (L, D, D) wk/wv/wo scales "
+                "without a layer axis and its forward fails on them")
         for l in range(self.cfg.n_layers):
             x = self._layer(_layer_view(params["layers"], l), x,
                             {name: buf[l] for name, buf in state.items()})

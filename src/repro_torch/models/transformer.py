@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.models.moe import init_moe, moe_block, moe_block_capacity
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,7 +59,8 @@ class TransformerLM:
     device."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, capacity_moe: bool = False,
+                 capacity_factor: float = 1.25):
         if cfg.family not in ("dense", "moe", "audio", "vlm"):
             raise ValueError(f"TransformerLM serves the dense, moe, audio "
                              f"and vlm families, not {cfg.family!r}")
@@ -71,6 +72,10 @@ class TransformerLM:
         # the decode state may carry per-layer "head_rows"/"head_inv"
         # gather maps (placement_bridge.head_row_maps)
         self.use_kernel = use_kernel
+        # MoE layers through GShard capacity dispatch
+        # (``moe.moe_block_capacity``) instead of dense dispatch
+        self.capacity_moe = capacity_moe
+        self.capacity_factor = capacity_factor
         self.is_vlm = cfg.family == "vlm"
         if self.is_vlm:
             if cfg.n_layers % 5:
@@ -146,7 +151,11 @@ class TransformerLM:
         x = x + attn_out
         h = L.apply_norm(cfg, p, "ln2", x)
         if cfg.is_moe:
-            out, _, freq = moe_block(cfg, p["moe"], h)
+            if self.capacity_moe:
+                out, _, freq = moe_block_capacity(cfg, p["moe"], h,
+                                                  self.capacity_factor)
+            else:
+                out, _, freq = moe_block(cfg, p["moe"], h)
             return x + out, freq
         return x + L.mlp_block(cfg, p["mlp"], h), None
 

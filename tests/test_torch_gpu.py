@@ -1256,3 +1256,106 @@ def test_head_width_80_reaches_the_cuda_library(cuda, dtype, monkeypatch):
                                    **TOLS[dtype])
         bound = (FLASH_ROW_REL if flash else DECODE_ROW_REL)[dtype]
         assert _row_rel_err(outs[name], want) <= bound, name
+
+
+# ------------------------------------------ identity rows and int8 weights
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_identity_row_wrappers_match_plain_versions(cuda, dtype, quant, dh):
+    """``decode_attention`` and ``decode_attention_int8`` launch the split
+    body over every q head, count the launch under their own name (not
+    the resident entry point's) and give their plain versions' output."""
+    from repro_torch.kernels import decode_attention as da
+    B, H, KvE, T = 4, 8, 2, 80
+    rng = np.random.default_rng(dh + quant)
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    cache = torch.from_numpy(rng.standard_normal((2, B, T, KvE, dh),
+                                                 np.float32)).to(cuda)
+    lengths = torch.tensor([0, 1, T, T + 1], dtype=torch.int32, device=cuda)
+    q = q.to(cuda, dtype)
+    if quant:
+        (kq, ks), (vq, vs) = _q8(cache[0]), _q8(cache[1])
+        args = (q, kq.transpose(1, 2), ks.transpose(1, 2),
+                vq.transpose(1, 2), vs.transpose(1, 2), lengths)
+        kern, plain = da.decode_attention_int8, da.decode_attention_int8_plain
+    else:
+        cache = cache.to(dtype)
+        args = (q, cache[0].transpose(1, 2), cache[1].transpose(1, 2),
+                lengths)
+        kern, plain = da.decode_attention, da.decode_attention_plain
+    before = (kern.launches, da.decode_attention_resident.launches,
+              da.decode_attention_int8_resident.launches)
+    out = kern(*args)
+    torch.cuda.synchronize()
+    assert (kern.launches, da.decode_attention_resident.launches,
+            da.decode_attention_int8_resident.launches) == (
+        before[0] + 1,) + before[1:]
+    want = plain(*args)
+    assert out.shape == (B, H, dh)
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    assert _row_rel_err(out, want) <= DECODE_ROW_REL[dtype]
+    assert not out[0].any()
+
+
+def test_decode_attention_bshd_runs_the_kernel(cuda):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 8, 128),
+                                             np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 96, 2, 128),
+                                                 np.float32)).to(cuda)
+            for _ in range(2))
+    lengths = torch.tensor([96, 17], dtype=torch.int32, device=cuda)
+    before = da.decode_attention.launches
+    out = ops.decode_attention_bshd(q, k, v, lengths)
+    assert da.decode_attention.launches == before + 1
+    want = da.decode_attention_plain(q[:, 0], k.transpose(1, 2),
+                                     v.transpose(1, 2), lengths)[:, None]
+    torch.testing.assert_close(out, want, **TOLS[torch.float32])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama3-8b"])
+def test_int8_capacity_model_kernel_logits_match_plain(cuda, arch):
+    """A small float32 model on int8 weights (``quantize_params``; mixtral
+    with capacity dispatch at cf 1.25 and a ring of 64 slots): a
+    lock-step prefill of 80 tokens (flash) and 4 teacher-forced decode
+    steps (the ring or the resident kernel) give the plain path's logits
+    within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.api import build_model
+    from repro_torch.models.quantization import quantize_params
+    over = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_head=64,
+                d_ff=256, vocab_size=128, dtype="float32",
+                param_dtype="float32")
+    if arch == "mixtral-8x7b":
+        over.update(n_experts=4, sliding_window=64)
+    cfg = get_config(arch).with_overrides(**over)
+    kw = dict(capacity_moe=True) if cfg.is_moe else {}
+    models = [build_model(cfg, use_kernel=uk, device=cuda, **kw)
+              for uk in (True, False)]
+    params = quantize_params(models[0].init(
+        torch.Generator(device=cuda).manual_seed(0)))
+    assert params["layers"]["attn"]["wq"]["q8"].dtype == torch.int8
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 128, (2, 80))).to(cuda)
+    ring = da.decode_attention_ring_resident
+    kern = ring if cfg.is_moe else da.decode_attention_resident
+    before = (kern.launches, flash_attention.launches)
+    runs = []
+    for m in models:
+        state = m.init_decode_state(params, 2, 90)
+        logits, state = m.prefill(params, state, tokens)
+        seen = [logits]
+        for t in range(4):
+            nxt = runs[0][t].argmax(-1) if runs else logits.argmax(-1)
+            logits, state = m.decode_step(params, state, nxt)
+            seen.append(logits)
+        runs.append(seen)
+    assert (kern.launches, flash_attention.launches) == (
+        before[0] + 4 * cfg.n_layers, before[1] + cfg.n_layers)
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -65,7 +65,8 @@ def test_every_module_imports_with_jax_and_repro_refused():
                  "repro_torch.serving.async_runtime",
                  "repro_torch.configs.llama3_2_vision_11b",
                  "repro_torch.models.mamba2", "repro_torch.models.zamba2",
-                 "repro_torch.configs.zamba2_2_7b"):
+                 "repro_torch.configs.zamba2_2_7b",
+                 "repro_torch.models.quantization"):
         assert name in names
 
 
