@@ -51,9 +51,21 @@ the same cache in scrambled pages, and in float32 that greedy streams
 with and without the kernels, from paged and dense caches, and with and
 without a device failure or slowdown, are equal.
 
+Last it trains, on the plain path (the kernels have no backward and
+refuse autograd): one step of four reduced float32 families on the card
+against the CPU; ``launch.train.main`` on paper-gpt at its published
+config (B 8 x S 512, 300 steps, checkpoints every 150, the loss falling)
+and a resume from step 150 equal to the uninterrupted run bit for bit;
+the trained weights then serve through the flash and resident decode
+kernels (f32 streams equal to the plain path's, launch counts exact, and
+``ServingEngine(use_kernel=True)`` on the bf16 weights); and train steps
+at llama3-8b's published widths (4 layers), split into forward+backward
+and the AdamW update.
+
     python3 chip_smoke.py --ab build/parent . . build/parent
 
-times the kernels of several checkouts in turns instead (see ``ab``).
+times the kernels of several checkouts in turns instead (see ``ab``);
+``--only train`` builds the kernels and runs only the training phases.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -72,6 +84,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3464,6 +3477,396 @@ def phase_churn_stream_pairs():
     del params
 
 
+# ------------------------------------------------------------- training
+# Training runs the plain torch path (the kernels have no backward, as the
+# reference's Pallas kernels have no VJP); the trained weights are then
+# served through the flash and resident decode kernels.
+#
+# The train parity phase: the CPU tests' reduced float32 widths
+# (``tests/conftest.reduced_config``) of four families, one train step on
+# the card against the same step on the CPU from the same weights.  Adam's
+# first step moves each weight by about lr * sign(g): a gradient element
+# within rounding of zero may take either sign on the two devices, so the
+# step's lr is small enough (1e-5) that such a flip stays inside the
+# bound on the smallest leaf (the 0.02-scale embedding table).
+TRAIN_BASE = dict(d_model=64, d_ff=128, vocab_size=97, dtype="float32",
+                  param_dtype="float32")
+TRAIN_PARITY = {
+    "llama3-8b": dict(n_layers=2, n_heads=4, d_head=16, n_kv_heads=4),
+    "mixtral-8x7b": dict(n_layers=2, n_heads=4, d_head=16, n_kv_heads=4,
+                         n_experts=4, sliding_window=8),
+    "rwkv6-7b": dict(n_layers=2, n_heads=4, d_head=16),
+    "zamba2-2.7b": dict(n_layers=4, shared_attn_every=2, n_heads=4,
+                        d_head=16, n_kv_heads=4),
+}
+TRAIN_PARITY_LR = 1e-5
+TRAIN_PARITY_REL = 1e-4      # of each leaf's largest magnitude
+# paper-gpt at its published config through launch.train: B 8 x S 512,
+# 300 steps, a checkpoint every 150.  The mean loss of steps 291-300 must
+# sit at least PAPER_LOSS_DROP nats below that of steps 1-10 (which start
+# near ln 50257 = 10.8; stated before the first run, PERF.md).
+PAPER_B, PAPER_S, PAPER_STEPS, PAPER_EVERY = 8, 512, 300, 150
+PAPER_LOSS_DROP = 1.0
+# the trained weights served greedily: 8 prompts of 512 tokens from a
+# held-out stream, 64 steps through the lock-step API
+SERVE_B, SERVE_S, SERVE_STEPS = 8, 512, 64
+# one train step at llama3-8b's published widths, 4 layers, bf16
+FULL_B, FULL_S, FULL_STEPS = 4, 512, 10
+# what the AdamW update must move per parameter: read the bf16 param and
+# grad and the f32 moments, write the param and the moments
+UPDATE_BYTES_PER_PARAM = 2 + 2 + 4 + 4 + 2 + 4 + 4
+
+
+def _tree_rel_err(got, want) -> float:
+    """The worst leaf's max |got - want| over its largest |want|."""
+    from repro_torch.optim.adamw import tree_leaves
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.detach().cpu().float(), w.detach().cpu().float()
+        scale = max(w.abs().max().item(), 1e-30)
+        worst = max(worst, (g - w).abs().max().item() / scale)
+    return worst
+
+
+def phase_train_parity():
+    """One train step (``launch.steps.make_train_step``: autograd through
+    ``model.loss``, then ``AdamW.update``) of each reduced float32 family
+    on the card and on the CPU from the same weights and batch: the loss,
+    the gradients and the updated params within TRAIN_PARITY_REL of each
+    leaf's largest magnitude.  rwkv6's ``u``/``lora_B``/``lw_B`` and
+    zamba2's SSM parameters are seeded nonzero first; mixtral's loss
+    carries its MoE aux loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW, tree_map
+    from repro_torch.weights import params_from_jax
+    opt = AdamW(lr=TRAIN_PARITY_LR)
+    for arch, over in TRAIN_PARITY.items():
+        cfg = get_config(arch).with_overrides(**TRAIN_BASE, **over)
+        params = build_model(cfg, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        if arch == "rwkv6-7b":
+            nonzero_adapters(params)
+        if arch == "zamba2-2.7b":
+            seed_ssm_params(params)
+        host = tree_map(lambda t: t.cpu().numpy(), params)
+        toks = np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, 17)).astype(np.int32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, device=dev)
+            p = params_from_jax(host, dev)
+            batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                     "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+            _, grads = value_and_grad(model.loss, p, batch)
+            new_p, _, loss = make_train_step(model, opt)(p, opt.init(p),
+                                                         batch)
+            out[dev] = (loss.item(), grads, new_p)
+        loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        grad_err = _tree_rel_err(out["cuda"][1], out["cpu"][1])
+        param_err = _tree_rel_err(out["cuda"][2], out["cpu"][2])
+        log(f"train parity {arch} (reduced f32): loss card "
+            f"{out['cuda'][0]:.6f} cpu {out['cpu'][0]:.6f} (rel "
+            f"{loss_err:.2e}); worst leaf grads {grad_err:.2e}, params "
+            f"after one step {param_err:.2e} (limit {TRAIN_PARITY_REL:.0e})")
+        for what, err in (("loss", loss_err), ("grads", grad_err),
+                          ("params", param_err)):
+            check(err <= TRAIN_PARITY_REL, f"train parity {arch}: {what} "
+                  f"differ by {err:.2e} of their scale")
+        release()
+
+
+def time_train_split(model, opt, params, batch, n: int):
+    """``n`` steps on one batch, each split by device syncs into autograd
+    through ``model.loss`` and the AdamW update (host clock); returns the
+    losses and the per-step seconds of each part."""
+    from repro_torch.launch.steps import value_and_grad
+    state = opt.init(params)
+    losses, fb, upd = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(model.loss, params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            params, state = opt.update(grads, state, params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del grads
+        losses.append(loss.item())
+        fb.append(t1 - t0)
+        upd.append(t2 - t1)
+    return losses, fb, upd
+
+
+def log_train_split(label, cfg, B, S, fb, upd):
+    """The median step's split (first step left out: allocation and
+    library warm-up), its FLOPs over time (6 N per token) and the
+    update's bytes over time, each beside its floor at the card's
+    peaks."""
+    n_params = cfg.param_count()
+    fb_ms, up_ms = 1e3 * float(np.median(fb[1:])), \
+        1e3 * float(np.median(upd[1:]))
+    flops = 6 * n_params * B * S
+    upd_bytes = UPDATE_BYTES_PER_PARAM * n_params
+    log(f"  {label} step split (median of {len(fb) - 1} after the first): "
+        f"forward+backward {fb_ms:.2f} ms, AdamW update {up_ms:.2f} ms, "
+        f"step {fb_ms + up_ms:.2f} ms")
+    log(f"  {label}: 6 N tokens = {flops:.3e} FLOP in {fb_ms:.2f} ms = "
+        f"{flops / fb_ms / 1e9:.1f} TFLOP/s (floor at the bf16 peak "
+        f"{1e3 * flops / PEAK_FLOPS[torch.bfloat16]:.2f} ms); update "
+        f"{upd_bytes / 1e9:.2f} GB at {UPDATE_BYTES_PER_PARAM} B/param in "
+        f"{up_ms:.2f} ms = {upd_bytes / up_ms / 1e9:.2f} TB/s (floor "
+        f"{1e3 * upd_bytes / PEAK_BYTES_PER_S:.2f} ms)")
+
+
+def _train_steps(record):
+    return [r for r in record if "loss" in r]
+
+
+def phase_train_paper_gpt():
+    """``launch.train.main`` on paper-gpt at its published config (1
+    layer, d 2048, 32 heads of 64, d_ff 8192, vocab 50257, bf16): 300
+    steps of B 8 x S 512 on the synthetic Zipf stream, a checkpoint every
+    150 (2.73 GB: bf16 params, f32 moments), the loss falling by
+    PAPER_LOSS_DROP.  Then the uninterrupted run's step-300 checkpoint is
+    set aside and a second ``main`` resumes from step 150 to 300: its
+    losses and its step-300 checkpoint (every leaf's sha1) must equal the
+    first run's.  No kernel launches: training runs the plain path.
+    Returns the trained params (bf16, on the card)."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    cfg = get_config("paper-gpt")
+    tmp = Path(tempfile.mkdtemp(prefix="paper_gpt_ckpt_"))
+    argv = ["--arch", "paper-gpt", "--steps", str(PAPER_STEPS), "--batch",
+            str(PAPER_B), "--seq", str(PAPER_S), "--ckpt", str(tmp),
+            "--ckpt-every", str(PAPER_EVERY), "--log-every", "50"]
+    last = f"step_{PAPER_STEPS:08d}"
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        rec_a = []
+        t0 = time.monotonic()
+        train.main(argv, record=rec_a)
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_launches()
+        steps_a = _train_steps(rec_a)
+        losses = [r["loss"] for r in steps_a]
+        first, final = float(np.mean(losses[:10])), \
+            float(np.mean(losses[-10:]))
+        step_s = float(np.median([r["seconds"] for r in steps_a[1:]]))
+        saves = [r for r in rec_a if r.get("op") == "save"]
+        log(f"train paper-gpt ({cfg.param_count():,} params, "
+            f"{DTYPE_NAMES[cfg.param_dtype]}, B "
+            f"{PAPER_B} x S {PAPER_S}): {len(steps_a)} steps in {wall:.1f} "
+            f"s; loss {losses[0]:.4f} at step 1, mean of steps 1-10 "
+            f"{first:.4f}, of steps {PAPER_STEPS - 9}-{PAPER_STEPS} "
+            f"{final:.4f} (drop {first - final:.4f}, limit "
+            f"{PAPER_LOSS_DROP}); median step {1e3 * step_s:.2f} ms, "
+            f"{PAPER_B * PAPER_S / step_s:.0f} tok/s; peak memory "
+            f"{peak / 1e9:.2f} GB; kernel launches {launches}")
+        for r in saves:
+            log(f"  checkpoint step {r['step']}: {r['bytes']:,} bytes, "
+                f"saved in {r['seconds']:.2f} s (copy to host, write, "
+                f"sha1)")
+        check(len(steps_a) == PAPER_STEPS, "paper-gpt: not every step ran")
+        check(all(math.isfinite(x) for x in losses),
+              "paper-gpt: a non-finite loss")
+        check(first - final >= PAPER_LOSS_DROP, f"paper-gpt: the loss fell "
+              f"by {first - final:.4f} < {PAPER_LOSS_DROP}")
+        check(not any(launches.values()), f"training launched a kernel: "
+              f"{launches}")
+        manifest = json.loads((tmp / last / "manifest.json").read_text())
+        shutil.rmtree(tmp / last)
+        rec_b = []
+        train.main(argv + ["--resume"], record=rec_b)
+        steps_b = _train_steps(rec_b)
+        restores = [r for r in rec_b if r.get("op") == "restore"]
+        resumed = json.loads((tmp / last / "manifest.json").read_text())
+        differ = [k for k, m in manifest["leaves"].items()
+                  if resumed["leaves"][k]["sha1"] != m["sha1"]]
+        gaps = [abs(a["loss"] - b["loss"])
+                for a, b in zip(steps_a[PAPER_EVERY:], steps_b)]
+        log(f"  resume from step {PAPER_EVERY}: restored "
+            f"{restores[0]['bytes']:,} bytes in {restores[0]['seconds']:.2f}"
+            f" s (read, sha1, to the card); steps "
+            f"{steps_b[0]['step']}-{steps_b[-1]['step']}: largest loss gap "
+            f"to the uninterrupted run {max(gaps):.3e}; step-"
+            f"{PAPER_STEPS} checkpoint leaves whose sha1 differ: "
+            f"{len(differ)} of {len(manifest['leaves'])}")
+        check([r["step"] for r in steps_b]
+              == list(range(PAPER_EVERY + 1, PAPER_STEPS + 1)),
+              "paper-gpt resume: wrong steps")
+        check(max(gaps) == 0.0, f"paper-gpt resume: losses differ from the "
+              f"uninterrupted run by up to {max(gaps):.3e}")
+        check(not differ, f"paper-gpt resume: {len(differ)} leaves differ "
+              f"from the uninterrupted run: {differ[:4]}")
+        model = build_model(cfg, device="cuda")
+        like = model.init(torch.Generator(device="cuda").manual_seed(0))
+        trained = Checkpointer(tmp).restore(PAPER_STEPS,
+                                            {"params": like})["params"]
+        del like
+        release()
+        # the step's split at the same shapes, on fresh weights
+        src = iter(SyntheticLM(cfg.vocab_size, PAPER_S, PAPER_B))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(src).items()}
+        params = model.init(torch.Generator(device="cuda").manual_seed(1))
+        _, fb, upd = time_train_split(
+            model, AdamW(lr=cosine_schedule(3e-4, 20, PAPER_STEPS)), params,
+            batch, FULL_STEPS)
+        log_train_split("paper-gpt", cfg, PAPER_B, PAPER_S, fb, upd)
+        del params
+        return trained
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_train_then_serve(trained):
+    """The trained paper-gpt weights serve greedily.  Cast to float32, 8
+    held-out prompts of 512 tokens run through ``prefill`` and 64
+    ``decode_step``s (as the quickstart generates) with the kernels —
+    flash at H == KvE 32, dh 64; the resident decode kernel at G 1 — and
+    without: the streams must be equal, every step's logits within
+    STREAM_LOGIT_ATOL, and the kernel run's launches exact (flash once,
+    the resident kernel once a step).  Then ``ServingEngine(use_kernel=
+    True)`` serves the dense path's traffic on the trained bf16 weights
+    to its end.  Returns each kernel's launches over both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import tree_map
+    cfg = get_config("paper-gpt")
+    cfg32 = cfg.with_overrides(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), trained)
+    prompts = next(iter(SyntheticLM(cfg.vocab_size, SERVE_S, SERVE_B,
+                                    seed=1)))
+    tokens = torch.from_numpy(prompts["tokens"]).cuda()
+    reset_launches()
+    with torch.no_grad():
+        kern = _lockstep_stream(build_model(cfg32, use_kernel=True,
+                                            device="cuda"),
+                                p32, tokens, SERVE_STEPS)
+        launches = read_launches()
+        plain = _lockstep_stream(build_model(cfg32, device="cuda"), p32,
+                                 tokens, SERVE_STEPS)
+        random = build_model(cfg32, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        untrained = _lockstep_stream(build_model(cfg32, device="cuda"),
+                                     random, tokens, 1)
+    del random
+    check(read_launches() == launches, "the plain stream launched a kernel")
+    worst = max((a - b).abs().max().item() for a, b in zip(kern[1], plain[1]))
+    same = torch.equal(kern[0], plain[0])
+
+    def top1(logits):
+        return torch.softmax(logits, -1).max(-1).values.mean().item()
+
+    log(f"serve trained paper-gpt f32 ({SERVE_B} x {SERVE_S} prompts, "
+        f"{SERVE_STEPS} steps) kernels vs plain: streams "
+        f"{'equal' if same else 'differ'}, max per-step logit difference "
+        f"{worst:.3e} (limit {STREAM_LOGIT_ATOL:.0e}); mean top-1 "
+        f"probability of the first step {top1(kern[1][0]):.4f} trained, "
+        f"{top1(untrained[1][0]):.6f} on random weights; launches "
+        f"{launches}")
+    check(same, "trained paper-gpt: greedy streams differ")
+    check(worst <= STREAM_LOGIT_ATOL, f"trained paper-gpt: logits differ "
+          f"by {worst:.3e}")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.n_layers
+    want["decode_attention_resident"] = SERVE_STEPS * cfg.n_layers
+    check(launches == want, f"trained paper-gpt launches {launches} != "
+          f"{want}")
+    del p32, kern, plain
+    release()
+    reset_launches()
+    eng = serve(cfg, use_kernel=True, n_requests=16, max_new=64,
+                params=trained)
+    seen = watch_logits(eng)
+    t0 = time.monotonic()
+    with torch.no_grad():
+        while drive(eng):
+            pass
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    served = read_launches()
+    tokens_out = sum(len(r.out_tokens) for r in eng.finished)
+    log(f"  ServingEngine(use_kernel=True) on the trained bf16 weights: "
+        f"{len(eng.finished)} requests, {tokens_out} tokens, "
+        f"{eng.decode_steps} decode steps in {wall:.2f} s; launches "
+        f"{served}")
+    check(len(eng.finished) == 16 and all(len(r.out_tokens) == 64
+                                          for r in eng.finished),
+          "trained paper-gpt engine: not every request finished")
+    check(served["decode_attention_resident"]
+          == eng.decode_steps * cfg.n_layers,
+          f"trained paper-gpt engine: resident launches "
+          f"{served['decode_attention_resident']} != decode steps "
+          f"{eng.decode_steps} x {cfg.n_layers}")
+    check(served["flash_attention"] == 16 * cfg.n_layers,
+          f"trained paper-gpt engine: flash launches "
+          f"{served['flash_attention']} != 16 x {cfg.n_layers}")
+    check(bool(seen["finite"].item()), "trained paper-gpt engine: "
+          "non-finite logits")
+    return {k: launches[k] + served[k] for k in launches}
+
+
+def phase_train_step_full_width():
+    """Train steps at llama3-8b's published widths (d 4096, 32 heads over
+    8 KV heads of 128, d_ff 14336, vocab 128256), 4 layers, bf16 (1.92e9
+    params): B 4 x S 512 for FULL_STEPS steps on one repeated batch, each
+    split into forward+backward and the AdamW update.  The loss must be
+    finite and fall.  Logs the split, the FLOPs over time, the peak
+    memory and its floor (params, grads and moments)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(iter(
+        SyntheticLM(cfg.vocab_size, FULL_S, FULL_B))).items()}
+    losses, fb, upd = time_train_split(model, AdamW(lr=3e-4), params,
+                                       batch, FULL_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.param_count()
+    floor = n * (2 + 2 + 4 + 4)
+    log(f"train step llama3-8b x{N_LAYERS} layers ({n:,} params, bf16, B "
+        f"{FULL_B} x S {FULL_S}): losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {FULL_STEPS} steps on one batch; peak "
+        f"memory {peak / 1e9:.2f} GB (params, grads and f32 moments "
+        f"{floor / 1e9:.2f} GB)")
+    log_train_split(f"llama3-8b x{N_LAYERS}", cfg, FULL_B, FULL_S, fb, upd)
+    check(all(math.isfinite(x) for x in losses),
+          "llama3-8b train step: a non-finite loss")
+    check(losses[-1] < losses[0], f"llama3-8b train step: the loss did not "
+          f"fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    del params
+
+
+def train_phases():
+    """The training phases in order; returns the launches of the
+    train-then-serve phase by kernel."""
+    phase_train_parity()
+    release()
+    trained = phase_train_paper_gpt()
+    release()
+    served = phase_train_then_serve(trained)
+    del trained
+    release()
+    phase_train_step_full_width()
+    release()
+    return served
+
+
 def kernel_phases():
     """Every kernel against its plain version, then timed at its main
     path's shapes: one record per kernel."""
@@ -3521,6 +3924,9 @@ def main():
     ap.add_argument("--kernels-of", metavar="ROOT",
                     help="only build ROOT's kernels and run the kernel "
                     "phases on them; print their records")
+    ap.add_argument("--only", choices=("train",),
+                    help="only build the kernels and run these phases "
+                    "(no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is present")
@@ -3546,6 +3952,9 @@ def main():
     log(f"built {sorted(logs) or 'nothing (cached)'} in "
         f"{time.monotonic() - t0:.1f} s")
     log_ptxas(logs)
+    if args.only == "train":
+        log(f"train-then-serve launches: {train_phases()}")
+        return
     n_hgmma, per_dh = check_flash_sass()
     log(f"flash library SASS: {n_hgmma} HGMMA instructions; per head width "
         f"of the wgmma body {per_dh}")
@@ -3647,6 +4056,14 @@ def main():
     log(f"flash_attention launches with the elastic paths: {flash}")
     phase_churn_stream_pairs()
     release()
+    # training on the plain path, then the trained weights served through
+    # the flash and resident kernels: their launches add to those records
+    served = train_phases()
+    for name in ("decode_attention_resident", "flash_attention"):
+        by_name[name]["launches"] += served[name]
+    log(f"train-then-serve launches added to the records: {served}")
+    log(f"every phase passed; {time.monotonic() - t0:.1f} s from the build "
+        f"on")
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",

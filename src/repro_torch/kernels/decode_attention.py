@@ -31,7 +31,9 @@ Each launches the kernel for CUDA tensors, counts the launch in its
 plain PyTorch — only for tensors on the CPU.  There is no fallback: a
 CUDA tensor the kernel does not take (a dtype it lacks, a dh outside
 ``SUPPORTED_DH`` — 16, 32, 64, zamba2's 80 and 128 — values without
-16-byte aligned bases and strides) raises ``ValueError``.
+16-byte aligned bases and strides) raises ``ValueError``, and an input
+autograd would record raises ``RuntimeError``: the kernels have no
+backward (``kernels.refuse_autograd``).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 
 SUPPORTED_DH = (16, 32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -218,7 +220,9 @@ def _check_page_map(page_map, B):
 
 def _on_cpu(q, *tensors) -> bool:
     """True for CPU tensors (the plain version runs); False for CUDA
-    tensors (the kernel launches); raises for a mix or another device."""
+    tensors (the kernel launches); raises for a mix or another device, and
+    for inputs autograd would record (``kernels.refuse_autograd``)."""
+    refuse_autograd("the decode attention kernel", q, *tensors)
     for t in tensors:
         if t.device != q.device:
             raise ValueError(f"a tensor is on {t.device}, q on {q.device}")

@@ -15,7 +15,9 @@ keeps only j > i - window.  Without ``causal`` every column is attended and
 launch in its ``.launches``; it runs ``flash_attention_plain`` — the model's
 own prefill arithmetic on these positions — only for tensors on the CPU.
 There is no fallback: a CUDA tensor the kernel does not take (a head width
-outside ``SUPPORTED_DH``: 16, 32, 64, zamba2's 80 and 128) raises.
+outside ``SUPPORTED_DH``: 16, 32, 64, zamba2's 80 and 128) raises, and so
+does an input autograd would record: the kernel has no backward
+(``kernels.refuse_autograd``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.attention_plain import attend, causal_mask
 
 SUPPORTED_DH = (16, 32, 64, 80, 128)
@@ -116,6 +118,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     Returns (B, H, Sq, dh) in q's dtype, a view of (B, Sq, H, dh) memory —
     the model's layout, so the caller's transpose back is free."""
     _check(q, k, v, window)
+    refuse_autograd("the flash attention kernel", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

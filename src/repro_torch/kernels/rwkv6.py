@@ -9,14 +9,15 @@ float32:
     y_t = r_t · S + (r_t · (u ⊙ k_t)) v_t
     S  <- diag(w_t) · S + k_tᵀ v_t
 
-``rwkv6_chunked`` launches the kernel for CUDA tensors and counts the
-launch in its ``.launches``; it runs ``rwkv6_chunked_plain`` — the same
-recurrence as a step-by-step float32 loop in plain PyTorch — only for
-tensors on the CPU.  There is no fallback: a CUDA tensor the kernel does
-not take raises.  The kernel runs a sequence of ``CHUNK`` or more steps in
-the chunked, parallel-in-time form that ``rwkv6_chunkwise_plain`` spells
-out in plain PyTorch (the CPU tests hold that form against the step-by-step
-one); shorter ones (decode) step by step.
+``rwkv6_chunked`` launches the kernel for CUDA tensors and counts the launch in
+its ``.launches``; it runs ``rwkv6_chunked_plain`` — the same recurrence as a
+step-by-step float32 loop in plain PyTorch — only for tensors on the CPU.
+There is no fallback: a CUDA tensor the kernel does not take raises, and so
+does an input autograd would record (the kernel has no backward:
+``kernels.refuse_autograd``).  The kernel runs a sequence of ``CHUNK`` or more
+steps in the chunked, parallel-in-time form that ``rwkv6_chunkwise_plain``
+spells out in plain PyTorch (the CPU tests hold that form against the
+step-by-step one); shorter ones (decode) step by step.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 
 SUPPORTED_DH = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -188,6 +189,7 @@ def rwkv6_chunked(r, k, v, w, u, state, *, out_state=None):
     Returns y (B, H, S, dh) float32 — a view of (B, S, H, dh) memory — and
     the final state (``out_state``, or a new tensor)."""
     B, H, S, dh = _check(r, k, v, w, u, state, out_state)
+    refuse_autograd("the WKV6 kernel", r, k, v, w, u, state)
     if r.device.type == "cpu":
         return rwkv6_chunked_plain(r, k, v, w, u, state,
                                    out_state=out_state)

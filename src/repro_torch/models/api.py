@@ -3,7 +3,8 @@ of the JAX package's ``models/api.py`` for every family the reference
 builds (dense, MoE, audio, VLM, RWKV-6 ``ssm`` and the Zamba2 ``hybrid``)
 — and ``batch_extras``, the stubbed frontend inputs.
 
-The returned model exposes ``init(generator)``, ``forward`` and the
+The returned model exposes ``init(generator)``, ``forward`` (returning
+``(logits, aux)`` as the reference's does), ``loss(params, batch)`` and the
 lock-step API of the wave scheduler (``init_decode_state``, ``prefill``,
 ``decode_step``).  Attention-backed models (dense, MoE, audio, VLM) also
 expose the continuous-batching slot API:
@@ -35,20 +36,24 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None,
-                capacity_moe: bool = False, capacity_factor: float = 1.25):
+                capacity_moe: bool = False, capacity_factor: float = 1.25,
+                remat: str = "none"):
     """``capacity_moe`` runs MoE layers through GShard capacity dispatch
     at ``capacity_factor`` (attention families; RWKV-6 and Zamba2 have no
-    MoE, as in the reference, which ignores the option for them)."""
+    MoE, as in the reference, which ignores the option for them).
+    ``remat`` is one of the reference's ``REMAT_POLICIES`` names ("none",
+    "full", "dots", "dots_no_batch"): activation checkpointing under
+    autograd (``transformer.remat_call``); any other name raises."""
     if cfg.family == "ssm":
-        return RWKV6Model(cfg, use_kernel=use_kernel,
+        return RWKV6Model(cfg, use_kernel=use_kernel, remat=remat,
                           device=resolve_device(device))
     if cfg.family == "hybrid":
-        return Zamba2Model(cfg, use_kernel=use_kernel,
+        return Zamba2Model(cfg, use_kernel=use_kernel, remat=remat,
                            device=resolve_device(device))
     return TransformerLM(cfg, use_kernel=use_kernel,
                          device=resolve_device(device),
                          capacity_moe=capacity_moe,
-                         capacity_factor=capacity_factor)
+                         capacity_factor=capacity_factor, remat=remat)
 
 
 def batch_extras(cfg: ModelConfig, batch: int, dtype,

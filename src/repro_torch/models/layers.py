@@ -1,10 +1,11 @@
 """Decoder layers: RMSNorm and LayerNorm, RoPE, GQA attention (causal or
-sliding-window, plain or chunked flash-style) with a per-slot, paged or
-ring KV cache (in the working dtype or int8), gated cross-attention over
-image K/V (llama-3.2-vision), SwiGLU and GELU MLPs, embeddings (tied or
-not) — counterpart of the JAX package's ``models/layers.py``, for the
-branches the llama, glm4 (QKV bias, partial RoPE), qwen1.5, mixtral,
-musicgen (LayerNorm, GELU with biases) and VLM families take.
+sliding-window, plain or chunked flash-style) with a per-slot, paged or ring KV
+cache (in the working dtype or int8), gated cross-attention over image K/V
+(llama-3.2-vision), SwiGLU and GELU MLPs, embeddings (tied or not) and the
+training loss (``cross_entropy``) — counterpart of the JAX package's
+``models/layers.py``, for the branches the llama, glm4 (QKV bias, partial
+RoPE), qwen1.5, mixtral, musicgen (LayerNorm, GELU with biases) and VLM
+families take.
 
 Functions take plain tensors and nested dicts of parameters in the
 reference's layouts (``wq`` (D,Hp,dh), ``wk``/``wv`` (D,Kp,dh), ``wo``
@@ -619,3 +620,12 @@ def unembed(cfg: ModelConfig, p: dict, x):
     w = wt(p, "tok_embed", x.dtype).T if cfg.tie_embeddings \
         else wt(p, "lm_head", x.dtype)
     return torch.einsum("bsd,dv->bsv", x, w).float()
+
+
+def cross_entropy(logits, labels):
+    """Mean token cross-entropy in float32: logits (B, S, V), labels
+    (B, S) int; logsumexp minus the gold logit, averaged."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()

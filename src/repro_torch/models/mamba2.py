@@ -93,8 +93,8 @@ def ssd_scan(xh, Bt, Ct, a, dtv, h0):
     ys = []
     for t in range(xh.shape[1]):
         dx = xh[:, t] * dtv[:, t, :, None]                    # (B, nh, dh)
-        h.mul_(a[:, t, :, None, None]).add_(
-            dx[..., None] * Bt[:, t, None, None, :])
+        h = h * a[:, t, :, None, None] \
+            + dx[..., None] * Bt[:, t, None, None, :]
         ys.append(torch.matmul(h, Ct[:, t, None, :, None])[..., 0])
     return torch.stack(ys, dim=1), h
 

@@ -13,9 +13,13 @@ applied, as the reference does).
 Parameters are a nested dict in the reference's names and stacked
 ``(L, ...)`` layouts (``weights.params_from_jax`` carries them unchanged);
 the reference's ``lax.scan`` over layers is a Python loop over per-layer
-views, and the decode state is updated in place.  ``wkv_scan`` is the
-model's plain recurrence (``use_kernel=False``); ``use_kernel=True`` runs
-the hand-written WKV6 kernel (``kernels.rwkv6``) through ``kernels.ops``.
+views.  Each layer returns its new token shifts and WKV state; the decode
+state takes them in place, while ``forward`` (the training path) starts
+from a fresh zero state and writes nothing, so autograd's saved tensors
+stay intact.  ``wkv_scan`` is the model's plain recurrence
+(``use_kernel=False``); ``use_kernel=True`` runs the hand-written WKV6
+kernel (``kernels.rwkv6``) through ``kernels.ops``.  ``remat``
+checkpoints each layer (``transformer.remat_call``).
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _layer_view, torch_dtype
+from repro_torch.models.transformer import (_layer_view, check_remat,
+                                           remat_call, torch_dtype)
 
 LORA_R = 32      # shared ddlerp adapter rank
 LORA_W_R = 64    # decay adapter rank
@@ -37,9 +42,9 @@ MIX_NAMES = ("w", "k", "v", "r", "g")
 def wkv_scan(r, k, v, w, u, state):
     """Sequential WKV recurrence in float32.
 
-    r,k,v,w: (B,S,H,dh); u: (H,dh); state: (B,H,dh,dh) with S[i,j] indexed
-    [key channel i, value channel j].  Returns y (B,S,H,dh) and the final
-    state."""
+    r,k,v,w: (B,S,H,dh); u: (H,dh); state: (B,H,dh,dh) with S[i,j]
+    indexed [key channel i, value channel j], not written.  Returns y
+    (B,S,H,dh) and the final state, a new tensor."""
     r, k, v, w = (t.float() for t in (r, k, v, w))
     u = u.float()
     s = state.float()
@@ -74,13 +79,14 @@ class RWKV6Model:
     """Config-driven RWKV-6 LM on one device."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, remat: str = "none"):
         if cfg.family != "ssm":
             raise ValueError(f"RWKV6Model serves the ssm family, not "
                              f"{cfg.family!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.use_kernel = use_kernel
+        self.remat = check_remat(remat)
         self.H = cfg.n_heads
         self.dh = cfg.d_model // cfg.n_heads
 
@@ -135,9 +141,11 @@ class RWKV6Model:
         return params
 
     # ------------------------------------------------------------- time mix
-    def _time_mix(self, p, x, shift_state, wkv_state):
+    def _time_mix(self, p, x, shift_state, wkv_state, out_state=None):
         """x: (B,S,D); shift_state (B,D) and wkv_state (B,H,dh,dh) are this
-        layer's views of the decode state, updated in place."""
+        layer's states, not written.  Returns the output, the new token
+        shift (a view of x) and the new WKV state; the kernel writes the
+        latter into ``out_state`` when given."""
         B, S, D = x.shape
         dx = _shifted(x, shift_state) - x
         x_mix = x + dx * p["mu_x"]
@@ -155,29 +163,32 @@ class RWKV6Model:
         w = torch.exp(-torch.exp(w_log))                       # (B,S,D) f32
         r, k, v, w = (t.reshape(B, S, self.H, self.dh) for t in (r, k, v, w))
         if self.use_kernel:
-            y, _ = ops.rwkv6(r, k, v, w, p["u"], wkv_state,
-                             out_state=wkv_state)
+            y, new_wkv = ops.rwkv6(r, k, v, w, p["u"], wkv_state,
+                                   out_state=out_state)
         else:
             y, new_wkv = wkv_scan(r, k, v, w, p["u"], wkv_state)
-            wkv_state.copy_(new_wkv)
-        shift_state.copy_(x[:, -1])
         y = group_norm_heads(y, p["gn_scale"], p["gn_bias"])
         y = (y * F.silu(g.float())).to(x.dtype)
-        return y @ p["wo"]
+        return y @ p["wo"], x[:, -1], new_wkv
 
     def _channel_mix(self, p, x, shift_state):
+        """Returns the output and the new token shift (a view of x)."""
         dx = _shifted(x, shift_state) - x
-        shift_state.copy_(x[:, -1])
         xk = x + dx * p["mu_ck"]
         xr = x + dx * p["mu_cr"]
         k = torch.square(torch.relu(xk @ p["wck"]))
-        return torch.sigmoid(xr @ p["wcr"]) * (k @ p["wcv"])
+        return torch.sigmoid(xr @ p["wcr"]) * (k @ p["wcv"]), x[:, -1]
 
-    def _layer(self, p, x, state):
+    def _layer(self, p, x, state, out_wkv=None):
+        """One layer from its states ``state`` (read only).  Returns the
+        hidden state and the layer's new states."""
         h = L.apply_norm(self.cfg, p, "ln1", x)
-        x = x + self._time_mix(p, h, state["shift_t"], state["wkv"])
+        out, shift_t, wkv = self._time_mix(p, h, state["shift_t"],
+                                           state["wkv"], out_wkv)
+        x = x + out
         h = L.apply_norm(self.cfg, p, "ln2", x)
-        return x + self._channel_mix(p, h, state["shift_c"])
+        out, shift_c = self._channel_mix(p, h, state["shift_c"])
+        return x + out, {"shift_t": shift_t, "shift_c": shift_c, "wkv": wkv}
 
     # --------------------------------------------------------------- forward
     def _zero_state(self, batch: int) -> Dict[str, torch.Tensor]:
@@ -192,9 +203,11 @@ class RWKV6Model:
                                 self.dh), dtype=torch.float32, device=dev),
         }
 
-    def _run_layers(self, params, x, state):
+    def _run_layers(self, params, x, state, write: bool = True):
         """Loop over layers; layer l reads its slice of the stacked params
-        and updates its slice of ``state`` in place.  int8 layer weights
+        and of ``state``, and with ``write`` stores its new states into
+        that slice (the kernel writes its WKV state there itself).
+        ``remat`` checkpoints each layer.  int8 layer weights
         are refused: the reference's ``quantize_params`` gives RWKV-6's
         (L, D, D) ``wk``/``wv``/``wo`` the attention base rank 3, so
         their scales carry no layer axis and its layer scan fails on
@@ -205,20 +218,35 @@ class RWKV6Model:
                 "quantize_params gives its (L, D, D) wk/wv/wo scales "
                 "without a layer axis and its forward fails on them")
         for l in range(self.cfg.n_layers):
-            x = self._layer(_layer_view(params["layers"], l), x,
-                            {name: buf[l] for name, buf in state.items()})
+            views = {name: buf[l] for name, buf in state.items()}
+            out_wkv = views["wkv"] if write and self.use_kernel else None
+            x, new = remat_call(self.remat, self._layer,
+                                _layer_view(params["layers"], l), x, views,
+                                out_wkv)
+            if write:
+                for name, buf in views.items():
+                    if new[name] is not buf:
+                        buf.copy_(new[name])
         return x
 
     def _logits(self, params, x):
         x = L.apply_norm(self.cfg, params, "ln_f", x)
         return L.unembed(self.cfg, params, x)
 
-    def forward(self, params, tokens):
-        """Full-sequence forward from a zero state. Returns logits
-        (B,S,V)."""
+    def forward(self, params, tokens, **_):
+        """Full-sequence forward from a zero state, written nowhere.
+        Returns (logits (B,S,V), aux): the model has no aux loss, so aux
+        is a float32 zero, as in the reference."""
         x = L.embed(self.cfg, params, tokens)
-        x = self._run_layers(params, x, self._zero_state(tokens.shape[0]))
-        return self._logits(params, x)
+        x = self._run_layers(params, x, self._zero_state(tokens.shape[0]),
+                             write=False)
+        return self._logits(params, x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+
+    def loss(self, params, batch):
+        """Mean token cross-entropy of ``batch["labels"]``."""
+        logits, _ = self.forward(params, batch["tokens"])
+        return L.cross_entropy(logits, batch["labels"])
 
     # ---------------------------------------------------------------- decode
     def init_decode_state(self, params, batch: int, max_seq: int, **_):

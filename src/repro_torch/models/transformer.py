@@ -14,6 +14,14 @@ becomes a Python loop over per-layer views of the stacked params and
 cache, and the KV cache — linear, paged or (sliding-window archs) a ring
 of ``window`` slots, in the working dtype or int8 with per-(token, head)
 scales — is updated in place (the reference donates its state instead).
+
+Training differentiates the plain path (``use_kernel=False``), as the
+reference's does: no kernel has a backward.  ``remat`` maps the
+reference's ``REMAT_POLICIES`` onto ``torch.utils.checkpoint`` around each
+layer (:func:`remat_call`).  The reference also pins each layer's param
+slice with ``layers.pin_layer_slice``, a barrier against XLA hoisting a
+sharded all-gather out of its layer scan; a Python loop over layer views
+has nothing to hoist, so it has no counterpart here.
 """
 from __future__ import annotations
 
@@ -22,12 +30,25 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_block, moe_block_capacity
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the reference's remat policies: "full" saves nothing inside a layer, the
+# other two save the outputs of its matrix products (without the batched
+# ones for "dots_no_batch") and recompute the rest in the backward pass
+_MATMUL_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMAT_POLICIES = {
+    "none": None,
+    "full": (),
+    "dots": _MATMUL_OPS + (torch.ops.aten.bmm.default,),
+    "dots_no_batch": _MATMUL_OPS,
+}
 
 # decay of the router-load EWMA kept in the decode state ("expert_load"):
 # load_t = d*load_{t-1} + (1-d)*freq_t.  The serving engine normalizes and
@@ -40,6 +61,37 @@ _EWMA_1MD = float(np.float32(1.0) - np.float32(EXPERT_LOAD_EWMA))
 
 def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+def check_remat(remat: str) -> str:
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; expected one of "
+                         f"{sorted(REMAT_POLICIES)}")
+    return remat
+
+
+def _save_policy(saved_ops):
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved_ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``remat`` names
+    a policy and autograd records: ``"full"`` keeps only the layer's
+    inputs, ``"dots"`` and ``"dots_no_batch"`` also the matmul outputs
+    (selective checkpointing).  The recomputation runs the same ops on the
+    same inputs, so gradients keep their bits."""
+    saved = REMAT_POLICIES[remat]
+    if saved is None or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if saved:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            _save_policy(frozenset(saved)))
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _layer_view(tree, l):
@@ -60,7 +112,7 @@ class TransformerLM:
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  use_kernel: bool = False, capacity_moe: bool = False,
-                 capacity_factor: float = 1.25):
+                 capacity_factor: float = 1.25, remat: str = "none"):
         if cfg.family not in ("dense", "moe", "audio", "vlm"):
             raise ValueError(f"TransformerLM serves the dense, moe, audio "
                              f"and vlm families, not {cfg.family!r}")
@@ -76,6 +128,8 @@ class TransformerLM:
         # (``moe.moe_block_capacity``) instead of dense dispatch
         self.capacity_moe = capacity_moe
         self.capacity_factor = capacity_factor
+        # activation checkpointing of each layer under autograd
+        self.remat = check_remat(remat)
         self.is_vlm = cfg.family == "vlm"
         if self.is_vlm:
             if cfg.n_layers % 5:
@@ -140,7 +194,8 @@ class TransformerLM:
                head_rows=None, head_inv=None, page_map=None,
                write_valid=None):
         """One decoder layer.  Returns the new hidden state and, for MoE
-        layers, the (E,) routed-token fraction of this call (else None)."""
+        layers, the float32 aux loss and the (E,) routed-token fraction of
+        this call (else None, None)."""
         cfg = self.cfg
         h = L.apply_norm(cfg, p, "ln1", x)
         attn_out, _ = L.self_attention_block(
@@ -152,12 +207,12 @@ class TransformerLM:
         h = L.apply_norm(cfg, p, "ln2", x)
         if cfg.is_moe:
             if self.capacity_moe:
-                out, _, freq = moe_block_capacity(cfg, p["moe"], h,
-                                                  self.capacity_factor)
+                out, aux, freq = moe_block_capacity(cfg, p["moe"], h,
+                                                    self.capacity_factor)
             else:
-                out, _, freq = moe_block(cfg, p["moe"], h)
-            return x + out, freq
-        return x + L.mlp_block(cfg, p["mlp"], h), None
+                out, aux, freq = moe_block(cfg, p["moe"], h)
+            return x + out, aux, freq
+        return x + L.mlp_block(cfg, p["mlp"], h), None, None
 
     def _cross_layer(self, p: dict, x, img_kv, img_mask):
         """A gated cross-attention layer over the image K/V ``img_kv``
@@ -196,18 +251,22 @@ class TransformerLM:
         (g, i) reads ``params["layers"]`` and the cache at (g, i), cross
         layer g ``params["cross_layers"]`` and the image K/V at g.  Self
         attention decodes over identity head rows (the reference threads
-        no row maps into a VLM's grouped stacks)."""
+        no row maps into a VLM's grouped stacks).  ``remat`` checkpoints
+        each layer.  The VLM has no MoE: its aux loss is zero."""
         for g in range(self.n_groups):
             for i in range(4):
                 if i == SELF_BEFORE_CROSS:
-                    x = self._cross_layer(
-                        _layer_view(params["cross_layers"], g), x,
-                        _layer_view(img_kv, g), img_mask)
+                    x = remat_call(self.remat, self._cross_layer,
+                                   _layer_view(params["cross_layers"], g), x,
+                                   _layer_view(img_kv, g), img_mask)
                 layer_cache = None if cache is None else \
                     {name: buf[g, i] for name, buf in cache.items()}
-                x, _ = self._layer(_layer_view(params["layers"], (g, i)), x,
-                                   positions, layer_cache, cache_pos)
-        return x, None
+                x, _, _ = remat_call(
+                    self.remat, self._layer,
+                    _layer_view(params["layers"], (g, i)), x, positions,
+                    layer_cache, cache_pos)
+        return x, None, torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
 
     def _run_layers(self, params, x, positions, cache, cache_pos,
                     head_rows=None, head_inv=None, page_map=None,
@@ -217,40 +276,56 @@ class TransformerLM:
         kernel row maps.  One page map (and ``write_valid``) serves every
         layer: the layer axis lives in the page store, not the table.  A
         VLM runs its supergroups over ``img_kv`` and ``img_mask``
-        instead.  Returns the hidden state and, for MoE, the stacked
-        (L, E) router loads of this call (else None)."""
+        instead.  Returns the hidden state, for MoE the stacked (L, E)
+        router loads of this call (else None), and the float32 aux loss
+        summed over layers in order, as the reference's layer scan sums
+        it (zero without MoE).  ``remat`` checkpoints each layer."""
         if self.is_vlm:
             return self._run_layers_vlm(params, x, positions, cache,
                                         cache_pos, img_kv, img_mask)
         freqs = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for l in range(self.cfg.n_layers):
             layer_cache = None if cache is None else \
                 {name: buf[l] for name, buf in cache.items()}
-            x, freq = self._layer(
+            x, a, freq = remat_call(
+                self.remat, self._layer,
                 _layer_view(params["layers"], l), x, positions, layer_cache,
                 cache_pos, None if head_rows is None else head_rows[l],
                 None if head_inv is None else head_inv[l], page_map,
                 write_valid)
+            if a is not None:
+                aux = aux + a
             freqs.append(freq)
-        return x, (torch.stack(freqs) if self.cfg.is_moe else None)
+        return x, (torch.stack(freqs) if self.cfg.is_moe else None), aux
 
     def _positions(self, B: int, S: int):
         return torch.arange(S, dtype=torch.int32,
                             device=self.device)[None].expand(B, S)
 
     def forward(self, params, tokens, *, img_embeds=None, img_mask=None):
-        """Full-sequence forward without a cache. Returns logits (B,S,V).
-        A VLM takes its image embeddings (B, I, D) and mask (B, I)."""
+        """Full-sequence forward without a cache.  Returns (logits (B, S, V)
+        float32, aux): the MoE load-balancing loss summed over layers
+        (float32, zero without MoE).  A VLM takes its image embeddings
+        (B, I, D) and mask (B, I)."""
         B, S = tokens.shape
         x = L.embed(self.cfg, params, tokens)
         img_kv = None
         if self.is_vlm:
             self._check_img_mask(img_mask)
             img_kv = self._project_img_kv(params, img_embeds)
-        x, _ = self._run_layers(params, x, self._positions(B, S), None, None,
-                                img_kv=img_kv, img_mask=img_mask)
+        x, _, aux = self._run_layers(params, x, self._positions(B, S), None,
+                                     None, img_kv=img_kv, img_mask=img_mask)
         x = L.apply_norm(self.cfg, params, "ln_f", x)
-        return L.unembed(self.cfg, params, x)
+        return L.unembed(self.cfg, params, x), aux
+
+    def loss(self, params, batch):
+        """Mean token cross-entropy of ``batch["labels"]`` plus 0.01 times
+        the aux loss; a VLM's images come in ``img_embeds``/``img_mask``."""
+        logits, aux = self.forward(params, batch["tokens"],
+                                   img_embeds=batch.get("img_embeds"),
+                                   img_mask=batch.get("img_mask"))
+        return L.cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
     # ----------------------------------------------------------------- cache
     def _kv_buffers(self, lead: tuple, dtype=None) -> dict:
@@ -330,10 +405,10 @@ class TransformerLM:
         cfg = self.cfg
         B, S = tokens.shape
         x = L.embed(cfg, params, tokens)
-        x, _ = self._run_layers(params, x, self._positions(B, S),
-                                state["cache"], 0,
-                                img_kv=state.get("img_kv"),
-                                img_mask=state.get("img_mask"))
+        x, _, _ = self._run_layers(params, x, self._positions(B, S),
+                                   state["cache"], 0,
+                                   img_kv=state.get("img_kv"),
+                                   img_mask=state.get("img_mask"))
         x = L.apply_norm(cfg, params, "ln_f", x)
         logits = L.unembed(cfg, params, x[:, -1:])
         state["pos"] = S
@@ -349,10 +424,10 @@ class TransformerLM:
         cfg = self.cfg
         B, S = tokens.shape
         x = L.embed(cfg, params, tokens)
-        x, _ = self._run_layers(params, x, self._positions(B, S),
-                                state["cache"], 0,
-                                img_kv=state.get("img_kv"),
-                                img_mask=state.get("img_mask"))
+        x, _, _ = self._run_layers(params, x, self._positions(B, S),
+                                   state["cache"], 0,
+                                   img_kv=state.get("img_kv"),
+                                   img_mask=state.get("img_mask"))
         x = L.apply_norm(cfg, params, "ln_f", x)
         idx = (length.long() - 1).clamp(min=0)[:, None, None]
         last = x.gather(1, idx.expand(B, 1, x.shape[-1]))    # (B, 1, D)
@@ -402,7 +477,7 @@ class TransformerLM:
         x = L.embed(cfg, params, tokens[:, None])
         positions = pos[:, None] if per_slot else torch.full(
             (tokens.shape[0], 1), pos, dtype=torch.int32, device=self.device)
-        x, freqs = self._run_layers(
+        x, freqs, _ = self._run_layers(
             params, x, positions, state["cache"], pos,
             state.get("head_rows"), state.get("head_inv"), page_map,
             img_kv=state.get("img_kv"), img_mask=state.get("img_mask"))
@@ -471,10 +546,10 @@ class TransformerLM:
         C = tokens.shape[1]
         steps = torch.arange(C, dtype=torch.int32, device=self.device)
         x = L.embed(cfg, params, tokens)
-        x, _ = self._run_layers(params, x, (start + steps)[None],
-                                state["cache"], None,
-                                page_map=state["page_map"][row:row + 1],
-                                write_valid=(steps < length)[None])
+        x, _, _ = self._run_layers(params, x, (start + steps)[None],
+                                   state["cache"], None,
+                                   page_map=state["page_map"][row:row + 1],
+                                   write_valid=(steps < length)[None])
         x = L.apply_norm(cfg, params, "ln_f", x)
         logits = L.unembed(cfg, params, x[:, max(length - 1, 0)][:, None])
         state["pos"][row] = start + length

@@ -7,15 +7,19 @@ SwiGLU MLP) runs at the top of every supergroup.  Each application has its
 own KV cache slot, since its activations differ, so the decode cache is
 (G, B, T, KvE, dh), head-sharded exactly as a dense transformer's.
 
-Parameters are a nested dict in the reference's names and layouts: the
-mamba layers stacked ``(G, g, ...)`` under ``layers``, the shared block
-under ``shared`` (``weights.params_from_jax`` carries both unchanged).  The
+Parameters are a nested dict in the reference's names and layouts: the mamba
+layers stacked ``(G, g, ...)`` under ``layers``, the shared block under
+``shared`` (``weights.params_from_jax`` carries both unchanged).  The
 reference's two nested ``lax.scan`` become Python loops over views of the
-stacked params, cache and states, which are updated in place: supergroup
-g's attention writes its K/V into the view ``attn_cache[..][g]`` of the
-stacked buffer.  ``use_kernel`` runs the shared block's prefill through the
-flash attention kernel and its decode through the resident decode kernel
-over every q head (identity rows: one shared block, no per-layer row
+stacked params, cache and states.  A decode state is updated in place:
+supergroup g's attention writes its K/V into the view ``attn_cache[..][g]`` of
+the stacked buffer, and each mamba layer's new states are copied into theirs.
+``forward`` (the training path) starts from fresh zero states and writes
+nothing, so autograd's saved tensors stay intact; ``remat`` checkpoints each
+supergroup, as the reference's remat wraps its group body
+(``transformer.remat_call``).  ``use_kernel`` runs the shared block's prefill
+through the flash attention kernel and its decode through the resident decode
+kernel over every q head (identity rows: one shared block, no per-layer row
 maps).  There is no slot API: the model serves lock-step waves.
 """
 from __future__ import annotations
@@ -28,14 +32,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import (init_mamba_layer, mamba_block,
                                        zero_mamba_state)
-from repro_torch.models.transformer import _layer_view, torch_dtype
+from repro_torch.models.transformer import (_layer_view, check_remat,
+                                           remat_call, torch_dtype)
 
 
 class Zamba2Model:
     """Config-driven Zamba2 hybrid LM on one device."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, remat: str = "none"):
         if cfg.family != "hybrid":
             raise ValueError(f"Zamba2Model serves the hybrid family, not "
                              f"{cfg.family!r}")
@@ -46,6 +51,7 @@ class Zamba2Model:
         self.cfg = cfg
         self.device = torch.device(device)
         self.use_kernel = use_kernel
+        self.remat = check_remat(remat)
         self.hd = L.head_dims(cfg)
         self.n_groups = cfg.n_layers // cfg.shared_attn_every
         self.group = cfg.shared_attn_every
@@ -85,22 +91,36 @@ class Zamba2Model:
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + L.mlp_block(cfg, p["mlp"], h)
 
-    def _run(self, params, x, positions, state, cache_pos):
+    def _group(self, params, gi, x, positions, cache, cache_pos, states):
+        """Supergroup ``gi``: the shared block over its cache view, then its
+        mamba layers from ``states`` (per-layer {"conv", "ssm"}, read only).
+        Returns the hidden state and the layers' new states."""
+        x = self._shared_attn(params, x, positions, cache, cache_pos)
+        new_states = []
+        for j, lst in enumerate(states):
+            out, new = mamba_block(
+                self.cfg, _layer_view(params["layers"], (gi, j)), x, lst)
+            new_states.append(new)
+            x = x + out
+        return x, new_states
+
+    def _run(self, params, x, positions, state, cache_pos,
+             write: bool = True):
         """state: {"attn_cache": {"k", "v"} (G, B, T, KvE, dh) or None,
         "mamba": {"conv", "ssm"} (G, g, B, ...)}, updated in place through
-        per-supergroup and per-layer views."""
+        per-supergroup and per-layer views when ``write``."""
         attn_cache, mamba = state["attn_cache"], state["mamba"]
         for gi in range(self.n_groups):
             cache = None if attn_cache is None else \
                 {n: buf[gi] for n, buf in attn_cache.items()}
-            x = self._shared_attn(params, x, positions, cache, cache_pos)
-            for j in range(self.group):
-                lst = {n: buf[gi, j] for n, buf in mamba.items()}
-                out, new = mamba_block(
-                    self.cfg, _layer_view(params["layers"], (gi, j)), x, lst)
-                for n, buf in lst.items():
-                    buf.copy_(new[n])
-                x = x + out
+            views = [{n: buf[gi, j] for n, buf in mamba.items()}
+                     for j in range(self.group)]
+            x, new_states = remat_call(self.remat, self._group, params, gi,
+                                       x, positions, cache, cache_pos, views)
+            if write:
+                for lst, new in zip(views, new_states):
+                    for n, buf in lst.items():
+                        buf.copy_(new[n])
         return x
 
     def _zero_state(self, batch: int, max_seq: int, with_cache: bool):
@@ -125,14 +145,22 @@ class Zamba2Model:
         return L.unembed(self.cfg, params, x)
 
     # --------------------------------------------------------------- forward
-    def forward(self, params, tokens):
-        """Full-sequence forward from a zero state. Returns logits
-        (B, S, V) float32."""
+    def forward(self, params, tokens, **_):
+        """Full-sequence forward from a zero state, written nowhere.
+        Returns (logits (B, S, V) float32, aux): the model has no aux loss,
+        so aux is a float32 zero, as in the reference."""
         B, S = tokens.shape
         x = L.embed(self.cfg, params, tokens)
         x = self._run(params, x, self._positions(B, 0, S),
-                      self._zero_state(B, S, with_cache=False), None)
-        return self._logits(params, x)
+                      self._zero_state(B, S, with_cache=False), None,
+                      write=False)
+        return self._logits(params, x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+
+    def loss(self, params, batch):
+        """Mean token cross-entropy of ``batch["labels"]``."""
+        logits, _ = self.forward(params, batch["tokens"])
+        return L.cross_entropy(logits, batch["labels"])
 
     # ---------------------------------------------------------------- decode
     def init_decode_state(self, params, batch: int, max_seq: int, **_):

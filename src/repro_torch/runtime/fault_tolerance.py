@@ -1,9 +1,11 @@
-"""Heartbeat and step-time telemetry for the serving engine.
+"""Heartbeat and step-time telemetry for the serving engine, and
+checkpoint-restart for training.
 
 Observed per-slot step times are converted into the C_j(τ) availability
 estimates Algorithm 1 consumes; slots flagged as stragglers get their
 heads migrated away exactly like an overloaded edge device.  Copy of the
-JAX package's ``runtime/fault_tolerance.HeartbeatMonitor``.
+JAX package's ``runtime/fault_tolerance.HeartbeatMonitor`` and
+``RestartPolicy``.
 """
 from __future__ import annotations
 
@@ -125,3 +127,44 @@ class HeartbeatMonitor:
 
     def mark_failed(self, slot: int):
         self.slots[slot].alive = False
+
+
+class RestartPolicy:
+    """Checkpoint-restart orchestration: on failure, roll back to the last
+    committed step and re-enter the train loop; bounded retries with
+    exponential backoff (production default 3 retries)."""
+
+    def __init__(self, checkpointer, *, max_retries: int = 3,
+                 backoff_s: float = 5.0,
+                 monitor: Optional[HeartbeatMonitor] = None):
+        self.ckpt = checkpointer
+        self.max_retries = max_retries
+        self.backoff_s = backoff_s
+        self.failures = 0
+        self.monitor = monitor
+        self.events: Deque[dict] = deque(maxlen=4096)
+
+    def _record_fault(self, e: BaseException, resume_step):
+        """What failed, not just that something failed: the exception
+        type/message lands in the policy's (and the monitor's) event log
+        so a swallowed retry is still attributable post-mortem."""
+        ev = {"kind": "worker_fault", "error_type": type(e).__name__,
+              "error": str(e), "failures": self.failures,
+              "resume_step": resume_step, "t": time.monotonic()}
+        self.events.append(ev)
+        if self.monitor is not None:
+            self.monitor.record_event(**ev)
+
+    def run(self, train_fn: Callable[[Optional[int]], None]):
+        """train_fn(resume_step) runs until completion or raises."""
+        while True:
+            resume = self.ckpt.latest_step()
+            try:
+                train_fn(resume)
+                return
+            except Exception as e:  # noqa: BLE001 — any worker fault
+                self.failures += 1
+                self._record_fault(e, resume)
+                if self.failures > self.max_retries:
+                    raise
+                time.sleep(self.backoff_s * 2 ** (self.failures - 1))

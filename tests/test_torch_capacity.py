@@ -251,7 +251,7 @@ def test_capacity_model_matches_reference(model_pair, cf, use_kernel):
         0, cfg_j.vocab_size, (2, 12)).astype(np.int32)
     forward, prefill, step = _compiled(mj)
     want, _ = forward(pj, jnp.asarray(toks))
-    got = mt.forward(pt, torch.from_numpy(toks))
+    got, _ = mt.forward(pt, torch.from_numpy(toks))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_LOGITS)
     sj = mj.init_decode_state(pj, 2, 24)
     st = mt.init_decode_state(pt, 2, 24)

@@ -1359,3 +1359,109 @@ def test_int8_capacity_model_kernel_logits_match_plain(cuda, arch):
         before[0] + 4 * cfg.n_layers, before[1] + cfg.n_layers)
     for a, b in zip(*runs):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------ autograd refusal
+AUTOGRAD_ENTRY_POINTS = (
+    "flash_attention", "decode_attention_resident",
+    "decode_attention_int8_resident", "decode_attention_paged_resident",
+    "decode_attention_int8_paged_resident", "decode_attention_ring_resident",
+    "decode_attention", "decode_attention_int8", "rwkv6_chunked")
+
+
+def autograd_case(entry: str, device):
+    """(kernel entry point, args, kwargs) at a small shape on ``device``,
+    its first floating input requiring grad."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    g = torch.Generator().manual_seed(0)
+    B, H, KvE, T, dh = 2, 4, 2, 8, 16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g).to(device)
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device=device)
+
+    q = rand(B, H, dh).requires_grad_(True)
+    lengths, rows = i32([3, T]), i32(list(range(H)))
+    k8 = torch.randint(-127, 128, (B, KvE, T, dh), generator=g,
+                       dtype=torch.int8).to(device)
+    sc = rand(B, KvE, T).abs()
+    pages8 = torch.randint(-127, 128, (3, KvE, 4, dh), generator=g,
+                           dtype=torch.int8).to(device)
+    page_sc = rand(3, KvE, 4, 1).abs()
+    page_map = i32([[0, 1], [2, 0]])
+    if entry == "flash_attention":
+        return flash_attention, (rand(B, H, T, dh).requires_grad_(True),
+                                 rand(B, KvE, T, dh), rand(B, KvE, T, dh)), {}
+    if entry == "rwkv6_chunked":
+        w = torch.rand((B, H, T, dh), generator=g).to(device)
+        return rwkv6_chunked, (rand(B, H, T, dh).requires_grad_(True),
+                               rand(B, H, T, dh), rand(B, H, T, dh), w,
+                               rand(H, dh), rand(B, H, dh, dh)), {}
+    fn = getattr(da, entry)
+    args = {
+        "decode_attention_resident": (q, rand(B, KvE, T, dh),
+                                      rand(B, KvE, T, dh), lengths, rows),
+        "decode_attention_int8_resident": (q, k8, sc, k8, sc, lengths, rows),
+        "decode_attention_paged_resident": (
+            q, rand(3, KvE, 4, dh), rand(3, KvE, 4, dh), lengths, page_map,
+            rows),
+        "decode_attention_int8_paged_resident": (
+            q, pages8, page_sc, pages8, page_sc, lengths, page_map, rows),
+        "decode_attention_ring_resident": (
+            q, rand(B, KvE, T, dh), rand(B, KvE, T, dh), lengths,
+            i32(list(range(T))), rows),
+        "decode_attention": (q, rand(B, KvE, T, dh), rand(B, KvE, T, dh),
+                             lengths),
+        "decode_attention_int8": (q, k8, sc, k8, sc, lengths),
+    }[entry]
+    kw = {"window": T} if entry == "decode_attention_ring_resident" else {}
+    return fn, args, kw
+
+
+@pytest.mark.parametrize("entry", AUTOGRAD_ENTRY_POINTS)
+def test_kernels_refuse_autograd(cuda, entry):
+    """Every CUDA entry point raises when asked to be differentiated (the
+    kernels have no backward), launching nothing; under ``no_grad`` the
+    same inputs launch the kernel."""
+    fn, args, kw = autograd_case(entry, cuda)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args, **kw)
+    assert fn.launches == before
+    with torch.no_grad():
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One reduced float32 llama3-8b train step (``make_train_step``:
+    autograd through the plain path, then AdamW) on the card against the
+    same step on the CPU from the same weights: loss and updated params
+    within 1e-4 of each leaf's scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW, tree_leaves, tree_map
+    cfg = get_config("llama3-8b").with_overrides(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+        d_ff=128, vocab_size=97, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 97, (2, 17)).astype(np.int32))
+    opt = AdamW(lr=1e-5)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev), params)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        step = make_train_step(build_model(cfg, device=dev), opt)
+        new_p, _, loss = step(p, opt.init(p), batch)
+        out[dev.type] = (loss.item(), tree_leaves(new_p))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()

@@ -142,8 +142,8 @@ def test_forward_matches_reference(pair):
     cfg_j, cfg_t, params_j, params_t = pair
     toks = np.random.default_rng(1).integers(0, cfg_j.vocab_size, (2, 9))
     lj, _ = jax_build_model(cfg_j).forward(params_j, jnp.asarray(toks))
-    lt = build_model(cfg_t, device="cpu").forward(params_t,
-                                                  torch.from_numpy(toks))
+    lt, _ = build_model(cfg_t, device="cpu").forward(
+        params_t, torch.from_numpy(toks))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
 
 

@@ -196,7 +196,7 @@ def test_tied_embeddings_match_reference(name):
     toks = np.random.default_rng(1).integers(0, cfg_j.vocab_size, (2, 9))
     lj, _ = jax_build_model(cfg_j).forward(
         jax.tree.map(jnp.asarray, params), jnp.asarray(toks))
-    lt = build_model(cfg_t, device="cpu").forward(
+    lt, _ = build_model(cfg_t, device="cpu").forward(
         params_from_jax(params, "cpu"), torch.from_numpy(toks))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
 
@@ -236,7 +236,7 @@ def test_forward_matches_reference(arch, use_kernel):
     toks = np.random.default_rng(1).integers(0, cfg_j.vocab_size, (2, 9))
     lj, _ = jax_build_model(cfg_j).forward(
         jax.tree.map(jnp.asarray, params), jnp.asarray(toks))
-    lt = build_model(cfg_t, use_kernel=use_kernel, device="cpu").forward(
+    lt, _ = build_model(cfg_t, use_kernel=use_kernel, device="cpu").forward(
         params_from_jax(params, "cpu"), torch.from_numpy(toks))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
 

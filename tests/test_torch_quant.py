@@ -196,7 +196,7 @@ def test_forward_on_int8_weights_matches_reference(arch):
         0, cfg_j.vocab_size, (3, 11)).astype(np.int32)
     ej, et = _extras(cfg_j, 3)
     want, _ = jax.jit(mj.forward)(pj, jnp.asarray(toks), **ej)
-    got = mt.forward(pt, torch.from_numpy(toks), **et)
+    got, _ = mt.forward(pt, torch.from_numpy(toks), **et)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -262,7 +262,8 @@ def test_int8_weights_close_to_float(arch):
     pf = params_from_jax(params, "cpu")
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg_t.vocab_size, (2, 16)))
-    lf, lq = m.forward(pf, toks), m.forward(q.quantize_params(pf), toks)
+    lf, _ = m.forward(pf, toks)
+    lq, _ = m.forward(q.quantize_params(pf), toks)
     rel = (lf - lq).abs().max().item() / (lf.abs().max().item() + 1e-9)
     assert rel < 0.08, rel
 
@@ -273,7 +274,8 @@ def test_int8_weights_moe_top1_agreement():
     pf = params_from_jax(params, "cpu")
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg_t.vocab_size, (2, 32)))
-    lf, lq = m.forward(pf, toks), m.forward(q.quantize_params(pf), toks)
+    lf, _ = m.forward(pf, toks)
+    lq, _ = m.forward(q.quantize_params(pf), toks)
     agree = (lf.argmax(-1) == lq.argmax(-1)).float().mean().item()
     assert agree > 0.9, agree
 

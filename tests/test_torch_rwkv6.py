@@ -306,8 +306,8 @@ def test_forward_logits_match_reference(rwkv, use_kernel):
         np.int32)
     want, _ = ref_m.forward(jax.tree.map(jnp.asarray, params),
                             jnp.asarray(tokens))
-    got = mine.forward(params_from_jax(params, "cpu"),
-                       torch.from_numpy(tokens))
+    got, _ = mine.forward(params_from_jax(params, "cpu"),
+                          torch.from_numpy(tokens))
     assert got.shape == (2, 12, 97) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_LOGITS)
 
@@ -341,7 +341,7 @@ def test_prefill_and_decode_logits_match_reference(rwkv, use_kernel):
         np.testing.assert_allclose(t_state["cache"][name].numpy(),
                                    np.asarray(j_state["cache"][name]),
                                    **TOL_LOGITS)
-    full = mine.forward(tp, torch.from_numpy(seq))
+    full, _ = mine.forward(tp, torch.from_numpy(seq))
     torch.testing.assert_close(torch.stack(steps, dim=1), full[:, 6:],
                                **TOL_LOGITS)
 

@@ -222,9 +222,10 @@ def test_forward_matches_reference(n_layers, image, use_kernel):
                                   jnp.asarray(toks),
                                   img_embeds=jnp.asarray(img),
                                   img_mask=jnp.asarray(mask))
-    got = mt.forward(params_from_jax(params, "cpu"), torch.from_numpy(toks),
-                     img_embeds=torch.from_numpy(img),
-                     img_mask=torch.from_numpy(mask))
+    got, _ = mt.forward(params_from_jax(params, "cpu"),
+                        torch.from_numpy(toks),
+                        img_embeds=torch.from_numpy(img),
+                        img_mask=torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

@@ -301,8 +301,8 @@ def test_forward_logits_match_reference(zamba, use_kernel):
         np.int32)
     want, _ = ref_m.forward(jax.tree.map(jnp.asarray, params),
                             jnp.asarray(tokens))
-    got = mine.forward(params_from_jax(params, "cpu"),
-                       torch.from_numpy(tokens))
+    got, _ = mine.forward(params_from_jax(params, "cpu"),
+                          torch.from_numpy(tokens))
     assert got.shape == (2, 12, 97) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL_LOGITS)
 
@@ -340,7 +340,7 @@ def test_prefill_and_decode_logits_match_reference(zamba, use_kernel):
     for name in ("conv", "ssm"):
         np.testing.assert_allclose(tc["mamba"][name].numpy(),
                                    _np(jc["mamba"][name]), **TOL_LOGITS)
-    full = mine.forward(tp, torch.from_numpy(seq))
+    full, _ = mine.forward(tp, torch.from_numpy(seq))
     torch.testing.assert_close(torch.stack(steps, dim=1), full[:, 6:],
                                **TOL_LOGITS)
 
@@ -366,7 +366,7 @@ def test_each_supergroup_writes_its_own_cache_slice(reduced):
         assert not k_buf[g, :, 6:].any()
     assert not torch.equal(k_buf[0, :, :6], k_buf[1, :, :6])
     logits = [mine.decode_step(tp, state, seq[:, t])[0] for t in (6, 7)]
-    full = mine.forward(tp, seq)
+    full, _ = mine.forward(tp, seq)
     torch.testing.assert_close(torch.stack(logits, 1), full[:, 6:],
                                **TOL_LOGITS)
 
