@@ -44,7 +44,16 @@ Poisson load on the paged llama3-8b engine through ``drive_virtual``, the same l
 ``AsyncServingEngine`` (bf16 streams equal to ``drive_virtual``'s), and
 the load with a device failing mid-decode and rejoining on the paged and
 dense engines (evacuation and teacher-forced replay, launch counts exact
-with the replay).  Every prefill whose queries and keys share their positions
+with the replay).  The dense path is served again in the tensor-parallel
+head layout of degree 16 (``ServingEngine(tp=16)``: llama3-8b's 8 KV heads
+each replicated twice in the cache, the resident kernel at G 2,
+replica-aware migrations applied), and so is qwen1.5-32b at published
+widths (4 layers; 40 heads zero-padded to 48, its padded rows checked
+zero after every migration); float32 tp-16 streams equal the tp-1 ones
+and themselves without the kernels; and on a (1, 1) ("data", "model")
+DeviceMesh over NCCL llama3-8b's params are placed, saved, restored
+through ``elastic_restore`` (every sha1 equal) and run the sharded
+forward through the flash kernel.  Every prefill whose queries and keys share their positions
 (bucketed, lock-step, ring) runs the flash attention kernel.  It checks
 that the paged decode kernels give the linear ones' output bit for bit on
 the same cache in scrambled pages, and in float32 that greedy streams
@@ -65,7 +74,9 @@ and the AdamW update.
     python3 chip_smoke.py --ab build/parent . . build/parent
 
 times the kernels of several checkouts in turns instead (see ``ab``);
-``--only train`` builds the kernels and runs only the training phases.
+``--only train`` builds the kernels and runs only the training phases;
+``--only tp`` the decode and flash kernel phases, the dense path and the
+tp-16 and mesh phases.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -183,6 +194,13 @@ MG_DECODE = dict(B=MAIN_B, H=32, KvE=32, dh=64, T=MAIN_T)
 VLM_IMG, VLM_TILE = 1601, 1025
 VLM_CROSS = dict(B=MAIN_B, H=32, KvE=8, dh=128, T=VLM_IMG, stack=2)
 VLM_CROSS_LENGTHS = [VLM_IMG, VLM_TILE, 0] * 2 + [VLM_IMG, VLM_TILE]
+# the tensor-parallel layout at tp 16, served on one card: llama3-8b's 8
+# KV heads each replicated twice into 16 cache rows (G 2), qwen1.5-32b's
+# 40 heads zero-padded to 48, one KV head each (G 1)
+TP = 16
+TP_LLAMA_DECODE = dict(B=MAIN_B, H=32, KvE=16, dh=128, T=MAIN_T)
+TP_QWEN_DECODE = dict(B=MAIN_B, H=48, KvE=48, dh=128, T=MAIN_T)
+QWEN_REAL_HEADS = 40
 DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
 # Capacity dispatch at cf E/k (no token dropped) against dense dispatch,
 # and a replicated expert against the unreplicated model, per row of bf16
@@ -472,6 +490,12 @@ def phase_kernel_vs_plain():
     # (no multiple of a split or a tile), rows of length 0 among full ones
     cases += [(dt, "identity", dict(VLM_CROSS, lengths=VLM_CROSS_LENGTHS))
               for dt in (torch.float32, torch.bfloat16)]
+    # the tp-16 layouts: llama3-8b at KvE 16 with G 2, qwen1.5-32b's 48
+    # padded heads at G 1, over the dense path's extent
+    cases += [(dt, rows, dict(shape, lengths=lengths))
+              for shape in (TP_LLAMA_DECODE, TP_QWEN_DECODE)
+              for dt in (torch.float32, torch.bfloat16)
+              for rows in ("identity", "group_perm")]
     # zamba2's shared attention: MHA at dh 80 (G 1) over its extent of
     # 1096 (no multiple of a tile of 32 past 1088), lock-step and mixed
     # lengths, on both bodies
@@ -535,7 +559,11 @@ def phase_kernel_vs_plain():
             ("vlm cross", lambda lens: lens,
              dict(VLM_CROSS, lengths=VLM_CROSS_LENGTHS)),
             ("zamba2", lambda lens: lens,
-             dict(ZAMBA_DECODE, lengths=ZAMBA_LOCKSTEP))):
+             dict(ZAMBA_DECODE, lengths=ZAMBA_LOCKSTEP)),
+            ("llama tp16", lambda lens: lens,
+             dict(TP_LLAMA_DECODE, lengths=lengths)),
+            ("qwen tp16", lambda lens: lens,
+             dict(TP_QWEN_DECODE, lengths=lengths))):
         t = timed(lens_of, **shape)
         shapes[label] = dict(zip(keys, t))
         B, H, KvE, dh, T = (shape.get(n, d) for n, d in (
@@ -1104,6 +1132,13 @@ PATHS = {
 }
 
 
+def path_metrics(eng, wall) -> dict:
+    tokens = sum(len(r.out_tokens) for r in eng.finished)
+    return {"tok/s": tokens / wall,
+            "step median ms": 1e3 * float(np.median(eng.step_times)),
+            "interval mean ms": 1e3 * float(np.mean(eng.interval_times))}
+
+
 def phase_main_path(path="dense"):
     """Serve 16 requests x 64 tokens on the ``path`` cache through its
     kernels; returns the decode kernel's and the flash kernel's launches
@@ -1419,9 +1454,9 @@ def _drop_counter():
     from repro_torch.models.moe import capacity_drops
     inner, drops = transformer.moe_block_capacity, []
 
-    def counting(cfg, p, x, capacity_factor=1.25, group=1024):
+    def counting(cfg, p, x, capacity_factor=1.25, group=1024, **kw):
         drops.append(capacity_drops(cfg, p, x, capacity_factor, group))
-        return inner(cfg, p, x, capacity_factor, group)
+        return inner(cfg, p, x, capacity_factor, group, **kw)
 
     transformer.moe_block_capacity = counting
 
@@ -2193,13 +2228,16 @@ def flash_bound_ms(q, k, causal, window):
 # that runs the kernel, in bf16 — llama's largest bucket (the dense and
 # int8 paths), mixtral's lock-step wave over its window, glm4's longest
 # bucket, musicgen's largest bucket (MHA at dh 64), zamba2's lock-step wave
-# (MHA at dh 80)
+# (MHA at dh 80), and the tp-16 layouts' largest buckets (llama3-8b's 32
+# heads over 16 KV rows, qwen1.5-32b's 48 padded heads)
 FLASH_SHAPES = {
     "llama bucket": (1, 32, 8, 512, 0, 128),
     "mixtral wave": (RING_B, 32, 8, RING_PROMPT, RING_W, 128),
     "glm4": (1, 32, 2, GLM_HI, 0, 128),
     "musicgen bucket": (1, 32, 32, 512, 0, 64),
     "zamba2 wave": (ZAMBA_B, 32, 32, ZAMBA_PROMPT, 0, 80),
+    "llama tp16 bucket": (1, 32, 16, 512, 0, 128),
+    "qwen tp16 bucket": (1, 48, 48, 512, 0, 128),
 }
 
 
@@ -3852,6 +3890,431 @@ def phase_train_step_full_width():
     del params
 
 
+# ------------------------------------ the tensor-parallel layout (tp 16)
+def migration_rows(eng) -> list:
+    """Per applied interval with migrations: the KV-row copies its
+    ``mig_bytes`` pays for (bytes over one k+v row of the live extent)."""
+    hd = eng.model.hd
+    per_row = eng.n_slots * eng.max_seq * 2 * hd.dh * \
+        torch.finfo(torch.bfloat16 if eng.cfg.dtype == "bfloat16"
+                    else torch.float32).bits // 8
+    out = []
+    for e in eng.migration_log:
+        if e["applied"] and e["n_migrations"]:
+            check(e["mig_bytes"] % (hd.rep * per_row) == 0,
+                  f"mig_bytes {e['mig_bytes']} is no multiple of rep "
+                  f"{hd.rep} x {per_row} bytes a row")
+            out.append(e["mig_bytes"] // per_row)
+    return out
+
+
+def check_replicas(cache, hd, label):
+    """Expanded row o·rep + r of every cache layer is replica r of KV head
+    o: after any applied migration the replicas still sit together, bit
+    for bit."""
+    for name in ("k", "v"):
+        t = cache[name]
+        t = t.view(t.shape[:-2] + (hd.Kp, hd.rep, hd.dh))
+        check(torch.equal(t, t[..., :1, :].expand_as(t)),
+              f"{label}: the {name} cache's KV replicas differ")
+
+
+def tp_serve_run(label, cfg, eng, on_interval=None):
+    """Drive ``eng`` (every request submitted) to its end with a 500x
+    straggler at step 16, its kernel launches counted; checks every
+    request finished with 64 tokens, exact resident and flash launches
+    and an applied migration.  ``on_interval(eng)`` runs after every
+    interval that applied one.  Returns (launches, wall, metrics)."""
+    seen = watch_logits(eng)
+    prefill = time_prefill(eng)
+    reset_launches()
+    t0 = time.monotonic()
+    n_log = 0
+    while drive(eng):
+        if on_interval is not None and len(eng.migration_log) > n_log:
+            n_log = len(eng.migration_log)
+            last = eng.migration_log[-1]
+            if last["applied"] and last["n_migrations"]:
+                on_interval(eng)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    m = path_metrics(eng, wall)
+    hd = eng.model.hd
+    applied = [e for e in eng.migration_log
+               if e["applied"] and e["n_migrations"]]
+    log(f"{label}: Hp {hd.Hp}, Kp {hd.Kp}, rep {hd.rep}, KvE {hd.KvE}, G "
+        f"{hd.Hp // hd.KvE}; {len(eng.finished)} requests, "
+        f"{sum(len(r.out_tokens) for r in eng.finished)} tokens, "
+        f"{eng.decode_steps} decode steps in {wall:.2f} s ({m['tok/s']:.1f} "
+        f"tok/s); decode step median {m['step median ms']:.2f} ms; "
+        f"{len(eng.interval_times)} controller intervals, mean "
+        f"{m['interval mean ms']:.1f} ms; "
+        f"{sum(e['n_migrations'] for e in eng.migration_log)} head "
+        f"migrations in {len(applied)} applied intervals, KV rows moved "
+        f"per applied interval {migration_rows(eng)}; launches "
+        f"resident {launches['decode_attention_resident']}, flash "
+        f"{launches['flash_attention']}")
+    log_split(eng, wall, prefill)
+    check(len(eng.finished) == 16 and all(len(r.out_tokens) == 64
+                                          for r in eng.finished),
+          f"{label}: not every request finished with its 64 tokens")
+    check(bool(applied), f"{label}: no interval applied a migration")
+    check(launches["decode_attention_resident"]
+          == eng.decode_steps * cfg.n_layers,
+          f"{label}: resident launches "
+          f"{launches['decode_attention_resident']} != decode steps "
+          f"{eng.decode_steps} x {cfg.n_layers}")
+    check(launches["flash_attention"] == 16 * cfg.n_layers,
+          f"{label}: flash launches {launches['flash_attention']} != 16 x "
+          f"{cfg.n_layers}")
+    check(not any(n for k, n in launches.items()
+                  if k not in ("decode_attention_resident",
+                               "flash_attention")),
+          f"{label}: another kernel launched: {launches}")
+    check(bool(seen["finite"].item()), f"{label}: non-finite logits")
+    return launches, wall, m
+
+
+def phase_tp_dense():
+    """The dense path's config, traffic and engine — llama3-8b at published
+    widths, 4 layers, bf16, 8 slots, 16 requests of 32-512 tokens, 64 new
+    each, λ 8, 4 simulated devices, a straggler at step 16 — built in the
+    tp-16 layout: each of the 8 KV heads replicated twice into a (4, 8,
+    1024, 16, 128) cache, the resident kernel at G 2, flash at 32 heads
+    over 16.  Migrations move each supergroup of 4 query heads with its KV
+    head's 2 rows (``mig_bytes`` counts both).  The tp-1 engine serves the
+    same weights and traffic first, so both run warm, side by side.
+    Returns the launches of both."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    eng1 = serve(cfg, use_kernel=True, n_requests=16, max_new=64)
+    launches1, _, m1 = tp_serve_run(f"tp 1 dense bf16 llama3-8b x{N_LAYERS} "
+                                    f"layers", cfg, eng1)
+    params = eng1.params
+    del eng1
+    release()
+    eng = serve(cfg, use_kernel=True, n_requests=16, max_new=64, tp=TP,
+                params=params)
+    hd = eng.model.hd
+    k = eng.state["cache"]["k"]
+    check((hd.rep, hd.Kp, hd.KvE) == (2, 8, 16),
+          f"tp dense: head layout {hd}")
+    check(tuple(k.shape) == (N_LAYERS, MAIN_B, MAIN_T, 16, 128)
+          and k.dtype == torch.bfloat16, f"tp dense: cache {tuple(k.shape)}")
+    log(f"tp dense cache: k and v {tuple(k.shape)} bf16, "
+        f"{2 * k.numel() * k.element_size() / 1e9:.3f} GB")
+    launches, _, m = tp_serve_run(f"tp {TP} dense bf16 llama3-8b "
+                                  f"x{N_LAYERS} layers", cfg, eng)
+    check_replicas(eng.state["cache"], hd, "tp dense")
+    log("  tp 16 beside tp 1, same weights and traffic: " + "; ".join(
+        f"{name} {m[name]:.2f} vs {m1[name]:.2f}" for name in m))
+    return {k: launches[k] + launches1[k] for k in launches}
+
+
+def seed_real_qkv_bias(params, n_real: int, seed=0):
+    """``bq``/``bk``/``bv`` set in place to 0.5 N(0, 1) on the first
+    ``n_real`` heads (the real ones), the padded rows left at zero."""
+    attn = params["layers"]["attn"]
+    dev = attn["bq"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name in ("bq", "bk", "bv"):
+        t = attn[name][..., :n_real, :]
+        t.copy_(0.5 * torch.randn(t.shape, generator=gen, device=dev))
+
+
+def track_layout(eng):
+    """The heads' physical layout, kept up to date: (L, Hp), position p of
+    layer l holding head ``layout[l][p]`` of the init's order.  The
+    weights start in that order and each applied migration takes their
+    head axis by the plan's relative permutation (``_migrate_state``), so
+    the layout composes those permutations."""
+    from repro_torch.core.placement_bridge import relative_perms
+    hd = eng.model.hd
+    layout = np.tile(np.arange(hd.Hp), (eng.cfg.n_layers, 1))
+    inner = eng._migrate_state
+
+    def migrate(state, plan, *a, **kw):
+        applied, reason = inner(state, plan, *a, **kw)
+        if applied:
+            rel = relative_perms(plan["prev_perms"], plan["perms"])
+            rel = np.broadcast_to(rel, layout.shape)
+            layout[:] = np.take_along_axis(layout, rel, axis=1)
+        return applied, reason
+
+    eng._migrate_state = migrate
+    return layout
+
+
+def padded_rows(params, layout, n_real):
+    """(largest magnitude on the padded heads' rows, smallest row norm of a
+    real head's ``wq``) over every layer, the heads found through the
+    physical layout (``track_layout``)."""
+    attn = params["layers"]["attn"]
+    dev = attn["wq"].device
+    worst, least = 0.0, math.inf
+    for l, row in enumerate(np.asarray(layout)):
+        pad = torch.as_tensor(np.flatnonzero(row >= n_real), device=dev)
+        real = torch.as_tensor(np.flatnonzero(row < n_real), device=dev)
+        for name, axis in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0),
+                           ("bq", 0), ("bk", 0), ("bv", 0)):
+            t = attn[name][l]
+            worst = max(worst, t.index_select(axis, pad).abs().max().item())
+        least = min(least, attn["wq"][l].index_select(1, real).float()
+                    .norm(dim=(0, 2)).min().item())
+    return worst, least
+
+
+def phase_tp_padded():
+    """qwen1.5-32b at published widths (d 5120, 40 heads of 128 zero-padded
+    to 48 at tp 16, one KV head each, QKV bias, d_ff 27392, vocab 152064),
+    4 layers, bf16: the resident kernel at 48 heads over 48 (G 1), flash at
+    48 over 48, on the dense path's traffic.  The biases are seeded on the
+    40 real heads; the padded heads' rows of wq, wk, wv, wo and the biases
+    must be exactly zero at the start and after every applied migration
+    (found through the layout the engine applied).  Returns the
+    launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen1.5-32b").with_overrides(n_layers=N_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = serve(cfg, use_kernel=True, n_requests=16, max_new=64, tp=TP)
+    hd = eng.model.hd
+    check((hd.H, hd.Hp, hd.Kp, hd.rep, hd.KvE) == (40, 48, 48, 1, 48),
+          f"tp padded: head layout {hd}")
+    seed_real_qkv_bias(eng.params, QWEN_REAL_HEADS)
+    weights = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    k = eng.state["cache"]["k"]
+    ident = np.broadcast_to(np.arange(hd.Hp), (cfg.n_layers, hd.Hp))
+    worst, least = padded_rows(eng.params, ident, QWEN_REAL_HEADS)
+    log(f"tp padded qwen1.5-32b: {weights / 1e9:.2f} GB of weights; cache k "
+        f"and v {tuple(k.shape)} bf16, {2 * k.numel() * k.element_size() / 1e9:.3f} "
+        f"GB; padded rows at init: largest |value| {worst}, smallest real "
+        f"wq head norm {least:.3f}")
+    check(worst == 0.0 and least > 0, "tp padded: padded rows not zero at "
+          "init")
+    checked = []
+    layout = track_layout(eng)
+
+    def after_migration(e):
+        w, lst = padded_rows(e.params, layout, QWEN_REAL_HEADS)
+        checked.append((w, lst))
+        check(w == 0.0 and lst > 0, f"tp padded: a padded head's row is "
+              f"{w} after a migration (smallest real norm {lst})")
+
+    launches, _, _ = tp_serve_run(f"tp {TP} padded bf16 qwen1.5-32b "
+                                  f"x{N_LAYERS} layers", cfg, eng,
+                                  after_migration)
+    moved = int((layout != np.arange(hd.Hp)).sum())
+    log(f"  padded rows exactly zero after each of {len(checked)} applied "
+        f"migrations ({moved} (layer, position) cells off the identity at "
+        f"the end); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(bool(checked), "tp padded: no migration was checked")
+    return launches
+
+
+def phase_tp_stream_pair():
+    """float32, 2 layers of llama3-8b at published widths: engines at tp 16
+    (rep 2) and tp 1 on the same weights, and tp 16 without the kernels,
+    driven in step over 8 requests of 32-512 tokens, once with a 500x
+    straggler at step 8 (migrations applied: the tp-16 logs equal the tp-1
+    ones with rep x the bytes) and once without.  Greedy streams must be
+    equal, every step's logits within STREAM_LOGIT_ATOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("llama3-8b").with_overrides(
+        n_layers=2, dtype="float32", param_dtype="float32")
+    params = build_model(cfg, tp=TP, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    keys = ("step", "n_migrations", "applied")
+    for straggle_at in (8, None):
+        engines = {name: serve(cfg, use_kernel=uk, n_requests=8,
+                               max_new=32, params=params, tp=tp)
+                   for name, tp, uk in (("tp16 kernels", TP, True),
+                                        ("tp1 kernels", 1, True),
+                                        ("tp16 plain", TP, False))}
+        seen = {n: watch_logits(e) for n, e in engines.items()}
+        worst = {n: 0.0 for n in engines}
+        while True:
+            more = [drive(e, straggle_at=straggle_at if straggle_at
+                          is not None else -1) for e in engines.values()]
+            check(len(set(more)) == 1, "tp pair: engines stopped apart")
+            if not more[0]:
+                break
+            ref = engines["tp16 kernels"]
+            active = ref._active()
+            if active:
+                for n in engines:
+                    worst[n] = max(worst[n], (seen[n]["last"][active]
+                                              - seen["tp16 kernels"]["last"]
+                                              [active]).abs().max().item())
+        streams = {n: {r.rid: r.out_tokens for r in e.finished}
+                   for n, e in engines.items()}
+        logs = {n: [tuple(m[k] for k in keys) for m in e.migration_log]
+                for n, e in engines.items()}
+        moved = {n: sum(m[1] for m in lg if m[2]) for n, lg in logs.items()}
+        rows = {n: migration_rows(e) for n, e in engines.items()}
+        label = "with a straggler" if straggle_at else "without a straggler"
+        log(f"f32 tp streams {label} (llama3-8b x2 layers): "
+            f"{len(streams['tp16 kernels'])} requests; largest per-step "
+            f"logit gap to tp 16 with kernels: tp 1 {worst['tp1 kernels']:.3e}, "
+            f"tp 16 plain {worst['tp16 plain']:.3e}; applied migrations "
+            f"{moved}; KV rows moved per interval {rows}")
+        check(len(streams["tp16 kernels"]) == 8
+              and all(s == streams["tp16 kernels"]
+                      for s in streams.values()),
+              f"tp streams {label}: greedy streams differ")
+        check(max(worst.values()) <= STREAM_LOGIT_ATOL,
+              f"tp streams {label}: logits differ by {worst}")
+        check(all(lg == logs["tp16 kernels"] for lg in logs.values()),
+              f"tp streams {label}: migration logs differ")
+        check(rows["tp16 kernels"] == [2 * r for r in rows["tp1 kernels"]],
+              f"tp streams {label}: tp-16 rows moved {rows['tp16 kernels']} "
+              f"are not twice tp 1's {rows['tp1 kernels']}")
+        if straggle_at:
+            check(min(moved.values()) > 0,
+                  f"tp streams {label}: no migration was applied")
+        else:
+            check(not any(moved.values()),
+                  f"tp streams {label}: a migration was applied")
+        check(all(bool(s["finite"].item()) for s in seen.values()),
+              f"tp streams {label}: non-finite logits")
+        del engines, seen
+        release()
+    del params
+
+
+def phase_mesh_one_card():
+    """A (1, 1) ("data", "model") DeviceMesh over NCCL on the one card, as
+    ``ElasticMesh`` builds it: llama3-8b's 4-layer params at published
+    widths (bf16) placed by ``param_shardings``, saved, and restored
+    through ``elastic_restore`` — every leaf's sha1 equal; then the
+    sharded ``forward`` through the flash kernel (``make_partitioner``)
+    against the unsharded model's, with and without the kernels.  Runs
+    across several cards wait for a four-card machine."""
+    import hashlib
+    import socket
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import Checkpointer, to_host
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement_bridge import param_shardings
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.api import build_model
+    from repro_torch.models.partitioning import make_partitioner, place
+    from repro_torch.runtime.elastic import ElasticMesh, elastic_restore
+    from repro_torch.tree import flatten, unflatten
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    tmp = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    try:
+        em = ElasticMesh(prefer_model=16)
+        mesh = em.mesh
+        check(tuple(mesh.mesh.shape) == (1, 1)
+              and tuple(mesh.mesh_dim_names) == ("data", "model"),
+              f"mesh {mesh}")
+        params = build_model(cfg, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+
+        def shardings(m):
+            return {"params": param_shardings(params, cfg, m)}
+
+        sh = flatten(shardings(mesh)["params"])
+        placed = unflatten(params, {p: place(v, sh[p]) for p, v in
+                                    flatten(params).items()})
+
+        def leaves(tree):
+            """{checkpoint key: leaf} of a params tree."""
+            return {"/".join(("params",) + p): v
+                    for p, v in flatten(tree).items()}
+
+        want_sha = {k: hashlib.sha1(to_host(v)[0].tobytes()).hexdigest()
+                    for k, v in leaves(params).items()}
+        ck = Checkpointer(tmp)
+        t0 = time.monotonic()
+        ck.save(1, {"params": placed})
+        t_save = time.monotonic() - t0
+        em2 = em.resize([0])
+        t0 = time.monotonic()
+        restored = elastic_restore(ck, 1, {"params": params}, shardings,
+                                   em2.mesh)["params"]
+        torch.cuda.synchronize()
+        t_restore = time.monotonic() - t0
+        # the saved bytes' sha1 against the original leaves' (restore
+        # verified the bytes it read against the same sha1s), and every
+        # restored leaf bit-equal to its original on the card
+        manifest = json.loads((Path(tmp) / "step_00000001" /
+                               "manifest.json").read_text())["leaves"]
+        differ = [k for k in want_sha if manifest[k]["sha1"] != want_sha[k]]
+        orig = leaves(params)
+        differ += [k for k, v in leaves(restored).items()
+                   if not torch.equal(v.full_tensor(), orig[k])]
+        log(f"mesh (1, 1) over NCCL: {len(want_sha)} leaves placed, saved in "
+            f"{t_save:.2f} s, restored through elastic_restore in "
+            f"{t_restore:.2f} s ({ck.log[-1]['bytes'] / 1e9:.2f} GB); leaves "
+            f"whose sha1 or restored bits differ: {len(differ)}")
+        check(not differ, f"mesh restore: leaves differ {differ[:4]}")
+        del placed
+        release()
+        tokens = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (2, 512))).cuda()
+        with torch.no_grad():
+            flash_attention.launches = 0
+            sharded = build_model(cfg, part=make_partitioner(em2.mesh),
+                                  use_kernel=True, device="cuda").forward(
+                restored, tokens)[0]
+            launched = flash_attention.launches
+            check(type(sharded).__name__ == "DTensor",
+                  "the sharded forward returned no DTensor")
+            sharded = sharded.full_tensor()
+            kern = build_model(cfg, use_kernel=True, device="cuda").forward(
+                params, tokens)[0]
+            plain = build_model(cfg, device="cuda").forward(params,
+                                                            tokens)[0]
+        gap_kern = (sharded - kern).abs().max().item()
+        rel_plain = row_rel_err(sharded, plain)
+        log(f"  sharded forward (2 x 512 tokens, bf16, flash {launched} "
+            f"launches): largest logit gap to the unsharded kernel forward "
+            f"{gap_kern:.3e} (limit {TOLS[torch.bfloat16]['atol']}); per-row "
+            f"relative gap to the plain forward {rel_plain:.3e} (limit "
+            f"{CAPACITY_ROW_REL}: the same function, bf16 rounded at other "
+            f"points, down {cfg.n_layers} layers)")
+        check(launched == cfg.n_layers, f"sharded forward: flash launches "
+              f"{launched} != {cfg.n_layers}")
+        check(torch.allclose(sharded, kern, **TOLS[torch.bfloat16]),
+              "sharded forward differs from the unsharded one")
+        check(rel_plain <= CAPACITY_ROW_REL,
+              "sharded forward differs from the plain one")
+        del restored, sharded, kern, plain, params
+        return launched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+
+
+def tp_phases(by_name):
+    """The tp-16 phases; their resident and flash launches add to those
+    kernels' records."""
+    added = {"decode_attention_resident": 0, "flash_attention": 0}
+    for phase in (phase_tp_dense, phase_tp_padded):
+        launches = phase()
+        for name in added:
+            added[name] += launches[name]
+        release()
+    phase_tp_stream_pair()
+    release()
+    added["flash_attention"] += phase_mesh_one_card()
+    release()
+    for name, n in added.items():
+        by_name[name]["launches"] = by_name[name].get("launches", 0) + n
+    log(f"tp-16 and mesh launches added to the records: {added}")
+
+
 def train_phases():
     """The training phases in order; returns the launches of the
     train-then-serve phase by kernel."""
@@ -3924,7 +4387,7 @@ def main():
     ap.add_argument("--kernels-of", metavar="ROOT",
                     help="only build ROOT's kernels and run the kernel "
                     "phases on them; print their records")
-    ap.add_argument("--only", choices=("train",),
+    ap.add_argument("--only", choices=("train", "tp"),
                     help="only build the kernels and run these phases "
                     "(no result lines)")
     args = ap.parse_args()
@@ -3954,6 +4417,15 @@ def main():
     log_ptxas(logs)
     if args.only == "train":
         log(f"train-then-serve launches: {train_phases()}")
+        return
+    if args.only == "tp":
+        records = [phase_kernel_vs_plain(), phase_flash_vs_plain()]
+        by_name = {r["name"]: r for r in records}
+        phase_main_path("dense")      # warms the serving path up
+        release()
+        tp_phases(by_name)
+        log(f"tp phases passed; {time.monotonic() - t0:.1f} s from the "
+            f"build on")
         return
     n_hgmma, per_dh = check_flash_sass()
     log(f"flash library SASS: {n_hgmma} HGMMA instructions; per head width "
@@ -4056,6 +4528,9 @@ def main():
     log(f"flash_attention launches with the elastic paths: {flash}")
     phase_churn_stream_pairs()
     release()
+    # the tp-16 layout (llama3-8b replicated KV, qwen1.5-32b padded heads)
+    # and the one-card mesh: their launches add to the records
+    tp_phases(by_name)
     # training on the plain path, then the trained weights served through
     # the flash and resident kernels: their launches add to those records
     served = train_phases()

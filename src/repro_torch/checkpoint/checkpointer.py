@@ -16,8 +16,10 @@ the reference's ``np.save`` writes for an ``ml_dtypes`` bfloat16 array
 (``descr '<V2'``), with manifest dtype ``"bfloat16"``; on restore those
 bytes are viewed as ``torch.bfloat16``.  So a checkpoint written by either
 package restores in the port, and the two write the same bytes for the
-same tree.  One device only: ``shardings`` other than ``None`` raise
-(several cards are ROADMAP Queue 1 #18).
+same tree.  A DTensor leaf is saved whole (``full_tensor``), so a
+checkpoint written on one mesh restores onto any other: ``restore(...,
+shardings=)`` places each leaf on the given mesh (the elastic restart
+path, ``runtime.elastic``).
 """
 from __future__ import annotations
 
@@ -32,52 +34,53 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.partitioning import Sharding, is_dtensor, place
+from repro_torch.tree import flatten as _flatten, unflatten as _unflatten
+
 BF16 = "bfloat16"
-
-
-def _flatten(tree, prefix=()) -> Dict[tuple, Any]:
-    """{path: leaf} in the reference's leaf order: dict keys sorted,
-    NamedTuple fields and sequence items in order."""
-    if isinstance(tree, dict):
-        out = {}
-        for k in sorted(tree):
-            out.update(_flatten(tree[k], prefix + (str(k),)))
-        return out
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        out = {}
-        for name, v in zip(tree._fields, tree):
-            out.update(_flatten(v, prefix + (name,)))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(_flatten(v, prefix + (str(i),)))
-        return out
-    return {prefix: tree}
-
-
-def _unflatten(like, leaves: Dict[tuple, Any], prefix=()):
-    """A tree shaped like ``like`` with leaves from ``leaves``."""
-    if isinstance(like, dict):
-        return {k: _unflatten(v, leaves, prefix + (str(k),))
-                for k, v in like.items()}
-    if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_unflatten(v, leaves, prefix + (name,))
-                            for name, v in zip(like._fields, like)))
-    if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, leaves, prefix + (str(i),))
-                          for i, v in enumerate(like))
-    return leaves[prefix]
 
 
 def _key(path) -> str:
     return "/".join(path)
 
 
+def _mesh_of(tree):
+    """The one mesh of a tree's DTensor leaves; ``None`` for a tree
+    without any."""
+    meshes = [v.device_mesh for v in _flatten(tree).values()
+              if is_dtensor(v)]
+    if not meshes:
+        return None
+    if any(m != meshes[0] for m in meshes[1:]):
+        raise ValueError("a saved tree's DTensor leaves must share one "
+                         "mesh")
+    mesh = meshes[0]
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the saved tree's mesh: only "
+                         "the mesh's ranks save it")
+    return mesh
+
+
+def _is_writer(mesh) -> bool:
+    """The rank at mesh coordinate (0, ..., 0) writes a sharded save."""
+    return not any(mesh.get_coordinate())
+
+
+def _mesh_barrier(mesh):
+    """One barrier per mesh dimension, in order, over the mesh's own
+    groups: no rank leaves the last before every rank of the mesh has
+    entered the first (ranks outside the mesh take no part)."""
+    import torch.distributed as dist
+    for d in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(d))
+
+
 def to_host(leaf):
     """(numpy array, manifest dtype) of a leaf: a tensor's bytes on the
     host (a bfloat16 tensor's as int16 patterns), or ``np.asarray``."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         # a copy even on the CPU: an async write must not see later steps
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -105,6 +108,9 @@ class Checkpointer:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        # the mesh of a pending sharded ``save_async``: its ranks meet in
+        # ``wait``
+        self._mesh = None
         # one record per save and restore: {"op", "step", "bytes",
         # "seconds"} (a save's seconds cover the copy to the host and the
         # write; an async save's are recorded when its thread ends)
@@ -115,14 +121,34 @@ class Checkpointer:
         return {k: to_host(v) for k, v in _flatten(tree).items()}
 
     def save(self, step: int, tree) -> Path:
+        """Write ``tree`` at ``step``.  A tree with DTensor leaves is saved
+        by every rank of its mesh together: each leaf is gathered whole
+        on every rank (a collective), the rank at mesh coordinate (0, ...,
+        0) writes, and all wait for the write (``_mesh_barrier``) before
+        they return."""
         self.wait()
         t0 = time.perf_counter()
-        return self._write(step, self._host(tree), t0)
+        mesh = _mesh_of(tree)
+        host = self._host(tree)
+        if mesh is None:
+            return self._write(step, host, t0)
+        if _is_writer(mesh):
+            self._write(step, host, t0)
+        _mesh_barrier(mesh)
+        return self.dir / f"step_{step:08d}"
 
     def save_async(self, step: int, tree) -> None:
+        """``save`` with the write on a thread.  A DTensor tree is gathered
+        before this returns; the writer's thread writes, and every rank
+        of the mesh waits for it in the next ``wait`` (which ``save``,
+        ``save_async`` and ``restore`` call first)."""
         self.wait()
         t0 = time.perf_counter()
+        mesh = _mesh_of(tree)
         host = self._host(tree)            # transfer before returning
+        self._mesh = mesh
+        if mesh is not None and not _is_writer(mesh):
+            return
         self._thread = threading.Thread(target=self._write,
                                         args=(step, host, t0), daemon=True)
         self._thread.start()
@@ -131,6 +157,9 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            _mesh_barrier(mesh)
 
     def _write(self, step: int, host: Dict[tuple, Any], t0: float) -> Path:
         final = self.dir / f"step_{step:08d}"
@@ -181,14 +210,16 @@ class Checkpointer:
         """Restore into the structure of ``like_tree``: a tensor leaf
         comes back as a tensor on ``device`` (default: that leaf's
         device), any other leaf as the numpy array the reference returns.
-        Raises ``IOError`` when a leaf's bytes do not match their sha1."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings needs several cards (ROADMAP "
-                "Queue 1 #18); the port restores onto one device")
+        ``shardings`` — a tree like ``like_tree`` of
+        ``partitioning.Sharding`` (``placement_bridge.param_shardings``) —
+        places every leaf as a DTensor on its mesh instead: each rank
+        reads the whole leaf and keeps its slice (no collective).  Raises
+        ``IOError`` when a leaf's bytes do not match their sha1."""
+        self.wait()
         t0 = time.perf_counter()
         src = self.dir / f"step_{step:08d}"
         manifest = json.loads((src / "manifest.json").read_text())
+        flat_sh = None if shardings is None else _flatten(shardings)
         leaves, n_bytes = {}, 0
         for path, like in _flatten(like_tree).items():
             key = _key(path)
@@ -199,12 +230,20 @@ class Checkpointer:
                 if h != meta["sha1"]:
                     raise IOError(f"checkpoint corruption at {key}")
             n_bytes += arr.nbytes
-            if isinstance(like, torch.Tensor):
+            if shardings is not None or isinstance(like, torch.Tensor):
                 if meta["dtype"] == BF16:
                     t = torch.from_numpy(arr.view(np.int16)).view(
                         torch.bfloat16)
                 else:
                     t = torch.from_numpy(arr)
+            if shardings is not None:
+                sh = flat_sh.get(path)
+                if not isinstance(sh, Sharding):
+                    raise ValueError(
+                        f"the sharding of {key} is a {type(sh).__name__}, "
+                        f"not a partitioning.Sharding(mesh, placements)")
+                leaves[path] = place(t, sh)
+            elif isinstance(like, torch.Tensor):
                 leaves[path] = t.to(like.device if device is None
                                     else torch.device(device))
             else:

@@ -7,9 +7,11 @@ links in [1,10] Gbps, full connectivity.  Background tasks are injected as a
 multiplicative availability process (mean-reverting), matching the paper's
 "inject background tasks to emulate fluctuating compute load".
 
-NumPy copy of the JAX package's ``core/network.py`` (without its
-mesh-topology constructor): ``sample`` draws the same numbers from the
-same seed, so Algorithm 1 places identically in both packages.
+NumPy copy of the JAX package's ``core/network.py``: ``sample`` draws the
+same numbers from the same seed, so Algorithm 1 places identically in both
+packages.  ``from_mesh`` builds the homogeneous network of a device mesh,
+with the reference's hop-scaled bandwidths and this port's card as its
+defaults.
 """
 from __future__ import annotations
 
@@ -21,6 +23,13 @@ import numpy as np
 GB = 1024 ** 3
 GFLOPS = 1e9
 GBPS = 1e9 / 8  # bytes/sec per Gbps
+
+# NVIDIA H100 80GB HBM3 (SXM5, 700 W power limit) data-sheet figures, the
+# defaults of ``DeviceNetwork.from_mesh``: device memory, dense bf16
+# tensor-core FLOP/s, and NVLink 4 bytes/s one way between two cards
+H100_HBM_BYTES = 80 * GB
+H100_PEAK_FLOPS_BF16 = 989e12
+H100_NVLINK_BW = 450e9
 
 
 @dataclasses.dataclass
@@ -178,6 +187,33 @@ class DeviceNetwork:
         return cls(mem_capacity=mem, compute_max=wmax,
                    compute_avail=wmax.copy(), bandwidth=bw,
                    controller=controller, rng=rng)
+
+    @classmethod
+    def from_mesh(cls, shape, *, hbm_bytes=H100_HBM_BYTES,
+                  peak_flops=H100_PEAK_FLOPS_BF16, link_bw=H100_NVLINK_BW,
+                  seed: int = 0) -> "DeviceNetwork":
+        """Homogeneous devices, one per mesh slot: ``shape`` is a mesh
+        shape or a ``DeviceMesh``; R_{j,k} is ``link_bw`` scaled by the
+        inverse hop count on the torus of that shape (the reference's
+        model).  The defaults are one NVIDIA H100 80GB HBM3 (700 W) a
+        slot."""
+        if hasattr(shape, "mesh"):
+            shape = tuple(shape.mesh.shape)
+        coords = np.array(np.unravel_index(np.arange(np.prod(shape)),
+                                           shape)).T
+        n = len(coords)
+        hops = np.zeros((n, n))
+        for d, size in enumerate(shape):
+            diff = np.abs(coords[:, None, d] - coords[None, :, d])
+            hops += np.minimum(diff, size - diff)  # torus wrap
+        hops = np.maximum(hops, 1)
+        bw = link_bw / hops
+        np.fill_diagonal(bw, np.inf)
+        return cls(mem_capacity=np.full(n, float(hbm_bytes)),
+                   compute_max=np.full(n, float(peak_flops)),
+                   compute_avail=np.full(n, float(peak_flops)),
+                   bandwidth=bw, controller=0,
+                   rng=np.random.default_rng(seed))
 
     # ----------------------------------------------------------- dynamics
     def step_background_load(self):

@@ -11,6 +11,12 @@ The numpy half is a copy of the JAX package's ``core/placement_bridge.py``
 (same names, same results); the torch half applies the permutations to
 tensors with ``index_select`` on the head axis.  The layouts match the
 JAX package's, so a migration is the same row permutation in both.
+
+The placements on a ``DeviceMesh`` (``param_spec``, ``param_shardings``,
+``batch_shardings``, ``decode_state_shardings``) are the reference's
+path-keyed rules: a spec is the reference's ``PartitionSpec`` entries as a
+tuple, and a tree of ``partitioning.Sharding`` (mesh and one placement per
+mesh dimension) takes the place of its ``NamedSharding`` trees.
 """
 from __future__ import annotations
 
@@ -20,6 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.blocks import Block, HEAD, expert_slot, graph_of
+from repro_torch.models.partitioning import (Sharding, Spec, placements,
+                                             tp_degree)
+from repro_torch.tree import map_with_path
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +363,11 @@ def relative_perms(prev_perms: np.ndarray, new_perms: np.ndarray
     return out
 
 
+def migration_bytes(pairs: Sequence[Tuple[int, int, int]],
+                    bytes_per_head: float) -> float:
+    return float(len(pairs) * bytes_per_head)
+
+
 def stage_slot_partition(place, blocks: Sequence[Block],
                          n_slots: int) -> List[tuple]:
     """Mesh-slot view of ``BlockGraph.stage_partition``: contiguous layer
@@ -551,3 +565,185 @@ def _permute_layers_(w: torch.Tensor, axis: int, rows: np.ndarray):
     idx = torch.as_tensor(rows, dtype=torch.long, device=w.device)
     for l in range(w.shape[0]):
         w[l].copy_(w[l].index_select(axis - 1, idx[l]))
+
+
+# ---------------------------------------------------------------------------
+# Parameter, batch and decode-state placements (path-based rules)
+# ---------------------------------------------------------------------------
+
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def param_spec(path_names: List[str], ndim: int, cfg, tp: int, *,
+               fsdp: bool, pod_ep: bool, layout: str = "tp",
+               shape: tuple = (), n_devices: int = 256) -> Spec:
+    """Trailing-dims spec for one parameter, padded with leading Nones
+    (stacked-layer axes are never sharded)."""
+    name = path_names[-1] if path_names else ""
+    quant_part = None
+    if name in ("q8", "sc") and len(path_names) >= 2:
+        quant_part = name
+        name = path_names[-2]          # rules keyed by the weight name
+    in_attn = "attn" in path_names
+    if layout == "zero3":
+        # every axis is DP: shard each param over the flattened device set
+        # on its largest evenly-divisible dim (gathered per layer on use);
+        # small/indivisible leaves stay replicated.
+        if quant_part == "sc" or ndim <= 1 or not shape:
+            return (None,) * ndim
+        axes: list = [None] * ndim
+        cands = sorted(range(ndim), key=lambda d: -shape[d])
+        for d in cands:
+            if shape[d] % n_devices == 0:
+                axes[d] = ("data", "model")
+                return tuple(axes)
+        for d in cands:  # partial sharding over one axis still helps
+            if shape[d] % tp == 0:
+                axes[d] = "model"
+                return tuple(axes)
+        return (None,) * ndim
+    F = "data" if fsdp else None
+    kv_ok = cfg.n_kv_heads == 0 or cfg.n_kv_heads % tp == 0 \
+        or cfg.n_heads % tp != 0  # padded archs keep Kp divisible too
+    KV = "model" if (cfg.expanded_kv_heads(tp) and
+                     cfg.padded_heads(tp) and kv_ok) else None
+    EP = "pod" if pod_ep else None
+
+    trailing: Optional[tuple] = None
+    if name == "tok_embed":
+        trailing = ("model", F)
+    elif name == "lm_head":
+        trailing = (F, "model")
+    elif in_attn and name == "wq":
+        trailing = (F, "model", None)
+    elif in_attn and name in ("wk", "wv"):
+        trailing = (F, KV, None)
+    elif in_attn and name == "wo":
+        trailing = ("model", None, F)
+    elif in_attn and name == "bq":
+        trailing = ("model", None)
+    elif in_attn and name in ("bk", "bv"):
+        trailing = (KV, None)
+    elif name in ("w_gate", "w_up"):
+        # dense (D,F) or moe (E,D,F)
+        trailing = (EP, F, "model") if ndim >= 3 else (F, "model")
+    elif name == "w_down":
+        trailing = (EP, "model", F) if ndim >= 3 else ("model", F)
+    elif name == "b_up":
+        trailing = ("model",)
+    elif name == "router":
+        trailing = (None, None)
+    # rwkv6 time/channel mix
+    elif name in ("wr", "wk", "wv", "wg", "wcr"):
+        trailing = (F, "model")
+    elif name == "wo" and not in_attn:
+        trailing = ("model", F)
+    elif name == "wck":
+        trailing = (F, "model")
+    elif name == "wcv":
+        trailing = ("model", F)
+    elif name == "lora_A":
+        trailing = (F, None)
+    elif name == "u":
+        trailing = ("model", None)
+    # mamba2
+    elif name == "w_in":
+        trailing = (F, "model")
+    elif name == "w_out":
+        trailing = ("model", F)
+
+    if trailing is None:
+        trailing = ()
+    if quant_part == "sc":
+        # per-last-axis scale vector: inherits the weight's last-dim spec
+        trailing = trailing[-1:] if trailing else ()
+    trailing = tuple(trailing[-ndim:]) if ndim < len(trailing) else trailing
+    lead = (None,) * (ndim - len(trailing))
+    return lead + tuple(trailing)
+
+
+def param_shardings(params_tree, cfg, mesh, *, fsdp: bool = False,
+                    layout: str = "tp"):
+    """A ``Sharding`` per parameter (or any mirrored state, such as AdamW
+    moments) on ``mesh``, the tree's structure kept."""
+    tp = tp_degree(mesh)
+    pod_ep = cfg.is_moe and "pod" in mesh.mesh_dim_names
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        return Sharding(mesh, placements(mesh, param_spec(
+            list(path), len(shape), cfg, tp, fsdp=fsdp, pod_ep=pod_ep,
+            layout=layout, shape=shape, n_devices=mesh.size())))
+    return map_with_path(one, params_tree)
+
+
+def batch_shardings(batch_tree, mesh, layout: str = "tp"):
+    """Token batches: batch dim over (pod?, data) — or the whole mesh for
+    zero3; everything else replicated."""
+    names = tuple(mesh.mesh_dim_names)
+    if layout == "zero3":
+        data_axes = names
+    else:
+        data_axes = ("pod", "data") if "pod" in names else ("data",)
+
+    def one(_, leaf):
+        ndim = len(_shape(leaf))
+        spec = [data_axes] + [None] * (ndim - 1) if ndim >= 1 else []
+        return Sharding(mesh, placements(mesh, spec))
+    return map_with_path(one, batch_tree)
+
+
+def decode_state_spec(path_names: List[str], ndim: int, mesh_names,
+                      seq_over_data: bool = False) -> Spec:
+    """The reference's decode-state rule for one leaf: KV caches (lead...,
+    B, T, KvE, dh) batch over data and heads over model (the co-location
+    invariant; ``seq_over_data``: the cache sequence over data instead),
+    int8 scales alike, SSM and WKV states heads over model, token shifts
+    batch over data, the ring's slot positions replicated."""
+    data_axes = ("pod", "data") if "pod" in mesh_names else ("data",)
+    batch_axes = None if seq_over_data else data_axes
+    nm = path_names[-1] if path_names else ""
+    if nm in ("k", "v") and "img_kv" in path_names:
+        # static image KV: (G, B, I, KvE, dh)
+        spec = [None] * (ndim - 4) + [batch_axes, None, "model", None]
+    elif nm in ("k", "v") and ndim >= 4:
+        if seq_over_data:
+            spec = [None] * (ndim - 4) + [None, "data", "model", None]
+        else:
+            spec = [None] * (ndim - 4) + [batch_axes, None, "model", None]
+    elif nm in ("k_sc", "v_sc") and ndim >= 3:    # (lead,B,T,KvE)
+        if seq_over_data:
+            spec = [None] * (ndim - 3) + [None, "data", "model"]
+        else:
+            spec = [None] * (ndim - 3) + [batch_axes, None, "model"]
+    elif nm == "wkv" and ndim >= 4:               # rwkv (lead,B,H,dh,dh)
+        spec = [None] * (ndim - 4) + [batch_axes, "model", None, None]
+    elif nm == "ssm" and ndim >= 4:               # mamba (lead,B,nh,dh,ns)
+        spec = [None] * (ndim - 4) + [batch_axes, "model", None, None]
+    elif nm == "conv" and ndim >= 3:              # (lead,B,cw-1,C)
+        spec = [None] * (ndim - 3) + [batch_axes, None, "model"]
+    elif nm in ("shift_t", "shift_c") and ndim >= 2:
+        spec = [None] * (ndim - 2) + [batch_axes, None]
+    elif nm == "pos":
+        spec = []
+    elif ndim >= 1:
+        spec = [batch_axes] + [None] * (ndim - 1)
+    else:
+        spec = []
+    return tuple(spec)
+
+
+def decode_state_shardings(state_tree, cfg, mesh, *,
+                           seq_over_data: bool = False):
+    """A ``Sharding`` per decode-state leaf on ``mesh``
+    (``decode_state_spec``); a leaf that is a Python number (a lock-step
+    position) is replicated."""
+    names = tuple(mesh.mesh_dim_names)
+
+    def one(path, leaf):
+        spec = decode_state_spec(list(path), len(_shape(leaf)), names,
+                                 seq_over_data)
+        return Sharding(mesh, placements(mesh, spec))
+    return map_with_path(one, state_tree)

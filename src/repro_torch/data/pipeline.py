@@ -6,8 +6,9 @@ drawn with a per-step seed, so its batches equal the reference's bit for
 bit and a restarted job resumes from its cursor.  ``ShardedPrefetcher``
 copies each numpy batch to the device on a worker thread while the
 previous step computes (pinned host memory and ``non_blocking`` copies on
-CUDA).  One device only: ``shardings`` other than ``None`` raise (several
-cards are ROADMAP Queue 1 #18).
+CUDA), or with ``shardings`` places it as DTensors on a mesh, each rank
+keeping its rows of the batch.  Both run on the GPU unless the caller
+asks for the CPU.
 """
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.partitioning import Sharding, place
 
 
 class SyntheticLM:
@@ -74,18 +78,27 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 class ShardedPrefetcher:
     """Host->device double-buffering: a worker thread materializes numpy
-    batches and copies them to ``device`` while the previous step
-    computes."""
+    batches and copies them to ``device`` (``None``: the GPU, raising
+    where none is present) while the previous step computes.  With
+    ``shardings`` ({name: ``partitioning.Sharding``}, e.g.
+    ``placement_bridge.batch_shardings``) each batch becomes DTensors on
+    that mesh instead: every rank draws the same batch from the seeded
+    source and keeps its own rows, so placing needs no collective on the
+    worker thread."""
 
     def __init__(self, source: Iterator[Dict[str, np.ndarray]],
                  shardings: Optional[Dict[str, Any]] = None,
-                 depth: int = 2, device="cpu"):
+                 depth: int = 2, device=None):
         if shardings is not None:
-            raise NotImplementedError(
-                "batch shardings need several cards (ROADMAP Queue 1 #18); "
-                "the port prefetches onto one device")
+            bad = [k for k, v in shardings.items()
+                   if not isinstance(v, Sharding)]
+            if bad:
+                raise ValueError(f"shardings of {bad} are not "
+                                 f"partitioning.Sharding(mesh, placements)")
         self.source = source
-        self.device = torch.device(device)
+        self.shardings = shardings
+        self.device = None if shardings is not None \
+            else resolve_device(device)
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self.thread = threading.Thread(target=self._worker, daemon=True)
@@ -95,16 +108,25 @@ class ShardedPrefetcher:
         for batch in self.source:
             if self._stop.is_set():
                 return
+            if self.shardings is not None:
+                batch = {k: place(torch.from_numpy(np.ascontiguousarray(v)),
+                                  self.shardings[k])
+                         for k, v in batch.items()}
+                self._q_put(batch)
+                continue
             batch = to_device(batch, self.device)
             if self.device.type == "cuda":
                 # the consumer's stream must not read before the copy lands
                 torch.cuda.current_stream(self.device).synchronize()
-            while not self._stop.is_set():
-                try:
-                    self.q.put(batch, timeout=0.5)
-                    break
-                except queue.Full:
-                    continue
+            self._q_put(batch)
+
+    def _q_put(self, batch):
+        while not self._stop.is_set():
+            try:
+                self.q.put(batch, timeout=0.5)
+                return
+            except queue.Full:
+                continue
 
     def __iter__(self):
         return self
@@ -123,7 +145,7 @@ class ShardedPrefetcher:
 
 
 def make_train_pipeline(cfg, shape, shardings=None, seed: int = 0,
-                        prefetch: bool = True, device="cpu"):
+                        prefetch: bool = True, device=None):
     src = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
                       seed=seed)
     it = iter(src)

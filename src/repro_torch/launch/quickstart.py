@@ -17,9 +17,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import SyntheticLM, to_device
+from repro_torch.device import resolve_device
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
-from repro_torch.models.api import build_model, resolve_device
+from repro_torch.models.api import build_model
 from repro_torch.optim.adamw import AdamW, tree_leaves
 
 

@@ -24,6 +24,8 @@ counterpart of the JAX package's ``launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --layers 12 --slots 8 --requests 16 --prompt-len 1024 --tokens 64 \
       --use-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-32b \
+      --layers 4 --slots 8 --requests 16 --tokens 64 --use-kernel --tp 16
 
 The default ``--arch`` is musicgen-large, as in the reference.  Runs on
 the GPU unless ``--device cpu`` is given (``--reduced`` shrinks the widths
@@ -44,7 +46,10 @@ all, half and none of those rows, in turn.  The Zamba2 hybrid
 (zamba2-2.7b; ``--layers`` a multiple of its supergroup of 6, or of 2 with
 ``--reduced``, which keeps the reference's 4 layers with a shared block
 every 2) always takes the wave engine, and its head plans are logged as not
-applied.
+applied.  ``--tp N`` builds the model in the tensor-parallel head layout
+of degree N (query heads zero-padded to a multiple of N; KV heads
+replicated up to N where there are fewer), which the controller places
+over max(N, 4) simulated devices.
 """
 from __future__ import annotations
 
@@ -128,6 +133,8 @@ def main(argv=None):
     ap.add_argument("--img-tokens", type=int, default=16,
                     help="VLM: image rows a slot holds (requests carry "
                          "images of all, half and none of them, in turn)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree of the head layout")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
@@ -152,10 +159,14 @@ def main(argv=None):
     eng = make_engine(cfg, mode=mode, n_slots=args.slots, max_seq=max_seq,
                       lam=args.lam, use_kernel=args.use_kernel,
                       pipeline_k=args.pipeline_k, search=args.search,
-                      device=args.device, **kw)
+                      device=args.device, tp=args.tp, **kw)
     print(f"[serve] {cfg.name} engine: {type(eng).__name__} on {eng.device}, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, max_seq {max_seq}"
           f"{f', window {cfg.sliding_window}' if cfg.sliding_window else ''}")
+    hd = getattr(eng.model, "hd", None)
+    if hd is not None and args.tp > 1:
+        print(f"[serve] tp {args.tp}: Hp {hd.Hp}, Kp {hd.Kp}, rep {hd.rep}, "
+              f"KvE {hd.KvE} over {eng.net.n_devices} devices")
     if args.straggler >= 0:
         eng.net.inject_straggler(args.straggler, slowdown=20.0)
         print(f"[serve] injected straggler on device {args.straggler}")

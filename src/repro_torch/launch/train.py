@@ -9,7 +9,7 @@ model's plain path (the kernels have no backward).
       [--resume] [--device cpu]
 
 Without ``--device cpu`` it wants the GPU and raises where none is
-present, as ``models.api.resolve_device`` does.  When the last step falls
+present, as ``device.resolve_device`` does.  When the last step falls
 on a checkpoint interval the asynchronous save already wrote it, so the
 final save is not repeated (the reference writes the same tree twice).
 """
@@ -25,8 +25,9 @@ import torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import SyntheticLM, to_device
+from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models.api import build_model, resolve_device
+from repro_torch.models.api import build_model
 from repro_torch.optim.adamw import AdamW, cosine_schedule, tree_leaves
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 

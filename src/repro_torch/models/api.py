@@ -1,7 +1,8 @@
-"""Model API: ``build_model(cfg, use_kernel=..., device=...)`` — counterpart
-of the JAX package's ``models/api.py`` for every family the reference
-builds (dense, MoE, audio, VLM, RWKV-6 ``ssm`` and the Zamba2 ``hybrid``)
-— and ``batch_extras``, the stubbed frontend inputs.
+"""Model API: ``build_model(cfg, tp=..., part=..., use_kernel=...,
+device=...)`` — counterpart of the JAX package's ``models/api.py`` for
+every family the reference builds (dense, MoE, audio, VLM, RWKV-6
+``ssm`` and the Zamba2 ``hybrid``) — and ``batch_extras``, the stubbed
+frontend inputs.
 
 The returned model exposes ``init(generator)``, ``forward`` (returning
 ``(logits, aux)`` as the reference's does), ``loss(params, batch)`` and the
@@ -19,41 +20,42 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.llama3_2_vision_11b import N_IMAGE_TOKENS
+from repro_torch.device import resolve_device
+from repro_torch.models.partitioning import NULL
 from repro_torch.models.rwkv6 import RWKV6Model
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.models.zamba2 import Zamba2Model
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU, and raises where none is present; pass
-    ``"cpu"`` to run on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is present; pass "
-                               "device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def build_model(cfg: ModelConfig, *, use_kernel: bool = False, device=None,
+def build_model(cfg: ModelConfig, *, tp: int = 1, part=NULL,
+                use_kernel: bool = False, device=None,
                 capacity_moe: bool = False, capacity_factor: float = 1.25,
                 remat: str = "none"):
-    """``capacity_moe`` runs MoE layers through GShard capacity dispatch
-    at ``capacity_factor`` (attention families; RWKV-6 and Zamba2 have no
-    MoE, as in the reference, which ignores the option for them).
-    ``remat`` is one of the reference's ``REMAT_POLICIES`` names ("none",
-    "full", "dots", "dots_no_batch"): activation checkpointing under
-    autograd (``transformer.remat_call``); any other name raises."""
+    """``tp`` lays attention heads out for head-level tensor parallelism
+    at that degree (padded query heads, ``rep``-replicated KV heads;
+    ``layers.head_dims``; RWKV-6 has no attention heads and ignores it).
+    ``part`` (``partitioning``) maps the intermediates onto a mesh, for the
+    dense family's sharded ``forward``; a partitioner with a mesh raises
+    ``NotImplementedError`` for any other family.  ``capacity_moe`` runs MoE layers through
+    GShard capacity dispatch at ``capacity_factor`` (attention families;
+    RWKV-6 and Zamba2 have no MoE, as in the reference, which ignores the
+    option for them).  ``remat`` is one of the reference's
+    ``REMAT_POLICIES`` names ("none", "full", "dots", "dots_no_batch"):
+    activation checkpointing under autograd (``transformer.remat_call``);
+    any other name raises."""
+    if part.mesh is not None and cfg.family != "dense":
+        raise NotImplementedError(
+            f"a sharded forward of the {cfg.family} family is not ported "
+            f"(ROADMAP Queue 1 #18); the dense family's is")
+    common = dict(use_kernel=use_kernel, remat=remat,
+                  device=resolve_device(device))
     if cfg.family == "ssm":
-        return RWKV6Model(cfg, use_kernel=use_kernel, remat=remat,
-                          device=resolve_device(device))
+        return RWKV6Model(cfg, **common)
     if cfg.family == "hybrid":
-        return Zamba2Model(cfg, use_kernel=use_kernel, remat=remat,
-                           device=resolve_device(device))
-    return TransformerLM(cfg, use_kernel=use_kernel,
-                         device=resolve_device(device),
-                         capacity_moe=capacity_moe,
-                         capacity_factor=capacity_factor, remat=remat)
+        return Zamba2Model(cfg, tp=tp, **common)
+    return TransformerLM(cfg, capacity_moe=capacity_moe,
+                         capacity_factor=capacity_factor, tp=tp, part=part,
+                         **common)
 
 
 def batch_extras(cfg: ModelConfig, batch: int, dtype,

@@ -11,8 +11,21 @@ Functions take plain tensors and nested dicts of parameters in the
 reference's layouts (``wq`` (D,Hp,dh), ``wk``/``wv`` (D,Kp,dh), ``wo``
 (Hp,dh,D), biases ``bq`` (Hp,dh), ``bk``/``bv`` (Kp,dh)); each matmul
 weight may be int8 (``quantization.quantize_params``) and is read through
-``quantization.wt``.  Caches are updated in place.  Branches of other families raise
-``NotImplementedError`` naming their ROADMAP item.
+``quantization.wt``.  Caches are updated in place.
+
+Head layout for tensor parallelism at degree ``tp`` (``head_dims``):
+  Hp  — query heads zero-padded to a multiple of ``tp``,
+  KvE — KV heads expanded (zero-pad, then ``rep``-fold repeat) to
+        ``max(pad(K), tp)``; the repeat happens on activations, so the
+        weights keep ``Kp`` rows and their gradients stay exact.
+The KV cache stores the expanded layout, so its head axis shards as the
+query heads do: each device holds the KV of the heads it serves.
+
+Sharding is expressed only through a ``partitioning.Partitioner``
+(``part``, a no-op ``NULL`` by default): its ``constrain`` points are the
+reference's, and under a mesh they redistribute DTensor intermediates.
+Attention itself runs on each rank's shard (``partitioning.local``):
+heads and batch rows are independent there, so no collective is needed.
 """
 from __future__ import annotations
 
@@ -24,16 +37,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.partitioning import NULL, is_dtensor, like, local
 from repro_torch.models.quantization import is_quantized, wt
 # attention_scores and chunked_attention stay importable from here, beside
 # the rest of the reference's layers
 from repro_torch.kernels.attention_plain import (  # noqa: F401
     attend as plain_attend, attention_scores, causal_mask, chunked_attention)
-
-
-def unsupported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported to repro_torch yet "
-                              f"(ROADMAP Queue 1 #{item})")
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +60,10 @@ class HeadDims:
     KvE: int    # expanded kv heads stored in the cache = Kp * rep
     dh: int
 
+    @property
+    def groups(self) -> int:
+        return self.Hp // self.KvE
+
 
 def head_dims(cfg: ModelConfig, tp: int = 1) -> HeadDims:
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -61,6 +74,8 @@ def head_dims(cfg: ModelConfig, tp: int = 1) -> HeadDims:
         Kp = -(-K // tp) * tp
         rep = 1
     else:
+        # tp > K: repeat each kv head so every device holds exactly the KV
+        # head(s) its local query heads attend to
         Kp = K
         rep = tp // K if tp % K == 0 else tp
     KvE = Kp * rep
@@ -86,26 +101,40 @@ def normal_init(gen: torch.Generator, shape, scale: float, dtype,
     return (x * scale).to(dtype)
 
 
+def zero_pad_heads(w: torch.Tensor, axis: int, to: int) -> torch.Tensor:
+    """Zero-pad a head axis up to ``to`` rows (padded heads never influence
+    outputs: their o-projection rows are zero as well)."""
+    pad = to - w.shape[axis]
+    if pad == 0:
+        return w
+    shape = list(w.shape)
+    shape[axis] = pad
+    return torch.cat([w, w.new_zeros(shape)], dim=axis)
+
+
 def init_attention(gen: torch.Generator, cfg: ModelConfig, hd: HeadDims,
                    lead: tuple, dtype, device, *, cross: bool = False
                    ) -> dict:
-    """Attention weights stacked over ``lead`` (the layer axes): ``wq``,
-    ``wk``, ``wv``, ``wo`` drawn in that order at the reference's scales;
-    ``qkv_bias`` configs add zero ``bq``/``bk``/``bv``, and a gated
-    cross-attention layer (llama-3.2-vision) a zero ``gate`` per layer,
-    as the reference initializes them."""
+    """Attention weights stacked over ``lead`` (the layer axes): ``wq``
+    (D, H, dh), ``wk``/``wv`` (D, K, dh), ``wo`` (H, dh, D) drawn in that
+    order at the reference's scales, then zero-padded to ``Hp``/``Kp``
+    head rows; ``qkv_bias`` configs add zero ``bq``/``bk``/``bv``, and a
+    gated cross-attention layer (llama-3.2-vision) a zero ``gate`` per
+    layer, as the reference initializes them."""
     D = cfg.d_model
+    n = len(lead)
 
-    def dense(d_in, shape):
-        return dense_init(gen, d_in, lead + shape, dtype, device)
+    def dense(d_in, shape, axis, to):
+        w = dense_init(gen, d_in, lead + shape, dtype, device)
+        return zero_pad_heads(w, n + axis, to)
 
     def zeros(shape):
         return torch.zeros(lead + shape, dtype=dtype, device=device)
 
-    p = {"wq": dense(D, (D, hd.Hp, hd.dh)),
-         "wk": dense(D, (D, hd.Kp, hd.dh)),
-         "wv": dense(D, (D, hd.Kp, hd.dh)),
-         "wo": dense(hd.H * hd.dh, (hd.Hp, hd.dh, D))}
+    p = {"wq": dense(D, (D, hd.H, hd.dh), 1, hd.Hp),
+         "wk": dense(D, (D, hd.K, hd.dh), 1, hd.Kp),
+         "wv": dense(D, (D, hd.K, hd.dh), 1, hd.Kp),
+         "wo": dense(hd.H * hd.dh, (hd.H, hd.dh, D), 0, hd.Hp)}
     if cfg.qkv_bias:
         p["bq"] = zeros((hd.Hp, hd.dh))
         p["bk"] = zeros((hd.Kp, hd.dh))
@@ -188,11 +217,22 @@ def apply_rope(x, positions, theta: float, fraction: float = 1.0):
 # ---------------------------------------------------------------------------
 
 
-def qkv_project(cfg: ModelConfig, p: dict, hd: HeadDims, x, positions):
+def repeat_kv(t, rep: int):
+    """Each KV head of ``t`` (..., Kp, dh) repeated ``rep`` times in place
+    (``jnp.repeat`` along the head axis): expanded row ``o·rep + r`` is
+    replica r of head o."""
+    if rep <= 1:
+        return t
+    shape = t.shape
+    return t.unsqueeze(-2).expand(shape[:-1] + (rep, shape[-1])).reshape(
+        shape[:-2] + (shape[-2] * rep, shape[-1]))
+
+
+def qkv_project(cfg: ModelConfig, p: dict, hd: HeadDims, x, positions, *,
+                part=NULL):
     """Returns q (B,S,Hp,dh) and k, v (B,S,KvE,dh); ``qkv_bias`` configs
-    add ``bq`` (Hp,dh) and ``bk``/``bv`` (Kp,dh) before RoPE."""
-    if hd.rep > 1:
-        unsupported("replicated KV heads (rep > 1)", 18)
+    add ``bq`` (Hp,dh) and ``bk``/``bv`` (Kp,dh) before RoPE, and
+    ``rep`` > 1 repeats K and V on the activations after it."""
     q = torch.einsum("bsd,dhk->bshk", x, wt(p, "wq", x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, wt(p, "wk", x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, wt(p, "wv", x.dtype))
@@ -202,6 +242,10 @@ def qkv_project(cfg: ModelConfig, p: dict, hd: HeadDims, x, positions):
         v = v + p["bv"].to(x.dtype)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    k, v = repeat_kv(k, hd.rep), repeat_kv(v, hd.rep)
+    q = part.constrain(q, ("batch", "seq", "heads", None))
+    k = part.constrain(k, ("batch", "seq", "kv_heads", None))
+    v = part.constrain(v, ("batch", "seq", "kv_heads", None))
     return q, k, v
 
 
@@ -222,13 +266,14 @@ def _head_rows_or_identity(head_rows, head_inv, n_rows: int, device):
     return head_rows, head_inv
 
 
-def _project_out(p: dict, out, *, gate=None):
+def _project_out(p: dict, out, *, gate=None, part=NULL):
     """Attention output tail: the wo projection, times ``tanh(gate)`` for
-    the VLM's gated cross-attention."""
+    the VLM's gated cross-attention, constrained to the residual layout
+    (under a mesh: the reduction of the head-sharded contraction)."""
     out = torch.einsum("bshk,hkd->bsd", out, wt(p, "wo", out.dtype))
     if gate is not None:
         out = out * torch.tanh(gate).to(out.dtype)
-    return out
+    return part.constrain(out, ("batch", "res_seq", "d_model"))
 
 
 # XLA rewrites the reference's ``amax / 127.0`` into a multiply by
@@ -390,7 +435,7 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
                          positions, *, cache=None, cache_pos=None,
                          window: int = 0, use_kernel: bool = False,
                          head_rows=None, head_inv=None, page_map=None,
-                         write_valid=None):
+                         write_valid=None, part=NULL):
     """Causal (``window`` > 0: sliding-window) self-attention with an
     optional linear, paged or ring KV cache.
 
@@ -428,10 +473,24 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
     1024) with more than one query runs ``chunked_attention`` — the
     reference's ``attend`` dispatch, which the flash kernel's plain
     version repeats on the CPU.
+    part: the intermediates' layout (``partitioning``).  DTensor inputs
+      run the cacheless forward only: the projections through DTensor,
+      attention on each rank's shard (``partitioning.local``).
     Returns (out, cache).
     """
     B, S = x.shape[0], x.shape[1]
-    q, k, v = qkv_project(cfg, p, hd, x, positions)
+    q, k, v = qkv_project(cfg, p, hd, x, positions, part=part)
+    layout = q
+    if is_dtensor(q):
+        if cache is not None:
+            raise NotImplementedError("a sharded model runs its cacheless "
+                                      "forward only (ROADMAP Queue 1 #18)")
+        # q, k, v shard batch rows and heads, positions batch rows
+        # (``rules_tp``); a rank's query heads and their KV heads sit on
+        # that rank (the expanded layout), so attention of the shards —
+        # the flash kernel's or the plain path's — is that shard of the
+        # whole one, with no collective
+        q, k, v, positions = (local(t) for t in (q, k, v, positions))
 
     def attend(kk, vv, kv_pos, mask, *, flash: bool = False):
         """The reference's dispatch (chunked when the KV extent is long,
@@ -447,7 +506,7 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
     if cache is None:
         out = attend(k, v, positions, causal_mask(positions, positions,
                                                   window), flash=use_kernel)
-        return _project_out(p, out), None
+        return _project_out(p, like(out, layout), part=part), None
     if page_map is None and window and cache["k"].shape[1] == window:
         return _ring_attention(p, q, k, v, positions, cache, cache_pos,
                                window, attend, use_kernel, head_rows,
@@ -510,14 +569,13 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
 def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x) -> dict:
     """Cross-attention K/V {"k", "v"} (B, I, KvE, dh) of the image
     embeddings ``kv_x`` (B, I, D): no RoPE, ``bk``/``bv`` for
-    ``qkv_bias`` configs."""
-    if hd.rep > 1:
-        unsupported("replicated KV heads (rep > 1)", 18)
+    ``qkv_bias`` configs, each KV head repeated ``rep`` times."""
     k = torch.einsum("bsd,dhk->bshk", kv_x, wt(p, "wk", kv_x.dtype))
     v = torch.einsum("bsd,dhk->bshk", kv_x, wt(p, "wv", kv_x.dtype))
     if cfg.qkv_bias:
         k = k + p["bk"].to(kv_x.dtype)
         v = v + p["bv"].to(kv_x.dtype)
+    k, v = repeat_kv(k, hd.rep), repeat_kv(v, hd.rep)
     return {"k": k, "v": v}
 
 
@@ -591,35 +649,42 @@ def cross_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x, *,
 # ---------------------------------------------------------------------------
 
 
-def mlp_block(cfg: ModelConfig, p: dict, x):
+def mlp_block(cfg: ModelConfig, p: dict, x, *, part=NULL):
     """SwiGLU, or (``mlp_type="gelu"``) ``gelu(x w_up + b_up) w_down +
     b_down`` with the tanh approximation: ``jax.nn.gelu``'s default, which
     the reference calls (torch's default is the exact erf form)."""
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ wt(p, "w_gate", x.dtype)) * (x @ wt(p, "w_up", x.dtype))
-        return h @ wt(p, "w_down", x.dtype)
-    h = F.gelu(x @ wt(p, "w_up", x.dtype) + p["b_up"].to(x.dtype),
-               approximate="tanh")
-    return h @ wt(p, "w_down", x.dtype) + p["b_down"].to(x.dtype)
+        h = part.constrain(h, ("batch", "seq", "d_ff"))
+        out = h @ wt(p, "w_down", x.dtype)
+    else:
+        h = F.gelu(x @ wt(p, "w_up", x.dtype) + p["b_up"].to(x.dtype),
+                   approximate="tanh")
+        h = part.constrain(h, ("batch", "seq", "d_ff"))
+        out = h @ wt(p, "w_down", x.dtype) + p["b_down"].to(x.dtype)
+    return part.constrain(out, ("batch", "res_seq", "d_model"))
 
 
-def embed(cfg: ModelConfig, p: dict, tokens):
+def embed(cfg: ModelConfig, p: dict, tokens, *, part=NULL):
     """Token rows of ``tok_embed``; an int8 table gathers its int8 rows and
     dequantizes only those, into ``cfg.dtype`` (as the reference)."""
     tab = p["tok_embed"]
     if is_quantized(tab):
         rows = tab["q8"][tokens.long()].float()
-        return (rows * tab["sc"]).to(getattr(torch, cfg.dtype))
-    return F.embedding(tokens.long(), tab)
+        x = (rows * tab["sc"]).to(getattr(torch, cfg.dtype))
+    else:
+        x = F.embedding(tokens.long(), tab)
+    return part.constrain(x, ("batch", "res_seq", "d_model"))
 
 
-def unembed(cfg: ModelConfig, p: dict, x):
+def unembed(cfg: ModelConfig, p: dict, x, *, part=NULL):
     """Logits in float32, through ``lm_head`` (D, V) or, with tied
     embeddings, the transposed ``tok_embed`` (V, D) — either one
     dequantized when int8."""
     w = wt(p, "tok_embed", x.dtype).T if cfg.tie_embeddings \
         else wt(p, "lm_head", x.dtype)
-    return torch.einsum("bsd,dv->bsv", x, w).float()
+    logits = torch.einsum("bsd,dv->bsv", x, w).float()
+    return part.constrain(logits, ("batch", "seq", "vocab"))
 
 
 def cross_entropy(logits, labels):

@@ -1,0 +1,281 @@
+"""Logical-axis partitioning — counterpart of the JAX package's
+``models/partitioning.py`` on a ``torch.distributed`` ``DeviceMesh``.
+
+Models annotate intermediates with *logical* axis names; a
+:class:`Partitioner` maps them to mesh dimensions.  ``spec`` returns the
+reference's ``PartitionSpec`` entries as a tuple (one entry per tensor
+dimension: ``None``, a mesh dimension's name, or a tuple of names);
+``placements`` turns such a spec into one ``Shard(d)``/``Replicate()`` per
+mesh dimension, the DTensor form of a ``NamedSharding``; ``constrain``
+redistributes a DTensor to the spec's placements (the reference's
+``with_sharding_constraint``) and leaves a plain tensor as it is.  The
+default :class:`NullPartitioner` does nothing, so every model runs
+unsharded on one device.
+
+Mesh dimensions are named "data" and "model", with "pod" in front where
+present.  Logical axes used across the models::
+
+  batch seq res_seq heads kv_heads head_dim d_model d_ff vocab experts
+  ssm_heads ssm_state cache_seq img_seq fsdp
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+MeshAxis = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[MeshAxis, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where a tensor lives on a mesh: the ``DeviceMesh`` and one
+    placement per mesh dimension (the reference's ``NamedSharding``).  A
+    leaf of the trees ``tree`` walks, as a ``NamedSharding`` is."""
+    mesh: object
+    placements: tuple
+
+
+def mesh_device_type(device_type=None) -> str:
+    """A mesh's device type: ``None`` means "cuda", and raises where no
+    GPU is present; "cpu" builds a gloo mesh."""
+    if device_type is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is present; pass "
+                               "device_type='cpu' for a CPU mesh")
+        return "cuda"
+    return device_type
+
+
+def _size(mesh, name: str) -> int:
+    return mesh.size(tuple(mesh.mesh_dim_names).index(name))
+
+
+def tp_degree(mesh) -> int:
+    """The mesh's "model" dimension: the head-level TP degree."""
+    return _size(mesh, "model")
+
+
+def dp_degree(mesh) -> int:
+    """The data-parallel degree: "data" times "pod" where present."""
+    d = _size(mesh, "data")
+    if "pod" in mesh.mesh_dim_names:
+        d *= _size(mesh, "pod")
+    return d
+
+
+def placements(mesh, spec: Sequence[MeshAxis]) -> tuple:
+    """One ``Shard(d)`` or ``Replicate()`` per dimension of ``mesh``:
+    mesh dimension m shards tensor dimension d where ``spec[d]`` names it
+    (a tuple entry shards d over several mesh dimensions, the first
+    outermost, as the reference's).  Naming a dimension the mesh lacks
+    raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name not in names:
+                raise ValueError(f"spec {tuple(spec)} names mesh dimension "
+                                 f"{name!r}; the mesh has {names}")
+            out[names.index(name)] = Shard(d)
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's shards live on: its current CUDA device on
+    a "cuda" mesh."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def place(x: torch.Tensor, sharding: Sharding):
+    """``x`` — the whole tensor, the same on every rank (a batch drawn from
+    a seed, a leaf read from a checkpoint) — as a DTensor placed by
+    ``sharding``: each rank keeps its own slice, cut as DTensor cuts a
+    ``Shard`` (``torch.chunk``, mesh dimensions in order), so placing
+    needs no collective."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh, pls = sharding.mesh, sharding.placements
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    x = x.contiguous()
+    local = x
+    for m, pl in enumerate(pls):
+        if isinstance(pl, Shard):
+            chunks = torch.chunk(local, mesh.size(m), dim=pl.dim)
+            local = chunks[coord[m]] if coord[m] < len(chunks) \
+                else local.narrow(pl.dim, 0, 0)
+    return DTensor.from_local(local.to(mesh_device(mesh)).contiguous(),
+                              mesh, pls, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+class Partitioner:
+    """Maps logical axis names to mesh dimensions and constrains
+    intermediates."""
+
+    def __init__(self, mesh, rules: Dict[str, MeshAxis]):
+        self.mesh = mesh
+        self.rules = dict(rules)
+
+    # -- specs ---------------------------------------------------------------
+    def spec(self, axes: Sequence[Optional[str]]) -> Spec:
+        used: set = set()
+        parts = []
+        for ax in axes:
+            m = self.rules.get(ax) if ax is not None else None
+            # a mesh axis may appear at most once in a spec; later wins -> None
+            if m is None:
+                parts.append(None)
+                continue
+            key = tuple(m) if isinstance(m, tuple) else (m,)
+            if used & set(key):
+                parts.append(None)
+                continue
+            used |= set(key)
+            # a one-name tuple is that name, as ``PartitionSpec`` keeps it
+            parts.append(key[0] if len(key) == 1 else m)
+        return tuple(parts)
+
+    def placements(self, axes: Sequence[Optional[str]]) -> tuple:
+        if self.mesh is None:
+            raise ValueError("a partitioner without a mesh has no "
+                             "placements")
+        return placements(self.mesh, self.spec(axes))
+
+    def sharding(self, axes: Sequence[Optional[str]]) -> Sharding:
+        return Sharding(self.mesh, self.placements(axes))
+
+    def shard(self, x, axes: Sequence[Optional[str]]):
+        """A plain tensor, the same on every rank, placed on the mesh as
+        ``axes`` say (``place``); a DTensor, or any tensor without a
+        mesh, comes back unchanged."""
+        if self.mesh is None or is_dtensor(x):
+            return x
+        return place(x, self.sharding(axes))
+
+    def region(self):
+        """The context a sharded computation runs in: plain tensors that
+        meet DTensors (positions, RoPE tables, masks) count as replicated
+        on the mesh.  No-op without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+
+    # -- constraint ----------------------------------------------------------
+    def constrain(self, x, axes: Sequence[Optional[str]]):
+        """``x`` redistributed to ``axes``' placements when it is a DTensor
+        on this partitioner's mesh; a plain tensor, or any tensor without
+        a mesh, comes back unchanged."""
+        if self.mesh is None or not is_dtensor(x):
+            return x
+        want = self.placements(axes)
+        if tuple(x.placements) == want:
+            return x
+        return x.redistribute(self.mesh, want)
+
+
+class NullPartitioner(Partitioner):
+    def __init__(self):
+        super().__init__(None, {})
+
+    def constrain(self, x, axes):  # noqa: D401 - no-op
+        return x
+
+    def spec(self, axes):
+        return ()
+
+
+NULL = NullPartitioner()
+
+
+# ---------------------------------------------------------------------------
+# Axis-rule presets.  ``fsdp`` = storage sharding of params over the data
+# axis (gathered on use).
+# ---------------------------------------------------------------------------
+
+def rules_tp(data_axes: MeshAxis = ("data",), model_axis: str = "model",
+             fsdp: bool = False, seq_over_data: bool = False,
+             sp: bool = False) -> Dict[str, MeshAxis]:
+    """Head-level TP (the paper's axis) + DP over batch.
+
+    seq_over_data: shard the KV-cache sequence dim over the data axis
+    (batch 1 cannot use data parallelism).
+    sp: sequence parallelism — the residual stream ("res_seq") shards its
+    sequence dim over the model axis between blocks.
+    """
+    last_data = data_axes if isinstance(data_axes, str) else data_axes[-1]
+    return {
+        "batch": data_axes if not seq_over_data else None,
+        "seq": None,
+        "res_seq": model_axis if sp else None,
+        "heads": model_axis,
+        "kv_heads": model_axis,
+        "head_dim": None,
+        "d_model": None,
+        "d_ff": model_axis,
+        "vocab": model_axis,
+        "experts": None,
+        "ssm_heads": model_axis,
+        "ssm_state": None,
+        "cache_seq": last_data if seq_over_data else None,
+        "img_seq": None,
+        # param-storage-only axes
+        "fsdp": last_data if fsdp else None,
+    }
+
+
+def rules_zero3(data_axes: MeshAxis) -> Dict[str, MeshAxis]:
+    """Pure ZeRO-3 / FSDP layout: every mesh axis carries data
+    parallelism, no tensor parallelism."""
+    return {
+        "batch": data_axes, "seq": None, "res_seq": None,
+        "heads": None, "kv_heads": None, "head_dim": None,
+        "d_model": None, "d_ff": None, "vocab": None, "experts": None,
+        "ssm_heads": None, "ssm_state": None, "cache_seq": None,
+        "img_seq": None, "fsdp": data_axes,
+    }
+
+
+def make_partitioner(mesh, *, fsdp: bool = False,
+                     seq_over_data: bool = False, sp: bool = False,
+                     layout: str = "tp") -> Partitioner:
+    if mesh is None:
+        return NullPartitioner()
+    names = tuple(mesh.mesh_dim_names)
+    data_axes: MeshAxis = ("pod", "data") if "pod" in names else ("data",)
+    if layout == "zero3":
+        return Partitioner(mesh, rules_zero3(names))
+    return Partitioner(mesh, rules_tp(data_axes=data_axes, fsdp=fsdp,
+                                      seq_over_data=seq_over_data, sp=sp))
+
+
+def local(x):
+    """The rank's shard of a DTensor, or ``x`` itself (for ops without a
+    DTensor rule: a custom kernel)."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def like(out: torch.Tensor, ref):
+    """``out`` — this rank's shard of a result laid out as ``ref`` — as a
+    DTensor with ``ref``'s mesh and placements when ``ref`` is one."""
+    if not is_dtensor(ref):
+        return out
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(out, ref.device_mesh, ref.placements,
+                              run_check=False)

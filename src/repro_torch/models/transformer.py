@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_block, moe_block_capacity
+from repro_torch.models.partitioning import NULL
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -107,17 +108,27 @@ SELF_BEFORE_CROSS = 3
 
 
 class TransformerLM:
-    """Config-driven dense, MoE, audio or VLM decoder-only LM on one
-    device."""
+    """Config-driven dense, MoE, audio or VLM decoder-only LM.
+
+    ``tp`` lays the heads out for head-level tensor parallelism at that
+    degree (``layers.head_dims``: query heads zero-padded to ``Hp``, KV
+    heads repeated ``rep`` times into ``KvE`` cache rows); on one device
+    it computes the tp-1 function.  ``part`` (``partitioning``) maps the
+    intermediates onto a ``DeviceMesh``: with a dense model's parameters
+    placed as DTensors (``placement_bridge.param_shardings``),
+    ``forward`` runs sharded over the mesh (``build_model`` refuses a
+    mesh for the other families)."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  use_kernel: bool = False, capacity_moe: bool = False,
-                 capacity_factor: float = 1.25, remat: str = "none"):
+                 capacity_factor: float = 1.25, remat: str = "none",
+                 tp: int = 1, part=NULL):
         if cfg.family not in ("dense", "moe", "audio", "vlm"):
             raise ValueError(f"TransformerLM serves the dense, moe, audio "
                              f"and vlm families, not {cfg.family!r}")
         self.cfg = cfg
-        self.hd = L.head_dims(cfg)
+        self.part = part
+        self.hd = L.head_dims(cfg, tp)
         self.device = torch.device(device)
         # decode attention through the hand-written flash-decode kernels
         # and aligned prefill attention through the flash attention kernel;
@@ -196,23 +207,28 @@ class TransformerLM:
         """One decoder layer.  Returns the new hidden state and, for MoE
         layers, the float32 aux loss and the (E,) routed-token fraction of
         this call (else None, None)."""
-        cfg = self.cfg
+        cfg, part = self.cfg, self.part
         h = L.apply_norm(cfg, p, "ln1", x)
+        # the boundary into the tensor-parallel region, on the working-dtype
+        # tensor (the reference's explicit constraint)
+        h = part.constrain(h, ("batch", "seq", "d_model"))
         attn_out, _ = L.self_attention_block(
             cfg, p["attn"], self.hd, h, positions, cache=cache,
             cache_pos=cache_pos, window=self.window,
             use_kernel=self.use_kernel, head_rows=head_rows,
-            head_inv=head_inv, page_map=page_map, write_valid=write_valid)
+            head_inv=head_inv, page_map=page_map, write_valid=write_valid,
+            part=part)
         x = x + attn_out
         h = L.apply_norm(cfg, p, "ln2", x)
+        h = part.constrain(h, ("batch", "seq", "d_model"))
         if cfg.is_moe:
             if self.capacity_moe:
-                out, aux, freq = moe_block_capacity(cfg, p["moe"], h,
-                                                    self.capacity_factor)
+                out, aux, freq = moe_block_capacity(
+                    cfg, p["moe"], h, self.capacity_factor)
             else:
                 out, aux, freq = moe_block(cfg, p["moe"], h)
             return x + out, aux, freq
-        return x + L.mlp_block(cfg, p["mlp"], h), None, None
+        return x + L.mlp_block(cfg, p["mlp"], h, part=part), None, None
 
     def _cross_layer(self, p: dict, x, img_kv, img_mask):
         """A gated cross-attention layer over the image K/V ``img_kv``
@@ -231,7 +247,8 @@ class TransformerLM:
 
     def _project_img_kv(self, params, img_embeds) -> dict:
         """The cross layers' image K/V {"k","v"} (G, B, I, KvE, dh) of
-        ``img_embeds`` (B, I, D), in the embeddings' dtype."""
+        ``img_embeds`` (B, I, D), in the embeddings' dtype, each KV head
+        repeated ``rep`` times."""
         kv = [L.project_kv(self.cfg, _layer_view(params["cross_layers"],
                                                  g)["attn"], self.hd,
                            img_embeds)
@@ -307,17 +324,28 @@ class TransformerLM:
         """Full-sequence forward without a cache.  Returns (logits (B, S, V)
         float32, aux): the MoE load-balancing loss summed over layers
         (float32, zero without MoE).  A VLM takes its image embeddings
-        (B, I, D) and mask (B, I)."""
+        (B, I, D) and mask (B, I).
+
+        With a mesh (``part``) and DTensor parameters this is the sharded
+        forward: tokens (placed, or placed here) and positions shard their
+        batch rows over the data axes, the einsums run through DTensor's
+        propagation, each ``constrain`` redistributes (the residual
+        layout reduces a head- or d_ff-sharded contraction), and the
+        logits come back as a DTensor sharded over the vocabulary."""
+        part = self.part
         B, S = tokens.shape
-        x = L.embed(self.cfg, params, tokens)
-        img_kv = None
-        if self.is_vlm:
-            self._check_img_mask(img_mask)
-            img_kv = self._project_img_kv(params, img_embeds)
-        x, _, aux = self._run_layers(params, x, self._positions(B, S), None,
-                                     None, img_kv=img_kv, img_mask=img_mask)
-        x = L.apply_norm(self.cfg, params, "ln_f", x)
-        return L.unembed(self.cfg, params, x), aux
+        with part.region():
+            tokens = part.shard(tokens, ("batch", "seq"))
+            positions = part.shard(self._positions(B, S), ("batch", "seq"))
+            x = L.embed(self.cfg, params, tokens, part=part)
+            img_kv = None
+            if self.is_vlm:
+                self._check_img_mask(img_mask)
+                img_kv = self._project_img_kv(params, img_embeds)
+            x, _, aux = self._run_layers(params, x, positions, None, None,
+                                         img_kv=img_kv, img_mask=img_mask)
+            x = L.apply_norm(self.cfg, params, "ln_f", x)
+            return L.unembed(self.cfg, params, x, part=part), aux
 
     def loss(self, params, batch):
         """Mean token cross-entropy of ``batch["labels"]`` plus 0.01 times

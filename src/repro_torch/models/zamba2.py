@@ -40,7 +40,7 @@ class Zamba2Model:
     """Config-driven Zamba2 hybrid LM on one device."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
-                 use_kernel: bool = False, remat: str = "none"):
+                 use_kernel: bool = False, remat: str = "none", tp: int = 1):
         if cfg.family != "hybrid":
             raise ValueError(f"Zamba2Model serves the hybrid family, not "
                              f"{cfg.family!r}")
@@ -52,7 +52,9 @@ class Zamba2Model:
         self.device = torch.device(device)
         self.use_kernel = use_kernel
         self.remat = check_remat(remat)
-        self.hd = L.head_dims(cfg)
+        # the shared block's heads in the tp layout (padded query heads,
+        # replicated KV heads), as a dense transformer's
+        self.hd = L.head_dims(cfg, tp)
         self.n_groups = cfg.n_layers // cfg.shared_attn_every
         self.group = cfg.shared_attn_every
 

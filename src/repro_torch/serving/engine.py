@@ -74,7 +74,8 @@ from repro_torch.core.placement_bridge import (apply_head_perm,
                                                permute_model_heads,
                                                permute_model_heads_layers,
                                                relative_perms)
-from repro_torch.models.api import build_model, resolve_device
+from repro_torch.device import resolve_device
+from repro_torch.models.api import build_model
 from repro_torch.models.moe import expert_identity
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
@@ -169,7 +170,14 @@ class _EngineBase:
     ``layer_mode="graph"`` places the per-layer block graph of the served
     model's depth, one head permutation per layer; ``"columns"`` places
     one column per head over ``cost_cfg``'s layers, one permutation for
-    every layer."""
+    every layer.
+
+    ``tp`` builds the model in the tensor-parallel head layout of that
+    degree (``layers.head_dims``): padded query heads, and for ``tp`` >
+    n_kv_heads each KV head replicated ``rep`` times in the cache.  A
+    migration then moves each supergroup of ``Hp // Kp`` query heads with
+    its KV head's ``rep`` cache rows; without ``net`` the controller
+    places over ``max(tp, 4)`` simulated devices, as the reference's."""
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int = 4,
                  max_seq: int = 512, lam: int = 16, seed: int = 0,
@@ -178,7 +186,7 @@ class _EngineBase:
                  layer_mode: str = "graph", use_kernel: bool = False,
                  search: str = "rescoring",
                  params: Optional[Dict[str, Any]] = None, device=None,
-                 pipeline_k: int = 1, cost_page_size: int = 0):
+                 pipeline_k: int = 1, cost_page_size: int = 0, tp: int = 1):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_slots = n_slots
@@ -189,7 +197,7 @@ class _EngineBase:
         # controller's objective becomes D_pipe(K) + D_mig, and with
         # search="bottleneck" its plans come from the bottleneck search
         self.pipeline_k = max(1, int(pipeline_k))
-        self.model = build_model(cfg, use_kernel=use_kernel,
+        self.model = build_model(cfg, tp=tp, use_kernel=use_kernel,
                                  device=self.device)
         injected = params is not None
         if params is None:
@@ -212,7 +220,7 @@ class _EngineBase:
         # controller wiring: Table I, incremental decode, priced at
         # cost_cfg's widths over the served depth ("graph") or cost_cfg's
         # depth ("columns")
-        self.net = net or DeviceNetwork.sample(4, seed=seed + 1)
+        self.net = net or DeviceNetwork.sample(max(tp, 4), seed=seed + 1)
         # an attention-free model (RWKV-6) has no ``hd``: the controller
         # still places cfg.n_heads blocks per layer, and its plans are
         # logged as not applied (``_migrate_state``)
@@ -235,7 +243,11 @@ class _EngineBase:
                               layer_mode=layer_mode, n_experts=n_exp,
                               d_ff=ccfg.d_ff if n_exp else 0,
                               page_size=cost_page_size)
-        # GQA stacks migrate whole KV groups: group-consistent perms
+        # GQA stacks migrate whole KV groups: group-consistent perms.  With
+        # replicated KV (rep > 1) the unit is the supergroup Hp // Kp, all
+        # query heads of one unreplicated KV head, so the Kp-row KV weights
+        # stay permutable and the KvE cache rows follow (``rep``); for
+        # rep == 1 it is Hp // KvE
         group = 1 if hd is None else hd.Hp // hd.Kp
         if group > 1 and ((self.net.n_devices * heads_per_slot) % group
                           or cfg.n_heads % group):
@@ -366,13 +378,15 @@ class _EngineBase:
                                                      group_size=G)
         # the head axis is -2 of the values of a dense (L, B, T, KvE, dh)
         # cache, a ring and a paged (L, n_pages + 1, P, KvE, dh) store
-        # alike, and -1 of int8 scales
+        # alike, and -1 of int8 scales; each KV head's rep replicas move
+        # with it
         cache["k"], cache["v"] = apply_layer_head_perms(
-            cache["k"], cache["v"], rel, head_axis=-2, group_size=G)
+            cache["k"], cache["v"], rel, head_axis=-2, group_size=G,
+            rep=hd.rep)
         if "k_sc" in cache:
             cache["k_sc"], cache["v_sc"] = apply_layer_head_perms(
                 cache["k_sc"], cache["v_sc"], rel, head_axis=-1,
-                group_size=G)
+                group_size=G, rep=hd.rep)
         return True, None
 
     def _migrate_vlm_state(self, state: Dict[str, Any], rel: np.ndarray,
@@ -387,14 +401,16 @@ class _EngineBase:
         if permute_params:
             self.params = permute_model_heads(self.params, rel[0],
                                               group_size=G)
+        rep = self.model.hd.rep
         for buf in (state["cache"], state["img_kv"]):
             buf["k"], buf["v"] = apply_head_perm(
-                buf["k"], buf["v"], rel[0], head_axis=-2, group_size=G)
+                buf["k"], buf["v"], rel[0], head_axis=-2, group_size=G,
+                rep=rep)
         cache = state["cache"]
         if "k_sc" in cache:
             cache["k_sc"], cache["v_sc"] = apply_head_perm(
                 cache["k_sc"], cache["v_sc"], rel[0], head_axis=-1,
-                group_size=G)
+                group_size=G, rep=rep)
         return True, None
 
     def _feed_expert_loads(self, states: Sequence[Dict[str, Any]]):
@@ -444,8 +460,8 @@ class _EngineBase:
     def _migration_bytes(self, pairs) -> int:
         """Bytes the plan's head migrations move through the cache: one
         k+v row over the live token extent per distinct migrated
-        (layer, kv group), + f32 scales for int8 KV; 0 for a model without
-        attention heads."""
+        (layer, kv group), times its ``rep`` replicated rows, + f32 scales
+        for int8 KV; 0 for a model without attention heads."""
         hd = getattr(self.model, "hd", None)
         if hd is None or not pairs:
             return 0
@@ -457,7 +473,7 @@ class _EngineBase:
         else:
             per_row = tokens * 2 * hd.dh * \
                 torch_dtype(self.cfg.dtype).itemsize
-        return int(len(kv_moves) * per_row)
+        return int(len(kv_moves) * hd.rep * per_row)
 
     def _expert_migration_bytes(self, pairs) -> int:
         """Bytes the plan's expert migrations move: 3·D·F weights per

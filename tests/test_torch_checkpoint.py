@@ -119,10 +119,13 @@ def test_training_restart_is_bit_identical(tmp_path):
 
 
 def test_restore_refuses_shardings(tmp_path):
+    """``shardings`` must hold a ``partitioning.Sharding`` per leaf: a
+    tree of tensors is refused (restoring onto a mesh:
+    ``tests/test_torch_distributed.py``)."""
     _, _, params = _port("llama3-8b")
     ck = Checkpointer(tmp_path)
     ck.save(1, params)
-    with pytest.raises(NotImplementedError, match="#18"):
+    with pytest.raises(ValueError, match="Sharding"):
         ck.restore(1, params, shardings=params)
 
 

@@ -1465,3 +1465,108 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+# ------------------------------------------- the tensor-parallel layout
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KvE", [(32, 16), (48, 48)],
+                         ids=["llama_tp16_G2", "qwen_tp16_G1"])
+@pytest.mark.parametrize("case", ["permuted", "partial"])
+def test_resident_kernel_at_the_tp16_layouts(cuda, dtype, H, KvE, case):
+    """The tp-16 decode shapes: llama3-8b's 32 q heads over 16 KV rows (8
+    heads replicated twice, G 2) and qwen1.5-32b's 48 padded heads over
+    48 (G 1), at dh 128 over several splits (B 4: at B 6 the wrapper
+    splits 48 KV heads' 1100 positions only twice)."""
+    args, rng = _resident_split_args(cuda, dtype, H=H, KvE=KvE, dh=128,
+                                     B=4, seed=H + KvE)
+    _check_rows_case(decode_attention_resident,
+                     decode_attention_resident_plain, args, rng, H,
+                     H // KvE, case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KvE", [(32, 16), (48, 48)],
+                         ids=["llama_tp16", "qwen_tp16"])
+def test_flash_kernel_at_the_tp16_layouts(cuda, dtype, H, KvE):
+    _flash_check(cuda, dtype, True, 0, B=2, H=H, KvE=KvE, Sq=333, Skv=333,
+                 dh=128, seed=H)
+
+
+def _tp_engine_streams(cuda, paged):
+    from repro_torch.configs import get_config
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("llama3-8b").with_overrides(
+        n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, d_head=16,
+        d_ff=128, vocab_size=97, dtype="float32", param_dtype="float32")
+    eng = ServingEngine(cfg, n_slots=2, max_seq=64, lam=3, seed=0, tp=4,
+                        net=DeviceNetwork.sample(4, seed=1), use_kernel=True,
+                        paged=paged, page_size=8, device=cuda)
+    assert eng.model.hd.rep == 2 and eng.model.hd.KvE == 4
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((5, 11, 8, 14)):
+        eng.submit(rng.integers(0, 97, size=n), max_new_tokens=10 + i % 2)
+    while True:
+        if eng.decode_steps == 4:
+            eng.net.inject_straggler(
+                int(eng.controller.head_counts().argmax()), slowdown=500.0)
+        if not eng.step():
+            break
+    return {r.rid: r.out_tokens for r in eng.finished}, eng
+
+
+def test_rep2_paged_engine_streams_equal_the_dense_engine(cuda):
+    """tp 4 over 2 KV heads (rep 2): the paged store's head axis holds
+    the 4 expanded rows; float32 greedy streams through the paged and
+    resident kernels are equal, with migrations applied."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_resident)
+    before = decode_attention_paged_resident.launches
+    paged, eng = _tp_engine_streams(cuda, True)
+    assert decode_attention_paged_resident.launches > before
+    dense, _ = _tp_engine_streams(cuda, False)
+    assert paged == dense and len(paged) == 4
+    assert any(e["applied"] and e["n_migrations"] for e in eng.migration_log)
+
+
+def test_restore_onto_a_one_card_mesh(cuda, tmp_path):
+    """``Checkpointer.restore(shardings=)`` on a (1, 1) ("data", "model")
+    NCCL mesh: DTensor leaves on the card, their full tensors bit-equal
+    to what was saved; ``save_async`` of the DTensor tree writes them
+    back."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement_bridge import param_shardings
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.api import build_model
+    cfg = get_config("llama3-8b").with_overrides(
+        n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, d_head=16,
+        d_ff=128, vocab_size=97)
+    params = build_model(cfg, tp=16, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        ck = Checkpointer(tmp_path)
+        ck.save(1, params)
+        got = ck.restore(1, params,
+                         shardings=param_shardings(params, cfg, mesh))
+        for name in ("tok_embed", "lm_head"):
+            assert got[name].device_mesh is mesh
+            assert torch.equal(got[name].full_tensor(), params[name])
+        for name, t in params["layers"]["attn"].items():
+            assert torch.equal(got["layers"]["attn"][name].full_tensor(), t)
+        # the DTensor tree saved back, on a thread: the mesh's ranks meet
+        # in ``wait``
+        ck.save_async(2, got)
+        ck.wait()
+        again = ck.restore(2, params)
+        assert torch.equal(again["lm_head"], params["lm_head"])
+    finally:
+        dist.destroy_process_group()

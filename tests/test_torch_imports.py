@@ -71,7 +71,10 @@ def test_every_module_imports_with_jax_and_repro_refused():
                  "repro_torch.launch.train", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint.checkpointer",
                  "repro_torch.launch.quickstart",
-                 "repro_torch.launch.train_100m"):
+                 "repro_torch.launch.train_100m",
+                 "repro_torch.models.partitioning",
+                 "repro_torch.launch.mesh", "repro_torch.runtime.elastic",
+                 "repro_torch.tree", "repro_torch.device"):
         assert name in names
 
 
@@ -93,6 +96,32 @@ def test_engine_without_device_wants_the_gpu():
         vocab_size=50)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, n_slots=2, max_seq=16)
+
+
+@pytest.mark.parametrize("entry", ["ShardedPrefetcher",
+                                   "make_train_pipeline"])
+def test_data_pipeline_wants_the_gpu_unless_asked_for_the_cpu(entry):
+    """The prefetcher and the train pipeline place batches on the GPU when
+    no device is named (raising without one), and on the CPU when
+    asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None prefetches onto it")
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    cfg = get_config("llama3-8b").with_overrides(vocab_size=50)
+    shape = type("S", (), {"seq_len": 4, "global_batch": 2})()
+
+    def make(**kw):
+        if entry == "ShardedPrefetcher":
+            return pipeline.ShardedPrefetcher(
+                iter(pipeline.SyntheticLM(50, 4, 2)), **kw)
+        return pipeline.make_train_pipeline(cfg, shape, **kw)[1]
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    it = make(device="cpu")
+    assert next(it)["tokens"].device.type == "cpu"
+    it.close()
 
 
 @pytest.mark.parametrize("entry", ["build_model", "ServingEngine",

@@ -304,15 +304,19 @@ def test_pipeline_determinism_and_labels():
 
 
 def test_prefetcher_yields_batches_and_refuses_shardings():
+    """Batches reach the device the caller names (``device="cpu"``: the
+    default is the GPU); a sharding that is not a
+    ``partitioning.Sharding`` is refused (placing on a mesh:
+    ``tests/test_torch_distributed.py``)."""
     cfg = get_config("llama3-8b").with_overrides(vocab_size=97)
     shape = type("S", (), {"seq_len": 8, "global_batch": 2})()
-    src, it = make_train_pipeline(cfg, shape, None)
+    src, it = make_train_pipeline(cfg, shape, None, device="cpu")
     b = next(it)
     assert b["tokens"].shape == (2, 8) and b["tokens"].dtype == torch.int32
     np.testing.assert_array_equal(
         b["tokens"].numpy(), next(iter(SyntheticLM(97, 8, 2)))["tokens"])
     it.close()
-    with pytest.raises(NotImplementedError, match="#18"):
+    with pytest.raises(ValueError, match="Sharding"):
         ShardedPrefetcher(iter(src), shardings={"tokens": None})
 
 
