@@ -53,7 +53,12 @@ zero after every migration); float32 tp-16 streams equal the tp-1 ones
 and themselves without the kernels; and on a (1, 1) ("data", "model")
 DeviceMesh over NCCL llama3-8b's params are placed, saved, restored
 through ``elastic_restore`` (every sha1 equal) and run the sharded
-forward through the flash kernel.  Every prefill whose queries and keys share their positions
+forward through the flash kernel; the four decode kernels run on each
+head shard of the tp-4 layout with a straggler plan's rank-local rows
+(held to their plain versions and, put together, to the whole call); and
+``ServingEngine(part=...)`` serves llama3-8b (4 layers) sharded on that
+mesh from each cache kind, each rank's KV shard placed by the decode-state
+rules, with streams equal to the unsharded engine's.  Every prefill whose queries and keys share their positions
 (bucketed, lock-step, ring) runs the flash attention kernel.  It checks
 that the paged decode kernels give the linear ones' output bit for bit on
 the same cache in scrambled pages, and in float32 that greedy streams
@@ -76,7 +81,7 @@ and the AdamW update.
 times the kernels of several checkouts in turns instead (see ``ab``);
 ``--only train`` builds the kernels and runs only the training phases;
 ``--only tp`` the decode and flash kernel phases, the dense path and the
-tp-16 and mesh phases.
+tp-16, mesh and shard phases.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -4297,9 +4302,241 @@ def phase_mesh_one_card():
         dist.destroy_process_group()
 
 
+# ------------------- sharded decode and serving on a DeviceMesh (tp 4, 1)
+SHARDS = 4            # the tp-4 layout's head shards, one a rank
+MESH_REQUESTS, MESH_NEW, MESH_STRAGGLE = 8, 32, 8
+
+
+def straggler_rows(cfg):
+    """A straggler plan's kernel row maps: a narrow engine with ``cfg``'s
+    heads (32 over 8 KV heads, head width 16, d 256), its controller
+    pricing ``cfg``'s widths (``cost_cfg``), serves the dense path's
+    prompts with a 500x straggler at step 16; returns the last plan's rows
+    (L, H) through the layout its migrations applied (``track_layout``)
+    and the number of applied migrations."""
+    from repro_torch.core.placement_bridge import head_row_maps
+    small = cfg.with_overrides(n_layers=N_LAYERS, d_model=256, d_head=16,
+                               d_ff=512, vocab_size=1024)
+    eng = serve(small, use_kernel=True, n_requests=MESH_REQUESTS,
+                max_new=MESH_NEW, cost_cfg=cfg)
+    layout = track_layout(eng)
+    while drive(eng, straggle_at=MESH_STRAGGLE):
+        pass
+    rows, _ = head_row_maps(eng.controller.place, eng.controller.blocks,
+                            eng.net.n_devices, eng.model.hd.Hp,
+                            perms=layout)
+    applied = sum(1 for e in eng.migration_log
+                  if e["applied"] and e["n_migrations"])
+    return np.broadcast_to(rows, layout.shape).copy(), layout, applied
+
+
+def shard_args(args, r, n, nk):
+    """Rank ``r``'s share of a decode kernel's arguments in the tp-4
+    layout: its ``n`` q heads and ``nk`` KV rows (dimension 1 of q and of
+    every K/V, scale and page-store view); lengths and page maps
+    whole."""
+    q = args[0][:, r * n:(r + 1) * n]
+    return (q,) + tuple(a[:, r * nk:(r + 1) * nk] if a.dim() >= 3 else a
+                        for a in args[1:])
+
+
+def phase_shard_kernels_vs_plain():
+    """Each of the four decode kernels on each of the tp-4 layout's head
+    shards of llama3-8b at published widths (the tp-4 layout is tp 1's:
+    32 q heads over 8 KV heads, dh 128; a shard 8 over 2; B 8, T 1024,
+    paged at P 64 over a scrambled pool; lengths 0, 1, T-1, T, T+1 and
+    between), every layer's rows of a straggler plan localized to each
+    shard (``partitioning.local_head_rows``, through the layout its
+    migrations applied): each shard's output held to its plain version,
+    and the four shards put together to the whole call, each at the
+    kernel phase's tolerance (TOLS and DECODE_ROW_REL; the split is
+    picked from KvE, so a shard merges in another order than the whole
+    call: not bit-equal).  Then one shard's four calls timed against the
+    whole call (bf16).  Comparison launches: not counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.layers import head_dims
+    from repro_torch.models.partitioning import local_head_rows
+    cfg = get_config("llama3-8b")
+    hd = head_dims(cfg, SHARDS)
+    check((hd.Hp, hd.KvE, hd.dh) == (MAIN_H, MAIN_KVE, MAIN_DH),
+          f"tp-4 llama3-8b layout {hd}")
+    rows, layout, applied = straggler_rows(cfg)
+    moved = int((layout != np.arange(hd.Hp)).sum())
+    log(f"shard kernels: a straggler plan of llama3-8b x{N_LAYERS} layers "
+        f"after {applied} applied migrations, {moved} (layer, position) "
+        f"cells off the identity layout")
+    check(applied > 0 and moved > 0, "shard kernels: no migration applied")
+    n, nk = hd.Hp // SHARDS, hd.KvE // SHARDS
+    local = [local_head_rows(rows, r * n, n) for r in range(SHARDS)]
+    for r, (lr, _) in enumerate(local):
+        check(all(set(row // hd.groups) == set(range(nk)) for row in lr),
+              f"shard {r}: its rows split a KV group")
+    lengths = [0, 1, MAIN_T - 1, MAIN_T, MAIN_T + 1, 37, 512, 700]
+    failed = []
+    for kind, (name, _, _) in PATHS.items():
+        kern, plain = getattr(da, name), getattr(da, name + "_plain")
+        worst = {"plain": 0.0, "whole": 0.0}
+        for dt in (torch.float32, torch.bfloat16):
+            args = kv_inputs(kind, dt, lengths=lengths, seed=11)[:-1]
+            for l in range(N_LAYERS):
+                whole = kern(*args, torch.as_tensor(rows[l], device="cuda"))
+                whole = whole[:, torch.as_tensor(np.argsort(rows[l]),
+                                                 device="cuda")]
+                parts = []
+                for r, (lr, li) in enumerate(local):
+                    sargs = shard_args(args, r, n, nk)
+                    lrows = torch.as_tensor(lr[l], device="cuda")
+                    out = kern(*sargs, lrows)
+                    want = plain(*sargs, lrows)
+                    rel = row_rel_err(out, want)
+                    worst["plain"] = max(worst["plain"], rel)
+                    if not (torch.allclose(out.float(), want.float(),
+                                           **TOLS[dt])
+                            and rel <= DECODE_ROW_REL[dt]):
+                        failed.append(f"{name} {dt} layer {l} shard {r} "
+                                      f"vs plain ({rel:.3e})")
+                    parts.append(out[:, torch.as_tensor(li[l],
+                                                        device="cuda")])
+                together = torch.cat(parts, dim=1)
+                rel = row_rel_err(together, whole)
+                worst["whole"] = max(worst["whole"], rel)
+                if not (torch.allclose(together.float(), whole.float(),
+                                       **TOLS[dt])
+                        and rel <= DECODE_ROW_REL[dt]):
+                    failed.append(f"{name} {dt} layer {l}: shards put "
+                                  f"together vs the whole call ({rel:.3e})")
+        args = kv_inputs(kind, torch.bfloat16, lengths=lengths, seed=11)[:-1]
+        whole_rows = torch.as_tensor(rows[-1], device="cuda")
+        shard_calls = [(shard_args(args, r, n, nk),
+                        torch.as_tensor(lr[-1], device="cuda"))
+                       for r, (lr, _) in enumerate(local)]
+        ms_whole = cuda_ms([lambda: kern(*args, whole_rows)])
+        ms_shard = cuda_ms([lambda s=s: kern(*s[0], s[1])
+                            for s in shard_calls])
+        log(f"{name} on the tp-4 shards ({SHARDS} x {n} q heads over {nk} "
+            f"KV rows, every layer's localized straggler rows): worst "
+            f"per-row relative gap to the plain version {worst['plain']:.3e},"
+            f" of the shards put together to the whole call "
+            f"{worst['whole']:.3e} (limit "
+            f"{DECODE_ROW_REL[torch.bfloat16]:.0e} bf16, "
+            f"{DECODE_ROW_REL[torch.float32]:.0e} f32); bf16 {ms_shard:.4f} "
+            f"ms a shard against {ms_whole:.4f} ms the whole call")
+    check(not failed, "shard kernels: " + "; ".join(failed[:6]))
+
+
+def phase_mesh_serving():
+    """``ServingEngine(part=..., use_kernel=True)`` on a (1, 1) ("data",
+    "model") NCCL mesh: llama3-8b at published widths, 4 layers, bf16,
+    8 slots and a 1024-token cache, 8 requests of 32-512 tokens, 32 new
+    each, λ 8, a 500x straggler at step 8; its params placed by
+    ``param_shardings`` and its cache by ``decode_state_shardings``, from
+    each path's cache (dense, paged: 48 pages of 64, int8, int8-paged).
+    Each path runs first unsharded on the same weights and traffic; the
+    sharded engine's kernel counts are set to 0 just before it is driven
+    and read just after.  Checks: greedy streams and migration logs equal
+    to the unsharded engine's, an applied migration, the local cache
+    shard (L, B, T, KvE, dh) (or the page store) written in place (one
+    ``data_ptr`` per buffer over every decode step), decode launches ==
+    decode steps x layers, flash == requests x layers on the linear
+    caches (0 paged), no other kernel.  NCCL refuses two ranks on one
+    card, so the rows a migration sends between ranks are 0 here (the
+    4-rank CPU test counts them).  Returns the launches by kernel."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.partitioning import local, make_partitioner
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    added = {"flash_attention": 0}
+    try:
+        part = make_partitioner(make_debug_mesh(1, 1))
+        params = None
+        for path, (name, over, kw) in PATHS.items():
+            c = cfg.with_overrides(**over)
+            engines = {}
+            for label, extra in (("unsharded", {}), ("mesh", dict(part=part))):
+                torch.cuda.reset_peak_memory_stats()
+                eng = serve(c, use_kernel=True, n_requests=MESH_REQUESTS,
+                            max_new=MESH_NEW, params=params, **kw, **extra)
+                params = params or eng.params
+                bufs = list(eng.state["cache"].values())
+                ptrs = {local(t).data_ptr() for t in bufs}
+                seen = watch_logits(eng)
+                prefill = time_prefill(eng)
+                reset_launches()
+                t0 = time.monotonic()
+                while drive(eng, straggle_at=MESH_STRAGGLE):
+                    ptrs |= {local(t).data_ptr() for t in
+                             eng.state["cache"].values()}
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                launches = read_launches()
+                engines[label] = (eng, launches, wall, prefill, seen)
+            eng1 = engines["unsharded"][0]
+            eng, launches, wall, prefill, seen = engines["mesh"]
+            m = path_metrics(eng, wall)
+            m1 = path_metrics(eng1, engines["unsharded"][2])
+            shard = tuple(local(eng.state["cache"]["k"]).shape)
+            applied = [e for e in eng.migration_log
+                       if e["applied"] and e["n_migrations"]]
+            sent = [(e["kv_rows"], e["kv_bytes"]) for e in eng.exchange_log]
+            log(f"mesh (1, 1) {path} llama3-8b x{N_LAYERS} bf16: "
+                f"{len(eng.finished)} requests, "
+                f"{sum(len(r.out_tokens) for r in eng.finished)} tokens, "
+                f"{eng.decode_steps} decode steps in {wall:.2f} s "
+                f"({m['tok/s']:.1f} tok/s; unsharded {m1['tok/s']:.1f}); "
+                f"decode step median {m['step median ms']:.2f} ms "
+                f"(unsharded {m1['step median ms']:.2f}); controller "
+                f"intervals mean {m['interval mean ms']:.1f} ms; local cache "
+                f"shard {shard}; {len(applied)} applied migrations, KV rows "
+                f"moved {[e['mig_bytes'] for e in applied]} bytes "
+                f"(migration_log), sent to other ranks {sent}; launches "
+                f"{ {k: v for k, v in launches.items() if v} }; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            log_split(eng, wall, prefill)
+            streams = [{r.rid: r.out_tokens for r in e.finished}
+                       for e in (eng, eng1)]
+            keys = ("step", "n_migrations", "mig_bytes", "applied")
+            logs = [[tuple(x[k] for k in keys) for x in e.migration_log]
+                    for e in (eng, eng1)]
+            check(len(streams[0]) == MESH_REQUESTS
+                  and streams[0] == streams[1],
+                  f"mesh {path}: streams differ from the unsharded engine's")
+            check(logs[0] == logs[1], f"mesh {path}: migration logs differ")
+            check(bool(applied), f"mesh {path}: no migration was applied")
+            check(len(ptrs) == len(bufs), f"mesh {path}: a cache buffer "
+                  f"moved in memory ({len(ptrs)} pointers for {len(bufs)})")
+            flash = 0 if "paged" in path else MESH_REQUESTS * N_LAYERS
+            check(launches[name] == eng.decode_steps * N_LAYERS
+                  and launches["flash_attention"] == flash
+                  and not any(v for k, v in launches.items()
+                              if k not in (name, "flash_attention")),
+                  f"mesh {path}: launches {launches} (decode steps "
+                  f"{eng.decode_steps})")
+            check(bool(seen["finite"].item()), f"mesh {path}: non-finite "
+                  f"logits")
+            added[name] = launches[name]
+            added["flash_attention"] += launches["flash_attention"]
+            del engines, eng, eng1, seen
+            release()
+        del params
+        return added
+    finally:
+        dist.destroy_process_group()
+
+
 def tp_phases(by_name):
-    """The tp-16 phases; their resident and flash launches add to those
-    kernels' records."""
+    """The tp-16 phases, the one-card mesh, the decode kernels on the tp-4
+    head shards and sharded serving on the one-card mesh; their launches
+    add to those kernels' records."""
     added = {"decode_attention_resident": 0, "flash_attention": 0}
     for phase in (phase_tp_dense, phase_tp_padded):
         launches = phase()
@@ -4310,8 +4547,14 @@ def tp_phases(by_name):
     release()
     added["flash_attention"] += phase_mesh_one_card()
     release()
+    phase_shard_kernels_vs_plain()
+    release()
+    for name, n in phase_mesh_serving().items():
+        added[name] = added.get(name, 0) + n
+    release()
     for name, n in added.items():
-        by_name[name]["launches"] = by_name[name].get("launches", 0) + n
+        if name in by_name:      # --only tp times two kernels alone
+            by_name[name]["launches"] = by_name[name].get("launches", 0) + n
     log(f"tp-16 and mesh launches added to the records: {added}")
 
 

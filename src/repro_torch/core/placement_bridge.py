@@ -20,14 +20,15 @@ mesh dimension) takes the place of its ``NamedSharding`` trees.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.blocks import Block, HEAD, expert_slot, graph_of
-from repro_torch.models.partitioning import (Sharding, Spec, placements,
-                                             tp_degree)
+from repro_torch.models.partitioning import (Sharding, Spec, is_dtensor,
+                                             placements, tp_degree)
 from repro_torch.tree import map_with_path
 
 
@@ -398,10 +399,16 @@ def _kv_perms(perms: np.ndarray, group_size: int, rep: int = 1) -> np.ndarray:
     return flat.reshape(perms.shape[:-1] + (flat.shape[-1],))
 
 
-def _take_layers(w: torch.Tensor, axis: int, rows: np.ndarray) -> torch.Tensor:
+def _take_layers(w: torch.Tensor, axis: int, rows: np.ndarray,
+                 sent: Optional[dict] = None) -> torch.Tensor:
     """Cell c of ``rows``' leading axes reorders axis ``axis`` of the
     layer slice ``w[c]``: rows (L, H) for a (L, ...) stack, (G, 4, H) for
-    the VLM's (G, 4, ...) one (the layer axes lead)."""
+    the VLM's (G, 4, ...) one (the layer axes lead).  A plain tensor comes
+    back as a new one; a DTensor is permuted in place
+    (``_permute_layers_``, which counts what it sends into ``sent``) and
+    returned."""
+    if is_dtensor(w):
+        return _permute_layers_(w, axis, rows, sent)
     axis = axis % w.ndim
     n_lead = rows.ndim - 1
     if axis < n_lead:
@@ -431,7 +438,8 @@ def apply_head_perm(cache_k, cache_v, perm, head_axis: int = 3,
 
 
 def apply_layer_head_perms(cache_k, cache_v, perms, *, head_axis: int = 3,
-                           group_size: int = 1, rep: int = 1):
+                           group_size: int = 1, rep: int = 1,
+                           sent: Optional[dict] = None):
     """Per-layer reorder of a stacked cache ((L, B, T, KvE, dh) by default):
     row l of ``perms`` permutes layer l's head axis.  ``group_size`` > 1:
     rows are (group-consistent) query-head permutations while the cache
@@ -439,10 +447,12 @@ def apply_layer_head_perms(cache_k, cache_v, perms, *, head_axis: int = 3,
     ``kv_group_perms`` (and ``expand_kv_perms`` for ``rep`` > 1) first.
     ``perms`` may carry several leading axes, (G, 4, H) for a VLM cache
     (G, 4, B, T, KvE, dh), one permutation per leading cell.  Returns new
-    tensors; the inputs are not modified."""
+    tensors; the inputs are not modified — except DTensors (a sharded
+    cache), which are permuted in place, each rank exchanging only the
+    rows that change rank (``_permute_layers_``; ``sent`` counts them)."""
     kv = _kv_perms(perms, group_size, rep)
-    return (_take_layers(cache_k, head_axis, kv),
-            _take_layers(cache_v, head_axis, kv))
+    return (_take_layers(cache_k, head_axis, kv, sent),
+            _take_layers(cache_v, head_axis, kv, sent))
 
 
 def permute_model_heads(params, perm, *, group_size: int = 1):
@@ -484,7 +494,8 @@ def permute_model_heads(params, perm, *, group_size: int = 1):
     return visit(params)
 
 
-def permute_model_heads_layers(params, perms, *, group_size: int = 1):
+def permute_model_heads_layers(params, perms, *, group_size: int = 1,
+                               sent: Optional[dict] = None):
     """Per-layer physical head relocation of layer-stacked attention
     weights: row l of ``perms`` reorders the head axis of layer l's
     ``wq``/``wo`` and ``bq`` (query heads) and ``wk``/``wv`` and
@@ -495,7 +506,9 @@ def permute_model_heads_layers(params, perms, *, group_size: int = 1):
     which (layer, head) moves.  ``perms`` may carry several leading axes,
     (G, 4, H) for the VLM's supergroup-stacked self layers, matching the
     params' own.  Returns a new params dict sharing every tensor it does
-    not permute."""
+    not permute; DTensor leaves (sharded weights) are permuted in place,
+    their rows exchanged between ranks (``_permute_layers_``; ``sent``
+    counts them)."""
     q_rows = np.atleast_2d(np.asarray(perms))
     kv_rows = _kv_perms(q_rows, group_size)
 
@@ -506,15 +519,15 @@ def permute_model_heads_layers(params, perms, *, group_size: int = 1):
         for k, v in tree.items():
             if k == "attn" and isinstance(v, dict):
                 a = dict(v)
-                a["wq"] = _take_layers(v["wq"], -2, q_rows)
-                a["wk"] = _take_layers(v["wk"], -2, kv_rows)
-                a["wv"] = _take_layers(v["wv"], -2, kv_rows)
-                a["wo"] = _take_layers(v["wo"], -3, q_rows)
+                a["wq"] = _take_layers(v["wq"], -2, q_rows, sent)
+                a["wk"] = _take_layers(v["wk"], -2, kv_rows, sent)
+                a["wv"] = _take_layers(v["wv"], -2, kv_rows, sent)
+                a["wo"] = _take_layers(v["wo"], -3, q_rows, sent)
                 if "bq" in v:
-                    a["bq"] = _take_layers(v["bq"], -2, q_rows)
+                    a["bq"] = _take_layers(v["bq"], -2, q_rows, sent)
                 for b in ("bk", "bv"):
                     if b in v:
-                        a[b] = _take_layers(v[b], -2, kv_rows)
+                        a[b] = _take_layers(v[b], -2, kv_rows, sent)
                 out[k] = a
             else:
                 out[k] = visit(v)
@@ -556,15 +569,103 @@ def permute_model_experts_layers(params, perms):
     return params
 
 
-def _permute_layers_(w: torch.Tensor, axis: int, rows: np.ndarray):
-    """In place: row l of ``rows`` reorders axis ``axis`` of ``w[l]``."""
+def _permute_layers_(w: torch.Tensor, axis: int, rows: np.ndarray,
+                     sent: Optional[dict] = None) -> torch.Tensor:
+    """In place: cell c of ``rows``' leading axes reorders axis ``axis`` of
+    ``w[c]`` (rows (L, H) for a (L, ...) stack).  Returns ``w``.
+
+    A DTensor whose ``axis`` is sharded over one mesh dimension (a head
+    axis over "model") keeps its layout: each rank ends up holding its
+    chunk of the permuted whole, and rows move between ranks only where
+    they change rank — one ``all_to_all_single`` over that dimension's
+    group, each rank sending exactly the rows another rank now holds, so
+    no rank ever holds more than its shard and the rows it receives.
+    Rows that stay on their rank are reordered locally.  ``sent``, when
+    given, accumulates the rows and bytes this rank sent ("rows",
+    "bytes").  A DTensor not sharded along ``axis`` is permuted on each
+    rank's own shard."""
     axis = axis % w.ndim
-    if axis == 0 or rows.shape[0] != w.shape[0]:
-        raise ValueError(f"{rows.shape[0]} permutation rows for a stack of "
-                         f"shape {tuple(w.shape)}, axis {axis}")
+    n_lead = rows.ndim - 1
+    if axis < n_lead or tuple(rows.shape[:-1]) != tuple(w.shape[:n_lead]):
+        raise ValueError(f"{rows.shape[:-1]} permutation rows for a stack "
+                         f"of shape {tuple(w.shape)}, axis {axis}")
+    if not is_dtensor(w):
+        _permute_local_(w, axis, rows)
+        return w
+    from torch.distributed.tensor import Shard
+    mesh = w.device_mesh
+    over = [m for m, pl in enumerate(w.placements)
+            if isinstance(pl, Shard) and pl.dim == axis]
+    loc = w.to_local()
+    if not over or mesh.size(over[0]) == 1:
+        _permute_local_(loc, axis, rows)
+        return w
+    if len(over) > 1:
+        raise NotImplementedError("a head axis sharded over several mesh "
+                                  "dimensions")
+    m = over[0]
+    ranks, c = mesh.size(m), mesh.get_coordinate()[m]
+    rows = rows.reshape(-1, rows.shape[-1]).astype(np.int64)
+    n = rows.shape[1] // ranks
+    if n * ranks != rows.shape[1] or loc.shape[axis] != n:
+        raise ValueError(f"{rows.shape[1]} rows do not split evenly over "
+                         f"{ranks} ranks")
+    # (cells, n, rest): the rank's rows along axis 1, a view of its shard
+    tm = loc.view((-1,) + loc.shape[n_lead:]).movedim(axis - n_lead + 1, 1)
+    src = rows.reshape(-1, ranks, n)        # [cell, dst rank, dst row]
+    src_rank, src_row = src // n, src % n
+    mine = src_rank[:, c]                    # where my new rows come from
+    cell = np.broadcast_to(np.arange(rows.shape[0])[:, None], mine.shape)
+    dst = np.broadcast_to(np.arange(n), mine.shape)
+
+    def idx(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.long,
+                               device=loc.device)
+
+    # rows I send: rank r's new rows that are mine now, rank by rank, each
+    # in (cell, row) order — the order rank r reads them in
+    out_cells, out_rows = [], []
+    for r in range(ranks):
+        i, j = np.nonzero(src_rank[:, r] == c) if r != c \
+            else (np.zeros(0, int),) * 2
+        out_cells.append(i)
+        out_rows.append(src_row[i, r, j])
+    send_n = [len(i) for i in out_cells]
+    recv_n = [int((mine == r).sum()) if r != c else 0 for r in range(ranks)]
+    row_bytes = math.prod(tm.shape[2:]) * tm.element_size()
+    buf = tm[idx(np.concatenate(out_cells)), idx(np.concatenate(out_rows))]
+    got = torch.empty(sum(recv_n) * row_bytes, dtype=torch.uint8,
+                      device=loc.device)
+    # every rank of the group takes part whenever any row changes rank
+    # (each rank knows the whole permutation), as bytes: any dtype
+    if (src_rank != np.arange(ranks)[None, :, None]).any():
+        import torch.distributed as dist
+        dist.all_to_all_single(
+            got, buf.reshape(-1).view(torch.uint8),
+            [k * row_bytes for k in recv_n], [k * row_bytes for k in send_n],
+            group=mesh.get_group(m))
+    if sent is not None:
+        sent["rows"] = sent.get("rows", 0) + sum(send_n)
+        sent["bytes"] = sent.get("bytes", 0) + sum(send_n) * row_bytes
+    # rows that stay on this rank but move within it, then the rows it
+    # received, by source rank in (cell, row) order
+    stay = (mine == c) & (src_row[:, c] != dst)
+    tm[idx(cell[stay]), idx(dst[stay])] = tm[idx(cell[stay]),
+                                             idx(src_row[:, c][stay])]
+    into = [np.nonzero(mine == r) for r in range(ranks) if r != c]
+    tm[idx(np.concatenate([i for i, _ in into])),
+       idx(np.concatenate([j for _, j in into]))] = \
+        got.view(tm.dtype).view((-1,) + tm.shape[2:])
+    return w
+
+
+def _permute_local_(w: torch.Tensor, axis: int, rows: np.ndarray):
+    """In place on a plain tensor: cell c of ``rows``' leading axes
+    reorders axis ``axis`` of ``w[c]``."""
+    n_lead = rows.ndim - 1
     idx = torch.as_tensor(rows, dtype=torch.long, device=w.device)
-    for l in range(w.shape[0]):
-        w[l].copy_(w[l].index_select(axis - 1, idx[l]))
+    for cell in np.ndindex(*rows.shape[:-1]):
+        w[cell].copy_(w[cell].index_select(axis - n_lead, idx[cell]))
 
 
 # ---------------------------------------------------------------------------

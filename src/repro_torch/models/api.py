@@ -34,9 +34,10 @@ def build_model(cfg: ModelConfig, *, tp: int = 1, part=NULL,
     """``tp`` lays attention heads out for head-level tensor parallelism
     at that degree (padded query heads, ``rep``-replicated KV heads;
     ``layers.head_dims``; RWKV-6 has no attention heads and ignores it).
-    ``part`` (``partitioning``) maps the intermediates onto a mesh, for the
-    dense family's sharded ``forward``; a partitioner with a mesh raises
-    ``NotImplementedError`` for any other family.  ``capacity_moe`` runs MoE layers through
+    ``part`` (``partitioning``) maps the intermediates onto a mesh: the
+    dense family's ``forward``, prefills and ``decode_step`` then run
+    sharded, each rank holding its heads' KV cache; a partitioner with a
+    mesh raises ``NotImplementedError`` for any other family.  ``capacity_moe`` runs MoE layers through
     GShard capacity dispatch at ``capacity_factor`` (attention families;
     RWKV-6 and Zamba2 have no MoE, as in the reference, which ignores the
     option for them).  ``remat`` is one of the reference's
@@ -45,8 +46,9 @@ def build_model(cfg: ModelConfig, *, tp: int = 1, part=NULL,
     any other name raises."""
     if part.mesh is not None and cfg.family != "dense":
         raise NotImplementedError(
-            f"a sharded forward of the {cfg.family} family is not ported "
-            f"(ROADMAP Queue 1 #18); the dense family's is")
+            f"the {cfg.family} family does not run sharded yet (ROADMAP "
+            f"Queue 1 #18: MoE over \"pod\", then the RWKV-6, Mamba-2, "
+            f"audio and VLM paths); the dense family does")
     common = dict(use_kernel=use_kernel, remat=remat,
                   device=resolve_device(device))
     if cfg.family == "ssm":

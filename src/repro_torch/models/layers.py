@@ -378,7 +378,7 @@ EMPTY_SLOT = -2 ** 30   # ring slot position that never passes a window
 
 def _ring_attention(p: dict, q, k, v, positions, cache: dict, cache_pos,
                     window: int, attend, use_kernel: bool, head_rows,
-                    head_inv):
+                    head_inv, part=NULL):
     """Sliding-window attention over a ring cache {"k","v"} (B, window,
     KvE, dh) whose "pos" (window,) holds the absolute position of each
     slot, updated in place.
@@ -413,7 +413,7 @@ def _ring_attention(p: dict, q, k, v, positions, cache: dict, cache_pos,
         cache["k"].copy_(torch.roll(tail_k, shift, dims=1))
         cache["v"].copy_(torch.roll(tail_v, shift, dims=1))
         cache["pos"].copy_(torch.roll(tail_pos, shift))
-        return _project_out(p, out)
+        return _project_out(p, out, part=part)
     idx = cache_pos % window
     cache["k"][:, idx] = k[:, 0]
     cache["v"][:, idx] = v[:, 0]
@@ -424,11 +424,11 @@ def _ring_attention(p: dict, q, k, v, positions, cache: dict, cache_pos,
         out = ops.decode_attention_ring_bshd(
             q, cache["k"], cache["v"], _decode_lengths(cache_pos, B, q.device),
             cache["pos"], window=window, rows=rows, inv_rows=inv)
-        return _project_out(p, out)
+        return _project_out(p, out, part=part)
     kv_pos = cache["pos"][None, :].expand(B, window)
     out = attend(cache["k"], cache["v"], kv_pos,
                  causal_mask(positions, kv_pos, window))
-    return _project_out(p, out)
+    return _project_out(p, out, part=part)
 
 
 def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
@@ -473,24 +473,51 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
     1024) with more than one query runs ``chunked_attention`` — the
     reference's ``attend`` dispatch, which the flash kernel's plain
     version repeats on the CPU.
-    part: the intermediates' layout (``partitioning``).  DTensor inputs
-      run the cacheless forward only: the projections through DTensor,
-      attention on each rank's shard (``partitioning.local``).
+    part: the intermediates' layout (``partitioning``).  With DTensor
+      parameters (a dense model on a mesh) the projections run through
+      DTensor and attention on each rank's shard: its batch rows and the
+      heads it holds (``partitioning.local``), with the cache a DTensor of
+      the reference's decode-state layout whose local shard — batch rows
+      over "data", expanded KV heads over "model" — is written in place.
+      ``head_rows``/``head_inv`` are then the rank's own maps
+      (``partitioning.local_head_rows``), positions, ``cache_pos`` and the
+      page map are cut to the rank's batch rows, and the paged store is
+      shared by every row (meshes whose "data" is 1).
     Returns (out, cache).
     """
-    B, S = x.shape[0], x.shape[1]
     q, k, v = qkv_project(cfg, p, hd, x, positions, part=part)
     layout = q
     if is_dtensor(q):
-        if cache is not None:
-            raise NotImplementedError("a sharded model runs its cacheless "
-                                      "forward only (ROADMAP Queue 1 #18)")
         # q, k, v shard batch rows and heads, positions batch rows
         # (``rules_tp``); a rank's query heads and their KV heads sit on
         # that rank (the expanded layout), so attention of the shards —
-        # the flash kernel's or the plain path's — is that shard of the
-        # whole one, with no collective
-        q, k, v, positions = (local(t) for t in (q, k, v, positions))
+        # the kernels' or the plain path's, over the rank's cache shard —
+        # is that shard of the whole one, with no collective
+        q, k, v = local(q), local(k), local(v)
+        positions = _rows_of(part, positions, ("batch", "seq"))
+        if isinstance(cache_pos, torch.Tensor):
+            cache_pos = _rows_of(part, cache_pos, ("batch",))
+        if page_map is not None:
+            page_map = _rows_of(part, page_map, ("batch", None))
+            if write_valid is not None:
+                write_valid = _rows_of(part, write_valid, ("batch", "seq"))
+        if cache is not None:
+            if "pos" in cache:
+                raise NotImplementedError(
+                    "a sharded ring cache is not ported (ROADMAP Queue 1 "
+                    "#18: with the MoE family)")
+            cache = _cache_shards(cache, part, paged=page_map is not None)
+        if head_rows is not None and head_rows.shape[-1] != q.shape[2]:
+            raise ValueError(
+                f"a sharded decode takes the rank's own row maps of "
+                f"{q.shape[2]} heads (partitioning.local_head_rows); got "
+                f"{head_rows.shape[-1]}")
+    B, S = q.shape[0], q.shape[1]
+
+    def finish(out):
+        """The wo projection of this rank's attention output (under a
+        mesh: the reduction of the head-sharded contraction)."""
+        return _project_out(p, like(out, layout), part=part)
 
     def attend(kk, vv, kv_pos, mask, *, flash: bool = False):
         """The reference's dispatch (chunked when the KV extent is long,
@@ -506,11 +533,11 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
     if cache is None:
         out = attend(k, v, positions, causal_mask(positions, positions,
                                                   window), flash=use_kernel)
-        return _project_out(p, like(out, layout), part=part), None
+        return finish(out), None
     if page_map is None and window and cache["k"].shape[1] == window:
         return _ring_attention(p, q, k, v, positions, cache, cache_pos,
                                window, attend, use_kernel, head_rows,
-                               head_inv), cache
+                               head_inv, part), cache
     quant = "k_sc" in cache
     new = {"k": k, "v": v}
     if quant:
@@ -518,8 +545,8 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
     kernel = use_kernel and S == 1 and cache_pos is not None and not window
     if kernel:
         rows, inv = _head_rows_or_identity(head_rows, head_inv, q.shape[2],
-                                           x.device)
-        lengths = _decode_lengths(cache_pos, B, x.device)
+                                           q.device)
+        lengths = _decode_lengths(cache_pos, B, q.device)
     if page_map is not None:
         _paged_write(cache, new, positions, page_map, write_valid)
         if kernel:
@@ -534,8 +561,8 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
                 out = ops.decode_attention_paged_bshd(
                     q, pool["k"], pool["v"], lengths, gmap, rows,
                     inv_rows=inv)
-            return _project_out(p, out), cache
-        ck, cv = _paged_gather(cache, page_map, x.dtype)
+            return finish(out), cache
+        ck, cv = _paged_gather(cache, page_map, q.dtype)
     else:
         _write_cache(cache, new, cache_pos)
         if use_kernel and S > 1 and not isinstance(cache_pos, torch.Tensor) \
@@ -547,9 +574,8 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
             # chunks start past position 0 over keys from position 0, which
             # the top-left-aligned kernel does not take.
             ck, cv = _dequant({n: t[:, :S] for n, t in cache.items()},
-                              x.dtype)
-            return _project_out(p, attend(ck, cv, None, None,
-                                          flash=True)), cache
+                              q.dtype)
+            return finish(attend(ck, cv, None, None, flash=True)), cache
         if kernel:
             if quant:
                 out = ops.decode_attention_int8_resident_bshd(
@@ -558,12 +584,39 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
             else:
                 out = ops.decode_attention_resident_bshd(
                     q, cache["k"], cache["v"], lengths, rows, inv_rows=inv)
-            return _project_out(p, out), cache
-        ck, cv = _dequant(cache, x.dtype)
+            return finish(out), cache
+        ck, cv = _dequant(cache, q.dtype)
     T = ck.shape[1]
-    kv_pos = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    kv_pos = torch.arange(T, device=q.device)[None, :].expand(B, T)
     out = attend(ck, cv, kv_pos, causal_mask(positions, kv_pos, window))
-    return _project_out(p, out), cache
+    return finish(out), cache
+
+
+def _rows_of(part, t, axes):
+    """This rank's batch rows of ``t``: a DTensor's shard, or a plain
+    tensor (the same on every rank) cut as ``axes`` place it."""
+    return local(part.shard(t, axes))
+
+
+# the reference's layout constraints on an updated cache: a linear cache
+# (B, T, KvE, dh) and its scales (B, T, KvE) shard batch rows and heads,
+# a page store (n_pages + 1, P, KvE, dh) only heads
+_CACHE_AXES = {False: ("batch", "cache_seq", "kv_heads", None),
+               True: (None, None, "kv_heads", None)}
+
+
+def _cache_shards(cache: dict, part, *, paged: bool) -> dict:
+    """The rank's shards of a layer's DTensor cache buffers, each held to
+    the reference's cache layout at its ``part.constrain`` points.  The
+    cache is written in place, so the constraint is a check
+    (``Partitioner.lays_out``): a buffer laid out otherwise raises, as a
+    redistributed copy would take the writes."""
+    for name, t in cache.items():
+        if not part.lays_out(t, _CACHE_AXES[paged][:t.dim()]):
+            raise ValueError(f"the cache's {name!r} is laid out "
+                             f"{tuple(t.placements)}, not as the decode "
+                             f"state's rules place it")
+    return {name: local(t) for name, t in cache.items()}
 
 
 def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x) -> dict:

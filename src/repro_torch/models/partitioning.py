@@ -24,6 +24,7 @@ import contextlib
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 MeshAxis = Union[None, str, Tuple[str, ...]]
@@ -100,27 +101,82 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def place(x: torch.Tensor, sharding: Sharding):
-    """``x`` — the whole tensor, the same on every rank (a batch drawn from
-    a seed, a leaf read from a checkpoint) — as a DTensor placed by
-    ``sharding``: each rank keeps its own slice, cut as DTensor cuts a
-    ``Shard`` (``torch.chunk``, mesh dimensions in order), so placing
-    needs no collective."""
-    from torch.distributed.tensor import DTensor, Shard
+def local_extent(shape, sharding: Sharding) -> list:
+    """This rank's slice of a tensor of ``shape`` placed by ``sharding``:
+    one (start, length) per tensor dimension, cut as DTensor cuts a
+    ``Shard`` (``torch.chunk``, mesh dimensions in order; a rank past the
+    last chunk holds none)."""
+    from torch.distributed.tensor import Shard
     mesh, pls = sharding.mesh, sharding.placements
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError("this rank is not in the mesh")
+    ext = [[0, n] for n in shape]
+    for m, pl in enumerate(pls):
+        if not isinstance(pl, Shard):
+            continue
+        start, n = ext[pl.dim]
+        chunk = -(-n // mesh.size(m)) if n else 0
+        lo = min(coord[m] * chunk, n)
+        ext[pl.dim] = [start + lo, min(chunk, n - lo)]
+    return [tuple(e) for e in ext]
+
+
+def _from_local(local: torch.Tensor, sharding: Sharding, shape):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def place(x: torch.Tensor, sharding: Sharding):
+    """``x`` — the whole tensor, the same on every rank (a batch drawn from
+    a seed, a leaf read from a checkpoint) — as a DTensor placed by
+    ``sharding``: each rank keeps its own slice (``local_extent``), so
+    placing needs no collective."""
     x = x.contiguous()
     local = x
-    for m, pl in enumerate(pls):
-        if isinstance(pl, Shard):
-            chunks = torch.chunk(local, mesh.size(m), dim=pl.dim)
-            local = chunks[coord[m]] if coord[m] < len(chunks) \
-                else local.narrow(pl.dim, 0, 0)
-    return DTensor.from_local(local.to(mesh_device(mesh)).contiguous(),
-                              mesh, pls, run_check=False, shape=x.shape,
-                              stride=x.stride())
+    for d, (start, n) in enumerate(local_extent(x.shape, sharding)):
+        local = local.narrow(d, start, n)
+    return _from_local(local.to(mesh_device(sharding.mesh)).contiguous(),
+                       sharding, x.shape)
+
+
+def placed_full(shape, fill, dtype, sharding: Sharding):
+    """A DTensor of ``shape`` filled with ``fill``, placed by ``sharding``
+    and built shard by shard: each rank allocates only its own slice, so
+    no rank ever holds the whole tensor (a KV cache)."""
+    local = torch.full([n for _, n in local_extent(shape, sharding)], fill,
+                       dtype=dtype, device=mesh_device(sharding.mesh))
+    return _from_local(local, sharding, tuple(shape))
+
+
+def local_range(x, dim: int) -> Tuple[int, int]:
+    """(start, length) of this rank's shard of ``x`` along ``dim``: a
+    DTensor's slice (``local_extent``), the whole axis of any other
+    tensor."""
+    if not is_dtensor(x):
+        return 0, x.shape[dim]
+    return local_extent(x.shape, Sharding(x.device_mesh,
+                                          tuple(x.placements)))[dim]
+
+
+def local_head_rows(rows, lo: int, n: int):
+    """Kernel gather maps localized to the head range ``[lo, lo + n)`` a
+    rank holds: ``rows`` (..., H) lists physical q-head rows (each row of
+    it a permutation of ``arange(H)``); returns (local rows, their scatter
+    map), both (..., n) int32 — the rows that fall in the range, in their
+    order, less ``lo``, and ``argsort`` of them.  Run through the kernel on
+    the rank's shard, they give that shard of the whole call's output."""
+    rows = np.asarray(rows)
+    keep = (rows >= lo) & (rows < lo + n)
+    if not np.all(keep.sum(-1) == n):
+        raise ValueError(f"row maps do not cover the head range "
+                         f"[{lo}, {lo + n}) once each")
+    local = (rows[keep].reshape(rows.shape[:-1] + (n,)) - lo
+             ).astype(np.int32)
+    return local, np.argsort(local, axis=-1).astype(np.int32)
 
 
 class Partitioner:
@@ -167,6 +223,18 @@ class Partitioner:
             return x
         return place(x, self.sharding(axes))
 
+    def for_batch(self, batch: int) -> "Partitioner":
+        """This partitioner for a batch of ``batch`` rows: itself when the
+        rows split evenly over the data axes, else one that keeps the batch
+        whole there (a one-row admission prefill on a mesh whose "data" is
+        2: each data rank computes the row, and the one holding its slot
+        keeps it).  One row always stays whole: DTensor refuses to reshape
+        a sharded dimension even of size 1, as ``einsum`` does."""
+        if self.mesh is None or (batch > 1
+                                 and batch % dp_degree(self.mesh) == 0):
+            return self
+        return Partitioner(self.mesh, dict(self.rules, batch=None))
+
     def region(self):
         """The context a sharded computation runs in: plain tensors that
         meet DTensors (positions, RoPE tables, masks) count as replicated
@@ -188,6 +256,20 @@ class Partitioner:
         if tuple(x.placements) == want:
             return x
         return x.redistribute(self.mesh, want)
+
+    def lays_out(self, x, axes: Sequence[Optional[str]]) -> bool:
+        """Whether ``x`` already sits as ``axes`` place it: the check that
+        stands for ``constrain`` where a tensor is updated in place (a KV
+        cache) and a redistributed copy would take the writes.  A plain
+        tensor or no mesh: True.  A ``Shard`` over a mesh dimension of size
+        1 lays the bytes out as ``Replicate`` does."""
+        if self.mesh is None or not is_dtensor(x):
+            return True
+        return all(have == w or (self.mesh.size(m) == 1
+                                 and not have.is_partial()
+                                 and not w.is_partial())
+                   for m, (have, w) in enumerate(
+                       zip(x.placements, self.placements(axes))))
 
 
 class NullPartitioner(Partitioner):
@@ -269,6 +351,12 @@ def local(x):
     """The rank's shard of a DTensor, or ``x`` itself (for ops without a
     DTensor rule: a custom kernel)."""
     return x.to_local() if is_dtensor(x) else x
+
+
+def whole(x):
+    """The whole tensor of a DTensor on every rank (an all-gather); any
+    other tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def like(out: torch.Tensor, ref):

@@ -26,7 +26,7 @@ has nothing to hoist, so it has no counterpart here.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,7 +36,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_block, moe_block_capacity
-from repro_torch.models.partitioning import NULL
+from repro_torch.models.partitioning import (NULL, Sharding, dp_degree,
+                                             is_dtensor, local, local_range,
+                                             place, placed_full, tp_degree,
+                                             whole)
+from repro_torch.tree import flatten, map_with_path
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -115,9 +119,12 @@ class TransformerLM:
     heads repeated ``rep`` times into ``KvE`` cache rows); on one device
     it computes the tp-1 function.  ``part`` (``partitioning``) maps the
     intermediates onto a ``DeviceMesh``: with a dense model's parameters
-    placed as DTensors (``placement_bridge.param_shardings``),
-    ``forward`` runs sharded over the mesh (``build_model`` refuses a
-    mesh for the other families)."""
+    placed as DTensors (``placement_bridge.param_shardings``), ``forward``,
+    the prefills and ``decode_step`` run sharded over the mesh, and every
+    fresh cache and decode state is placed as
+    ``placement_bridge.decode_state_shardings`` says, each rank building
+    only its own shard (``build_model`` refuses a mesh for the other
+    families)."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  use_kernel: bool = False, capacity_moe: bool = False,
@@ -148,6 +155,13 @@ class TransformerLM:
                                  f"got {cfg.n_layers}")
             self.n_groups = cfg.n_layers // 5
         self.window = cfg.sliding_window
+        if part.mesh is not None:
+            m = tp_degree(part.mesh)
+            if self.hd.Hp % m or self.hd.KvE % m:
+                raise ValueError(
+                    f"the mesh's model degree {m} must divide the padded "
+                    f"query heads ({self.hd.Hp}) and the cache's KV rows "
+                    f"({self.hd.KvE}): build with tp a multiple of it")
 
     # ------------------------------------------------------------------ init
     def _init_layers(self, g: torch.Generator, lead: tuple, *,
@@ -203,11 +217,12 @@ class TransformerLM:
     # ----------------------------------------------------------------- layer
     def _layer(self, p: dict, x, positions, cache, cache_pos,
                head_rows=None, head_inv=None, page_map=None,
-               write_valid=None):
-        """One decoder layer.  Returns the new hidden state and, for MoE
-        layers, the float32 aux loss and the (E,) routed-token fraction of
-        this call (else None, None)."""
-        cfg, part = self.cfg, self.part
+               write_valid=None, part=None):
+        """One decoder layer (``part``: the call's partitioner, the model's
+        by default).  Returns the new hidden state and, for MoE layers, the
+        float32 aux loss and the (E,) routed-token fraction of this call
+        (else None, None)."""
+        cfg, part = self.cfg, part or self.part
         h = L.apply_norm(cfg, p, "ln1", x)
         # the boundary into the tensor-parallel region, on the working-dtype
         # tensor (the reference's explicit constraint)
@@ -287,7 +302,8 @@ class TransformerLM:
 
     def _run_layers(self, params, x, positions, cache, cache_pos,
                     head_rows=None, head_inv=None, page_map=None,
-                    write_valid=None, img_kv=None, img_mask=None):
+                    write_valid=None, img_kv=None, img_mask=None,
+                    part=None):
         """Loop over layers; layer l reads its slice of the stacked params,
         cache (values, int8 scales, ring positions) and (n_layers, Hp)
         kernel row maps.  One page map (and ``write_valid``) serves every
@@ -296,7 +312,8 @@ class TransformerLM:
         instead.  Returns the hidden state, for MoE the stacked (L, E)
         router loads of this call (else None), and the float32 aux loss
         summed over layers in order, as the reference's layer scan sums
-        it (zero without MoE).  ``remat`` checkpoints each layer."""
+        it (zero without MoE).  ``remat`` checkpoints each layer; ``part``
+        is the call's partitioner (``Partitioner.for_batch``)."""
         if self.is_vlm:
             return self._run_layers_vlm(params, x, positions, cache,
                                         cache_pos, img_kv, img_mask)
@@ -310,7 +327,7 @@ class TransformerLM:
                 _layer_view(params["layers"], l), x, positions, layer_cache,
                 cache_pos, None if head_rows is None else head_rows[l],
                 None if head_inv is None else head_inv[l], page_map,
-                write_valid)
+                write_valid, part)
             if a is not None:
                 aux = aux + a
             freqs.append(freq)
@@ -360,8 +377,11 @@ class TransformerLM:
         """Zeroed K/V buffers of shape ``lead + (KvE, dh)``: int8 values
         plus float32 per-(token, head) scales ``lead + (KvE,)`` for
         ``kv_quant`` configs (half the resident cache; dequantized at the
-        attention read), else the working dtype."""
-        z = functools.partial(torch.zeros, device=self.device)
+        attention read), else the working dtype.  On a mesh they are made
+        on the meta device, with no memory, for ``_placed`` to build each
+        rank's shard."""
+        z = functools.partial(torch.zeros, device="meta" if self.part.mesh
+                              is not None else self.device)
         shape = lead + (self.hd.KvE, self.hd.dh)
         if self.cfg.kv_quant:
             return {"k": z(shape, dtype=torch.int8),
@@ -370,6 +390,40 @@ class TransformerLM:
                     "v_sc": z(shape[:-1], dtype=torch.float32)}
         dtype = dtype or torch_dtype(self.cfg.dtype)
         return {"k": z(shape, dtype=dtype), "v": z(shape, dtype=dtype)}
+
+    def _placed(self, tree, batch: Optional[int] = None):
+        """``tree`` — a fresh cache or decode state — on the model's mesh,
+        placed as ``placement_bridge.decode_state_shardings`` says (the
+        reference's rules: the KV cache's batch rows over "data", its
+        expanded KV heads over "model", int8 scales alike, positions
+        replicated).  Buffers made on the meta device are built shard by
+        shard (``partitioning.placed_full``), so no rank ever allocates the
+        whole cache; small leaves are cut from the whole (``place``).  A
+        ``batch`` that does not split over the data axes (a one-row
+        admission prefill) stays whole there
+        (``Partitioner.for_batch``).  Without a mesh: ``tree`` itself."""
+        part = self.part
+        if part.mesh is None:
+            return tree
+        from torch.distributed.tensor import Replicate
+        from repro_torch.core.placement_bridge import decode_state_shardings
+        mesh = part.mesh
+        names = tuple(mesh.mesh_dim_names)
+        keep = batch is not None and part.for_batch(batch) is not part
+        shardings = flatten(decode_state_shardings(tree, self.cfg, mesh))
+
+        def one(path, leaf):
+            if not isinstance(leaf, torch.Tensor) or is_dtensor(leaf):
+                return leaf
+            sh = shardings[path]
+            if keep:
+                sh = Sharding(mesh, tuple(
+                    Replicate() if n in ("pod", "data") else pl
+                    for n, pl in zip(names, sh.placements)))
+            if leaf.device.type == "meta":
+                return placed_full(leaf.shape, 0, leaf.dtype, sh)
+            return place(leaf, sh)
+        return map_with_path(one, tree)
 
     def cache_len(self, max_seq: int) -> int:
         return min(max_seq, self.window) if self.window else max_seq
@@ -386,13 +440,17 @@ class TransformerLM:
             return self._kv_buffers((self.n_groups, 4, batch, T), dtype)
         lead = (self.cfg.n_layers, batch, T)
         if self.window and T == self.window:
+            if self.part.mesh is not None:
+                raise NotImplementedError(
+                    "a sharded ring cache is not ported (ROADMAP Queue 1 "
+                    "#18: with the MoE family)")
             dtype = dtype or torch_dtype(self.cfg.dtype)
             shape = lead + (self.hd.KvE, self.hd.dh)
             return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                     "v": torch.zeros(shape, dtype=dtype, device=self.device),
                     "pos": torch.full((self.cfg.n_layers, T), L.EMPTY_SLOT,
                                       dtype=torch.int32, device=self.device)}
-        return self._kv_buffers(lead, dtype)
+        return self._placed(self._kv_buffers(lead, dtype), batch)
 
     def init_decode_state(self, params, batch: int, max_seq: int, *,
                           img_embeds=None, img_mask=None, dtype=None,
@@ -423,44 +481,63 @@ class TransformerLM:
             self._check_img_mask(img_mask)
             state["img_kv"] = self._project_img_kv(params, img_embeds)
             state["img_mask"] = img_mask
-        return state
+        return self._placed(state, batch)
 
     def prefill(self, params, state, tokens):
         """Lock-step prefill: run the (B, S) prompts, all of length S,
         through the model from position 0, filling the cache in place.
-        Returns the last token's logits (B, V) and the state with
-        ``pos == S``."""
-        cfg = self.cfg
+        Returns the last token's logits (B, V), whole on every rank of a
+        mesh, and the state with ``pos == S``."""
         B, S = tokens.shape
-        x = L.embed(cfg, params, tokens)
-        x, _, _ = self._run_layers(params, x, self._positions(B, S),
-                                   state["cache"], 0,
-                                   img_kv=state.get("img_kv"),
-                                   img_mask=state.get("img_mask"))
-        x = L.apply_norm(cfg, params, "ln_f", x)
-        logits = L.unembed(cfg, params, x[:, -1:])
+        x, part = self._prefill_layers(params, state, tokens,
+                                       self._positions(B, S))
+        with part.region():
+            logits = whole(L.unembed(self.cfg, params, x[:, -1:], part=part))
         state["pos"] = S
         return logits[:, 0], state
+
+    def _prefill_layers(self, params, state, tokens, positions, *,
+                        page_map=None, write_valid=None):
+        """Embed ``tokens`` (B, S) and run every layer from the cache write
+        at position 0 (a paged chunk: through ``page_map`` from its own
+        positions); returns the final-norm hidden state and the call's
+        partitioner (``Partitioner.for_batch``).  On a mesh the tokens,
+        positions and page table are cut to each rank's batch rows."""
+        cfg = self.cfg
+        part = self.part.for_batch(tokens.shape[0])
+        with part.region():
+            tokens = part.shard(tokens, ("batch", "seq"))
+            positions = part.shard(positions, ("batch", "seq"))
+            if page_map is not None:
+                page_map = part.shard(page_map, ("batch", None))
+                write_valid = part.shard(write_valid, ("batch", "seq"))
+            x = L.embed(cfg, params, tokens, part=part)
+            x, _, _ = self._run_layers(
+                params, x, positions, state["cache"],
+                0 if page_map is None else None, page_map=page_map,
+                write_valid=write_valid, img_kv=state.get("img_kv"),
+                img_mask=state.get("img_mask"), part=part)
+            return L.apply_norm(cfg, params, "ln_f", x), part
 
     # ----------------------------------------------- continuous batching
     def prefill_bucketed(self, params, state, tokens, length):
         """Prefill right-padded prompts: ``tokens`` (B, Lb) padded to a
         bucket length, ``length`` (B,) true prompt lengths.  Returns the
-        logits of each row's LAST REAL token and the state with ``pos ==
-        length``.  Padding writes garbage K/V at indices >= length, which
-        the causal mask hides until decode overwrites it."""
-        cfg = self.cfg
+        logits of each row's LAST REAL token (whole on every rank of a
+        mesh) and the state with ``pos == length``.  Padding writes
+        garbage K/V at indices >= length, which the causal mask hides until
+        decode overwrites it."""
         B, S = tokens.shape
-        x = L.embed(cfg, params, tokens)
-        x, _, _ = self._run_layers(params, x, self._positions(B, S),
-                                   state["cache"], 0,
-                                   img_kv=state.get("img_kv"),
-                                   img_mask=state.get("img_mask"))
-        x = L.apply_norm(cfg, params, "ln_f", x)
-        idx = (length.long() - 1).clamp(min=0)[:, None, None]
-        last = x.gather(1, idx.expand(B, 1, x.shape[-1]))    # (B, 1, D)
-        logits = L.unembed(cfg, params, last)
-        state["pos"] = length.to(torch.int32).clone()
+        x, part = self._prefill_layers(params, state, tokens,
+                                       self._positions(B, S))
+        with part.region():
+            idx = (length.long() - 1).clamp(min=0)[:, None, None]
+            idx = part.shard(idx.expand(B, 1, x.shape[-1]),
+                             ("batch", None, None))
+            last = x.gather(1, idx)                          # (B, 1, D)
+            logits = whole(L.unembed(self.cfg, params, last, part=part))
+        state["pos"] = self._placed(
+            {"pos": length.to(torch.int32).clone()})["pos"]
         return logits[:, 0], state
 
     def insert_slot(self, state, sub, slot: int):
@@ -471,14 +548,20 @@ class TransformerLM:
         axis sits before the cache's last ``4`` axes of values (``3`` of
         scales), so one rule covers (L, B, T, KvE, dh) and the VLM's
         (G, 4, B, T, KvE, dh); a VLM also splices the request's image K/V
-        (G, B, I, KvE, dh) and mask rows."""
+        (G, B, I, KvE, dh) and mask rows.  On a mesh each rank copies its
+        heads' shard, and only the data rank holding row ``slot`` writes
+        it."""
         for name, src in sub["cache"].items():
             dst = state["cache"][name]
             tail = 3 if name.endswith("_sc") else 4
+            lo, n = local_range(dst, dst.dim() - tail)
+            if not lo <= slot < lo + n:
+                continue
+            dst, src = local(dst), local(src)
             lead = (slice(None),) * (dst.dim() - tail)
-            dst[lead + (slot, slice(0, src.shape[-tail + 1]))].copy_(
+            dst[lead + (slot - lo, slice(0, src.shape[-tail + 1]))].copy_(
                 src[lead + (0,)])
-        state["pos"][slot] = sub["pos"][0]
+        local(state["pos"])[slot] = local(sub["pos"])[0]
         if "img_kv" in state and "img_kv" in sub:
             for name, src in sub["img_kv"].items():
                 state["img_kv"][name][:, slot].copy_(src[:, 0])
@@ -490,7 +573,8 @@ class TransformerLM:
 
     def decode_step(self, params, state, tokens):
         """One autoregressive step for every row. tokens: (B,) int.
-        Returns (logits (B, V) float32, state).
+        Returns (logits (B, V) float32, whole on every rank of a mesh,
+        state).
 
         A per-slot state's rows each embed, attend and write at their own
         position; positions advance in place and clamp at the cache edge —
@@ -498,19 +582,30 @@ class TransformerLM:
         a retired slot's writes drop.  A lock-step state's int position
         advances by one (a ring cache wraps, so it has no edge).  MoE
         states fold this step's router loads into "expert_load"."""
-        cfg = self.cfg
+        cfg, part = self.cfg, self.part
         pos = state["pos"]
         per_slot = isinstance(pos, torch.Tensor)
         page_map = state.get("page_map")
-        x = L.embed(cfg, params, tokens[:, None])
-        positions = pos[:, None] if per_slot else torch.full(
-            (tokens.shape[0], 1), pos, dtype=torch.int32, device=self.device)
-        x, freqs, _ = self._run_layers(
-            params, x, positions, state["cache"], pos,
-            state.get("head_rows"), state.get("head_inv"), page_map,
-            img_kv=state.get("img_kv"), img_mask=state.get("img_mask"))
-        x = L.apply_norm(cfg, params, "ln_f", x)
-        logits = L.unembed(cfg, params, x)
+        B = tokens.shape[0]
+        if per_slot:
+            pos = local(pos)         # replicated: every row's position
+            positions = pos[:, None]
+        else:
+            positions = torch.full((B, 1), pos, dtype=torch.int32,
+                                   device=self.device)
+        with part.region():
+            cache_pos = part.shard(pos, ("batch",)) if per_slot else pos
+            if page_map is not None:
+                page_map = part.shard(page_map, ("batch", None))
+            x = L.embed(cfg, params, part.shard(tokens[:, None],
+                                                ("batch", "seq")), part=part)
+            x, freqs, _ = self._run_layers(
+                params, x, part.shard(positions, ("batch", "seq")),
+                state["cache"], cache_pos, state.get("head_rows"),
+                state.get("head_inv"), page_map,
+                img_kv=state.get("img_kv"), img_mask=state.get("img_mask"))
+            x = L.apply_norm(cfg, params, "ln_f", x)
+            logits = whole(L.unembed(cfg, params, x, part=part))
         if not per_slot:
             state["pos"] = pos + 1
         else:
@@ -537,7 +632,13 @@ class TransformerLM:
         batch × seq extent of the dense cache becomes a page axis shared by
         every slot.  Page ``n_pages`` is a sink the allocator never hands
         out: writes the reference drops land there
-        (``layers._paged_write``)."""
+        (``layers._paged_write``).  On a mesh the store shards its KV rows
+        over "model" and is shared by the rows of a data rank: "data" must
+        be 1."""
+        if self.part.mesh is not None and dp_degree(self.part.mesh) > 1:
+            raise NotImplementedError(
+                "a paged cache on a mesh whose \"data\" is above 1 needs a "
+                "page pool for each data rank (ROADMAP Queue 1 #18)")
         if self.window:
             raise NotImplementedError(
                 "paged caches are linear; sliding-window archs keep the "
@@ -545,8 +646,8 @@ class TransformerLM:
         if self.is_vlm:
             raise NotImplementedError(
                 "paged caches do not yet carry the VLM image K/V")
-        return self._kv_buffers((self.cfg.n_layers, n_pages + 1, page_size),
-                                dtype)
+        return self._placed(self._kv_buffers(
+            (self.cfg.n_layers, n_pages + 1, page_size), dtype))
 
     def init_paged_state(self, params, batch: int, n_pages: int,
                          page_size: int, pages_per_slot: int,
@@ -554,12 +655,13 @@ class TransformerLM:
         """Per-slot paged decode state: the page store, per-row positions,
         and the (batch, pages_per_slot) page table — all -1 (unmapped)
         until the engine mounts an allocation."""
-        return {"cache": self.init_paged_cache(n_pages, page_size, dtype),
-                "pos": torch.zeros((batch,), dtype=torch.int32,
-                                   device=self.device),
-                "page_map": torch.full((batch, pages_per_slot), -1,
-                                       dtype=torch.int32,
-                                       device=self.device)}
+        return self._placed(
+            {"cache": self.init_paged_cache(n_pages, page_size, dtype),
+             "pos": torch.zeros((batch,), dtype=torch.int32,
+                                device=self.device),
+             "page_map": torch.full((batch, pages_per_slot), -1,
+                                    dtype=torch.int32, device=self.device)},
+            batch)
 
     def prefill_paged(self, params, state, tokens, row: int, start: int,
                       length: int):
@@ -568,26 +670,29 @@ class TransformerLM:
         ``start`` the chunk's absolute start position and ``length`` its
         valid token count.  K/V land in the row's mapped pages (the padded
         tail's writes drop); returns the logits of the chunk's last valid
-        token (meaningful on the final chunk) and the state with
-        ``pos[row] = start + length``, updated in place."""
-        cfg = self.cfg
+        token (meaningful on the final chunk; whole on every rank of a
+        mesh) and the state with ``pos[row] = start + length``, updated in
+        place."""
         C = tokens.shape[1]
         steps = torch.arange(C, dtype=torch.int32, device=self.device)
-        x = L.embed(cfg, params, tokens)
-        x, _, _ = self._run_layers(params, x, (start + steps)[None],
-                                   state["cache"], None,
-                                   page_map=state["page_map"][row:row + 1],
-                                   write_valid=(steps < length)[None])
-        x = L.apply_norm(cfg, params, "ln_f", x)
-        logits = L.unembed(cfg, params, x[:, max(length - 1, 0)][:, None])
-        state["pos"][row] = start + length
+        x, part = self._prefill_layers(
+            params, state, tokens, (start + steps)[None],
+            page_map=local(state["page_map"])[row:row + 1],
+            write_valid=(steps < length)[None])
+        with part.region():
+            logits = whole(L.unembed(self.cfg, params,
+                                     x[:, max(length - 1, 0)][:, None],
+                                     part=part))
+        local(state["pos"])[row] = start + length
         return logits[:, 0], state
 
     def mount_slot_pages(self, state, row: int, pages, pos: int):
         """Write slot ``row``'s page-table row and position into a paged
         decode state, in place — the paged analog of :meth:`insert_slot`,
         used at admission, at page-boundary extension, and at retire (all
-        -1 and pos 0: the row's writes drop and its reads are masked)."""
-        state["page_map"][row] = torch.as_tensor(pages, dtype=torch.int32)
-        state["pos"][row] = pos
+        -1 and pos 0: the row's writes drop and its reads are masked).  On
+        a mesh ("data" 1) every rank holds the whole table."""
+        local(state["page_map"])[row] = torch.as_tensor(pages,
+                                                        dtype=torch.int32)
+        local(state["pos"])[row] = pos
         return state

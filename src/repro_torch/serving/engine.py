@@ -50,7 +50,13 @@ expansion plan; ``slow_device`` pins load the next interval observes;
 
 The controller drives a simulated device network, as in the reference: the
 model runs on one GPU (or the CPU), and the placement decides which
-(layer, head) rows and experts each simulated device holds.
+(layer, head) rows and experts each simulated device holds.  With a
+partitioner on a ``DeviceMesh`` (``part``, the dense family) the engine
+runs on every rank of the mesh at once: each rank holds its shard of the
+weights and its heads' shard of the KV cache, runs the same scheduler and
+controller from the same seed (so every rank's plans and logs are equal,
+and none is broadcast), samples from whole logits, and a migration moves
+only the KV and weight rows that change rank between ranks.
 """
 from __future__ import annotations
 
@@ -70,6 +76,7 @@ from repro_torch.core.placement_bridge import (apply_head_perm,
                                                apply_layer_head_perms,
                                                head_row_maps,
                                                identity_head_rows,
+                                               param_shardings,
                                                permute_model_experts_layers,
                                                permute_model_heads,
                                                permute_model_heads_layers,
@@ -77,9 +84,13 @@ from repro_torch.core.placement_bridge import (apply_head_perm,
 from repro_torch.device import resolve_device
 from repro_torch.models.api import build_model
 from repro_torch.models.moe import expert_identity
+from repro_torch.models.partitioning import (NULL, Sharding, is_dtensor,
+                                             local_extent, local_head_rows,
+                                             mesh_device, place, placements)
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.serving.paging import PagedKVAllocator
+from repro_torch.tree import flatten, map_with_path
 
 
 class UnsupportedArchError(NotImplementedError):
@@ -130,6 +141,21 @@ def default_buckets(max_seq: int, lo: int = 8) -> List[int]:
     return sorted(set(out))
 
 
+def _place_params(params: Dict[str, Any], cfg: ModelConfig, mesh,
+                  injected: bool) -> Dict[str, Any]:
+    """``params`` placed on ``mesh`` as ``param_shardings`` says (each rank
+    keeps its slice; DTensor leaves stay).  Migrations permute the placed
+    weights in place, so an injected leaf is copied first: its slice on a
+    one-device mesh would be the caller's own storage."""
+    shardings = flatten(param_shardings(params, cfg, mesh))
+
+    def one(path, leaf):
+        if is_dtensor(leaf):
+            return leaf
+        return place(leaf.clone() if injected else leaf, shardings[path])
+    return map_with_path(one, params)
+
+
 def _own_expert_rows(params: Dict[str, Any], cfg: ModelConfig,
                      injected: bool) -> Dict[str, Any]:
     """The params with identity physical-expert maps (``owner``/``share``)
@@ -177,7 +203,16 @@ class _EngineBase:
     n_kv_heads each KV head replicated ``rep`` times in the cache.  A
     migration then moves each supergroup of ``Hp // Kp`` query heads with
     its KV head's ``rep`` cache rows; without ``net`` the controller
-    places over ``max(tp, 4)`` simulated devices, as the reference's."""
+    places over ``max(tp, 4)`` simulated devices, as the reference's.
+
+    ``part`` (``partitioning.Partitioner`` with a mesh; the dense family)
+    serves sharded: the model is built with it, the weights are placed by
+    ``placement_bridge.param_shardings`` (injected ones copied first, as
+    migrations permute the placed weights in place) and the decode states
+    by ``decode_state_shardings``; every rank of the mesh runs the engine
+    with the same arguments and agrees on each step's time, so the
+    controller's plans match across ranks.  ``exchange_log`` records, per
+    applied migration, the rows and bytes this rank sent to others."""
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int = 4,
                  max_seq: int = 512, lam: int = 16, seed: int = 0,
@@ -186,7 +221,8 @@ class _EngineBase:
                  layer_mode: str = "graph", use_kernel: bool = False,
                  search: str = "rescoring",
                  params: Optional[Dict[str, Any]] = None, device=None,
-                 pipeline_k: int = 1, cost_page_size: int = 0, tp: int = 1):
+                 pipeline_k: int = 1, cost_page_size: int = 0, tp: int = 1,
+                 part=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_slots = n_slots
@@ -197,13 +233,17 @@ class _EngineBase:
         # controller's objective becomes D_pipe(K) + D_mig, and with
         # search="bottleneck" its plans come from the bottleneck search
         self.pipeline_k = max(1, int(pipeline_k))
-        self.model = build_model(cfg, tp=tp, use_kernel=use_kernel,
-                                 device=self.device)
+        self.part = part or NULL
+        self.model = build_model(cfg, tp=tp, part=self.part,
+                                 use_kernel=use_kernel, device=self.device)
         injected = params is not None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
+        if self.part.mesh is not None:
+            params = _place_params(params, cfg, self.part.mesh, injected)
         self.params = _own_expert_rows(params, cfg, injected)
+        self.exchange_log: List[dict] = []
         # non-greedy sampling draws from its own seeded generator
         self._sample_gen = torch.Generator(
             device=self.device).manual_seed(seed + 0x5EED)
@@ -307,11 +347,26 @@ class _EngineBase:
 
     # ------------------------------------------------------------- telemetry
     def _record_step(self, dt: float):
+        if self.part.mesh is not None:
+            dt = self._slowest(dt)
         self.step_times.append(dt)
         # only live devices heartbeat: a failed device stays silent (its
         # availability estimate pinned at zero) until it rejoins
         for j in self.net.active_ids:
             self.monitor.record_step(j, dt)
+
+    def _slowest(self, dt: float) -> float:
+        """The slowest rank's step time, the same on every rank of the
+        mesh (one scalar all-reduce a mesh dimension): the controller reads
+        step times, and its plans must not differ between ranks."""
+        import torch.distributed as dist
+        mesh = self.part.mesh
+        t = torch.tensor([dt], dtype=torch.float64, device=mesh_device(mesh))
+        for m in range(mesh.ndim):
+            if mesh.size(m) > 1:
+                dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                                group=mesh.get_group(m))
+        return float(t.item())
 
     def _load_signal(self) -> tuple:
         """(arrivals per scheduler step, queue depth) since the last
@@ -373,20 +428,31 @@ class _EngineBase:
             return self._migrate_vlm_state(state, rel, G, permute_params)
         if rel.shape[0] != self.cfg.n_layers:
             rel = np.repeat(rel, self.cfg.n_layers, axis=0)
+        # on a mesh the rows that change rank move between ranks; what this
+        # rank sent is counted apart for the weights and the cache
+        sent_w: Dict[str, int] = {}
+        sent_kv: Dict[str, int] = {}
         if permute_params:
-            self.params = permute_model_heads_layers(self.params, rel,
-                                                     group_size=G)
+            self.params = permute_model_heads_layers(
+                self.params, rel, group_size=G, sent=sent_w)
         # the head axis is -2 of the values of a dense (L, B, T, KvE, dh)
         # cache, a ring and a paged (L, n_pages + 1, P, KvE, dh) store
         # alike, and -1 of int8 scales; each KV head's rep replicas move
         # with it
         cache["k"], cache["v"] = apply_layer_head_perms(
             cache["k"], cache["v"], rel, head_axis=-2, group_size=G,
-            rep=hd.rep)
+            rep=hd.rep, sent=sent_kv)
         if "k_sc" in cache:
             cache["k_sc"], cache["v_sc"] = apply_layer_head_perms(
                 cache["k_sc"], cache["v_sc"], rel, head_axis=-1,
-                group_size=G, rep=hd.rep)
+                group_size=G, rep=hd.rep, sent=sent_kv)
+        if self.part.mesh is not None:
+            self.exchange_log.append({
+                "step": self.decode_steps,
+                "kv_rows": sent_kv.get("rows", 0),
+                "kv_bytes": sent_kv.get("bytes", 0),
+                "weight_rows": sent_w.get("rows", 0),
+                "weight_bytes": sent_w.get("bytes", 0)})
         return True, None
 
     def _migrate_vlm_state(self, state: Dict[str, Any], rel: np.ndarray,
@@ -588,7 +654,11 @@ class ServingEngine(_EngineBase):
             self._rows_layers = self.cfg.n_layers
             self._head_rows, self._head_inv = identity_head_rows(
                 self._rows_layers, hd.Hp)
-            self._phys_perms = None   # layout actually applied to weights
+            self._phys_perms = None   # the plan's perms, as the reference
+            # the layout the migrations applied: position p of layer l
+            # holds head ``_layout[l, p]`` of the init's order
+            self._layout = self._head_rows.copy()
+            self._local_rows = self._localize(self._head_rows)
         self.states: List[Dict[str, Any]] = [
             self._attach_head_rows(self._fresh_state(self.rows_per_group))
             for _ in range(self.pipeline_k)]
@@ -702,35 +772,62 @@ class ServingEngine(_EngineBase):
             # weights/caches now sit in the plan's layout; the kernel
             # gather maps must follow the same source of truth
             self._phys_perms = plan["perms"]
+            if self._rows_layers:
+                rel = relative_perms(plan["prev_perms"], plan["perms"])
+                self._layout = np.take_along_axis(
+                    self._layout, np.broadcast_to(rel, self._layout.shape),
+                    axis=1)
         e_applied, e_reason = self._migrate_experts(plan)
         self._refresh_head_rows(plan)
         self._log_interval(plan, applied, reason, e_applied, e_reason)
 
     # ----------------------------------------------------- kernel row maps
     def _attach_head_rows(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The current kernel row maps into ``state``: on a mesh this
+        rank's own (``_localize``)."""
         if not self._rows_layers:
             return state
-        state["head_rows"] = torch.as_tensor(self._head_rows,
-                                             device=self.device)
-        state["head_inv"] = torch.as_tensor(self._head_inv,
-                                            device=self.device)
+        rows, inv = (self._head_rows, self._head_inv) \
+            if self.part.mesh is None else self._local_rows
+        state["head_rows"] = torch.as_tensor(rows, device=self.device)
+        state["head_inv"] = torch.as_tensor(inv, device=self.device)
         return state
+
+    def _localize(self, rows: np.ndarray) -> tuple:
+        """Row maps (L, Hp) of physical q-head rows cut to the heads this
+        rank holds (``partitioning.local_head_rows``); None without a
+        mesh."""
+        if self.part.mesh is None:
+            return None
+        Hp = self.model.hd.Hp
+        lo, n = local_extent((Hp,), Sharding(self.part.mesh, placements(
+            self.part.mesh, ("model",))))[0]
+        return local_head_rows(rows, lo, n)
 
     def _refresh_head_rows(self, plan: dict):
         """Rebuild the kernel gather maps from the controller's plan: the
         resident slices of the BlockGraph placement, mapped through the
         physical layout actually applied to weights and caches.  After a
         migration the maps MUST be rebuilt or the kernel would read stale
-        rows."""
+        rows.  The whole maps name the plan's perms, as the reference's do;
+        a rank of a mesh takes its own rows from the layout the migrations
+        applied (``_layout``): the heads it holds are that layout's
+        chunk."""
         if not self._rows_layers:
             return
-        rows, inv = head_row_maps(
-            plan["place"], self.controller.blocks, self.net.n_devices,
-            self.model.hd.Hp, perms=self._phys_perms)
+        blocks, n_dev, Hp = (self.controller.blocks, self.net.n_devices,
+                             self.model.hd.Hp)
+        rows, inv = head_row_maps(plan["place"], blocks, n_dev, Hp,
+                                  perms=self._phys_perms)
         # a columns-mode controller's one row serves every model layer
         shape = (self._rows_layers, rows.shape[1])
         self._head_rows = np.broadcast_to(rows, shape).copy()
         self._head_inv = np.broadcast_to(inv, shape).copy()
+        if self.part.mesh is not None:
+            applied, _ = head_row_maps(plan["place"], blocks, n_dev, Hp,
+                                       perms=self._layout)
+            self._local_rows = self._localize(
+                np.broadcast_to(applied, shape))
         for st in self.states:
             self._attach_head_rows(st)
 

@@ -1492,6 +1492,86 @@ def test_flash_kernel_at_the_tp16_layouts(cuda, dtype, H, KvE):
                  dh=128, seed=H)
 
 
+def _shard_decode_args(cuda, kind, dtype, rng, *, B=3, H=8, KvE=4, T=80,
+                       dh=64, P=16):
+    """Kernel-layout arguments of ``kind``'s decode kernel (without rows):
+    K/V and scales are transposed views of model-layout caches, a paged
+    store's pages scrambled."""
+    from repro_torch.models.layers import _q8
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    kc, vc = (torch.from_numpy(rng.standard_normal((B, T, KvE, dh),
+                                                   np.float32))
+              for _ in range(2))
+    q, kc, vc = (t.to(cuda, dtype) for t in (q, kc, vc))
+    lens = torch.tensor([0, T, 37][:B], dtype=torch.int32, device=cuda)
+    pmap = None
+    if "paged" in kind:
+        n_log = T // P
+        order = torch.as_tensor(rng.permutation(B * n_log), device=cuda)
+        pools = []
+        for c in (kc, vc):
+            pool = torch.empty((B * n_log, P, KvE, dh), dtype=dtype,
+                               device=cuda)
+            pool[order] = c.reshape(B * n_log, P, KvE, dh)
+            pools.append(pool)
+        kc, vc = pools
+        pmap = order.reshape(B, n_log).to(torch.int32)
+    if "int8" in kind:
+        (kc, ks), (vc, vs) = _q8(kc), _q8(vc)
+        ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+        if "paged" in kind:
+            ks, vs = ks[..., None], vs[..., None]
+        kv = (kc.transpose(1, 2), ks, vc.transpose(1, 2), vs)
+    else:
+        kv = (kc.transpose(1, 2), vc.transpose(1, 2))
+    return (q,) + kv + (lens,) + ((pmap,) if pmap is not None else ())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["resident", "int8_resident",
+                                  "paged_resident", "int8_paged_resident"])
+def test_decode_kernels_on_tp4_head_shards(cuda, kind, dtype):
+    """The tp-4 layout's head shards (8 q heads over 4 KV rows: 2 over 1
+    a shard): a placement's row maps through a non-identity applied
+    layout, localized to each shard (``local_head_rows``), run through
+    the kernel on the shard's q heads and KV rows; each shard's output
+    equals its plain version and the shards put together equal the whole
+    call, at the kernel tolerances (not bit for bit: the split follows
+    KvE)."""
+    from repro_torch.core.blocks import make_blocks
+    from repro_torch.core.placement_bridge import head_row_maps
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.partitioning import local_head_rows
+    kern = getattr(da, f"decode_attention_{kind}")
+    plain = getattr(da, f"decode_attention_{kind}_plain")
+    rng = np.random.default_rng(5)
+    H, KvE, ranks = 8, 4, 4
+    G, n, nk = H // KvE, H // ranks, KvE // ranks
+    args = _shard_decode_args(cuda, kind, dtype, rng, H=H, KvE=KvE)
+    layout = (rng.permutation(KvE)[:, None] * G + np.arange(G)).reshape(
+        1, -1)
+    rows, _ = head_row_maps(rng.integers(0, 4, H + 2), make_blocks(H), 4,
+                            H, perms=layout)
+    whole = kern(*args, torch.as_tensor(rows[0], device=cuda))
+    whole = whole[:, torch.as_tensor(np.argsort(rows[0]), device=cuda)]
+    parts = []
+    for r in range(ranks):
+        lr, li = local_head_rows(rows, r * n, n)
+        sargs = (args[0][:, r * n:(r + 1) * n],) + tuple(
+            a[:, r * nk:(r + 1) * nk] if a.dim() >= 3 else a
+            for a in args[1:])
+        lrows = torch.as_tensor(lr[0], device=cuda)
+        out = kern(*sargs, lrows)
+        want = plain(*sargs, lrows)
+        torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+        assert _row_rel_err(out, want) <= DECODE_ROW_REL[dtype]
+        parts.append(out[:, torch.as_tensor(li[0], device=cuda)])
+    together = torch.cat(parts, dim=1)
+    torch.testing.assert_close(together.float(), whole.float(),
+                               **TOLS[dtype])
+    assert _row_rel_err(together, whole) <= DECODE_ROW_REL[dtype]
+
+
 def _tp_engine_streams(cuda, paged):
     from repro_torch.configs import get_config
     from repro_torch.core.network import DeviceNetwork
