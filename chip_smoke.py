@@ -55,10 +55,14 @@ DeviceMesh over NCCL llama3-8b's params are placed, saved, restored
 through ``elastic_restore`` (every sha1 equal) and run the sharded
 forward through the flash kernel; the four decode kernels run on each
 head shard of the tp-4 layout with a straggler plan's rank-local rows
-(held to their plain versions and, put together, to the whole call); and
-``ServingEngine(part=...)`` serves llama3-8b (4 layers) sharded on that
-mesh from each cache kind, each rank's KV shard placed by the decode-state
-rules, with streams equal to the unsharded engine's.  Every prefill whose queries and keys share their positions
+(held to their plain versions and, put together, to the whole call), and
+so does the ring kernel on mixtral-8x7b's; ``ServingEngine(part=...)``
+serves llama3-8b (4 layers) sharded on that mesh from each cache kind,
+each rank's KV shard placed by the decode-state rules, with streams equal
+to the unsharded engine's; and ``make_engine(part=...)`` serves
+mixtral-8x7b (4 layers) on a (1, 1, 1) ("pod", "data", "model") mesh
+through the wave engine over its ring, experts placed over "pod", with
+streams equal to the unsharded engine's.  Every prefill whose queries and keys share their positions
 (bucketed, lock-step, ring) runs the flash attention kernel.  It checks
 that the paged decode kernels give the linear ones' output bit for bit on
 the same cache in scrambled pages, and in float32 that greedy streams
@@ -92,6 +96,7 @@ GPU, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1297,15 +1302,17 @@ def expert_straggler(eng, at: int):
 
 
 def mixtral_engine(cfg, *, use_kernel, n_requests, max_new, seed=0,
-                   params=None, n_slots=RING_B):
+                   params=None, n_slots=RING_B, **kw):
     """``make_engine(mode="auto")`` for ``cfg`` over an 8192-token extent
     (a ring of the 4096-token window), λ = 8, four simulated devices, with
-    ``n_requests`` 4096-token prompts from ``default_rng(seed)``."""
+    ``n_requests`` 4096-token prompts from ``default_rng(seed)``; ``kw``
+    goes to the engine (a partitioner)."""
     from repro_torch.core.network import DeviceNetwork
     from repro_torch.serving.engine import make_engine
     eng = make_engine(cfg, mode="auto", n_slots=n_slots, max_seq=8192,
                       lam=8, seed=0, net=DeviceNetwork.sample(4, seed=1),
-                      use_kernel=use_kernel, params=params, device="cuda")
+                      use_kernel=use_kernel, params=params, device="cuda",
+                      **kw)
     rng = np.random.default_rng(seed)
     for _ in range(n_requests):
         eng.submit(rng.integers(0, cfg.vocab_size, RING_PROMPT),
@@ -4423,6 +4430,95 @@ def phase_shard_kernels_vs_plain():
             f"{DECODE_ROW_REL[torch.float32]:.0e} f32); bf16 {ms_shard:.4f} "
             f"ms a shard against {ms_whole:.4f} ms the whole call")
     check(not failed, "shard kernels: " + "; ".join(failed[:6]))
+    shard_ring_vs_plain()
+
+
+def shard_ring_vs_plain():
+    """The ring kernel on each tp-4 head shard of mixtral-8x7b at
+    published widths (the tp-4 layout is tp 1's: 32 q heads over 8 KV
+    heads, dh 128; a shard 8 over 2), B 4 over a wrapped 4096-slot ring
+    (lengths 8192, 8000, 6001, 4097), every layer's rows of a mixtral
+    straggler plan localized to each shard through the layout its
+    migrations applied; the slot positions are the whole ring's on every
+    shard (replicated, as the decode-state rule places them).  Each
+    shard's output held to its plain version, and the four put together
+    to the whole call, at TOLS and RING_ROW_REL (f32 and bf16); then one
+    shard's call timed against the whole call (bf16).  Comparison
+    launches: not counted.  Returns (ms a shard, ms the whole call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ring_resident as kern,
+        decode_attention_ring_resident_plain as plain)
+    from repro_torch.models.layers import head_dims
+    from repro_torch.models.partitioning import local_head_rows
+    cfg = get_config("mixtral-8x7b")
+    hd = head_dims(cfg, SHARDS)
+    check((hd.Hp, hd.KvE, hd.dh) == (MAIN_H, MAIN_KVE, MAIN_DH),
+          f"tp-4 mixtral-8x7b layout {hd}")
+    rows, layout, applied = straggler_rows(cfg)
+    moved = int((layout != np.arange(hd.Hp)).sum())
+    log(f"shard ring kernel: a straggler plan of mixtral-8x7b x{N_LAYERS} "
+        f"layers after {applied} applied migrations, {moved} (layer, "
+        f"position) cells off the identity layout")
+    check(applied > 0 and moved > 0, "shard ring: no migration applied")
+    n, nk = hd.Hp // SHARDS, hd.KvE // SHARDS
+    local = [local_head_rows(rows, r * n, n) for r in range(SHARDS)]
+    lengths = [8192, 8000, 6001, 4097]
+    worst = {"plain": 0.0, "whole": 0.0}
+    failed = []
+    for i, dt in enumerate((torch.float32, torch.bfloat16)):
+        args = ring_inputs(dt, n_written=8192, lengths=lengths,
+                           seed=20 + i)[:-1]
+        for l in range(N_LAYERS):
+            whole = kern(*args, torch.as_tensor(rows[l], device="cuda"),
+                         window=RING_W)
+            whole = whole[:, torch.as_tensor(np.argsort(rows[l]),
+                                             device="cuda")]
+            parts = []
+            for r, (lr, li) in enumerate(local):
+                sargs = shard_args(args, r, n, nk)
+                lrows = torch.as_tensor(lr[l], device="cuda")
+                out = kern(*sargs, lrows, window=RING_W)
+                want = plain(*sargs, lrows, window=RING_W)
+                rel = row_rel_err(out, want)
+                worst["plain"] = max(worst["plain"], rel)
+                if not (torch.allclose(out.float(), want.float(), **TOLS[dt])
+                        and rel <= RING_ROW_REL[dt]):
+                    failed.append(f"{dt} layer {l} shard {r} vs plain "
+                                  f"({rel:.3e})")
+                parts.append(out[:, torch.as_tensor(li[l], device="cuda")])
+            together = torch.cat(parts, dim=1)
+            rel = row_rel_err(together, whole)
+            worst["whole"] = max(worst["whole"], rel)
+            if not (torch.allclose(together.float(), whole.float(),
+                                   **TOLS[dt])
+                    and rel <= RING_ROW_REL[dt]):
+                failed.append(f"{dt} layer {l}: shards put together vs the "
+                              f"whole call ({rel:.3e})")
+    args = ring_inputs(torch.bfloat16, n_written=8192, lengths=lengths,
+                       seed=21)[:-1]
+    whole_rows = torch.as_tensor(rows[-1], device="cuda")
+    shard_calls = [(shard_args(args, r, n, nk),
+                    torch.as_tensor(lr[-1], device="cuda"))
+                   for r, (lr, _) in enumerate(local)]
+    ms_whole = cuda_ms([lambda: kern(*args, whole_rows, window=RING_W)])
+    ms_shard = cuda_ms([lambda s=s: kern(*s[0], s[1], window=RING_W)
+                        for s in shard_calls])
+    q, _, _, lens, slot_pos = shard_calls[0][0]
+    bound, bound_by = decode_bound_ms(
+        q, lens, shard_calls[0][1], nk, RING_W,
+        valid=int(ring_valid(lens, slot_pos).sum()), extra_bytes=4 * RING_W)
+    log(f"decode_attention_ring_resident on the tp-4 shards ({SHARDS} x {n} "
+        f"q heads over {nk} KV rows, window {RING_W}, every layer's "
+        f"localized straggler rows): worst per-row relative gap to the "
+        f"plain version {worst['plain']:.3e}, of the shards put together to "
+        f"the whole call {worst['whole']:.3e} (limit "
+        f"{RING_ROW_REL[torch.bfloat16]:.0e} bf16, "
+        f"{RING_ROW_REL[torch.float32]:.0e} f32); bf16 {ms_shard:.4f} ms a "
+        f"shard (bound {bound:.4f} ms, {bound_by}) against {ms_whole:.4f} "
+        f"ms the whole call")
+    check(not failed, "shard ring kernel: " + "; ".join(failed[:6]))
+    return ms_shard, ms_whole
 
 
 def phase_mesh_serving():
@@ -4442,21 +4538,12 @@ def phase_mesh_serving():
     caches (0 paged), no other kernel.  NCCL refuses two ranks on one
     card, so the rows a migration sends between ranks are 0 here (the
     4-rank CPU test counts them).  Returns the launches by kernel."""
-    import socket
-    import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.partitioning import local, make_partitioner
     cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0,
-                            device_id=torch.device("cuda", 0))
     added = {"flash_attention": 0}
-    try:
+    with one_rank_nccl():
         part = make_partitioner(make_debug_mesh(1, 1))
         params = None
         for path, (name, over, kw) in PATHS.items():
@@ -4529,14 +4616,152 @@ def phase_mesh_serving():
             release()
         del params
         return added
+
+
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group on card 0 (NCCL refuses two ranks on
+    one card), destroyed when the phase ends, whatever its outcome."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield
     finally:
         dist.destroy_process_group()
 
 
+def phase_mesh_moe_serving():
+    """``WaveServingEngine(part=..., use_kernel=True)`` on a (1, 1, 1)
+    ("pod", "data", "model") NCCL mesh: mixtral-8x7b at published widths,
+    ``N_LAYERS`` layers, bf16, through ``make_engine(mode="auto")`` over
+    the 4096-slot ring (4 slots; 8 requests of 4096-token prompts in 2
+    waves, ``MESH_NEW`` new tokens each, λ 8, the expert straggler at step
+    ``MESH_STRAGGLE``), its expert stacks placed over "pod", its ring by
+    the decode-state rules.  The same weights and traffic run first
+    through the unsharded engine.  The sharded engine's kernel counts are
+    set to 0 just before it is driven and read just after.  Checks: greedy
+    streams and migration logs equal to the unsharded engine's, an expert
+    and a head migration applied, ring launches == decode steps x layers,
+    flash == waves x layers, no other kernel, each wave's local ring
+    shards written in place (one ``data_ptr`` per buffer over its decode
+    steps), the local expert stacks (L, E, D, F).  Returns the launches by
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.partitioning import (is_dtensor, local,
+                                                 make_partitioner)
+    cfg = get_config("mixtral-8x7b").with_overrides(n_layers=N_LAYERS)
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    runs = {}
+    with one_rank_nccl():
+        part = make_partitioner(make_mesh((1, 1, 1),
+                                          ("pod", "data", "model")))
+        for label, extra in (("unsharded", {}), ("mesh", dict(part=part))):
+            torch.cuda.reset_peak_memory_stats()
+            # the engines copy what they permute: ``params`` stays as drawn
+            eng = mixtral_engine(cfg, use_kernel=True, n_requests=8,
+                                 max_new=MESH_NEW, params=params, **extra)
+            fired = expert_straggler(eng, MESH_STRAGGLE)
+            seen = watch_logits(eng)
+            prefill = time_prefill(eng)
+            ptrs, inner = set(), eng.model.decode_step
+
+            def decode_step(p, state, tokens, inner=inner, ptrs=ptrs,
+                            prefill=prefill):
+                out = inner(p, state, tokens)
+                ptrs.add((prefill["calls"], tuple(
+                    local(t).data_ptr() for t in state["cache"].values())))
+                return out
+
+            eng.model.decode_step = decode_step
+            reset_launches()
+            t0 = time.monotonic()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = read_launches()
+            moe = eng.params["layers"]["moe"]
+            runs[label] = dict(
+                streams={r.rid: r.out_tokens for r in eng.finished},
+                log=[tuple(e[k] for k in ("step", "n_migrations",
+                                          "mig_bytes", "applied",
+                                          "n_expert_migrations",
+                                          "expert_mig_bytes",
+                                          "expert_applied"))
+                     for e in eng.migration_log],
+                launches=launches, wall=wall, ptrs=ptrs, fired=fired,
+                steps=eng.decode_steps, metrics=path_metrics(eng, wall),
+                waves=prefill["calls"], finite=bool(seen["finite"].item()),
+                experts=(is_dtensor(moe["w_gate"]),
+                         tuple(local(moe["w_gate"]).shape)),
+                exchange=list(eng.exchange_log),
+                peak=torch.cuda.max_memory_allocated() / 1e9)
+            log_split(eng, wall, prefill)
+            del eng, seen, moe
+            release()
+    del params
+    one, mesh = runs["unsharded"], runs["mesh"]
+    ring = mesh["launches"]["decode_attention_ring_resident"]
+    heads = [e for e in mesh["log"] if e[3] and e[1]]
+    experts = [e for e in mesh["log"] if e[6] and e[4]]
+    log(f"mesh (1, 1, 1) mixtral-8x7b x{N_LAYERS} bf16 ring (wave engine): "
+        f"{len(mesh['streams'])} requests in {mesh['waves']} waves, "
+        f"{mesh['steps']} decode steps in {mesh['wall']:.2f} s "
+        f"({mesh['metrics']['tok/s']:.1f} tok/s; unsharded "
+        f"{one['metrics']['tok/s']:.1f}); decode step median "
+        f"{mesh['metrics']['step median ms']:.2f} ms (unsharded "
+        f"{one['metrics']['step median ms']:.2f}); controller intervals "
+        f"mean {mesh['metrics']['interval mean ms']:.1f} ms (unsharded "
+        f"{one['metrics']['interval mean ms']:.1f}); straggler at step "
+        f"{mesh['fired']}; {len(heads)} intervals applied head migrations, "
+        f"{len(experts)} expert migrations ({sum(e[4] for e in experts)} "
+        f"rows, {sum(e[5] for e in experts) / 1e6:.1f} MB priced); sent to "
+        f"other ranks {mesh['exchange']}; local expert stack "
+        f"{mesh['experts'][1]}; launches "
+        f"{ {k: v for k, v in mesh['launches'].items() if v} }; peak memory "
+        f"{mesh['peak']:.2f} GB (unsharded {one['peak']:.2f})")
+    check(len(mesh["streams"]) == 8 and mesh["streams"] == one["streams"],
+          "mesh mixtral: streams differ from the unsharded engine's")
+    check(mesh["log"] == one["log"], "mesh mixtral: migration logs differ")
+    check(bool(heads) and bool(experts),
+          f"mesh mixtral: no head ({len(heads)}) or expert "
+          f"({len(experts)}) migration applied")
+    check(ring == mesh["steps"] * N_LAYERS,
+          f"mesh mixtral: ring launches {ring} != decode steps "
+          f"{mesh['steps']} x {N_LAYERS} layers")
+    check(mesh["launches"]["flash_attention"] == mesh["waves"] * N_LAYERS
+          and mesh["waves"] == 2, f"mesh mixtral: flash launches "
+          f"{mesh['launches']['flash_attention']} for {mesh['waves']} "
+          f"waves x {N_LAYERS} layers")
+    check(not any(v for k, v in mesh["launches"].items()
+                  if k not in ("decode_attention_ring_resident",
+                               "flash_attention")),
+          f"mesh mixtral: another kernel launched: {mesh['launches']}")
+    check(len({w for w, _ in mesh["ptrs"]}) == len(mesh["ptrs"]) == 2,
+          f"mesh mixtral: a ring buffer moved in memory within a wave "
+          f"({len(mesh['ptrs'])} pointer sets)")
+    check(mesh["experts"] == (True, (N_LAYERS, cfg.n_experts, cfg.d_model,
+                                     cfg.d_ff)),
+          f"mesh mixtral: expert stacks {mesh['experts']}")
+    check(mesh["finite"] and one["finite"], "mesh mixtral: non-finite "
+          "logits")
+    return {"decode_attention_ring_resident": ring,
+            "flash_attention": mesh["launches"]["flash_attention"]}
+
+
 def tp_phases(by_name):
     """The tp-16 phases, the one-card mesh, the decode kernels on the tp-4
-    head shards and sharded serving on the one-card mesh; their launches
-    add to those kernels' records."""
+    head shards and sharded serving on the one-card mesh (dense, then
+    MoE over the ring); their launches add to those kernels' records."""
     added = {"decode_attention_resident": 0, "flash_attention": 0}
     for phase in (phase_tp_dense, phase_tp_padded):
         launches = phase()
@@ -4549,9 +4774,10 @@ def tp_phases(by_name):
     release()
     phase_shard_kernels_vs_plain()
     release()
-    for name, n in phase_mesh_serving().items():
-        added[name] = added.get(name, 0) + n
-    release()
+    for phase in (phase_mesh_serving, phase_mesh_moe_serving):
+        for name, n in phase().items():
+            added[name] = added.get(name, 0) + n
+        release()
     for name, n in added.items():
         if name in by_name:      # --only tp times two kernels alone
             by_name[name]["launches"] = by_name[name].get("launches", 0) + n

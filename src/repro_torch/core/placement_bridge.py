@@ -536,7 +536,8 @@ def permute_model_heads_layers(params, perms, *, group_size: int = 1,
     return visit(params)
 
 
-def permute_model_experts_layers(params, perms):
+def permute_model_experts_layers(params, perms, *,
+                                 sent: Optional[dict] = None):
     """Physically relocate MoE expert rows, in place: row l of ``perms``
     reorders layer l's physical expert axis of ``w_gate``/``w_up``/
     ``w_down`` AND the ``owner``/``share`` maps that travel with the rows
@@ -546,7 +547,12 @@ def permute_model_experts_layers(params, perms):
     mesh slot holds which expert row changes.  Layer by layer, each stack
     is gathered and copied back into its own storage, so the move needs
     one layer's stack of scratch, not a second copy of every expert (the
-    reference returns new arrays instead).  Returns ``params``."""
+    reference returns new arrays instead).  Stacks sharded over "pod" (a
+    DTensor) exchange only the rows that change rank, each with its d_ff
+    slice, within each "model" coordinate's group (``_permute_layers_``;
+    ``sent`` counts the rows and bytes this rank sent, summed over the
+    three stacks); the replicated maps are permuted on every rank.
+    Returns ``params``."""
     rows = np.atleast_2d(np.asarray(perms))
 
     def visit(tree):
@@ -558,10 +564,10 @@ def permute_model_experts_layers(params, perms):
                     raise ValueError(
                         "expert migration needs owner/share maps "
                         "(install moe.expert_identity first)")
-                for name, axis in (("w_gate", -3), ("w_up", -3),
-                                   ("w_down", -3), ("owner", -1),
-                                   ("share", -1)):
-                    _permute_layers_(v[name], axis, rows)
+                for name in ("w_gate", "w_up", "w_down"):
+                    _permute_layers_(v[name], -3, rows, sent)
+                for name in ("owner", "share"):
+                    _permute_layers_(v[name], -1, rows)
             else:
                 visit(v)
 

@@ -35,20 +35,21 @@ def build_model(cfg: ModelConfig, *, tp: int = 1, part=NULL,
     at that degree (padded query heads, ``rep``-replicated KV heads;
     ``layers.head_dims``; RWKV-6 has no attention heads and ignores it).
     ``part`` (``partitioning``) maps the intermediates onto a mesh: the
-    dense family's ``forward``, prefills and ``decode_step`` then run
-    sharded, each rank holding its heads' KV cache; a partitioner with a
-    mesh raises ``NotImplementedError`` for any other family.  ``capacity_moe`` runs MoE layers through
-    GShard capacity dispatch at ``capacity_factor`` (attention families;
-    RWKV-6 and Zamba2 have no MoE, as in the reference, which ignores the
-    option for them).  ``remat`` is one of the reference's
-    ``REMAT_POLICIES`` names ("none", "full", "dots", "dots_no_batch"):
-    activation checkpointing under autograd (``transformer.remat_call``);
-    any other name raises."""
-    if part.mesh is not None and cfg.family != "dense":
+    dense and MoE families' ``forward``, prefills and ``decode_step`` then
+    run sharded, each rank holding its heads' KV cache (linear or ring)
+    and, for MoE, its experts' rows over "pod"; a partitioner with a mesh
+    raises ``NotImplementedError`` for any other family.  ``capacity_moe``
+    runs MoE layers through GShard capacity dispatch at
+    ``capacity_factor`` (attention families; RWKV-6 and Zamba2 have no
+    MoE, as in the reference, which ignores the option for them).
+    ``remat`` is one of the reference's ``REMAT_POLICIES`` names ("none",
+    "full", "dots", "dots_no_batch"): activation checkpointing under
+    autograd (``transformer.remat_call``); any other name raises."""
+    if part.mesh is not None and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"the {cfg.family} family does not run sharded yet (ROADMAP "
-            f"Queue 1 #18: MoE over \"pod\", then the RWKV-6, Mamba-2, "
-            f"audio and VLM paths); the dense family does")
+            f"Queue 1 #18: the RWKV-6, Mamba-2/zamba2, audio and VLM "
+            f"paths); the dense and MoE families do")
     common = dict(use_kernel=use_kernel, remat=remat,
                   device=resolve_device(device))
     if cfg.family == "ssm":

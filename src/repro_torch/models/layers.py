@@ -376,12 +376,15 @@ def _paged_gather(cache: dict, page_map, dtype):
 EMPTY_SLOT = -2 ** 30   # ring slot position that never passes a window
 
 
-def _ring_attention(p: dict, q, k, v, positions, cache: dict, cache_pos,
-                    window: int, attend, use_kernel: bool, head_rows,
-                    head_inv, part=NULL):
+def _ring_attention(q, k, v, positions, cache: dict, cache_pos,
+                    window: int, attend, finish, use_kernel: bool, head_rows,
+                    head_inv):
     """Sliding-window attention over a ring cache {"k","v"} (B, window,
     KvE, dh) whose "pos" (window,) holds the absolute position of each
-    slot, updated in place.
+    slot, updated in place; ``finish`` projects the attention output out.
+    On a mesh every tensor is the rank's local one: its batch rows and
+    heads of q, k, v and the ring, and its copy of the replicated "pos",
+    which every rank writes alike.
 
     Prefill (S > 1, positions ``cache_pos + arange(S)``, lock-step): attend
     over the in-flight K/V under the window mask — queries and keys share
@@ -413,7 +416,7 @@ def _ring_attention(p: dict, q, k, v, positions, cache: dict, cache_pos,
         cache["k"].copy_(torch.roll(tail_k, shift, dims=1))
         cache["v"].copy_(torch.roll(tail_v, shift, dims=1))
         cache["pos"].copy_(torch.roll(tail_pos, shift))
-        return _project_out(p, out, part=part)
+        return finish(out)
     idx = cache_pos % window
     cache["k"][:, idx] = k[:, 0]
     cache["v"][:, idx] = v[:, 0]
@@ -424,11 +427,11 @@ def _ring_attention(p: dict, q, k, v, positions, cache: dict, cache_pos,
         out = ops.decode_attention_ring_bshd(
             q, cache["k"], cache["v"], _decode_lengths(cache_pos, B, q.device),
             cache["pos"], window=window, rows=rows, inv_rows=inv)
-        return _project_out(p, out, part=part)
+        return finish(out)
     kv_pos = cache["pos"][None, :].expand(B, window)
     out = attend(cache["k"], cache["v"], kv_pos,
                  causal_mask(positions, kv_pos, window))
-    return _project_out(p, out, part=part)
+    return finish(out)
 
 
 def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
@@ -474,7 +477,7 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
     reference's ``attend`` dispatch, which the flash kernel's plain
     version repeats on the CPU.
     part: the intermediates' layout (``partitioning``).  With DTensor
-      parameters (a dense model on a mesh) the projections run through
+      parameters (a dense or MoE model on a mesh) the projections run through
       DTensor and attention on each rank's shard: its batch rows and the
       heads it holds (``partitioning.local``), with the cache a DTensor of
       the reference's decode-state layout whose local shard — batch rows
@@ -502,10 +505,6 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
             if write_valid is not None:
                 write_valid = _rows_of(part, write_valid, ("batch", "seq"))
         if cache is not None:
-            if "pos" in cache:
-                raise NotImplementedError(
-                    "a sharded ring cache is not ported (ROADMAP Queue 1 "
-                    "#18: with the MoE family)")
             cache = _cache_shards(cache, part, paged=page_map is not None)
         if head_rows is not None and head_rows.shape[-1] != q.shape[2]:
             raise ValueError(
@@ -535,9 +534,9 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
                                                   window), flash=use_kernel)
         return finish(out), None
     if page_map is None and window and cache["k"].shape[1] == window:
-        return _ring_attention(p, q, k, v, positions, cache, cache_pos,
-                               window, attend, use_kernel, head_rows,
-                               head_inv, part), cache
+        return _ring_attention(q, k, v, positions, cache, cache_pos,
+                               window, attend, finish, use_kernel, head_rows,
+                               head_inv), cache
     quant = "k_sc" in cache
     new = {"k": k, "v": v}
     if quant:
@@ -599,8 +598,9 @@ def _rows_of(part, t, axes):
 
 
 # the reference's layout constraints on an updated cache: a linear cache
-# (B, T, KvE, dh) and its scales (B, T, KvE) shard batch rows and heads,
-# a page store (n_pages + 1, P, KvE, dh) only heads
+# (B, T, KvE, dh) or a ring's values (B, window, KvE, dh) and int8 scales
+# (B, T, KvE) shard batch rows and heads, a page store (n_pages + 1, P,
+# KvE, dh) only heads; a ring's slot positions (window,) are replicated
 _CACHE_AXES = {False: ("batch", "cache_seq", "kv_heads", None),
                True: (None, None, "kv_heads", None)}
 
@@ -612,7 +612,8 @@ def _cache_shards(cache: dict, part, *, paged: bool) -> dict:
     (``Partitioner.lays_out``): a buffer laid out otherwise raises, as a
     redistributed copy would take the writes."""
     for name, t in cache.items():
-        if not part.lays_out(t, _CACHE_AXES[paged][:t.dim()]):
+        axes = () if name == "pos" else _CACHE_AXES[paged][:t.dim()]
+        if not part.lays_out(t, axes):
             raise ValueError(f"the cache's {name!r} is laid out "
                              f"{tuple(t.placements)}, not as the decode "
                              f"state's rules place it")

@@ -367,3 +367,142 @@ def like(out: torch.Tensor, ref):
     from torch.distributed.tensor import DTensor
     return DTensor.from_local(out, ref.device_mesh, ref.placements,
                               run_check=False)
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism: a MoE layer on local tensors with explicit collectives
+# ---------------------------------------------------------------------------
+
+def mesh_group(mesh, name: str):
+    """The process group of mesh dimension ``name``; None where the mesh
+    has no such dimension or it holds one rank (nothing to exchange)."""
+    names = tuple(mesh.mesh_dim_names)
+    if name not in names or _size(mesh, name) == 1:
+        return None
+    return mesh.get_group(names.index(name))
+
+
+def _shards(x, name: str, dim: int) -> bool:
+    """Whether DTensor ``x`` shards its dimension ``dim`` over mesh
+    dimension ``name``."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x):
+        return False
+    names = tuple(x.device_mesh.mesh_dim_names)
+    if name not in names:
+        return False
+    pl = x.placements[names.index(name)]
+    return isinstance(pl, Shard) and pl.dim == dim % x.ndim
+
+
+def gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank of ``group``'s ``t``, stacked along dimension 0 in rank
+    order (an all-gather); ``t`` itself without a group."""
+    if group is None:
+        return t
+    import torch.distributed as dist
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts)
+
+
+def scatter_rows_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``t``, each rank keeping its
+    chunk of dimension 0 in rank order (a reduce-scatter: the way back of
+    ``gather_rows`` for partial sums); ``t`` itself without a group."""
+    if group is None:
+        return t
+    import torch.distributed as dist
+    parts = [c.contiguous()
+             for c in t.chunk(dist.get_world_size(group))]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
+def sum_over(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t`` summed over the ranks of each group in turn (an all-reduce
+    each, in place; None entries skipped).  Returns ``t``."""
+    import torch.distributed as dist
+    for g in groups:
+        if g is not None:
+            dist.all_reduce(t, group=g)
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """How one MoE layer's work splits over a mesh (``expert_shard``).
+    This rank computes the physical expert rows ``[lo, lo + n)`` with its
+    d_ff slice; ``gather`` ("pod") is the group whose ranks hold other
+    expert rows and other tokens: the rank runs its rows on the tokens of
+    every rank there, and the partial outputs come back by a
+    reduce-scatter.  ``experts`` is the group holding the other expert
+    rows (``gather`` too, or, where the batch stays whole on it, a group
+    whose partial outputs are all-reduced), ``ff`` ("model") the group
+    holding the other d_ff slices, and ``tokens`` the groups of the data
+    axes whose ranks hold other tokens (global means are all-reduced over
+    them, ``token_ranks`` ranks in all).  Without a mesh: every row, no
+    group."""
+    lo: int
+    n: int
+    gather: Optional[object] = None
+    experts: Optional[object] = None
+    ff: Optional[object] = None
+    tokens: tuple = ()
+    token_ranks: int = 1
+
+    def gather_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """(B, ...) rows of this rank's tokens -> the rows of every rank
+        of ``gather``, whose tokens this rank's experts also serve."""
+        return gather_rows(t, self.gather)
+
+    def sum_partials(self, out: torch.Tensor) -> torch.Tensor:
+        """The layer's output on this rank's tokens from its partial one
+        (its expert rows and d_ff slice over the gathered tokens): summed
+        over the expert ranks — scattered back to each rank's tokens where
+        they were gathered — and over the d_ff slices."""
+        if self.gather is not None:
+            out = scatter_rows_sum(out, self.gather)
+        elif self.experts is not None:
+            out = sum_over(out, (self.experts,))
+        return sum_over(out, (self.ff,))
+
+    def sum_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """A sum over this rank's tokens -> the sum over every token of
+        the call (in place)."""
+        return sum_over(t, self.tokens)
+
+    def sum_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A count over this rank's (token, expert row) pairs -> the count
+        over every pair of the call (in place): over the expert rows'
+        ranks and the ranks of other tokens, each once."""
+        groups = self.tokens
+        if self.experts is not None and self.gather is None:
+            groups = groups + (self.experts,)
+        return sum_over(t, groups)
+
+
+def expert_shard(x, w) -> ExpertShard:
+    """The split of a MoE layer with input ``x`` (B, S, D) and expert
+    stack ``w`` (..., Ep, D, F) — its ``w_gate`` — over their mesh: the
+    expert rows ``w``'s shard holds (sharded over "pod" by
+    ``placement_bridge.param_spec`` where the mesh has one), whether its
+    d_ff slice is one of several ("model"), and which data axes shard
+    ``x``'s batch rows (``Partitioner.for_batch`` keeps a batch whole
+    there: every rank already holds every token, and nothing is
+    gathered).  A plain ``x``: every row, no group."""
+    if not is_dtensor(x):
+        return ExpertShard(0, w.shape[-3])
+    mesh = x.device_mesh
+    lo, n = local_range(w, w.ndim - 3)
+    experts = mesh_group(mesh, "pod") if _shards(w, "pod", -3) else None
+    tokens = [name for name in ("pod", "data")
+              if _shards(x, name, 0) and mesh_group(mesh, name) is not None]
+    return ExpertShard(
+        lo, n,
+        gather=experts if "pod" in tokens else None, experts=experts,
+        ff=mesh_group(mesh, "model") if _shards(w, "model", -1) else None,
+        tokens=tuple(mesh_group(mesh, name) for name in tokens),
+        token_ranks=int(np.prod([_size(mesh, name) for name in tokens])))

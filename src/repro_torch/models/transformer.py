@@ -118,10 +118,12 @@ class TransformerLM:
     degree (``layers.head_dims``: query heads zero-padded to ``Hp``, KV
     heads repeated ``rep`` times into ``KvE`` cache rows); on one device
     it computes the tp-1 function.  ``part`` (``partitioning``) maps the
-    intermediates onto a ``DeviceMesh``: with a dense model's parameters
-    placed as DTensors (``placement_bridge.param_shardings``), ``forward``,
-    the prefills and ``decode_step`` run sharded over the mesh, and every
-    fresh cache and decode state is placed as
+    intermediates onto a ``DeviceMesh``: with a dense or MoE model's
+    parameters placed as DTensors (``placement_bridge.param_shardings``;
+    a MoE model's expert stacks over "pod"), ``forward``, the prefills and
+    ``decode_step`` run sharded over the mesh — the MoE layers on local
+    tensors with explicit collectives (``moe.moe_block``) — and every
+    fresh cache and decode state, a ring too, is placed as
     ``placement_bridge.decode_state_shardings`` says, each rank building
     only its own shard (``build_model`` refuses a mesh for the other
     families)."""
@@ -162,6 +164,14 @@ class TransformerLM:
                     f"the mesh's model degree {m} must divide the padded "
                     f"query heads ({self.hd.Hp}) and the cache's KV rows "
                     f"({self.hd.KvE}): build with tp a multiple of it")
+            names = tuple(part.mesh.mesh_dim_names)
+            pod = part.mesh.size(names.index("pod")) if "pod" in names \
+                else 1
+            if cfg.is_moe and cfg.n_experts % pod:
+                raise ValueError(
+                    f"the mesh's \"pod\" degree {pod} must divide the "
+                    f"{cfg.n_experts} experts: each pod rank holds an equal "
+                    f"share of the expert rows")
 
     # ------------------------------------------------------------------ init
     def _init_layers(self, g: torch.Generator, lead: tuple, *,
@@ -239,9 +249,9 @@ class TransformerLM:
         if cfg.is_moe:
             if self.capacity_moe:
                 out, aux, freq = moe_block_capacity(
-                    cfg, p["moe"], h, self.capacity_factor)
+                    cfg, p["moe"], h, self.capacity_factor, part=part)
             else:
-                out, aux, freq = moe_block(cfg, p["moe"], h)
+                out, aux, freq = moe_block(cfg, p["moe"], h, part=part)
             return x + out, aux, freq
         return x + L.mlp_block(cfg, p["mlp"], h, part=part), None, None
 
@@ -373,17 +383,18 @@ class TransformerLM:
         return L.cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
     # ----------------------------------------------------------------- cache
-    def _kv_buffers(self, lead: tuple, dtype=None) -> dict:
+    def _kv_buffers(self, lead: tuple, dtype=None, *,
+                    quant: Optional[bool] = None) -> dict:
         """Zeroed K/V buffers of shape ``lead + (KvE, dh)``: int8 values
         plus float32 per-(token, head) scales ``lead + (KvE,)`` for
         ``kv_quant`` configs (half the resident cache; dequantized at the
-        attention read), else the working dtype.  On a mesh they are made
-        on the meta device, with no memory, for ``_placed`` to build each
-        rank's shard."""
+        attention read; ``quant`` overrides the config), else the working
+        dtype.  On a mesh they are made on the meta device, with no
+        memory, for ``_placed`` to build each rank's shard."""
         z = functools.partial(torch.zeros, device="meta" if self.part.mesh
                               is not None else self.device)
         shape = lead + (self.hd.KvE, self.hd.dh)
-        if self.cfg.kv_quant:
+        if self.cfg.kv_quant if quant is None else quant:
             return {"k": z(shape, dtype=torch.int8),
                     "v": z(shape, dtype=torch.int8),
                     "k_sc": z(shape[:-1], dtype=torch.float32),
@@ -434,22 +445,17 @@ class TransformerLM:
         arch served to at least its window keeps a ring of ``window``
         slots in the working dtype (int8 does not apply to a ring, as in
         the reference) with "pos" (L, window) holding each slot's absolute
-        position, ``EMPTY_SLOT`` until written."""
+        position, ``EMPTY_SLOT`` until written.  On a mesh each rank builds
+        its shard (``_placed``); "pos" is replicated."""
         T = self.cache_len(max_seq)
         if self.is_vlm:
             return self._kv_buffers((self.n_groups, 4, batch, T), dtype)
         lead = (self.cfg.n_layers, batch, T)
         if self.window and T == self.window:
-            if self.part.mesh is not None:
-                raise NotImplementedError(
-                    "a sharded ring cache is not ported (ROADMAP Queue 1 "
-                    "#18: with the MoE family)")
-            dtype = dtype or torch_dtype(self.cfg.dtype)
-            shape = lead + (self.hd.KvE, self.hd.dh)
-            return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                    "v": torch.zeros(shape, dtype=dtype, device=self.device),
-                    "pos": torch.full((self.cfg.n_layers, T), L.EMPTY_SLOT,
-                                      dtype=torch.int32, device=self.device)}
+            ring = self._kv_buffers(lead, dtype, quant=False)
+            ring["pos"] = torch.full((self.cfg.n_layers, T), L.EMPTY_SLOT,
+                                     dtype=torch.int32, device=self.device)
+            return self._placed(ring, batch)
         return self._placed(self._kv_buffers(lead, dtype), batch)
 
     def init_decode_state(self, params, batch: int, max_seq: int, *,
@@ -618,10 +624,13 @@ class TransformerLM:
             # XLA evaluates the reference's d * load + (1 - d) * freq as one
             # fused multiply-add, fma(d, load, (1 - d) * freq); in float64
             # the product d * load is exact, so one rounding to float32
-            # gives the same bits
-            load = state["expert_load"]
+            # gives the same bits.  On a mesh the load's layer axis is
+            # sharded over the data axes (the decode-state rule): each rank
+            # writes its layers (the routed fractions are whole everywhere)
+            lo, n = local_range(state["expert_load"], 0)
+            load = local(state["expert_load"])
             load.copy_(load.double() * _EWMA_D
-                       + (freqs * _EWMA_1MD).double())
+                       + (freqs[lo:lo + n] * _EWMA_1MD).double())
         return logits[:, 0], state
 
     # ------------------------------------------------------- paged caching

@@ -51,12 +51,13 @@ expansion plan; ``slow_device`` pins load the next interval observes;
 The controller drives a simulated device network, as in the reference: the
 model runs on one GPU (or the CPU), and the placement decides which
 (layer, head) rows and experts each simulated device holds.  With a
-partitioner on a ``DeviceMesh`` (``part``, the dense family) the engine
-runs on every rank of the mesh at once: each rank holds its shard of the
-weights and its heads' shard of the KV cache, runs the same scheduler and
-controller from the same seed (so every rank's plans and logs are equal,
-and none is broadcast), samples from whole logits, and a migration moves
-only the KV and weight rows that change rank between ranks.
+partitioner on a ``DeviceMesh`` (``part``, the dense and MoE families) the
+engine runs on every rank of the mesh at once: each rank holds its shard
+of the weights (a MoE arch's experts over "pod") and its heads' shard of
+the KV cache (linear or ring), runs the same scheduler and controller
+from the same seed (so every rank's plans and logs are equal, and none is
+broadcast), samples from whole logits, and a migration moves only the KV,
+weight and expert rows that change rank between ranks.
 """
 from __future__ import annotations
 
@@ -86,7 +87,8 @@ from repro_torch.models.api import build_model
 from repro_torch.models.moe import expert_identity
 from repro_torch.models.partitioning import (NULL, Sharding, is_dtensor,
                                              local_extent, local_head_rows,
-                                             mesh_device, place, placements)
+                                             mesh_device, place, placements,
+                                             whole)
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.serving.paging import PagedKVAllocator
@@ -144,15 +146,16 @@ def default_buckets(max_seq: int, lo: int = 8) -> List[int]:
 def _place_params(params: Dict[str, Any], cfg: ModelConfig, mesh,
                   injected: bool) -> Dict[str, Any]:
     """``params`` placed on ``mesh`` as ``param_shardings`` says (each rank
-    keeps its slice; DTensor leaves stay).  Migrations permute the placed
-    weights in place, so an injected leaf is copied first: its slice on a
-    one-device mesh would be the caller's own storage."""
+    keeps its slice; DTensor leaves keep theirs).  Migrations permute the
+    placed weights in place, so an injected leaf is copied first: its
+    slice on a one-device mesh, or an injected DTensor, would be the
+    caller's own storage."""
     shardings = flatten(param_shardings(params, cfg, mesh))
 
     def one(path, leaf):
-        if is_dtensor(leaf):
-            return leaf
-        return place(leaf.clone() if injected else leaf, shardings[path])
+        if injected:
+            leaf = leaf.clone()
+        return leaf if is_dtensor(leaf) else place(leaf, shardings[path])
     return map_with_path(one, params)
 
 
@@ -205,14 +208,17 @@ class _EngineBase:
     its KV head's ``rep`` cache rows; without ``net`` the controller
     places over ``max(tp, 4)`` simulated devices, as the reference's.
 
-    ``part`` (``partitioning.Partitioner`` with a mesh; the dense family)
-    serves sharded: the model is built with it, the weights are placed by
-    ``placement_bridge.param_shardings`` (injected ones copied first, as
-    migrations permute the placed weights in place) and the decode states
-    by ``decode_state_shardings``; every rank of the mesh runs the engine
+    ``part`` (``partitioning.Partitioner`` with a mesh; the dense and MoE
+    families) serves sharded: the model is built with it, the weights are
+    placed by ``placement_bridge.param_shardings`` (injected ones copied
+    first, as migrations permute the placed weights in place; a MoE
+    arch's expert stacks over "pod" where the mesh has one, with the
+    ``owner``/``share`` maps replicated) and the decode states by
+    ``decode_state_shardings``; every rank of the mesh runs the engine
     with the same arguments and agrees on each step's time, so the
     controller's plans match across ranks.  ``exchange_log`` records, per
-    applied migration, the rows and bytes this rank sent to others."""
+    applied migration, the rows and bytes this rank sent to others: KV
+    rows, attention weight rows and expert rows (each a d_ff slice)."""
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int = 4,
                  max_seq: int = 512, lam: int = 16, seed: int = 0,
@@ -241,8 +247,12 @@ class _EngineBase:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
         if self.part.mesh is not None:
-            params = _place_params(params, cfg, self.part.mesh, injected)
-        self.params = _own_expert_rows(params, cfg, injected)
+            # the identity expert maps first, so that they are placed
+            # (replicated) with the rest; placing copies injected leaves
+            self.params = _place_params(_own_expert_rows(params, cfg, False),
+                                        cfg, self.part.mesh, injected)
+        else:
+            self.params = _own_expert_rows(params, cfg, injected)
         self.exchange_log: List[dict] = []
         # non-greedy sampling draws from its own seeded generator
         self._sample_gen = torch.Generator(
@@ -447,12 +457,10 @@ class _EngineBase:
                 cache["k_sc"], cache["v_sc"], rel, head_axis=-1,
                 group_size=G, rep=hd.rep, sent=sent_kv)
         if self.part.mesh is not None:
-            self.exchange_log.append({
-                "step": self.decode_steps,
-                "kv_rows": sent_kv.get("rows", 0),
-                "kv_bytes": sent_kv.get("bytes", 0),
-                "weight_rows": sent_w.get("rows", 0),
-                "weight_bytes": sent_w.get("bytes", 0)})
+            self._log_exchange(kv_rows=sent_kv.get("rows", 0),
+                               kv_bytes=sent_kv.get("bytes", 0),
+                               weight_rows=sent_w.get("rows", 0),
+                               weight_bytes=sent_w.get("bytes", 0))
         return True, None
 
     def _migrate_vlm_state(self, state: Dict[str, Any], rel: np.ndarray,
@@ -483,10 +491,11 @@ class _EngineBase:
         """Average the decode states' router-load EWMAs ((L, E)
         routed-token fractions), normalize rows to sum 1, and hand them to
         the controller's expert cost model.  No-op for expert-oblivious
-        cost models."""
+        cost models.  On a mesh a load's layers are sharded over the data
+        axes: every rank reads the whole (one small gather each)."""
         if not self.cost.n_experts:
             return
-        loads = [st["expert_load"].cpu().numpy() for st in states
+        loads = [whole(st["expert_load"]).cpu().numpy() for st in states
                  if "expert_load" in st]
         if not loads:
             return
@@ -498,7 +507,10 @@ class _EngineBase:
         """Execute the plan's expert migrations physically: permute the
         w_gate/w_up/w_down expert rows (and the owner/share maps that ride
         with them) by the per-layer relative permutations, in place —
-        weight-only, as head migrations permute cache rows.  Returns
+        weight-only, as head migrations permute cache rows.  On a mesh
+        whose "pod" holds the experts, rows that change rank move between
+        ranks, each rank sending its d_ff slice of them; the rows and
+        bytes it sent join this step's ``exchange_log`` entry.  Returns
         (applied, reason)."""
         if plan.get("prev_expert_perms") is None \
                 or not plan.get("expert_migrations"):
@@ -513,8 +525,27 @@ class _EngineBase:
         if rel.shape[0] != n:
             return False, ("expert plan rows do not match the stacked "
                            "expert weights")
-        self.params = permute_model_experts_layers(self.params, rel)
+        sent: Dict[str, int] = {}
+        self.params = permute_model_experts_layers(self.params, rel,
+                                                   sent=sent)
+        if self.part.mesh is not None:
+            self._log_exchange(expert_rows=sent.get("rows", 0),
+                               expert_bytes=sent.get("bytes", 0))
         return True, None
+
+    def _log_exchange(self, **sent):
+        """Add what this rank sent in this step's migrations to its
+        ``exchange_log`` entry (one a step: KV, attention weight and
+        expert rows and bytes)."""
+        if not self.exchange_log \
+                or self.exchange_log[-1]["step"] != self.decode_steps:
+            self.exchange_log.append(dict(
+                step=self.decode_steps, kv_rows=0, kv_bytes=0,
+                weight_rows=0, weight_bytes=0, expert_rows=0,
+                expert_bytes=0))
+        entry = self.exchange_log[-1]
+        for key, n in sent.items():
+            entry[key] += n
 
     # ------------------------------------------------- migration pricing
     def _live_cache_tokens(self) -> int:
@@ -601,6 +632,12 @@ class ServingEngine(_EngineBase):
             raise UnsupportedArchError(
                 "paged KV does not yet carry the VLM image K/V; "
                 "use paged=False")
+        part = kw.get("part")
+        if paged and cfg.is_moe and part is not None \
+                and part.mesh is not None:
+            raise UnsupportedArchError(
+                "paged caches for the MoE family on a mesh are not ported "
+                "(ROADMAP Queue 1 #18); use paged=False")
         # a paged engine prices cache memory (and so migration bytes) at
         # page granularity — what the allocator actually hands out
         super().__init__(cfg, cost_page_size=page_size if paged else 0, **kw)
@@ -1188,7 +1225,9 @@ class WaveServingEngine(_EngineBase):
     slots free only when the wave drains.  It serves sliding-window archs
     over their ring cache, the attention-free RWKV-6 and the Zamba2
     hybrid (whose head plans are logged as not applied), and any other
-    arch the port builds."""
+    arch the port builds; with ``part`` (the dense and MoE families) its
+    states are placed on the mesh and prefill and lock-step decode run
+    sharded, a ring's slot positions replicated on every rank."""
 
     def _next_wave(self) -> List[Request]:
         """Up to n_slots queued requests with equal prompt length."""

@@ -1572,6 +1572,50 @@ def test_decode_kernels_on_tp4_head_shards(cuda, kind, dtype):
     assert _row_rel_err(together, whole) <= DECODE_ROW_REL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_kernel_on_tp4_head_shards(cuda, dtype):
+    """The ring kernel on the tp-4 layout's head shards (16 q heads over 4
+    KV rows: 4 over 1 a shard) of a wrapped ring of 600 slots: a
+    placement's row maps through a non-identity applied layout, localized
+    to each shard (``local_head_rows``); each shard's output equals its
+    plain version and the shards put together equal the whole call, at
+    the ring's tolerances.  The ring's slot positions are whole on every
+    shard (replicated)."""
+    from repro_torch.core.blocks import make_blocks
+    from repro_torch.core.placement_bridge import head_row_maps
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ring_resident as kern,
+        decode_attention_ring_resident_plain as plain)
+    from repro_torch.models.partitioning import local_head_rows
+    rng = np.random.default_rng(6)
+    W, H, KvE, ranks = 600, 16, 4, 4
+    G, n, nk = H // KvE, H // ranks, KvE // ranks
+    args = _ring_args(cuda, dtype, H=H, KvE=KvE, n=2 * W + 37,
+                      lengths=(2 * W + 37, 2 * W, W + 1, 700), seed=6)[:-1]
+    layout = (rng.permutation(KvE)[:, None] * G + np.arange(G)).reshape(
+        1, -1)
+    rows, _ = head_row_maps(rng.integers(0, 4, H + 2), make_blocks(H), 4,
+                            H, perms=layout)
+    whole = kern(*args, torch.as_tensor(rows[0], device=cuda), window=W)
+    whole = whole[:, torch.as_tensor(np.argsort(rows[0]), device=cuda)]
+    parts = []
+    for r in range(ranks):
+        lr, li = local_head_rows(rows, r * n, n)
+        sargs = (args[0][:, r * n:(r + 1) * n],) + tuple(
+            a[:, r * nk:(r + 1) * nk] if a.dim() >= 3 else a
+            for a in args[1:])
+        lrows = torch.as_tensor(lr[0], device=cuda)
+        out = kern(*sargs, lrows, window=W)
+        want = plain(*sargs, lrows, window=W)
+        torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+        assert _row_rel_err(out, want) <= RING_ROW_REL[dtype]
+        parts.append(out[:, torch.as_tensor(li[0], device=cuda)])
+    together = torch.cat(parts, dim=1)
+    torch.testing.assert_close(together.float(), whole.float(),
+                               **TOLS[dtype])
+    assert _row_rel_err(together, whole) <= RING_ROW_REL[dtype]
+
+
 def _tp_engine_streams(cuda, paged):
     from repro_torch.configs import get_config
     from repro_torch.core.network import DeviceNetwork

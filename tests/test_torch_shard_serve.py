@@ -714,15 +714,35 @@ def test_paged_cache_on_a_mesh_with_data_above_1_is_refused():
                                   "rwkv6-7b", "zamba2-2.7b",
                                   "llama-3.2-vision-11b"])
 def test_serving_engine_refuses_a_mesh_outside_the_dense_family(arch):
+    """The engine refuses a mesh for the families that do not run sharded
+    (ROADMAP Queue 1 #18) and serves the MoE family on one: placing its
+    weights needs a real ``DeviceMesh``, so that case builds the engine on
+    a one-rank gloo mesh, its expert stacks DTensors there."""
     from repro_torch.configs import get_config
-    from repro_torch.models.partitioning import make_partitioner
-    from repro_torch.serving.engine import make_engine
+    from repro_torch.models.partitioning import is_dtensor, make_partitioner
+    from repro_torch.serving.engine import WaveServingEngine, make_engine
     from tests.conftest import reduced_config
     cfg = get_config(arch).with_overrides(
         **dataclasses.asdict(reduced_config(arch)))
-    part = make_partitioner(_StandInMesh((1, 4), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="#18"):
-        make_engine(cfg, part=part, tp=4, device="cpu")
+    if cfg.family != "moe":
+        part = make_partitioner(_StandInMesh((1, 4), ("data", "model")))
+        with pytest.raises(NotImplementedError, match="#18"):
+            make_engine(cfg, part=part, tp=4, device="cpu")
+        return
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        part = make_partitioner(make_debug_mesh(1, 1, device_type="cpu"))
+        eng = make_engine(cfg, part=part, tp=4, device="cpu")
+        assert isinstance(eng, WaveServingEngine) and eng.part is part
+        assert is_dtensor(eng.params["layers"]["moe"]["w_gate"])
+    finally:
+        dist.destroy_process_group()
 
 
 def test_one_row_stays_whole_on_the_data_axes():

@@ -324,14 +324,18 @@ def test_null_partitioner_leaves_tensors_alone():
 @pytest.mark.parametrize("arch", [a for a in ARCHS
                                   if get_config(a).family != "dense"])
 def test_a_mesh_is_refused_outside_the_dense_family(arch):
-    """Only the dense family's forward runs sharded: ``build_model``
-    refuses a partitioner with a mesh for the others (MoE, audio, VLM,
-    RWKV-6, Zamba2: ROADMAP Queue 1 #18), and takes ``NULL``."""
+    """Only the dense and MoE families run sharded: ``build_model``
+    refuses a partitioner with a mesh for the others (audio, VLM, RWKV-6,
+    Zamba2: ROADMAP Queue 1 #18) and builds the MoE model on it; every
+    family takes ``NULL``."""
     cfg = reduced_config(arch)
     cfg = get_config(arch).with_overrides(**dataclasses.asdict(cfg))
     mesh = part.make_partitioner(StandInMesh((2, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="#18"):
-        build_model(cfg, tp=2, part=mesh, device="cpu")
+    if cfg.family == "moe":
+        assert build_model(cfg, tp=2, part=mesh, device="cpu").part is mesh
+    else:
+        with pytest.raises(NotImplementedError, match="#18"):
+            build_model(cfg, tp=2, part=mesh, device="cpu")
     build_model(cfg, tp=2, part=part.NULL, device="cpu")
 
 
