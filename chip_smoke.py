@@ -62,7 +62,12 @@ each rank's KV shard placed by the decode-state rules, with streams equal
 to the unsharded engine's; and ``make_engine(part=...)`` serves
 mixtral-8x7b (4 layers) on a (1, 1, 1) ("pod", "data", "model") mesh
 through the wave engine over its ring, experts placed over "pod", with
-streams equal to the unsharded engine's.  Every prefill whose queries and keys share their positions
+streams equal to the unsharded engine's; the WKV6 kernel runs on
+rwkv6-7b's tp-4 head shards (bit-equal, put together, to the whole
+call) and zamba2's shared block's flash and resident kernels on its
+head shards; and ``make_engine(part=...)`` serves rwkv6-7b (4 layers)
+and zamba2-2.7b (2 supergroups) on the (1, 1) mesh, their recurrent
+layers on local tensors, with streams equal to the unsharded engine's.  Every prefill whose queries and keys share their positions
 (bucketed, lock-step, ring) runs the flash attention kernel.  It checks
 that the paged decode kernels give the linear ones' output bit for bit on
 the same cache in scrambled pages, and in float32 that greedy streams
@@ -85,7 +90,8 @@ and the AdamW update.
 times the kernels of several checkouts in turns instead (see ``ab``);
 ``--only train`` builds the kernels and runs only the training phases;
 ``--only tp`` the decode and flash kernel phases, the dense path and the
-tp-16, mesh and shard phases.
+tp-16, mesh and shard phases; ``--only ssm`` the recurrent families'
+shard and mesh phases.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -2044,17 +2050,18 @@ def head_straggler(eng, at: int):
 
 
 def rwkv6_engine(cfg, *, use_kernel, n_requests, prompt, max_new,
-                 params=None):
+                 params=None, **kw):
     """``make_engine(mode="auto")`` for ``cfg``: 8 slots, λ = 8, four
     simulated devices, ``n_requests`` prompts of ``prompt`` tokens from
     the ``traffic`` helper; random weights from seed 0 unless ``params``
-    are given."""
+    are given; ``kw``: the engine's other arguments (``part``)."""
     from repro_torch.core.network import DeviceNetwork
     from repro_torch.serving.engine import make_engine
-    eng = make_engine(cfg, mode="auto", n_slots=RWKV_B,
-                      max_seq=prompt + max_new + 8, lam=8, seed=0,
+    kw.setdefault("max_seq", prompt + max_new + 8)
+    eng = make_engine(cfg, mode="auto", n_slots=RWKV_B, lam=8, seed=0,
                       net=DeviceNetwork.sample(4, seed=1),
-                      use_kernel=use_kernel, params=params, device="cuda")
+                      use_kernel=use_kernel, params=params, device="cuda",
+                      **kw)
     for p in traffic(n_requests, cfg.vocab_size, length=prompt):
         eng.submit(p, max_new_tokens=max_new)
     return eng
@@ -2728,19 +2735,20 @@ def zamba2_cfg(n_layers=ZAMBA_LAYERS, **over):
 
 
 def zamba2_engine(cfg, *, use_kernel, n_requests, prompt, max_new,
-                  params=None, max_seq=ZAMBA_MAX_SEQ):
+                  params=None, max_seq=ZAMBA_MAX_SEQ, **kw):
     """``make_engine(mode="auto")`` for zamba2: 8 slots, λ = 8, four
     simulated devices, the "columns" layout (as the VLM path: per-layer
     plans of a graph layout cost hundreds of ms an interval and, like
     every plan, cannot apply to a hybrid state), ``n_requests`` prompts
     of ``prompt`` tokens; random weights from seed 0, then
-    ``seed_ssm_params``, unless ``params`` are given."""
+    ``seed_ssm_params``, unless ``params`` are given; ``kw``: the
+    engine's other arguments (``part``)."""
     from repro_torch.core.network import DeviceNetwork
     from repro_torch.serving.engine import make_engine
     eng = make_engine(cfg, mode="auto", n_slots=ZAMBA_B, max_seq=max_seq,
                       lam=8, seed=0, net=DeviceNetwork.sample(4, seed=1),
                       use_kernel=use_kernel, params=params, device="cuda",
-                      layer_mode="columns")
+                      layer_mode="columns", **kw)
     if params is None:
         seed_ssm_params(eng.params)
     for p in traffic(n_requests, cfg.vocab_size, length=prompt):
@@ -4431,6 +4439,8 @@ def phase_shard_kernels_vs_plain():
             f"ms a shard against {ms_whole:.4f} ms the whole call")
     check(not failed, "shard kernels: " + "; ".join(failed[:6]))
     shard_ring_vs_plain()
+    release()
+    zamba2_shared_block_shards()
 
 
 def shard_ring_vs_plain():
@@ -4758,10 +4768,336 @@ def phase_mesh_moe_serving():
             "flash_attention": mesh["launches"]["flash_attention"]}
 
 
+# ----------- the recurrent families on a DeviceMesh (tp-4 shards, (1, 1))
+def head_slice(t, r, n, dim=1):
+    """Rank ``r``'s ``n`` heads of ``t`` along ``dim`` as the rank holds
+    them: its own contiguous tensor, seen through ``t``'s layout (a
+    transposed view stays a transposed view of the rank's activations)."""
+    part = t.narrow(dim, r * n, n)
+    if dim == 1 and t.dim() == 4 and t.stride(1) < t.stride(2):
+        # a (B, H, S, dh) view of (B, S, H, dh) memory
+        return part.transpose(1, 2).contiguous().transpose(1, 2)
+    return part.contiguous()
+
+
+def wkv6_head_shards():
+    """The WKV6 kernel on the tp-4 head shards of rwkv6-7b at published
+    widths (B 8, 64 heads of 64, a shard 16), as a rank's model runs it:
+    r/k/v/w transposed views of the rank's own (B, S, 16, dh) activations,
+    its rows of u and its contiguous state shard, written in place
+    (``out_state``).  At S 1 (the per-step body) and S 1024 (the chunked
+    body), f32 and bf16, smooth and extreme decays: each shard held to its
+    plain version at RWKV_TOL, and the four shards put together to the
+    whole call (y and the final state) — heads do not interact, so bit for
+    bit is expected, and the gap is logged either way.  Then one shard's
+    call timed against the whole call (bf16), beside its bound: a shard
+    reads a quarter of the state bytes.  Comparison launches: not counted.
+    Returns {shape label: (ms a shard, ms the whole call, bound ms)}."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked as kern
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked_plain as plain
+    n = RWKV_H // SHARDS
+    failed, times = [], {}
+    for S in (1, RWKV_PROMPT):
+        for i, (dt, decays) in enumerate(
+                (dt, d) for dt in (torch.float32, torch.bfloat16)
+                for d in ("smooth", "extreme")):
+            args = rwkv6_inputs(dt, S=S, seed=40 + i, decays=decays)
+            y, s = kern(*args)
+            ys, states, worst = [], [], 0.0
+            for r in range(SHARDS):
+                sargs = tuple(head_slice(t, r, n, dim=0 if t.dim() == 2
+                                         else 1) for t in args)
+                out_y, out_s = kern(*sargs, out_state=sargs[5])
+                torch.cuda.synchronize()
+                want_y, want_s = plain(*tuple(head_slice(t, r, n, dim=0 if
+                                              t.dim() == 2 else 1)
+                                              for t in args))
+                worst = max(worst, (out_y - want_y).abs().max().item(),
+                            (out_s - want_s).abs().max().item())
+                if not (torch.allclose(out_y, want_y, **RWKV_TOL)
+                        and torch.allclose(out_s, want_s, **RWKV_TOL)
+                        and out_s.data_ptr() == sargs[5].data_ptr()):
+                    failed.append(f"S={S} {str(dt)[6:]} {decays} shard {r}")
+                ys.append(out_y)
+                states.append(out_s)
+            together = (torch.cat(ys, dim=1), torch.cat(states, dim=1))
+            same = torch.equal(together[0], y) and \
+                torch.equal(together[1], s)
+            gap = max((together[0] - y).abs().max().item(),
+                      (together[1] - s).abs().max().item())
+            if not (torch.allclose(together[0], y, **RWKV_TOL)
+                    and torch.allclose(together[1], s, **RWKV_TOL)):
+                failed.append(f"S={S} {str(dt)[6:]} {decays}: shards put "
+                              f"together vs the whole call ({gap:.3e})")
+            log(f"rwkv6_chunked on the tp-4 head shards ({SHARDS} x {n} of "
+                f"{RWKV_H} heads) {str(dt)[6:]:8s} B={RWKV_B} S={S:4d} "
+                f"{decays:7s} decays: worst gap to the plain version "
+                f"{worst:.3e}; shards put together vs the whole call: "
+                f"{'bit-equal' if same else f'max_abs_err={gap:.3e}'}")
+            del args, y, s, ys, states, together
+        # timing: the four shards' calls (distinct memory, a rank each)
+        # against the whole call's, both bf16 with the state in place
+        whole = [rwkv6_inputs(torch.bfloat16, S=S, seed=60 + c)
+                 for c in range(8 if S == 1 else 1)]
+        shards = [tuple(head_slice(t, r, n, dim=0 if t.dim() == 2 else 1)
+                        for t in whole[0]) for r in range(SHARDS)]
+        reps = (20, 50) if S == 1 else (4, 10)
+        ms_whole = cuda_ms([lambda a=a: kern(*a, out_state=a[5])
+                            for a in whole], *reps)
+        ms_shard = cuda_ms([lambda a=a: kern(*a, out_state=a[5])
+                            for a in shards], *reps)
+        bound, bound_by = rwkv6_bound_ms(shards[0][0], shards[0][3],
+                                         shards[0][4], shards[0][5])
+        bound_whole, _ = rwkv6_bound_ms(whole[0][0], whole[0][3],
+                                        whole[0][4], whole[0][5])
+        times[f"S={S}"] = (ms_shard, ms_whole, bound)
+        log(f"rwkv6_chunked bf16 S={S} on a tp-4 head shard ({n} heads): "
+            f"{ms_shard:.4f} ms (bound {bound:.4f} ms, {bound_by}) against "
+            f"{ms_whole:.4f} ms the whole call of {RWKV_H} heads (bound "
+            f"{bound_whole:.4f} ms): a shard takes "
+            f"{ms_shard / ms_whole:.2f} of the whole call's time for a "
+            f"quarter of its work")
+        del whole, shards
+        release()
+    check(not failed, "rwkv6 head shards: " + "; ".join(failed[:6]))
+    return times
+
+
+def zamba2_shared_block_shards():
+    """Zamba2's shared attention block on the tp-4 head shards at
+    zamba2-2.7b's widths (32 heads of 80 over 32 KV heads, G 1; a shard 8
+    over 8), as a rank's model runs it on its own contiguous activations
+    and cache shard: the flash kernel at the lock-step wave's prefill (B
+    8, S 1024, causal) and the resident decode kernel over identity rows
+    at the wave's extent (T 1096) with the lock-step and a mixed set of
+    lengths.  Each shard held to its plain version, the four put together
+    to the whole call, at the kernel phases' bounds (TOLS, FLASH_ROW_REL,
+    DECODE_ROW_REL); f32 and bf16.  Then one shard's call timed against
+    the whole call (bf16).  Comparison launches: not counted."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_resident as dec,
+        decode_attention_resident_plain as dec_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    H, dh = ZAMBA_DECODE["H"], ZAMBA_DECODE["dh"]
+    n = H // SHARDS
+    rows = torch.arange(n, dtype=torch.int32, device="cuda")
+    failed = []
+
+    def flash_shard(args, r):
+        return tuple(head_slice(t, r, n) for t in args)
+
+    def dec_shard(args, r):
+        q, k, v, lens, _ = args
+        return (head_slice(q, r, n), head_slice(k, r, n),
+                head_slice(v, r, n), lens, rows)
+
+    cases = [("flash", dt, lambda dt=dt: flash_inputs(
+        dt, B=ZAMBA_B, H=H, KvE=H, Sq=ZAMBA_PROMPT, dh=dh, seed=70),
+        lambda a: flash_attention(*a, causal=True),
+        lambda a: flash_attention_plain(*a, causal=True), flash_shard,
+        FLASH_ROW_REL[dt]) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(f"resident {label}", dt, lambda dt=dt, lens=lens:
+               decode_inputs(dt, seed=71, lengths=lens, **ZAMBA_DECODE),
+               lambda a: dec(*a), lambda a: dec_plain(*a), dec_shard,
+               DECODE_ROW_REL[dt])
+              for dt in (torch.float32, torch.bfloat16)
+              for label, lens in (("lock-step", ZAMBA_LOCKSTEP),
+                                  ("mixed", ZAMBA_MIXED))]
+    times = {}
+    for label, dt, inputs, kern, plain, cut, limit in cases:
+        args = inputs()
+        whole = kern(args)
+        parts, worst = [], 0.0
+        for r in range(SHARDS):
+            sargs = cut(args, r)
+            out = kern(sargs)
+            want = plain(sargs)
+            rel = row_rel_err(out, want)
+            worst = max(worst, rel)
+            if not (torch.allclose(out.float(), want.float(), **TOLS[dt])
+                    and rel <= limit):
+                failed.append(f"{label} {dt} shard {r} vs plain "
+                              f"({rel:.3e})")
+            parts.append(out)
+        together = torch.cat(parts, dim=1)
+        rel_whole = row_rel_err(together, whole)
+        if not (torch.allclose(together.float(), whole.float(), **TOLS[dt])
+                and rel_whole <= limit):
+            failed.append(f"{label} {dt}: shards put together vs the whole "
+                          f"call ({rel_whole:.3e})")
+        log(f"zamba2 shared block {label} on the tp-4 head shards ({SHARDS} "
+            f"x {n} of {H} heads, dh {dh}) {str(dt)[6:]}: worst per-row "
+            f"relative gap to the plain version {worst:.3e}, of the shards "
+            f"put together to the whole call {rel_whole:.3e}"
+            f"{' (bit-equal)' if torch.equal(together, whole) else ''} "
+            f"(limit {limit:.0e})")
+        if dt == torch.bfloat16:
+            shards = [cut(args, r) for r in range(SHARDS)]
+            reps = (20, 50) if label != "flash" else (4, 10)
+            ms_whole = cuda_ms([lambda: kern(args)], *reps)
+            ms_shard = cuda_ms([lambda a=a: kern(a) for a in shards], *reps)
+            times[label] = (ms_shard, ms_whole)
+            log(f"  bf16 {ms_shard:.4f} ms a shard against {ms_whole:.4f} "
+                f"ms the whole call")
+            del shards
+        del args, whole, parts, together
+        release()
+    check(not failed, "zamba2 shared block shards: " + "; ".join(failed[:6]))
+    return times
+
+
+def phase_mesh_ssm_serving():
+    """``make_engine(mode="auto", part=..., use_kernel=True)`` on a (1, 1)
+    ("data", "model") NCCL mesh for the recurrent families at published
+    widths, bf16: rwkv6-7b at 4 layers (``nonzero_adapters``) and
+    zamba2-2.7b at 2 of its 9 supergroups (``seed_ssm_params``), each
+    serving 16 requests of 256-token prompts (2 waves of 8), 32 new
+    tokens each, λ 8, a 500x head straggler at step 8; params placed by
+    ``param_shardings``, states by ``decode_state_shardings``.  The same
+    weights and traffic run first through the unsharded engine.  The
+    sharded engine's kernel counts are set to 0 just before it is driven
+    and read just after.  Checks: the wave engine, greedy streams and
+    migration logs equal to the unsharded engine's, plans logged as not
+    applied with the reference's reason and nothing sent to another rank,
+    the states' local shards written in place (one ``data_ptr`` per state
+    leaf over a wave's decode steps), launches exact — WKV6 == (decode
+    steps + prefills) x layers; zamba2's resident kernel == decode steps x
+    supergroups, flash == waves x supergroups — and no other kernel.
+    Logs peak memory and the eager step median against the unsharded
+    engine's.  Returns the launches by kernel."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.partitioning import (is_dtensor, local,
+                                                 make_partitioner)
+    from repro_torch.serving.engine import WaveServingEngine
+    from repro_torch.tree import flatten
+    from repro_torch.configs import get_config
+    prompt, new, n_req = 256, 32, 16
+    families = {
+        "rwkv6": (get_config("rwkv6-7b").with_overrides(n_layers=N_LAYERS),
+                  nonzero_adapters, rwkv6_engine, NO_HEADS),
+        "zamba2": (zamba2_cfg(), seed_ssm_params, zamba2_engine, NO_CACHE),
+    }
+    added = {"rwkv6_chunked": 0, "decode_attention_resident": 0,
+             "flash_attention": 0}
+    with one_rank_nccl():
+        part = make_partitioner(make_debug_mesh(1, 1))
+        for fam, (cfg, seed_params, make, reason) in families.items():
+            params = build_model(cfg, device="cuda").init(
+                torch.Generator(device="cuda").manual_seed(0))
+            seed_params(params)
+            runs = {}
+            for label, extra in (("unsharded", {}),
+                                 ("mesh", dict(part=part))):
+                torch.cuda.reset_peak_memory_stats()
+                eng = make(cfg, use_kernel=True, n_requests=n_req,
+                           prompt=prompt, max_new=new, params=params,
+                           max_seq=prompt + new + 8, **extra)
+                fired = head_straggler(eng, 8)
+                seen = watch_logits(eng)
+                prefill = time_prefill(eng)
+                ptrs, inner = set(), eng.model.decode_step
+
+                def decode_step(p, state, tokens, inner=inner, ptrs=ptrs,
+                                prefill=prefill):
+                    out = inner(p, state, tokens)
+                    ptrs.add((prefill["calls"], tuple(
+                        local(t).data_ptr()
+                        for t in flatten(state["cache"]).values()
+                        if t is not None)))
+                    return out
+
+                eng.model.decode_step = decode_step
+                reset_launches()
+                rwkv6_chunked.launches = 0
+                t0 = time.monotonic()
+                eng.run()
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                launches = read_launches()
+                launches["rwkv6_chunked"] = rwkv6_chunked.launches
+                leaves = flatten(eng.params)
+                runs[label] = dict(
+                    type=type(eng).__name__,
+                    streams={r.rid: r.out_tokens for r in eng.finished},
+                    log=[tuple(e[k] for k in ("step", "n_migrations",
+                                              "mig_bytes", "applied",
+                                              "reason"))
+                         for e in eng.migration_log],
+                    launches=launches, wall=wall, ptrs=ptrs, fired=fired,
+                    steps=eng.decode_steps, waves=prefill["calls"],
+                    metrics=path_metrics(eng, wall),
+                    finite=bool(seen["finite"].item()),
+                    placed=all(is_dtensor(t) for t in leaves.values()),
+                    exchange=list(eng.exchange_log),
+                    peak=torch.cuda.max_memory_allocated() / 1e9)
+                log_split(eng, wall, prefill)
+                del eng, seen, leaves
+                release()
+            del params
+            one, mesh = runs["unsharded"], runs["mesh"]
+            L = cfg.n_layers if fam == "rwkv6" else cfg.n_layers \
+                // cfg.shared_attn_every
+            got = {k: v for k, v in mesh["launches"].items() if v}
+            if fam == "rwkv6":
+                want = {"rwkv6_chunked": (mesh["steps"] + mesh["waves"]) * L}
+            else:
+                want = {"decode_attention_resident": mesh["steps"] * L,
+                        "flash_attention": mesh["waves"] * L}
+            planned = [e for e in mesh["log"] if e[1]]
+            log(f"mesh (1, 1) {fam} {cfg.name} x{cfg.n_layers} layers bf16 "
+                f"({mesh['type']}): {len(mesh['streams'])} requests in "
+                f"{mesh['waves']} waves, {mesh['steps']} decode steps in "
+                f"{mesh['wall']:.2f} s ({mesh['metrics']['tok/s']:.1f} tok/s;"
+                f" unsharded {one['metrics']['tok/s']:.1f}); decode step "
+                f"median {mesh['metrics']['step median ms']:.2f} ms "
+                f"(unsharded {one['metrics']['step median ms']:.2f}, "
+                f"{mesh['metrics']['step median ms'] / one['metrics']['step median ms']:.2f}"
+                f"x); controller intervals mean "
+                f"{mesh['metrics']['interval mean ms']:.1f} ms (unsharded "
+                f"{one['metrics']['interval mean ms']:.1f}); straggler at "
+                f"step {mesh['fired']}; "
+                f"{len(planned)} intervals planned head moves, none applied; "
+                f"sent to other ranks {mesh['exchange']}; launches {got}; "
+                f"peak memory {mesh['peak']:.2f} GB (unsharded "
+                f"{one['peak']:.2f})")
+            check(mesh["type"] == one["type"] == "WaveServingEngine",
+                  f"mesh {fam}: make_engine picked {mesh['type']}")
+            check(len(mesh["streams"]) == n_req
+                  and mesh["streams"] == one["streams"]
+                  and all(len(t) == new for t in mesh["streams"].values()),
+                  f"mesh {fam}: streams differ from the unsharded engine's")
+            check(mesh["log"] == one["log"], f"mesh {fam}: logs differ")
+            check(bool(planned) and all(not e[3] and e[4] == reason
+                                        for e in planned)
+                  and not mesh["exchange"] and mesh["placed"],
+                  f"mesh {fam}: a plan applied, a row was sent or a weight "
+                  f"was not placed")
+            check(got == want, f"mesh {fam}: launches {got} != {want}")
+            check(one["launches"] == mesh["launches"],
+                  f"mesh {fam}: launches differ from the unsharded engine's "
+                  f"({one['launches']})")
+            check(len({w for w, _ in mesh["ptrs"]}) == len(mesh["ptrs"])
+                  == mesh["waves"] == 2,
+                  f"mesh {fam}: a state shard moved in memory within a wave "
+                  f"({len(mesh['ptrs'])} pointer sets)")
+            check(mesh["finite"] and one["finite"],
+                  f"mesh {fam}: non-finite logits")
+            for name, v in want.items():
+                added[name] += v
+            del runs
+            release()
+    return added
+
+
 def tp_phases(by_name):
-    """The tp-16 phases, the one-card mesh, the decode kernels on the tp-4
-    head shards and sharded serving on the one-card mesh (dense, then
-    MoE over the ring); their launches add to those kernels' records."""
+    """The tp-16 phases, the one-card mesh, the decode kernels (and
+    zamba2's shared block) on the tp-4 head shards, the WKV6 kernel on
+    rwkv6-7b's, and sharded serving on the one-card mesh (dense, MoE over
+    the ring, then RWKV-6 and Zamba2); their launches add to those
+    kernels' records."""
     added = {"decode_attention_resident": 0, "flash_attention": 0}
     for phase in (phase_tp_dense, phase_tp_padded):
         launches = phase()
@@ -4774,7 +5110,10 @@ def tp_phases(by_name):
     release()
     phase_shard_kernels_vs_plain()
     release()
-    for phase in (phase_mesh_serving, phase_mesh_moe_serving):
+    wkv6_head_shards()
+    release()
+    for phase in (phase_mesh_serving, phase_mesh_moe_serving,
+                  phase_mesh_ssm_serving):
         for name, n in phase().items():
             added[name] = added.get(name, 0) + n
         release()
@@ -4856,7 +5195,7 @@ def main():
     ap.add_argument("--kernels-of", metavar="ROOT",
                     help="only build ROOT's kernels and run the kernel "
                     "phases on them; print their records")
-    ap.add_argument("--only", choices=("train", "tp"),
+    ap.add_argument("--only", choices=("train", "tp", "ssm"),
                     help="only build the kernels and run these phases "
                     "(no result lines)")
     args = ap.parse_args()
@@ -4886,6 +5225,14 @@ def main():
     log_ptxas(logs)
     if args.only == "train":
         log(f"train-then-serve launches: {train_phases()}")
+        return
+    if args.only == "ssm":
+        wkv6_head_shards()
+        release()
+        zamba2_shared_block_shards()
+        release()
+        log(f"mesh ssm launches: {phase_mesh_ssm_serving()}; "
+            f"{time.monotonic() - t0:.1f} s from the build on")
         return
     if args.only == "tp":
         records = [phase_kernel_vs_plain(), phase_flash_vs_plain()]

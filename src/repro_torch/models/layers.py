@@ -37,7 +37,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.partitioning import NULL, is_dtensor, like, local
+from repro_torch.models.partitioning import (NULL, is_dtensor, like, local,
+                                             local_shards)
 from repro_torch.models.quantization import is_quantized, wt
 # attention_scores and chunked_attention stay importable from here, beside
 # the rest of the reference's layers
@@ -607,17 +608,10 @@ _CACHE_AXES = {False: ("batch", "cache_seq", "kv_heads", None),
 
 def _cache_shards(cache: dict, part, *, paged: bool) -> dict:
     """The rank's shards of a layer's DTensor cache buffers, each held to
-    the reference's cache layout at its ``part.constrain`` points.  The
-    cache is written in place, so the constraint is a check
-    (``Partitioner.lays_out``): a buffer laid out otherwise raises, as a
-    redistributed copy would take the writes."""
-    for name, t in cache.items():
-        axes = () if name == "pos" else _CACHE_AXES[paged][:t.dim()]
-        if not part.lays_out(t, axes):
-            raise ValueError(f"the cache's {name!r} is laid out "
-                             f"{tuple(t.placements)}, not as the decode "
-                             f"state's rules place it")
-    return {name: local(t) for name, t in cache.items()}
+    the reference's cache layout (``partitioning.local_shards``)."""
+    return local_shards(cache, part, {
+        name: () if name == "pos" else _CACHE_AXES[paged][:t.dim()]
+        for name, t in cache.items()})
 
 
 def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x) -> dict:
@@ -739,6 +733,35 @@ def unembed(cfg: ModelConfig, p: dict, x, *, part=NULL):
         else wt(p, "lm_head", x.dtype)
     logits = torch.einsum("bsd,dv->bsv", x, w).float()
     return part.constrain(logits, ("batch", "seq", "vocab"))
+
+
+def embed_rows(cfg: ModelConfig, p: dict, tokens, shard):
+    """``embed`` on local tensors (the recurrent families on a mesh,
+    ``partitioning.HeadShard``): ``tok_embed``'s vocabulary rows are
+    placed over "model", so each rank looks up the tokens its rows hold,
+    zeros for the others, and the rows are summed over "model" (exact:
+    one term of each sum is nonzero).  Without a "model" group:
+    ``embed``."""
+    if shard.model is None:
+        return embed(cfg, p, tokens)
+    if is_quantized(p["tok_embed"]):
+        raise NotImplementedError("int8 weights on a mesh are not ported "
+                                  "(ROADMAP Queue 1 #18)")
+    lo, n = shard.span(cfg.vocab_size)
+    t = tokens.long() - lo
+    hit = ((t >= 0) & (t < n))[..., None]
+    x = F.embedding(t.clamp(0, n - 1), p["tok_embed"])
+    return shard.reduce(torch.where(hit, x, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device)))
+
+
+def unembed_whole(cfg: ModelConfig, p: dict, x, shard):
+    """``unembed`` on local tensors: this rank's vocabulary columns of
+    ``lm_head`` (or of the transposed ``tok_embed``) over its batch rows,
+    gathered over "model" and the data axes — the whole float32 logits on
+    every rank (``partitioning.HeadShard``)."""
+    return shard.whole_rows(shard.gather(unembed(cfg, p, x),
+                                         cfg.vocab_size))
 
 
 def cross_entropy(logits, labels):

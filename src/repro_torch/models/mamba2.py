@@ -11,8 +11,20 @@ SSM state (float32).
 Plain torch, as the reference is plain ``jnp`` here (it runs no Pallas
 kernel in this block).  ``ssd_scan`` is the reference's sequential
 recurrence, one token at a time in float32; the casts sit where the
-reference puts them.  The reference's sharding constraints
-(``part.constrain``) have no counterpart on one card.
+reference puts them.
+
+On a mesh (``shard``, a ``partitioning.HeadShard``) the block runs on a
+rank's local tensors: its columns of ``w_in`` (cut evenly over "model",
+blind to the (z, x, B, C, dt) split) are gathered over "model", so every
+rank has the whole projection; the depthwise conv runs on the rank's
+channel shard of the conv state (its channels of x, B and C, as the
+decode-state rule cuts them) and its output is gathered too, for each
+rank's heads of x and the whole B and C (one group: every head reads
+them).  The SSD scan runs on the rank's SSM heads with its state shard,
+the gated RMSNorm sums its squares over "model" (it normalizes over the
+whole d_inner), and the rank's rows of ``w_out`` give a partial output,
+summed over "model".  The reference's ``part.constrain`` points are the
+state shards' layout, checked by the model (``zamba2``).
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.partitioning import HeadShard
 from repro_torch.models.transformer import torch_dtype
 
 
@@ -105,39 +118,69 @@ def _softplus(x):
                                           device=x.device))
 
 
-def mamba_block(cfg: ModelConfig, p: dict, x, state: Dict):
+def gated_rms_norm(y, scale, eps: float, width: int, sum_ranks):
+    """The Mamba-2 gated RMSNorm's normalization of ``y`` (B, S, n): n of
+    the ``width`` channels it normalizes over, the others on other ranks;
+    ``sum_ranks`` sums a tensor over those ranks (the mean square is taken
+    over every channel, not the rank's slice).  ``scale``: the slice's
+    scales.  Float32 inside, cast back to y's dtype, as ``rms_norm``."""
+    y32 = y.float()
+    var = sum_ranks(y32.square().sum(dim=-1, keepdim=True)) / width
+    out = y32 * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(y.dtype)
+
+
+def mamba_block(cfg: ModelConfig, p: dict, x, state: Dict, shard=None):
     """x: (B, S, D); state {"conv": (B, cw - 1, C), "ssm": (B, nh, dh, ns)}
     (zeros for a fresh sequence), not written.  Returns (out (B, S, D),
-    new_state)."""
+    new_state).  ``shard`` (``partitioning.HeadShard``): on a mesh, this
+    rank's part — ``p`` holds its shards of ``w_in`` (columns) and
+    ``w_out`` (rows) and the replicated rest, ``state`` its conv channels
+    and SSM heads, and the output is summed over "model" (module doc);
+    None: the whole block."""
     d_in, nh, dh, ns, cw = mamba_dims(cfg)
     B, S, _ = x.shape
+    shard = shard or HeadShard((0, B))
+    lo, n = shard.heads(nh)                 # this rank's SSM heads
+    c0, cn = shard.span(d_in + 2 * ns)      # and conv channels
+    heads = slice(lo * dh, (lo + n) * dh)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    zxbcdt = h @ p["w_in"].to(h.dtype)
-    z, xs, Bt, Ct, dtl = torch.split(zxbcdt, [d_in, d_in, ns, ns, nh],
-                                     dim=-1)
-    xBC = torch.cat([xs, Bt, Ct], dim=-1)
-    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"],
-                                 state["conv"])
-    xs, Bt, Ct = torch.split(xBC, [d_in, ns, ns], dim=-1)
-    dtv = _softplus(dtl.float() + p["dt_bias"].float())       # (B, S, nh)
-    a = torch.exp(-torch.exp(p["A_log"].float()) * dtv)       # (B, S, nh)
-    xh = xs.reshape(B, S, nh, dh)
+    zxbcdt = shard.gather(h @ p["w_in"].to(h.dtype),
+                          2 * d_in + 2 * ns + nh)
+    z = zxbcdt[..., heads]
+    dtl = zxbcdt[..., 2 * d_in + 2 * ns + lo:2 * d_in + 2 * ns + lo + n]
+    xBC, new_conv = _causal_conv(zxbcdt[..., d_in + c0:d_in + c0 + cn],
+                                 p["conv_w"][:, c0:c0 + cn],
+                                 p["conv_b"][c0:c0 + cn], state["conv"])
+    xBC = shard.gather(xBC, d_in + 2 * ns)
+    xs = xBC[..., heads]
+    Bt, Ct = xBC[..., d_in:d_in + ns], xBC[..., d_in + ns:]
+    dtv = _softplus(dtl.float() + p["dt_bias"][lo:lo + n].float())
+    a = torch.exp(-torch.exp(p["A_log"][lo:lo + n].float()) * dtv)
+    xh = xs.reshape(B, S, n, dh)
     y, new_ssm = ssd_scan(xh, Bt, Ct, a, dtv, state["ssm"])
-    y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(B, S, d_in)
+    y = y + p["D"][lo:lo + n].float()[None, None, :, None] * xh.float()
+    y = y.reshape(B, S, n * dh)
     # gated RMSNorm (mamba2's norm(y * silu(z))), cast back first
     y = y * F.silu(z.float())
-    y = L.rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
-    out = y @ p["w_out"].to(y.dtype)
+    if shard.model is None:
+        y = L.rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
+    else:
+        y = gated_rms_norm(y.to(x.dtype), p["norm"][heads], cfg.norm_eps,
+                           d_in, shard.reduce)
+    out = shard.reduce(y @ p["w_out"].to(y.dtype))
     return out, {"conv": new_conv, "ssm": new_ssm}
 
 
 def zero_mamba_state(cfg: ModelConfig, batch: int, lead=(), *,
-                     device="cpu") -> Dict[str, torch.Tensor]:
+                     device="cpu", shard=None) -> Dict[str, torch.Tensor]:
     """The conv tails (in ``cfg.dtype``) and SSM states (float32) of a fresh
-    sequence, stacked over ``lead``."""
+    sequence, stacked over ``lead``; with ``shard`` only this rank's conv
+    channels and SSM heads."""
     d_in, nh, dh, ns, cw = mamba_dims(cfg)
     C = d_in + 2 * ns
+    if shard is not None:
+        C, nh = shard.span(C)[1], shard.heads(nh)[1]
     return {
         "conv": torch.zeros(lead + (batch, cw - 1, C),
                             dtype=torch_dtype(cfg.dtype), device=device),

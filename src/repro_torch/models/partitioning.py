@@ -122,7 +122,9 @@ def local_extent(shape, sharding: Sharding) -> list:
     return [tuple(e) for e in ext]
 
 
-def _from_local(local: torch.Tensor, sharding: Sharding, shape):
+def from_local(local: torch.Tensor, sharding: Sharding, shape):
+    """``local`` — this rank's slice of a tensor of ``shape`` placed by
+    ``sharding`` — as that DTensor (no collective, no check)."""
     from torch.distributed.tensor import DTensor
     return DTensor.from_local(local, sharding.mesh, sharding.placements,
                               run_check=False, shape=torch.Size(shape),
@@ -139,7 +141,7 @@ def place(x: torch.Tensor, sharding: Sharding):
     local = x
     for d, (start, n) in enumerate(local_extent(x.shape, sharding)):
         local = local.narrow(d, start, n)
-    return _from_local(local.to(mesh_device(sharding.mesh)).contiguous(),
+    return from_local(local.to(mesh_device(sharding.mesh)).contiguous(),
                        sharding, x.shape)
 
 
@@ -149,7 +151,7 @@ def placed_full(shape, fill, dtype, sharding: Sharding):
     no rank ever holds the whole tensor (a KV cache)."""
     local = torch.full([n for _, n in local_extent(shape, sharding)], fill,
                        dtype=dtype, device=mesh_device(sharding.mesh))
-    return _from_local(local, sharding, tuple(shape))
+    return from_local(local, sharding, tuple(shape))
 
 
 def local_range(x, dim: int) -> Tuple[int, int]:
@@ -270,6 +272,20 @@ class Partitioner:
                                  and not w.is_partial())
                    for m, (have, w) in enumerate(
                        zip(x.placements, self.placements(axes))))
+
+
+def local_shards(buffers: dict, part, axes: dict) -> dict:
+    """The rank's shards of DTensor buffers updated in place (a KV cache,
+    a recurrent state), each held to the layout ``axes[name]`` gives it
+    at the reference's ``part.constrain`` points: a redistributed copy
+    would take the writes, so a buffer laid out otherwise raises
+    (``Partitioner.lays_out``).  Plain tensors come back as they are."""
+    for name, t in buffers.items():
+        if not part.lays_out(t, axes[name]):
+            raise ValueError(f"the {name!r} buffer is laid out "
+                             f"{tuple(t.placements)}, not as the decode "
+                             f"state's rules place it")
+    return {name: local(t) for name, t in buffers.items()}
 
 
 class NullPartitioner(Partitioner):
@@ -506,3 +522,95 @@ def expert_shard(x, w) -> ExpertShard:
         ff=mesh_group(mesh, "model") if _shards(w, "model", -1) else None,
         tokens=tuple(mesh_group(mesh, name) for name in tokens),
         token_ranks=int(np.prod([_size(mesh, name) for name in tokens])))
+
+
+# ---------------------------------------------------------------------------
+# Head parallelism of the recurrent families: layers on local tensors
+# ---------------------------------------------------------------------------
+
+def gather_cols(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Every rank of ``group``'s chunk of the last dimension — cut from
+    ``n`` columns as ``torch.chunk`` cuts them, the way DTensor shards —
+    put together in rank order: the whole ``n`` columns on every rank (an
+    all-gather; a short last chunk is padded for it and trimmed after).
+    ``t`` itself without a group."""
+    if group is None:
+        return t
+    import torch.distributed as dist
+    ranks = dist.get_world_size(group)
+    pad = -(-n // ranks) - t.shape[-1]
+    t = torch.nn.functional.pad(t, (0, pad)) if pad else t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(ranks)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=-1)[..., :n]
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadShard:
+    """How a recurrent layer (RWKV-6's time and channel mix, a Mamba-2
+    block) splits over a mesh (``head_shard``).  This rank holds chunk
+    ``rank`` of ``ranks`` of every axis placed over "model" (``span``: cut
+    as ``torch.chunk`` cuts it, the way DTensor shards) — its heads
+    (``heads``), their channels and the weights' matching rows or columns
+    — and the batch rows ``rows`` (start, count) of the call over the
+    data axes.  ``model`` is the "model" group: partial outputs are summed
+    over it (``reduce``) and column shards gathered (``gather``); ``data``
+    the groups of the data axes that split the batch, outermost first.
+    Without a mesh: every head and row, no group."""
+    rows: Tuple[int, int]
+    rank: int = 0
+    ranks: int = 1
+    model: Optional[object] = None
+    data: tuple = ()
+
+    def span(self, n: int) -> Tuple[int, int]:
+        """(start, length) of this rank's chunk of an axis of ``n``."""
+        chunk = -(-n // self.ranks) if n else 0
+        lo = min(self.rank * chunk, n)
+        return lo, min(chunk, n - lo)
+
+    def heads(self, n: int) -> Tuple[int, int]:
+        """(first, count) of this rank's heads of ``n``; a "model" degree
+        that does not divide them raises (a head's channels would fall on
+        two ranks)."""
+        if n % self.ranks:
+            raise ValueError(f"the mesh's model degree {self.ranks} does "
+                             f"not divide the {n} heads")
+        return self.span(n)
+
+    def gather(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's columns of ``n`` -> all ``n`` (``gather_cols``)."""
+        return gather_cols(t, self.model, n)
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """A partial sum over this rank's heads or channels -> the whole
+        sum (an all-reduce over "model", in place)."""
+        return sum_over(t, (self.model,))
+
+    def whole_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's batch rows of ``t`` -> every row of the call (an
+        all-gather over each data group, innermost first)."""
+        for g in reversed(self.data):
+            t = gather_rows(t, g)
+        return t
+
+
+def head_shard(part, batch: int) -> HeadShard:
+    """The split of a call of ``batch`` rows over ``part``'s mesh: this
+    rank's coordinate on "model", and its batch rows over the data axes
+    as ``part.for_batch(batch)`` places them (a one-row batch, or one that
+    does not split, stays whole there).  Without a mesh: the whole
+    call."""
+    if part.mesh is None:
+        return HeadShard((0, batch))
+    part = part.for_batch(batch)
+    mesh = part.mesh
+    m = tuple(mesh.mesh_dim_names).index("model")
+    axes = part.spec(("batch",))[0] or ()
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    return HeadShard(
+        local_extent((batch,), part.sharding(("batch",)))[0],
+        rank=mesh.get_coordinate()[m], ranks=mesh.size(m),
+        model=mesh_group(mesh, "model"),
+        data=tuple(g for g in (mesh_group(mesh, a) for a in axes)
+                   if g is not None))

@@ -31,8 +31,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.partitioning import (NULL, head_shard, local,
+                                             local_shards, tp_degree)
 from repro_torch.models.transformer import (_layer_view, check_remat,
-                                           remat_call, torch_dtype)
+                                           place_state, remat_call,
+                                           torch_dtype)
 
 LORA_R = 32      # shared ddlerp adapter rank
 LORA_W_R = 64    # decay adapter rank
@@ -75,11 +78,33 @@ def _shifted(x, shift_state):
     return torch.cat([shift_state[:, None, :], x[:, :-1, :]], dim=1)
 
 
+# the reference's layout of the decode state where it constrains it: the
+# WKV state's heads over "model", every leaf's batch rows over the data axes
+STATE_AXES = {"shift_t": (None, "batch", None),
+              "shift_c": (None, "batch", None),
+              "wkv": (None, "batch", "ssm_heads", None, None)}
+
+
 class RWKV6Model:
-    """Config-driven RWKV-6 LM on one device."""
+    """Config-driven RWKV-6 LM on one device or, with ``part`` (a
+    partitioner on a ``DeviceMesh``), on every rank of the mesh at once.
+
+    On a mesh the parameters are DTensors placed by
+    ``placement_bridge.param_shardings`` and the decode state by
+    ``decode_state_shardings`` (built shard by shard); every layer runs on
+    the rank's local tensors with explicit collectives
+    (``partitioning.HeadShard``): its batch rows over the data axes, and
+    over "model" its WKV heads — the column shards of ``wr``/``wk``/
+    ``wv``/``wg`` are exactly their channels, the decay is computed for
+    those channels only, the WKV recurrence (the kernel on the card) and
+    the per-head group norm run on them, the state shard is written in
+    place — and its rows of ``wo`` and slice of the channel mix's d_ff,
+    whose partial outputs are all-reduced; the channel mix's receptance
+    gate is a column shard, gathered, so the residual stream stays whole
+    over "model".  The logits come back whole on every rank."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
-                 use_kernel: bool = False, remat: str = "none"):
+                 use_kernel: bool = False, remat: str = "none", part=NULL):
         if cfg.family != "ssm":
             raise ValueError(f"RWKV6Model serves the ssm family, not "
                              f"{cfg.family!r}")
@@ -87,8 +112,13 @@ class RWKV6Model:
         self.device = torch.device(device)
         self.use_kernel = use_kernel
         self.remat = check_remat(remat)
+        self.part = part
         self.H = cfg.n_heads
         self.dh = cfg.d_model // cfg.n_heads
+        if part.mesh is not None and self.H % tp_degree(part.mesh):
+            raise ValueError(f"the mesh's model degree "
+                             f"{tp_degree(part.mesh)} must divide the "
+                             f"{self.H} WKV heads")
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -141,12 +171,16 @@ class RWKV6Model:
         return params
 
     # ------------------------------------------------------------- time mix
-    def _time_mix(self, p, x, shift_state, wkv_state, out_state=None):
+    def _time_mix(self, p, x, shift_state, wkv_state, out_state, shard):
         """x: (B,S,D); shift_state (B,D) and wkv_state (B,H,dh,dh) are this
         layer's states, not written.  Returns the output, the new token
         shift (a view of x) and the new WKV state; the kernel writes the
-        latter into ``out_state`` when given."""
+        latter into ``out_state`` when given.  ``shard``: this rank's WKV
+        heads (``wkv_state``, ``u`` and the r/k/v/g columns hold only
+        them), whose partial output is summed over "model"."""
         B, S, D = x.shape
+        lo, n = shard.heads(self.H)
+        cols = slice(lo * self.dh, (lo + n) * self.dh)
         dx = _shifted(x, shift_state) - x
         x_mix = x + dx * p["mu_x"]
         lora = torch.tanh(x_mix @ p["lora_A"]).reshape(B, S, 5, LORA_R)
@@ -158,89 +192,115 @@ class RWKV6Model:
         k = xk @ p["wk"]
         v = xv @ p["wv"]
         g = xg @ p["wg"]
-        w_log = p["w0"].float() + (torch.tanh(xw @ p["lw_A"])
-                                   @ p["lw_B"]).float()
-        w = torch.exp(-torch.exp(w_log))                       # (B,S,D) f32
-        r, k, v, w = (t.reshape(B, S, self.H, self.dh) for t in (r, k, v, w))
+        # the decay of this rank's channels only
+        w_log = p["w0"][cols].float() + (torch.tanh(xw @ p["lw_A"])
+                                         @ p["lw_B"][:, cols]).float()
+        w = torch.exp(-torch.exp(w_log))                       # (B,S,n*dh)
+        r, k, v, w = (t.reshape(B, S, n, self.dh) for t in (r, k, v, w))
         if self.use_kernel:
             y, new_wkv = ops.rwkv6(r, k, v, w, p["u"], wkv_state,
                                    out_state=out_state)
         else:
             y, new_wkv = wkv_scan(r, k, v, w, p["u"], wkv_state)
-        y = group_norm_heads(y, p["gn_scale"], p["gn_bias"])
+        y = group_norm_heads(y, p["gn_scale"][cols], p["gn_bias"][cols])
         y = (y * F.silu(g.float())).to(x.dtype)
-        return y @ p["wo"], x[:, -1], new_wkv
+        return shard.reduce(y @ p["wo"]), x[:, -1], new_wkv
 
-    def _channel_mix(self, p, x, shift_state):
-        """Returns the output and the new token shift (a view of x)."""
+    def _channel_mix(self, p, x, shift_state, shard):
+        """Returns the output and the new token shift (a view of x).  On a
+        mesh the rank's d_ff slice gives a partial output, summed over
+        "model", and its receptance columns are gathered."""
         dx = _shifted(x, shift_state) - x
         xk = x + dx * p["mu_ck"]
         xr = x + dx * p["mu_cr"]
         k = torch.square(torch.relu(xk @ p["wck"]))
-        return torch.sigmoid(xr @ p["wcr"]) * (k @ p["wcv"]), x[:, -1]
+        gate = shard.gather(torch.sigmoid(xr @ p["wcr"]), x.shape[-1])
+        return gate * shard.reduce(k @ p["wcv"]), x[:, -1]
 
-    def _layer(self, p, x, state, out_wkv=None):
+    def _layer(self, p, x, state, out_wkv, shard):
         """One layer from its states ``state`` (read only).  Returns the
         hidden state and the layer's new states."""
         h = L.apply_norm(self.cfg, p, "ln1", x)
         out, shift_t, wkv = self._time_mix(p, h, state["shift_t"],
-                                           state["wkv"], out_wkv)
+                                           state["wkv"], out_wkv, shard)
         x = x + out
         h = L.apply_norm(self.cfg, p, "ln2", x)
-        out, shift_c = self._channel_mix(p, h, state["shift_c"])
+        out, shift_c = self._channel_mix(p, h, state["shift_c"], shard)
         return x + out, {"shift_t": shift_t, "shift_c": shift_c, "wkv": wkv}
 
     # --------------------------------------------------------------- forward
-    def _zero_state(self, batch: int) -> Dict[str, torch.Tensor]:
+    def _zero_state(self, rows: int, heads: int,
+                    device) -> Dict[str, torch.Tensor]:
+        """Zero token shifts (L, rows, D) and WKV states (L, rows, heads,
+        dh, dh) float32."""
         cfg = self.cfg
-        dt, dev = torch_dtype(cfg.dtype), self.device
+        dt = torch_dtype(cfg.dtype)
         return {
-            "shift_t": torch.zeros((cfg.n_layers, batch, cfg.d_model),
-                                   dtype=dt, device=dev),
-            "shift_c": torch.zeros((cfg.n_layers, batch, cfg.d_model),
-                                   dtype=dt, device=dev),
-            "wkv": torch.zeros((cfg.n_layers, batch, self.H, self.dh,
-                                self.dh), dtype=torch.float32, device=dev),
+            "shift_t": torch.zeros((cfg.n_layers, rows, cfg.d_model),
+                                   dtype=dt, device=device),
+            "shift_c": torch.zeros((cfg.n_layers, rows, cfg.d_model),
+                                   dtype=dt, device=device),
+            "wkv": torch.zeros((cfg.n_layers, rows, heads, self.dh,
+                                self.dh), dtype=torch.float32,
+                               device=device),
         }
 
-    def _run_layers(self, params, x, state, write: bool = True):
+    def _run_layers(self, params, x, state, shard, write: bool = True):
         """Loop over layers; layer l reads its slice of the stacked params
-        and of ``state``, and with ``write`` stores its new states into
-        that slice (the kernel writes its WKV state there itself).
-        ``remat`` checkpoints each layer.  int8 layer weights
-        are refused: the reference's ``quantize_params`` gives RWKV-6's
-        (L, D, D) ``wk``/``wv``/``wo`` the attention base rank 3, so
-        their scales carry no layer axis and its layer scan fails on
-        them; the port does not invent a scheme the reference lacks."""
+        (this rank's shards on a mesh) and of ``state`` (local tensors),
+        and with ``write`` stores its new states into that slice (the
+        kernel writes its WKV state there itself).  ``remat`` checkpoints
+        each layer.  int8 layer weights are refused: the reference's
+        ``quantize_params`` gives RWKV-6's (L, D, D) ``wk``/``wv``/``wo``
+        the attention base rank 3, so their scales carry no layer axis and
+        its layer scan fails on them; the port does not invent a scheme
+        the reference lacks."""
         if any(L.is_quantized(v) for v in params["layers"].values()):
             raise NotImplementedError(
                 "RWKV-6 takes no int8 layer weights: the reference's "
                 "quantize_params gives its (L, D, D) wk/wv/wo scales "
                 "without a layer axis and its forward fails on them")
+        layers = {name: local(t) for name, t in params["layers"].items()}
         for l in range(self.cfg.n_layers):
             views = {name: buf[l] for name, buf in state.items()}
             out_wkv = views["wkv"] if write and self.use_kernel else None
             x, new = remat_call(self.remat, self._layer,
-                                _layer_view(params["layers"], l), x, views,
-                                out_wkv)
+                                _layer_view(layers, l), x, views, out_wkv,
+                                shard)
             if write:
                 for name, buf in views.items():
                     if new[name] is not buf:
                         buf.copy_(new[name])
         return x
 
-    def _logits(self, params, x):
-        x = L.apply_norm(self.cfg, params, "ln_f", x)
-        return L.unembed(self.cfg, params, x)
+    def _run(self, params, tokens, cache):
+        """Embed this rank's batch rows of ``tokens`` (B, S) and run every
+        layer from ``cache`` — the decode state's, updated in place, each
+        DTensor leaf held to the reference's layout (``STATE_AXES``: a
+        redistributed copy would take the writes), or None: a zero state,
+        written nowhere.  Returns the final-norm hidden state, the
+        top-level params as local tensors and the call's split
+        (``partitioning.head_shard``)."""
+        B = tokens.shape[0]
+        shard = head_shard(self.part, B)
+        top = {k: local(v) for k, v in params.items() if k != "layers"}
+        lo, n = shard.rows
+        x = L.embed_rows(self.cfg, top, tokens[lo:lo + n], shard)
+        if cache is None:
+            x = self._run_layers(params, x, self._zero_state(
+                n, shard.heads(self.H)[1], x.device), shard, write=False)
+        else:
+            x = self._run_layers(params, x, local_shards(
+                cache, self.part.for_batch(B), STATE_AXES), shard)
+        return L.apply_norm(self.cfg, top, "ln_f", x), top, shard
 
     def forward(self, params, tokens, **_):
         """Full-sequence forward from a zero state, written nowhere.
-        Returns (logits (B,S,V), aux): the model has no aux loss, so aux
-        is a float32 zero, as in the reference."""
-        x = L.embed(self.cfg, params, tokens)
-        x = self._run_layers(params, x, self._zero_state(tokens.shape[0]),
-                             write=False)
-        return self._logits(params, x), torch.zeros(
+        Returns (logits (B,S,V), whole on every rank of a mesh, aux): the
+        model has no aux loss, so aux is a float32 zero, as in the
+        reference."""
+        x, top, shard = self._run(params, tokens, None)
+        return L.unembed_whole(self.cfg, top, x, shard), torch.zeros(
             (), dtype=torch.float32, device=x.device)
 
     def loss(self, params, batch):
@@ -252,24 +312,27 @@ class RWKV6Model:
     def init_decode_state(self, params, batch: int, max_seq: int, **_):
         """The lock-step decode state: ``cache`` holds the per-layer token
         shifts and WKV states (O(1) in the sequence; ``max_seq`` is
-        unused) and ``pos`` the batch's position."""
-        return {"cache": self._zero_state(batch), "pos": 0}
+        unused) and ``pos`` the batch's position.  On a mesh each rank
+        builds only its shard (``transformer.place_state``)."""
+        if self.part.mesh is None:
+            return {"cache": self._zero_state(batch, self.H, self.device),
+                    "pos": 0}
+        return place_state({"cache": self._zero_state(batch, self.H, "meta"),
+                            "pos": 0}, self.cfg, self.part, batch)
 
     def prefill(self, params, state, tokens):
         """Run the (B, S) prompts through the model from ``state``,
-        updating it in place.  Returns the last token's logits (B, V) and
-        the state with ``pos == S``."""
-        x = L.embed(self.cfg, params, tokens)
-        x = self._run_layers(params, x, state["cache"])
-        logits = self._logits(params, x[:, -1:])
+        updating it in place.  Returns the last token's logits (B, V),
+        whole on every rank of a mesh, and the state with ``pos == S``."""
+        x, top, shard = self._run(params, tokens, state["cache"])
+        logits = L.unembed_whole(self.cfg, top, x[:, -1:], shard)
         state["pos"] = tokens.shape[1]
         return logits[:, 0], state
 
     def decode_step(self, params, state, tokens):
         """One step for every row. tokens: (B,) int.  Returns (logits
-        (B, V) float32, state)."""
-        x = L.embed(self.cfg, params, tokens[:, None])
-        x = self._run_layers(params, x, state["cache"])
-        logits = self._logits(params, x)
+        (B, V) float32, whole on every rank of a mesh, state)."""
+        x, top, shard = self._run(params, tokens[:, None], state["cache"])
+        logits = L.unembed_whole(self.cfg, top, x, shard)
         state["pos"] += 1
         return logits[:, 0], state

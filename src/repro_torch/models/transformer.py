@@ -107,6 +107,41 @@ def _layer_view(tree, l):
     return tree[l]
 
 
+def place_state(tree, cfg: ModelConfig, part, batch: Optional[int] = None):
+    """``tree`` — a fresh cache or decode state — on ``part``'s mesh,
+    placed as ``placement_bridge.decode_state_shardings`` says (the
+    reference's rules: a KV cache's batch rows over "data" and its
+    expanded KV heads over "model", int8 scales alike, WKV and SSM states
+    their heads over "model", conv tails their channels, token shifts
+    batch rows only, positions replicated).  Buffers made on the meta
+    device are built shard by shard (``partitioning.placed_full``), so no
+    rank ever allocates the whole cache or state; small leaves are cut
+    from the whole (``place``).  A ``batch`` that does not split over the
+    data axes (a one-row admission prefill) stays whole there
+    (``Partitioner.for_batch``).  Without a mesh: ``tree`` itself."""
+    if part.mesh is None:
+        return tree
+    from torch.distributed.tensor import Replicate
+    from repro_torch.core.placement_bridge import decode_state_shardings
+    mesh = part.mesh
+    names = tuple(mesh.mesh_dim_names)
+    keep = batch is not None and part.for_batch(batch) is not part
+    shardings = flatten(decode_state_shardings(tree, cfg, mesh))
+
+    def one(path, leaf):
+        if not isinstance(leaf, torch.Tensor) or is_dtensor(leaf):
+            return leaf
+        sh = shardings[path]
+        if keep:
+            sh = Sharding(mesh, tuple(
+                Replicate() if n in ("pod", "data") else pl
+                for n, pl in zip(names, sh.placements)))
+        if leaf.device.type == "meta":
+            return placed_full(leaf.shape, 0, leaf.dtype, sh)
+        return place(leaf, sh)
+    return map_with_path(one, tree)
+
+
 # the VLM's supergroup: self layers 0-2, the cross layer, self layer 3
 SELF_BEFORE_CROSS = 3
 
@@ -125,8 +160,8 @@ class TransformerLM:
     tensors with explicit collectives (``moe.moe_block``) — and every
     fresh cache and decode state, a ring too, is placed as
     ``placement_bridge.decode_state_shardings`` says, each rank building
-    only its own shard (``build_model`` refuses a mesh for the other
-    families)."""
+    only its own shard (``place_state``; ``build_model`` refuses a mesh
+    for the audio and VLM families)."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  use_kernel: bool = False, capacity_moe: bool = False,
@@ -403,38 +438,9 @@ class TransformerLM:
         return {"k": z(shape, dtype=dtype), "v": z(shape, dtype=dtype)}
 
     def _placed(self, tree, batch: Optional[int] = None):
-        """``tree`` — a fresh cache or decode state — on the model's mesh,
-        placed as ``placement_bridge.decode_state_shardings`` says (the
-        reference's rules: the KV cache's batch rows over "data", its
-        expanded KV heads over "model", int8 scales alike, positions
-        replicated).  Buffers made on the meta device are built shard by
-        shard (``partitioning.placed_full``), so no rank ever allocates the
-        whole cache; small leaves are cut from the whole (``place``).  A
-        ``batch`` that does not split over the data axes (a one-row
-        admission prefill) stays whole there
-        (``Partitioner.for_batch``).  Without a mesh: ``tree`` itself."""
-        part = self.part
-        if part.mesh is None:
-            return tree
-        from torch.distributed.tensor import Replicate
-        from repro_torch.core.placement_bridge import decode_state_shardings
-        mesh = part.mesh
-        names = tuple(mesh.mesh_dim_names)
-        keep = batch is not None and part.for_batch(batch) is not part
-        shardings = flatten(decode_state_shardings(tree, self.cfg, mesh))
-
-        def one(path, leaf):
-            if not isinstance(leaf, torch.Tensor) or is_dtensor(leaf):
-                return leaf
-            sh = shardings[path]
-            if keep:
-                sh = Sharding(mesh, tuple(
-                    Replicate() if n in ("pod", "data") else pl
-                    for n, pl in zip(names, sh.placements)))
-            if leaf.device.type == "meta":
-                return placed_full(leaf.shape, 0, leaf.dtype, sh)
-            return place(leaf, sh)
-        return map_with_path(one, tree)
+        """``tree`` — a fresh cache or decode state — on the model's mesh
+        (``place_state``); without a mesh, ``tree`` itself."""
+        return place_state(tree, self.cfg, self.part, batch)
 
     def cache_len(self, max_seq: int) -> int:
         return min(max_seq, self.window) if self.window else max_seq

@@ -51,10 +51,11 @@ expansion plan; ``slow_device`` pins load the next interval observes;
 The controller drives a simulated device network, as in the reference: the
 model runs on one GPU (or the CPU), and the placement decides which
 (layer, head) rows and experts each simulated device holds.  With a
-partitioner on a ``DeviceMesh`` (``part``, the dense and MoE families) the
-engine runs on every rank of the mesh at once: each rank holds its shard
-of the weights (a MoE arch's experts over "pod") and its heads' shard of
-the KV cache (linear or ring), runs the same scheduler and controller
+partitioner on a ``DeviceMesh`` (``part``; the dense, MoE, RWKV-6 and
+Zamba2 families) the engine runs on every rank of the mesh at once: each
+rank holds its shard of the weights (a MoE arch's experts over "pod") and
+its heads' shard of the KV cache (linear or ring) or of the recurrent
+state (WKV, SSM and conv), runs the same scheduler and controller
 from the same seed (so every rank's plans and logs are equal, and none is
 broadcast), samples from whole logits, and a migration moves only the KV,
 weight and expert rows that change rank between ranks.
@@ -208,8 +209,8 @@ class _EngineBase:
     its KV head's ``rep`` cache rows; without ``net`` the controller
     places over ``max(tp, 4)`` simulated devices, as the reference's.
 
-    ``part`` (``partitioning.Partitioner`` with a mesh; the dense and MoE
-    families) serves sharded: the model is built with it, the weights are
+    ``part`` (``partitioning.Partitioner`` with a mesh; the dense, MoE,
+    RWKV-6 and Zamba2 families) serves sharded: the model is built with it, the weights are
     placed by ``placement_bridge.param_shardings`` (injected ones copied
     first, as migrations permute the placed weights in place; a MoE
     arch's expert stacks over "pod" where the mesh has one, with the
@@ -1225,9 +1226,11 @@ class WaveServingEngine(_EngineBase):
     slots free only when the wave drains.  It serves sliding-window archs
     over their ring cache, the attention-free RWKV-6 and the Zamba2
     hybrid (whose head plans are logged as not applied), and any other
-    arch the port builds; with ``part`` (the dense and MoE families) its
-    states are placed on the mesh and prefill and lock-step decode run
-    sharded, a ring's slot positions replicated on every rank."""
+    arch the port builds; with ``part`` (the dense, MoE, RWKV-6 and Zamba2
+    families) its states are placed on the mesh and prefill and lock-step
+    decode run sharded, a ring's slot positions replicated on every rank;
+    the recurrent families' plans apply nothing there either, so no rank
+    sends a row."""
 
     def _next_wave(self) -> List[Request]:
         """Up to n_slots queued requests with equal prompt length."""

@@ -1694,3 +1694,144 @@ def test_restore_onto_a_one_card_mesh(cuda, tmp_path):
         assert torch.equal(again["lm_head"], params["lm_head"])
     finally:
         dist.destroy_process_group()
+
+
+# -------------------------- the recurrent families on tp-4 head shards
+def _head_shard(t, r, n, dim=1):
+    """Rank ``r``'s ``n`` heads of ``t`` as the rank's model holds them:
+    its own contiguous tensor, a (B, H, S, dh) view of (B, S, H, dh)
+    activations staying such a view."""
+    part = t.narrow(dim, r * n, n)
+    if dim == 1 and t.dim() == 4 and t.stride(1) < t.stride(2):
+        return part.transpose(1, 2).contiguous().transpose(1, 2)
+    return part.contiguous()
+
+
+@pytest.mark.parametrize("decays", ["smooth", "extreme"])
+@pytest.mark.parametrize("S", [1, 37, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_kernel_on_tp4_head_shards(cuda, dtype, S, decays):
+    """The WKV6 kernel on the tp-4 head shards (8 heads of 64: 2 a shard),
+    each shard's state written in place: each equals its plain version,
+    and the four put together equal the whole call bit for bit (one block
+    per (b, h): heads do not interact)."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
+    args = rwkv_inputs(cuda, dtype, 3, 8, S, 64, seed=S + 3, decays=decays)
+    y, s = rwkv6_chunked(*args)
+    ys, states = [], []
+    for r in range(4):
+        sargs = tuple(_head_shard(t, r, 2, dim=0 if t.dim() == 2 else 1)
+                      for t in args)
+        want_y, want_s = rwkv6_chunked_plain(*sargs)
+        out_y, out_s = rwkv6_chunked(*sargs, out_state=sargs[5])
+        torch.cuda.synchronize()
+        assert out_s.data_ptr() == sargs[5].data_ptr()
+        torch.testing.assert_close(out_y, want_y, **RWKV_TOL)
+        torch.testing.assert_close(out_s, want_s, **RWKV_TOL)
+        ys.append(out_y)
+        states.append(out_s)
+    assert torch.equal(torch.cat(ys, dim=1), y)
+    assert torch.equal(torch.cat(states, dim=1), s)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "resident"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shared_block_kernels_on_tp4_head_shards(cuda, dtype, kernel):
+    """Zamba2's shared block at dh 80, G 1 (16 heads over 16 KV heads: 4
+    a shard) on each rank's own heads and cache shard: flash at a causal
+    prefill of 200, the resident kernel over identity rows at mixed
+    lengths; each shard equals its plain version, the four put together
+    the whole call, at the kernel tolerances."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    H, n = 16, 4
+    if kernel == "flash":
+        args = flash_inputs(cuda, dtype, B=2, H=H, KvE=H, Sq=200, Skv=200,
+                            dh=80, seed=11)
+        run = lambda a: flash_attention(*a, causal=True)  # noqa: E731
+        plain = lambda a: flash_attention_plain(*a, causal=True)  # noqa
+        cut = lambda a, r: tuple(_head_shard(t, r, n) for t in a)  # noqa
+        limit = FLASH_ROW_REL[dtype]
+    else:
+        rng = np.random.default_rng(12)
+        q = torch.from_numpy(rng.standard_normal((3, H, 80))).to(cuda, dtype)
+        kc, vc = (torch.from_numpy(rng.standard_normal((3, 150, H, 80))).to(
+            cuda, dtype) for _ in range(2))
+        lens = torch.tensor([150, 1, 77], dtype=torch.int32, device=cuda)
+        args = (q, kc.transpose(1, 2), vc.transpose(1, 2), lens)
+        rows = torch.arange(H, dtype=torch.int32, device=cuda)
+        local = rows[:n]
+        run = lambda a: decode_attention_resident(  # noqa: E731
+            *a, rows if a[0].shape[1] == H else local)
+        plain = lambda a: decode_attention_resident_plain(*a, local)  # noqa
+        cut = lambda a, r: tuple(_head_shard(t, r, n) for t in a[:3]) \
+            + (a[3],)  # noqa: E731
+        limit = DECODE_ROW_REL[dtype]
+    whole = run(args)
+    parts = []
+    for r in range(4):
+        sargs = cut(args, r)
+        out = run(sargs)
+        want = plain(sargs)
+        torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+        assert _row_rel_err(out, want) <= limit
+        parts.append(out)
+    together = torch.cat(parts, dim=1)
+    torch.testing.assert_close(together.float(), whole.float(),
+                               **TOLS[dtype])
+    assert _row_rel_err(together, whole) <= limit
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_recurrent_families_serve_on_a_one_card_mesh(cuda, arch):
+    """``make_engine("auto", part=...)`` on a (1, 1) ("data", "model")
+    NCCL mesh serves reduced f32 RWKV-6 and Zamba2 through their kernels
+    (WKV6; flash and the resident kernel in the shared block): the wave
+    engine, its state leaves DTensors, greedy streams equal to the
+    unsharded engine's on the same weights."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.partitioning import is_dtensor, make_partitioner
+    from repro_torch.serving.engine import WaveServingEngine, make_engine
+    over = dict(d_model=64, d_ff=128, vocab_size=97, dtype="float32",
+                param_dtype="float32", n_heads=4, d_head=16)
+    over.update(n_layers=2) if arch == "rwkv6-7b" else over.update(
+        n_layers=4, shared_attn_every=2, n_kv_heads=4, ssm_head_dim=16,
+        ssm_state=8)
+    cfg = get_config(arch).with_overrides(**over)
+    params = build_model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    prompts = [np.random.default_rng(n).integers(0, 97, n)
+               for n in (20, 20, 7)]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        streams = []
+        for part in (None, make_partitioner(make_debug_mesh(1, 1))):
+            eng = make_engine(cfg, part=part, use_kernel=True, device=cuda,
+                              params=params, n_slots=2, max_seq=40, lam=3)
+            assert isinstance(eng, WaveServingEngine)
+            for p in prompts:
+                eng.submit(p, 8)
+            eng.run()
+            streams.append({r.rid: r.out_tokens for r in eng.finished})
+            if part is not None:
+                state = eng.model.init_decode_state(eng.params, 2, 40)
+                assert all(is_dtensor(t) for t in _tensors(
+                    state["cache"]))
+        assert len(streams[0]) == 3 and streams[0] == streams[1]
+    finally:
+        dist.destroy_process_group()
+
+
+def _tensors(tree):
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]

@@ -715,16 +715,21 @@ def test_paged_cache_on_a_mesh_with_data_above_1_is_refused():
                                   "llama-3.2-vision-11b"])
 def test_serving_engine_refuses_a_mesh_outside_the_dense_family(arch):
     """The engine refuses a mesh for the families that do not run sharded
-    (ROADMAP Queue 1 #18) and serves the MoE family on one: placing its
-    weights needs a real ``DeviceMesh``, so that case builds the engine on
-    a one-rank gloo mesh, its expert stacks DTensors there."""
+    (audio and the VLM: ROADMAP Queue 1 #18) and serves the MoE, RWKV-6
+    and Zamba2 families on one: placing their weights needs a real
+    ``DeviceMesh``, so those cases build the engine on a one-rank gloo
+    mesh, their weights DTensors there.  The recurrent families' decode
+    states are DTensors placed as the decode-state rules say, and they
+    serve the unsharded engine's greedy streams on the same weights."""
     from repro_torch.configs import get_config
+    from repro_torch.core.placement_bridge import decode_state_shardings
     from repro_torch.models.partitioning import is_dtensor, make_partitioner
     from repro_torch.serving.engine import WaveServingEngine, make_engine
+    from repro_torch.tree import flatten
     from tests.conftest import reduced_config
     cfg = get_config(arch).with_overrides(
         **dataclasses.asdict(reduced_config(arch)))
-    if cfg.family != "moe":
+    if cfg.family not in ("moe", "ssm", "hybrid"):
         part = make_partitioner(_StandInMesh((1, 4), ("data", "model")))
         with pytest.raises(NotImplementedError, match="#18"):
             make_engine(cfg, part=part, tp=4, device="cpu")
@@ -737,12 +742,41 @@ def test_serving_engine_refuses_a_mesh_outside_the_dense_family(arch):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=1, rank=0)
     try:
-        part = make_partitioner(make_debug_mesh(1, 1, device_type="cpu"))
-        eng = make_engine(cfg, part=part, tp=4, device="cpu")
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        part = make_partitioner(mesh)
+        eng = make_engine(cfg, part=part, tp=4, device="cpu", n_slots=2,
+                          max_seq=16, lam=3)
         assert isinstance(eng, WaveServingEngine) and eng.part is part
-        assert is_dtensor(eng.params["layers"]["moe"]["w_gate"])
+        if cfg.family == "moe":
+            assert is_dtensor(eng.params["layers"]["moe"]["w_gate"])
+            return
+        big = "wr" if cfg.family == "ssm" else "w_in"
+        assert is_dtensor(eng.params["layers"][big])
+        state = eng.model.init_decode_state(eng.params, 2, 16)
+        want = flatten(decode_state_shardings(state, cfg, mesh))
+        leaves = flatten(state["cache"])
+        assert leaves and all(
+            is_dtensor(t) and tuple(t.placements)
+            == want[("cache",) + p].placements for p, t in leaves.items())
+        plain = make_engine(cfg, tp=4, device="cpu", n_slots=2, max_seq=16,
+                            lam=3, params=_local_tree(eng.params))
+        for e in (eng, plain):
+            for n in (5, 5, 7):
+                e.submit(np.random.default_rng(n).integers(0, 97, n), 6)
+            e.run()
+        streams = [{r.rid: r.out_tokens for r in e.finished}
+                   for e in (eng, plain)]
+        assert len(streams[0]) == 3 and streams[0] == streams[1]
     finally:
         dist.destroy_process_group()
+
+
+def _local_tree(tree):
+    """A copy of a tree of one-rank DTensors as plain tensors."""
+    from repro_torch.models.partitioning import local
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    return local(tree).clone()
 
 
 def test_one_row_stays_whole_on_the_data_axes():

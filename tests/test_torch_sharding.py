@@ -324,17 +324,18 @@ def test_null_partitioner_leaves_tensors_alone():
 @pytest.mark.parametrize("arch", [a for a in ARCHS
                                   if get_config(a).family != "dense"])
 def test_a_mesh_is_refused_outside_the_dense_family(arch):
-    """Only the dense and MoE families run sharded: ``build_model``
-    refuses a partitioner with a mesh for the others (audio, VLM, RWKV-6,
-    Zamba2: ROADMAP Queue 1 #18) and builds the MoE model on it; every
+    """The dense, MoE, RWKV-6 and Zamba2 families run sharded:
+    ``build_model`` builds them on a partitioner with a mesh, and refuses
+    one for the audio and VLM families (ROADMAP Queue 1 #18); every
     family takes ``NULL``."""
     cfg = reduced_config(arch)
     cfg = get_config(arch).with_overrides(**dataclasses.asdict(cfg))
     mesh = part.make_partitioner(StandInMesh((2, 2), ("data", "model")))
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "ssm", "hybrid"):
         assert build_model(cfg, tp=2, part=mesh, device="cpu").part is mesh
     else:
-        with pytest.raises(NotImplementedError, match="#18"):
+        with pytest.raises(NotImplementedError, match="#18: the audio and "
+                           "VLM paths"):
             build_model(cfg, tp=2, part=mesh, device="cpu")
     build_model(cfg, tp=2, part=part.NULL, device="cpu")
 
