@@ -67,7 +67,13 @@ rwkv6-7b's tp-4 head shards (bit-equal, put together, to the whole
 call) and zamba2's shared block's flash and resident kernels on its
 head shards; and ``make_engine(part=...)`` serves rwkv6-7b (4 layers)
 and zamba2-2.7b (2 supergroups) on the (1, 1) mesh, their recurrent
-layers on local tensors, with streams equal to the unsharded engine's.  Every prefill whose queries and keys share their positions
+layers on local tensors, with streams equal to the unsharded engine's;
+and musicgen-large (4 layers) and llama-3.2-vision-11b (2 supergroups) on
+that mesh, each rank's KV cache and image K/V shard placed by the
+decode-state rules and written in place, with streams equal to the
+unsharded engine's.  The VLM also serves from an int8 cache (the int8
+kernel on its self layers), and its f32 int8 streams are equal with and
+without the kernels.  Every prefill whose queries and keys share their positions
 (bucketed, lock-step, ring) runs the flash attention kernel.  It checks
 that the paged decode kernels give the linear ones' output bit for bit on
 the same cache in scrambled pages, and in float32 that greedy streams
@@ -91,7 +97,9 @@ times the kernels of several checkouts in turns instead (see ``ab``);
 ``--only train`` builds the kernels and runs only the training phases;
 ``--only tp`` the decode and flash kernel phases, the dense path and the
 tp-16, mesh and shard phases; ``--only ssm`` the recurrent families'
-shard and mesh phases.
+shard and mesh phases; ``--only audio_vlm`` the VLM from an int8 cache
+(bf16 path and f32 stream pair) and musicgen and the VLM served sharded
+on the one-card mesh.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -171,7 +179,8 @@ FLASH_LAUNCHES = {"dense": 16 * N_LAYERS, "paged": 0,
                   "int8": 16 * N_LAYERS, "int8_paged": 0,
                   "mixtral": 2 * N_LAYERS, "rwkv6": 0,
                   "glm4": 16 * N_LAYERS, "musicgen": 16 * N_LAYERS,
-                  "vlm": 16 * VLM_SELF, "zamba2": 2 * ZAMBA_GROUPS}
+                  "vlm": 16 * VLM_SELF, "vlm int8": 16 * VLM_SELF,
+                  "zamba2": 2 * ZAMBA_GROUPS}
 TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),   # summation order
         # bf16 output keeps ~3 significant digits of values <~ 1
         torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
@@ -2404,38 +2413,34 @@ def auto_engine(cfg, *, use_kernel, n_requests, lo, hi, max_new, max_seq,
     return eng
 
 
-def drive_auto_path(path, eng, max_new):
+def drive_auto_path(path, eng, max_new, per_step=None):
     """Drive a continuous-batching path built by ``auto_engine`` to idle
     with every kernel's count set to 0 just before, a straggler at step 16
     on the busiest device; log its host-clock split and peak memory, and
     check that every request finished, an interval applied head
     migrations, the flash kernel launched ``FLASH_LAUNCHES[path]`` times,
-    the resident decode kernel once a layer each decode step, and no other
-    kernel.  Returns the decode and flash launches."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels.flash_attention import flash_attention
+    each decode kernel of ``per_step`` ({kernel: launches a decode step};
+    the resident kernel once a layer by default) that many times each
+    decode step, and no other kernel; then time the drained batch's
+    decode step as one CUDA graph.  Returns the launches of
+    ``per_step``'s kernels, in its order, and the flash kernel's."""
     from repro_torch.serving.engine import ServingEngine
     cfg = eng.cfg
+    per_step = per_step or {"decode_attention_resident": cfg.n_layers}
     check(isinstance(eng, ServingEngine),
           f"make_engine picked {type(eng).__name__} for {path}")
     weight_gb = sum(t.numel() * t.element_size() for t in
                     _leaves(eng.params)) / 1e9
     seen = watch_logits(eng)
     prefill = time_prefill(eng)
-    kernels = [k for k, _, _ in PATHS.values()] + [
-        "decode_attention_ring_resident"]
-    torch.cuda.synchronize()
-    for kernel in kernels:
-        getattr(da, kernel).launches = 0
-    flash_attention.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     while drive(eng):
         pass
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {k: getattr(da, k).launches for k in kernels}
-    flash = flash_attention.launches
-    decode = launches["decode_attention_resident"]
+    launches = read_launches()
+    flash = launches.pop("flash_attention")
     tokens = sum(len(r.out_tokens) for r in eng.finished)
     applied = [e for e in eng.migration_log
                if e["applied"] and e["n_migrations"]]
@@ -2464,15 +2469,13 @@ def drive_auto_path(path, eng, max_new):
           f"{path}: flash_attention launches {flash} != "
           f"{FLASH_LAUNCHES[path]} (16 prefills x its self-attention "
           f"layers)")
-    check(decode == eng.decode_steps * cfg.n_layers,
-          f"{path}: decode kernel launches {decode} != decode steps "
-          f"{eng.decode_steps} x {cfg.n_layers} attention layers")
-    check(not any(n for k, n in launches.items()
-                  if k != "decode_attention_resident"),
-          f"{path}: another path's kernel launched: {launches}")
+    want = {k: eng.decode_steps * n for k, n in per_step.items()}
+    check({k: n for k, n in launches.items() if n} == want,
+          f"{path}: decode kernel launches {launches} != decode steps "
+          f"{eng.decode_steps} x {per_step}")
     check(bool(seen["finite"].item()), f"{path}: non-finite logits")
     graph_decode_step(eng)
-    return decode, flash
+    return (*want.values(), flash)
 
 
 def phase_glm4_path():
@@ -2703,6 +2706,51 @@ def phase_vlm_stream_pair():
     check(moved and min(moved) > 1e-2, "an image did not move its "
           "request's logits")
     del engines, eng, params
+
+
+def phase_vlm_int8_path():
+    """The VLM path (``phase_vlm_path``'s traffic, weights and images)
+    from an int8 cache (``kv_quant``: the self layers' (G, 4, ...) values
+    int8 with float32 per-(token, head) scales; the image K/V stays bf16):
+    every decode step runs ``decode_attention_int8_resident`` once a self
+    layer and the resident kernel once a cross layer, every bucketed
+    prefill flash once a self layer over the dequantized rows, and an
+    interval applies head migrations to the values, their scales and the
+    image K/V (``drive_auto_path``).  Returns the int8 kernel's, the
+    resident kernel's and the flash kernel's launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama-3.2-vision-11b").with_overrides(
+        n_layers=VLM_LAYERS, kv_quant=True)
+    torch.cuda.reset_peak_memory_stats()
+    eng = vlm_engine(cfg, use_kernel=True, n_requests=16, max_new=64)
+    check(eng.state["cache"]["k"].dtype == torch.int8,
+          "vlm int8: the cache is not int8")
+    return drive_auto_path("vlm int8", eng, 64, per_step={
+        "decode_attention_int8_resident": VLM_SELF,
+        "decode_attention_resident": VLM_LAYERS - VLM_SELF})
+
+
+def phase_vlm_int8_stream_pair():
+    """float32, one supergroup (5 layers), gated, int8 cache: the VLM
+    path with the kernels (the int8 kernel's CUDA-core body over the self
+    layers' int8 values and scales, the resident kernel over the 1601-row
+    image K/V) and without (the dequantized cache through plain
+    attention), from the same weights, 8 requests of 32-512 tokens with
+    their images and a straggler at step 8, must stream the same greedy
+    tokens with the same migration logs (``stream_pair``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("llama-3.2-vision-11b").with_overrides(
+        n_layers=5, dtype="float32", param_dtype="float32", kv_quant=True)
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    set_vlm_gates(params)
+    engines = [vlm_engine(cfg, use_kernel=uk, n_requests=8, max_new=32,
+                          params=params) for uk in (True, False)]
+    check(engines[0].state["cache"]["k"].dtype == torch.int8,
+          "vlm int8 pair: the cache is not int8")
+    stream_pair("vlm int8 kernels vs plain (5 layers)", engines)
+    del engines, params
 
 
 # ------------------------------------------------------- the zamba2 path
@@ -5092,12 +5140,207 @@ def phase_mesh_ssm_serving():
     return added
 
 
+def mesh_buffers(state) -> dict:
+    """{name: local shard} of a decode state's cache and image K/V."""
+    from repro_torch.models.partitioning import local
+    out = {f"cache/{n}": local(t) for n, t in state["cache"].items()}
+    out.update({f"img_kv/{n}": local(t)
+                for n, t in state.get("img_kv", {}).items()})
+    return out
+
+
+def local_tree(tree):
+    """A nested dict of DTensors as their local shards."""
+    from repro_torch.models.partitioning import local
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    return local(tree)
+
+
+def image_kv_gap(eng) -> float:
+    """After a VLM engine's run: the worst gap between its image K/V
+    shard and ``layers.project_kv`` of its cross layers' current (so
+    permuted) weights on the image of the request each slot last held,
+    over every cross layer, slot and position.  Migrations permute the
+    image K/V in place after admission projected it; projection commutes
+    with the head permutation, so the two agree to bf16 rounding."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.partitioning import local
+    from repro_torch.models.transformer import _layer_view
+    last = {e["slot"]: e["rid"] for e in eng.admission_log}
+    reqs = {r.rid: r for r in eng.finished}
+    cross = local_tree(eng.params["cross_layers"])
+    dt = local(eng.state["img_kv"]["k"]).dtype
+    worst = 0.0
+    for g in range(eng.model.n_groups):
+        p = _layer_view(cross, g)["attn"]
+        for slot, rid in last.items():
+            img = torch.as_tensor(reqs[rid].img, device="cuda").to(dt)
+            want = L.project_kv(eng.cfg, p, eng.model.hd, img[None])
+            for n in ("k", "v"):
+                got = local(eng.state["img_kv"][n])[g, slot]
+                worst = max(worst, (got.float() - want[n][0].float())
+                            .abs().max().item())
+    return worst
+
+
+def phase_mesh_audio_vlm_serving():
+    """``make_engine(mode="auto", part=..., use_kernel=True)`` on a (1, 1)
+    ("data", "model") NCCL mesh for the audio and VLM families at
+    published widths, bf16: musicgen-large at 4 layers
+    (``random_norm_mlp_bias``) and llama-3.2-vision-11b at 2 supergroups
+    (8 self + 2 gated cross layers, ``set_vlm_gates``; image buffers of
+    ``VLM_IMG`` rows, "columns"), each serving ``MESH_REQUESTS`` requests
+    of 32-512 tokens (the VLM's with images of 1601, 1025 and 0 rows in
+    turn), ``MESH_NEW`` new tokens each, 8 slots, an extent of 1024, λ 8,
+    a 500x straggler at step ``MESH_STRAGGLE``; params placed by
+    ``param_shardings``, the cache and image K/V by
+    ``decode_state_shardings``.  The same weights and traffic run first
+    through the unsharded engine.  The sharded engine's kernel counts are
+    set to 0 just before it is driven and read just after.  Checks: the
+    continuous engine (no fallback to the wave engine), greedy streams and
+    migration logs equal to the unsharded engine's, an applied migration,
+    the local shards of the cache and the image K/V written in place (one
+    ``data_ptr`` per buffer over every decode step, migrations included),
+    after the run the image K/V shard equal to ``project_kv`` of the
+    permuted cross weights on the same images (``image_kv_gap``, within
+    TOLS's bf16 atol), launches exact — musicgen: resident == decode
+    steps x 4, flash == admissions x 4; the VLM: resident == decode steps
+    x 10 (8 self layers over the cache, 2 cross layers over the image
+    K/V), flash == admissions x 8 self layers — and no other kernel.
+    Logs peak memory and the eager step median against the unsharded
+    engine's.  Returns the launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.partitioning import is_dtensor, make_partitioner
+    from repro_torch.serving.engine import make_engine
+    from repro_torch.tree import flatten
+    families = {
+        "musicgen": (get_config("musicgen-large").with_overrides(
+            n_layers=N_LAYERS), random_norm_mlp_bias, {}, N_LAYERS),
+        "vlm": (get_config("llama-3.2-vision-11b").with_overrides(
+            n_layers=VLM_LAYERS), set_vlm_gates,
+            dict(img_tokens=VLM_IMG, layer_mode="columns"), VLM_SELF),
+    }
+    added = {"decode_attention_resident": 0, "flash_attention": 0}
+    keys = ("step", "n_migrations", "mig_bytes", "applied", "reason")
+    with one_rank_nccl():
+        part = make_partitioner(make_debug_mesh(1, 1))
+        for fam, (cfg, seed_params, kw, n_self) in families.items():
+            params = build_model(cfg, device="cuda").init(
+                torch.Generator(device="cuda").manual_seed(0))
+            seed_params(params)
+            imgs = vlm_images(MESH_REQUESTS, cfg.d_model) if fam == "vlm" \
+                else [None] * MESH_REQUESTS
+            runs = {}
+            for label, extra in (("unsharded", {}),
+                                 ("mesh", dict(part=part))):
+                torch.cuda.reset_peak_memory_stats()
+                eng = make_engine(
+                    cfg, mode="auto", n_slots=MAIN_B, max_seq=MAIN_T,
+                    lam=8, seed=0, net=DeviceNetwork.sample(4, seed=1),
+                    use_kernel=True, params=params, device="cuda", **kw,
+                    **extra)
+                for p, img in zip(traffic(MESH_REQUESTS, cfg.vocab_size),
+                                  imgs):
+                    eng.submit(p, max_new_tokens=MESH_NEW,
+                               **({} if img is None
+                                  else dict(img_embeds=img)))
+                ptrs = {n: {t.data_ptr()}
+                        for n, t in mesh_buffers(eng.state).items()}
+                seen = watch_logits(eng)
+                prefill = time_prefill(eng)
+                reset_launches()
+                t0 = time.monotonic()
+                while drive(eng, straggle_at=MESH_STRAGGLE):
+                    for n, t in mesh_buffers(eng.state).items():
+                        ptrs[n].add(t.data_ptr())
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                launches = read_launches()
+                runs[label] = dict(
+                    type=type(eng).__name__,
+                    streams={r.rid: r.out_tokens for r in eng.finished},
+                    log=[tuple(e[k] for k in keys)
+                         for e in eng.migration_log],
+                    launches=launches, wall=wall, ptrs=ptrs,
+                    steps=eng.decode_steps, admissions=prefill["calls"],
+                    metrics=path_metrics(eng, wall),
+                    finite=bool(seen["finite"].item()),
+                    placed=all(is_dtensor(t) for t in
+                               flatten(eng.params).values()),
+                    shards={n: tuple(t.shape) for n, t in
+                            mesh_buffers(eng.state).items()},
+                    exchange=list(eng.exchange_log),
+                    img_gap=image_kv_gap(eng) if fam == "vlm" else None,
+                    peak=torch.cuda.max_memory_allocated() / 1e9)
+                log_split(eng, wall, prefill)
+                del eng, seen
+                release()
+            del params
+            one, mesh = runs["unsharded"], runs["mesh"]
+            got = {k: v for k, v in mesh["launches"].items() if v}
+            want = {"decode_attention_resident": mesh["steps"]
+                    * cfg.n_layers,
+                    "flash_attention": mesh["admissions"] * n_self}
+            applied = [e for e in mesh["log"] if e[1] and e[3]]
+            ratio = mesh["metrics"]["step median ms"] \
+                / one["metrics"]["step median ms"]
+            log(f"mesh (1, 1) {fam} {cfg.name} x{cfg.n_layers} layers bf16 "
+                f"({mesh['type']}): {len(mesh['streams'])} requests, "
+                f"{mesh['admissions']} admissions, {mesh['steps']} decode "
+                f"steps in {mesh['wall']:.2f} s "
+                f"({mesh['metrics']['tok/s']:.1f} tok/s; unsharded "
+                f"{one['metrics']['tok/s']:.1f}); decode step median "
+                f"{mesh['metrics']['step median ms']:.2f} ms (unsharded "
+                f"{one['metrics']['step median ms']:.2f}, {ratio:.2f}x); "
+                f"controller intervals mean "
+                f"{mesh['metrics']['interval mean ms']:.1f} ms; "
+                f"{len(applied)} applied migrations; local shards "
+                f"{mesh['shards']}; sent to other ranks {mesh['exchange']}; "
+                f"launches {got}; peak memory {mesh['peak']:.2f} GB "
+                f"(unsharded {one['peak']:.2f})"
+                + ("" if mesh["img_gap"] is None else
+                   f"; image K/V shard vs project_kv of the permuted cross "
+                   f"weights: max gap {mesh['img_gap']:.3e}"))
+            check(mesh["type"] == one["type"] == "ServingEngine",
+                  f"mesh {fam}: make_engine picked {mesh['type']}")
+            check(len(mesh["streams"]) == MESH_REQUESTS
+                  and mesh["streams"] == one["streams"]
+                  and all(len(t) == MESH_NEW
+                          for t in mesh["streams"].values()),
+                  f"mesh {fam}: streams differ from the unsharded engine's")
+            check(mesh["log"] == one["log"], f"mesh {fam}: logs differ")
+            check(bool(applied), f"mesh {fam}: no migration was applied")
+            check(mesh["placed"], f"mesh {fam}: a weight was not placed")
+            check(all(len(p) == 1 for p in mesh["ptrs"].values()),
+                  f"mesh {fam}: a cache or image K/V shard moved in memory "
+                  f"({ {n: len(p) for n, p in mesh['ptrs'].items()} })")
+            check(got == want, f"mesh {fam}: launches {got} != {want}")
+            check(one["launches"] == mesh["launches"],
+                  f"mesh {fam}: launches differ from the unsharded engine's "
+                  f"({one['launches']})")
+            check(mesh["img_gap"] is None
+                  or mesh["img_gap"] <= TOLS[torch.bfloat16]["atol"],
+                  f"mesh {fam}: the image K/V shard is not project_kv of "
+                  f"the permuted cross weights (gap {mesh['img_gap']})")
+            check(mesh["finite"] and one["finite"],
+                  f"mesh {fam}: non-finite logits")
+            for name, v in want.items():
+                added[name] += v
+            del runs
+            release()
+    return added
+
+
 def tp_phases(by_name):
     """The tp-16 phases, the one-card mesh, the decode kernels (and
     zamba2's shared block) on the tp-4 head shards, the WKV6 kernel on
     rwkv6-7b's, and sharded serving on the one-card mesh (dense, MoE over
-    the ring, then RWKV-6 and Zamba2); their launches add to those
-    kernels' records."""
+    the ring, RWKV-6 and Zamba2, then musicgen and the VLM); their
+    launches add to those kernels' records."""
     added = {"decode_attention_resident": 0, "flash_attention": 0}
     for phase in (phase_tp_dense, phase_tp_padded):
         launches = phase()
@@ -5113,7 +5356,7 @@ def tp_phases(by_name):
     wkv6_head_shards()
     release()
     for phase in (phase_mesh_serving, phase_mesh_moe_serving,
-                  phase_mesh_ssm_serving):
+                  phase_mesh_ssm_serving, phase_mesh_audio_vlm_serving):
         for name, n in phase().items():
             added[name] = added.get(name, 0) + n
         release()
@@ -5195,7 +5438,7 @@ def main():
     ap.add_argument("--kernels-of", metavar="ROOT",
                     help="only build ROOT's kernels and run the kernel "
                     "phases on them; print their records")
-    ap.add_argument("--only", choices=("train", "tp", "ssm"),
+    ap.add_argument("--only", choices=("train", "tp", "ssm", "audio_vlm"),
                     help="only build the kernels and run these phases "
                     "(no result lines)")
     args = ap.parse_args()
@@ -5232,6 +5475,15 @@ def main():
         zamba2_shared_block_shards()
         release()
         log(f"mesh ssm launches: {phase_mesh_ssm_serving()}; "
+            f"{time.monotonic() - t0:.1f} s from the build on")
+        return
+    if args.only == "audio_vlm":
+        log(f"vlm int8 launches: {phase_vlm_int8_path()}")
+        release()
+        phase_vlm_int8_stream_pair()
+        release()
+        log(f"mesh audio and vlm launches: "
+            f"{phase_mesh_audio_vlm_serving()}; "
             f"{time.monotonic() - t0:.1f} s from the build on")
         return
     if args.only == "tp":
@@ -5276,15 +5528,22 @@ def main():
     resident = {"dense": by_name["decode_attention_resident"]["launches"]}
     resident["vlm"], flash["vlm"] = phase_vlm_path()
     release()
+    # the VLM from an int8 cache: the self layers' launches add to the int8
+    # kernel's record, the cross layers' to the resident kernel's
+    int8_vlm, resident["vlm int8"], flash["vlm int8"] = phase_vlm_int8_path()
+    by_name["decode_attention_int8_resident"]["launches"] += int8_vlm
+    log(f"decode_attention_int8_resident launches in its record: + vlm int8 "
+        f"{int8_vlm}")
+    release()
     # and the zamba2 path's (the shared block's decode and prefill at dh 80)
     resident["zamba2"], flash["zamba2"] = phase_zamba2_path()
     by_name["decode_attention_resident"]["launches"] = \
         sum(resident.values())
     by_name["flash_attention"]["launches"] = \
-        flash["glm4"] + flash["vlm"] + flash["zamba2"]
+        flash["glm4"] + flash["vlm"] + flash["vlm int8"] + flash["zamba2"]
     log(f"decode_attention_resident launches in its record: {resident}; "
-        f"flash_attention: glm4 {flash['glm4']} + vlm {flash['vlm']} + "
-        f"zamba2 {flash['zamba2']}")
+        f"flash_attention: glm4 {flash['glm4']} + vlm {flash['vlm']} + vlm "
+        f"int8 {flash['vlm int8']} + zamba2 {flash['zamba2']}")
     release()
     phase_zamba2_full_depth()
     release()
@@ -5321,6 +5580,8 @@ def main():
     phase_musicgen_stream_pair()
     release()
     phase_vlm_stream_pair()
+    release()
+    phase_vlm_int8_stream_pair()
     release()
     phase_zamba2_stream_pair()
     release()

@@ -34,24 +34,18 @@ def build_model(cfg: ModelConfig, *, tp: int = 1, part=NULL,
     """``tp`` lays attention heads out for head-level tensor parallelism
     at that degree (padded query heads, ``rep``-replicated KV heads;
     ``layers.head_dims``; RWKV-6 has no attention heads and ignores it).
-    ``part`` (``partitioning``) maps the intermediates onto a mesh: the
-    dense, MoE, RWKV-6 and Zamba2 families' ``forward``, prefills and
-    ``decode_step`` then run sharded, each rank holding its heads' KV
-    cache (linear or ring), for MoE its experts' rows over "pod", for
+    ``part`` (``partitioning``) maps the intermediates onto a mesh: every
+    family's ``forward``, prefills and ``decode_step`` then run sharded,
+    each rank holding its heads' KV cache (linear or ring), for MoE its
+    experts' rows over "pod", for the VLM its heads' image K/V, for
     RWKV-6 and Zamba2 its heads' WKV, SSM and conv state shards (the
-    recurrences on local tensors); a partitioner with a mesh raises
-    ``NotImplementedError`` for the audio and VLM families.  ``capacity_moe``
+    recurrences on local tensors).  ``capacity_moe``
     runs MoE layers through GShard capacity dispatch at
     ``capacity_factor`` (attention families; RWKV-6 and Zamba2 have no
     MoE, as in the reference, which ignores the option for them).
     ``remat`` is one of the reference's ``REMAT_POLICIES`` names ("none",
     "full", "dots", "dots_no_batch"): activation checkpointing under
     autograd (``transformer.remat_call``); any other name raises."""
-    if part.mesh is not None and cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"the {cfg.family} family does not run sharded yet (ROADMAP "
-            f"Queue 1 #18: the audio and VLM paths); the dense, MoE, "
-            f"RWKV-6 and Zamba2 families do")
     common = dict(use_kernel=use_kernel, remat=remat,
                   device=resolve_device(device), part=part)
     if cfg.family == "ssm":

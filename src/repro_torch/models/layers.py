@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.partitioning import (NULL, is_dtensor, like, local,
-                                             local_shards)
+                                             local_range, local_shards, whole)
 from repro_torch.models.quantization import is_quantized, wt
 # attention_scores and chunked_attention stay importable from here, beside
 # the rest of the reference's layers
@@ -614,24 +614,59 @@ def _cache_shards(cache: dict, part, *, paged: bool) -> dict:
         for name, t in cache.items()})
 
 
-def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x) -> dict:
+# the reference's layout of the image K/V (B, I, KvE, dh): batch rows over
+# the data axes, expanded KV heads over "model"
+IMG_KV_AXES = ("batch", "img_seq", "kv_heads", None)
+
+
+def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x, *,
+               rows: tuple = None, heads: tuple = None) -> dict:
     """Cross-attention K/V {"k", "v"} (B, I, KvE, dh) of the image
     embeddings ``kv_x`` (B, I, D): no RoPE, ``bk``/``bv`` for
-    ``qkv_bias`` configs, each KV head repeated ``rep`` times."""
-    k = torch.einsum("bsd,dhk->bshk", kv_x, wt(p, "wk", kv_x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", kv_x, wt(p, "wv", kv_x.dtype))
-    if cfg.qkv_bias:
-        k = k + p["bk"].to(kv_x.dtype)
-        v = v + p["bv"].to(kv_x.dtype)
-    k, v = repeat_kv(k, hd.rep), repeat_kv(v, hd.rep)
-    return {"k": k, "v": v}
+    ``qkv_bias`` configs, each KV head repeated ``rep`` times.
+
+    ``rows`` and ``heads`` ((start, count); the whole axis by default)
+    give one rank's shard of a mesh's image K/V (``IMG_KV_AXES``): batch
+    rows of ``kv_x`` and expanded KV rows of KvE, projected on local
+    tensors from the rank's shards of ``wk``/``wv`` (and ``bk``/``bv``),
+    whose KV head axis holds the rows ``local_range`` gives (all of them
+    where the weights are replicated).  Expanded row e is replica
+    ``e % rep`` of KV head ``e // rep``, so the shard needs no other
+    rank's weights and no rank computes the whole image K/V.  ``kv_x``
+    may be a DTensor placed with those batch rows."""
+    x = local(kv_x) if is_dtensor(kv_x) else kv_x
+    rows = rows or (0, x.shape[0])
+    lo, n = heads or (0, hd.KvE)
+    if not is_dtensor(kv_x):
+        x = x.narrow(0, *rows)
+    if x.shape[0] != rows[1]:
+        raise ValueError(f"the image embeddings' local rows {x.shape[0]} "
+                         f"are not the image K/V shard's {rows[1]}")
+    # the KV heads whose replicas cover the expanded rows [lo, lo + n)
+    h0, h1 = lo // hd.rep, -(-(lo + n) // hd.rep)
+    ws = {name: wt(p, "w" + name, x.dtype) for name in ("k", "v")}
+    w_lo, w_n = local_range(ws["k"], ws["k"].dim() - 2)
+    if n and not w_lo <= h0 < h1 <= w_lo + w_n:
+        raise ValueError(f"this rank's KV weight rows do not hold the "
+                         f"expanded rows [{lo}, {lo + n})")
+    out = {}
+    for name in ("k", "v"):
+        w = local(ws[name]).narrow(-2, h0 - w_lo, h1 - h0)
+        t = torch.einsum("bsd,dhk->bshk", x, w)
+        if cfg.qkv_bias:
+            t = t + local(p["b" + name]).narrow(-2, h0 - w_lo,
+                                                h1 - h0).to(x.dtype)
+        out[name] = repeat_kv(t, hd.rep).narrow(-2, lo - h0 * hd.rep, n)
+    return out
 
 
 def check_prefix_mask(kv_mask):
     """Raise unless every row of ``kv_mask`` (B, I) is a prefix of valid
     positions (right-padded): the decode kernel models validity as a
     per-row length.  One host sync; callers run it where a mask enters a
-    decode state, not in every layer at every step."""
+    decode state, not in every layer at every step.  A DTensor mask is
+    read whole, so that every rank of a mesh decides alike."""
+    kv_mask = whole(kv_mask)
     I = kv_mask.shape[-1]
     lens = kv_mask.sum(-1)
     pref = torch.arange(I, device=kv_mask.device)[None, :] < lens[:, None]
@@ -644,7 +679,7 @@ def check_prefix_mask(kv_mask):
 def cross_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x, *,
                           kv_embeds=None, kv_cache=None, kv_mask=None,
                           use_kernel: bool = False,
-                          check_prefix: bool = True):
+                          check_prefix: bool = True, part=NULL):
     """Gated cross-attention (llama-3.2-vision): queries from ``x``
     (B, S, D), K/V either projected here from ``kv_embeds`` (B, I, D) and
     returned as a static cache, or read from ``kv_cache`` {"k","v"}
@@ -663,33 +698,56 @@ def cross_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x, *,
     positions.  S > 1, or no kernel: the plain masked attention, as in
     the reference, which has no kernel there.  The CUDA kernel takes any
     image extent (the reference's kernel only one that tiles its block).
+
+    part: with DTensor parameters (a VLM on a mesh) q comes through
+    DTensor and attention runs on the rank's shard, as in
+    ``self_attention_block``: its batch rows and query heads, the image
+    K/V shard it holds (a placed ``kv_cache`` laid out as
+    ``IMG_KV_AXES``: its heads' expanded KV rows, checked, never
+    redistributed; ``kv_embeds`` raises on a mesh) and its rows of ``kv_mask``; the kernel
+    runs over identity rows of the local width, the mean of V is taken
+    over the shard's heads (a mean over image positions, per head), and
+    ``wo``'s head-sharded contraction is reduced over "model".
     Returns (out, kv_cache)."""
-    B, S = x.shape[0], x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, wt(p, "wq", x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
+    q = part.constrain(q, ("batch", "seq", "heads", None))
     if kv_cache is None:
+        if part.mesh is not None:
+            raise NotImplementedError(
+                "cross-attention on a mesh reads a placed image K/V "
+                "(kv_cache); project it shard by shard with project_kv")
         kv_cache = project_kv(cfg, p, hd, kv_embeds)
-    k, v = kv_cache["k"], kv_cache["v"]
+    layout, k, v = q, kv_cache["k"], kv_cache["v"]
+    if is_dtensor(q):
+        q = local(q)
+        kv = local_shards(kv_cache, part, {"k": IMG_KV_AXES,
+                                           "v": IMG_KV_AXES})
+        k, v = kv["k"], kv["v"]
+        if kv_mask is not None:
+            kv_mask = _rows_of(part, kv_mask, ("batch", "img_seq"))
+    B, S = q.shape[0], q.shape[1]
     if use_kernel and S == 1:
         I = k.shape[1]
         if kv_mask is None:
-            lens = torch.full((B,), I, dtype=torch.int32, device=x.device)
+            lens = torch.full((B,), I, dtype=torch.int32, device=q.device)
         else:
             lens = kv_mask.sum(-1).to(torch.int32)
             if check_prefix:
                 check_prefix_mask(kv_mask)
-        rows = torch.arange(q.shape[2], dtype=torch.int32, device=x.device)
+        rows = torch.arange(q.shape[2], dtype=torch.int32, device=q.device)
         out = ops.decode_attention_resident_bshd(q, k, v, lens, rows)
         if kv_mask is not None:
             G = q.shape[2] // v.shape[2]
             vm = v.mean(dim=1).repeat_interleave(G, dim=1)[:, None]
             out = torch.where((lens == 0)[:, None, None, None],
                               vm.to(out.dtype), out)
-        return _project_out(p, out, gate=p["gate"]), kv_cache
-    mask = None if kv_mask is None else kv_mask[:, None, None, None, :]
-    out = attention_scores(q, k, v, mask)
-    return _project_out(p, out, gate=p["gate"]), kv_cache
+    else:
+        mask = None if kv_mask is None else kv_mask[:, None, None, None, :]
+        out = attention_scores(q, k, v, mask)
+    return _project_out(p, like(out, layout), gate=p["gate"],
+                        part=part), kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -709,7 +767,11 @@ def mlp_block(cfg: ModelConfig, p: dict, x, *, part=NULL):
         h = F.gelu(x @ wt(p, "w_up", x.dtype) + p["b_up"].to(x.dtype),
                    approximate="tanh")
         h = part.constrain(h, ("batch", "seq", "d_ff"))
-        out = h @ wt(p, "w_down", x.dtype) + p["b_down"].to(x.dtype)
+        # under a mesh ``h @ w_down`` is a partial sum over "model" (h and
+        # w_down split d_ff): the bias joins once, after the reduction
+        out = part.constrain(h @ wt(p, "w_down", x.dtype),
+                             ("batch", "res_seq", "d_model"))
+        return out + p["b_down"].to(x.dtype)
     return part.constrain(out, ("batch", "res_seq", "d_model"))
 
 

@@ -153,15 +153,15 @@ class TransformerLM:
     degree (``layers.head_dims``: query heads zero-padded to ``Hp``, KV
     heads repeated ``rep`` times into ``KvE`` cache rows); on one device
     it computes the tp-1 function.  ``part`` (``partitioning``) maps the
-    intermediates onto a ``DeviceMesh``: with a dense or MoE model's
-    parameters placed as DTensors (``placement_bridge.param_shardings``;
-    a MoE model's expert stacks over "pod"), ``forward``, the prefills and
-    ``decode_step`` run sharded over the mesh — the MoE layers on local
-    tensors with explicit collectives (``moe.moe_block``) — and every
-    fresh cache and decode state, a ring too, is placed as
+    intermediates onto a ``DeviceMesh``: with the parameters placed as
+    DTensors (``placement_bridge.param_shardings``; a MoE model's expert
+    stacks over "pod"), ``forward``, the prefills and ``decode_step`` run
+    sharded over the mesh — the MoE layers on local tensors with explicit
+    collectives (``moe.moe_block``), a VLM's cross layers over the rank's
+    image K/V shard — and every fresh cache and decode state, a ring and
+    a VLM's image K/V too, is placed as
     ``placement_bridge.decode_state_shardings`` says, each rank building
-    only its own shard (``place_state``; ``build_model`` refuses a mesh
-    for the audio and VLM families)."""
+    only its own shard (``place_state``)."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  use_kernel: bool = False, capacity_moe: bool = False,
@@ -290,30 +290,51 @@ class TransformerLM:
             return x + out, aux, freq
         return x + L.mlp_block(cfg, p["mlp"], h, part=part), None, None
 
-    def _cross_layer(self, p: dict, x, img_kv, img_mask):
+    def _cross_layer(self, p: dict, x, img_kv, img_mask, part=None):
         """A gated cross-attention layer over the image K/V ``img_kv``
         {"k","v"} (B, I, KvE, dh): attention gated by ``tanh(gate)``, the
         MLP by ``tanh(gate_ffn)``.  Masks reach it checked
-        (``_check_img_mask``)."""
-        cfg = self.cfg
+        (``_check_img_mask``).  ``part``: the call's partitioner, the
+        model's by default."""
+        cfg, part = self.cfg, part or self.part
         h = L.apply_norm(cfg, p, "ln1", x)
         attn_out, _ = L.cross_attention_block(
             cfg, p["attn"], self.hd, h, kv_cache=img_kv, kv_mask=img_mask,
-            use_kernel=self.use_kernel, check_prefix=False)
+            use_kernel=self.use_kernel, check_prefix=False, part=part)
         x = x + attn_out
         h = L.apply_norm(cfg, p, "ln2", x)
-        return x + L.mlp_block(cfg, p["mlp"], h) \
+        return x + L.mlp_block(cfg, p["mlp"], h, part=part) \
             * torch.tanh(p["gate_ffn"]).to(x.dtype)
 
     def _project_img_kv(self, params, img_embeds) -> dict:
         """The cross layers' image K/V {"k","v"} (G, B, I, KvE, dh) of
         ``img_embeds`` (B, I, D), in the embeddings' dtype, each KV head
-        repeated ``rep`` times."""
-        kv = [L.project_kv(self.cfg, _layer_view(params["cross_layers"],
-                                                 g)["attn"], self.hd,
-                           img_embeds)
-              for g in range(self.n_groups)]
-        return {n: torch.stack([t[n] for t in kv]) for n in ("k", "v")}
+        repeated ``rep`` times.  On a mesh the K/V are placed as
+        ``decode_state_shardings`` says (batch rows over the data axes,
+        KvE over "model"; a batch that does not split stays whole there)
+        and built shard by shard: each rank projects its batch rows onto
+        its heads' KV rows (``layers.project_kv`` of a shard) into a shard that
+        ``place_state`` allocated, so no rank holds the whole image
+        K/V."""
+        cross = params["cross_layers"]
+        if self.part.mesh is None:
+            kv = [L.project_kv(self.cfg, _layer_view(cross, g)["attn"],
+                               self.hd, img_embeds)
+                  for g in range(self.n_groups)]
+            return {n: torch.stack([t[n] for t in kv]) for n in ("k", "v")}
+        B, I = img_embeds.shape[0], img_embeds.shape[1]
+        shape = (self.n_groups, B, I, self.hd.KvE, self.hd.dh)
+        kv = self._placed({"img_kv": {
+            n: torch.empty(shape, dtype=img_embeds.dtype, device="meta")
+            for n in ("k", "v")}}, B)["img_kv"]
+        rows, heads = local_range(kv["k"], 1), local_range(kv["k"], 3)
+        for g in range(self.n_groups):
+            shard = L.project_kv(
+                self.cfg, _layer_view(cross, g)["attn"], self.hd,
+                img_embeds, rows=rows, heads=heads)
+            for n in ("k", "v"):
+                local(kv[n])[g].copy_(shard[n])
+        return kv
 
     def _check_img_mask(self, img_mask):
         """A mask the decode kernel reads as per-row lengths must be a
@@ -323,25 +344,27 @@ class TransformerLM:
             L.check_prefix_mask(img_mask)
 
     def _run_layers_vlm(self, params, x, positions, cache, cache_pos,
-                        img_kv, img_mask):
+                        img_kv, img_mask, part=None):
         """The VLM's supergroups [3 self, 1 cross, 1 self]: self layer
         (g, i) reads ``params["layers"]`` and the cache at (g, i), cross
         layer g ``params["cross_layers"]`` and the image K/V at g.  Self
         attention decodes over identity head rows (the reference threads
-        no row maps into a VLM's grouped stacks).  ``remat`` checkpoints
-        each layer.  The VLM has no MoE: its aux loss is zero."""
+        no row maps into a VLM's grouped stacks; on a mesh, identity rows
+        of the rank's local width).  ``remat`` checkpoints each layer;
+        ``part`` is the call's partitioner.  The VLM has no MoE: its aux
+        loss is zero."""
         for g in range(self.n_groups):
             for i in range(4):
                 if i == SELF_BEFORE_CROSS:
                     x = remat_call(self.remat, self._cross_layer,
                                    _layer_view(params["cross_layers"], g), x,
-                                   _layer_view(img_kv, g), img_mask)
+                                   _layer_view(img_kv, g), img_mask, part)
                 layer_cache = None if cache is None else \
                     {name: buf[g, i] for name, buf in cache.items()}
                 x, _, _ = remat_call(
                     self.remat, self._layer,
                     _layer_view(params["layers"], (g, i)), x, positions,
-                    layer_cache, cache_pos)
+                    layer_cache, cache_pos, None, None, None, None, part)
         return x, None, torch.zeros((), dtype=torch.float32,
                                     device=x.device)
 
@@ -361,7 +384,7 @@ class TransformerLM:
         is the call's partitioner (``Partitioner.for_batch``)."""
         if self.is_vlm:
             return self._run_layers_vlm(params, x, positions, cache,
-                                        cache_pos, img_kv, img_mask)
+                                        cache_pos, img_kv, img_mask, part)
         freqs = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for l in range(self.cfg.n_layers):
@@ -455,7 +478,8 @@ class TransformerLM:
         its shard (``_placed``); "pos" is replicated."""
         T = self.cache_len(max_seq)
         if self.is_vlm:
-            return self._kv_buffers((self.n_groups, 4, batch, T), dtype)
+            return self._placed(
+                self._kv_buffers((self.n_groups, 4, batch, T), dtype), batch)
         lead = (self.cfg.n_layers, batch, T)
         if self.window and T == self.window:
             ring = self._kv_buffers(lead, dtype, quant=False)
@@ -493,6 +517,8 @@ class TransformerLM:
             self._check_img_mask(img_mask)
             state["img_kv"] = self._project_img_kv(params, img_embeds)
             state["img_mask"] = img_mask
+        # on a mesh: "img_mask" (B, I) and every other plain leaf placed by
+        # the decode-state rules (the cache and image K/V already are)
         return self._placed(state, batch)
 
     def prefill(self, params, state, tokens):
@@ -561,8 +587,8 @@ class TransformerLM:
         scales), so one rule covers (L, B, T, KvE, dh) and the VLM's
         (G, 4, B, T, KvE, dh); a VLM also splices the request's image K/V
         (G, B, I, KvE, dh) and mask rows.  On a mesh each rank copies its
-        heads' shard, and only the data rank holding row ``slot`` writes
-        it."""
+        heads' shard of the cache and the image K/V, and only the data
+        rank holding row ``slot`` writes it."""
         for name, src in sub["cache"].items():
             dst = state["cache"][name]
             tail = 3 if name.endswith("_sc") else 4
@@ -576,11 +602,17 @@ class TransformerLM:
         local(state["pos"])[slot] = local(sub["pos"])[0]
         if "img_kv" in state and "img_kv" in sub:
             for name, src in sub["img_kv"].items():
-                state["img_kv"][name][:, slot].copy_(src[:, 0])
+                dst = state["img_kv"][name]
+                lo, n = local_range(dst, 1)
+                if lo <= slot < lo + n:
+                    local(dst)[:, slot - lo].copy_(local(src)[:, 0])
         if state.get("img_mask") is not None \
                 and sub.get("img_mask") is not None:
             self._check_img_mask(sub["img_mask"])
-            state["img_mask"][slot] = sub["img_mask"][0]
+            lo, n = local_range(state["img_mask"], 0)
+            if lo <= slot < lo + n:
+                local(state["img_mask"])[slot - lo] = \
+                    local(sub["img_mask"])[0]
         return state
 
     def decode_step(self, params, state, tokens):

@@ -51,11 +51,11 @@ expansion plan; ``slow_device`` pins load the next interval observes;
 The controller drives a simulated device network, as in the reference: the
 model runs on one GPU (or the CPU), and the placement decides which
 (layer, head) rows and experts each simulated device holds.  With a
-partitioner on a ``DeviceMesh`` (``part``; the dense, MoE, RWKV-6 and
-Zamba2 families) the engine runs on every rank of the mesh at once: each
-rank holds its shard of the weights (a MoE arch's experts over "pod") and
-its heads' shard of the KV cache (linear or ring) or of the recurrent
-state (WKV, SSM and conv), runs the same scheduler and controller
+partitioner on a ``DeviceMesh`` (``part``; every family) the engine runs
+on every rank of the mesh at once: each rank holds its shard of the
+weights (a MoE arch's experts over "pod") and its heads' shard of the KV
+cache (linear or ring; a VLM's image K/V too) or of the recurrent state
+(WKV, SSM and conv), runs the same scheduler and controller
 from the same seed (so every rank's plans and logs are equal, and none is
 broadcast), samples from whole logits, and a migration moves only the KV,
 weight and expert rows that change rank between ranks.
@@ -74,13 +74,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocks import CostModel
 from repro_torch.core.controller import ControllerConfig, IntervalController
 from repro_torch.core.network import DeviceNetwork
-from repro_torch.core.placement_bridge import (apply_head_perm,
-                                               apply_layer_head_perms,
+from repro_torch.core.placement_bridge import (apply_layer_head_perms,
                                                head_row_maps,
                                                identity_head_rows,
                                                param_shardings,
                                                permute_model_experts_layers,
-                                               permute_model_heads,
                                                permute_model_heads_layers,
                                                relative_perms)
 from repro_torch.device import resolve_device
@@ -209,8 +207,8 @@ class _EngineBase:
     its KV head's ``rep`` cache rows; without ``net`` the controller
     places over ``max(tp, 4)`` simulated devices, as the reference's.
 
-    ``part`` (``partitioning.Partitioner`` with a mesh; the dense, MoE,
-    RWKV-6 and Zamba2 families) serves sharded: the model is built with it, the weights are
+    ``part`` (``partitioning.Partitioner`` with a mesh; every family)
+    serves sharded: the model is built with it, the weights are
     placed by ``placement_bridge.param_shardings`` (injected ones copied
     first, as migrations permute the placed weights in place; a MoE
     arch's expert stacks over "pod" where the mesh has one, with the
@@ -469,23 +467,41 @@ class _EngineBase:
         """The reference's one-layout branch: a plan whose rows are all
         equal permutes the head axis of every self and cross layer's
         weights, of the (G, 4, B, T, KvE, dh) cache (and int8 scales) and
-        of the image K/V (G, B, I, KvE, dh) by its one row."""
+        of the image K/V (G, B, I, KvE, dh) by its one row, broadcast over
+        each stack's leading layer axes ((G, 4) self, (G,) cross).  On a
+        mesh the sharded weights, cache and image K/V are permuted in
+        place, each rank sending only the rows that change rank
+        (``placement_bridge._permute_layers_``); ``exchange_log`` counts
+        the image K/V's rows with the cache's KV rows."""
         if rel.shape[0] > 1 and not np.all(rel == rel[0]):
             return False, ("per-layer plan on a cache without a leading "
                            "layer axis")
+        n_g, H = self.model.n_groups, rel.shape[1]
+        rows = {"layers": np.broadcast_to(rel[0], (n_g, 4, H)).copy(),
+                "cross_layers": np.broadcast_to(rel[0], (n_g, H)).copy()}
+        sent_w: Dict[str, int] = {}
+        sent_kv: Dict[str, int] = {}
         if permute_params:
-            self.params = permute_model_heads(self.params, rel[0],
-                                              group_size=G)
+            self.params = dict(self.params, **{
+                name: permute_model_heads_layers(
+                    self.params[name], r, group_size=G, sent=sent_w)
+                for name, r in rows.items()})
         rep = self.model.hd.rep
-        for buf in (state["cache"], state["img_kv"]):
-            buf["k"], buf["v"] = apply_head_perm(
-                buf["k"], buf["v"], rel[0], head_axis=-2, group_size=G,
-                rep=rep)
+        for buf, r in ((state["cache"], rows["layers"]),
+                       (state["img_kv"], rows["cross_layers"])):
+            buf["k"], buf["v"] = apply_layer_head_perms(
+                buf["k"], buf["v"], r, head_axis=-2, group_size=G, rep=rep,
+                sent=sent_kv)
         cache = state["cache"]
         if "k_sc" in cache:
-            cache["k_sc"], cache["v_sc"] = apply_head_perm(
-                cache["k_sc"], cache["v_sc"], rel[0], head_axis=-1,
-                group_size=G, rep=rep)
+            cache["k_sc"], cache["v_sc"] = apply_layer_head_perms(
+                cache["k_sc"], cache["v_sc"], rows["layers"], head_axis=-1,
+                group_size=G, rep=rep, sent=sent_kv)
+        if self.part.mesh is not None:
+            self._log_exchange(kv_rows=sent_kv.get("rows", 0),
+                               kv_bytes=sent_kv.get("bytes", 0),
+                               weight_rows=sent_w.get("rows", 0),
+                               weight_bytes=sent_w.get("bytes", 0))
         return True, None
 
     def _feed_expert_loads(self, states: Sequence[Dict[str, Any]]):
@@ -721,7 +737,10 @@ class ServingEngine(_EngineBase):
         image K/V of ``img`` (batch, img_tokens, D) under ``img_mask``
         (batch, img_tokens), in the model's dtype; without them every row
         is an empty, fully masked image (zero K/V: an imageless slot's
-        cross-attention adds nothing)."""
+        cross-attention adds nothing).  On a mesh the image buffer and its
+        mask are placed first, batch rows over the data axes as the state
+        places them (a one-row admission's whole there), so each rank
+        projects only its rows."""
         if self.paged:
             return self.model.init_paged_state(
                 self.params, batch, self.kv_pages, self.page_size,
@@ -738,6 +757,10 @@ class ServingEngine(_EngineBase):
             else:
                 kw["img_embeds"] = torch.as_tensor(img, device=dev).to(dt)
                 kw["img_mask"] = torch.as_tensor(img_mask, device=dev)
+            part = self.part.for_batch(batch)
+            kw["img_embeds"] = part.shard(kw["img_embeds"],
+                                          ("batch", "img_seq", None))
+            kw["img_mask"] = part.shard(kw["img_mask"], ("batch", "img_seq"))
         return self.model.init_decode_state(
             self.params, batch, max_seq or self.max_seq, per_slot=True, **kw)
 
@@ -1226,8 +1249,8 @@ class WaveServingEngine(_EngineBase):
     slots free only when the wave drains.  It serves sliding-window archs
     over their ring cache, the attention-free RWKV-6 and the Zamba2
     hybrid (whose head plans are logged as not applied), and any other
-    arch the port builds; with ``part`` (the dense, MoE, RWKV-6 and Zamba2
-    families) its states are placed on the mesh and prefill and lock-step
+    arch the port builds; with ``part`` (any family) its states are
+    placed on the mesh and prefill and lock-step
     decode run sharded, a ring's slot positions replicated on every rank;
     the recurrent families' plans apply nothing there either, so no rank
     sends a row."""

@@ -1835,3 +1835,96 @@ def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
     return [tree]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vlm_cross_kernel_on_tp4_head_shards(cuda, dtype):
+    """The VLM's cross-attention decode on the tp-4 head shards of
+    llama-3.2-vision-11b's layout: 8 of 32 q heads over 2 of 8 KV rows a
+    shard (G 4), each rank's image K/V shard its own tensor cut from one
+    cross layer of the (G, B, I, KvE, dh) stack, I 1601, lengths 1601,
+    1025 and 0 (an imageless row: the kernel's zeros, which the layer
+    patches to the mean of V), identity rows of the shard's width as the
+    sharded cross layer passes them.  Each shard equals its plain
+    version, and the four put together equal the whole call, at the
+    kernel tolerances."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_resident_plain)
+    B, H, KvE, I, dh, ranks = 3, 32, 8, 1601, 128, 4
+    n, nk = H // ranks, KvE // ranks
+    rng = np.random.default_rng(21)
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, dh), np.float32)).to(
+        cuda, dtype)
+    stack = torch.from_numpy(rng.standard_normal((2, 2, B, I, KvE, dh),
+                                                 np.float32)).to(cuda, dtype)
+    k, v = stack[0, 1], stack[1, 1]
+    lens = torch.tensor([I, 1025, 0], dtype=torch.int32, device=cuda)
+    whole = ops.decode_attention_resident_bshd(
+        q, k, v, lens, torch.arange(H, dtype=torch.int32, device=cuda))
+    rows = torch.arange(n, dtype=torch.int32, device=cuda)
+    before = decode_attention_resident.launches
+    parts = []
+    for r in range(ranks):
+        sq = q[:, :, r * n:(r + 1) * n].contiguous()
+        sk, sv = (t[:, :, r * nk:(r + 1) * nk].contiguous() for t in (k, v))
+        out = ops.decode_attention_resident_bshd(sq, sk, sv, lens, rows)
+        want = decode_attention_resident_plain(
+            sq[:, 0], sk.transpose(1, 2), sv.transpose(1, 2), lens, rows)
+        torch.testing.assert_close(out[:, 0].float(), want.float(),
+                                   **TOLS[dtype])
+        assert _row_rel_err(out[:, 0], want) <= DECODE_ROW_REL[dtype]
+        assert not out[2].any()              # length 0: zeros
+        parts.append(out)
+    assert decode_attention_resident.launches == before + ranks
+    together = torch.cat(parts, dim=2)
+    torch.testing.assert_close(together.float(), whole.float(),
+                               **TOLS[dtype])
+    assert _row_rel_err(together[:, 0], whole[:, 0]) <= DECODE_ROW_REL[dtype]
+
+
+def test_vlm_int8_cache_step_through_the_int8_kernel(cuda):
+    """A reduced float32 llama-3.2-vision (one supergroup, 8 q over 2 KV
+    heads of 64) from an int8 cache (``kv_quant``): lock-step prefill and
+    decode steps over images of all, half and none of an 8-row buffer,
+    with the kernels — the int8 kernel once a self layer a step, the
+    resident kernel once a cross layer — and without; every step's logits
+    within the f32 stream bound (1e-3; the kernels read the same int8
+    values and scales, summed in another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.api import build_model
+    cfg = get_config("llama-3.2-vision-11b").with_overrides(
+        n_layers=5, d_model=256, d_ff=512, vocab_size=97, n_heads=8,
+        n_kv_heads=2, d_head=64, dtype="float32", param_dtype="float32",
+        kv_quant=True)
+    params = build_model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    params["cross_layers"]["attn"]["gate"].fill_(0.7)
+    params["cross_layers"]["gate_ffn"].fill_(0.5)
+    rng = np.random.default_rng(4)
+    img = torch.from_numpy(rng.standard_normal((3, 8, 256), np.float32)).to(
+        cuda)
+    mask = torch.zeros((3, 8), dtype=torch.bool, device=cuda)
+    mask[0], mask[1, :4] = True, True
+    toks = torch.from_numpy(rng.integers(0, 97, (3, 6))).to(cuda)
+    runs = []
+    for uk in (True, False):
+        model = build_model(cfg, use_kernel=uk, device=cuda)
+        state = model.init_decode_state(params, 3, 16, img_embeds=img,
+                                        img_mask=mask)
+        assert state["cache"]["k"].dtype == torch.int8
+        before = (da.decode_attention_int8_resident.launches,
+                  da.decode_attention_resident.launches)
+        logits, state = model.prefill(params, state, toks)
+        out = [logits]
+        for i in range(3):
+            logits, state = model.decode_step(params, state,
+                                              toks[:, i].to(torch.int32))
+            out.append(logits)
+        runs.append(torch.stack(out))
+        if uk:
+            assert (da.decode_attention_int8_resident.launches - before[0],
+                    da.decode_attention_resident.launches - before[1]) \
+                == (3 * 4, 3 * 1)
+    torch.testing.assert_close(runs[0], runs[1], atol=1e-3, rtol=0.0)

@@ -714,26 +714,26 @@ def test_paged_cache_on_a_mesh_with_data_above_1_is_refused():
                                   "rwkv6-7b", "zamba2-2.7b",
                                   "llama-3.2-vision-11b"])
 def test_serving_engine_refuses_a_mesh_outside_the_dense_family(arch):
-    """The engine refuses a mesh for the families that do not run sharded
-    (audio and the VLM: ROADMAP Queue 1 #18) and serves the MoE, RWKV-6
-    and Zamba2 families on one: placing their weights needs a real
-    ``DeviceMesh``, so those cases build the engine on a one-rank gloo
-    mesh, their weights DTensors there.  The recurrent families' decode
-    states are DTensors placed as the decode-state rules say, and they
-    serve the unsharded engine's greedy streams on the same weights."""
+    """No family is refused a mesh any more: the engine serves the MoE,
+    audio, VLM, RWKV-6 and Zamba2 families on one.  Placing their weights
+    needs a real ``DeviceMesh``, so each case builds the engine on a
+    one-rank gloo mesh, its weights DTensors there: musicgen and the VLM
+    through the continuous engine (``make_engine("auto")`` does not fall
+    back to the wave engine), the others through the wave engine.  The
+    decode states' caches (a VLM's image K/V and mask too) are DTensors
+    placed as the decode-state rules say, and every family but MoE serves
+    the unsharded engine's greedy streams on the same weights (a VLM's
+    requests with an image of all, half and none of its buffer)."""
     from repro_torch.configs import get_config
     from repro_torch.core.placement_bridge import decode_state_shardings
     from repro_torch.models.partitioning import is_dtensor, make_partitioner
-    from repro_torch.serving.engine import WaveServingEngine, make_engine
+    from repro_torch.serving.engine import (ServingEngine, WaveServingEngine,
+                                            make_engine)
     from repro_torch.tree import flatten
     from tests.conftest import reduced_config
     cfg = get_config(arch).with_overrides(
         **dataclasses.asdict(reduced_config(arch)))
-    if cfg.family not in ("moe", "ssm", "hybrid"):
-        part = make_partitioner(_StandInMesh((1, 4), ("data", "model")))
-        with pytest.raises(NotImplementedError, match="#18"):
-            make_engine(cfg, part=part, tp=4, device="cpu")
-        return
+    continuous = cfg.family in ("audio", "vlm")
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
     with socket.socket() as s:
@@ -744,25 +744,35 @@ def test_serving_engine_refuses_a_mesh_outside_the_dense_family(arch):
     try:
         mesh = make_debug_mesh(1, 1, device_type="cpu")
         part = make_partitioner(mesh)
-        eng = make_engine(cfg, part=part, tp=4, device="cpu", n_slots=2,
-                          max_seq=16, lam=3)
-        assert isinstance(eng, WaveServingEngine) and eng.part is part
+        kw = dict(tp=4, device="cpu", n_slots=2, max_seq=16, lam=3)
+        if cfg.family == "vlm":
+            kw["img_tokens"] = 4
+        eng = make_engine(cfg, part=part, **kw)
+        assert type(eng) is (ServingEngine if continuous
+                             else WaveServingEngine) and eng.part is part
         if cfg.family == "moe":
             assert is_dtensor(eng.params["layers"]["moe"]["w_gate"])
             return
-        big = "wr" if cfg.family == "ssm" else "w_in"
-        assert is_dtensor(eng.params["layers"][big])
-        state = eng.model.init_decode_state(eng.params, 2, 16)
+        big = {"ssm": "wr", "hybrid": "w_in"}.get(cfg.family)
+        assert is_dtensor(eng.params["layers"][big] if big
+                          else eng.params["layers"]["attn"]["wq"])
+        state = eng.state if continuous else \
+            eng.model.init_decode_state(eng.params, 2, 16)
         want = flatten(decode_state_shardings(state, cfg, mesh))
-        leaves = flatten(state["cache"])
+        leaves = {p: t for p, t in flatten(state).items()
+                  if p[0] in ("cache", "img_kv", "img_mask")}
         assert leaves and all(
-            is_dtensor(t) and tuple(t.placements)
-            == want[("cache",) + p].placements for p, t in leaves.items())
-        plain = make_engine(cfg, tp=4, device="cpu", n_slots=2, max_seq=16,
-                            lam=3, params=_local_tree(eng.params))
+            is_dtensor(t) and tuple(t.placements) == want[p].placements
+            for p, t in leaves.items())
+        plain = make_engine(cfg, params=_local_tree(eng.params), **kw)
+        rng = np.random.default_rng(3)
         for e in (eng, plain):
-            for n in (5, 5, 7):
-                e.submit(np.random.default_rng(n).integers(0, 97, n), 6)
+            for i, n in enumerate((5, 5, 7)):
+                img = {} if cfg.family != "vlm" or i == 1 else dict(
+                    img_embeds=rng.standard_normal((4 // (1 + i // 2),
+                                                    cfg.d_model)))
+                e.submit(np.random.default_rng(n).integers(0, 97, n), 6,
+                         **img)
             e.run()
         streams = [{r.rid: r.out_tokens for r in e.finished}
                    for e in (eng, plain)]

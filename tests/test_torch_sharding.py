@@ -324,19 +324,22 @@ def test_null_partitioner_leaves_tensors_alone():
 @pytest.mark.parametrize("arch", [a for a in ARCHS
                                   if get_config(a).family != "dense"])
 def test_a_mesh_is_refused_outside_the_dense_family(arch):
-    """The dense, MoE, RWKV-6 and Zamba2 families run sharded:
-    ``build_model`` builds them on a partitioner with a mesh, and refuses
-    one for the audio and VLM families (ROADMAP Queue 1 #18); every
-    family takes ``NULL``."""
+    """No family is refused a mesh any more: ``build_model`` builds the
+    MoE, audio, VLM, RWKV-6 and Zamba2 families on a partitioner with one
+    (ROADMAP Queue 1 #18's families), and every family takes ``NULL``.  A
+    VLM's paged cache stays refused on a mesh, as without one (the
+    reference has none)."""
     cfg = reduced_config(arch)
     cfg = get_config(arch).with_overrides(**dataclasses.asdict(cfg))
     mesh = part.make_partitioner(StandInMesh((2, 2), ("data", "model")))
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        assert build_model(cfg, tp=2, part=mesh, device="cpu").part is mesh
-    else:
-        with pytest.raises(NotImplementedError, match="#18: the audio and "
-                           "VLM paths"):
-            build_model(cfg, tp=2, part=mesh, device="cpu")
+    model = build_model(cfg, tp=2, part=mesh, device="cpu")
+    assert model.part is mesh
+    if cfg.family == "vlm":
+        one_data = part.make_partitioner(StandInMesh((1, 2),
+                                                     ("data", "model")))
+        with pytest.raises(NotImplementedError, match="VLM image"):
+            build_model(cfg, tp=2, part=one_data,
+                        device="cpu").init_paged_cache(4, 8)
     build_model(cfg, tp=2, part=part.NULL, device="cpu")
 
 
