@@ -71,9 +71,15 @@ layers on local tensors, with streams equal to the unsharded engine's;
 and musicgen-large (4 layers) and llama-3.2-vision-11b (2 supergroups) on
 that mesh, each rank's KV cache and image K/V shard placed by the
 decode-state rules and written in place, with streams equal to the
-unsharded engine's.  The VLM also serves from an int8 cache (the int8
-kernel on its self layers), and its f32 int8 streams are equal with and
-without the kernels.  Every prefill whose queries and keys share their positions
+unsharded engine's; llama3-8b (all 32 layers), zamba2-2.7b (all 54) and
+mixtral-8x7b (4 layers, dense and capacity dispatch) prefill and decode
+on int8 weights placed on one-card meshes, their logits equal to the
+unsharded model's; and mixtral-8x7b (4 layers, without its window)
+serves paged, from bf16 and int8 pages, on a (1, 1, 1) mesh with a page
+pool for each batch rank, with streams, admissions and logs equal to the
+unsharded paged engine's.  The VLM also serves from an int8 cache (the
+int8 kernel on its self layers), and its f32 int8 streams are equal with
+and without the kernels.  Every prefill whose queries and keys share their positions
 (bucketed, lock-step, ring) runs the flash attention kernel.  It checks
 that the paged decode kernels give the linear ones' output bit for bit on
 the same cache in scrambled pages, and in float32 that greedy streams
@@ -99,7 +105,8 @@ times the kernels of several checkouts in turns instead (see ``ab``);
 tp-16, mesh and shard phases; ``--only ssm`` the recurrent families'
 shard and mesh phases; ``--only audio_vlm`` the VLM from an int8 cache
 (bf16 path and f32 stream pair) and musicgen and the VLM served sharded
-on the one-card mesh.
+on the one-card mesh; ``--only mesh_mem`` int8 weights and the paged MoE
+on one-card meshes.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -5335,6 +5342,301 @@ def phase_mesh_audio_vlm_serving():
     return added
 
 
+# ------------- int8 weights and paged caches on a DeviceMesh (one card)
+# lock-step runs on int8 weights: (rows, prompt, greedy decode steps)
+MESH_INT8 = {"llama3-8b": (8, 512, 32), "zamba2-2.7b": (8, 1024, 16),
+             "mixtral-8x7b": (RING_B, RING_PROMPT, 16)}
+# the sharded model's bf16 logits against the unsharded model's on the
+# same int8 weights, per row (a vocabulary of logits): the same local ops
+# on one rank, so any gap is a rounding of another op order, far below a
+# wrong shard (O(1) of a row's norm)
+MESH_LOGIT_ROW_REL = 2e-2
+
+
+def placed_params(params, cfg, mesh):
+    """``params`` placed on ``mesh`` by ``param_shardings`` (an int8 leaf's
+    ``q8`` and ``sc`` by their own specs); on a one-card mesh each DTensor
+    holds the tensor itself."""
+    from repro_torch.core.placement_bridge import param_shardings
+    from repro_torch.models.partitioning import place
+    from repro_torch.tree import flatten, map_with_path
+    sh = flatten(param_shardings(params, cfg, mesh))
+    return map_with_path(lambda p, v: place(v, sh[p]), params)
+
+
+def int8_leaves(tree):
+    """The int8 leaves ({"q8", "sc"}) of a param tree."""
+    if isinstance(tree, dict) and "q8" in tree:
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in int8_leaves(v)]
+    return []
+
+
+def lockstep_run(model, params, tokens, steps, feed=None):
+    """A lock-step prefill of ``tokens`` and ``steps`` decode steps, fed
+    the greedy tokens (``feed``'s, when given: the same inputs as the run
+    they are compared with).  Returns the logits of every call."""
+    B, S = tokens.shape
+    state = model.init_decode_state(params, B, S + steps)
+    logits, state = model.prefill(params, state, tokens)
+    out = [logits]
+    for s in range(steps):
+        nxt = feed[s].argmax(-1) if feed is not None else logits.argmax(-1)
+        logits, state = model.decode_step(params, state, nxt)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_mesh_int8_weights():
+    """The reference's ``quant_serve`` cell on one card: int8 weights
+    placed by ``param_shardings`` (tp-resident, no fsdp), no engine (the
+    engines take no int8 weights, as the reference's), on a one-rank NCCL
+    mesh.  llama3-8b at published widths and all 32 layers (drawn a layer
+    at a time by ``int8_layerwise``) and zamba2-2.7b's 54 layers (its
+    embedding, head and shared block int8; SSM parameters seeded) on a
+    (1, 1) ("data", "model") mesh, mixtral-8x7b at published widths, 4
+    layers, on a (1, 1, 1) ("pod", "data", "model") mesh with dense and
+    capacity dispatch over its 4096-slot ring.  Each runs ``MESH_INT8``'s
+    lock-step prefill and greedy decode steps, first unsharded on the same
+    int8 weights, then sharded, fed the unsharded run's tokens.  The
+    sharded run's kernel counts are set to 0 just before it and read just
+    after.  Checks: every placed int8 leaf is a DTensor whose local
+    ``q8`` is int8; the greedy tokens are equal and every row of logits
+    within ``MESH_LOGIT_ROW_REL``; launches exact — flash == one prefill x
+    attention layers (zamba2: supergroups), the resident (mixtral: ring)
+    kernel == steps x attention layers — and no other kernel; finite
+    logits.  Logs weights and peak memory.  Returns the launches by
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.partitioning import (is_dtensor, local,
+                                                 make_partitioner)
+    from repro_torch.models.quantization import quantize_params
+    added = {}
+    runs = [("llama3-8b", get_config("llama3-8b"), {}),
+            ("zamba2-2.7b", zamba2_cfg(54), {}),
+            ("mixtral-8x7b", get_config("mixtral-8x7b").with_overrides(
+                n_layers=N_LAYERS), {}),
+            ("mixtral-8x7b", get_config("mixtral-8x7b").with_overrides(
+                n_layers=N_LAYERS), dict(capacity_moe=True))]
+    with one_rank_nccl():
+        params, drawn = None, None
+        for name, cfg, kw in runs:
+            if drawn != cfg.name + str(cfg.n_layers):
+                params = None
+                release()
+                if cfg.family == "hybrid":
+                    floats = build_model(cfg, device="cuda").init(
+                        torch.Generator(device="cuda").manual_seed(0))
+                    seed_ssm_params(floats)
+                    params = quantize_params(floats)
+                    del floats
+                else:
+                    params = int8_layerwise(cfg, "cuda", seed=0)
+                drawn = cfg.name + str(cfg.n_layers)
+            # the run's peak, apart from the weights' draw
+            torch.cuda.reset_peak_memory_stats()
+            held, bf16 = _weight_bytes(params)
+            dims = ("pod", "data", "model") if cfg.is_moe \
+                else ("data", "model")
+            mesh = make_mesh((1,) * len(dims), dims)
+            placed = placed_params(params, cfg, mesh)
+            leaves = int8_leaves(placed)
+            B, S, steps = MESH_INT8[name]
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                   device="cuda")
+            t0 = time.monotonic()
+            want = lockstep_run(build_model(cfg, use_kernel=True,
+                                            device="cuda", **kw),
+                                params, tokens, steps)
+            plain_s = time.monotonic() - t0
+            release()
+            reset_launches()
+            t0 = time.monotonic()
+            got = lockstep_run(build_model(cfg, use_kernel=True,
+                                           device="cuda",
+                                           part=make_partitioner(mesh),
+                                           **kw),
+                               placed, tokens, steps, feed=want)
+            mesh_s = time.monotonic() - t0
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            rel = max(row_rel_err(g, w) for g, w in zip(got, want))
+            same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                       for g, w in zip(got, want))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            attn = cfg.n_layers // cfg.shared_attn_every \
+                if cfg.family == "hybrid" else cfg.n_layers
+            decode = "decode_attention_ring_resident" if cfg.is_moe \
+                else "decode_attention_resident"
+            label = f"{cfg.name} x{cfg.n_layers}" + (
+                " capacity" if kw else "")
+            log(f"mesh int8 weights {label} on a {mesh.mesh.shape} "
+                f"{dims} mesh: {len(leaves)} int8 leaves, weights "
+                f"{held / 1e9:.2f} GB ({bf16 / 1e9:.2f} GB in bf16); "
+                f"prefill {B} x {S} and {steps} greedy steps in "
+                f"{mesh_s:.2f} s sharded, {plain_s:.2f} s unsharded; "
+                f"logit row rel err {rel:.3e}, greedy tokens "
+                f"{'equal' if same else 'DIFFER'}; launches "
+                f"{ {k: v for k, v in launches.items() if v} }; peak "
+                f"memory {peak:.2f} GB")
+            check(bool(leaves) and all(
+                is_dtensor(x["q8"]) and local(x["q8"]).dtype == torch.int8
+                for x in leaves), f"mesh int8 {label}: an int8 leaf is not "
+                f"a placed int8 DTensor")
+            check(same and rel <= MESH_LOGIT_ROW_REL and finite,
+                  f"mesh int8 {label}: tokens equal {same}, row rel err "
+                  f"{rel:.3e}, finite {finite}")
+            want_launches = {"flash_attention": attn,
+                             decode: steps * attn}
+            check({k: v for k, v in launches.items() if v}
+                  == want_launches, f"mesh int8 {label}: launches "
+                  f"{launches} != {want_launches}")
+            for k, v in want_launches.items():
+                added[k] = added.get(k, 0) + v
+            del placed, leaves, want, got
+            release()
+        del params
+    release()
+    return added
+
+
+def phase_mesh_paged_moe():
+    """``ServingEngine(paged=True, part=..., use_kernel=True)`` for the MoE
+    family on a (1, 1, 1) ("pod", "data", "model") NCCL mesh: a page pool
+    for each batch rank (one here).  mixtral-8x7b at published widths, 4
+    layers, bf16, without its sliding window (both packages keep windowed
+    archs off paged caches; at ``MAIN_T`` 1024, below the 4096 window, the
+    function is the same), pages of 64 and a pool of 48 (admission
+    waits); 8 slots, the paged path's 16 requests of 32-512 tokens, 64
+    new each, λ 8, a 500x straggler after step ``MESH_STRAGGLE`` on the
+    device holding the most heads (its plan moves heads and experts; one
+    on the device with the most expert blocks alone moves nothing on this
+    traffic, the paged controller pricing page-rounded memory); from a
+    bf16 and an int8 page store.  The
+    unsharded paged engine serves the same weights and traffic first.
+    The sharded engine's kernel counts are set to 0 just before it is
+    driven and read just after.  Checks: the continuous engine; streams,
+    admission logs, waits and migration logs equal to the unsharded
+    engine's; an applied head or expert migration; each buffer of the
+    local store written in place (one ``data_ptr`` over every decode
+    step); paged (int8-paged) launches == decode steps x 4, flash 0, no
+    other kernel.  Returns the launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.network import DeviceNetwork
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.partitioning import local, make_partitioner
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("mixtral-8x7b").with_overrides(n_layers=N_LAYERS,
+                                                    sliding_window=0)
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    added = {}
+    keys = ("step", "n_migrations", "mig_bytes", "applied",
+            "n_expert_migrations", "expert_mig_bytes", "expert_applied")
+    with one_rank_nccl():
+        part = make_partitioner(make_mesh((1, 1, 1),
+                                          ("pod", "data", "model")))
+        for path in ("paged", "int8_paged"):
+            name = PATHS[path][0]
+            c = cfg.with_overrides(kv_quant=path == "int8_paged")
+            runs = {}
+            for label, extra in (("unsharded", {}), ("mesh", dict(part=part))):
+                torch.cuda.reset_peak_memory_stats()
+                eng = ServingEngine(
+                    c, n_slots=MAIN_B, max_seq=MAIN_T, lam=8, seed=0,
+                    net=DeviceNetwork.sample(4, seed=1), use_kernel=True,
+                    device="cuda", params=params, paged=True, page_size=64,
+                    kv_pages=48, **extra)
+                for p in traffic(16, c.vocab_size):
+                    eng.submit(p, max_new_tokens=64)
+                seen = watch_logits(eng)
+                prefill = time_prefill(eng)
+                ptrs = {n: {local(t).data_ptr()}
+                        for n, t in eng.state["cache"].items()}
+                fired = []
+                reset_launches()
+                t0 = time.monotonic()
+                while True:
+                    if eng.decode_steps == MESH_STRAGGLE:
+                        fired.append(MESH_STRAGGLE)
+                    if not drive(eng, straggle_at=MESH_STRAGGLE):
+                        break
+                    for n, t in eng.state["cache"].items():
+                        ptrs[n].add(local(t).data_ptr())
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                runs[label] = dict(
+                    type=type(eng).__name__,
+                    streams={r.rid: r.out_tokens for r in eng.finished},
+                    admissions=list(eng.admission_log),
+                    waits=(eng.page_waits, list(eng.rank_page_waits)),
+                    log=[tuple(e[k] for k in keys)
+                         for e in eng.migration_log],
+                    launches=read_launches(), wall=wall, ptrs=ptrs,
+                    steps=eng.decode_steps, fired=fired,
+                    metrics=path_metrics(eng, wall),
+                    store={n: tuple(local(t).shape)
+                           for n, t in eng.state["cache"].items()},
+                    drained=all(a.live_pages == 0 for a in eng.allocators),
+                    finite=bool(seen["finite"].item()),
+                    peak=torch.cuda.max_memory_allocated() / 1e9)
+                log_split(eng, wall, prefill)
+                del eng, seen
+                release()
+            one, mesh = runs["unsharded"], runs["mesh"]
+            got = {k: v for k, v in mesh["launches"].items() if v}
+            want = {name: mesh["steps"] * N_LAYERS}
+            heads = [e for e in mesh["log"] if e[1] and e[3]]
+            experts = [e for e in mesh["log"] if e[4] and e[6]]
+            log(f"mesh (1, 1, 1) mixtral-8x7b x{N_LAYERS} {path} "
+                f"({mesh['type']}, 48 pages of 64): "
+                f"{len(mesh['streams'])} requests, {mesh['steps']} decode "
+                f"steps in {mesh['wall']:.2f} s "
+                f"({mesh['metrics']['tok/s']:.1f} tok/s; unsharded "
+                f"{one['metrics']['tok/s']:.1f}); decode step median "
+                f"{mesh['metrics']['step median ms']:.2f} ms (unsharded "
+                f"{one['metrics']['step median ms']:.2f}); waits "
+                f"{mesh['waits']}; straggler at step {mesh['fired']}; "
+                f"{len(heads)} intervals applied head migrations, "
+                f"{len(experts)} expert migrations; local store "
+                f"{mesh['store']}; launches {got}; peak memory "
+                f"{mesh['peak']:.2f} GB (unsharded {one['peak']:.2f})")
+            check(mesh["type"] == "ServingEngine",
+                  f"mesh paged moe {path}: built {mesh['type']}")
+            check(len(mesh["streams"]) == 16
+                  and mesh["streams"] == one["streams"],
+                  f"mesh paged moe {path}: streams differ from the "
+                  f"unsharded engine's")
+            check(mesh["admissions"] == one["admissions"]
+                  and mesh["waits"] == one["waits"]
+                  and mesh["waits"][0] > 0,
+                  f"mesh paged moe {path}: admissions or waits differ "
+                  f"({mesh['waits']} against {one['waits']})")
+            check(mesh["log"] == one["log"],
+                  f"mesh paged moe {path}: migration logs differ")
+            check(bool(heads or experts),
+                  f"mesh paged moe {path}: no migration was applied")
+            check(all(len(p) == 1 for p in mesh["ptrs"].values()),
+                  f"mesh paged moe {path}: a store buffer moved in memory")
+            check(got == want, f"mesh paged moe {path}: launches {got} != "
+                  f"{want}")
+            check(mesh["drained"] and one["drained"] and mesh["finite"]
+                  and one["finite"], f"mesh paged moe {path}: pages live "
+                  f"after the drain, or non-finite logits")
+            added[name] = added.get(name, 0) + want[name]
+            del runs
+            release()
+    del params
+    release()
+    return added
+
+
 def tp_phases(by_name):
     """The tp-16 phases, the one-card mesh, the decode kernels (and
     zamba2's shared block) on the tp-4 head shards, the WKV6 kernel on
@@ -5356,7 +5658,8 @@ def tp_phases(by_name):
     wkv6_head_shards()
     release()
     for phase in (phase_mesh_serving, phase_mesh_moe_serving,
-                  phase_mesh_ssm_serving, phase_mesh_audio_vlm_serving):
+                  phase_mesh_ssm_serving, phase_mesh_audio_vlm_serving,
+                  phase_mesh_int8_weights, phase_mesh_paged_moe):
         for name, n in phase().items():
             added[name] = added.get(name, 0) + n
         release()
@@ -5438,7 +5741,8 @@ def main():
     ap.add_argument("--kernels-of", metavar="ROOT",
                     help="only build ROOT's kernels and run the kernel "
                     "phases on them; print their records")
-    ap.add_argument("--only", choices=("train", "tp", "ssm", "audio_vlm"),
+    ap.add_argument("--only", choices=("train", "tp", "ssm", "audio_vlm",
+                                       "mesh_mem"),
                     help="only build the kernels and run these phases "
                     "(no result lines)")
     args = ap.parse_args()
@@ -5484,6 +5788,12 @@ def main():
         release()
         log(f"mesh audio and vlm launches: "
             f"{phase_mesh_audio_vlm_serving()}; "
+            f"{time.monotonic() - t0:.1f} s from the build on")
+        return
+    if args.only == "mesh_mem":
+        log(f"mesh int8 weight launches: {phase_mesh_int8_weights()}")
+        release()
+        log(f"mesh paged moe launches: {phase_mesh_paged_moe()}; "
             f"{time.monotonic() - t0:.1f} s from the build on")
         return
     if args.only == "tp":

@@ -37,7 +37,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.partitioning import (NULL, is_dtensor, like, local,
+from repro_torch.models.partitioning import (NULL, Partitioner, Sharding,
+                                             batch_axes, from_local,
+                                             is_dtensor, like, local,
                                              local_range, local_shards, whole)
 from repro_torch.models.quantization import is_quantized, wt
 # attention_scores and chunked_attention stay importable from here, beside
@@ -485,8 +487,14 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
       over "data", expanded KV heads over "model" — is written in place.
       ``head_rows``/``head_inv`` are then the rank's own maps
       (``partitioning.local_head_rows``), positions, ``cache_pos`` and the
-      page map are cut to the rank's batch rows, and the paged store is
-      shared by every row (meshes whose "data" is 1).
+      page map are cut to the rank's batch rows, and a page store is the
+      rank's own pool, its page axis over the batch axes (one pool, with
+      its own sink page, for each batch rank): the rank's rows of the page
+      map name pages of that pool.  A paged prefill chunk of one row on
+      several batch ranks runs on every rank, writes only into the pool of
+      the rank holding the row (the others' table rows are unmapped, so
+      their writes drop into their sinks), and takes that rank's
+      attention output (``Partitioner.from_owner``).
     Returns (out, cache).
     """
     q, k, v = qkv_project(cfg, p, hd, x, positions, part=part)
@@ -589,6 +597,8 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
     T = ck.shape[1]
     kv_pos = torch.arange(T, device=q.device)[None, :].expand(B, T)
     out = attend(ck, cv, kv_pos, causal_mask(positions, kv_pos, window))
+    if page_map is not None:
+        out = part.from_owner(out)
     return finish(out), cache
 
 
@@ -600,15 +610,21 @@ def _rows_of(part, t, axes):
 
 # the reference's layout constraints on an updated cache: a linear cache
 # (B, T, KvE, dh) or a ring's values (B, window, KvE, dh) and int8 scales
-# (B, T, KvE) shard batch rows and heads, a page store (n_pages + 1, P,
-# KvE, dh) only heads; a ring's slot positions (window,) are replicated
+# (B, T, KvE) shard batch rows and heads, a page store (pages, P, KvE, dh)
+# its pages over the batch axes and its heads; a ring's slot positions
+# (window,) are replicated
 _CACHE_AXES = {False: ("batch", "cache_seq", "kv_heads", None),
-               True: (None, None, "kv_heads", None)}
+               True: ("batch", None, "kv_heads", None)}
 
 
 def _cache_shards(cache: dict, part, *, paged: bool) -> dict:
     """The rank's shards of a layer's DTensor cache buffers, each held to
-    the reference's cache layout (``partitioning.local_shards``)."""
+    the reference's cache layout (``partitioning.local_shards``).  A page
+    store's pages lie over the batch axes whatever the call's batch rule
+    (a one-row prefill keeps its batch whole there)."""
+    if paged:
+        part = Partitioner(part.mesh, dict(part.rules,
+                                           batch=batch_axes(part.mesh)))
     return local_shards(cache, part, {
         name: () if name == "pos" else _CACHE_AXES[paged][:t.dim()]
         for name, t in cache.items()})
@@ -779,12 +795,52 @@ def embed(cfg: ModelConfig, p: dict, tokens, *, part=NULL):
     """Token rows of ``tok_embed``; an int8 table gathers its int8 rows and
     dequantizes only those, into ``cfg.dtype`` (as the reference)."""
     tab = p["tok_embed"]
-    if is_quantized(tab):
+    if is_quantized(tab) and is_dtensor(tab["q8"]):
+        x = _embed_int8_shards(cfg, tab, tokens)
+    elif is_quantized(tab):
         rows = tab["q8"][tokens.long()].float()
         x = (rows * tab["sc"]).to(getattr(torch, cfg.dtype))
     else:
         x = F.embedding(tokens.long(), tab)
     return part.constrain(x, ("batch", "res_seq", "d_model"))
+
+
+def _vocab_rows(cfg: ModelConfig, tab, tokens, lo: int, n: int):
+    """The embedding rows of ``tokens`` from a table's vocabulary rows
+    ``[lo, lo + n)`` (``tab``: those rows as a plain tensor, or an int8
+    leaf of them, dequantized row by row into ``cfg.dtype`` as ``embed``
+    does), zeros for the tokens outside them: one rank's term of a sum
+    over the ranks that split the vocabulary."""
+    t = tokens.long() - lo
+    hit = ((t >= 0) & (t < n))[..., None]
+    t = t.clamp(0, max(n - 1, 0))
+    if is_quantized(tab):
+        x = (tab["q8"][t].float() * tab["sc"]).to(getattr(torch, cfg.dtype))
+    else:
+        x = F.embedding(t, tab)
+    return torch.where(hit, x, torch.zeros((), dtype=x.dtype,
+                                           device=x.device))
+
+
+def _embed_int8_shards(cfg: ModelConfig, tab: dict, tokens):
+    """``embed`` of an int8 table placed on a mesh (``q8``'s vocabulary
+    rows over "model", ``placement_bridge.param_spec``): each rank gathers
+    the int8 rows of the tokens its vocabulary chunk holds, dequantizes
+    only those and zeros the rest (``_vocab_rows``).  The result is a
+    partial sum over the mesh dimensions that split the vocabulary (exact:
+    one term of each sum is nonzero) and keeps the tokens' batch rows;
+    ``embed``'s constraint reduces it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    q8 = tab["q8"]
+    mesh = q8.device_mesh
+    lo, n = local_range(q8, 0)
+    x = _vocab_rows(cfg, {"q8": q8.to_local(), "sc": whole(tab["sc"])},
+                    local(tokens), lo, n)
+    out = tuple(Partial() if isinstance(pl, Shard) else
+                (tokens.placements[m] if is_dtensor(tokens) else Replicate())
+                for m, pl in enumerate(q8.placements))
+    return from_local(x, Sharding(mesh, out),
+                      tuple(tokens.shape) + (x.shape[-1],))
 
 
 def unembed(cfg: ModelConfig, p: dict, x, *, part=NULL):
@@ -802,19 +858,14 @@ def embed_rows(cfg: ModelConfig, p: dict, tokens, shard):
     ``partitioning.HeadShard``): ``tok_embed``'s vocabulary rows are
     placed over "model", so each rank looks up the tokens its rows hold,
     zeros for the others, and the rows are summed over "model" (exact:
-    one term of each sum is nonzero).  Without a "model" group:
-    ``embed``."""
+    one term of each sum is nonzero).  An int8 table's rows are
+    dequantized as ``embed`` dequantizes them, by its ``sc`` (placed
+    ``(d_model,)``: whole on every rank).  Without a "model" group:
+    ``embed``, on the local (whole) table."""
     if shard.model is None:
         return embed(cfg, p, tokens)
-    if is_quantized(p["tok_embed"]):
-        raise NotImplementedError("int8 weights on a mesh are not ported "
-                                  "(ROADMAP Queue 1 #18)")
     lo, n = shard.span(cfg.vocab_size)
-    t = tokens.long() - lo
-    hit = ((t >= 0) & (t < n))[..., None]
-    x = F.embedding(t.clamp(0, n - 1), p["tok_embed"])
-    return shard.reduce(torch.where(hit, x, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device)))
+    return shard.reduce(_vocab_rows(cfg, p["tok_embed"], tokens, lo, n))
 
 
 def unembed_whole(cfg: ModelConfig, p: dict, x, shard):

@@ -55,6 +55,13 @@ def _size(mesh, name: str) -> int:
     return mesh.size(tuple(mesh.mesh_dim_names).index(name))
 
 
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh dimensions a batch's rows lie over, outermost first:
+    ("pod", "data") where the mesh has "pod", else ("data",) — the decode
+    state's batch axes, a paged store's page axis among them."""
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
 def tp_degree(mesh) -> int:
     """The mesh's "model" dimension: the head-level TP degree."""
     return _size(mesh, "model")
@@ -154,6 +161,27 @@ def placed_full(shape, fill, dtype, sharding: Sharding):
     return from_local(local, sharding, tuple(shape))
 
 
+def row_owner(x, row: int) -> tuple:
+    """The batch rank holding row ``row`` of DTensor ``x``'s dimension 0:
+    ((mesh dimension name, coordinate), ...), innermost first, one for
+    each mesh dimension of more than one rank that splits dimension 0 (cut
+    as ``local_extent`` cuts it).  Empty for a plain tensor or a dimension
+    no mesh dimension splits."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x):
+        return ()
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    start, n, out = 0, x.shape[0], []
+    for m, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim == 0 and mesh.size(m) > 1:
+            chunk = -(-n // mesh.size(m))
+            c = (row - start) // chunk
+            out.append((names[m], c))
+            start, n = start + c * chunk, min(chunk, n - c * chunk)
+    return tuple(reversed(out))
+
+
 def local_range(x, dim: int) -> Tuple[int, int]:
     """(start, length) of this rank's shard of ``x`` along ``dim``: a
     DTensor's slice (``local_extent``), the whole axis of any other
@@ -185,9 +213,12 @@ class Partitioner:
     """Maps logical axis names to mesh dimensions and constrains
     intermediates."""
 
-    def __init__(self, mesh, rules: Dict[str, MeshAxis]):
+    def __init__(self, mesh, rules: Dict[str, MeshAxis], owner=()):
         self.mesh = mesh
         self.rules = dict(rules)
+        # ((mesh dimension, coordinate), ...), innermost first: the batch
+        # rank whose page pool holds the call's one row (``owned_by``)
+        self.owner = tuple(owner)
 
     # -- specs ---------------------------------------------------------------
     def spec(self, axes: Sequence[Optional[str]]) -> Spec:
@@ -236,6 +267,29 @@ class Partitioner:
                                  and batch % dp_degree(self.mesh) == 0):
             return self
         return Partitioner(self.mesh, dict(self.rules, batch=None))
+
+    def owned_by(self, owner) -> "Partitioner":
+        """This partitioner for a call whose one row lives in one batch
+        rank's page pool (a paged prefill chunk on a mesh whose batch axes
+        hold several ranks): ``owner`` (``row_owner``) names that rank,
+        and ``from_owner`` hands the values it computes to every rank."""
+        return Partitioner(self.mesh, self.rules, owner)
+
+    def from_owner(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` — a local tensor — as the ``owner`` rank computed it, on
+        every rank: a broadcast over each batch axis's group, innermost
+        first (after the first, every rank of the owner's outer coordinate
+        holds it).  ``t`` itself where no owner is named."""
+        if not self.owner:
+            return t
+        import torch.distributed as dist
+        t = t.contiguous()
+        for name, coord in self.owner:
+            group = mesh_group(self.mesh, name)
+            if group is not None:
+                dist.broadcast(t, src=dist.get_global_rank(group, coord),
+                               group=group)
+        return t
 
     def region(self):
         """The context a sharded computation runs in: plain tensors that
@@ -356,10 +410,9 @@ def make_partitioner(mesh, *, fsdp: bool = False,
     if mesh is None:
         return NullPartitioner()
     names = tuple(mesh.mesh_dim_names)
-    data_axes: MeshAxis = ("pod", "data") if "pod" in names else ("data",)
     if layout == "zero3":
         return Partitioner(mesh, rules_zero3(names))
-    return Partitioner(mesh, rules_tp(data_axes=data_axes, fsdp=fsdp,
+    return Partitioner(mesh, rules_tp(data_axes=batch_axes(mesh), fsdp=fsdp,
                                       seq_over_data=seq_over_data, sp=sp))
 
 

@@ -18,6 +18,9 @@ from typing import Any
 
 import torch
 
+from repro_torch.models.partitioning import (Sharding, from_local,
+                                             is_dtensor, local)
+
 # base (unstacked) rank of each quantizable weight; leading stack axes
 # (the layer axis, the VLM's supergroups) keep per-layer scales
 _BASE_NDIM = {"wq": 3, "wk": 3, "wv": 3, "wo": 3,
@@ -55,10 +58,24 @@ def dequantize_weight(leaf, dtype=torch.bfloat16):
     """``q8 * sc`` in float32, rounded once to ``dtype``: one kernel that
     reads the int8 values and writes ``dtype`` (no float32 copy of the
     weight), with the reference's bits.  A leaf that is not quantized
-    comes back as it is."""
+    comes back as it is.
+
+    A leaf placed on a mesh (DTensor ``q8`` and ``sc``, as
+    ``placement_bridge.param_spec`` places them) is dequantized shard by
+    shard: the rank's ``q8`` times its ``sc``, wrapped as a DTensor with
+    ``q8``'s placements.  This is exact and needs no collective: ``sc``
+    takes its weight's last-axis spec, so a rank's scale shard covers the
+    last axis of its ``q8`` shard, and every other axis of the weight is
+    reduced over in the absmax, so the scale is the same on every shard
+    of those axes."""
     if not is_quantized(leaf):
         return leaf
     q8, sc = leaf["q8"], leaf["sc"]
+    if is_dtensor(q8):
+        out = dequantize_weight({"q8": q8.to_local(), "sc": local(sc)},
+                                dtype)
+        return from_local(out, Sharding(q8.device_mesh,
+                                        tuple(q8.placements)), q8.shape)
     out = torch.empty(q8.shape, dtype=dtype, device=q8.device)
     return torch.mul(q8, _broadcast_scale(sc, q8.dim()), out=out)
 

@@ -38,8 +38,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_block, moe_block_capacity
 from repro_torch.models.partitioning import (NULL, Sharding, dp_degree,
                                              is_dtensor, local, local_range,
-                                             place, placed_full, tp_degree,
-                                             whole)
+                                             place, placed_full, row_owner,
+                                             tp_degree, whole)
 from repro_torch.tree import flatten, map_with_path
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -535,14 +535,18 @@ class TransformerLM:
         return logits[:, 0], state
 
     def _prefill_layers(self, params, state, tokens, positions, *,
-                        page_map=None, write_valid=None):
+                        page_map=None, write_valid=None, owner=()):
         """Embed ``tokens`` (B, S) and run every layer from the cache write
         at position 0 (a paged chunk: through ``page_map`` from its own
         positions); returns the final-norm hidden state and the call's
-        partitioner (``Partitioner.for_batch``).  On a mesh the tokens,
-        positions and page table are cut to each rank's batch rows."""
+        partitioner (``Partitioner.for_batch``; ``owner``: the batch rank
+        whose pool holds a paged chunk's row, ``Partitioner.owned_by``).
+        On a mesh the tokens, positions and page table are cut to each
+        rank's batch rows."""
         cfg = self.cfg
         part = self.part.for_batch(tokens.shape[0])
+        if owner:
+            part = part.owned_by(owner)
         with part.region():
             tokens = part.shard(tokens, ("batch", "seq"))
             positions = part.shard(positions, ("batch", "seq"))
@@ -679,13 +683,14 @@ class TransformerLM:
         batch × seq extent of the dense cache becomes a page axis shared by
         every slot.  Page ``n_pages`` is a sink the allocator never hands
         out: writes the reference drops land there
-        (``layers._paged_write``).  On a mesh the store shards its KV rows
-        over "model" and is shared by the rows of a data rank: "data" must
-        be 1."""
-        if self.part.mesh is not None and dp_degree(self.part.mesh) > 1:
-            raise NotImplementedError(
-                "a paged cache on a mesh whose \"data\" is above 1 needs a "
-                "page pool for each data rank (ROADMAP Queue 1 #18)")
+        (``layers._paged_write``).
+
+        On a mesh the store's page axis lies over the batch axes, as the
+        decode-state rules place it, and its KV rows over "model": each of
+        the ``dp`` batch ranks holds a pool of its own, ``n_pages / dp``
+        pages plus its own sink, built shard by shard — local (L,
+        n_pages/dp + 1, P, KvE/tp, dh), the whole (L, n_pages + dp, ...).
+        A pool that does not split evenly raises."""
         if self.window:
             raise NotImplementedError(
                 "paged caches are linear; sliding-window archs keep the "
@@ -693,15 +698,26 @@ class TransformerLM:
         if self.is_vlm:
             raise NotImplementedError(
                 "paged caches do not yet carry the VLM image K/V")
+        dp = dp_degree(self.part.mesh) if self.part.mesh is not None else 1
+        if n_pages % dp:
+            raise ValueError(f"a pool of {n_pages} pages does not split "
+                             f"over the mesh's {dp} batch ranks")
         return self._placed(self._kv_buffers(
-            (self.cfg.n_layers, n_pages + 1, page_size), dtype))
+            (self.cfg.n_layers, n_pages + dp, page_size), dtype))
 
     def init_paged_state(self, params, batch: int, n_pages: int,
                          page_size: int, pages_per_slot: int,
                          dtype=None) -> Dict[str, Any]:
         """Per-slot paged decode state: the page store, per-row positions,
         and the (batch, pages_per_slot) page table — all -1 (unmapped)
-        until the engine mounts an allocation."""
+        until the engine mounts an allocation.  On a mesh the table's rows
+        lie with their batch rank (each naming pages of that rank's pool)
+        and the positions are replicated; ``batch`` must split evenly over
+        the batch ranks."""
+        if self.part.mesh is not None and batch % dp_degree(self.part.mesh):
+            raise ValueError(f"a paged state of {batch} rows does not split "
+                             f"over the mesh's "
+                             f"{dp_degree(self.part.mesh)} batch ranks")
         return self._placed(
             {"cache": self.init_paged_cache(n_pages, page_size, dtype),
              "pos": torch.zeros((batch,), dtype=torch.int32,
@@ -719,13 +735,21 @@ class TransformerLM:
         tail's writes drop); returns the logits of the chunk's last valid
         token (meaningful on the final chunk; whole on every rank of a
         mesh) and the state with ``pos[row] = start + length``, updated in
-        place."""
+        place.  On a mesh every rank runs the chunk; only the batch rank
+        holding ``row`` maps it to pages (of its pool), and every rank takes
+        that rank's attention output (``Partitioner.from_owner``)."""
         C = tokens.shape[1]
         steps = torch.arange(C, dtype=torch.int32, device=self.device)
+        # the row's table row as this rank holds it: rank-local page ids
+        # where its batch rank holds the row, else unmapped
+        pm = state["page_map"]
+        lo, n = local_range(pm, 0)
+        table = local(pm)[row - lo:row - lo + 1] if lo <= row < lo + n \
+            else torch.full((1, pm.shape[1]), -1, dtype=pm.dtype,
+                            device=local(pm).device)
         x, part = self._prefill_layers(
-            params, state, tokens, (start + steps)[None],
-            page_map=local(state["page_map"])[row:row + 1],
-            write_valid=(steps < length)[None])
+            params, state, tokens, (start + steps)[None], page_map=table,
+            write_valid=(steps < length)[None], owner=row_owner(pm, row))
         with part.region():
             logits = whole(L.unembed(self.cfg, params,
                                      x[:, max(length - 1, 0)][:, None],
@@ -738,8 +762,12 @@ class TransformerLM:
         decode state, in place — the paged analog of :meth:`insert_slot`,
         used at admission, at page-boundary extension, and at retire (all
         -1 and pos 0: the row's writes drop and its reads are masked).  On
-        a mesh ("data" 1) every rank holds the whole table."""
-        local(state["page_map"])[row] = torch.as_tensor(pages,
-                                                        dtype=torch.int32)
+        a mesh ``pages`` are ids of the pool of the batch rank holding the
+        row: only that rank writes the table row; every rank writes the
+        replicated position."""
+        pm = state["page_map"]
+        lo, n = local_range(pm, 0)
+        if lo <= row < lo + n:
+            local(pm)[row - lo] = torch.as_tensor(pages, dtype=torch.int32)
         local(state["pos"])[row] = pos
         return state

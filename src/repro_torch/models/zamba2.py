@@ -167,8 +167,10 @@ class Zamba2Model:
         B, S = tokens.shape
         part = self.part.for_batch(B)
         shard = head_shard(self.part, B)
-        top = {k: local(v) for k, v in params.items()
-               if k not in ("layers", "shared")}
+        # an int8 leaf's q8 and sc to their local shards too
+        top = {k: ({n: local(t) for n, t in v.items()}
+                   if isinstance(v, dict) else local(v))
+               for k, v in params.items() if k not in ("layers", "shared")}
         lo, n = shard.rows
         x = L.embed_rows(self.cfg, top, tokens[lo:lo + n], shard)
         pos = torch.arange(start, start + S, dtype=torch.int32,

@@ -54,7 +54,9 @@ model runs on one GPU (or the CPU), and the placement decides which
 partitioner on a ``DeviceMesh`` (``part``; every family) the engine runs
 on every rank of the mesh at once: each rank holds its shard of the
 weights (a MoE arch's experts over "pod") and its heads' shard of the KV
-cache (linear or ring; a VLM's image K/V too) or of the recurrent state
+cache (linear or ring; a VLM's image K/V too; a paged store is its batch
+rank's own pool, with an allocator for each (slot group, batch rank)
+kept on every rank) or of the recurrent state
 (WKV, SSM and conv), runs the same scheduler and controller
 from the same seed (so every rank's plans and logs are equal, and none is
 broadcast), samples from whole logits, and a migration moves only the KV,
@@ -84,10 +86,10 @@ from repro_torch.core.placement_bridge import (apply_layer_head_perms,
 from repro_torch.device import resolve_device
 from repro_torch.models.api import build_model
 from repro_torch.models.moe import expert_identity
-from repro_torch.models.partitioning import (NULL, Sharding, is_dtensor,
-                                             local_extent, local_head_rows,
-                                             mesh_device, place, placements,
-                                             whole)
+from repro_torch.models.partitioning import (NULL, Sharding, dp_degree,
+                                             is_dtensor, local_extent,
+                                             local_head_rows, mesh_device,
+                                             place, placements, whole)
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.serving.paging import PagedKVAllocator
@@ -634,7 +636,19 @@ class ServingEngine(_EngineBase):
     pipeline bubble: the step count advances, and nothing is launched.  A
     slot emits one token every K steps, so the controller fires every λ·K
     steps (λ tokens a slot).  ``state`` and ``allocator`` name the one
-    group of a ``pipeline_k=1`` engine."""
+    group of a ``pipeline_k=1`` engine.
+
+    Paged on a mesh (``part``) whose batch axes ("pod" x "data") hold
+    ``batch_ranks`` ranks, each group's rows and its ``kv_pages`` split
+    evenly over them (else the engine raises): ``allocators`` holds one
+    allocator a (group, batch rank), group-major, each over its rank's
+    ``rows_per_rank`` rows and ``kv_pages / batch_ranks`` pages with
+    rank-local ids, and the decode state holds each rank's pool on that
+    rank.  Admission keeps the reference's rule: the lowest free slot
+    takes the queue head from its own rank's allocator, and waits when
+    that pool cannot reserve (``rank_page_waits`` counts it by rank).
+    The default pool, the dense reservation, never waits; a smaller one
+    may wait where the reference's one pool would not."""
 
     def __init__(self, cfg: ModelConfig, *, paged: bool = False,
                  page_size: int = 64, kv_pages: Optional[int] = None,
@@ -650,11 +664,20 @@ class ServingEngine(_EngineBase):
                 "paged KV does not yet carry the VLM image K/V; "
                 "use paged=False")
         part = kw.get("part")
-        if paged and cfg.is_moe and part is not None \
-                and part.mesh is not None:
-            raise UnsupportedArchError(
-                "paged caches for the MoE family on a mesh are not ported "
-                "(ROADMAP Queue 1 #18); use paged=False")
+        # a paged pool splits over the mesh's batch ranks ("pod" x "data"):
+        # one allocator and pool for each (slot group, batch rank)
+        self.batch_ranks = dp_degree(part.mesh) \
+            if part is not None and part.mesh is not None else 1
+        if paged:
+            rows = kw.get("n_slots", 4) // max(1, kw.get("pipeline_k", 1))
+            pages = kv_pages if kv_pages is not None \
+                else rows * (kw.get("max_seq", 512) // page_size)
+            if rows % self.batch_ranks or pages % self.batch_ranks:
+                raise ValueError(
+                    f"a paged engine on a mesh of {self.batch_ranks} batch "
+                    f"ranks splits each slot group's {rows} rows and "
+                    f"kv_pages={pages} pages over them: both must divide "
+                    f"evenly")
         # a paged engine prices cache memory (and so migration bytes) at
         # page granularity — what the allocator actually hands out
         super().__init__(cfg, cost_page_size=page_size if paged else 0, **kw)
@@ -683,15 +706,22 @@ class ServingEngine(_EngineBase):
             # which hold only live pages
             self.kv_pages = int(kv_pages) if kv_pages is not None \
                 else self.rows_per_group * self.pages_per_slot
-            self.allocators = [
-                PagedKVAllocator(self.kv_pages, self.page_size,
-                                 self.rows_per_group, self.pages_per_slot)
-                for _ in range(self.pipeline_k)]
+            # one allocator a (group, batch rank), group-major: batch rank
+            # b of group g holds rows [b, b + 1) x rows_per_rank of the
+            # group and a pool of kv_pages / batch_ranks pages, with
+            # rank-local ids.  Every rank keeps every allocator: the
+            # bookkeeping, and so the schedule, is the same on all ranks
+            self.rows_per_rank = self.rows_per_group // self.batch_ranks
+            self.allocators = [self._new_allocator()
+                               for _ in range(self.pipeline_k
+                                              * self.batch_ranks)]
             # one fixed chunk shape serves every prompt
             self.prefill_chunk = int(prefill_chunk or self.page_size)
         # scheduler steps at which the queue head waited for pages while a
-        # slot was free (head-of-line admission)
+        # slot was free (head-of-line admission), in all and by the batch
+        # rank whose pool was dry
         self.page_waits = 0
+        self.rank_page_waits = [0] * self.batch_ranks
         # kernelized decode: per-layer gather maps (physical q-head rows in
         # slot-grouped placement order) carried in the decode state.  A
         # VLM's (G, 4, ...) stacks migrate all layers alike, so the
@@ -802,13 +832,27 @@ class ServingEngine(_EngineBase):
 
     @property
     def allocator(self) -> PagedKVAllocator:
-        """The page allocator of a single-group paged engine (a pipelined
-        one holds one per group in ``allocators``)."""
-        assert self.pipeline_k == 1, "pipelined engine: use .allocators[g]"
+        """The page allocator of a single-group paged engine on one batch
+        rank (otherwise ``allocators`` holds one per group and batch
+        rank)."""
+        assert len(self.allocators) == 1, \
+            "pipelined or multi-rank engine: use .allocators"
         return self.allocators[0]
 
     def _group_of(self, slot: int) -> tuple:
         return slot // self.rows_per_group, slot % self.rows_per_group
+
+    def _new_allocator(self) -> PagedKVAllocator:
+        """A fresh allocator of one (group, batch rank)'s pool."""
+        return PagedKVAllocator(self.kv_pages // self.batch_ranks,
+                                self.page_size, self.rows_per_rank,
+                                self.pages_per_slot)
+
+    def _pool(self, g: int, row: int) -> tuple:
+        """(allocator, its row) of group ``g``'s row ``row``: the
+        allocator of the batch rank holding the row."""
+        b, pool_row = divmod(row, self.rows_per_rank)
+        return self.allocators[g * self.batch_ranks + b], pool_row
 
     def _live_cache_tokens(self) -> int:
         """KV tokens a migration moves, summed over slots: a dense engine
@@ -912,7 +956,8 @@ class ServingEngine(_EngineBase):
             # future (clamped) writes drop and its reads are masked, so
             # recycled pages cannot be corrupted by a retired slot
             g, row = self._group_of(slot)
-            self.allocators[g].release(row)
+            alloc, pool_row = self._pool(g, row)
+            alloc.release(pool_row)
             self._mount(g, row, 0)
         self._emit_done(r)
 
@@ -932,6 +977,8 @@ class ServingEngine(_EngineBase):
             if self.paged:
                 if not self._admit_paged(s):
                     self.page_waits += 1
+                    self.rank_page_waits[
+                        self._group_of(s)[1] // self.rows_per_rank] += 1
                     return      # head-of-line: wait for pages to free
                 continue
             r = self.queue.pop(0)
@@ -973,10 +1020,11 @@ class ServingEngine(_EngineBase):
         self._finish_check(s)
 
     def _mount(self, g: int, row: int, pos: int):
-        """Mirror group ``g``'s allocator page list of ``row`` (-1 padded)
-        and its position into the group's decode state."""
+        """Mirror ``row``'s page list (-1 padded; ids of its batch rank's
+        pool) and its position into group ``g``'s decode state."""
+        alloc, pool_row = self._pool(g, row)
         self.states[g] = self.model.mount_slot_pages(
-            self.states[g], row, self.allocators[g].page_map_row(row), pos)
+            self.states[g], row, alloc.page_map_row(pool_row), pos)
 
     def _admit_paged(self, s: int) -> bool:
         """Admit the queue head into free slot ``s``: reserve its
@@ -984,11 +1032,12 @@ class ServingEngine(_EngineBase):
         decode-time extension can never exhaust the pool mid-stream),
         allocate the prompt's pages, mount the table row, and run the
         prompt through fixed-size prefill chunks.  Returns False when the
-        pool cannot reserve yet (head-of-line wait: the request admits
-        once running slots retire)."""
+        slot's pool — its batch rank's — cannot reserve yet (head-of-line
+        wait: the request admits once running slots retire)."""
         r = self.queue[0]
         g, row = self._group_of(s)
-        if not self.allocators[g].can_admit(len(r.prompt), self._horizon(r)):
+        if not self._pool(g, row)[0].can_admit(len(r.prompt),
+                                               self._horizon(r)):
             return False
         self.queue.pop(0)
         logits, pages = self._prefill_paged(g, row, r)
@@ -1003,13 +1052,13 @@ class ServingEngine(_EngineBase):
         return min(len(r.prompt) + r.max_new_tokens + 1, self.max_seq)
 
     def _prefill_paged(self, g: int, row: int, r: Request) -> tuple:
-        """Reserve ``r``'s worst-case pages in group ``g``'s pool,
-        allocate its prompt's, mount the table row and run the prompt
+        """Reserve ``r``'s worst-case pages in the pool of group ``g``'s
+        row, allocate its prompt's, mount the table row and run the prompt
         through fixed-size prefill chunks.  Admission and replay both run
         it.  Returns (last prompt token's logits, pages allocated)."""
         L0 = len(r.prompt)
-        pages = self.allocators[g].admit(row, n_tokens=L0,
-                                         horizon=self._horizon(r))
+        alloc, pool_row = self._pool(g, row)
+        pages = alloc.admit(pool_row, n_tokens=L0, horizon=self._horizon(r))
         self._mount(g, row, 0)
         C = self.prefill_chunk
         logits = None
@@ -1035,9 +1084,9 @@ class ServingEngine(_EngineBase):
     def _extend_pages(self, g: int, row: int, write_pos: int):
         """Draw a page from ``row``'s reservation when ``write_pos`` falls
         past its allocated pages, and remount the row."""
-        alloc = self.allocators[g]
-        if write_pos >= alloc.pages_for(row) * self.page_size:
-            alloc.extend(row, write_pos + 1)
+        alloc, pool_row = self._pool(g, row)
+        if write_pos >= alloc.pages_for(pool_row) * self.page_size:
+            alloc.extend(pool_row, write_pos + 1)
             self._mount(g, row, write_pos)
 
     def _active(self) -> List[int]:
@@ -1057,8 +1106,9 @@ class ServingEngine(_EngineBase):
             return 0.0
         if self.paged:
             return float(np.mean(
-                [self.allocators[g].pages_for(row) * self.page_size
-                 for g, row in map(self._group_of, act)]))
+                [alloc.pages_for(pool_row) * self.page_size
+                 for alloc, pool_row in (self._pool(*self._group_of(s))
+                                         for s in act)]))
         return float(np.mean([len(self.slots[s].prompt)
                               + len(self.slots[s].out_tokens) for s in act]))
 
@@ -1196,11 +1246,11 @@ class ServingEngine(_EngineBase):
         active = self._group_active(g)
         lo = g * self.rows_per_group
         if self.paged:
-            # the old pool described the lost cache; a fresh one admitted
-            # again reproduces admission's reservations
-            self.allocators[g] = PagedKVAllocator(
-                self.kv_pages, self.page_size, self.rows_per_group,
-                self.pages_per_slot)
+            # the old pools described the lost cache; fresh ones admitted
+            # again reproduce admission's reservations
+            for b in range(self.batch_ranks):
+                self.allocators[g * self.batch_ranks + b] = \
+                    self._new_allocator()
         self.states[g] = self._attach_head_rows(
             self._fresh_state(self.rows_per_group))
         out = {"replay_steps": 0, "replay_prefills": 0,

@@ -1928,3 +1928,98 @@ def test_vlm_int8_cache_step_through_the_int8_kernel(cuda):
                     da.decode_attention_resident.launches - before[1]) \
                 == (3 * 4, 3 * 1)
     torch.testing.assert_close(runs[0], runs[1], atol=1e-3, rtol=0.0)
+
+
+# ----------------------- paged caches and int8 weights on a mesh's ranks
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_kernels_on_two_batch_ranks_pools(cuda, dtype, quant):
+    """A paged store on a mesh whose batch axes hold two ranks: each rank
+    holds half of a scrambled pool and its rows' page ids into that half
+    (rank-local ids).  Each rank's call — its rows over its own pool —
+    equals its plain version, and the two put together equal the
+    whole-pool call with global ids, bit for bit (a row's splits follow
+    the cache extent alone)."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, lengths, pmap = _paged_inputs(cuda, dtype, 64, 8, 11)
+    B, n_pages = q.shape[0], k.shape[0]
+    rows = torch.tensor([1, 0, 7, 6, 2], dtype=torch.int32, device=cuda)
+    kern = da.decode_attention_int8_paged_resident if quant \
+        else da.decode_attention_paged_resident
+    plain = da.decode_attention_int8_paged_resident_plain if quant \
+        else da.decode_attention_paged_resident_plain
+    if quant:
+        (kq, ks), (vq, vs) = _q8(k.float()), _q8(v.float())
+        pool = (kq, ks[..., None], vq, vs[..., None])
+    else:
+        pool = (k, v)
+    # rank r owns rows [2r, 2r + 2) and the pages they read (a row's
+    # entries past its length read page 0 of its pool), padded with
+    # unread pages to half the pool, in a scrambled order
+    pm = pmap.cpu().numpy()
+    P = k.shape[2]
+    live = [-(-min(int(n), pm.shape[1] * P) // P) for n in lengths.tolist()]
+    read = [sorted({int(pm[b, i]) for b in (2 * r, 2 * r + 1)
+                    for i in range(live[b])}) for r in range(2)]
+    rng = np.random.default_rng(5)
+    spare = [int(p) for p in rng.permutation(n_pages)
+             if p not in read[0] + read[1]]
+    half = n_pages // 2
+    parts = []
+    for r in range(2):
+        others = spare[:half - len(read[r])]
+        spare = spare[len(others):]
+        ids = rng.permutation(np.asarray(read[r] + others))
+        local_of = {int(g): i for i, g in enumerate(ids)}
+        lmap = np.array([[local_of[int(pm[b, i])] if i < live[b] else 0
+                          for i in range(pm.shape[1])]
+                         for b in (2 * r, 2 * r + 1)])
+        idx = torch.as_tensor(ids, dtype=torch.long, device=cuda)
+        args = tuple(t.index_select(0, idx) for t in pool) + (
+            lengths[2 * r:2 * r + 2],
+            torch.as_tensor(lmap, dtype=torch.int32, device=cuda), rows)
+        before = kern.launches
+        out = kern(q[2 * r:2 * r + 2], *args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        torch.testing.assert_close(out.float(),
+                                   plain(q[2 * r:2 * r + 2], *args).float(),
+                                   **TOLS[dtype])
+        parts.append(out)
+    whole = kern(q, *pool, lengths, pmap, rows)
+    assert B == 4 and torch.equal(torch.cat(parts), whole)
+
+
+def test_dequantize_weight_of_a_one_rank_dtensor_is_bit_equal(cuda):
+    """``dequantize_weight`` of an int8 leaf placed on a (1, 1) NCCL mesh
+    dequantizes the rank's shard into a DTensor of ``q8``'s placements,
+    bit-equal to the plain leaf's, in bf16 and float32."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.partitioning import (Sharding, is_dtensor, local,
+                                                 place, placements)
+    from repro_torch.models.quantization import (dequantize_weight,
+                                                 quantize_weight)
+    w = torch.randn((2, 64, 8, 16), generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    leaf = quantize_weight(w, 3)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        placed = {
+            "q8": place(leaf["q8"], Sharding(mesh, placements(
+                mesh, (None, None, "model", None)))),
+            "sc": place(leaf["sc"], Sharding(mesh, placements(
+                mesh, (None, None))))}
+        for dtype in (torch.bfloat16, torch.float32):
+            got = dequantize_weight(placed, dtype)
+            assert is_dtensor(got) and got.placements == \
+                placed["q8"].placements
+            assert torch.equal(local(got), dequantize_weight(leaf, dtype))
+    finally:
+        dist.destroy_process_group()

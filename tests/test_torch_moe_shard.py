@@ -884,14 +884,48 @@ def test_a_pod_degree_that_does_not_split_the_experts_is_refused():
 
 
 def test_paged_moe_engine_on_a_mesh_is_refused():
-    from repro_torch.models.partitioning import make_partitioner
-    from repro_torch.serving.engine import (ServingEngine,
-                                            UnsupportedArchError)
+    """The MoE family serves paged on a mesh (a pool for each batch rank,
+    ``tests/test_torch_paged_shard.py`` over "pod"): a pool that does not
+    split over the batch ranks ("pod" x "data") is the one refusal left,
+    raised before any weight is placed.  On a one-rank gloo mesh the paged
+    MoE engine (mixtral without its window: both packages keep windowed
+    archs off paged caches, and below the window the function is the
+    same) is the continuous engine, its experts DTensors, and streams the
+    unsharded paged engine's tokens on the same weights."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.partitioning import is_dtensor, make_partitioner
+    from repro_torch.serving.engine import ServingEngine, make_engine
+    from tests.test_torch_shard_serve import _local_tree
     from tests.test_torch_sharding import StandInMesh
-    part = make_partitioner(StandInMesh((1, 4), ("data", "model")))
-    with pytest.raises(UnsupportedArchError, match="#18"):
-        ServingEngine(_cfg(sliding_window=BELOW_WINDOW), paged=True,
-                      page_size=8, part=part, tp=4, device="cpu", **CONT)
+    cfg = _cfg(sliding_window=0)
+    kw = dict(paged=True, page_size=8, tp=4, device="cpu", use_kernel=True,
+              **CONT)
+    part = make_partitioner(StandInMesh((2, 1, 2), ("pod", "data", "model")))
+    with pytest.raises(ValueError, match="kv_pages=9 "):
+        ServingEngine(cfg, part=part, kv_pages=9, **kw)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"),
+                         device_type="cpu")
+        eng = make_engine(cfg, part=make_partitioner(mesh), **kw)
+        assert type(eng) is ServingEngine
+        assert is_dtensor(eng.params["layers"]["moe"]["w_gate"])
+        plain = ServingEngine(cfg, params=_local_tree(eng.params), **kw)
+        for e in (eng, plain):
+            for p in _prompts(CONT_PROMPTS[:3]):
+                e.submit(p, max_new_tokens=6)
+            e.run()
+        streams = [{r.rid: r.out_tokens for r in e.finished}
+                   for e in (eng, plain)]
+        assert len(streams[0]) == 3 and streams[0] == streams[1]
+        assert len(eng.allocators) == 1 and eng.allocator.live_pages == 0
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

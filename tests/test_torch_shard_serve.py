@@ -698,16 +698,20 @@ def test_local_head_rows_refuse_maps_that_miss_the_range():
 
 
 def test_paged_cache_on_a_mesh_with_data_above_1_is_refused():
-    """A page table addresses the whole pool, while the decode-state rule
-    shards a store's page axis over "data": a pool for each data rank is
-    not ported, and says which ROADMAP item holds it."""
+    """A page store on a mesh whose "data" is above 1 is a pool for each
+    data rank (its page axis over "data", as the decode-state rule places
+    it; ``tests/test_torch_paged_shard.py`` serves from it): only a pool
+    that does not split evenly over the data ranks is refused, with its
+    numbers, and so is a paged state whose rows do not."""
     from repro_torch.models.api import build_model
     from repro_torch.models.partitioning import make_partitioner
     cfg = _cfg("llama (2, 2)")
     part = make_partitioner(_StandInMesh((2, 2), ("data", "model")))
     model = build_model(cfg, tp=2, part=part, device="cpu")
-    with pytest.raises(NotImplementedError, match="#18"):
-        model.init_paged_cache(8, 4)
+    with pytest.raises(ValueError, match="7 pages .* 2 batch ranks"):
+        model.init_paged_cache(7, 4)
+    with pytest.raises(ValueError, match="3 rows .* 2 batch ranks"):
+        model.init_paged_state(None, 3, 8, 4, 2)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "musicgen-large",
