@@ -84,7 +84,13 @@ and without the kernels.  Every prefill whose queries and keys share their posit
 that the paged decode kernels give the linear ones' output bit for bit on
 the same cache in scrambled pages, and in float32 that greedy streams
 with and without the kernels, from paged and dense caches, and with and
-without a device failure or slowdown, are equal.
+without a device failure or slowdown, are equal.  The hot-path audit
+(``repro_torch.analysis``) then checks one decode step of the main path
+from each cache kind and of the mixtral ring through their kernels: no
+host sync under ``torch.cuda.set_sync_debug_mode("error")``, no finding
+of the dispatch-trace audit, caches in place, a memory rise under the
+cache's bytes and a CUDA-graph capture; the prefill traces bounded by the
+buckets through flash; and the auditor's CLI on the card exits 0.
 
 Last it trains, on the plain path (the kernels have no backward and
 refuse autograd): one step of four reduced float32 families on the card
@@ -99,14 +105,16 @@ and the AdamW update.
 
     python3 chip_smoke.py --ab build/parent . . build/parent
 
-times the kernels of several checkouts in turns instead (see ``ab``);
+times the kernels of several checkouts in turns instead (see ``ab``), and
+with ``--paths`` serves the paged and int8-paged main paths in each and
+compares their host-clock splits;
 ``--only train`` builds the kernels and runs only the training phases;
 ``--only tp`` the decode and flash kernel phases, the dense path and the
 tp-16, mesh and shard phases; ``--only ssm`` the recurrent families'
 shard and mesh phases; ``--only audio_vlm`` the VLM from an int8 cache
 (bf16 path and f32 stream pair) and musicgen and the VLM served sharded
 on the one-card mesh; ``--only mesh_mem`` int8 weights and the paged MoE
-on one-card meshes.
+on one-card meshes; ``--only audit`` the hot-path audit.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -254,8 +262,13 @@ def check(cond: bool, msg: str):
         raise SmokeFailure(msg)
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str):
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A progress line, stamped with the seconds since the script
+    started (the phases' times are the differences)."""
+    print(f"[chip_smoke {time.monotonic() - _T0:.1f} s] {msg}", flush=True)
 
 
 def row_rel_err(out, want) -> float:
@@ -1082,13 +1095,17 @@ def time_prefill(eng):
 
 
 def log_split(eng, wall, prefill):
-    """The host-clock split of a main path's wall time."""
+    """The host-clock split of a main path's wall time; returns it in
+    seconds."""
     decode_s, interval_s = sum(eng.step_times), sum(eng.interval_times)
     log(f"  host-clock split of {wall:.2f} s: decode steps {decode_s:.2f} s, "
         f"controller intervals {interval_s:.2f} s, prefill "
         f"{prefill['s']:.2f} s ({prefill['calls']} calls), admission, "
         f"sampling and the rest "
         f"{wall - decode_s - interval_s - prefill['s']:.2f} s")
+    return {"wall": wall, "decode steps": decode_s,
+            "controller intervals": interval_s, "prefill": prefill["s"],
+            "prefill calls": prefill["calls"]}
 
 
 def graph_decode_step(eng):
@@ -1164,6 +1181,13 @@ PATHS = {
 }
 
 
+# each main path's host-clock split in seconds (``log_split``), by path
+SPLITS = {}
+# the main paths ``--ab --paths`` serves in each checkout: those whose
+# prefill chunks run the plain attention on the card
+AB_PATHS = ("paged", "int8_paged")
+
+
 def path_metrics(eng, wall) -> dict:
     tokens = sum(len(r.out_tokens) for r in eng.finished)
     return {"tok/s": tokens / wall,
@@ -1208,7 +1232,7 @@ def phase_main_path(path="dense"):
         f"{sum(e['n_migrations'] for e in eng.migration_log)} head "
         f"migrations in {len(applied)} applied intervals; kernel launches "
         f"{launches}, flash_attention {flash}")
-    log_split(eng, wall, prefill)
+    SPLITS[path] = log_split(eng, wall, prefill)
     check(len(eng.finished) == 16 and all(len(r.out_tokens) == 64
                                           for r in eng.finished),
           f"{path}: not every request finished with its 64 tokens")
@@ -1694,6 +1718,7 @@ def phase_mixtral_capacity(cfg, params):
             finally:
                 undo()
             del state
+        # rpr: ignore[RPR004] -- read once a configuration, after timing
         runs[label] = (logits, secs, [int(d) for d in drops])
         log(f"mixtral {N_LAYERS} layers bf16 prefill {RING_B} x "
             f"{RING_PROMPT} tokens, {label}: {secs:.3f} s"
@@ -1799,6 +1824,7 @@ def phase_int8_weight_stream_pair():
         cfg = get_config(arch).with_overrides(
             n_layers=N_LAYERS, dtype="float32", param_dtype="float32")
         params = int8_layerwise(cfg, "cuda", seed=1)
+        # rpr: ignore[RPR001] -- this configuration's one input draw
         gen = torch.Generator(device="cuda").manual_seed(8)
         tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                                device="cuda")
@@ -3658,6 +3684,7 @@ def phase_train_parity():
     for arch, over in TRAIN_PARITY.items():
         cfg = get_config(arch).with_overrides(**TRAIN_BASE, **over)
         params = build_model(cfg, device="cuda").init(
+            # rpr: ignore[RPR001] -- another model's weights, from seed 0
             torch.Generator(device="cuda").manual_seed(0))
         if arch == "rwkv6-7b":
             nonzero_adapters(params)
@@ -5041,6 +5068,7 @@ def phase_mesh_ssm_serving():
         part = make_partitioner(make_debug_mesh(1, 1))
         for fam, (cfg, seed_params, make, reason) in families.items():
             params = build_model(cfg, device="cuda").init(
+                # rpr: ignore[RPR001] -- another model's weights, from seed 0
                 torch.Generator(device="cuda").manual_seed(0))
             seed_params(params)
             runs = {}
@@ -5237,6 +5265,7 @@ def phase_mesh_audio_vlm_serving():
         part = make_partitioner(make_debug_mesh(1, 1))
         for fam, (cfg, seed_params, kw, n_self) in families.items():
             params = build_model(cfg, device="cuda").init(
+                # rpr: ignore[RPR001] -- another model's weights, from seed 0
                 torch.Generator(device="cuda").manual_seed(0))
             seed_params(params)
             imgs = vlm_images(MESH_REQUESTS, cfg.d_model) if fam == "vlm" \
@@ -5430,6 +5459,7 @@ def phase_mesh_int8_weights():
                 release()
                 if cfg.family == "hybrid":
                     floats = build_model(cfg, device="cuda").init(
+                        # rpr: ignore[RPR001] -- another model's weights, from seed 0
                         torch.Generator(device="cuda").manual_seed(0))
                     seed_ssm_params(floats)
                     params = quantize_params(floats)
@@ -5446,6 +5476,7 @@ def phase_mesh_int8_weights():
             placed = placed_params(params, cfg, mesh)
             leaves = int8_leaves(placed)
             B, S, steps = MESH_INT8[name]
+            # rpr: ignore[RPR001] -- this configuration's one input draw
             gen = torch.Generator(device="cuda").manual_seed(5)
             tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                                    device="cuda")
@@ -5637,6 +5668,196 @@ def phase_mesh_paged_moe():
     return added
 
 
+AUDIT_MIXTRAL_PROMPT = 512     # the ring audit's prompts (window 4096)
+AUDIT_CHILD_TIMEOUT = 300
+
+
+def captures_in_a_graph(fn) -> bool:
+    """Whether ``fn()`` captures in a CUDA graph and replays (after one
+    warm-up call on a side stream, as ``cuda_ms`` does): a host sync
+    inside a kernel wrapper, which no dispatch mode sees, breaks the
+    capture.  Raises what the capture raised."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return True
+
+
+def audit_decode_step(label, model, params, state, tokens, kernel):
+    """Checks one ``decode_step`` of a state the engine (or a lock-step
+    prefill) filled: it runs under ``set_sync_debug_mode("error")``, where
+    a host sync raises and nothing catches it, and launches ``kernel``
+    once a layer; under ``trace_audit``'s dispatch mode it widens no
+    cache-sized tensor (JXP001), reads nothing to the host (JXP002) and
+    copies no cache or parameter (HLO002); every cache leaf keeps its
+    storage (HLO001); the step raises the allocated peak by less than the
+    cache's bytes; and it captures in a CUDA graph.  Returns the record
+    logged for the path."""
+    from repro_torch.analysis import step_audit, trace_audit
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    cache_b = step_audit.cache_bytes_of(state)
+    big = trace_audit.big_elems_of(state["cache"]["k"])
+    before = step_audit.cache_ptrs(state)
+    step = getattr(da, kernel)
+    torch.cuda.synchronize()
+    launched = step.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, state = model.decode_step(params, state, tokens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched = step.launches - launched
+    (_, state), ops = trace_audit.record(model.decode_step, params, state,
+                                         tokens)
+    findings = trace_audit.audit_ops(ops, label, big_elems=big)
+    findings += step_audit.copy_findings(
+        label, ops, step_audit.storages(state, params), cache_b)
+    findings += step_audit.check_in_place(label, before, state)
+    rise = step_audit.memory_rise(model.decode_step, params, state, tokens)
+    captured = captures_in_a_graph(
+        lambda: model.decode_step(params, state, tokens))
+    moved = step_audit.cache_ptrs(state) != before
+    rec = dict(findings=[str(f) for f in findings], rise=rise,
+               cache_bytes=cache_b, launched=launched, captured=captured,
+               libraries=build.load.cache_info().currsize, moved=moved,
+               ops=len(ops))
+    log(f"audit {label}: {len(findings)} findings, {len(ops)} ops traced, "
+        f"{kernel} launched {launched} times under the sync check, memory "
+        f"rise {rise / 1e6:.3f} MB a step against the cache's "
+        f"{cache_b / 1e6:.3f} MB, CUDA graph capture "
+        f"{'held' if captured else 'FAILED'}, libraries loaded "
+        f"{rec['libraries']}" + "".join(f"\n    {f}" for f in findings))
+    check(not findings, f"audit {label}: {findings}")
+    check(launched == model.cfg.n_layers, f"audit {label}: {kernel} "
+          f"launched {launched} times, not once a layer")
+    check(rise < cache_b, f"audit {label}: the step raised the peak by "
+          f"{rise} B, at least the cache's {cache_b} B")
+    check(not moved, f"audit {label}: a cache leaf moved over the checks")
+    return rec
+
+
+def prefill_ladder_on_the_card(eng):
+    """HLO003 on the card: prompts of two lengths in each of the engine's
+    buckets, each through the engine's own admission prefill (bucketed,
+    through the flash kernel) into slot 0.  The distinct prefill traces
+    must number the buckets, the flash kernel must launch once a layer a
+    prefill, and the CUDA libraries loaded must not grow past the first
+    prefill: no shape builds a library of its own."""
+    from repro_torch.analysis import step_audit, trace_audit
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serving.engine import Request
+    m = eng.model
+    inner = m.prefill_bucketed
+    traces, libraries = set(), []
+
+    def traced(*a):
+        out, ops = trace_audit.record(inner, *a)
+        traces.add(step_audit.trace_key(ops))
+        return out
+
+    rng = np.random.default_rng(0)
+    lengths = [n for b in eng.buckets for n in (b // 2 + 1, b)]
+    flash_attention.launches = 0
+    m.prefill_bucketed = traced
+    try:
+        for n in lengths:
+            eng._prefill_dense(0, Request(
+                0, rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32),
+                1))
+            libraries.append(build.load.cache_info().currsize)
+    finally:
+        del m.prefill_bucketed
+    torch.cuda.synchronize()
+    flash = flash_attention.launches
+    log(f"audit prefill ladder: {len(lengths)} prompts of {lengths[0]}-"
+        f"{lengths[-1]} tokens over buckets {list(eng.buckets)}: "
+        f"{len(traces)} distinct prefill traces, flash_attention {flash} "
+        f"launches, libraries loaded {libraries[0]} .. {libraries[-1]}")
+    check(len(traces) == len(eng.buckets), f"audit ladder: {len(traces)} "
+          f"prefill traces for {len(eng.buckets)} buckets")
+    check(flash == len(lengths) * eng.cfg.n_layers, f"audit ladder: flash "
+          f"launches {flash} != {len(lengths)} x {eng.cfg.n_layers}")
+    check(len(set(libraries)) == 1, f"audit ladder: libraries loaded grew "
+          f"with the bucket: {libraries}")
+    return len(traces)
+
+
+def phase_audit():
+    """The hot-path audit on the card (``repro_torch.analysis``).  The
+    main path's engine — llama3-8b at full width, 4 layers, 8 slots, a
+    1024-token cache, bf16, ``use_kernel=True``, one set of seeded
+    weights — from each cache kind (dense, paged, int8, int8-paged, so
+    the four linear and paged decode kernels run): one scheduler step
+    admits 8 requests (prefilled through flash) and decodes once, then
+    ``audit_decode_step`` checks a decode step.  The 4-layer mixtral-8x7b
+    at full width prefills 4 prompts of ``AUDIT_MIXTRAL_PROMPT`` tokens
+    into its 4096-slot ring in lock-step, and its decode step through the
+    ring kernel is checked the same way.  Then the dense engine's prefill
+    ladder (``prefill_ladder_on_the_card``), and last the auditor's CLI as
+    a child process on the card (``python -m repro_torch.analysis
+    --device cuda``: the port's lints, the hot functions' trace and the
+    step audit with the committed budgets), which must exit 0.  Any
+    finding fails the phase.  Returns {path: record}."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    records = {}
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    params = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    ladder_engine = None
+    for path, (kernel, over, kw) in PATHS.items():
+        eng = serve(cfg.with_overrides(**over), use_kernel=True,
+                    n_requests=MAIN_B, max_new=64, params=params, **kw)
+        eng.step()
+        tokens = torch.as_tensor(eng._next, device="cuda")
+        records[path] = audit_decode_step(path, eng.model, eng.params,
+                                          eng.state, tokens, kernel)
+        if path == "dense":
+            ladder_engine = eng
+        del eng
+    records["ladder traces"] = prefill_ladder_on_the_card(ladder_engine)
+    del ladder_engine, params
+    release()
+    mcfg = get_config("mixtral-8x7b").with_overrides(n_layers=N_LAYERS)
+    model = build_model(mcfg, use_kernel=True, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    state = model.init_decode_state(params, RING_B, 2 * RING_W)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, mcfg.vocab_size, (RING_B, AUDIT_MIXTRAL_PROMPT),
+                           generator=gen, device="cuda")
+    logits, state = model.prefill(params, state, prompt)
+    check(state["cache"]["k"].shape[2] == RING_W, "audit mixtral: the state "
+          "holds no ring")
+    records["mixtral ring"] = audit_decode_step(
+        "mixtral ring", model, params, state, logits.argmax(-1),
+        "decode_attention_ring_resident")
+    del model, params, state, logits
+    release()
+    t0 = time.monotonic()
+    child = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--device", "cuda"],
+        cwd=ROOT, capture_output=True, text=True,
+        timeout=AUDIT_CHILD_TIMEOUT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    out = child.stdout.strip().splitlines()
+    log(f"audit CLI on the card: exit {child.returncode} in "
+        f"{time.monotonic() - t0:.1f} s: " + " | ".join(out[-4:]))
+    check(child.returncode == 0, f"audit CLI exited {child.returncode}:\n"
+          f"{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
+    return records
+
+
 def tp_phases(by_name):
     """The tp-16 phases, the one-card mesh, the decode kernels (and
     zamba2's shared block) on the tp-4 head shards, the WKV6 kernel on
@@ -5705,27 +5926,34 @@ def kernel_times(records):
     return out
 
 
-def ab(roots):
+def ab(roots, paths=False):
     """Times the kernels of several checkouts in turns, on one card: for
     each root, a fresh process builds that checkout's kernels and runs
     this script's kernel phases on them (``--kernels-of``), so every
     checkout is checked and timed by the same code.  Kernel times move
     within 2 % between turns and more between calls, so two versions are
-    compared inside one call, in turns (parent, change, change, parent)."""
+    compared inside one call, in turns (parent, change, change, parent).
+    With ``paths`` each turn serves the ``AB_PATHS`` main paths instead
+    (``--paths-of``) and the turns compare their host-clock splits (s)."""
     turns = []
     for i, root in enumerate(roots):
         log(f"=== turn {i + 1}: {root}")
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--kernels-of", str(Path(root).resolve())],
+                               "--paths-of" if paths else "--kernels-of",
+                               str(Path(root).resolve())],
                               capture_output=True, text=True)
         sys.stdout.write(proc.stdout)
         sys.stdout.write(proc.stderr[-4000:])
         check(proc.returncode == 0, f"the turn in {root} failed "
               f"(exit {proc.returncode})")
-        lines = [x for x in proc.stdout.splitlines()
-                 if x.startswith('{"kernels"')]
-        turns.append(kernel_times(json.loads(lines[-1])["kernels"]))
-    log("ms per turn (" + ", ".join(map(str, roots)) + "):")
+        head = '{"paths"' if paths else '{"kernels"'
+        lines = [x for x in proc.stdout.splitlines() if x.startswith(head)]
+        got = json.loads(lines[-1])
+        turns.append({f"{p} {part}": t for p, split in got["paths"].items()
+                      for part, t in split.items()} if paths
+                     else kernel_times(got["kernels"]))
+    log(("s" if paths else "ms") + " per turn ("
+        + ", ".join(map(str, roots)) + "):")
     for name in dict.fromkeys(n for t in turns for n in t):
         log(f"  {name}: " + ", ".join(
             f"{t[name]:.4f}" if name in t else "-" for t in turns))
@@ -5741,16 +5969,23 @@ def main():
     ap.add_argument("--kernels-of", metavar="ROOT",
                     help="only build ROOT's kernels and run the kernel "
                     "phases on them; print their records")
+    ap.add_argument("--paths", action="store_true",
+                    help="with --ab: serve the paged and int8-paged main "
+                    "paths in each checkout instead, and compare their "
+                    "host-clock splits")
+    ap.add_argument("--paths-of", metavar="ROOT",
+                    help="only build ROOT's kernels and serve the paged and "
+                    "int8-paged main paths on them; print their splits")
     ap.add_argument("--only", choices=("train", "tp", "ssm", "audio_vlm",
-                                       "mesh_mem"),
+                                       "mesh_mem", "audit"),
                     help="only build the kernels and run these phases "
                     "(no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is present")
     if args.ab:
-        return ab(args.ab)
-    src = Path(args.kernels_of or ROOT).resolve() / "src"
+        return ab(args.ab, paths=args.paths)
+    src = Path(args.kernels_of or args.paths_of or ROOT).resolve() / "src"
     sys.path.insert(0, str(src))
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 stays f32
@@ -5760,6 +5995,14 @@ def main():
         log(f"kernels of {build.__file__}: built {sorted(built)}")
         log_ptxas(built)
         print(json.dumps({"kernels": kernel_phases()}))
+        return
+    if args.paths_of:
+        build.build(["decode_attention", "rwkv6", "flash_attention"])
+        log(f"serving paths of {build.__file__}")
+        for path in AB_PATHS:
+            phase_main_path(path)
+            release()
+        print(json.dumps({"paths": SPLITS}))
         return
     card = card_line()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -5795,6 +6038,11 @@ def main():
         release()
         log(f"mesh paged moe launches: {phase_mesh_paged_moe()}; "
             f"{time.monotonic() - t0:.1f} s from the build on")
+        return
+    if args.only == "audit":
+        phase_audit()
+        log(f"audit phase passed; {time.monotonic() - t0:.1f} s from the "
+            f"build on")
         return
     if args.only == "tp":
         records = [phase_kernel_vs_plain(), phase_flash_vs_plain()]
@@ -5914,6 +6162,11 @@ def main():
         f"({n_load} requests): {churn}")
     log(f"flash_attention launches with the elastic paths: {flash}")
     phase_churn_stream_pairs()
+    release()
+    # the hot-path audit of the decode kernels' paths (its launches are
+    # the audit's checked steps, logged; each kernel's record keeps its
+    # main path's)
+    phase_audit()
     release()
     # the tp-16 layout (llama3-8b replicated KV, qwen1.5-32b padded heads)
     # and the one-card mesh: their launches add to the records

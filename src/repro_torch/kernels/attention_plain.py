@@ -41,17 +41,44 @@ def attention_scores(q, k, v, mask):
         if mask is None:
             mask = torch.ones((1, 1, 1, 1, T), dtype=torch.bool,
                               device=q.device)
-        k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
         mask = F.pad(mask, (0, pad), value=False)
+
+    def keys(t):
+        """``t``'s keys in float32, padded after the cast (the padding
+        widens nothing)."""
+        t = t.float()
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+
     qg = q.reshape(B, S, KvE, Hp // KvE, dh)
-    scores = torch.einsum("bsegd,bted->begst", qg.float(), k.float())
+    # A decode step (one query a row) reads every row's whole cache, one
+    # KV head at a time, as the decode kernel's grid reads it: the float32
+    # copy a narrower cache needs for the scores then holds one head's
+    # keys, never a layer's (``analysis.trace_audit``'s JXP001), and the
+    # paged decode, which gathers and attends each head's pages alone
+    # (``layers.self_attention_block``), computes the same arithmetic.  A
+    # prefill's queries take one product over every head.
+    by_head = S == 1
+    if by_head:
+        scores = torch.stack(
+            [torch.einsum("bsgd,btd->bgst", qg[:, :, e].float(),
+                          keys(k[:, :, e]).contiguous())
+             for e in range(KvE)], dim=1)
+    else:
+        scores = torch.einsum("bsegd,bted->begst", qg.float(), keys(k))
     scores = scores / math.sqrt(dh)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     if pad:
         scores[..., T:] = -math.inf
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("begst,bted->bsegd", probs.to(v.dtype), v)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    if by_head:
+        out = torch.stack(
+            [torch.einsum("bgst,btd->bsgd", probs[:, e],
+                          v[:, :, e].contiguous()) for e in range(KvE)],
+            dim=2)
+    else:
+        out = torch.einsum("begst,bted->bsegd", probs, v)
     return out.reshape(B, S, Hp, dh)
 
 

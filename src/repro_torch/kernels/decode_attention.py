@@ -62,16 +62,27 @@ def _masked_decode_plain(q, k, v, valid, rows, kv_rows):
     rows = rows.long()
     kv_rows = rows // (H // KvE) if kv_rows is None else kv_rows.long()
     qr = q.index_select(1, rows).float()                    # (B, R, dh)
-    kr = k.index_select(1, kv_rows).float()                 # (B, R, T, dh)
-    vr = v.index_select(1, kv_rows).float()
-    s = torch.einsum("brd,brtd->brt", qr, kr) / math.sqrt(dh)
+    # One KV head at a time, as the kernel's blocks read the cache: its
+    # float32 copy holds one head's (B, T, dh), never the whole cache or
+    # the rows' gathered copy of it (``analysis.trace_audit``'s JXP001).
+    # Each query row keeps the scores and the output of its own head.
+    own = [(kv_rows == e)[None, :, None] for e in range(KvE)]
+    s = qr.new_zeros(B, qr.shape[1], k.shape[2])
+    for e in range(KvE):
+        s = torch.where(own[e], torch.einsum("brd,btd->brt", qr,
+                                             k[:, e].float()), s)
+    s = s / math.sqrt(dh)
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
     # a row with no valid position keeps a finite max, so p is all zero
     # and the l >= 1e-30 clamp returns zeros (as the kernel does)
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("brt,brtd->brd", p, vr) / l
+    out = torch.zeros_like(qr)
+    for e in range(KvE):
+        out = torch.where(own[e], torch.einsum("brt,btd->brd", p,
+                                               v[:, e].float()), out)
+    out = out / l
     return out.to(q.dtype)
 
 

@@ -423,7 +423,9 @@ def _ring_attention(q, k, v, positions, cache: dict, cache_pos,
     idx = cache_pos % window
     cache["k"][:, idx] = k[:, 0]
     cache["v"][:, idx] = v[:, 0]
-    cache["pos"][idx] = cache_pos
+    # a fill, not an item assignment: assigning a Python int copies it
+    # from host memory, a host sync on every decode step
+    cache["pos"][idx:idx + 1].fill_(cache_pos)
     if use_kernel:
         rows, inv = _head_rows_or_identity(head_rows, head_inv, q.shape[2],
                                            q.device)
@@ -527,15 +529,17 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
         mesh: the reduction of the head-sharded contraction)."""
         return _project_out(p, like(out, layout), part=part)
 
-    def attend(kk, vv, kv_pos, mask, *, flash: bool = False):
+    def attend(kk, vv, kv_pos, mask, *, flash: bool = False, qq=None):
         """The reference's dispatch (chunked when the KV extent is long,
         else plain) — or, with ``flash`` and more than one query, the flash
         kernel, for calls whose queries and keys share their positions
-        from the first key (the causal mask aligned at the top left)."""
+        from the first key (the causal mask aligned at the top left).
+        ``qq``: the query heads of ``kk``'s KV heads (default all)."""
+        qq = q if qq is None else qq
         if flash and S > 1:
-            return ops.flash_attention_bshd(q, kk, vv, causal=True,
+            return ops.flash_attention_bshd(qq, kk, vv, causal=True,
                                             window=window)
-        return plain_attend(q, kk, vv, positions, kv_pos, mask,
+        return plain_attend(qq, kk, vv, positions, kv_pos, mask,
                             window=window)
 
     if cache is None:
@@ -570,6 +574,22 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
                     q, pool["k"], pool["v"], lengths, gmap, rows,
                     inv_rows=inv)
             return finish(out), cache
+        if page_map.shape[0] > 1:
+            # a plain decode step: several rows' page tables, gathered into
+            # one dense copy, can outgrow the pool itself, so each KV head's
+            # pages are gathered and attended alone
+            T = page_map.shape[1] * cache["k"].shape[1]
+            kv_pos = torch.arange(T, device=q.device)[None, :].expand(B, T)
+            mask = causal_mask(positions, kv_pos, window)
+            KvE = cache["k"].shape[2]
+            G = q.shape[2] // KvE
+            out = torch.cat([attend(
+                *_paged_gather({n: t[:, :, e:e + 1]
+                                for n, t in cache.items()},
+                               page_map, q.dtype), kv_pos, mask,
+                qq=q[:, :, e * G:(e + 1) * G]) for e in range(KvE)], dim=2)
+            return finish(part.from_owner(out)), cache
+        # one row's pages (a prefill chunk) span at most one sequence
         ck, cv = _paged_gather(cache, page_map, q.dtype)
     else:
         _write_cache(cache, new, cache_pos)

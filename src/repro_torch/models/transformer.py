@@ -754,7 +754,8 @@ class TransformerLM:
             logits = whole(L.unembed(self.cfg, params,
                                      x[:, max(length - 1, 0)][:, None],
                                      part=part))
-        local(state["pos"])[row] = start + length
+        # a fill: assigning a Python int would copy it from host memory
+        local(state["pos"])[row:row + 1].fill_(start + length)
         return logits[:, 0], state
 
     def mount_slot_pages(self, state, row: int, pages, pos: int):
@@ -769,5 +770,5 @@ class TransformerLM:
         lo, n = local_range(pm, 0)
         if lo <= row < lo + n:
             local(pm)[row - lo] = torch.as_tensor(pages, dtype=torch.int32)
-        local(state["pos"])[row] = pos
+        local(state["pos"])[row:row + 1].fill_(pos)
         return state

@@ -334,8 +334,10 @@ class _EngineBase:
         """Next tokens, on the device: greedy argmax, else a draw from
         the softmax with the engine's seeded generator."""
         if self.greedy:
+            # rpr: ignore[RPR004] -- the step's one read: tokens to the host
             return logits.argmax(dim=-1).cpu().numpy()
         probs = torch.softmax(logits.float(), dim=-1)
+        # rpr: ignore[RPR004] -- the step's one read: tokens to the host
         return torch.multinomial(probs, 1, generator=self._sample_gen
                                  )[:, 0].cpu().numpy()
 
@@ -638,6 +640,10 @@ class ServingEngine(_EngineBase):
     steps (λ tokens a slot).  ``state`` and ``allocator`` name the one
     group of a ``pipeline_k=1`` engine.
 
+    ``buckets`` are the lengths a prompt is right-padded to for its
+    prefill, one shape each (sorted and deduplicated; by default
+    ``default_buckets(max_seq)``).
+
     Paged on a mesh (``part``) whose batch axes ("pod" x "data") hold
     ``batch_ranks`` ranks, each group's rows and its ``kv_pages`` split
     evenly over them (else the engine raises): ``allocators`` holds one
@@ -650,8 +656,10 @@ class ServingEngine(_EngineBase):
     The default pool, the dense reservation, never waits; a smaller one
     may wait where the reference's one pool would not."""
 
-    def __init__(self, cfg: ModelConfig, *, paged: bool = False,
-                 page_size: int = 64, kv_pages: Optional[int] = None,
+    def __init__(self, cfg: ModelConfig, *,
+                 buckets: Optional[Sequence[int]] = None,
+                 paged: bool = False, page_size: int = 64,
+                 kv_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, img_tokens: int = 16,
                  **kw):
         # config-only check before params and controller are built; the
@@ -689,7 +697,10 @@ class ServingEngine(_EngineBase):
             raise ValueError("pipeline_k > 1 requires greedy decoding "
                              "(host-side sampling would serialize groups)")
         self.rows_per_group = self.n_slots // self.pipeline_k
-        self.buckets = default_buckets(self.max_seq)
+        # the prefill bucket lengths, ascending and distinct (the default:
+        # powers of two from 8 up to max_seq)
+        self.buckets = sorted(set(buckets)) if buckets \
+            else default_buckets(self.max_seq)
         # a VLM slot holds a fixed buffer of ``img_tokens`` image rows
         self.is_vlm = cfg.family == "vlm"
         self.img_tokens = img_tokens
@@ -1140,6 +1151,7 @@ class ServingEngine(_EngineBase):
         if active:
             self.slot_busy_steps += len(active)
             for s in active:
+                # rpr: ignore[RPR004] -- `_sample`'s host array, read once a step
                 tok = int(toks[s - lo])
                 self._emit_token(self.slots[s], tok)
                 self._next[s] = tok
@@ -1346,6 +1358,7 @@ class WaveServingEngine(_EngineBase):
         nxt = self._sample(logits)
         while active and self.decode_steps < max_steps:
             for i, r in list(active.items()):
+                # rpr: ignore[RPR004] -- `_sample`'s host array, read once a step
                 self._emit_token(r, int(nxt[i]))
                 if (len(r.out_tokens) >= r.max_new_tokens
                         or L0 + len(r.out_tokens) >= self.max_seq - 1):

@@ -2023,3 +2023,121 @@ def test_dequantize_weight_of_a_one_rank_dtensor_is_bit_equal(cuda):
             assert torch.equal(local(got), dequantize_weight(leaf, dtype))
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------- the hot-path audit
+def _wrapper_args(cuda, kind, *, B=4, H=8, KvE=2, T=192, dh=128, P=64,
+                  seed=0):
+    """(wrapper, arguments) of one of ``kernels.ops``'s five decode
+    wrappers in model layout, bf16, every row attending a different
+    length."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    q = randn(B, 1, H, dh).to(torch.bfloat16)
+    lengths = torch.tensor([1, T // 3, T - 1, T], dtype=torch.int32,
+                           device=cuda)[:B]
+    rows = torch.arange(H, dtype=torch.int32, device=cuda).flip(0)
+    if kind == "ring":
+        kv = randn(2, B, T, KvE, dh).to(torch.bfloat16)
+        slot_pos = torch.arange(T, dtype=torch.int32, device=cuda)
+        return ops.decode_attention_ring_bshd, (q, kv[0], kv[1], lengths,
+                                                slot_pos), dict(window=T,
+                                                                rows=rows)
+    if kind in ("resident", "int8"):
+        kv = randn(2, B, T, KvE, dh)
+    else:
+        n_pages = B * T // P
+        kv = randn(2, n_pages, P, KvE, dh)
+        page_map = torch.randperm(n_pages, generator=gen, device=cuda
+                                  ).to(torch.int32).view(B, T // P)
+    if kind in ("int8", "int8_paged"):
+        (k, k_sc), (v, v_sc) = _q8(kv[0]), _q8(kv[1])
+        vals = (q, k, k_sc, v, v_sc, lengths)
+        if kind == "int8":
+            return ops.decode_attention_int8_resident_bshd, vals + (rows,), {}
+        return ops.decode_attention_int8_paged_bshd, vals + (page_map,
+                                                            rows), {}
+    k, v = kv.to(torch.bfloat16)
+    if kind == "resident":
+        return ops.decode_attention_resident_bshd, (q, k, v, lengths,
+                                                    rows), {}
+    return ops.decode_attention_paged_bshd, (q, k, v, lengths, page_map,
+                                             rows), {}
+
+
+@pytest.mark.parametrize("kind", ["resident", "int8", "paged", "int8_paged",
+                                  "ring"])
+def test_decode_wrappers_make_no_host_sync(cuda, kind):
+    """Each decode wrapper of ``kernels.ops`` launches its kernel with no
+    host sync (``set_sync_debug_mode("error")`` raises on one) and
+    dispatches nothing the trace audit flags (no widening of a cache-sized
+    tensor, no host read)."""
+    from repro_torch.analysis import trace_audit
+    fn, args, kw = _wrapper_args(cuda, kind)
+    want = fn(*args, **kw)                     # builds and loads the kernel
+    torch.cuda.synchronize()
+    big = max(args[1].numel() // 2, 1024)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        found = trace_audit.audit_call(fn, kind, *args, big_elems=big, **kw)
+        got = fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert found == []
+    assert torch.equal(got, want)
+
+
+def test_step_audit_on_the_card_is_clean_with_the_cpu_budgets(cuda):
+    """The step audit's setups built on the card: no finding (caches in
+    place, no copies, bounded ladders, each decode step's memory rise
+    under its cache's bytes, the committed budgets), and every budget
+    equal to the CPU's: the plain path's counts do not depend on the
+    device.  The MoE step's ``op_bytes`` within 1e-3: the CPU's
+    ``F.one_hot`` (the combine's owner map) checks its indices' range
+    with a min, a max and two scalar reads that the card's does not
+    dispatch (192 of 2.1 million bytes on an H100)."""
+    from repro_torch.analysis import step_audit
+    assert step_audit.audit_step(device="cuda") == []
+    for section, measure in step_audit.SECTIONS:
+        card, cpu = measure("cuda"), measure("cpu")
+        assert card.keys() == cpu.keys()
+        for key in card:
+            if key == "op_bytes" and section == "moe_decode_step":
+                assert abs(card[key] - cpu[key]) <= 1e-3 * cpu[key]
+            else:
+                assert card[key] == cpu[key], (section, key)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_ring_decode_step_makes_no_host_sync(cuda, use_kernel):
+    """A lock-step decode over a sliding-window ring writes each slot's
+    position with a device fill: the item assignment it replaced copied a
+    Python int from host memory, a host sync every step and layer (found
+    by ``chip_smoke.phase_audit``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("mixtral-8x7b").with_overrides(
+        n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, d_head=16, d_ff=128,
+        vocab_size=97, n_experts=4, sliding_window=32)
+    model = build_model(cfg, use_kernel=use_kernel, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    state = model.init_decode_state(params, 2, 64)
+    tokens = torch.randint(0, 97, (2, 12), device=cuda,
+                           generator=torch.Generator(device=cuda
+                                                     ).manual_seed(1))
+    logits, state = model.prefill(params, state, tokens)
+    assert state["cache"]["k"].shape[2] == 32          # a ring
+    nxt = logits.argmax(-1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, state = model.decode_step(params, state, nxt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(state["cache"]["pos"][0, 12]) == 12
+    assert bool(torch.isfinite(logits).all())

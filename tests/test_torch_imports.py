@@ -74,7 +74,11 @@ def test_every_module_imports_with_jax_and_repro_refused():
                  "repro_torch.launch.train_100m",
                  "repro_torch.models.partitioning",
                  "repro_torch.launch.mesh", "repro_torch.runtime.elastic",
-                 "repro_torch.tree", "repro_torch.device"):
+                 "repro_torch.tree", "repro_torch.device",
+                 "repro_torch.analysis", "repro_torch.analysis.lints",
+                 "repro_torch.analysis.trace_audit",
+                 "repro_torch.analysis.step_audit",
+                 "repro_torch.analysis.__main__"):
         assert name in names
 
 

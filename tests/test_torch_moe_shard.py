@@ -504,6 +504,7 @@ def _write_weights(out):
         rng = np.random.default_rng(7)
         cfg = _cfg()
         params = build_model(cfg, tp=tp, device="cpu").init(
+            # rpr: ignore[RPR001] -- another model's weights, from seed 0
             torch.Generator().manual_seed(0))
         attn, moe_p = params["layers"]["attn"], params["layers"]["moe"]
         for n, real in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),

@@ -375,6 +375,7 @@ def _write_weights(out):
     for case, (_, _, _, tp) in CASES.items():
         cfg = _cfg(case)
         params = build_model(cfg, tp=tp, device="cpu").init(
+            # rpr: ignore[RPR001] -- another model's weights, from seed 0
             torch.Generator().manual_seed(0))
         attn = params["layers"]["attn"]
         for n, real in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),

@@ -525,6 +525,7 @@ def write_weights(out, cases):
     for case in cases:
         cfg = port_cfg(case)
         params = build_model(cfg, tp=tp_of(case), device="cpu").init(
+            # rpr: ignore[RPR001] -- another model's weights, from seed 0
             torch.Generator().manual_seed(0))
         rng = np.random.default_rng(7)
         stacks = [params["layers"]] + ([params["cross_layers"]]
