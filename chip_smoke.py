@@ -90,7 +90,16 @@ from each cache kind and of the mixtral ring through their kernels: no
 host sync under ``torch.cuda.set_sync_debug_mode("error")``, no finding
 of the dispatch-trace audit, caches in place, a memory rise under the
 cache's bytes and a CUDA-graph capture; the prefill traces bounded by the
-buckets through flash; and the auditor's CLI on the card exits 0.
+buckets through flash; and the auditor's CLI on the card exits 0.  Then
+long-decode under the reference's ``seq_over_data`` rules at its
+long_500k shape (524,288 tokens, batch 1): the resident kernel's LSE
+output over 4 sequence shards of zamba2's shared block and the ring
+kernel's over 4 slot shards of mixtral's window, merged and held against
+the whole call; then zamba2-2.7b (2 supergroups, a 10.7 GB cache),
+mixtral-8x7b (4 layers, its ring) and rwkv6-7b (4 layers) take 64 greedy
+steps from a seeded state at position 524,224 on one-rank meshes under
+``make_partitioner(seq_over_data=True)``, with streams and logits equal
+to the unsharded model's.
 
 Last it trains, on the plain path (the kernels have no backward and
 refuse autograd): one step of four reduced float32 families on the card
@@ -114,7 +123,8 @@ tp-16, mesh and shard phases; ``--only ssm`` the recurrent families'
 shard and mesh phases; ``--only audio_vlm`` the VLM from an int8 cache
 (bf16 path and f32 stream pair) and musicgen and the VLM served sharded
 on the one-card mesh; ``--only mesh_mem`` int8 weights and the paged MoE
-on one-card meshes; ``--only audit`` the hot-path audit.
+on one-card meshes; ``--only audit`` the hot-path audit; ``--only long``
+the long-decode phase.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -3102,8 +3112,12 @@ def phase_zamba2_stream_pair():
 # pipeline_k = 2: the dense path's 8 slots in 2 groups of 4, one group
 # decoded a scheduler step, the controller's plans from the bottleneck
 # search every λ·K = 16 steps.  Paged: pages of 64, 24 a group (48 in all,
-# as the paged path).
+# as the paged path).  24 new tokens a request (the sequential paths' 64):
+# 90-91 % of these paths' wall is the host's bottleneck search at each
+# interval, so fewer tokens mean fewer intervals and a shorter wall, while
+# the run still straddles the straggler at step 16 with applied plans.
 PIPE_K = 2
+PIPE_NEW = 24
 PIPE_PATHS = {
     "dense": ("decode_attention_resident", {}),
     "paged": ("decode_attention_paged_resident",
@@ -3117,8 +3131,9 @@ DECODE_KERNELS = ("decode_attention_resident",
 
 
 def phase_pipelined_path(path="dense"):
-    """Serve the dense path's traffic (16 requests of 32-512 tokens, 64 new
-    tokens each, a 500x straggler at step 16 on the busiest device) with
+    """Serve the dense path's prompts (16 requests of 32-512 tokens,
+    ``PIPE_NEW`` new tokens each, a 500x straggler at step 16 on the
+    busiest device) with
     ``pipeline_k=2`` and ``search="bottleneck"`` from the ``path`` cache:
     each step decodes one group of 4 rows through its kernel (an empty
     group launches nothing), every interval falls on a multiple of λ·K,
@@ -3129,7 +3144,7 @@ def phase_pipelined_path(path="dense"):
     from repro_torch.kernels.flash_attention import flash_attention
     name, kw = PIPE_PATHS[path]
     cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
-    eng = serve(cfg, use_kernel=True, n_requests=16, max_new=64,
+    eng = serve(cfg, use_kernel=True, n_requests=16, max_new=PIPE_NEW,
                 pipeline_k=PIPE_K, search="bottleneck", **kw)
     seen = watch_logits(eng)
     prefill = time_prefill(eng)
@@ -3162,10 +3177,10 @@ def phase_pipelined_path(path="dense"):
         f"migrations in {len(applied)} applied intervals; kernel launches "
         f"{launches}, flash_attention {flash}")
     log_split(eng, wall, prefill)
-    check(len(eng.finished) == 16 and all(len(r.out_tokens) == 64
+    check(len(eng.finished) == 16 and all(len(r.out_tokens) == PIPE_NEW
                                           for r in eng.finished),
-          f"pipelined {path}: not every request finished with its 64 "
-          f"tokens")
+          f"pipelined {path}: not every request finished with its "
+          f"{PIPE_NEW} tokens")
     check(rows == {MAIN_B // PIPE_K}, f"pipelined {path}: group states of "
           f"{rows} rows")
     check(launches[name] == len(eng.step_times) * cfg.n_layers,
@@ -5858,6 +5873,502 @@ def phase_audit():
     return records
 
 
+# ------------------------------------------------------------ long-decode
+# The reference's long_500k shape (``configs/base.py``: 524,288 tokens,
+# batch 1, its dry-run's ``seq_over_data`` cells): a state as a prefill of
+# 524,224 tokens leaves it, then 64 greedy steps to position 524,288.  The
+# kernels' checks cut the sequence into 4 shards, as 4 data ranks would
+# hold it; the models run on a (1, 1) mesh, where the one data rank holds
+# every position and the merge has nothing to exchange.
+LONG_T, LONG_STEPS, LONG_SHARDS = 524288, 64, 4
+LONG_FILLED = LONG_T - LONG_STEPS
+# zamba2's shared block: 32 q heads over 32 KV heads of 80, B 1; rows
+# whose length ends in shard 0, 2 and 3
+LONG_ZAMBA = dict(H=32, KvE=32, dh=80)
+LONG_ZAMBA_LENGTHS = {"ends in shard 0": 100_000,
+                      "ends in shard 2": 300_000, "whole": LONG_T}
+# mixtral's ring: 32 q heads over 8 KV heads of 128 (G 4), B 1, a 4096-slot
+# window wrapped at positions near 524,288, in 4 slot shards of 1024; the
+# second row's window holds slots of shards 0 and 1 only
+LONG_RING = dict(H=32, KvE=8, dh=128)
+LONG_RING_LENGTHS = {"every slot": LONG_T, "shards 0-1": LONG_T - 3000}
+# bf16 q is scaled and rounded before the tensor cores score it: the LSE of
+# a bf16 call moves by up to a few 1e-2 against the plain version's
+LONG_LSE_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+                torch.bfloat16: dict(atol=5e-2, rtol=0.0)}
+# the f32 pairs at reduced depth: sharded against unsharded logits
+LONG_F32_ATOL = 1e-5
+
+
+def _spans(n: int, shards: int):
+    """(lo, count) of each shard of ``n``, cut as ``torch.chunk`` (and so
+    DTensor) cuts: the last may be short."""
+    chunk = -(-n // shards)
+    return [(min(r * chunk, n), max(min(chunk, n - r * chunk), 0))
+            for r in range(shards)]
+
+
+def long_inputs(dt, *, T, H, KvE, dh, seed, copies=1):
+    """``copies`` sets of (q (1, H, dh), K/V (1, KvE, T, dh) views of a
+    (1, T, KvE, dh) cache as the model keeps it), N(0, 1) drawn on the
+    card from a seeded generator (the host would take minutes for a
+    524,288-position cache)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(copies):
+        q = torch.randn((1, H, dh), generator=gen, device="cuda").to(dt)
+        kv = [torch.randn((1, T, KvE, dh), generator=gen, device="cuda",
+                          dtype=dt).transpose(1, 2) for _ in range(2)]
+        out.append((q, *kv))
+    return out
+
+
+def long_shards_vs_whole(label, dt, whole_fn, shard_fn, plain_fn, spans,
+                         row_rel, failed):
+    """One case of the whole-call-against-shards check: the existing entry
+    point's output (``whole_fn()``); the same call with ``return_lse``
+    merged alone, which must equal it bit for bit; each shard's (output,
+    LSE) (``shard_fn(lo, n)``) against its plain version
+    (``plain_fn(lo, n)``); and the shards' partials merged against the
+    whole call.  Returns (worst shard row error, merged row error, shards
+    whose LSE is empty)."""
+    from repro_torch.models.partitioning import EMPTY_LSE, merge_partials
+    whole = whole_fn()
+    out, lse = whole_fn(return_lse=True)
+    if not torch.equal(merge_partials(out[None], lse[None], dt), whole):
+        failed.append(f"{label} {dt}: one shard merged alone is not the "
+                      f"entry point's output bit for bit")
+    parts, worst, empty = [], 0.0, []
+    for r, (lo, n) in enumerate(spans):
+        got, want = shard_fn(lo, n), plain_fn(lo, n)
+        rel = row_rel_err(got[0], want[0])
+        worst = max(worst, rel)
+        if not (torch.allclose(got[0], want[0], **TOLS[dt])
+                and rel <= row_rel
+                and torch.allclose(got[1], want[1], **LONG_LSE_TOL[dt])):
+            failed.append(f"{label} {dt} shard {r} vs plain ({rel:.3e}, "
+                          f"LSE gap {(got[1] - want[1]).abs().max():.3e})")
+        none = bool((got[1] == EMPTY_LSE).all())
+        if none != bool((want[1] == EMPTY_LSE).all()) \
+                or (none and bool(got[0].any())):
+            failed.append(f"{label} {dt} shard {r}: an empty shard does "
+                          f"not give zeros of LSE {EMPTY_LSE}")
+        empty.append(none)
+        parts.append(got)
+    merged = merge_partials(torch.stack([p[0] for p in parts]),
+                            torch.stack([p[1] for p in parts]), dt)
+    rel = row_rel_err(merged, whole)
+    if not (torch.allclose(merged.float(), whole.float(), **TOLS[dt])
+            and rel <= row_rel):
+        failed.append(f"{label} {dt}: the merged shards vs the whole call "
+                      f"({rel:.3e})")
+    return worst, rel, empty
+
+
+def long_kernel_shards():
+    """The two kernels this slice changed, at the long-decode shapes, on
+    one card: the resident kernel with its LSE output over 4 sequence
+    shards of zamba2's shared block (32 heads of 80, B 1, T 524,288 bf16,
+    131,072 positions a shard; f32 at T 65,536) and the ring kernel over 4
+    slot shards of 1024 of mixtral's 4096-slot window (8 KV heads of 128,
+    G 4, B 1, positions near 524,288, wrapped; bf16 and f32): each shard
+    against its plain version (TOLS, DECODE_ROW_REL or RING_ROW_REL, the
+    LSE within LONG_LSE_TOL), the merged partials against the whole call,
+    one shard merged alone against the existing entry point bit for bit,
+    and shards past a row's length weighing nothing.  Then, in bf16, the
+    whole call, a shard's LSE call, the merge and SDPA at the same shape
+    timed, with the bound.  Comparison launches: not counted.  Returns
+    {label: times}."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_resident as dec,
+        decode_attention_resident_plain as dec_plain,
+        decode_attention_ring_resident as ring,
+        decode_attention_ring_resident_plain as ring_plain)
+    from repro_torch.models.partitioning import SeqShard, merge_partials
+    failed, times = [], {}
+    # the resident kernel over sequence shards
+    for dt, T in ((torch.float32, LONG_T // 8), (torch.bfloat16, LONG_T)):
+        (q, k, v), = long_inputs(dt, T=T, seed=90, **LONG_ZAMBA)
+        rows = torch.arange(LONG_ZAMBA["H"], dtype=torch.int32,
+                            device="cuda")
+        spans = _spans(T, LONG_SHARDS)
+        for label, length in LONG_ZAMBA_LENGTHS.items():
+            lens = torch.tensor([length * T // LONG_T], dtype=torch.int32,
+                                device="cuda")
+
+            def shard(lo, n, f=dec):
+                seq = SeqShard(lo, n, T)
+                return f(q, k[:, :, lo:lo + n], v[:, :, lo:lo + n],
+                         seq.local_lengths(lens), rows, return_lse=True)
+
+            worst, rel, empty = long_shards_vs_whole(
+                f"resident {label}", dt,
+                lambda **kw: dec(q, k, v, lens, rows, **kw), shard,
+                lambda lo, n: shard(lo, n, dec_plain), spans,
+                DECODE_ROW_REL[dt], failed)
+            log(f"long-decode resident kernel {str(dt)[6:]} (zamba2's shared "
+                f"block, T {T}, length {int(lens[0])}, {label}) over "
+                f"{LONG_SHARDS} sequence shards: worst per-row gap of a "
+                f"shard to its plain version {worst:.3e}, merged to the "
+                f"whole call {rel:.3e} (limit {DECODE_ROW_REL[dt]:.0e}); "
+                f"empty shards {empty}")
+        if dt == torch.bfloat16:
+            lens = torch.tensor([LONG_T], dtype=torch.int32, device="cuda")
+            shards = [(k[:, :, lo:lo + n], v[:, :, lo:lo + n], lo, n)
+                      for lo, n in spans]
+            outs = [dec(q, sk, sv, SeqShard(lo, n, T).local_lengths(lens),
+                        rows, return_lse=True) for sk, sv, lo, n in shards]
+            stacked = (torch.stack([o[0] for o in outs]),
+                       torch.stack([o[1] for o in outs]))
+            reps = (4, 10)
+            t = dict(
+                ms=cuda_ms([lambda: dec(q, k, v, lens, rows)], *reps),
+                lse_ms=cuda_ms([lambda: dec(q, k, v, lens, rows,
+                                            return_lse=True)], *reps),
+                shard_ms=cuda_ms([lambda s=s: dec(
+                    q, s[0], s[1], SeqShard(s[2], s[3], T).local_lengths(
+                        lens), rows, return_lse=True) for s in shards],
+                    *reps),
+                merge_ms=cuda_ms([lambda: merge_partials(*stacked, dt)]),
+                plain_ms=cuda_ms([lambda: dec_plain(q, k, v, lens, rows)],
+                                 1, 3),
+                library_ms=cuda_ms([sdpa_decode(q, k, v, lens, rows)],
+                                   *reps))
+            t["bound_ms"], t["bound_by"] = decode_bound_ms(
+                q, lens, rows, LONG_ZAMBA["KvE"], T)
+            kv_gb = 2 * T * LONG_ZAMBA["KvE"] * LONG_ZAMBA["dh"] * 2 / 1e9
+            t["shard_bound_ms"], _ = decode_bound_ms(
+                q, lens.clamp(max=spans[0][1]), rows, LONG_ZAMBA["KvE"],
+                spans[0][1])
+            times["resident"] = t
+            log(f"  bf16 at T {T}, length {LONG_T}: the whole call "
+                f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+                f"{t['bound_by']}: {kv_gb:.2f} GB of K/V), "
+                f"with its LSE {t['lse_ms']:.4f} ms; a shard's LSE call "
+                f"{t['shard_ms']:.4f} ms (bound {t['shard_bound_ms']:.4f}); "
+                f"the merge of {LONG_SHARDS} {t['merge_ms']:.4f} ms; plain "
+                f"{t['plain_ms']:.4f} ms; SDPA (length mask) "
+                f"{t['library_ms']:.4f} ms")
+            del shards, outs, stacked
+        del q, k, v
+        release()
+    # the ring kernel over slot shards
+    W = RING_W
+    spans = _spans(W, LONG_SHARDS)
+    pos = torch.as_tensor(ring_slot_pos(W, LONG_T), dtype=torch.int32,
+                          device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        sets = long_inputs(dt, T=W, seed=91, copies=8, **LONG_RING)
+        q, k, v = sets[0]
+        rows = torch.arange(LONG_RING["H"], dtype=torch.int32,
+                            device="cuda")
+        for label, length in LONG_RING_LENGTHS.items():
+            lens = torch.tensor([length], dtype=torch.int32, device="cuda")
+
+            def shard(lo, n, f=ring):
+                return f(q, k[:, :, lo:lo + n], v[:, :, lo:lo + n], lens,
+                         pos[lo:lo + n], rows, window=W, return_lse=True)
+
+            worst, rel, empty = long_shards_vs_whole(
+                f"ring {label}", dt,
+                lambda **kw: ring(q, k, v, lens, pos, rows, window=W, **kw),
+                shard, lambda lo, n: shard(lo, n, ring_plain), spans,
+                RING_ROW_REL[dt], failed)
+            log(f"long-decode ring kernel {str(dt)[6:]} (mixtral's window "
+                f"{W}, length {length}, {label}) over {LONG_SHARDS} slot "
+                f"shards of {spans[0][1]}: worst per-row gap of a shard to "
+                f"its plain version {worst:.3e}, merged to the whole call "
+                f"{rel:.3e} (limit {RING_ROW_REL[dt]:.0e}); empty shards "
+                f"{empty}")
+        if dt == torch.bfloat16:
+            lens = torch.tensor([LONG_T], dtype=torch.int32, device="cuda")
+            lo, n = spans[0]
+            valid = ring_valid(lens, pos)
+            mask = valid[:, None, None, :]
+            t = dict(
+                ms=cuda_ms([lambda s=s: ring(s[0], s[1], s[2], lens, pos,
+                                             rows, window=W)
+                            for s in sets]),
+                shard_ms=cuda_ms([lambda s=s: ring(
+                    s[0], s[1][:, :, lo:lo + n], s[2][:, :, lo:lo + n],
+                    lens, pos[lo:lo + n], rows, window=W, return_lse=True)
+                    for s in sets]),
+                plain_ms=cuda_ms([lambda: ring_plain(q, k, v, lens, pos,
+                                                     rows, window=W)], 2, 5),
+                library_ms=cuda_ms([lambda s=s: torch.nn.functional
+                                    .scaled_dot_product_attention(
+                                        s[0][:, :, None], s[1], s[2],
+                                        attn_mask=mask, enable_gqa=True)
+                                    for s in sets]))
+            t["bound_ms"], t["bound_by"] = decode_bound_ms(
+                q, lens, rows, LONG_RING["KvE"], W,
+                valid=int(valid.sum()), extra_bytes=4 * W)
+            t["shard_bound_ms"], _ = decode_bound_ms(
+                q, lens, rows, LONG_RING["KvE"], n,
+                valid=int(valid[:, lo:lo + n].sum()), extra_bytes=4 * n)
+            times["ring"] = t
+            log(f"  bf16, every slot valid: the whole ring {t['ms']:.4f} ms "
+                f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}); a slot "
+                f"shard's LSE call {t['shard_ms']:.4f} ms (bound "
+                f"{t['shard_bound_ms']:.4f}); plain {t['plain_ms']:.4f} ms; "
+                f"SDPA (boolean mask) {t['library_ms']:.4f} ms")
+        del sets, q, k, v
+        release()
+    check(not failed, "long-decode kernel shards: " + "; ".join(failed[:6]))
+    return times
+
+
+def long_first_token(cfg, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (1,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def fill_long_state(state, cfg, seed, T):
+    """Seed a batch-1 decode state as a prefill of ``T - LONG_STEPS``
+    tokens would leave it: a linear cache's positions [0, T - 64) N(0, 1)
+    (later ones zero), a ring's 4096 slots holding the last 4096 positions
+    as ``layers._ring_attention``'s fold leaves them (slot ``t % window``
+    holds position t), the Mamba-2 conv tails and SSM states, RWKV-6's
+    token shifts and WKV states seeded (0.5 N and 0.1 N), the lock-step
+    position ``T - 64``.  Drawn on the card, leaf by leaf."""
+    from repro_torch.tree import flatten
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    filled = T - LONG_STEPS
+    scale = {"ssm": 0.1, "wkv": 0.1, "conv": 0.5, "shift_t": 0.5,
+             "shift_c": 0.5}
+    for path, t in flatten(state["cache"]).items():
+        name = path[-1]
+        if name == "pos":
+            t.copy_(torch.as_tensor(ring_slot_pos(t.shape[-1], filled),
+                                    dtype=t.dtype, device="cuda"))
+        elif name in ("k", "v") and t.shape[-3] != cfg.sliding_window:
+            t[..., :filled, :, :].normal_(generator=gen)
+        else:
+            t.normal_(generator=gen).mul_(scale.get(name, 1.0))
+    state["pos"] = filled
+
+
+def long_greedy(model, params, state, token, steps):
+    """``steps`` greedy decode steps from ``state`` fed ``token`` first:
+    (the logits of every step (steps, 1, V) float32 on the card, the
+    tokens fed, each step's host-clock seconds ending in a sync, and each
+    step's allocated-peak rise in bytes)."""
+    logits, fed, secs, rises = [], [], [], []
+    for _ in range(steps):
+        fed.append(token)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        out, state = model.decode_step(params, state, token)
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        rises.append(torch.cuda.max_memory_allocated() - base)
+        logits.append(out.float())
+        token = out.argmax(-1).to(torch.int32)
+    return torch.stack(logits), torch.stack(fed), secs, rises
+
+
+def long_decode_pair(label, cfg, params, dims, steps, T, seed, per_step):
+    """The unsharded model and the same model on a one-rank NCCL mesh of
+    ``dims`` under the long-decode rules (``make_partitioner(mesh,
+    seq_over_data=True)``: batch whole, the cache's sequence — a ring's
+    slots — over "data", heads over "model"), both with the kernels, on
+    the same weights and the same seeded state (``fill_long_state``),
+    ``steps`` greedy steps each.  The mesh model's kernel counts are set
+    to 0 just before its run and read just after; ``per_step`` {kernel:
+    launches a step} must match them, and ``SeqShard.merge`` must run once
+    a step and attention layer (none for RWKV-6).  Returns a dict of the
+    pair's results."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import partitioning
+    from repro_torch.models.api import build_model
+    from repro_torch.models.partitioning import local, make_partitioner
+    from repro_torch.tree import flatten
+    mesh = make_mesh((1,) * len(dims), dims)
+    part = make_partitioner(mesh, seq_over_data=True)
+    plain = build_model(cfg, use_kernel=True, device="cuda")
+    sharded = build_model(cfg, use_kernel=True, device="cuda", part=part)
+    placed = placed_params(params, cfg, mesh)
+    one = plain.init_decode_state(params, 1, T)
+    fill_long_state(one, cfg, seed, T)
+    two = sharded.init_decode_state(placed, 1, T)
+    leaves = flatten(one["cache"])
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    seq_dims = {}
+    for path, t in flatten(two["cache"]).items():
+        local(t).copy_(leaves[path])
+        names = tuple(t.device_mesh.mesh_dim_names)
+        pl = t.placements[names.index("data")]
+        seq_dims["/".join(path)] = pl.dim if pl.is_shard() else None
+    two["pos"] = one["pos"]
+    token = long_first_token(cfg, seed)
+    torch.cuda.synchronize()
+    want = long_greedy(plain, params, one, token, steps)
+    del one
+    release()
+    merges, inner = [0], partitioning.SeqShard.merge
+
+    def merge(self, out, lse, dtype=None):
+        merges[0] += 1
+        return inner(self, out, lse, dtype)
+
+    collectives = []
+    real = torch.distributed.all_reduce
+
+    def all_reduce(t, *a, **kw):
+        collectives.append(t.numel() * t.element_size())
+        return real(t, *a, **kw)
+
+    partitioning.SeqShard.merge = merge
+    torch.distributed.all_reduce = all_reduce
+    reset_launches()
+    rwkv6_chunked.launches = 0
+    try:
+        got = long_greedy(sharded, placed, two, token, steps)
+    finally:
+        partitioning.SeqShard.merge = inner
+        torch.distributed.all_reduce = real
+    launches = read_launches()
+    launches["rwkv6_chunked"] = rwkv6_chunked.launches
+    launches = {k: n for k, n in launches.items() if n}
+    rel = max(row_rel_err(g, w) for g, w in zip(got[0], want[0]))
+    gap = (got[0] - want[0]).abs().max().item()
+    same = torch.equal(got[1], want[1])
+    finite = bool(torch.isfinite(got[0]).all())
+    del two, placed, sharded, plain
+    release()
+    return dict(label=label, rel=rel, gap=gap, same=same, finite=finite,
+                launches=launches, merges=merges[0], per_step=per_step,
+                collectives=collectives, cache_bytes=cache_bytes,
+                seq_dims=seq_dims,
+                ms=(1e3 * float(np.median(want[2])),
+                    1e3 * float(np.median(got[2]))),
+                rise=(max(want[3]), max(got[3])), steps=steps)
+
+
+def log_long_pair(r):
+    log(f"long-decode {r['label']}: {r['steps']} greedy steps from position "
+        f"{LONG_FILLED}: tokens {'equal' if r['same'] else 'DIFFER'}, "
+        f"logits max gap {r['gap']:.3e} (row rel {r['rel']:.3e}); step "
+        f"median {r['ms'][0]:.2f} ms unsharded, {r['ms'][1]:.2f} ms on the "
+        f"mesh ({r['ms'][1] / r['ms'][0]:.2f}x); a step's allocated-peak "
+        f"rise {r['rise'][0] / 1e6:.3f} / {r['rise'][1] / 1e6:.3f} MB "
+        f"against the cache's {r['cache_bytes'] / 1e9:.3f} GB; launches "
+        f"{r['launches']}; merges {r['merges']}; the step's collectives "
+        f"{sum(r['collectives'])} B in {len(r['collectives'])} calls; the "
+        f"state's \"data\" placements {r['seq_dims']}")
+
+
+def phase_long_decode():
+    """Long-decode (ROADMAP #18's ``seq_over_data``): the kernel checks
+    (``long_kernel_shards``), then on one-rank NCCL meshes under
+    ``make_partitioner(seq_over_data=True)``, each after the unsharded
+    model on the same weights and state, 64 greedy steps from position
+    524,224 at batch 1: zamba2-2.7b at published widths and 2 supergroups
+    (12 Mamba-2 layers, the shared block twice a step over its (2, 1,
+    524288, 32, 80) bf16 cache, 10.7 GB), mixtral-8x7b at published widths
+    and 4 layers over its (4, 1, 4096, 8, 128) ring, rwkv6-7b x4; then f32
+    pairs at reduced depth (zamba2 1 supergroup at T 65,536, mixtral and
+    rwkv6 2 layers; 16 steps).  Checks: greedy streams equal, bf16 logit
+    rows within MESH_LOGIT_ROW_REL and f32 logits within LONG_F32_ATOL,
+    the cache's sequence placed over "data", the launches exact (resident
+    == steps x supergroups, ring == steps x layers, WKV6 == steps x
+    layers) with one merge a step and attention layer, and a step's
+    allocated-peak rise under 10 % of a sequence-sharded cache's bytes
+    (the merge gathers no cache; RWKV-6 has none).  Returns (the kernel
+    times, the bf16 runs' launches by kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    times = long_kernel_shards()
+    release()
+    Z, R = ("data", "model"), ("pod", "data", "model")
+
+    def zamba(n_layers, dtype):
+        cfg = zamba2_cfg(n_layers=n_layers, dtype=dtype, param_dtype=dtype)
+        params = build_model(cfg, device="cuda").init(
+            # rpr: ignore[RPR001] -- another model's weights, from seed 0
+            torch.Generator(device="cuda").manual_seed(0))
+        seed_ssm_params(params)
+        return cfg, params
+
+    def mixtral(n_layers, dtype):
+        cfg = get_config("mixtral-8x7b").with_overrides(
+            n_layers=n_layers, dtype=dtype, param_dtype=dtype)
+        return cfg, build_model(cfg, device="cuda").init(
+            # rpr: ignore[RPR001] -- another model's weights, from seed 0
+            torch.Generator(device="cuda").manual_seed(0))
+
+    def rwkv(n_layers, dtype):
+        cfg = get_config("rwkv6-7b").with_overrides(
+            n_layers=n_layers, dtype=dtype, param_dtype=dtype)
+        params = build_model(cfg, device="cuda").init(
+            # rpr: ignore[RPR001] -- another model's weights, from seed 0
+            torch.Generator(device="cuda").manual_seed(0))
+        nonzero_adapters(params)
+        return cfg, params
+
+    runs = [  # label, model, layers, dtype, dims, steps, T, per-step kernel
+        ("zamba2-2.7b x12 bf16", zamba, ZAMBA_LAYERS, "bfloat16", Z,
+         LONG_STEPS, LONG_T, "decode_attention_resident"),
+        ("mixtral-8x7b x4 bf16", mixtral, N_LAYERS, "bfloat16", R,
+         LONG_STEPS, LONG_T, "decode_attention_ring_resident"),
+        ("rwkv6-7b x4 bf16", rwkv, N_LAYERS, "bfloat16", Z, LONG_STEPS,
+         LONG_T, "rwkv6_chunked"),
+        ("zamba2-2.7b x6 f32", zamba, ZAMBA_EVERY, "float32", Z,
+         LONG_STEPS // 4, LONG_T // 8, "decode_attention_resident"),
+        ("mixtral-8x7b x2 f32", mixtral, 2, "float32", R, LONG_STEPS // 4,
+         LONG_T, "decode_attention_ring_resident"),
+        ("rwkv6-7b x2 f32", rwkv, 2, "float32", Z, LONG_STEPS // 4, LONG_T,
+         "rwkv6_chunked"),
+    ]
+    added = {}
+    with one_rank_nccl():
+        for label, make, n_layers, dtype, dims, steps, T, kernel in runs:
+            cfg, params = make(n_layers, dtype)
+            attn = cfg.n_layers // cfg.shared_attn_every \
+                if cfg.family == "hybrid" else cfg.n_layers
+            r = long_decode_pair(label, cfg, params, dims, steps, T,
+                                 seed=len(label), per_step={kernel: attn})
+            del params
+            release()
+            log_long_pair(r)
+            want = {kernel: steps * attn}
+            merges = 0 if kernel == "rwkv6_chunked" else steps * attn
+            seq = {p: d for p, d in r["seq_dims"].items()
+                   if p.split("/")[-1] in ("k", "v")}
+            f32 = dtype == "float32"
+            check(r["same"] and r["finite"]
+                  and (r["gap"] <= LONG_F32_ATOL if f32
+                       else r["rel"] <= MESH_LOGIT_ROW_REL),
+                  f"long-decode {label}: tokens equal {r['same']}, logit "
+                  f"gap {r['gap']:.3e}, row rel {r['rel']:.3e}")
+            check(r["launches"] == want and r["merges"] == merges,
+                  f"long-decode {label}: launches {r['launches']} != {want}"
+                  f" or merges {r['merges']} != {merges}")
+            check(all(d is not None for d in seq.values()),
+                  f"long-decode {label}: a cache's sequence is not placed "
+                  f"over \"data\": {r['seq_dims']}")
+            check(not seq or max(r["rise"]) <= 0.1 * r["cache_bytes"],
+                  f"long-decode {label}: a step's memory rise {r['rise']} "
+                  f"against a {r['cache_bytes']} B cache")
+            if not f32:
+                for k, n in want.items():
+                    added[k] = added.get(k, 0) + n
+            release()
+    hd = dict(zamba2=(32, 80), mixtral=(32, 128))
+    log("long-decode: on a data axis of d > 1 ranks, one layer's merge "
+        "carries per rank the LSE of each q head (4 B), then each head's "
+        "weighted output beside its weight (4 (dh + 1) B): "
+        + ", ".join(f"{k} {4 * h + 4 * h * (dh + 1)} B a layer"
+                    for k, (h, dh) in hd.items())
+        + f"; a rank's K/V shard of zamba2's shared block at d = 4: "
+        f"{2 * LONG_T // 4 * 32 * 80 * 2 / 1e9:.2f} GB, none of it sent")
+    return times, added
+
+
 def tp_phases(by_name):
     """The tp-16 phases, the one-card mesh, the decode kernels (and
     zamba2's shared block) on the tp-4 head shards, the WKV6 kernel on
@@ -5977,7 +6488,7 @@ def main():
                     help="only build ROOT's kernels and serve the paged and "
                     "int8-paged main paths on them; print their splits")
     ap.add_argument("--only", choices=("train", "tp", "ssm", "audio_vlm",
-                                       "mesh_mem", "audit"),
+                                       "mesh_mem", "audit", "long"),
                     help="only build the kernels and run these phases "
                     "(no result lines)")
     args = ap.parse_args()
@@ -6037,6 +6548,11 @@ def main():
         log(f"mesh int8 weight launches: {phase_mesh_int8_weights()}")
         release()
         log(f"mesh paged moe launches: {phase_mesh_paged_moe()}; "
+            f"{time.monotonic() - t0:.1f} s from the build on")
+        return
+    if args.only == "long":
+        times, launches = phase_long_decode()
+        log(f"long-decode launches: {launches}; kernel times {times}; "
             f"{time.monotonic() - t0:.1f} s from the build on")
         return
     if args.only == "audit":
@@ -6171,6 +6687,13 @@ def main():
     # the tp-16 layout (llama3-8b replicated KV, qwen1.5-32b padded heads)
     # and the one-card mesh: their launches add to the records
     tp_phases(by_name)
+    # long-decode under the seq_over_data rules: the bf16 models' launches
+    # add to the resident, ring and WKV6 kernels' records
+    _, long_launches = phase_long_decode()
+    for name, n in long_launches.items():
+        by_name[name]["launches"] += n
+    log(f"long-decode launches added to the records: {long_launches}")
+    release()
     # training on the plain path, then the trained weights served through
     # the flash and resident kernels: their launches add to those records
     served = train_phases()

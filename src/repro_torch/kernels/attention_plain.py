@@ -19,9 +19,16 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
-def attention_scores(q, k, v, mask):
+def attention_scores(q, k, v, mask, *, return_lse: bool = False):
     """q: (B,S,Hp,dh), k/v: (B,T,KvE,dh), mask: broadcastable to
-    (B,1,1,S,T) or None. Returns (B,S,Hp,dh). Scores and softmax in f32."""
+    (B,1,1,S,T) or None. Returns (B,S,Hp,dh). Scores and softmax in f32.
+
+    ``return_lse``: (the output in float32 — the probabilities meet V in
+    float32 — and the (B,S,Hp) log-sum-exp of each row's scores): one
+    sequence shard's partials of attention over a cache sharded over
+    devices (``partitioning.SeqShard.merge``).  A row whose keys are all
+    masked scores -1e30 everywhere, so its LSE is -1e30 (in float32) and it
+    weighs nothing in a merge with a row that has a valid key."""
     B, S, Hp, dh = q.shape
     T, KvE = k.shape[1], k.shape[2]
     # The KV extent is padded with masked keys to a multiple of 16, and to
@@ -71,6 +78,8 @@ def attention_scores(q, k, v, mask):
         scores = torch.where(mask, scores, NEG_INF)
     if pad:
         scores[..., T:] = -math.inf
+    if return_lse:
+        v = v.float()
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     if by_head:
         out = torch.stack(
@@ -79,7 +88,11 @@ def attention_scores(q, k, v, mask):
             dim=2)
     else:
         out = torch.einsum("begst,bted->bsegd", probs, v)
-    return out.reshape(B, S, Hp, dh)
+    out = out.reshape(B, S, Hp, dh)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(scores, dim=-1)                   # (B,E,G,S)
+    return out, lse.permute(0, 3, 1, 2).reshape(B, S, Hp)
 
 
 def chunked_attention(q, k, v, q_positions, kv_positions, *,

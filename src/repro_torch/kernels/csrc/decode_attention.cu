@@ -30,6 +30,16 @@
 // page id outside [0, n_pages) that batch row b reads writes NaN for every
 // entry of row b; neither is dereferenced.
 //
+// The linear entry point and the ring also serve a cache whose sequence is
+// sharded over several devices (the long-decode path): given an `lse`
+// (B, R) float32 output they write each (b, r)'s log-sum-exp of its scores
+//   lse[b, r] = log sum_t exp(q . K[t] / sqrt(dh))     (natural log)
+// over the positions that count, or -1e30 (weight 0 in a merge, never NaN)
+// where none does, and `out_f32` writes the output in float32 instead of
+// q's dtype, so that the devices' partial outputs merge before one
+// rounding.  A null `lse` and out_f32 == 0 give the output as before, bit
+// for bit: the LSE is read off the merge's (m, l) and changes nothing else.
+//
 // Bound: memory.  The least work is reading each valid K/V row once,
 //   sum_b len_b * KvE * 2 (k and v) * (dh * itemsize [+ 4 for an int8 scale])
 // bytes at 3.35 TB/s (H100 SXM); the arithmetic is ~4 flop per K/V element
@@ -88,6 +98,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -154,6 +165,8 @@ struct Common {
   int B, H, KvE, R, dh;
   int64_t q_sb, q_sh;
   cudaStream_t stream;
+  float* lse = nullptr;   // (B, R) log-sum-exp, or none
+  bool out_f32 = false;   // the output in float32 instead of q's dtype
 };
 
 // The K/V buffers a source reads: values, (int8) scales, (paged) page map.
@@ -169,8 +182,11 @@ struct Buffers {
 
 // ------------------------------------------------------------------ the ring
 // decode_attention_ring_resident_launch replaces the Pallas TPU kernel
-// `decode_attention_ring_resident`.  For every (b, r), over the W slots of a
-// ring that is never rotated (softmax does not depend on slot order):
+// `decode_attention_ring_resident`.  For every (b, r), over the `extent`
+// slots of a ring buffer that is never rotated (softmax does not depend on
+// slot order) — the whole ring of W slots, or one device's contiguous
+// share of a ring whose slots are sharded (extent < W; validity still
+// reads the whole window W):
 //   out[b, r] = softmax_t(q[b, rows[r]] . K[b, kv_rows[r], t] / sqrt(dh))
 //               . V[b, kv_rows[r], t]
 // over the slots t that count: validity is not a prefix (the ring wraps
@@ -332,7 +348,8 @@ ring_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
                   const int32_t* __restrict__ rows,
                   const int32_t* __restrict__ kv_rows,
                   float* __restrict__ part_ml, float* __restrict__ part_acc,
-                  int H, int R, int W, int split, int64_t q_sb, int64_t q_sh,
+                  int H, int R, int extent, int W, int split, int64_t q_sb,
+                  int64_t q_sh,
                   int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb,
                   int64_t v_sh, int64_t v_st, float sl2) {
   using S = RingShape<DH>;
@@ -355,7 +372,7 @@ ring_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const bool holds = li < S::LANES;  // dh 80: lanes 10..15 hold zeros
   const int sg = (tid >> 5) * S::SPW + lane / LPS;      // subgroup
   const int t_begin = split_id * split;
-  const int t_end = min(W, t_begin + split);
+  const int t_end = min(extent, t_begin + split);
   const int length = lengths[b];
   const E* kb = k + b * k_sb + kvh * k_sh;
   const E* vb = v + b * v_sb + kvh * v_sh;
@@ -541,20 +558,26 @@ ring_split_kernel(const E* __restrict__ q, const E* __restrict__ k,
 // merges the ceil(len / split) splits that cover [0, len), len =
 // clamp(lengths[b], 0, cap), and writes NaN if any of them carries the
 // flag of a bad page id (l = NaN), tested explicitly: fmaxf drops a NaN.
-template <typename QT, int DH, bool PREFIX>
+// The output is OT (q's dtype, or float32); a non-null `lse` (B, R) takes
+// the row's log-sum-exp in natural-log units, (m + log2 l) ln 2, the
+// partials being in log2 units, or -1e30 where no position counted (l 0).
+template <typename OT, int DH, bool PREFIX>
 __global__ void __launch_bounds__(DH)
 split_merge_kernel(const float* __restrict__ part_ml,
                    const float* __restrict__ part_acc,
                    const int32_t* __restrict__ rows,
                    const int32_t* __restrict__ kv_rows,
-                   const int32_t* __restrict__ lengths, QT* __restrict__ out,
-                   int H, int KvE, int R, int NS, int cap, int split) {
+                   const int32_t* __restrict__ lengths, OT* __restrict__ out,
+                   float* __restrict__ lse, int H, int KvE, int R, int NS,
+                   int cap, int split) {
   extern __shared__ float ml[];  // [n][2]
   const int r = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  QT* o = out + ((int64_t)b * R + r) * DH;
+  OT* o = out + ((int64_t)b * R + r) * DH;
+  float* lo = lse != nullptr && d == 0 ? lse + (int64_t)b * R + r : nullptr;
   const int row = rows[r], kv_row = kv_rows[r];
   if (row < 0 || row >= H || kv_row < 0 || kv_row >= KvE) {
     store(o + d, nanf(""));
+    if (lo) *lo = nanf("");
     return;
   }
   const int n =
@@ -567,6 +590,7 @@ split_merge_kernel(const float* __restrict__ part_ml,
     for (int s = 0; s < n; ++s) bad |= isnan(ml[2 * s + 1]);
     if (bad) {
       store(o + d, nanf(""));
+      if (lo) *lo = nanf("");
       return;
     }
   }
@@ -580,40 +604,60 @@ split_merge_kernel(const float* __restrict__ part_ml,
     a = fmaf(part_acc[(at + s) * DH + d], c, a);
   }
   store(o + d, a / fmaxf(l_all, 1e-30f));
+  if (lo) *lo = l_all > 0.f ? (m_all + log2f(l_all)) * kLn2 : kNegInf;
+}
+
+// The merge of `NS` splits into `out` in OT, and the LSE where asked.
+template <typename OT, int DH, bool PREFIX>
+cudaError_t launch_merge(const float* part_ml, const float* part_acc,
+                         const int32_t* rows, const int32_t* kv_rows,
+                         const int32_t* lengths, void* out, float* lse,
+                         int B, int H, int KvE, int R, int NS, int cap,
+                         int split, cudaStream_t stream) {
+  split_merge_kernel<OT, DH, PREFIX><<<dim3(R, B), DH,
+                                       2 * NS * sizeof(float), stream>>>(
+      part_ml, part_acc, rows, kv_rows, lengths, static_cast<OT*>(out), lse,
+      H, KvE, R, NS, cap, split);
+  return cudaGetLastError();
 }
 
 template <typename QT, int DH>
 int launch_ring(const void* q, const void* k, const void* v,
                 const void* lengths, const void* slot_pos, const void* rows,
                 const void* kv_rows, void* out, float* part_ml,
-                float* part_acc, int B, int H, int KvE, int W, int R,
-                int split, int64_t q_sb, int64_t q_sh, int64_t k_sb,
-                int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh,
-                int64_t v_st, cudaStream_t stream) {
+                float* part_acc, float* lse, bool out_f32, int B, int H,
+                int KvE, int extent, int W, int R, int split, int64_t q_sb,
+                int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_st,
+                int64_t v_sb, int64_t v_sh, int64_t v_st,
+                cudaStream_t stream) {
   constexpr int bytes = ring_smem_bytes<QT, DH>();
   // above 48 KB a block's shared memory must be asked for, once
   static const cudaError_t set = cudaFuncSetAttribute(
       ring_split_kernel<QT, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int NS = (W + split - 1) / split;
+  const int NS = (extent + split - 1) / split;
   const float sl2 = kLog2e / sqrtf(static_cast<float>(DH));
-  ring_split_kernel<QT, DH><<<dim3(NS, KvE, B), kRingThreads, bytes,
-                              stream>>>(
-      static_cast<const QT*>(q), static_cast<const QT*>(k),
-      static_cast<const QT*>(v), static_cast<const int32_t*>(slot_pos),
-      static_cast<const int32_t*>(lengths),
-      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(kv_rows),
-      part_ml, part_acc, H, R, W, split, q_sb, q_sh, k_sb, k_sh, k_st, v_sb,
-      v_sh, v_st, sl2);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  split_merge_kernel<QT, DH, false><<<dim3(R, B), DH,
-                                      2 * NS * sizeof(float), stream>>>(
-      part_ml, part_acc, static_cast<const int32_t*>(rows),
-      static_cast<const int32_t*>(kv_rows), nullptr, static_cast<QT*>(out), H,
-      KvE, R, NS, 0, 0);
-  return static_cast<int>(cudaGetLastError());
+  const auto* rows32 = static_cast<const int32_t*>(rows);
+  const auto* kv_rows32 = static_cast<const int32_t*>(kv_rows);
+  if (NS > 0) {   // a device holding no slot of the ring merges nothing
+    ring_split_kernel<QT, DH><<<dim3(NS, KvE, B), kRingThreads, bytes,
+                                stream>>>(
+        static_cast<const QT*>(q), static_cast<const QT*>(k),
+        static_cast<const QT*>(v), static_cast<const int32_t*>(slot_pos),
+        static_cast<const int32_t*>(lengths), rows32, kv_rows32, part_ml,
+        part_acc, H, R, extent, W, split, q_sb, q_sh, k_sb, k_sh, k_st, v_sb,
+        v_sh, v_st, sl2);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(
+      out_f32 ? launch_merge<float, DH, false>(
+                    part_ml, part_acc, rows32, kv_rows32, nullptr, out, lse,
+                    B, H, KvE, R, NS, 0, 0, stream)
+              : launch_merge<QT, DH, false>(
+                    part_ml, part_acc, rows32, kv_rows32, nullptr, out, lse,
+                    B, H, KvE, R, NS, 0, 0, stream));
 }
 
 }  // namespace
@@ -1317,11 +1361,15 @@ int launch_split_dh(const Common& c, const Buffers& buf, const Src& src,
           c.q_sh, sl2);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  split_merge_kernel<QT, DH, true><<<dim3(c.R, c.B), DH,
-                                     2 * NS * sizeof(float), c.stream>>>(
-      sp.part_ml, sp.part_acc, rows, kv_rows, lengths,
-      static_cast<QT*>(c.out), c.H, c.KvE, c.R, NS, cap, sp.split);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      c.out_f32 ? launch_merge<float, DH, true>(
+                      sp.part_ml, sp.part_acc, rows, kv_rows, lengths, c.out,
+                      c.lse, c.B, c.H, c.KvE, c.R, NS, cap, sp.split,
+                      c.stream)
+                : launch_merge<QT, DH, true>(
+                      sp.part_ml, sp.part_acc, rows, kv_rows, lengths, c.out,
+                      c.lse, c.B, c.H, c.KvE, c.R, NS, cap, sp.split,
+                      c.stream));
 }
 
 template <typename QT, typename Src>
@@ -1377,16 +1425,18 @@ int run_source(int dtype, int T_len, int n_pages, int n_logical,
 // NS, dh) float32 scratch for NS = ceil(cap / split) splits of `split` > 0
 // positions, and 16-byte aligned value bases and strides.
 
-// K/V (B, KvE, T, dh) in q's dtype.
+// K/V (B, KvE, T, dh) in q's dtype; lse (B, R) float32 or null; out_f32:
+// the output in float32 (else q's dtype).
 extern "C" int decode_attention_resident_launch(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* rows, const void* kv_rows, void* out, void* part_ml,
-    void* part_acc, int B, int H, int KvE, int T_len, int R, int split,
-    int dh, int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sb,
-    int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
-    void* stream) {
+    void* part_acc, void* lse, int B, int H, int KvE, int T_len, int R,
+    int split, int out_f32, int dh, int dtype, int64_t q_sb, int64_t q_sh,
+    int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh,
+    int64_t v_st, void* stream) {
   const Common c{q, lengths, rows, kv_rows, out, B, H, KvE, R, dh,
-                 q_sb, q_sh, static_cast<cudaStream_t>(stream)};
+                 q_sb, q_sh, static_cast<cudaStream_t>(stream),
+                 static_cast<float*>(lse), out_f32 != 0};
   const Buffers buf{k, v, nullptr, nullptr, nullptr};
   const Split sp{static_cast<float*>(part_ml), static_cast<float*>(part_acc),
                  split};
@@ -1463,25 +1513,30 @@ extern "C" int decode_attention_int8_paged_resident_launch(
       });
 }
 
-// A sliding-window ring K/V (B, KvE, W, dh) in q's dtype, 16-byte aligned
-// bases and strides; slot_pos (W,) int32, the absolute position each slot
-// holds; lengths (B,) = query position + 1.  part_ml (B, R, NS, 2) and
-// part_acc (B, R, NS, dh) float32 are scratch for the NS = ceil(W / split)
-// splits; split is a positive multiple of 128.
+// A sliding-window ring K/V (B, KvE, extent, dh) in q's dtype, 16-byte
+// aligned bases and strides: the whole ring (extent == window) or a
+// device's share of its slots (0 <= extent <= window); slot_pos (extent,)
+// int32, the absolute position each slot holds; lengths (B,) = query
+// position + 1; slot t counts iff lengths[b] - window <= slot_pos[t] <
+// lengths[b].  part_ml (B, R, NS, 2) and part_acc (B, R, NS, dh) float32
+// are scratch for the NS = ceil(extent / split) splits; split is a
+// positive multiple of 128.  lse and out_f32 as for the resident entry.
 extern "C" int decode_attention_ring_resident_launch(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* slot_pos, const void* rows, const void* kv_rows, void* out,
-    void* part_ml, void* part_acc, int B, int H, int KvE, int window, int R,
-    int split, int dh, int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sb,
-    int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
-    void* stream) {
-  if (window <= 0 || split <= 0 || split % 128)
+    void* part_ml, void* part_acc, void* lse, int B, int H, int KvE,
+    int extent, int window, int R, int split, int out_f32, int dh,
+    int dtype, int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh,
+    int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st, void* stream) {
+  if (window <= 0 || extent < 0 || extent > window || split <= 0 ||
+      split % 128)
     return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_RING(QT, DH)                                                  \
   return launch_ring<QT, DH>(                                               \
       q, k, v, lengths, slot_pos, rows, kv_rows, out,                       \
-      static_cast<float*>(part_ml), static_cast<float*>(part_acc), B, H,    \
-      KvE, window, R, split, q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, \
+      static_cast<float*>(part_ml), static_cast<float*>(part_acc),          \
+      static_cast<float*>(lse), out_f32 != 0, B, H, KvE, extent, window, R, \
+      split, q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st,                \
       static_cast<cudaStream_t>(stream))
 #define REPRO_RING_DH(QT)            \
   switch (dh) {                      \

@@ -26,6 +26,14 @@ the CUDA cores), and the ring its own split-window kernel:
 and ``decode_attention`` / ``decode_attention_int8``, the reference's
 dense-grid wrappers: the first two over identity rows (``arange(H)``).
 
+``decode_attention_resident`` and ``decode_attention_ring_resident`` also
+serve a cache whose sequence (or ring slots) is sharded over devices (the
+long-decode path, ``partitioning.SeqShard``): with ``return_lse=True`` they
+return the float32 output and each row's log-sum-exp of its scores
+(natural log; -1e30 where no position counts), the partials a merge
+across the devices needs, and the ring takes a buffer of fewer slots than
+its window (one device's share of the slots).
+
 Each launches the kernel for CUDA tensors, counts the launch in its
 ``.launches``, and runs its ``*_plain`` version — the same function in
 plain PyTorch — only for tensors on the CPU.  There is no fallback: a
@@ -54,14 +62,21 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # ---------------------------------------------------------------------------
 
 
-def _masked_decode_plain(q, k, v, valid, rows, kv_rows):
+def _masked_decode_plain(q, k, v, valid, rows, kv_rows, return_lse=False):
     """A softmax over the gathered rows' K/V positions where ``valid``
-    (B, T) holds, accumulated in float32."""
+    (B, T) holds, accumulated in float32.  ``return_lse``: (the float32
+    output, the (B, R) log-sum-exp of the valid scores, -1e30 for a row
+    with none)."""
     B, H, dh = q.shape
     KvE = k.shape[1]
     rows = rows.long()
     kv_rows = rows // (H // KvE) if kv_rows is None else kv_rows.long()
     qr = q.index_select(1, rows).float()                    # (B, R, dh)
+    if k.shape[2] == 0:      # a device holding no position of the cache
+        out = torch.zeros_like(qr)
+        if not return_lse:
+            return out.to(q.dtype)
+        return out, torch.full(qr.shape[:2], -1e30, device=q.device)
     # One KV head at a time, as the kernel's blocks read the cache: its
     # float32 copy holds one head's (B, T, dh), never the whole cache or
     # the rows' gathered copy of it (``analysis.trace_audit``'s JXP001).
@@ -77,34 +92,41 @@ def _masked_decode_plain(q, k, v, valid, rows, kv_rows):
     # and the l >= 1e-30 clamp returns zeros (as the kernel does)
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    l_sum = p.sum(dim=-1, keepdim=True)
+    l = l_sum.clamp_min(1e-30)
     out = torch.zeros_like(qr)
     for e in range(KvE):
         out = torch.where(own[e], torch.einsum("brt,btd->brd", p,
                                                v[:, e].float()), out)
     out = out / l
-    return out.to(q.dtype)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.where(l_sum > 0, m + torch.log(l), -1e30)
+    return out, lse[..., 0]
 
 
-def decode_attention_resident_plain(q, k, v, lengths, rows, kv_rows=None):
+def decode_attention_resident_plain(q, k, v, lengths, rows, kv_rows=None,
+                                    *, return_lse: bool = False):
     """Plain PyTorch version of the kernel: a masked softmax over the
     gathered rows, accumulated in float32.  Same arguments and result as
     :func:`decode_attention_resident`."""
     T = k.shape[2]
     n = lengths.long().clamp(0, T)
     valid = torch.arange(T, device=q.device)[None, :] < n[:, None]
-    return _masked_decode_plain(q, k, v, valid, rows, kv_rows)
+    return _masked_decode_plain(q, k, v, valid, rows, kv_rows, return_lse)
 
 
 def decode_attention_ring_resident_plain(q, k, v, lengths, slot_pos, rows,
-                                         kv_rows=None, *, window: int):
+                                         kv_rows=None, *, window: int,
+                                         return_lse: bool = False):
     """Plain version of :func:`decode_attention_ring_resident`: slot t of
     row b counts iff ``lengths[b] - window <= slot_pos[t] < lengths[b]``;
-    a row with no valid slot returns zeros."""
+    a row with no valid slot returns zeros (and, with ``return_lse``, an
+    LSE of -1e30)."""
     n = lengths.long()[:, None]
     pos = slot_pos.long()[None, :]
-    valid = (pos < n) & (pos >= n - window)                 # (B, window)
-    return _masked_decode_plain(q, k, v, valid, rows, kv_rows)
+    valid = (pos < n) & (pos >= n - window)                 # (B, extent)
+    return _masked_decode_plain(q, k, v, valid, rows, kv_rows, return_lse)
 
 
 def _identity_rows(q):
@@ -171,7 +193,7 @@ _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # argument types of each entry point of csrc/decode_attention.cu
 _SIGNATURES = {
     "decode_attention_resident_launch":
-        [_PTR] * 9 + [_INT] * 8 + [_I64] * 8 + [_PTR],
+        [_PTR] * 10 + [_INT] * 9 + [_I64] * 8 + [_PTR],
     "decode_attention_int8_resident_launch":
         [_PTR] * 11 + [_INT] * 8 + [_I64] * 14 + [_PTR],
     "decode_attention_paged_resident_launch":
@@ -179,7 +201,7 @@ _SIGNATURES = {
     "decode_attention_int8_paged_resident_launch":
         [_PTR] * 12 + [_INT] * 10 + [_I64] * 14 + [_PTR],
     "decode_attention_ring_resident_launch":
-        [_PTR] * 10 + [_INT] * 8 + [_I64] * 8 + [_PTR],
+        [_PTR] * 11 + [_INT] * 10 + [_I64] * 8 + [_PTR],
 }
 # the ring kernel splits the window into pieces of a multiple of this many
 # slots (a multiple of every head width's tile)
@@ -258,19 +280,21 @@ def _check_kernel_inputs(q, k, v, dh, *, quant: bool):
 
 
 def _launch(entry: str, q, R: int, pointers, ints, strides, name: str,
-            scratch=()):
-    """Allocate the (B, R, dh) output and launch ``entry`` on the current
-    stream (``scratch`` tensors follow the output pointer); raises if the
-    launch fails."""
+            scratch=(), out_dtype=None):
+    """Allocate the (B, R, dh) output (in ``out_dtype``, q's by default)
+    and launch ``entry`` on the current stream (``scratch`` tensors follow
+    the output pointer, None for a null pointer); raises if the launch
+    fails."""
     B, _, dh = q.shape
-    out = torch.empty((B, R, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, R, dh), dtype=out_dtype or q.dtype,
+                      device=q.device)
     if B == 0 or R == 0:
         return out, False
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _launcher(entry)(
             *[t.data_ptr() for t in pointers], out.data_ptr(),
-            *[t.data_ptr() for t in scratch], *ints,
+            *[None if t is None else t.data_ptr() for t in scratch], *ints,
             dh, _DTYPE_CODES[q.dtype], q.stride(0), q.stride(1), *strides,
             stream)
     if err:
@@ -286,7 +310,8 @@ def _kv_rows(q, k, rows, kv_rows):
     return rows // (q.shape[1] // k.shape[1]) if kv_rows is None else kv_rows
 
 
-def decode_attention_resident(q, k, v, lengths, rows, kv_rows=None):
+def decode_attention_resident(q, k, v, lengths, rows, kv_rows=None, *,
+                              return_lse: bool = False):
     """Flash-decode over only the head rows resident on this device.
 
     q: (B, H, dh) — the full q-head axis in its physical layout; k, v:
@@ -298,32 +323,49 @@ def decode_attention_resident(q, k, v, lengths, rows, kv_rows=None):
     The kernel needs 16-byte aligned k/v bases and strides (every model
     view has them) and launches as two CUDA kernels (sequence splits, then
     their merge); it counts one launch.
+
+    ``return_lse``: returns (the output in float32, the (B, R) float32
+    log-sum-exp of each row's valid scores q . k / sqrt(dh), -1e30 for a
+    row with none) — a shard of a sequence-sharded cache's partials
+    (``partitioning.SeqShard.merge``).  The output is the one q's dtype
+    would round: cast, it equals the call without the flag bit for bit.
     """
-    out, launched = _resident(q, k, v, lengths, rows, kv_rows)
+    out, launched = _resident(q, k, v, lengths, rows, kv_rows, return_lse)
     decode_attention_resident.launches += launched
     return out
 
 
-def _resident(q, k, v, lengths, rows, kv_rows):
-    """:func:`decode_attention_resident`'s body: (out, whether the kernel
-    launched), for the wrapper that counts the launch under its name."""
+def _resident(q, k, v, lengths, rows, kv_rows, return_lse=False):
+    """:func:`decode_attention_resident`'s body: (out — or (out, lse)
+    with ``return_lse`` — and whether the kernel launched), for the
+    wrapper that counts the launch under its name."""
     kv_rows = _kv_rows(q, k, rows, kv_rows)
     B, H, dh = _check(q, k, v, lengths, rows, kv_rows, batch_axis=True)
     if _on_cpu(q, k, v, lengths, rows, kv_rows):
-        return decode_attention_resident_plain(q, k, v, lengths, rows,
-                                               kv_rows), False
+        return decode_attention_resident_plain(
+            q, k, v, lengths, rows, kv_rows, return_lse=return_lse), False
     _check_kernel_inputs(q, k, v, dh, quant=False)
     _check_aligned16(k, v)
     lengths, rows, kv_rows = _i32(lengths, rows, kv_rows)
     KvE, T, R = k.shape[1], k.shape[2], rows.shape[0]
     split = _decode_split(B, KvE, T, _sm_count(q.device))
+    lse = _lse_out(q, R) if return_lse else None
     out, launched = _launch(
         "decode_attention_resident_launch", q, R,
-        (q, k, v, lengths, rows, kv_rows), (B, H, KvE, T, R, split),
+        (q, k, v, lengths, rows, kv_rows),
+        (B, H, KvE, T, R, split, int(return_lse)),
         (k.stride(0), k.stride(1), k.stride(2),
          v.stride(0), v.stride(1), v.stride(2)),
-        "decode_attention_resident", scratch=_split_scratch(q, R, T, split))
-    return out, launched
+        "decode_attention_resident",
+        scratch=_split_scratch(q, R, T, split) + (lse,),
+        out_dtype=torch.float32 if return_lse else None)
+    return ((out, lse) if return_lse else out), launched
+
+
+def _lse_out(q, R: int):
+    """The (B, R) float32 log-sum-exp output of a ``return_lse`` call."""
+    return torch.empty((q.shape[0], R), dtype=torch.float32,
+                       device=q.device)
 
 
 def decode_attention_int8_resident(q, k_q8, k_sc, v_q8, v_sc, lengths, rows,
@@ -507,18 +549,20 @@ def _check_aligned16(k, v):
                          "and strides (cp.async copies)")
 
 
-def _ring_split(B: int, KvE: int, window: int, sms: int) -> int:
-    """Slots per window split: a multiple of ``_RING_SPLIT_ALIGN`` such
-    that the (split, KV head, batch row) grid holds about 4 blocks per SM
-    of a card with ``sms`` SMs (B 4, KvE 8, W 4096 on 132 SMs: 256 slots,
-    16 splits, 512 blocks)."""
+def _ring_split(B: int, KvE: int, extent: int, sms: int) -> int:
+    """Slots per split of a ring buffer of ``extent`` slots: a multiple of
+    ``_RING_SPLIT_ALIGN`` such that the (split, KV head, batch row) grid
+    holds about 4 blocks per SM of a card with ``sms`` SMs (B 4, KvE 8, W
+    4096 on 132 SMs: 256 slots, 16 splits, 512 blocks; B 1, a shard of
+    1024 of mixtral's slots: 128, 8 splits)."""
     want = max(1, -(-4 * sms // (B * KvE)))
-    split = -(-window // want)
+    split = max(1, -(-extent // want))
     return -(-split // _RING_SPLIT_ALIGN) * _RING_SPLIT_ALIGN
 
 
 def decode_attention_ring_resident(q, k, v, lengths, slot_pos, rows,
-                                   kv_rows=None, *, window: int):
+                                   kv_rows=None, *, window: int,
+                                   return_lse: bool = False):
     """Sliding-window flash-decode over a ring cache, over the resident
     head rows.
 
@@ -531,31 +575,41 @@ def decode_attention_ring_resident(q, k, v, lengths, slot_pos, rows,
     ``lengths[b] - window <= slot_pos[t] < lengths[b]``; a row with no
     valid slot returns zeros.  rows/kv_rows and the result as in
     :func:`decode_attention_resident`.  The kernel launches as two CUDA
-    kernels (window splits, then their merge) and counts one launch."""
+    kernels (window splits, then their merge) and counts one launch.
+
+    A buffer of ``extent`` < ``window`` slots (k/v (B, KvE, extent, dh),
+    slot_pos (extent,)) is one device's share of a ring whose slots are
+    sharded: validity still reads the whole window.  ``return_lse`` as in
+    :func:`decode_attention_resident`."""
     kv_rows = _kv_rows(q, k, rows, kv_rows)
     B, H, dh = _check(q, k, v, lengths, rows, kv_rows, batch_axis=True)
-    if k.shape[2] != window or slot_pos.shape != (window,):
+    extent = k.shape[2]
+    if extent > window or slot_pos.shape != (extent,):
         raise ValueError(f"a ring of window {window} needs k/v (B, KvE, "
-                         f"{window}, dh) and slot_pos ({window},); got "
-                         f"{tuple(k.shape)} and {tuple(slot_pos.shape)}")
+                         f"extent <= {window}, dh) and slot_pos (extent,); "
+                         f"got {tuple(k.shape)} and "
+                         f"{tuple(slot_pos.shape)}")
     if _on_cpu(q, k, v, lengths, slot_pos, rows, kv_rows):
         return decode_attention_ring_resident_plain(
-            q, k, v, lengths, slot_pos, rows, kv_rows, window=window)
+            q, k, v, lengths, slot_pos, rows, kv_rows, window=window,
+            return_lse=return_lse)
     _check_kernel_inputs(q, k, v, dh, quant=False)
     _check_aligned16(k, v)
     lengths, slot_pos, rows, kv_rows = _i32(lengths, slot_pos, rows, kv_rows)
     KvE, R = k.shape[1], rows.shape[0]
-    split = _ring_split(B, KvE, window, _sm_count(q.device))
-    scratch = _split_scratch(q, R, window, split)
+    split = _ring_split(B, KvE, extent, _sm_count(q.device))
+    lse = _lse_out(q, R) if return_lse else None
     out, launched = _launch(
         "decode_attention_ring_resident_launch", q, R,
         (q, k, v, lengths, slot_pos, rows, kv_rows),
-        (B, H, KvE, window, R, split),
+        (B, H, KvE, extent, window, R, split, int(return_lse)),
         (k.stride(0), k.stride(1), k.stride(2),
          v.stride(0), v.stride(1), v.stride(2)),
-        "decode_attention_ring_resident", scratch=scratch)
+        "decode_attention_ring_resident",
+        scratch=_split_scratch(q, R, extent, split) + (lse,),
+        out_dtype=torch.float32 if return_lse else None)
     decode_attention_ring_resident.launches += launched
-    return out
+    return (out, lse) if return_lse else out
 
 
 for _fn in (decode_attention, decode_attention_int8,

@@ -29,7 +29,12 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
 
 def _scatter(o, inv_rows):
     """(B, R, dh) kernel output -> (B, 1, R, dh), or the full (B, 1, H, dh)
-    in physical q order when the scatter map ``inv_rows`` is given."""
+    in physical q order when the scatter map ``inv_rows`` is given; an
+    (output, (B, R) log-sum-exp) pair -> both so, the LSE (B, 1, R)."""
+    if isinstance(o, tuple):
+        out, lse = o
+        return (_scatter(out, inv_rows),
+                _scatter(lse[..., None], inv_rows)[..., 0])
     if inv_rows is not None:
         o = o.index_select(1, inv_rows)
     return o[:, None]
@@ -43,14 +48,17 @@ def decode_attention_bshd(q, k, v, lengths):
 
 
 def decode_attention_resident_bshd(q, k, v, lengths, rows, kv_rows=None, *,
-                                   inv_rows=None):
+                                   inv_rows=None, return_lse=False):
     """Placement-driven decode: model layout q (B,1,H,dh), cache k/v
     (B,T,KvE,dh), ``rows`` (R,) the physical q-head rows this dispatch
     covers.  Returns the compacted (B,1,R,dh) slice in ``rows`` order —
     or, when ``inv_rows`` (the scatter map with R == H) is given, the full
-    (B,1,H,dh) tensor in physical q order, ready for the wo projection."""
+    (B,1,H,dh) tensor in physical q order, ready for the wo projection.
+    ``return_lse``: (that output in float32, its rows' log-sum-exp
+    (B,1,R) or (B,1,H)) — a sequence shard's partials."""
     o = decode_attention_resident(q[:, 0], k.transpose(1, 2),
-                                  v.transpose(1, 2), lengths, rows, kv_rows)
+                                  v.transpose(1, 2), lengths, rows, kv_rows,
+                                  return_lse=return_lse)
     return _scatter(o, inv_rows)
 
 
@@ -92,15 +100,18 @@ def decode_attention_int8_paged_bshd(q, k_q8, k_sc, v_q8, v_sc, lengths,
 
 
 def decode_attention_ring_bshd(q, k, v, lengths, slot_pos, *, window: int,
-                               rows, kv_rows=None, inv_rows=None):
+                               rows, kv_rows=None, inv_rows=None,
+                               return_lse=False):
     """Sliding-window ring-cache decode in model layout: q (B,1,H,dh), ring
-    k/v (B,window,KvE,dh), ``slot_pos`` (window,) the absolute position
-    each ring slot holds — the kernel masks by position instead of
-    rotating the buffer (softmax does not depend on the slots' order).
-    ``rows``/``inv_rows`` as in :func:`decode_attention_resident_bshd`."""
+    k/v (B,window,KvE,dh) — or a device's share of its slots, (B,extent,
+    KvE,dh) — ``slot_pos`` (extent,) the absolute position each slot
+    holds — the kernel masks by position instead of rotating the buffer
+    (softmax does not depend on the slots' order).
+    ``rows``/``inv_rows``/``return_lse`` as in
+    :func:`decode_attention_resident_bshd`."""
     o = decode_attention_ring_resident(
         q[:, 0], k.transpose(1, 2), v.transpose(1, 2), lengths, slot_pos,
-        rows, kv_rows, window=window)
+        rows, kv_rows, window=window, return_lse=return_lse)
     return _scatter(o, inv_rows)
 
 

@@ -26,6 +26,10 @@ Sharding is expressed only through a ``partitioning.Partitioner``
 reference's, and under a mesh they redistribute DTensor intermediates.
 Attention itself runs on each rank's shard (``partitioning.local``):
 heads and batch rows are independent there, so no collective is needed.
+Under the long-decode rules (``make_partitioner(seq_over_data=True)``) a
+cache's sequence — a ring's slots — is sharded over "data" as well: each
+rank writes the positions it owns, attends over them alone and the ranks
+merge their partial softmaxes (``partitioning.SeqShard``).
 """
 from __future__ import annotations
 
@@ -37,10 +41,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.partitioning import (NULL, Partitioner, Sharding,
-                                             batch_axes, from_local,
-                                             is_dtensor, like, local,
-                                             local_range, local_shards, whole)
+from repro_torch.models.partitioning import (EMPTY_LSE, NULL, Partitioner,
+                                             Sharding, batch_axes,
+                                             from_local, is_dtensor, like,
+                                             local, local_range,
+                                             local_shards, seq_shard, whole)
 from repro_torch.models.quantization import is_quantized, wt
 # attention_scores and chunked_attention stay importable from here, beside
 # the rest of the reference's layers
@@ -298,7 +303,7 @@ def _q8(t):
     return qq, sc
 
 
-def _write_cache(cache: dict, new: dict, cache_pos):
+def _write_cache(cache: dict, new: dict, cache_pos, seq=None):
     """Store this call's K/V (and, for int8 caches, their scales: ``new``
     maps each cache buffer's name to its (B, S, ...) values) in place.  A
     (B,) ``cache_pos`` (continuous batching, S == 1) writes row b at its
@@ -306,25 +311,34 @@ def _write_cache(cache: dict, new: dict, cache_pos):
     write is dropped (the reference's ``mode="drop"`` scatter: each row
     writes only its own cache row, so writing the old value back at a
     clamped index collides with no live write).  An int ``cache_pos``
-    writes S positions from there for every row (prefill)."""
+    writes S positions from there for every row (prefill).  ``seq`` (a
+    ``partitioning.SeqShard``): the buffers hold this rank's positions
+    ``[lo, lo + n)`` of ``total``, and only those of the write land."""
     B, S = new["k"].shape[0], new["k"].shape[1]
-    T = cache["k"].shape[1]
+    T = cache["k"].shape[1] if seq is None else seq.total
+    lo, n = (0, T) if seq is None else (seq.lo, seq.n)
     if isinstance(cache_pos, torch.Tensor):
         if cache_pos.shape != (B,) or S != 1:
             raise ValueError("per-slot cache writes take a (B,) position "
                              "vector and one token per row")
+        if n == 0:
+            return
         rows = torch.arange(B, device=cache_pos.device)
-        cp = cache_pos.clamp(max=T - 1).long()
+        at = cache_pos.long() - lo
+        cp = at.clamp(0, n - 1)
         for name, t in new.items():
             buf = cache[name]
-            keep = (cache_pos < T).view((B,) + (1,) * (buf.dim() - 2))
+            keep = ((at >= 0) & (at < n)).view(
+                (B,) + (1,) * (buf.dim() - 2))
             buf[rows, cp] = torch.where(keep, t[:, 0], buf[rows, cp])
         return
     if not 0 <= cache_pos <= T - S:
         raise ValueError(f"cache write [{cache_pos}, {cache_pos + S}) "
                          f"outside a cache of {T} positions")
+    a, c = (cache_pos, S) if seq is None else seq.span(cache_pos, S)
     for name, t in new.items():
-        cache[name][:, cache_pos:cache_pos + S] = t
+        cache[name][:, a - lo:a - lo + c] = t[:, a - cache_pos:
+                                              a - cache_pos + c]
 
 
 def _dequant(cache: dict, dtype):
@@ -379,15 +393,33 @@ def _paged_gather(cache: dict, page_map, dtype):
 EMPTY_SLOT = -2 ** 30   # ring slot position that never passes a window
 
 
+def _over_shard(seq, q, partial):
+    """Attention over a sequence-sharded cache from this rank's share:
+    ``partial()`` gives the float32 output and log-sum-exp over the rank's
+    positions, merged with the other ranks' (``SeqShard.merge``) and cast
+    to q's dtype once; a rank holding no position contributes zeros that
+    weigh nothing."""
+    if seq.n == 0:
+        out = q.new_zeros(q.shape, dtype=torch.float32)
+        lse = torch.full(q.shape[:3], EMPTY_LSE, device=q.device)
+    else:
+        out, lse = partial()
+    return seq.merge(out, lse, q.dtype)
+
+
 def _ring_attention(q, k, v, positions, cache: dict, cache_pos,
                     window: int, attend, finish, use_kernel: bool, head_rows,
-                    head_inv):
+                    head_inv, seq=None):
     """Sliding-window attention over a ring cache {"k","v"} (B, window,
     KvE, dh) whose "pos" (window,) holds the absolute position of each
     slot, updated in place; ``finish`` projects the attention output out.
     On a mesh every tensor is the rank's local one: its batch rows and
     heads of q, k, v and the ring, and its copy of the replicated "pos",
-    which every rank writes alike.
+    which every rank writes alike.  ``seq`` (the long-decode rules): the
+    rank's "k"/"v" hold slots ``[lo, lo + n)`` of the window; a prefill
+    folds into those slots, a decode step writes its slot on the rank
+    owning it, and attention runs over the rank's slots (validity from
+    the whole window) and merges across the ranks.
 
     Prefill (S > 1, positions ``cache_pos + arange(S)``, lock-step): attend
     over the in-flight K/V under the window mask — queries and keys share
@@ -416,27 +448,84 @@ def _ring_attention(q, k, v, positions, cache: dict, cache_pos,
                              value=EMPTY_SLOT)
         # the first tail position, known on the host: no device sync
         shift = (cache_pos + max(S - window, 0)) % window
-        cache["k"].copy_(torch.roll(tail_k, shift, dims=1))
-        cache["v"].copy_(torch.roll(tail_v, shift, dims=1))
+        lo, n = (0, window) if seq is None else (seq.lo, seq.n)
+        cache["k"].copy_(torch.roll(tail_k, shift, dims=1)[:, lo:lo + n])
+        cache["v"].copy_(torch.roll(tail_v, shift, dims=1)[:, lo:lo + n])
         cache["pos"].copy_(torch.roll(tail_pos, shift))
         return finish(out)
     idx = cache_pos % window
-    cache["k"][:, idx] = k[:, 0]
-    cache["v"][:, idx] = v[:, 0]
+    if seq is None or seq.owns(idx):
+        at = idx if seq is None else idx - seq.lo
+        cache["k"][:, at] = k[:, 0]
+        cache["v"][:, at] = v[:, 0]
     # a fill, not an item assignment: assigning a Python int copies it
     # from host memory, a host sync on every decode step
     cache["pos"][idx:idx + 1].fill_(cache_pos)
     if use_kernel:
         rows, inv = _head_rows_or_identity(head_rows, head_inv, q.shape[2],
                                            q.device)
-        out = ops.decode_attention_ring_bshd(
-            q, cache["k"], cache["v"], _decode_lengths(cache_pos, B, q.device),
-            cache["pos"], window=window, rows=rows, inv_rows=inv)
+        lengths = _decode_lengths(cache_pos, B, q.device)
+        if seq is None:
+            return finish(ops.decode_attention_ring_bshd(
+                q, cache["k"], cache["v"], lengths, cache["pos"],
+                window=window, rows=rows, inv_rows=inv))
+        return finish(_over_shard(
+            seq, q, lambda: ops.decode_attention_ring_bshd(
+                q, cache["k"], cache["v"], lengths,
+                cache["pos"][seq.lo:seq.lo + seq.n], window=window,
+                rows=rows, inv_rows=inv, return_lse=True)))
+    if seq is None:
+        kv_pos = cache["pos"][None, :].expand(B, window)
+        out = attend(cache["k"], cache["v"], kv_pos,
+                     causal_mask(positions, kv_pos, window))
         return finish(out)
-    kv_pos = cache["pos"][None, :].expand(B, window)
-    out = attend(cache["k"], cache["v"], kv_pos,
-                 causal_mask(positions, kv_pos, window))
-    return finish(out)
+    kv_pos = cache["pos"][None, seq.lo:seq.lo + seq.n].expand(B, seq.n)
+    return finish(_over_shard(seq, q, lambda: attention_scores(
+        q, cache["k"], cache["v"], causal_mask(positions, kv_pos, window),
+        return_lse=True)))
+
+
+def _seq_attention(q, k, v, positions, cache: dict, cache_pos, seq,
+                   window: int, attend, finish, use_kernel: bool, head_rows,
+                   head_inv):
+    """Attention over a linear cache whose sequence is sharded over the
+    mesh's data axis (``seq``: this rank holds positions ``[lo, lo + n)``
+    in the rank's shard of ``cache``).  The write lands on the positions
+    the rank owns (``_write_cache``).  A prefill from position 0 attends
+    its in-flight K/V — dequantized for int8, the function the unsharded
+    path computes over the cache's first S rows — through flash with
+    ``use_kernel``, on every rank alike.  Any other call attends over the
+    rank's positions and merges across the ranks (``_over_shard``): an
+    S == 1 decode through the resident kernel's LSE output with
+    ``use_kernel`` (no window, not int8), else the plain attention's."""
+    B, S = q.shape[0], q.shape[1]
+    quant = "k_sc" in cache
+    new = {"k": k, "v": v}
+    if quant:
+        (new["k"], new["k_sc"]), (new["v"], new["v_sc"]) = _q8(k), _q8(v)
+    _write_cache(cache, new, cache_pos, seq)
+    if S > 1 and not isinstance(cache_pos, torch.Tensor) and cache_pos == 0:
+        ck, cv = _dequant(new, q.dtype)
+        return finish(attend(ck, cv, positions,
+                             causal_mask(positions, positions, window),
+                             flash=use_kernel))
+    if use_kernel and S == 1 and not window:
+        if quant:
+            raise ValueError("an int8 cache's decode kernel takes no "
+                             "sequence shard (ROADMAP Queue 1): serve the "
+                             "long-decode rules from a bf16 cache")
+        rows, inv = _head_rows_or_identity(head_rows, head_inv, q.shape[2],
+                                           q.device)
+        lengths = seq.local_lengths(_decode_lengths(cache_pos, B, q.device))
+        return finish(_over_shard(
+            seq, q, lambda: ops.decode_attention_resident_bshd(
+                q, cache["k"], cache["v"], lengths, rows, inv_rows=inv,
+                return_lse=True)))
+    kv_pos = (seq.lo + torch.arange(seq.n, device=q.device))[None].expand(
+        B, seq.n)
+    return finish(_over_shard(seq, q, lambda: attention_scores(
+        q, *_dequant(cache, q.dtype), causal_mask(positions, kv_pos, window),
+        return_lse=True)))
 
 
 def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
@@ -496,11 +585,19 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
       several batch ranks runs on every rank, writes only into the pool of
       the rank holding the row (the others' table rows are unmapped, so
       their writes drop into their sinks), and takes that rank's
-      attention output (``Partitioner.from_owner``).
+      attention output (``Partitioner.from_owner``).  Under the long-decode
+      rules (``make_partitioner(seq_over_data=True)``) the batch stays
+      whole and a linear cache's sequence — a ring's slots — lies over
+      "data" too (``partitioning.seq_shard``): the rank writes the
+      positions it owns, a prefill from position 0 attends its in-flight
+      K/V, and any other call attends over the rank's positions (the
+      kernels' LSE output, or the plain attention's) and merges across
+      "data" (``_seq_attention``, ``_ring_attention``).  A paged cache
+      takes no sequence shard.
     Returns (out, cache).
     """
     q, k, v = qkv_project(cfg, p, hd, x, positions, part=part)
-    layout = q
+    layout, seq = q, None
     if is_dtensor(q):
         # q, k, v shard batch rows and heads, positions batch rows
         # (``rules_tp``); a rank's query heads and their KV heads sit on
@@ -516,6 +613,12 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
             if write_valid is not None:
                 write_valid = _rows_of(part, write_valid, ("batch", "seq"))
         if cache is not None:
+            if page_map is None:
+                seq = seq_shard(part, cache["k"])
+            elif part.rules.get("cache_seq"):
+                raise ValueError("a paged cache takes no sequence shard "
+                                 "(ROADMAP Queue 1): serve the long-decode "
+                                 "rules from a linear or ring cache")
             cache = _cache_shards(cache, part, paged=page_map is not None)
         if head_rows is not None and head_rows.shape[-1] != q.shape[2]:
             raise ValueError(
@@ -546,10 +649,16 @@ def self_attention_block(cfg: ModelConfig, p: dict, hd: HeadDims, x,
         out = attend(k, v, positions, causal_mask(positions, positions,
                                                   window), flash=use_kernel)
         return finish(out), None
-    if page_map is None and window and cache["k"].shape[1] == window:
+    ring = page_map is None and window and (
+        cache["k"].shape[1] if seq is None else seq.total) == window
+    if ring:
         return _ring_attention(q, k, v, positions, cache, cache_pos,
                                window, attend, finish, use_kernel, head_rows,
-                               head_inv), cache
+                               head_inv, seq), cache
+    if seq is not None:
+        return _seq_attention(q, k, v, positions, cache, cache_pos, seq,
+                              window, attend, finish, use_kernel, head_rows,
+                              head_inv), cache
     quant = "k_sc" in cache
     new = {"k": k, "v": v}
     if quant:

@@ -578,6 +578,98 @@ def expert_shard(x, w) -> ExpertShard:
 
 
 # ---------------------------------------------------------------------------
+# Sequence parallelism of a KV cache: attention over a rank's positions
+# ---------------------------------------------------------------------------
+
+# the log-sum-exp of a row with no valid key: weight 0 in a merge, never NaN
+EMPTY_LSE = -1e30
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor,
+                   dtype=None) -> torch.Tensor:
+    """Attention over a whole sequence from its shards' partials, stacked
+    along dimension 0: ``out`` (n, ..., dh) each shard's float32 softmax
+    output over its own keys, ``lse`` (n, ...) the log-sum-exp of its
+    scores (``EMPTY_LSE`` where it holds no valid key).  With ``M`` the
+    largest LSE, the whole call's output is ``sum exp(lse - M) · out /
+    sum exp(lse - M)``, cast to ``dtype`` once (float32 by default).  The
+    local form of :meth:`SeqShard.merge`; a shard that holds every valid
+    key (the others ``EMPTY_LSE``) comes back bit for bit."""
+    m = lse.amax(dim=0)
+    w = torch.exp(lse - m)
+    num = (out * w[..., None]).sum(dim=0)
+    return (num / w.sum(dim=0)[..., None]).to(dtype or torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """How attention over a KV cache whose sequence (or ring slots) is
+    sharded over a mesh's data axis splits (``seq_shard``; the
+    ``seq_over_data`` rules of the reference's long-decode cells): this
+    rank holds positions (or slots) ``[lo, lo + n)`` of ``total``, cut as
+    ``torch.chunk`` cuts them (the way DTensor shards; a last shard may be
+    short or empty), and ``group`` is the data axis's group, whose ranks
+    hold the rest.  A rank writes only the positions it owns, attends over
+    them alone — its softmax's float32 output and log-sum-exp — and the
+    ranks merge the partials (``merge``): two small collectives, no K or
+    V.  Without a group (one data rank) the merge is the identity."""
+    lo: int
+    n: int
+    total: int
+    group: Optional[object] = None
+
+    def owns(self, pos: int) -> bool:
+        """Whether position (or slot) ``pos`` lies in this rank's shard."""
+        return self.lo <= pos < self.lo + self.n
+
+    def span(self, start: int, count: int) -> Tuple[int, int]:
+        """(first, count) of ``[start, start + count)`` that this rank
+        holds (count 0 where none)."""
+        a = max(start, self.lo)
+        b = min(start + count, self.lo + self.n)
+        return a, max(b - a, 0)
+
+    def local_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
+        """A decode kernel's valid lengths (a prefix of the whole cache)
+        as lengths of this rank's shard: ``clamp(len - lo, 0, n)``."""
+        return (lengths - self.lo).clamp(0, self.n)
+
+    def merge(self, out: torch.Tensor, lse: torch.Tensor,
+              dtype=None) -> torch.Tensor:
+        """This rank's partials ``out`` (..., dh) float32 and ``lse`` (...)
+        -> the whole call's output, the same on every rank of ``group``,
+        cast to ``dtype`` once: the LSE's max over the group (one
+        all-reduce), then ``exp(lse - max) · out`` beside ``exp(lse -
+        max)`` summed over it (a second).  :func:`merge_partials` is the
+        same arithmetic on partials stacked in one process."""
+        if self.group is None:
+            return merge_partials(out[None], lse[None], dtype)
+        import torch.distributed as dist
+        m = lse.clone()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        w = torch.exp(lse - m)
+        both = torch.cat([(out * w[..., None]).reshape(-1), w.reshape(-1)])
+        dist.all_reduce(both, group=self.group)
+        num = both[:out.numel()].view(out.shape)
+        den = both[out.numel():].view(w.shape)
+        return (num / den[..., None]).to(dtype or torch.float32)
+
+
+def seq_shard(part, cache: torch.Tensor, dim: int = 1) -> Optional[SeqShard]:
+    """The sequence split of attention over ``cache`` (a layer's K buffer,
+    (B, T, KvE, dh) or a ring's (B, W, KvE, dh)) under ``part``: None
+    unless ``part``'s rules put "cache_seq" on a mesh axis
+    (``make_partitioner(seq_over_data=True)``); else this rank's
+    ``[lo, lo + n)`` of dimension ``dim`` (``local_range``) and that
+    axis's group (None where it holds one rank)."""
+    axis = part.rules.get("cache_seq") if part.mesh is not None else None
+    if axis is None:
+        return None
+    lo, n = local_range(cache, dim)
+    return SeqShard(lo, n, cache.shape[dim], mesh_group(part.mesh, axis))
+
+
+# ---------------------------------------------------------------------------
 # Head parallelism of the recurrent families: layers on local tensors
 # ---------------------------------------------------------------------------
 

@@ -107,38 +107,52 @@ def _layer_view(tree, l):
     return tree[l]
 
 
-def place_state(tree, cfg: ModelConfig, part, batch: Optional[int] = None):
-    """``tree`` — a fresh cache or decode state — on ``part``'s mesh,
-    placed as ``placement_bridge.decode_state_shardings`` says (the
+def state_shardings(tree, cfg: ModelConfig, part,
+                    batch: Optional[int] = None) -> dict:
+    """{leaf path: ``Sharding``} of a fresh cache or decode state on
+    ``part``'s mesh: ``placement_bridge.decode_state_shardings`` (the
     reference's rules: a KV cache's batch rows over "data" and its
     expanded KV heads over "model", int8 scales alike, WKV and SSM states
     their heads over "model", conv tails their channels, token shifts
-    batch rows only, positions replicated).  Buffers made on the meta
-    device are built shard by shard (``partitioning.placed_full``), so no
-    rank ever allocates the whole cache or state; small leaves are cut
-    from the whole (``place``).  A ``batch`` that does not split over the
-    data axes (a one-row admission prefill) stays whole there
-    (``Partitioner.for_batch``).  Without a mesh: ``tree`` itself."""
-    if part.mesh is None:
-        return tree
+    batch rows only, positions replicated), with the cache's sequence —
+    a ring's slots — over "data" and no batch axis where ``part`` takes
+    the long-decode rules (``make_partitioner(seq_over_data=True)``).  A
+    ``batch`` that does not split over the data axes (a one-row admission
+    prefill) stays whole there (``Partitioner.for_batch``); a sequence
+    shard is no batch axis and stays."""
     from torch.distributed.tensor import Replicate
     from repro_torch.core.placement_bridge import decode_state_shardings
     mesh = part.mesh
     names = tuple(mesh.mesh_dim_names)
-    keep = batch is not None and part.for_batch(batch) is not part
-    shardings = flatten(decode_state_shardings(tree, cfg, mesh))
+    seq_over_data = part.rules.get("cache_seq") is not None
+    keep = batch is not None and not seq_over_data \
+        and part.for_batch(batch) is not part
+    shardings = flatten(decode_state_shardings(tree, cfg, mesh,
+                                               seq_over_data=seq_over_data))
+    if keep:
+        shardings = {path: Sharding(mesh, tuple(
+            Replicate() if n in ("pod", "data") else pl
+            for n, pl in zip(names, sh.placements)))
+            for path, sh in shardings.items()}
+    return shardings
+
+
+def place_state(tree, cfg: ModelConfig, part, batch: Optional[int] = None):
+    """``tree`` — a fresh cache or decode state — on ``part``'s mesh,
+    placed as ``state_shardings`` says.  Buffers made on the meta device
+    are built shard by shard (``partitioning.placed_full``), so no rank
+    ever allocates the whole cache or state; small leaves are cut from
+    the whole (``place``).  Without a mesh: ``tree`` itself."""
+    if part.mesh is None:
+        return tree
+    shardings = state_shardings(tree, cfg, part, batch)
 
     def one(path, leaf):
         if not isinstance(leaf, torch.Tensor) or is_dtensor(leaf):
             return leaf
-        sh = shardings[path]
-        if keep:
-            sh = Sharding(mesh, tuple(
-                Replicate() if n in ("pod", "data") else pl
-                for n, pl in zip(names, sh.placements)))
         if leaf.device.type == "meta":
-            return placed_full(leaf.shape, 0, leaf.dtype, sh)
-        return place(leaf, sh)
+            return placed_full(leaf.shape, 0, leaf.dtype, shardings[path])
+        return place(leaf, shardings[path])
     return map_with_path(one, tree)
 
 

@@ -34,6 +34,12 @@ residual layout (``partitioning.from_local``: batch rows over the data
 axes, whole over "model") for the shared block, which runs sharded as a
 dense layer does (its heads' K/V in the rank's shard of the cache), and
 comes back with ``local``.  The logits come back whole on every rank.
+Under the long-decode rules (``make_partitioner(seq_over_data=True)``, the
+reference's ``long_500k`` cells) the batch stays whole, the shared
+block's (G, B, T, KvE, dh) cache views shard T over "data" (each rank
+attends over its positions and the ranks merge their partial softmaxes,
+``layers.self_attention_block``), and the Mamba-2 states lie whole over
+"data", their heads over "model".
 """
 from __future__ import annotations
 

@@ -2141,3 +2141,110 @@ def test_ring_decode_step_makes_no_host_sync(cuda, use_kernel):
         torch.cuda.set_sync_debug_mode(0)
     assert int(state["cache"]["pos"][0, 12]) == 12
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------- long-decode: LSE and slot shards
+def _spans(n, shards):
+    chunk = -(-n // shards)
+    return [(min(r * chunk, n), max(min(chunk, n - r * chunk), 0))
+            for r in range(shards)]
+
+
+def _lse_tol(dtype):
+    # bf16 q is scaled and rounded before the tensor cores score it
+    return dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
+        else dict(atol=5e-2, rtol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 64, 80, 128])
+def test_resident_lse_output_and_sequence_shards(cuda, dtype, dh):
+    """``return_lse``: the float32 output, cast, equals the call without
+    the flag bit for bit; the LSE matches the plain version's (-1e30 for a
+    length-0 row); over 4 sequence shards of 300 positions (lengths ending
+    in shards 0, 2 and 3, and 0) the merged partials equal the whole call,
+    and a shard past a row's length gives zeros weighing nothing."""
+    from repro_torch.models.partitioning import (EMPTY_LSE, SeqShard,
+                                                 merge_partials)
+    B, H, KvE, T = 4, 8, 2, 300
+    rng = np.random.default_rng(dh + 1)
+    q = torch.from_numpy(rng.standard_normal((B, H, dh), np.float32))
+    cache = torch.from_numpy(rng.standard_normal((2, B, T, KvE, dh),
+                                                 np.float32))
+    q, cache = q.to(cuda, dtype), cache.to(cuda, dtype)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    lens = torch.tensor([40, 0, 200, T], dtype=torch.int32, device=cuda)
+    rows = torch.tensor([5, 4, 6, 7, 0, 2, 3, 1], dtype=torch.int32,
+                        device=cuda)
+    before = decode_attention_resident.launches
+    out, lse = decode_attention_resident(q, k, v, lens, rows,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_attention_resident.launches == before + 1
+    assert out.dtype == lse.dtype == torch.float32
+    assert torch.equal(out.to(dtype),
+                       decode_attention_resident(q, k, v, lens, rows))
+    want, want_lse = decode_attention_resident_plain(q, k, v, lens, rows,
+                                                     return_lse=True)
+    torch.testing.assert_close(out, want, **TOLS[dtype])
+    torch.testing.assert_close(lse, want_lse, **_lse_tol(dtype))
+    assert (lse[1] == EMPTY_LSE).all() and not out[1].any()
+    parts = []
+    for lo, n in _spans(T, 4):
+        seq = SeqShard(lo, n, T)
+        parts.append(decode_attention_resident(
+            q, k[:, :, lo:lo + n], v[:, :, lo:lo + n],
+            seq.local_lengths(lens), rows, return_lse=True))
+    assert (parts[1][1][0] == EMPTY_LSE).all() and not parts[1][0][0].any()
+    merged = merge_partials(torch.stack([p[0] for p in parts]),
+                            torch.stack([p[1] for p in parts]), dtype)
+    whole = decode_attention_resident(q, k, v, lens, rows)
+    torch.testing.assert_close(merged.float(), whole.float(), **TOLS[dtype])
+    assert _row_rel_err(merged, whole) <= DECODE_ROW_REL[dtype]
+    assert torch.equal(merge_partials(out[None], lse[None], dtype), whole)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_ring_slot_shards_with_extent_below_the_window(cuda, dtype, dh):
+    """The ring kernel over 4 shards of 256 of a 1024-slot ring (extent <
+    window; the split a multiple of 128), wrapped (positions 1324-2347),
+    with rows whose window holds every slot, all but 10, shard 1's only
+    (1324-1499) and none: each shard against its
+    plain version, the merged partials against the whole call, and the
+    whole ring's LSE call, cast, bit-equal to the call without it."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ring_resident, decode_attention_ring_resident_plain)
+    from repro_torch.models.partitioning import EMPTY_LSE, merge_partials
+    W = 1024
+    args = _ring_args(cuda, dtype, B=4, H=8, KvE=2, W=W, dh=dh,
+                      n=2 * W + 300, lengths=(2 * W + 300, 2 * W + 310,
+                                              1500, 100), seed=dh)
+    q, k, v, lens, pos, rows = args
+    whole = decode_attention_ring_resident(*args, window=W)
+    out, lse = decode_attention_ring_resident(*args, window=W,
+                                              return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out.to(dtype), whole)
+    assert (lse[3] == EMPTY_LSE).all() and not out[3].any()
+    parts = []
+    before = decode_attention_ring_resident.launches
+    for lo, n in _spans(W, 4):
+        sargs = (q, k[:, :, lo:lo + n], v[:, :, lo:lo + n], lens,
+                 pos[lo:lo + n], rows)
+        got = decode_attention_ring_resident(*sargs, window=W,
+                                             return_lse=True)
+        want = decode_attention_ring_resident_plain(*sargs, window=W,
+                                                    return_lse=True)
+        torch.testing.assert_close(got[0], want[0], **TOLS[dtype])
+        assert _row_rel_err(got[0], want[0]) <= RING_ROW_REL[dtype]
+        torch.testing.assert_close(got[1], want[1], **_lse_tol(dtype))
+        parts.append(got)
+    torch.cuda.synchronize()
+    assert decode_attention_ring_resident.launches == before + 4
+    empty = [bool((p[1][2] == EMPTY_LSE).all()) for p in parts]
+    assert any(empty) and not all(empty)
+    merged = merge_partials(torch.stack([p[0] for p in parts]),
+                            torch.stack([p[1] for p in parts]), dtype)
+    torch.testing.assert_close(merged.float(), whole.float(), **TOLS[dtype])
+    assert _row_rel_err(merged, whole) <= RING_ROW_REL[dtype]
