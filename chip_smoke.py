@@ -110,7 +110,13 @@ the trained weights then serve through the flash and resident decode
 kernels (f32 streams equal to the plain path's, launch counts exact, and
 ``ServingEngine(use_kernel=True)`` on the bf16 weights); and train steps
 at llama3-8b's published widths (4 layers), split into forward+backward
-and the AdamW update.
+and the AdamW update.  Then it trains on a (1, 1) ("data", "model") NCCL
+mesh through ``launch.steps.train_cell`` — the reference's train cell:
+fsdp, sequence parallelism, remat "full" — one reduced float32 step of
+every family (llama3-8b under the zero3 layout too) against the
+unsharded step on the card, and five bf16 steps of llama3-8b x4 at
+published widths on B 1 x S 4096 beside five unsharded ones (step
+split, peak memory, loss curves); no kernel launches there.
 
     python3 chip_smoke.py --ab build/parent . . build/parent
 
@@ -124,7 +130,8 @@ shard and mesh phases; ``--only audio_vlm`` the VLM from an int8 cache
 (bf16 path and f32 stream pair) and musicgen and the VLM served sharded
 on the one-card mesh; ``--only mesh_mem`` int8 weights and the paged MoE
 on one-card meshes; ``--only audit`` the hot-path audit; ``--only long``
-the long-decode phase.
+the long-decode phase; ``--only train_mesh`` training on the one-card
+mesh.
 
 Output: progress lines, then the card's ``name, power.limit`` line, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -3637,22 +3644,13 @@ def phase_churn_stream_pairs():
 # served through the flash and resident decode kernels.
 #
 # The train parity phase: the CPU tests' reduced float32 widths
-# (``tests/conftest.reduced_config``) of four families, one train step on
+# (``repro_torch.configs.reduced``) of four families, one train step on
 # the card against the same step on the CPU from the same weights.  Adam's
 # first step moves each weight by about lr * sign(g): a gradient element
 # within rounding of zero may take either sign on the two devices, so the
 # step's lr is small enough (1e-5) that such a flip stays inside the
 # bound on the smallest leaf (the 0.02-scale embedding table).
-TRAIN_BASE = dict(d_model=64, d_ff=128, vocab_size=97, dtype="float32",
-                  param_dtype="float32")
-TRAIN_PARITY = {
-    "llama3-8b": dict(n_layers=2, n_heads=4, d_head=16, n_kv_heads=4),
-    "mixtral-8x7b": dict(n_layers=2, n_heads=4, d_head=16, n_kv_heads=4,
-                         n_experts=4, sliding_window=8),
-    "rwkv6-7b": dict(n_layers=2, n_heads=4, d_head=16),
-    "zamba2-2.7b": dict(n_layers=4, shared_attn_every=2, n_heads=4,
-                        d_head=16, n_kv_heads=4),
-}
+TRAIN_PARITY = ("llama3-8b", "mixtral-8x7b", "rwkv6-7b", "zamba2-2.7b")
 TRAIN_PARITY_LR = 1e-5
 TRAIN_PARITY_REL = 1e-4      # of each leaf's largest magnitude
 # paper-gpt at its published config through launch.train: B 8 x S 512,
@@ -3690,14 +3688,14 @@ def phase_train_parity():
     leaf's largest magnitude.  rwkv6's ``u``/``lora_B``/``lw_B`` and
     zamba2's SSM parameters are seeded nonzero first; mixtral's loss
     carries its MoE aux loss."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
     from repro_torch.launch.steps import make_train_step, value_and_grad
     from repro_torch.models.api import build_model
     from repro_torch.optim.adamw import AdamW, tree_map
     from repro_torch.weights import params_from_jax
     opt = AdamW(lr=TRAIN_PARITY_LR)
-    for arch, over in TRAIN_PARITY.items():
-        cfg = get_config(arch).with_overrides(**TRAIN_BASE, **over)
+    for arch in TRAIN_PARITY:
+        cfg = reduced_config(arch)
         params = build_model(cfg, device="cuda").init(
             # rpr: ignore[RPR001] -- another model's weights, from seed 0
             torch.Generator(device="cuda").manual_seed(0))
@@ -4005,6 +4003,194 @@ def phase_train_step_full_width():
     check(losses[-1] < losses[0], f"llama3-8b train step: the loss did not "
           f"fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
     del params
+
+
+# ------------------------------------------- training on a DeviceMesh
+# part (a): the reduced float32 widths of the CPU tests
+# (``repro_torch.configs.reduced``), one train step of each family
+# through ``launch.steps.train_cell`` on a (1, 1) ("data", "model") NCCL
+# mesh (fsdp, sequence parallelism, remat "full"; mixtral with capacity
+# dispatch; llama3-8b under the zero3 layout too) against the unsharded
+# port's step on the card from the same weights and batch.  On one rank
+# every explicit collective's group is None: the card holds the DTensor
+# path, the placements and CUDA; the collectives' backwards are the gloo
+# ranks' (``tests/test_torch_train_shard*.py``).
+MESH_TRAIN = {"llama3-8b": "tp", "llama3-8b zero3": "zero3",
+              "mixtral-8x7b": "tp", "rwkv6-7b": "tp", "zamba2-2.7b": "tp",
+              "musicgen-large": "tp", "llama-3.2-vision-11b": "tp"}
+MESH_TRAIN_OPT = dict(lr=1e-3, eps=1e-3, grad_clip=1.0)
+MESH_TRAIN_REL = 1e-5        # of each leaf's largest magnitude, float32
+# part (b): llama3-8b at published widths, 4 layers, bf16, one data rank's
+# row of the reference's train_4k cell (B 1 x S 4096), 5 steps
+MESH_FULL_B, MESH_FULL_S, MESH_FULL_STEPS = 1, 4096, 5
+# the two runs' losses on the same card: the same kernels, but the mesh's
+# loss is a sum over its tokens divided by their count where the plain
+# one is a mean, and bf16 updates compound such a difference
+MESH_FULL_LOSS_ATOL = 2e-2
+# Adam's first steps move every weight by ~lr: at 3e-4 the repeated
+# 4096-token batch's loss rose from 12.19 to 23.35 over 5 steps in both
+# runs alike (measured on one H100), so this phase steps at 1e-5
+MESH_FULL_LR = 1e-5
+
+
+def perturbed_constants(params, seed=0):
+    """Every constant floating leaf (zero biases, gates, adapters, ``u``,
+    the SSM parameters, unit norms) moved by seeded 0.3 N(0, 1), in place:
+    a zero leaf would hide a gradient summed on the wrong ranks."""
+    from repro_torch.optim.adamw import tree_leaves
+    rng = np.random.default_rng(seed)
+    for t in tree_leaves(params):
+        if t.is_floating_point() and t.numel() and bool(
+                (t == t.reshape(-1)[0]).all()):
+            t.add_(torch.from_numpy((0.3 * rng.standard_normal(
+                tuple(t.shape))).astype(np.float32)).to(t.device, t.dtype))
+    return params
+
+
+def _whole_rel_err(got, want) -> float:
+    """``_tree_rel_err`` with DTensor leaves read whole."""
+    from repro_torch.models.partitioning import whole
+    from repro_torch.optim.adamw import tree_map
+    return _tree_rel_err(tree_map(whole, got), want)
+
+
+def mesh_train_batch(cfg, B, S, device="cuda"):
+    """One ``SyntheticLM`` batch on the card; a VLM's adds seeded image
+    embeddings (8 rows, 8 and 5 valid)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    batch = {k: torch.from_numpy(v).to(device) for k, v in next(iter(
+        SyntheticLM(cfg.vocab_size, S, B))).items()}
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(5)
+        batch["img_embeds"] = torch.from_numpy((0.5 * rng.standard_normal(
+            (B, 8, cfg.d_model))).astype(np.float32)).to(device)
+        batch["img_mask"] = (torch.arange(8)[None] < torch.tensor(
+            [8, 5][:B])[:, None]).to(device)
+    return batch
+
+
+def mesh_train_pair(label, layout):
+    """Part (a) for one family: its step on the one-card mesh against the
+    unsharded step; returns the (loss, grads, params) gaps."""
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import (make_train_step, train_cell,
+                                          value_and_grad)
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+    t0 = time.monotonic()
+    cfg = reduced_config(label.split()[0])
+    model = build_model(cfg, device="cuda", remat="full",
+                        capacity_moe=cfg.is_moe)
+    params = perturbed_constants(model.init(
+        # rpr: ignore[RPR001] -- another model's weights, from seed 0
+        torch.Generator(device="cuda").manual_seed(0)))
+    batch = mesh_train_batch(cfg, 2, 16)
+    opt = AdamW(**MESH_TRAIN_OPT)
+    loss, grads = value_and_grad(model.loss, params, batch)
+    new_p, _, _ = make_train_step(model, opt)(params, opt.init(params),
+                                              batch)
+    step, placed, state, _ = train_cell(
+        cfg, make_debug_mesh(1, 1), fsdp=True, layout=layout,
+        remat="full", opt=opt, params=params)
+    m_loss, m_grads = value_and_grad(step.model.loss, placed, batch)
+    m_new, _, _ = step(placed, state, batch)
+    gaps = (abs(m_loss.item() - loss.item()) / abs(loss.item()),
+            _whole_rel_err(m_grads, grads), _whole_rel_err(m_new, new_p))
+    log(f"mesh train pair {label} ({layout}, reduced f32, (1, 1) NCCL "
+        f"mesh): loss {m_loss.item():.6f} vs unsharded {loss.item():.6f}; "
+        f"rel gaps loss {gaps[0]:.2e}, worst grad leaf {gaps[1]:.2e}, "
+        f"params after one step {gaps[2]:.2e} (limit "
+        f"{MESH_TRAIN_REL:.0e}); {time.monotonic() - t0:.1f} s")
+    for what, err in zip(("loss", "grads", "params"), gaps):
+        check(err <= MESH_TRAIN_REL, f"mesh train {label}: {what} differ "
+              f"by {err:.2e} of their scale")
+    return gaps
+
+
+def mesh_train_pairs():
+    """Part (a): every family's pair; returns {label: gaps}."""
+    gaps = {}
+    for label, layout in MESH_TRAIN.items():
+        gaps[label] = mesh_train_pair(label, layout)
+        release()
+    return gaps
+
+
+def mesh_train_full_width(card):
+    """Part (b): llama3-8b at published widths (d 4096, 32 q / 8 KV heads
+    of 128, d_ff 14336, vocab 128256), ``N_LAYERS`` layers, bf16, B 1 x S
+    4096: MESH_FULL_STEPS steps unsharded (remat "full"), the state freed,
+    then the same weights through ``train_cell`` on the one-card mesh
+    (fsdp, sequence parallelism, remat "full").  Logs each run's split
+    (forward + backward, the update), peak memory and loss curve."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import train_cell
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config("llama3-8b").with_overrides(n_layers=N_LAYERS)
+    B, S, n = MESH_FULL_B, MESH_FULL_S, MESH_FULL_STEPS
+    model = build_model(cfg, device="cuda", remat="full")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = mesh_train_batch(cfg, B, S)
+    runs = {}
+    for label in ("unsharded", "mesh (1, 1)"):
+        if label == "unsharded":
+            run_model = model
+            run_params = params
+        else:
+            step, run_params, _, _ = train_cell(
+                cfg, make_debug_mesh(1, 1), fsdp=True, remat="full",
+                opt=AdamW(lr=MESH_FULL_LR), params=params)
+            run_model = step.model
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        losses, fb, upd = time_train_split(
+            run_model, AdamW(lr=MESH_FULL_LR), run_params, batch, n)
+        runs[label] = (losses, torch.cuda.max_memory_allocated(), fb, upd)
+        del run_params
+        log(f"mesh train full width {label}: llama3-8b x{N_LAYERS} bf16 B "
+            f"{B} x S {S}, remat full; losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; peak {runs[label][1] / 1e9:.2f} GB; {card}")
+        log_train_split(f"llama3-8b x{N_LAYERS} {label}", cfg, B, S, fb, upd)
+    del model, params
+    release()
+    (lp, _, _, _), (lm, _, _, _) = runs["unsharded"], runs["mesh (1, 1)"]
+    gap = max(abs(a - b) for a, b in zip(lp, lm))
+    log(f"mesh train full width: losses within {gap:.2e} of the "
+        f"unsharded run's (limit {MESH_FULL_LOSS_ATOL:.0e})")
+    check(all(math.isfinite(x) for x in lp + lm),
+          "mesh train full width: a non-finite loss")
+    check(gap <= MESH_FULL_LOSS_ATOL, f"mesh train full width: losses "
+          f"differ by {gap:.2e}")
+    check(lm[-1] < lm[0], f"mesh train full width: the loss did not fall "
+          f"({lm[0]:.4f} -> {lm[-1]:.4f})")
+    return runs
+
+
+def phase_mesh_train(card):
+    """Training on a one-card ("data", "model") NCCL mesh: part (a)'s
+    reduced f32 pairs of every family, part (b) at full width.  Training
+    runs the plain path: no kernel launches (checked)."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+
+    def counts():
+        # the counters as the records read them: earlier phases' counts
+        # stay, so the phase compares before with after
+        return {**read_launches(), "rwkv6_chunked": rwkv6_chunked.launches}
+    t0 = time.monotonic()
+    torch.cuda.synchronize()
+    before = counts()
+    with one_rank_nccl():
+        mesh_train_pairs()
+        mesh_train_full_width(card)
+    launched = {k: n - before[k] for k, n in counts().items()
+                if n != before[k]}
+    check(not launched, f"mesh training launched kernels: {launched}")
+    log(f"mesh train phase: no kernel launched; "
+        f"{time.monotonic() - t0:.1f} s")
 
 
 # ------------------------------------ the tensor-parallel layout (tp 16)
@@ -6402,8 +6588,8 @@ def tp_phases(by_name):
 
 
 def train_phases():
-    """The training phases in order; returns the launches of the
-    train-then-serve phase by kernel."""
+    """The training phases in order, training on the one-card mesh last;
+    returns the launches of the train-then-serve phase by kernel."""
     phase_train_parity()
     release()
     trained = phase_train_paper_gpt()
@@ -6412,6 +6598,8 @@ def train_phases():
     del trained
     release()
     phase_train_step_full_width()
+    release()
+    phase_mesh_train(card_line())
     release()
     return served
 
@@ -6488,7 +6676,8 @@ def main():
                     help="only build ROOT's kernels and serve the paged and "
                     "int8-paged main paths on them; print their splits")
     ap.add_argument("--only", choices=("train", "tp", "ssm", "audio_vlm",
-                                       "mesh_mem", "audit", "long"),
+                                       "mesh_mem", "audit", "long",
+                                       "train_mesh"),
                     help="only build the kernels and run these phases "
                     "(no result lines)")
     args = ap.parse_args()
@@ -6526,6 +6715,11 @@ def main():
     log_ptxas(logs)
     if args.only == "train":
         log(f"train-then-serve launches: {train_phases()}")
+        return
+    if args.only == "train_mesh":
+        phase_mesh_train(card)
+        log(f"mesh train phase passed; {time.monotonic() - t0:.1f} s from "
+            f"the build on")
         return
     if args.only == "ssm":
         wkv6_head_shards()

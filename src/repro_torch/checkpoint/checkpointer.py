@@ -44,6 +44,20 @@ def _key(path) -> str:
     return "/".join(path)
 
 
+def _sharding_at(flat_sh, path):
+    """The entry of a flattened sharding tree for the leaf at ``path``:
+    its own, or a None written at a prefix of it.  A leaf the tree does
+    not name raises (a param that ``param_shardings`` missed would
+    otherwise come back whole among the DTensors)."""
+    if path in flat_sh:
+        return flat_sh[path]
+    for n in range(len(path) - 1, -1, -1):
+        if path[:n] in flat_sh and flat_sh[path[:n]] is None:
+            return None
+    raise ValueError(f"the shardings name no Sharding for {_key(path)}; "
+                     f"write None there to restore it as like_tree has it")
+
+
 def _mesh_of(tree):
     """The one mesh of a tree's DTensor leaves; ``None`` for a tree
     without any."""
@@ -213,8 +227,12 @@ class Checkpointer:
         ``shardings`` — a tree like ``like_tree`` of
         ``partitioning.Sharding`` (``placement_bridge.param_shardings``) —
         places every leaf as a DTensor on its mesh instead: each rank
-        reads the whole leaf and keeps its slice (no collective).  Raises
-        ``IOError`` when a leaf's bytes do not match their sha1."""
+        reads the whole leaf and keeps its slice (no collective).  A None
+        written at a leaf, or at a prefix of its path, restores that leaf
+        as ``like_tree`` has it (a train state's step counter, its data
+        cursor); a leaf that ``shardings`` does not name raises
+        ``ValueError``.  Raises ``IOError`` when a leaf's bytes do not
+        match their sha1."""
         self.wait()
         t0 = time.perf_counter()
         src = self.dir / f"step_{step:08d}"
@@ -230,14 +248,14 @@ class Checkpointer:
                 if h != meta["sha1"]:
                     raise IOError(f"checkpoint corruption at {key}")
             n_bytes += arr.nbytes
-            if shardings is not None or isinstance(like, torch.Tensor):
+            sh = None if shardings is None else _sharding_at(flat_sh, path)
+            if sh is not None or isinstance(like, torch.Tensor):
                 if meta["dtype"] == BF16:
                     t = torch.from_numpy(arr.view(np.int16)).view(
                         torch.bfloat16)
                 else:
                     t = torch.from_numpy(arr)
-            if shardings is not None:
-                sh = flat_sh.get(path)
+            if sh is not None:
                 if not isinstance(sh, Sharding):
                     raise ValueError(
                         f"the sharding of {key} is a {type(sh).__name__}, "

@@ -803,12 +803,21 @@ def batch_shardings(batch_tree, mesh, layout: str = "tp"):
 
 
 def decode_state_spec(path_names: List[str], ndim: int, mesh_names,
-                      seq_over_data: bool = False) -> Spec:
+                      seq_over_data: bool = False,
+                      layout: str = "tp") -> Spec:
     """The reference's decode-state rule for one leaf: KV caches (lead...,
     B, T, KvE, dh) batch over data and heads over model (the co-location
     invariant; ``seq_over_data``: the cache sequence over data instead),
     int8 scales alike, SSM and WKV states heads over model, token shifts
-    batch over data, the ring's slot positions replicated."""
+    batch over data, the ring's slot positions replicated.  ``layout=
+    "zero3"`` places the state as ``rules_zero3`` places its
+    intermediates: the batch over every mesh dimension, the heads over
+    none."""
+    if layout == "zero3":
+        spec = decode_state_spec(path_names, ndim, mesh_names)
+        every = tuple(mesh_names)
+        return tuple(every if a == ("data",) or a == ("pod", "data")
+                     else None for a in spec)
     data_axes = ("pod", "data") if "pod" in mesh_names else ("data",)
     batch_axes = None if seq_over_data else data_axes
     nm = path_names[-1] if path_names else ""
@@ -843,7 +852,7 @@ def decode_state_spec(path_names: List[str], ndim: int, mesh_names,
 
 
 def decode_state_shardings(state_tree, cfg, mesh, *,
-                           seq_over_data: bool = False):
+                           seq_over_data: bool = False, layout: str = "tp"):
     """A ``Sharding`` per decode-state leaf on ``mesh``
     (``decode_state_spec``); a leaf that is a Python number (a lock-step
     position) is replicated."""
@@ -851,6 +860,6 @@ def decode_state_shardings(state_tree, cfg, mesh, *,
 
     def one(path, leaf):
         spec = decode_state_spec(list(path), len(_shape(leaf)), names,
-                                 seq_over_data)
+                                 seq_over_data, layout)
         return Sharding(mesh, placements(mesh, spec))
     return map_with_path(one, state_tree)

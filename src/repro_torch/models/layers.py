@@ -43,9 +43,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.partitioning import (EMPTY_LSE, NULL, Partitioner,
                                              Sharding, batch_axes,
-                                             from_local, is_dtensor, like,
-                                             local, local_range,
-                                             local_shards, seq_shard, whole)
+                                             from_local, gather_fsdp,
+                                             is_dtensor, like, local,
+                                             local_extent, local_range,
+                                             local_shards, mesh_group,
+                                             seq_shard, sum_over,
+                                             use_placements, whole)
 from repro_torch.models.quantization import is_quantized, wt
 # attention_scores and chunked_attention stay importable from here, beside
 # the rest of the reference's layers
@@ -765,7 +768,8 @@ IMG_KV_AXES = ("batch", "img_seq", "kv_heads", None)
 
 
 def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x, *,
-               rows: tuple = None, heads: tuple = None) -> dict:
+               rows: tuple = None, heads: tuple = None, fsdp=(),
+               partial=()) -> dict:
     """Cross-attention K/V {"k", "v"} (B, I, KvE, dh) of the image
     embeddings ``kv_x`` (B, I, D): no RoPE, ``bk``/``bv`` for
     ``qkv_bias`` configs, each KV head repeated ``rep`` times.
@@ -778,7 +782,12 @@ def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x, *,
     where the weights are replicated).  Expanded row e is replica
     ``e % rep`` of KV head ``e // rep``, so the shard needs no other
     rank's weights and no rank computes the whole image K/V.  ``kv_x``
-    may be a DTensor placed with those batch rows."""
+    may be a DTensor placed with those batch rows.
+
+    ``fsdp`` and ``partial`` (``partitioning.gather_fsdp``): the storage
+    axes the weights are gathered from on use, and the mesh dimensions
+    over which the shard is one part of the whole projection (its batch
+    rows, its heads): the weights' gradients are partial sums there."""
     x = local(kv_x) if is_dtensor(kv_x) else kv_x
     rows = rows or (0, x.shape[0])
     lo, n = heads or (0, hd.KvE)
@@ -790,19 +799,31 @@ def project_kv(cfg: ModelConfig, p: dict, hd: HeadDims, kv_x, *,
     # the KV heads whose replicas cover the expanded rows [lo, lo + n)
     h0, h1 = lo // hd.rep, -(-(lo + n) // hd.rep)
     ws = {name: wt(p, "w" + name, x.dtype) for name in ("k", "v")}
-    w_lo, w_n = local_range(ws["k"], ws["k"].dim() - 2)
+    # the KV head rows the rank holds once the storage axes are gathered
+    w_lo, w_n = _used_range(ws["k"], ws["k"].dim() - 2, fsdp)
     if n and not w_lo <= h0 < h1 <= w_lo + w_n:
         raise ValueError(f"this rank's KV weight rows do not hold the "
                          f"expanded rows [{lo}, {lo + n})")
     out = {}
     for name in ("k", "v"):
-        w = local(ws[name]).narrow(-2, h0 - w_lo, h1 - h0)
+        w = gather_fsdp(ws[name], fsdp, partial).narrow(-2, h0 - w_lo,
+                                                         h1 - h0)
         t = torch.einsum("bsd,dhk->bshk", x, w)
         if cfg.qkv_bias:
-            t = t + local(p["b" + name]).narrow(-2, h0 - w_lo,
-                                                h1 - h0).to(x.dtype)
+            b = gather_fsdp(p["b" + name], fsdp, partial)
+            t = t + b.narrow(-2, h0 - w_lo, h1 - h0).to(x.dtype)
         out[name] = repeat_kv(t, hd.rep).narrow(-2, lo - h0 * hd.rep, n)
     return out
+
+
+def _used_range(w, dim: int, fsdp) -> tuple:
+    """(start, length) along ``dim`` of the slice of ``w`` this rank uses
+    once the storage axes ``fsdp`` are gathered (``local_range`` of the
+    gathered layout; the whole axis of a plain tensor)."""
+    if not is_dtensor(w):
+        return 0, w.shape[dim]
+    return local_extent(w.shape, Sharding(w.device_mesh, use_placements(
+        w, fsdp)))[dim]
 
 
 def check_prefix_mask(kv_mask):
@@ -975,7 +996,11 @@ def _embed_int8_shards(cfg: ModelConfig, tab: dict, tokens):
 def unembed(cfg: ModelConfig, p: dict, x, *, part=NULL):
     """Logits in float32, through ``lm_head`` (D, V) or, with tied
     embeddings, the transposed ``tok_embed`` (V, D) — either one
-    dequantized when int8."""
+    dequantized when int8.  Under sequence parallelism the residual
+    stream's sequence is gathered over "model" first (an all-gather whose
+    backward is a reduce-scatter: the sequence-parallel region's exit),
+    so the product sees the layout it takes without it."""
+    x = part.constrain(x, ("batch", "seq", "d_model"))
     w = wt(p, "tok_embed", x.dtype).T if cfg.tie_embeddings \
         else wt(p, "lm_head", x.dtype)
     logits = torch.einsum("bsd,dv->bsv", x, w).float()
@@ -990,7 +1015,9 @@ def embed_rows(cfg: ModelConfig, p: dict, tokens, shard):
     one term of each sum is nonzero).  An int8 table's rows are
     dequantized as ``embed`` dequantizes them, by its ``sc`` (placed
     ``(d_model,)``: whole on every rank).  Without a "model" group:
-    ``embed``, on the local (whole) table."""
+    ``embed``, on the local (whole) table.  Under autograd every rank uses
+    the sum alike, so its backward is the identity: each rank's rows take
+    their tokens' gradient."""
     if shard.model is None:
         return embed(cfg, p, tokens)
     lo, n = shard.span(cfg.vocab_size)
@@ -1001,15 +1028,48 @@ def unembed_whole(cfg: ModelConfig, p: dict, x, shard):
     """``unembed`` on local tensors: this rank's vocabulary columns of
     ``lm_head`` (or of the transposed ``tok_embed``) over its batch rows,
     gathered over "model" and the data axes — the whole float32 logits on
-    every rank (``partitioning.HeadShard``)."""
-    return shard.whole_rows(shard.gather(unembed(cfg, p, x),
-                                         cfg.vocab_size))
+    every rank (``partitioning.HeadShard``).  Under autograd ``x`` enters
+    the column-split product through ``shard.enter`` and every rank uses
+    the gathered logits alike (a loss on every rank): each takes its own
+    rows' and columns' gradient back."""
+    return shard.whole_rows(shard.gather(unembed(cfg, p, shard.enter(x)),
+                                         cfg.vocab_size, redundant=True))
+
+
+def _token_losses(logits, labels):
+    """logsumexp minus the gold logit of each token, float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - logits.gather(-1, labels.long()[..., None])[..., 0]
 
 
 def cross_entropy(logits, labels):
     """Mean token cross-entropy in float32: logits (B, S, V), labels
-    (B, S) int; logsumexp minus the gold logit, averaged."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (lse - gold).mean()
+    (B, S) int; logsumexp minus the gold logit, averaged.
+
+    Logits that are a DTensor (a sharded forward's, their vocabulary over
+    "model") give the same mean over the call's every token, each counted
+    once, as a plain tensor the same on every rank: the vocabulary is
+    gathered (DTensor's ``redistribute``), each rank sums its own tokens'
+    losses (``labels`` — whole, or a DTensor placed as the batch — cut to
+    them) and the sums are all-reduced over the mesh dimensions that split
+    the tokens, whose backward is the identity: every rank uses the loss
+    alike."""
+    if not is_dtensor(logits):
+        return _token_losses(logits, labels).mean()
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, vocab = logits.device_mesh, logits.ndim - 1
+    logits = logits.redistribute(mesh, tuple(
+        Replicate() if isinstance(pl, Shard) and pl.dim == vocab else pl
+        for pl in logits.placements))
+    ext = local_extent(logits.shape, Sharding(mesh, logits.placements))
+    labels = whole(labels)
+    for d, (start, n) in enumerate(ext[:-1]):
+        labels = labels.narrow(d, start, n)
+    total = _token_losses(logits.to_local(), labels.to(
+        logits.device_mesh.device_type)).sum()
+    names = tuple(mesh.mesh_dim_names)
+    total = sum_over(total, [mesh_group(mesh, names[m])
+                             for m, pl in enumerate(logits.placements)
+                             if isinstance(pl, Shard)])
+    return total / math.prod(logits.shape[:-1])

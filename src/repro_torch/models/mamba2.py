@@ -25,6 +25,14 @@ the gated RMSNorm sums its squares over "model" (it normalizes over the
 whole d_inner), and the rank's rows of ``w_out`` give a partial output,
 summed over "model".  The reference's ``part.constrain`` points are the
 state shards' layout, checked by the model (``zamba2``).
+
+Under autograd the normed input enters the block's split work through
+``HeadShard.enter`` (Megatron's "f") and the output leaves it through
+``HeadShard.reduce`` ("g"); the gathers of ``w_in``'s columns and of the
+conv's channels feed split work (each rank's heads), so their backward is
+a reduce-scatter, and the gated norm's sum of squares feeds it too, so its
+all-reduce has an all-reduce backward.  Parameters stored over "data"
+(``fsdp``) are gathered on use (``HeadShard.param``).
 """
 from __future__ import annotations
 
@@ -137,14 +145,16 @@ def mamba_block(cfg: ModelConfig, p: dict, x, state: Dict, shard=None):
     rank's part — ``p`` holds its shards of ``w_in`` (columns) and
     ``w_out`` (rows) and the replicated rest, ``state`` its conv channels
     and SSM heads, and the output is summed over "model" (module doc);
-    None: the whole block."""
+    None: the whole block.  ``p``'s leaves may be DTensor views, which
+    ``shard.param`` gathers."""
     d_in, nh, dh, ns, cw = mamba_dims(cfg)
     B, S, _ = x.shape
     shard = shard or HeadShard((0, B))
     lo, n = shard.heads(nh)                 # this rank's SSM heads
     c0, cn = shard.span(d_in + 2 * ns)      # and conv channels
     heads = slice(lo * dh, (lo + n) * dh)
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    p = {k: shard.param(v, split=k != "ln") for k, v in p.items()}
+    h = shard.enter(L.rms_norm(x, p["ln"], cfg.norm_eps))
     zxbcdt = shard.gather(h @ p["w_in"].to(h.dtype),
                           2 * d_in + 2 * ns + nh)
     z = zxbcdt[..., heads]
@@ -167,7 +177,7 @@ def mamba_block(cfg: ModelConfig, p: dict, x, state: Dict, shard=None):
         y = L.rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
     else:
         y = gated_rms_norm(y.to(x.dtype), p["norm"][heads], cfg.norm_eps,
-                           d_in, shard.reduce)
+                           d_in, lambda t: shard.reduce(t, redundant=False))
     out = shard.reduce(y @ p["w_out"].to(y.dtype))
     return out, {"conv": new_conv, "ssm": new_ssm}
 

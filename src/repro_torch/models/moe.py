@@ -30,7 +30,17 @@ expert migrations.
 Expert parallelism (``part`` with a mesh, a DTensor input): the stacks'
 physical rows shard over "pod" and their d_ff over "model"; each block
 runs on the rank's local tensors with explicit collectives
-(``partitioning.ExpertShard``), so no expert weight is ever gathered.
+(``partitioning.ExpertShard``), so no expert weight travels between the
+ranks that hold other experts.  Stacks stored over "data" as well
+(``fsdp``: ``(E/pod, D/data, F/model)``) are gathered over "data" on use,
+and under the zero3 layout, which stores everything over every axis,
+every rank gathers every expert.  Under autograd the routing runs alike on
+the ranks that split the experts' work, the tokens and gates enter that
+work through Megatron's "f" (``ExpertShard.enter``), and the aux loss and
+routed fractions are summed over the token ranks with an identity
+backward.  Under sequence parallelism the output leaves by a
+reduce-scatter along the sequence over "model" (Megatron's exit of the
+region) where the all-reduce would be.
 """
 from __future__ import annotations
 
@@ -39,8 +49,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init
-from repro_torch.models.partitioning import (NULL, expert_shard, is_dtensor,
-                                             like, local)
+from repro_torch.models.partitioning import (NULL, Sharding, expert_shard,
+                                             from_local, is_dtensor, like,
+                                             local)
 from repro_torch.models.quantization import is_quantized, wt
 
 
@@ -114,20 +125,48 @@ def _combine_physical(out, p, n_experts: int):
                         onehot)
 
 
-def _on_this_rank(x, p: dict):
+def _seq_out(part, x, sh) -> bool:
+    """Whether the layer's output leaves by a reduce-scatter along the
+    sequence (``ExpertShard.sum_partials(seq_out=True)``): under sequence
+    parallelism ("res_seq" over "model") when the d_ff slices lie over
+    "model" and the sequence splits evenly over it."""
+    return sh.ff is not None and part.mesh is not None \
+        and part.rules.get("res_seq") == "model" \
+        and x.shape[1] % part.mesh.size(
+            tuple(part.mesh.mesh_dim_names).index("model")) == 0
+
+
+def _output(part, out, x, seq_out: bool):
+    """The rank's output as the residual DTensor: laid out as ``x`` (its
+    batch rows, whole over "model"), or, after a reduce-scatter along the
+    sequence, with its sequence chunk over "model"."""
+    if seq_out:
+        from torch.distributed.tensor import Shard
+        names = tuple(x.device_mesh.mesh_dim_names)
+        out = from_local(out, Sharding(x.device_mesh, tuple(
+            Shard(1) if names[m] == "model" else pl
+            for m, pl in enumerate(x.placements))), x.shape)
+    else:
+        out = like(out, x)
+    return part.constrain(out, ("batch", "res_seq", "d_model"))
+
+
+def _on_this_rank(x, p: dict, part=NULL):
     """The layer's input and parameters as this rank computes them, and
     its ``partitioning.ExpertShard``.  On a mesh (a DTensor ``x``): the
     rank's tokens, the replicated router, the shard of each expert stack
-    (its physical expert rows, its d_ff slice) and the rows' slice of the
-    replicated ``owner``/``share`` maps, all local tensors — the layer
-    runs on them with explicit collectives, so no expert weight is ever
-    gathered.  Otherwise ``x`` and ``p`` themselves, every row."""
+    (its physical expert rows, its d_ff slice; its rows of D gathered
+    where ``part``'s rules store it over "data") and the rows' slice of
+    the replicated ``owner``/``share`` maps, all local tensors — the layer
+    runs on them with explicit collectives (``ExpertShard.param``: the
+    gradients partial over the token axes).  Otherwise ``x`` and ``p``
+    themselves, every row."""
     w = p["w_gate"]
-    sh = expert_shard(x, w["q8"] if is_quantized(w) else w)
+    sh = expert_shard(x, w["q8"] if is_quantized(w) else w, part)
     if not is_dtensor(x):
         return x, p, sh
-    loc = {k: ({n: local(t) for n, t in v.items()} if isinstance(v, dict)
-               else local(v)) for k, v in p.items()}
+    loc = {k: ({n: sh.param(t) for n, t in v.items()} if isinstance(v, dict)
+               else sh.param(v)) for k, v in p.items()}
     for name in ("owner", "share"):
         if name in loc:
             loc[name] = loc[name][sh.lo:sh.lo + sh.n]
@@ -161,7 +200,7 @@ def router_probs(cfg: ModelConfig, p: dict, x, part=NULL):
     """(B,S,E) top-k gate weights (softmax over the selected), plus the
     Switch-style load-balancing auxiliary loss.  On a mesh the gates are
     this rank's tokens' and the loss is over every token of the call."""
-    xl, pl, sh = _on_this_rank(x, p)
+    xl, pl, sh = _on_this_rank(x, p, part)
     gates, aux, _ = _route(cfg, pl, xl, sh)
     return gates, aux
 
@@ -178,22 +217,24 @@ def moe_block(cfg: ModelConfig, p: dict, x, part=NULL):
     all-reduce over "model", a reduce-scatter over "pod" back to its
     tokens (``partitioning.ExpertShard``).  The aux loss and the routed
     fraction are global means, equal on every rank."""
-    xl, pl, sh = _on_this_rank(x, p)
-    out, aux, freq = _dense_dispatch(cfg, pl, xl, sh)
-    return part.constrain(like(out, x), ("batch", "res_seq", "d_model")), \
-        aux, freq
+    xl, pl, sh = _on_this_rank(x, p, part)
+    seq_out = _seq_out(part, x, sh)
+    out, aux, freq = _dense_dispatch(cfg, pl, xl, sh, seq_out)
+    return _output(part, out, x, seq_out), aux, freq
 
 
-def _dense_dispatch(cfg: ModelConfig, pl: dict, xl, sh):
+def _dense_dispatch(cfg: ModelConfig, pl: dict, xl, sh,
+                    seq_out: bool = False):
     """:func:`moe_block` on the tensors a rank computes with
     (``_on_this_rank``): its expert rows ``[sh.lo, sh.lo + sh.n)`` and
     d_ff slice, over the tokens gathered from the ranks of other rows;
     the partial output summed over the ranks (``sh.sum_partials``)."""
     _, S, D = xl.shape
     gates, aux, freq = _route(cfg, pl, xl, sh)
-    # the tokens of every rank whose expert rows differ, with their gates
-    xg = sh.gather_tokens(xl)
-    gates = sh.gather_tokens(gates.to(xl.dtype))
+    # the tokens of every rank whose expert rows differ, with their gates,
+    # entering the work split over the expert rows and d_ff slices
+    xg = sh.gather_tokens(sh.enter(xl))
+    gates = sh.gather_tokens(sh.enter(gates.to(xl.dtype)))
     Bg = xg.shape[0]
     # every physical expert row on every token: (Ep, B*S, F), one batched
     # product per weight stack (the token matrix broadcasts over experts)
@@ -208,7 +249,7 @@ def _dense_dispatch(cfg: ModelConfig, pl: dict, xl, sh):
     else:
         gates = gates[..., sh.lo:sh.lo + sh.n]
     out = torch.einsum("bsed,bse->bsd", out, gates)
-    return sh.sum_partials(out), aux, freq
+    return sh.sum_partials(out, seq_out), aux, freq
 
 
 def _capacity_routing(cfg: ModelConfig, p: dict, x, capacity_factor: float,
@@ -231,7 +272,7 @@ def _capacity_routing(cfg: ModelConfig, p: dict, x, capacity_factor: float,
     cap = max(int(capacity_factor * k * n / E), 1)
     gates, aux, freq = _route(cfg, p, x, sh)                # (B,S,E)
     # the logical gates of the gathered tokens, then this rank's rows'
-    gates = sh.gather_tokens(gates.to(x.dtype))
+    gates = sh.gather_tokens(sh.enter(gates.to(x.dtype)))
     if "owner" in p:
         gates = gates.index_select(-1, p["owner"].long()) \
             * p["share"].to(x.dtype)
@@ -256,15 +297,16 @@ def moe_block_capacity(cfg: ModelConfig, p: dict, x,
     O(N·k·cf) instead of dense dispatch's O(N·E).  Returns (out (B,S,D),
     aux, freq) as :func:`moe_block`, and splits over a mesh as it does:
     each rank fills only its rows' buckets, from the gathered groups."""
-    xl, pl, sh = _on_this_rank(x, p)
+    xl, pl, sh = _on_this_rank(x, p, part)
+    seq_out = _seq_out(part, x, sh)
     out, aux, freq = _capacity_dispatch(cfg, pl, xl, sh, capacity_factor,
-                                        group)
-    return part.constrain(like(out, x), ("batch", "res_seq", "d_model")), \
-        aux, freq
+                                        group, seq_out)
+    return _output(part, out, x, seq_out), aux, freq
 
 
 def _capacity_dispatch(cfg: ModelConfig, pl: dict, xl, sh,
-                       capacity_factor: float = 1.25, group: int = 1024):
+                       capacity_factor: float = 1.25, group: int = 1024,
+                       seq_out: bool = False):
     """:func:`moe_block_capacity` on a rank's tensors, as
     :func:`_dense_dispatch` runs :func:`moe_block`."""
     B, S, D = xl.shape
@@ -280,14 +322,15 @@ def _capacity_dispatch(cfg: ModelConfig, pl: dict, xl, sh,
                        device=xl.device)
     disp = disp.scatter_(-1, slot[..., None], 1.0)[..., :cap]
     xe = torch.einsum("gnd,gnec->gecd",
-                      sh.gather_tokens(xl).reshape(BG, n, D), disp)
+                      sh.gather_tokens(sh.enter(xl)).reshape(BG, n, D),
+                      disp)
     h = F.silu(torch.einsum("gecd,edf->gecf", xe,
                             wt(pl, "w_gate", xl.dtype)))
     h = h * torch.einsum("gecd,edf->gecf", xe, wt(pl, "w_up", xl.dtype))
     ye = torch.einsum("gecf,efd->gecd", h, wt(pl, "w_down", xl.dtype))
     comb = disp * gt[..., None]                             # (BG,n,Ep,C)
     y = torch.einsum("gecd,gnec->gnd", ye, comb)
-    return sh.sum_partials(y.reshape(-1, S, D)), aux, freq
+    return sh.sum_partials(y.reshape(-1, S, D), seq_out), aux, freq
 
 
 def capacity_drops(cfg: ModelConfig, p: dict, x,
@@ -297,7 +340,7 @@ def capacity_drops(cfg: ModelConfig, p: dict, x,
     :func:`moe_block_capacity` drops on ``x`` (routed, but past their
     bucket's capacity), as a 0-d tensor — on a mesh, over every rank's
     rows and tokens."""
-    xl, pl, sh = _on_this_rank(x, p)
+    xl, pl, sh = _on_this_rank(x, p, part)
     _, _, _, sel, keep, _, _ = _capacity_routing(cfg, pl, xl,
                                                  capacity_factor, group, sh)
     return sh.sum_rows((sel & ~keep).sum())

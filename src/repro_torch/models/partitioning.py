@@ -279,16 +279,13 @@ class Partitioner:
         """``t`` — a local tensor — as the ``owner`` rank computed it, on
         every rank: a broadcast over each batch axis's group, innermost
         first (after the first, every rank of the owner's outer coordinate
-        holds it).  ``t`` itself where no owner is named."""
+        holds it; ``broadcast_from``: under autograd the owner's input
+        takes the gradient, the others none).  ``t`` itself where no owner
+        is named."""
         if not self.owner:
             return t
-        import torch.distributed as dist
-        t = t.contiguous()
         for name, coord in self.owner:
-            group = mesh_group(self.mesh, name)
-            if group is not None:
-                dist.broadcast(t, src=dist.get_global_rank(group, coord),
-                               group=group)
+            t = broadcast_from(t, mesh_group(self.mesh, name), coord)
         return t
 
     def region(self):
@@ -312,6 +309,25 @@ class Partitioner:
         if tuple(x.placements) == want:
             return x
         return x.redistribute(self.mesh, want)
+
+    def gather_params(self, tree):
+        """A (nested dict) tree of parameters as a layer uses them: each
+        DTensor leaf's shards over the storage axes (``fsdp_axes``: "data"
+        under ``fsdp=True``, every axis under the zero3 layout) gathered —
+        an all-gather, DTensor's ``redistribute``, whose backward brings
+        the gradient back onto the shard (a reduce-scatter of a partial
+        one).  Called inside a layer's activation checkpoint, a layer's
+        weights are gathered on use and again in its backward.  Without a
+        storage axis: ``tree`` itself."""
+        fsdp = fsdp_axes(self)
+        if not fsdp:
+            return tree
+
+        def one(t):
+            if isinstance(t, dict):
+                return {k: one(v) for k, v in t.items()}
+            return _gathered(t, fsdp) if is_dtensor(t) else t
+        return one(tree)
 
     def lays_out(self, x, axes: Sequence[Optional[str]]) -> bool:
         """Whether ``x`` already sits as ``axes`` place it: the check that
@@ -416,10 +432,84 @@ def make_partitioner(mesh, *, fsdp: bool = False,
                                       seq_over_data=seq_over_data, sp=sp))
 
 
-def local(x):
+def local(x, partial: Sequence[str] = ()):
     """The rank's shard of a DTensor, or ``x`` itself (for ops without a
-    DTensor rule: a custom kernel)."""
-    return x.to_local() if is_dtensor(x) else x
+    DTensor rule: a custom kernel, a layer on local tensors).
+
+    Under autograd the shard's gradient is read with ``x``'s placements,
+    except over the mesh dimensions named in ``partial`` where ``x`` is
+    replicated: there the rank's use of it is one part of work split over
+    that dimension (its batch rows, its heads), so its gradient is a
+    ``Partial`` sum, reduced over the dimension where it reaches ``x``.
+    Without ``partial`` a replicated tensor's gradient counts as the same
+    on every rank (Megatron's and DTensor's convention: work done alike
+    on every rank)."""
+    if not is_dtensor(x):
+        return x
+    names = tuple(x.device_mesh.mesh_dim_names)
+    if not any(names[m] in partial and pl.is_replicate()
+               for m, pl in enumerate(x.placements)):
+        return x.to_local()
+    from torch.distributed.tensor import Partial
+    return x.to_local(grad_placements=tuple(
+        Partial() if names[m] in partial and pl.is_replicate() else pl
+        for m, pl in enumerate(x.placements)))
+
+
+def fsdp_axes(part) -> Tuple[str, ...]:
+    """The mesh dimensions ``part``'s rules store parameters over and
+    gather them on use (the "fsdp" rule: "data" under ``fsdp=True``, every
+    dimension under the zero3 layout); () without a mesh."""
+    if part.mesh is None:
+        return ()
+    m = part.rules.get("fsdp")
+    return () if m is None else (tuple(m) if isinstance(m, tuple) else (m,))
+
+
+def use_placements(w, fsdp: Sequence[str]) -> tuple:
+    """DTensor ``w``'s placements once its shards over the mesh dimensions
+    ``fsdp`` are gathered: ``Replicate`` there, the rest kept."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(w.device_mesh.mesh_dim_names)
+    return tuple(Replicate() if names[m] in fsdp and isinstance(pl, Shard)
+                 else pl for m, pl in enumerate(w.placements))
+
+
+def _gathered(w, fsdp: Sequence[str]):
+    """DTensor ``w`` with its shards over ``fsdp`` gathered (DTensor's
+    ``redistribute``: an all-gather, whose backward brings the gradient
+    back onto the shard), or ``w`` itself where none shards it."""
+    want = use_placements(w, fsdp)
+    return w if want == tuple(w.placements) \
+        else w.redistribute(w.device_mesh, want)
+
+
+def gather_fsdp(w, fsdp: Sequence[str] = (), partial: Sequence[str] = ()):
+    """A parameter as a layer on local tensors uses it: DTensor ``w``'s
+    shards over the storage axes ``fsdp`` (``fsdp_axes``) gathered — an
+    all-gather, DTensor's ``redistribute`` — and the result's local
+    tensor, its gradient ``Partial`` over ``partial`` (``local``).  The
+    backward is the gather's conjugate: a reduce-scatter of that partial
+    gradient back onto the rank's shard (where the rank's work is split
+    over the axis; a replicated gradient's chunk where every rank works
+    alike).  A plain tensor comes back as it is, and a DTensor no storage
+    axis shards is ``local`` alone, with no collective."""
+    return local(_gathered(w, fsdp), partial) if is_dtensor(w) else w
+
+
+def rows_of(t, rows: Tuple[int, int]):
+    """Rows ``[lo, lo + n)`` of ``t``'s dimension 0 as a local tensor
+    (``rows``: (lo, n), a ``HeadShard``'s): a DTensor's own shard where it
+    holds just those rows (a batch the prefetcher placed), else cut from
+    the whole."""
+    lo, n = rows
+    if is_dtensor(t):
+        if local_range(t, 0) == (lo, n) and all(
+                pl.is_replicate() or getattr(pl, "dim", None) == 0
+                for pl in t.placements):
+            return t.to_local()
+        t = t.full_tensor()
+    return t[lo:lo + n]
 
 
 def whole(x):
@@ -451,52 +541,251 @@ def mesh_group(mesh, name: str):
     return mesh.get_group(names.index(name))
 
 
+def _places(sh: Sharding, name: str, dim: int) -> bool:
+    """Whether ``sh`` shards tensor dimension ``dim`` (>= 0) over mesh
+    dimension ``name``."""
+    from torch.distributed.tensor import Shard
+    names = tuple(sh.mesh.mesh_dim_names)
+    if name not in names:
+        return False
+    pl = sh.placements[names.index(name)]
+    return isinstance(pl, Shard) and pl.dim == dim
+
+
 def _shards(x, name: str, dim: int) -> bool:
     """Whether DTensor ``x`` shards its dimension ``dim`` over mesh
     dimension ``name``."""
-    from torch.distributed.tensor import Shard
-    if not is_dtensor(x):
-        return False
-    names = tuple(x.device_mesh.mesh_dim_names)
-    if name not in names:
-        return False
-    pl = x.placements[names.index(name)]
-    return isinstance(pl, Shard) and pl.dim == dim % x.ndim
+    return is_dtensor(x) and _places(
+        Sharding(x.device_mesh, tuple(x.placements)), name, dim % x.ndim)
 
 
-def gather_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """Every rank of ``group``'s ``t``, stacked along dimension 0 in rank
-    order (an all-gather); ``t`` itself without a group."""
-    if group is None:
-        return t
+# Collectives under autograd.  The layers on local tensors keep
+# Megatron's convention, which is DTensor's: a tensor every rank of a
+# group holds alike has the same, whole gradient on every rank; a tensor
+# each rank holds a part of has on each rank the gradient of its part.  So
+# a collective's backward depends on what its result feeds, and each call
+# site says which (``redundant``): work every rank of the group does
+# alike — the result's gradient is the same on every rank, and summing it
+# over the ranks would count it once a rank — or work split over the
+# group — each rank's gradient is a partial sum, its share.  Without
+# autograd (a decode step) each function runs its collective alone, in
+# place where it can.
+
+
+def _grad_on(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _ranks(group) -> int:
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     import torch.distributed as dist
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    parts = [torch.empty_like(t) for _ in range(_ranks(group))]
     dist.all_gather(parts, t, group=group)
-    return torch.cat(parts)
+    return torch.cat(parts, dim=dim)
 
 
-def scatter_rows_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum over ``group`` of every rank's ``t``, each rank keeping its
-    chunk of dimension 0 in rank order (a reduce-scatter: the way back of
-    ``gather_rows`` for partial sums); ``t`` itself without a group."""
-    if group is None:
-        return t
+def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     import torch.distributed as dist
-    parts = [c.contiguous()
-             for c in t.chunk(dist.get_world_size(group))]
+    parts = [c.contiguous() for c in t.chunk(_ranks(group), dim=dim)]
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, group=group)
     return out
 
 
-def sum_over(t: torch.Tensor, groups) -> torch.Tensor:
-    """``t`` summed over the ranks of each group in turn (an all-reduce
-    each, in place; None entries skipped).  Returns ``t``."""
+def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t`` summed over each group in turn, in place."""
     import torch.distributed as dist
     for g in groups:
         if g is not None:
             dist.all_reduce(t, group=g)
+    return t
+
+
+def _pad_to(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t`` zero-padded along ``dim`` to ``n``."""
+    pad = n - t.shape[dim]
+    if not pad:
+        return t
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+def _gather_pieces(t: torch.Tensor, group, dim: int, n: int):
+    """Every rank's piece of ``n`` along ``dim`` (cut as ``torch.chunk``
+    cuts it; a short last piece padded for the all-gather) put together
+    in rank order."""
+    chunk = -(-n // _ranks(group))
+    return _all_gather(_pad_to(t, dim, chunk), group, dim).narrow(dim, 0, n)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of ``torch.chunk``-cut pieces of ``n`` along ``dim``.
+    Backward: a reduce-scatter where the result feeds split work (each
+    rank's gradient is a partial sum: the rank's piece takes the sum of
+    every rank's gradient of it), the rank's own piece of the gradient
+    where every rank uses the result alike (``redundant``)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim, n, redundant):
+        import torch.distributed as dist
+        ctx.args = (group, dim, redundant, -(-n // _ranks(group)),
+                    t.shape[dim], dist.get_rank(group))
+        return _gather_pieces(t, group, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, redundant, chunk, mine, rank = ctx.args
+        g = _pad_to(g, dim, chunk * _ranks(group))
+        own = g.narrow(dim, rank * chunk, chunk) if redundant \
+            else _reduce_scatter(g, group, dim)
+        return own.narrow(dim, 0, mine), None, None, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Reduce-scatter along ``dim``.  Backward: an all-gather — every
+    rank's addend takes the whole result's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce (a sum of partials) over ``groups`` in turn.  Backward:
+    the identity where every rank then uses the sum alike (Megatron's
+    "g": its gradient is already the whole one on each rank), an
+    all-reduce where the sum feeds split work (each rank's gradient of it
+    is a partial)."""
+
+    @staticmethod
+    def forward(ctx, t, groups, redundant):
+        ctx.groups, ctx.redundant = groups, redundant
+        return _all_reduce(t.clone(), groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.redundant:
+            return g, None, None
+        return _all_reduce(g.clone(), ctx.groups), None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The entry of a tensor every rank holds alike into work split over
+    ``groups`` (Megatron's "f"): the identity.  Backward: an all-reduce —
+    each rank's gradient is its part's share, and the whole is their
+    sum."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.groups), None
+
+
+class _Broadcast(torch.autograd.Function):
+    """Broadcast from global rank ``src`` over ``group``.  Backward: at
+    the source, the gradient itself where every rank uses the result
+    alike (``redundant``: it is the whole one on each rank) or its sum
+    over the group, a reduce to the source, where the result feeds split
+    work; zeros on the other ranks, whose input was not used."""
+
+    @staticmethod
+    def forward(ctx, t, group, src, redundant):
+        import torch.distributed as dist
+        ctx.args = (group, src, redundant, dist.get_rank() == src)
+        out = t.contiguous().clone()
+        dist.broadcast(out, src=src, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        group, src, redundant, mine = ctx.args
+        g = g.contiguous().clone()
+        if not redundant:
+            dist.reduce(g, dst=src, group=group)
+        return (g if mine else torch.zeros_like(g)), None, None, None
+
+
+def gather_rows(t: torch.Tensor, group, *,
+                redundant: bool = False) -> torch.Tensor:
+    """Every rank of ``group``'s ``t``, stacked along dimension 0 in rank
+    order (an all-gather); ``t`` itself without a group.  Backward: a
+    reduce-scatter where the rows feed work split over the group (a MoE
+    layer's expert rows), each rank's own rows of the gradient where
+    every rank uses them alike (``redundant``: whole logits)."""
+    if group is None:
+        return t
+    if _grad_on(t):
+        return _Gather.apply(t, group, 0, t.shape[0] * _ranks(group),
+                             redundant)
+    return _all_gather(t, group, 0)
+
+
+def scatter_rows_sum(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``t``, each rank keeping its
+    chunk of dimension ``dim`` in rank order (a reduce-scatter: the way
+    back of ``gather_rows`` for partial sums; along the sequence, the exit
+    of a sequence-parallel region); ``t`` itself without a group.
+    Backward: an all-gather of the chunks' gradients."""
+    if group is None:
+        return t
+    if _grad_on(t):
+        return _ScatterSum.apply(t, group, dim)
+    return _reduce_scatter(t, group, dim)
+
+
+def sum_over(t: torch.Tensor, groups, *,
+             redundant: bool = True) -> torch.Tensor:
+    """``t`` summed over the ranks of each group in turn (an all-reduce
+    each; None entries skipped).  Without autograd in place, returning
+    ``t``; under it a new tensor, whose backward is the identity where
+    every rank then uses the sum alike (``redundant``) and an all-reduce
+    where it feeds work split over the groups."""
+    groups = tuple(g for g in groups if g is not None)
+    if groups and _grad_on(t):
+        return _Sum.apply(t, groups, redundant)
+    return _all_reduce(t, groups)
+
+
+def enter_split(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t``, held alike by every rank of ``groups``, entering work split
+    over them: the identity, whose backward all-reduces the ranks'
+    partial gradients (nothing to do without autograd or a group)."""
+    groups = tuple(g for g in groups if g is not None)
+    if groups and _grad_on(t):
+        return _Enter.apply(t, groups)
+    return t
+
+
+def broadcast_from(t: torch.Tensor, group, coord: int, *,
+                   redundant: bool = True) -> torch.Tensor:
+    """Rank ``coord`` of ``group``'s ``t`` on every rank of it (a
+    broadcast; ``t`` itself without a group).  Backward (``_Broadcast``):
+    at the source, the gradient itself where every rank uses the result
+    alike (``redundant``), else a reduce to the source."""
+    if group is None:
+        return t
+    import torch.distributed as dist
+    src = dist.get_global_rank(group, coord)
+    if _grad_on(t):
+        return _Broadcast.apply(t, group, src, redundant)
+    t = t.contiguous()
+    dist.broadcast(t, src=src, group=group)
     return t
 
 
@@ -512,8 +801,16 @@ class ExpertShard:
     whose partial outputs are all-reduced), ``ff`` ("model") the group
     holding the other d_ff slices, and ``tokens`` the groups of the data
     axes whose ranks hold other tokens (global means are all-reduced over
-    them, ``token_ranks`` ranks in all).  Without a mesh: every row, no
-    group."""
+    them, ``token_ranks`` ranks in all; ``token_axes`` their names).
+    ``fsdp`` names the axes the parameters are stored over and gathered
+    from on use (``fsdp_axes``).  Without a mesh: every row, no group.
+
+    Under autograd the routing runs alike on the ranks of ``ff`` (and of
+    ``experts`` where the batch stays whole), so its gradient is the same
+    there; the tokens and gates enter the expert rows' work through
+    ``enter`` (Megatron's "f"), the gathered tokens' gradient comes back
+    by a reduce-scatter, and the summed output's by the identity
+    (``sum_partials``)."""
     lo: int
     n: int
     gather: Optional[object] = None
@@ -521,26 +818,52 @@ class ExpertShard:
     ff: Optional[object] = None
     tokens: tuple = ()
     token_ranks: int = 1
+    token_axes: tuple = ()
+    fsdp: tuple = ()
+
+    def param(self, w):
+        """A layer parameter as this rank computes with it
+        (``gather_fsdp``): its storage shards gathered, its gradient
+        partial over the token axes (the rank's tokens are a part of the
+        call's)."""
+        return gather_fsdp(w, self.fsdp, self.token_axes)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (tokens or gates, held alike over the d_ff slices and,
+        where the batch stays whole on it, the expert rows' group)
+        entering the expert rows' work: ``enter_split`` over those
+        groups."""
+        return enter_split(t, (self.ff,) if self.gather is not None
+                           else (self.ff, self.experts))
 
     def gather_tokens(self, t: torch.Tensor) -> torch.Tensor:
         """(B, ...) rows of this rank's tokens -> the rows of every rank
-        of ``gather``, whose tokens this rank's experts also serve."""
+        of ``gather``, whose tokens this rank's experts also serve (their
+        gradient comes back by a reduce-scatter)."""
         return gather_rows(t, self.gather)
 
-    def sum_partials(self, out: torch.Tensor) -> torch.Tensor:
+    def sum_partials(self, out: torch.Tensor,
+                     seq_out: bool = False) -> torch.Tensor:
         """The layer's output on this rank's tokens from its partial one
         (its expert rows and d_ff slice over the gathered tokens): summed
         over the expert ranks — scattered back to each rank's tokens where
-        they were gathered — and over the d_ff slices."""
+        they were gathered — and over the d_ff slices; every rank of a sum
+        uses it alike (identity backward).  ``seq_out`` (sequence
+        parallelism: the residual's sequence lies over "model"): the sum
+        over the d_ff slices is a reduce-scatter along the sequence
+        instead, each rank keeping its chunk (Megatron's exit of a
+        sequence-parallel region; an all-gather backward)."""
         if self.gather is not None:
             out = scatter_rows_sum(out, self.gather)
         elif self.experts is not None:
             out = sum_over(out, (self.experts,))
+        if seq_out:
+            return scatter_rows_sum(out, self.ff, dim=1)
         return sum_over(out, (self.ff,))
 
     def sum_tokens(self, t: torch.Tensor) -> torch.Tensor:
         """A sum over this rank's tokens -> the sum over every token of
-        the call (in place)."""
+        the call (in place without autograd; every rank uses it alike)."""
         return sum_over(t, self.tokens)
 
     def sum_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -553,28 +876,39 @@ class ExpertShard:
         return sum_over(t, groups)
 
 
-def expert_shard(x, w) -> ExpertShard:
+def expert_shard(x, w, part=None) -> ExpertShard:
     """The split of a MoE layer with input ``x`` (B, S, D) and expert
     stack ``w`` (..., Ep, D, F) — its ``w_gate`` — over their mesh: the
     expert rows ``w``'s shard holds (sharded over "pod" by
     ``placement_bridge.param_spec`` where the mesh has one), whether its
-    d_ff slice is one of several ("model"), and which data axes shard
-    ``x``'s batch rows (``Partitioner.for_batch`` keeps a batch whole
+    d_ff slice is one of several ("model"), and which mesh dimensions
+    shard ``x``'s batch rows (``Partitioner.for_batch`` keeps a batch whole
     there: every rank already holds every token, and nothing is
-    gathered).  A plain ``x``: every row, no group."""
+    gathered).  ``part``'s rules name the storage axes (``fsdp_axes``):
+    the split is read off ``w``'s placements once those are gathered, so
+    the zero3 layout, which stores every parameter over every axis,
+    computes every expert row with the whole d_ff on each rank's tokens.
+    A plain ``x``: every row, no group."""
     if not is_dtensor(x):
         return ExpertShard(0, w.shape[-3])
     mesh = x.device_mesh
-    lo, n = local_range(w, w.ndim - 3)
-    experts = mesh_group(mesh, "pod") if _shards(w, "pod", -3) else None
-    tokens = [name for name in ("pod", "data")
+    fsdp = fsdp_axes(part) if part is not None else ()
+    used = Sharding(mesh, use_placements(w, fsdp))
+    lo, n = local_extent(w.shape, used)[w.ndim - 3]
+    experts = mesh_group(mesh, "pod") if _places(used, "pod", w.ndim - 3) \
+        else None
+    tokens = [name for name in mesh.mesh_dim_names
               if _shards(x, name, 0) and mesh_group(mesh, name) is not None]
     return ExpertShard(
         lo, n,
         gather=experts if "pod" in tokens else None, experts=experts,
-        ff=mesh_group(mesh, "model") if _shards(w, "model", -1) else None,
+        ff=mesh_group(mesh, "model") if _places(used, "model", w.ndim - 1)
+        else None,
         tokens=tuple(mesh_group(mesh, name) for name in tokens),
-        token_ranks=int(np.prod([_size(mesh, name) for name in tokens])))
+        token_ranks=int(np.prod([_size(mesh, name) for name in tokens])),
+        token_axes=tuple(name for name in mesh.mesh_dim_names
+                         if _shards(x, name, 0)),
+        fsdp=fsdp)
 
 
 # ---------------------------------------------------------------------------
@@ -673,21 +1007,21 @@ def seq_shard(part, cache: torch.Tensor, dim: int = 1) -> Optional[SeqShard]:
 # Head parallelism of the recurrent families: layers on local tensors
 # ---------------------------------------------------------------------------
 
-def gather_cols(t: torch.Tensor, group, n: int) -> torch.Tensor:
+def gather_cols(t: torch.Tensor, group, n: int, *,
+                redundant: bool = False) -> torch.Tensor:
     """Every rank of ``group``'s chunk of the last dimension — cut from
     ``n`` columns as ``torch.chunk`` cuts them, the way DTensor shards —
     put together in rank order: the whole ``n`` columns on every rank (an
     all-gather; a short last chunk is padded for it and trimmed after).
-    ``t`` itself without a group."""
+    ``t`` itself without a group.  Backward: a reduce-scatter where the
+    columns feed work split over the group (a Mamba-2 block's heads), the
+    rank's own columns of the gradient where every rank uses them alike
+    (``redundant``: RWKV-6's receptance gate, whole logits)."""
     if group is None:
         return t
-    import torch.distributed as dist
-    ranks = dist.get_world_size(group)
-    pad = -(-n // ranks) - t.shape[-1]
-    t = torch.nn.functional.pad(t, (0, pad)) if pad else t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(ranks)]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=-1)[..., :n]
+    if _grad_on(t):
+        return _Gather.apply(t, group, t.dim() - 1, n, redundant)
+    return _gather_pieces(t, group, t.dim() - 1, n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -700,13 +1034,23 @@ class HeadShard:
     — and the batch rows ``rows`` (start, count) of the call over the
     data axes.  ``model`` is the "model" group: partial outputs are summed
     over it (``reduce``) and column shards gathered (``gather``); ``data``
-    the groups of the data axes that split the batch, outermost first.
-    Without a mesh: every head and row, no group."""
+    the groups of the mesh dimensions that split the batch, outermost
+    first, and ``batch_axes`` their names.  ``fsdp`` names the axes the
+    parameters are stored over, gathered on use (``param``).  Without a
+    mesh: every head and row, no group.
+
+    Under autograd a layer's residual stream is held alike by the ranks
+    of "model": a block's split work starts with ``enter`` (Megatron's
+    "f") and ends with ``reduce`` (its "g"), and a parameter used inside
+    it has a gradient partial over "model" as well as over the batch axes
+    (``param(w, split=True)``)."""
     rows: Tuple[int, int]
     rank: int = 0
     ranks: int = 1
     model: Optional[object] = None
     data: tuple = ()
+    batch_axes: tuple = ()
+    fsdp: tuple = ()
 
     def span(self, n: int) -> Tuple[int, int]:
         """(start, length) of this rank's chunk of an axis of ``n``."""
@@ -723,39 +1067,82 @@ class HeadShard:
                              f"not divide the {n} heads")
         return self.span(n)
 
-    def gather(self, t: torch.Tensor, n: int) -> torch.Tensor:
-        """This rank's columns of ``n`` -> all ``n`` (``gather_cols``)."""
-        return gather_cols(t, self.model, n)
+    def partial(self, split: bool) -> tuple:
+        """The mesh dimensions over which a parameter's use is one part
+        of the call's work: the batch axes, and "model" inside a block's
+        split work (``split``)."""
+        return self.batch_axes + (("model",) if split and self.ranks > 1
+                                  else ())
 
-    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+    def stack(self, w, split: bool = True):
+        """A stacked (L, ...) parameter for a layer loop: its local
+        tensor (``local``, gradient placements as ``param`` gives them)
+        where no storage axis shards it, else ``w`` itself, a DTensor
+        that ``param`` gathers layer by layer (inside the layer's
+        activation checkpoint: gathered again in its backward)."""
+        if is_dtensor(w) and use_placements(w, self.fsdp) == tuple(
+                w.placements):
+            return local(w, self.partial(split))
+        return w
+
+    def param(self, w, split: bool = True):
+        """A parameter (a layer's view) as this rank computes with it:
+        ``gather_fsdp`` with the gradient partial over ``partial(split)``;
+        a plain tensor (``stack``'s local tensor) as it is."""
+        return gather_fsdp(w, self.fsdp, self.partial(split))
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, the same on every rank of "model", entering a block's
+        work split over it (``enter_split``)."""
+        return enter_split(t, (self.model,))
+
+    def gather(self, t: torch.Tensor, n: int, *,
+               redundant: bool = False) -> torch.Tensor:
+        """This rank's columns of ``n`` -> all ``n`` (``gather_cols``)."""
+        return gather_cols(t, self.model, n, redundant=redundant)
+
+    def reduce(self, t: torch.Tensor, *,
+               redundant: bool = True) -> torch.Tensor:
         """A partial sum over this rank's heads or channels -> the whole
-        sum (an all-reduce over "model", in place)."""
-        return sum_over(t, (self.model,))
+        sum (an all-reduce over "model", in place without autograd;
+        ``sum_over``)."""
+        return sum_over(t, (self.model,), redundant=redundant)
 
     def whole_rows(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's batch rows of ``t`` -> every row of the call (an
-        all-gather over each data group, innermost first)."""
+        all-gather over each batch group, innermost first), which every
+        rank then uses alike."""
         for g in reversed(self.data):
-            t = gather_rows(t, g)
+            t = gather_rows(t, g, redundant=True)
         return t
 
 
 def head_shard(part, batch: int) -> HeadShard:
-    """The split of a call of ``batch`` rows over ``part``'s mesh: this
-    rank's coordinate on "model", and its batch rows over the data axes
-    as ``part.for_batch(batch)`` places them (a one-row batch, or one that
-    does not split, stays whole there).  Without a mesh: the whole
-    call."""
+    """The split of a call of ``batch`` rows over ``part``'s mesh, read
+    from ``part``'s rules: the heads ("ssm_heads") over "model" — this
+    rank's coordinate there — or over nothing (the zero3 layout: every
+    rank computes every head), and the batch rows over the mesh
+    dimensions the "batch" rule names, as ``part.for_batch(batch)`` places
+    them (a one-row batch, or one that does not split, stays whole
+    there).  Without a mesh: the whole call."""
     if part.mesh is None:
         return HeadShard((0, batch))
     part = part.for_batch(batch)
     mesh = part.mesh
-    m = tuple(mesh.mesh_dim_names).index("model")
+    heads = part.rules.get("ssm_heads")
+    if heads not in (None, "model"):
+        raise ValueError(f"a recurrent layer splits its heads over "
+                         f"\"model\" or nothing; the rules say {heads!r}")
+    rank, ranks = 0, 1
+    if heads is not None:
+        m = tuple(mesh.mesh_dim_names).index("model")
+        rank, ranks = mesh.get_coordinate()[m], mesh.size(m)
     axes = part.spec(("batch",))[0] or ()
     axes = axes if isinstance(axes, tuple) else (axes,)
     return HeadShard(
         local_extent((batch,), part.sharding(("batch",)))[0],
-        rank=mesh.get_coordinate()[m], ranks=mesh.size(m),
-        model=mesh_group(mesh, "model"),
+        rank=rank, ranks=ranks,
+        model=mesh_group(mesh, "model") if heads is not None else None,
         data=tuple(g for g in (mesh_group(mesh, a) for a in axes)
-                   if g is not None))
+                   if g is not None),
+        batch_axes=tuple(axes), fsdp=fsdp_axes(part))

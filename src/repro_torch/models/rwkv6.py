@@ -31,8 +31,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.partitioning import (NULL, head_shard, local,
-                                             local_shards, tp_degree)
+from repro_torch.models.partitioning import (NULL, head_shard,
+                                             local_shards, rows_of,
+                                             tp_degree)
 from repro_torch.models.transformer import (_layer_view, check_remat,
                                            place_state, remat_call,
                                            torch_dtype)
@@ -40,6 +41,10 @@ from repro_torch.models.transformer import (_layer_view, check_remat,
 LORA_R = 32      # shared ddlerp adapter rank
 LORA_W_R = 64    # decay adapter rank
 MIX_NAMES = ("w", "k", "v", "r", "g")
+# the layer norms, which run on the residual stream that every rank of
+# "model" holds alike: every other layer weight is used inside the time or
+# channel mix's work split over "model" (``partitioning.HeadShard``)
+NORMS = ("ln1", "ln1_b", "ln2", "ln2_b")
 
 
 def wkv_scan(r, k, v, w, u, state):
@@ -101,7 +106,16 @@ class RWKV6Model:
     place — and its rows of ``wo`` and slice of the channel mix's d_ff,
     whose partial outputs are all-reduced; the channel mix's receptance
     gate is a column shard, gathered, so the residual stream stays whole
-    over "model".  The logits come back whole on every rank."""
+    over "model".  The logits come back whole on every rank.  Parameters
+    stored over "data" as well (``fsdp``, or every axis under the zero3
+    layout, where every rank computes every head of its batch rows) are
+    gathered layer by layer on use (``HeadShard.param``).
+
+    Under autograd each mix enters its split work through
+    ``HeadShard.enter`` and leaves it through ``HeadShard.reduce``
+    (Megatron's "f" and "g"), the receptance gate's gather hands each
+    rank its own columns' gradient, and every parameter's gradient comes
+    back laid out as the parameter (``launch.steps.value_and_grad``)."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  use_kernel: bool = False, remat: str = "none", part=NULL):
@@ -181,6 +195,7 @@ class RWKV6Model:
         B, S, D = x.shape
         lo, n = shard.heads(self.H)
         cols = slice(lo * self.dh, (lo + n) * self.dh)
+        last, x = x[:, -1], shard.enter(x)
         dx = _shifted(x, shift_state) - x
         x_mix = x + dx * p["mu_x"]
         lora = torch.tanh(x_mix @ p["lora_A"]).reshape(B, S, 5, LORA_R)
@@ -204,22 +219,28 @@ class RWKV6Model:
             y, new_wkv = wkv_scan(r, k, v, w, p["u"], wkv_state)
         y = group_norm_heads(y, p["gn_scale"][cols], p["gn_bias"][cols])
         y = (y * F.silu(g.float())).to(x.dtype)
-        return shard.reduce(y @ p["wo"]), x[:, -1], new_wkv
+        return shard.reduce(y @ p["wo"]), last, new_wkv
 
     def _channel_mix(self, p, x, shift_state, shard):
         """Returns the output and the new token shift (a view of x).  On a
         mesh the rank's d_ff slice gives a partial output, summed over
-        "model", and its receptance columns are gathered."""
+        "model", and its receptance columns are gathered (every rank then
+        gates alike: each takes its own columns' gradient)."""
+        last, x = x[:, -1], shard.enter(x)
         dx = _shifted(x, shift_state) - x
         xk = x + dx * p["mu_ck"]
         xr = x + dx * p["mu_cr"]
         k = torch.square(torch.relu(xk @ p["wck"]))
-        gate = shard.gather(torch.sigmoid(xr @ p["wcr"]), x.shape[-1])
-        return gate * shard.reduce(k @ p["wcv"]), x[:, -1]
+        gate = shard.gather(torch.sigmoid(xr @ p["wcr"]), x.shape[-1],
+                            redundant=True)
+        return gate * shard.reduce(k @ p["wcv"]), last
 
     def _layer(self, p, x, state, out_wkv, shard):
         """One layer from its states ``state`` (read only).  Returns the
-        hidden state and the layer's new states."""
+        hidden state and the layer's new states.  ``p``: the layer's
+        weights, local tensors or DTensors that ``shard.param`` gathers
+        here."""
+        p = {k: shard.param(v, split=k not in NORMS) for k, v in p.items()}
         h = L.apply_norm(self.cfg, p, "ln1", x)
         out, shift_t, wkv = self._time_mix(p, h, state["shift_t"],
                                            state["wkv"], out_wkv, shard)
@@ -260,7 +281,8 @@ class RWKV6Model:
                 "RWKV-6 takes no int8 layer weights: the reference's "
                 "quantize_params gives its (L, D, D) wk/wv/wo scales "
                 "without a layer axis and its forward fails on them")
-        layers = {name: local(t) for name, t in params["layers"].items()}
+        layers = {name: shard.stack(t, split=name not in NORMS)
+                  for name, t in params["layers"].items()}
         for l in range(self.cfg.n_layers):
             views = {name: buf[l] for name, buf in state.items()}
             out_wkv = views["wkv"] if write and self.use_kernel else None
@@ -283,9 +305,10 @@ class RWKV6Model:
         (``partitioning.head_shard``)."""
         B = tokens.shape[0]
         shard = head_shard(self.part, B)
-        top = {k: local(v) for k, v in params.items() if k != "layers"}
-        lo, n = shard.rows
-        x = L.embed_rows(self.cfg, top, tokens[lo:lo + n], shard)
+        top = {k: shard.param(v, split=False) for k, v in params.items()
+               if k != "layers"}
+        n = shard.rows[1]
+        x = L.embed_rows(self.cfg, top, rows_of(tokens, shard.rows), shard)
         if cache is None:
             x = self._run_layers(params, x, self._zero_state(
                 n, shard.heads(self.H)[1], x.device), shard, write=False)

@@ -37,7 +37,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_block, moe_block_capacity
 from repro_torch.models.partitioning import (NULL, Sharding, dp_degree,
-                                             is_dtensor, local, local_range,
+                                             from_local, fsdp_axes,
+                                             is_dtensor, local,
+                                             local_extent, local_range,
                                              place, placed_full, row_owner,
                                              tp_degree, whole)
 from repro_torch.tree import flatten, map_with_path
@@ -82,12 +84,20 @@ def _save_policy(saved_ops):
     return policy
 
 
-def remat_call(remat: str, fn, *args):
+def remat_call(remat: str, fn, *args, part=NULL):
     """``fn(*args)``, under activation checkpointing when ``remat`` names
     a policy and autograd records: ``"full"`` keeps only the layer's
     inputs, ``"dots"`` and ``"dots_no_batch"`` also the matmul outputs
     (selective checkpointing).  The recomputation runs the same ops on the
-    same inputs, so gradients keep their bits."""
+    same inputs, so gradients keep their bits.
+
+    On a mesh (``part``) the layer's collectives — the fsdp gathers, the
+    explicit ones of the layers on local tensors, DTensor's — run again in
+    the recomputation.  It is non-reentrant: autograd runs it when the
+    backward first needs a saved tensor of the layer, at the same point of
+    the same graph on every rank, so every rank issues them in the same
+    order.  It runs in ``part.region()``, as the forward did (the
+    backward runs outside the forward's ``with``)."""
     saved = REMAT_POLICIES[remat]
     if saved is None or not torch.is_grad_enabled():
         return fn(*args)
@@ -96,7 +106,11 @@ def remat_call(remat: str, fn, *args):
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts,
             _save_policy(frozenset(saved)))
-    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    def run(*a):
+        with part.region():
+            return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 def _layer_view(tree, l):
@@ -119,19 +133,24 @@ def state_shardings(tree, cfg: ModelConfig, part,
     the long-decode rules (``make_partitioner(seq_over_data=True)``).  A
     ``batch`` that does not split over the data axes (a one-row admission
     prefill) stays whole there (``Partitioner.for_batch``); a sequence
-    shard is no batch axis and stays."""
+    shard is no batch axis and stays.  Under the zero3 layout (its "batch"
+    rule names "model" too) the batch lies over every mesh dimension and
+    the heads over none, as that layout's intermediates do."""
     from torch.distributed.tensor import Replicate
     from repro_torch.core.placement_bridge import decode_state_shardings
     mesh = part.mesh
     names = tuple(mesh.mesh_dim_names)
     seq_over_data = part.rules.get("cache_seq") is not None
+    over = part.rules.get("batch") or ()
+    over = over if isinstance(over, tuple) else (over,)
     keep = batch is not None and not seq_over_data \
         and part.for_batch(batch) is not part
-    shardings = flatten(decode_state_shardings(tree, cfg, mesh,
-                                               seq_over_data=seq_over_data))
+    shardings = flatten(decode_state_shardings(
+        tree, cfg, mesh, seq_over_data=seq_over_data,
+        layout="zero3" if "model" in over else "tp"))
     if keep:
         shardings = {path: Sharding(mesh, tuple(
-            Replicate() if n in ("pod", "data") else pl
+            Replicate() if n in over else pl
             for n, pl in zip(names, sh.placements)))
             for path, sh in shardings.items()}
     return shardings
@@ -282,6 +301,7 @@ class TransformerLM:
         float32 aux loss and the (E,) routed-token fraction of this call
         (else None, None)."""
         cfg, part = self.cfg, part or self.part
+        p = part.gather_params(p)
         h = L.apply_norm(cfg, p, "ln1", x)
         # the boundary into the tensor-parallel region, on the working-dtype
         # tensor (the reference's explicit constraint)
@@ -311,25 +331,32 @@ class TransformerLM:
         (``_check_img_mask``).  ``part``: the call's partitioner, the
         model's by default."""
         cfg, part = self.cfg, part or self.part
-        h = L.apply_norm(cfg, p, "ln1", x)
+        p = part.gather_params(p)
+        # the tensor-parallel region's entries, as in ``_layer``
+        h = part.constrain(L.apply_norm(cfg, p, "ln1", x),
+                           ("batch", "seq", "d_model"))
         attn_out, _ = L.cross_attention_block(
             cfg, p["attn"], self.hd, h, kv_cache=img_kv, kv_mask=img_mask,
             use_kernel=self.use_kernel, check_prefix=False, part=part)
         x = x + attn_out
-        h = L.apply_norm(cfg, p, "ln2", x)
+        h = part.constrain(L.apply_norm(cfg, p, "ln2", x),
+                           ("batch", "seq", "d_model"))
         return x + L.mlp_block(cfg, p["mlp"], h, part=part) \
             * torch.tanh(p["gate_ffn"]).to(x.dtype)
 
     def _project_img_kv(self, params, img_embeds) -> dict:
         """The cross layers' image K/V {"k","v"} (G, B, I, KvE, dh) of
         ``img_embeds`` (B, I, D), in the embeddings' dtype, each KV head
-        repeated ``rep`` times.  On a mesh the K/V are placed as
-        ``decode_state_shardings`` says (batch rows over the data axes,
-        KvE over "model"; a batch that does not split stays whole there)
-        and built shard by shard: each rank projects its batch rows onto
-        its heads' KV rows (``layers.project_kv`` of a shard) into a shard that
-        ``place_state`` allocated, so no rank holds the whole image
-        K/V."""
+        repeated ``rep`` times.  On a mesh the K/V are placed as the cross
+        layers read them (``layers.IMG_KV_AXES``; under the tp rules that
+        is ``decode_state_shardings``' layout: batch rows over the data
+        axes, KvE over "model"; a batch that does not split stays whole
+        there) and built shard by shard: each rank projects its batch rows onto
+        its heads' KV rows (``layers.project_kv`` of a shard; weights
+        stored over "data" gathered on use), so no rank holds the whole
+        image K/V; the shards, stacked, become the DTensor (under
+        autograd too: the cross layers' gradients reach the
+        projection)."""
         cross = params["cross_layers"]
         if self.part.mesh is None:
             kv = [L.project_kv(self.cfg, _layer_view(cross, g)["attn"],
@@ -338,17 +365,22 @@ class TransformerLM:
             return {n: torch.stack([t[n] for t in kv]) for n in ("k", "v")}
         B, I = img_embeds.shape[0], img_embeds.shape[1]
         shape = (self.n_groups, B, I, self.hd.KvE, self.hd.dh)
-        kv = self._placed({"img_kv": {
-            n: torch.empty(shape, dtype=img_embeds.dtype, device="meta")
-            for n in ("k", "v")}}, B)["img_kv"]
-        rows, heads = local_range(kv["k"], 1), local_range(kv["k"], 3)
-        for g in range(self.n_groups):
-            shard = L.project_kv(
-                self.cfg, _layer_view(cross, g)["attn"], self.hd,
-                img_embeds, rows=rows, heads=heads)
-            for n in ("k", "v"):
-                local(kv[n])[g].copy_(shard[n])
-        return kv
+        # the cross layers' layout of it (under the tp rules the
+        # decode-state rule's too; under zero3 its batch over every axis)
+        sh = self.part.for_batch(B).sharding((None,) + L.IMG_KV_AXES)
+        ext = local_extent(shape, sh)
+        names = tuple(sh.mesh.mesh_dim_names)
+        # the mesh dimensions splitting the projection: the weights'
+        # gradients are partial sums over them
+        split = tuple(names[m] for m, pl in enumerate(sh.placements)
+                      if not pl.is_replicate())
+        shards = [L.project_kv(self.cfg, _layer_view(cross, g)["attn"],
+                               self.hd, img_embeds, rows=ext[1],
+                               heads=ext[3], fsdp=fsdp_axes(self.part),
+                               partial=split)
+                  for g in range(self.n_groups)]
+        return {n: from_local(torch.stack([t[n] for t in shards]), sh,
+                              shape) for n in ("k", "v")}
 
     def _check_img_mask(self, img_mask):
         """A mask the decode kernel reads as per-row lengths must be a
@@ -372,13 +404,15 @@ class TransformerLM:
                 if i == SELF_BEFORE_CROSS:
                     x = remat_call(self.remat, self._cross_layer,
                                    _layer_view(params["cross_layers"], g), x,
-                                   _layer_view(img_kv, g), img_mask, part)
+                                   _layer_view(img_kv, g), img_mask, part,
+                                   part=part or self.part)
                 layer_cache = None if cache is None else \
                     {name: buf[g, i] for name, buf in cache.items()}
                 x, _, _ = remat_call(
                     self.remat, self._layer,
                     _layer_view(params["layers"], (g, i)), x, positions,
-                    layer_cache, cache_pos, None, None, None, None, part)
+                    layer_cache, cache_pos, None, None, None, None, part,
+                    part=part or self.part)
         return x, None, torch.zeros((), dtype=torch.float32,
                                     device=x.device)
 
@@ -409,11 +443,21 @@ class TransformerLM:
                 _layer_view(params["layers"], l), x, positions, layer_cache,
                 cache_pos, None if head_rows is None else head_rows[l],
                 None if head_inv is None else head_inv[l], page_map,
-                write_valid, part)
+                write_valid, part, part=part or self.part)
             if a is not None:
                 aux = aux + a
             freqs.append(freq)
         return x, (torch.stack(freqs) if self.cfg.is_moe else None), aux
+
+    def _with_top(self, params):
+        """``params`` with its top-level leaves (embeddings, head, final
+        norm) gathered over the storage axes for this call
+        (``Partitioner.gather_params``); the layer stacks are gathered
+        layer by layer, in ``_layer``."""
+        if self.part.mesh is None:
+            return params
+        return {k: v if k in ("layers", "cross_layers")
+                else self.part.gather_params(v) for k, v in params.items()}
 
     def _positions(self, B: int, S: int):
         return torch.arange(S, dtype=torch.int32,
@@ -430,9 +474,12 @@ class TransformerLM:
         batch rows over the data axes, the einsums run through DTensor's
         propagation, each ``constrain`` redistributes (the residual
         layout reduces a head- or d_ff-sharded contraction), and the
-        logits come back as a DTensor sharded over the vocabulary."""
-        part = self.part
+        logits come back as a DTensor sharded over the vocabulary.  A
+        batch that does not split over the data axes (one row) stays
+        whole there (``Partitioner.for_batch``)."""
         B, S = tokens.shape
+        part = self.part.for_batch(B)
+        params = self._with_top(params)
         with part.region():
             tokens = part.shard(tokens, ("batch", "seq"))
             positions = part.shard(self._positions(B, S), ("batch", "seq"))
@@ -442,7 +489,8 @@ class TransformerLM:
                 self._check_img_mask(img_mask)
                 img_kv = self._project_img_kv(params, img_embeds)
             x, _, aux = self._run_layers(params, x, positions, None, None,
-                                         img_kv=img_kv, img_mask=img_mask)
+                                         img_kv=img_kv, img_mask=img_mask,
+                                         part=part)
             x = L.apply_norm(self.cfg, params, "ln_f", x)
             return L.unembed(self.cfg, params, x, part=part), aux
 
@@ -541,6 +589,7 @@ class TransformerLM:
         Returns the last token's logits (B, V), whole on every rank of a
         mesh, and the state with ``pos == S``."""
         B, S = tokens.shape
+        params = self._with_top(params)
         x, part = self._prefill_layers(params, state, tokens,
                                        self._positions(B, S))
         with part.region():
@@ -584,6 +633,7 @@ class TransformerLM:
         garbage K/V at indices >= length, which the causal mask hides until
         decode overwrites it."""
         B, S = tokens.shape
+        params = self._with_top(params)
         x, part = self._prefill_layers(params, state, tokens,
                                        self._positions(B, S))
         with part.region():
@@ -645,6 +695,7 @@ class TransformerLM:
         advances by one (a ring cache wraps, so it has no edge).  MoE
         states fold this step's router loads into "expert_load"."""
         cfg, part = self.cfg, self.part
+        params = self._with_top(params)
         pos = state["pos"]
         per_slot = isinstance(pos, torch.Tensor)
         page_map = state.get("page_map")
@@ -753,6 +804,7 @@ class TransformerLM:
         holding ``row`` maps it to pages (of its pool), and every rank takes
         that rank's attention output (``Partitioner.from_owner``)."""
         C = tokens.shape[1]
+        params = self._with_top(params)
         steps = torch.arange(C, dtype=torch.int32, device=self.device)
         # the row's table row as this rank holds it: rank-local page ids
         # where its batch rank holds the row, else unmapped

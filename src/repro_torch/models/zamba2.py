@@ -52,7 +52,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import (init_mamba_layer, mamba_block,
                                        mamba_dims, zero_mamba_state)
 from repro_torch.models.partitioning import (NULL, from_local, head_shard,
-                                             local, local_shards, tp_degree)
+                                             local, local_shards, rows_of,
+                                             tp_degree)
 from repro_torch.models.transformer import (_layer_view, check_remat,
                                            place_state, remat_call,
                                            torch_dtype)
@@ -124,13 +125,16 @@ class Zamba2Model:
     # ----------------------------------------------------------------- body
     def _shared_attn(self, params, x, positions, cache, cache_pos, part):
         cfg = self.cfg
-        p = params["shared"]
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        p = part.gather_params(params["shared"])
+        # the tensor-parallel region's entries, as the dense layer's (under
+        # sequence parallelism the residual's sequence lies over "model")
+        axes = ("batch", "seq", "d_model")
+        h = part.constrain(L.rms_norm(x, p["ln1"], cfg.norm_eps), axes)
         attn_out, _ = L.self_attention_block(
             cfg, p["attn"], self.hd, h, positions, cache=cache,
             cache_pos=cache_pos, use_kernel=self.use_kernel, part=part)
         x = x + attn_out
-        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = part.constrain(L.rms_norm(x, p["ln2"], cfg.norm_eps), axes)
         return x + L.mlp_block(cfg, p["mlp"], h, part=part)
 
     def _group(self, params, layers, gi, x, positions, cache, cache_pos,
@@ -145,11 +149,17 @@ class Zamba2Model:
             x = self._shared_attn(params, x, positions, cache, cache_pos,
                                   part)
         else:
+            # the crossing: the local rows become the residual DTensor
+            # (whose gradient, partial over "model" behind the column-split
+            # projections, comes back reduced), and the block's output —
+            # its sequence over "model" under sequence parallelism — is
+            # gathered whole before it turns local again (the gather's
+            # backward hands each rank its chunk)
             B, S, D = positions.shape + (x.shape[-1],)
-            x = from_local(x, part.sharding(("batch", "seq", "d_model")),
-                           (B, S, D))
-            x = local(self._shared_attn(params, x, positions, cache,
-                                        cache_pos, part))
+            axes = ("batch", "seq", "d_model")
+            x = from_local(x, part.sharding(axes), (B, S, D))
+            x = local(part.constrain(self._shared_attn(
+                params, x, positions, cache, cache_pos, part), axes))
         new_states = []
         for j, lst in enumerate(states):
             out, new = mamba_block(self.cfg, _layer_view(layers, (gi, j)),
@@ -174,11 +184,10 @@ class Zamba2Model:
         part = self.part.for_batch(B)
         shard = head_shard(self.part, B)
         # an int8 leaf's q8 and sc to their local shards too
-        top = {k: ({n: local(t) for n, t in v.items()}
-                   if isinstance(v, dict) else local(v))
+        top = {k: ({n: shard.param(t, split=False) for n, t in v.items()}
+                   if isinstance(v, dict) else shard.param(v, split=False))
                for k, v in params.items() if k not in ("layers", "shared")}
-        lo, n = shard.rows
-        x = L.embed_rows(self.cfg, top, tokens[lo:lo + n], shard)
+        x = L.embed_rows(self.cfg, top, rows_of(tokens, shard.rows), shard)
         pos = torch.arange(start, start + S, dtype=torch.int32,
                            device=x.device)[None].expand(B, S)
         attn_cache, mamba = state["attn_cache"], state["mamba"]
@@ -186,7 +195,8 @@ class Zamba2Model:
             if part.mesh is not None:
                 pos = part.shard(pos, ("batch", "seq"))
                 mamba = local_shards(mamba, part, STATE_AXES)
-            layers = {k: local(v) for k, v in params["layers"].items()}
+            layers = {k: shard.stack(v, split=k != "ln")
+                      for k, v in params["layers"].items()}
             for gi in range(self.n_groups):
                 cache = None if attn_cache is None else \
                     {name: buf[gi] for name, buf in attn_cache.items()}
@@ -194,7 +204,7 @@ class Zamba2Model:
                          for j in range(self.group)]
                 x, new_states = remat_call(
                     self.remat, self._group, params, layers, gi, x, pos,
-                    cache, cache_pos, views, part, shard)
+                    cache, cache_pos, views, part, shard, part=part)
                 if write:
                     for lst, new in zip(views, new_states):
                         for name, buf in lst.items():

@@ -28,6 +28,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models.api import build_model
 from repro_torch.optim.adamw import AdamW, AdamWState, tree_leaves
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor, RestartPolicy
+from repro_torch.tree import map_with_path
 from repro_torch.weights import params_from_jax
 from tests.conftest import reduced_config
 from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
@@ -127,6 +128,47 @@ def test_restore_refuses_shardings(tmp_path):
     ck.save(1, params)
     with pytest.raises(ValueError, match="Sharding"):
         ck.restore(1, params, shardings=params)
+
+
+def _train_state(params):
+    return {"params": params, "opt": AdamW().init(params),
+            "data": {"step": 3, "seed": 5}}
+
+
+def test_restore_refuses_a_leaf_the_shardings_do_not_name(tmp_path):
+    """A leaf missing from ``shardings`` (a param that ``param_shardings``
+    forgot) raises instead of coming back whole; None must be written."""
+    _, _, params = _port("llama3-8b")
+    state = _train_state(params)
+    ck = Checkpointer(tmp_path)
+    ck.save(1, state)
+    missing = sorted(params)[-1]
+    sh = {"params": {k: None for k in params if k != missing},
+          "opt": AdamWState(step=None, mu=None, nu=None), "data": None}
+    with pytest.raises(ValueError, match=f"name no Sharding for "
+                                         f"params/{missing}"):
+        ck.restore(1, state, shardings=sh)
+    with pytest.raises(ValueError, match="name no Sharding for data/seed"):
+        ck.restore(1, state, shardings={"params": None, "opt": None})
+
+
+@pytest.mark.parametrize("where", ["leaves", "prefixes"])
+def test_restore_keeps_a_leaf_whose_sharding_is_none(tmp_path, where):
+    """A None written at a leaf or at a prefix of its path restores the
+    leaf as ``like_tree`` has it (a train state's step and data cursor in
+    ``runtime.elastic.elastic_restore``)."""
+    _, _, params = _port("llama3-8b")
+    state = _train_state(params)
+    ck = Checkpointer(tmp_path)
+    ck.save(1, state)
+    sh = (map_with_path(lambda *_: None, state) if where == "leaves" else
+          {"params": None, "opt": AdamWState(step=None, mu=None, nu=None),
+           "data": None})
+    got = ck.restore(1, state, shardings=sh)
+    _assert_trees_equal(got["params"], params)
+    _assert_trees_equal(got["opt"].mu, state["opt"].mu)
+    assert int(got["opt"].step) == 0
+    assert {k: int(v) for k, v in got["data"].items()} == state["data"]
 
 
 # --------------------------------------------- the reference's format

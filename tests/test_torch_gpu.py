@@ -1830,6 +1830,67 @@ def test_recurrent_families_serve_on_a_one_card_mesh(cuda, arch):
         dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("layout", ["tp", "zero3"])
+def test_dense_train_step_on_a_one_card_mesh(cuda, layout):
+    """``launch.steps.train_cell`` on a (1, 1) ("data", "model") NCCL
+    mesh (fsdp, sequence parallelism, remat "full"; or the zero3 layout):
+    reduced f32 llama3-8b's loss, every gradient leaf and the params after
+    one clipped AdamW step within 1e-5 of each leaf's largest magnitude of
+    the unsharded step on the card; the gradients and moments laid out as
+    ``param_shardings`` places them.  One rank: no explicit collective
+    runs (``tests/test_torch_train_shard.py`` holds their backwards on
+    gloo ranks)."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.core.placement_bridge import param_shardings
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import (make_train_step, train_cell,
+                                          value_and_grad)
+    from repro_torch.models.api import build_model
+    from repro_torch.models.partitioning import whole
+    from repro_torch.optim.adamw import AdamW, tree_map
+    from repro_torch.tree import flatten
+    cfg = reduced_config("llama3-8b")
+    model = build_model(cfg, device=cuda, remat="full")
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in next(iter(
+        SyntheticLM(cfg.vocab_size, 16, 2))).items()}
+    opt = AdamW(lr=1e-3, eps=1e-3, grad_clip=1.0)
+    loss, grads = value_and_grad(model.loss, params, batch)
+    new_p, _, _ = make_train_step(model, opt)(params, opt.init(params),
+                                              batch)
+
+    def close(got, want):
+        for p, w in flatten(want).items():
+            g = whole(flatten(got)[p])
+            assert (g - w).abs().max() <= 1e-5 * w.abs().max(), p
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        step, placed, state, _ = train_cell(cfg, mesh, layout=layout,
+                                            opt=opt, params=params)
+        m_loss, m_grads = value_and_grad(step.model.loss, placed, batch)
+        assert abs(m_loss.item() - loss.item()) <= 1e-5 * abs(loss.item())
+        close(m_grads, grads)
+        m_new, m_state, _ = step(placed, state, batch)
+        close(m_new, new_p)
+        sh = flatten(param_shardings(params, cfg, mesh, fsdp=True,
+                                     layout=layout))
+        for tree in (m_grads, m_new, m_state.mu, m_state.nu):
+            assert all(tuple(t.placements) == sh[p].placements
+                       for p, t in flatten(tree).items())
+        assert tree_map(lambda t: t.device.type, new_p)["tok_embed"] \
+            == "cuda"
+    finally:
+        dist.destroy_process_group()
+
+
 def _tensors(tree):
     """The tensors of a nested dict."""
     if isinstance(tree, dict):
